@@ -7,20 +7,27 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 
-1. build  — nvcc builds both CUDA kernels from csrc/ (in parallel);
+1. build  — nvcc builds every CUDA kernel from csrc/ (in parallel);
 2. kernel — each kernel against its plain PyTorch version on the card at
-   the llama3.1-8b shapes, with CUDA-event timings beside the bound;
-3. step   — one full-width llama3.1-8b decode step (depth cut to 2
-   layers) through the kernels on the card, against the same step
-   through the plain path on the CPU (same weights, same pool);
-4. server — the port's engine (llama3.1-8b, 32 layers, int8 weights, int8
-   paged KV) behind its Ollama front on localhost answers 6 concurrent
-   requests; the kernels' launch counters are zeroed just before and
-   read just after, and both must have grown.
+   the shapes its path gives it, with CUDA-event timings beside the bound:
+   kernel A (w8a16) at the llama3.1-8b shapes, kernel B (paged attention),
+   kernel C (w4a16) at the mixtral-8x7b and llama3.1-8b int4 shapes plus
+   ragged ones, and the expert grids of kernels A and C at mixtral-8x7b's
+   expert shapes;
+3. step   — one full-width decode step (depth cut to 2 layers) through the
+   kernels on the card, against the same step through the plain path on
+   the CPU (same weights, same pool): llama3.1-8b int8, then mixtral-8x7b
+   int8 and int4;
+4. server — the port's engine behind its Ollama front on localhost
+   answers 6 concurrent requests and two greedy reruns, three times:
+   llama3.1-8b int8, then mixtral-8x7b int8 and int4 (32 layers each, int8
+   paged KV). Before each burst every kernel's launch counter is zeroed;
+   after it, the kernels of that path must have grown.
 
-Optional (``--only build,profile``): ``profile`` — one 32-layer
-llama3.1-8b decode step at B=8, W=1024, timed with CUDA events and broken
-down by kernel with torch.profiler, with the device's idle share.
+Optional (``--only build,profile``): ``profile`` — one 32-layer decode
+step at B=8, W=1024 of llama3.1-8b int8 and of mixtral-8x7b int8 and int4,
+timed with CUDA events and broken down by kernel with torch.profiler, with
+the device's idle share.
 
 Prints the card's name and power limit early, a ``{"kernels": [...]}``
 JSON line before the last, and as the last line
@@ -52,6 +59,8 @@ A_TOL = 1e-2        # of max|plain|: one bf16 rounding of the output (2^-8)
 B_TOL = 1e-2        # of max|plain|: the plain version rounds the p.v
 #                     operands to bf16 (2^-8 relative each), the kernel
 #                     keeps f32; plus one bf16 rounding of the output
+C_TOL = 1e-2        # of max|plain|: as A_TOL (the plain version sums the
+#                     dequantized f32 weight in another order)
 STEP_TOL = 5e-2     # of max|logits|: bf16 activations through 2 layers,
 #                     rounded at different places on the two paths
 
@@ -381,24 +390,243 @@ def phase_kernel_b(results: dict) -> None:
         bound_ms=round(32 * b_ms, 4), library_ms=round(32 * lib, 4))
 
 
+def _rel_err(label: str, out, ref, tol: float) -> float:
+    """max|out - ref| checked against ``tol`` of max|ref|; returns the
+    absolute error."""
+    import torch
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    rel = err / max(scale, 1e-30)
+    print(f"  {label}: max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol "
+          f"{tol:.0e} of max|plain| {scale:.3e})")
+    check(rel <= tol, f"{label}: rel err {rel:.3e} > {tol}")
+    return err
+
+
+def _rand_pool(gen, L, K, O, mode, NE=None, group=None):
+    """A stacked quantized weight [L, (NE,) K, O] of scaled-normal values,
+    quantized one [K, O] matrix at a time (as the model's init does), or
+    2-D [K, O] with L None."""
+    import torch
+    from p2p_llm_chat_tpu_torch.models.quant import (QTensor4,
+                                                     _quantize_leaf,
+                                                     quantize4, stream_bufs)
+    dev = torch.device("cuda")
+
+    def one():
+        w = (torch.randn((K, O), generator=gen, device=dev) * K ** -0.5).to(
+            torch.bfloat16)
+        if group is not None:
+            return quantize4(w, group=group)
+        return _quantize_leaf(w, mode, expert=NE is not None)
+    if L is None:
+        return one()
+    inner = (K, O) if NE is None else (NE, K, O)
+    if group is None:
+        buf = stream_bufs(L, inner, mode, dev)
+    else:                          # a grouping the quantizer would not pick
+        buf = QTensor4(torch.empty((L, *inner[:-2], K // 2, O),
+                                   dtype=torch.int8, device=dev),
+                       torch.empty((L, *inner[:-2], K // group, O),
+                                   dtype=torch.float32, device=dev))
+    for idx in ([(li,) for li in range(L)] if NE is None else
+                [(li, e) for li in range(L) for e in range(NE)]):
+        qt = one()
+        buf.q[idx] = qt.q
+        buf.s[idx] = qt.s
+    return buf
+
+
+C_SHAPES = {    # int4 projections: (K, O, launches per decode step)
+    ("mixtral-8x7b", "wqkv"): (4096, 6144, 32),
+    ("mixtral-8x7b", "wo"): (4096, 4096, 32),
+    ("mixtral-8x7b", "lm_head"): (4096, 32000, 1),
+    ("llama3.1-8b", "wgu"): (4096, 28672, 32),
+    ("llama3.1-8b", "w_down"): (14336, 4096, 32),
+    ("llama3.1-8b", "lm_head"): (4096, 128256, 1),
+}
+
+
+def phase_kernel_c(results: dict) -> None:
+    """Kernel C (w4a16) against its plain version at the int4 projections
+    of mixtral-8x7b and llama3.1-8b, ragged shapes at a layer offset (both
+    of the kernel's scale-fold paths), group 64, ng = 1 and the odd ng = 45
+    of mixtral-large's w_down; timings at M = 8 with the layers rotated so
+    the weight reads stay cold in L2."""
+    import torch
+    from p2p_llm_chat_tpu_torch.models.quant import QTensor4, dequantize4
+    from p2p_llm_chat_tpu_torch.ops.quant_mm import (quant_matmul4,
+                                                     quant_matmul4_reference)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst = 0.0
+
+    def check_case(label, x, qt, layer):
+        nonlocal worst
+        worst = max(worst, _rel_err(
+            f"kernel C {label}", quant_matmul4(x, qt.q, qt.s, layer),
+            quant_matmul4_reference(x, qt.q, qt.s, layer), C_TOL))
+
+    def rand_x(M, K):
+        return torch.randn((M, K), generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    # (K, O, group): group 64 with odd ng = 3; ng = 1 (tiny's trunk); two
+    # groupings off the per-step fold (G or K/2 not a multiple of 32);
+    # mixtral-large's w_down, ng = 45 (the high half starts mid-group).
+    for (K, O, group) in ((192, 200, 64), (128, 256, 128), (100, 130, 50),
+                          (96, 40, 96), (11520, 4096, 256)):
+        qt = _rand_pool(gen, 2, K, O, "int4", group=group)
+        for M in (1, 8, 32, 512):
+            check_case(f"K={K} O={O} G={group} ng={K // group} M={M} "
+                       f"layer=1", rand_x(M, K), qt, 1)
+        del qt
+    per_ms: dict = {}
+    for (model, name), (K, O, per_step) in C_SHAPES.items():
+        lm = name == "lm_head"
+        nl = 1 if lm else max(2, min(8, math.ceil(
+            3 * L2_BYTES / (K // 2 * O))))
+        qt = _rand_pool(gen, None if lm else nl, K, O, "int4")
+        ng = qt.s.shape[-2]
+        layer_of = (lambda i: None) if lm else (lambda i, nl=nl: i % nl)
+        for M in (1, 8, 32, 512):
+            check_case(f"{model} {name} K={K} O={O} ng={ng} M={M}",
+                       rand_x(M, K), qt, layer_of(1))
+        x = rand_x(8, K)
+        ms = time_ms(lambda i: quant_matmul4(x, qt.q, qt.s, layer_of(i)), 50)
+        plain = time_ms(lambda i: quant_matmul4_reference(
+            x, qt.q, qt.s, layer_of(i)), 3, warmup=1)
+        wl = ([dequantize4(qt)] if lm else
+              [dequantize4(QTensor4(qt.q[i], qt.s[i])) for i in range(nl)])
+        lib = time_ms(lambda i: torch.matmul(x, wl[i % len(wl)]), 50)
+        del wl
+        b_ms, kind = bound_ms(K // 2 * O + 4 * ng * O + 2 * 8 * (K + O),
+                              2.0 * 8 * K * O)
+        print(f"  kernel C {model} {name} M=8: {ms * 1e3:.1f} us (bound "
+              f"{b_ms * 1e3:.1f} us, {kind}; {b_ms / ms:.0%} of bound); "
+              f"plain {plain * 1e3:.1f} us; torch.matmul on a "
+              f"pre-dequantized bf16 weight {lib * 1e3:.1f} us")
+        per_ms[(model, name)] = (ms, plain, b_ms, lib, per_step)
+        del qt
+        torch.cuda.empty_cache()
+    per_ms[("llama3.1-8b", "wqkv")] = per_ms[("mixtral-8x7b", "wqkv")]
+    per_ms[("llama3.1-8b", "wo")] = per_ms[("mixtral-8x7b", "wo")]
+    steps = {}
+    for model in ("mixtral-8x7b", "llama3.1-8b"):
+        rows = [v for (m, _), v in per_ms.items() if m == model]
+        steps[model] = [sum(r[j] * r[4] for r in rows) for j in range(4)]
+        print(f"  kernel C per {model} int4 decode step (B=8, "
+              f"{sum(r[4] for r in rows)} launches): {steps[model][0]:.3f} "
+              f"ms vs bound {steps[model][2]:.3f} ms; plain "
+              f"{steps[model][1]:.3f} ms; torch.matmul on pre-dequantized "
+              f"bf16 {steps[model][3]:.3f} ms")
+    ms, plain, b_ms, lib = steps["mixtral-8x7b"]
+    results["quant_matmul4"] = dict(
+        name="quant_matmul4", route="cuda",
+        source="p2p_llm_chat_tpu_torch/csrc/quant_mm4.cu",
+        replaces="p2p_llm_chat_tpu/ops/quant_mm.py:438",
+        also_replaces="p2p_llm_chat_tpu/ops/quant_mm.py:475",
+        max_abs_err=worst, bound_by="bytes",
+        scope="one mixtral-8x7b int4 decode step at B=8: 32 x (wqkv, wo) + "
+              "lm_head = 65 launches; library_ms is torch.matmul on "
+              "pre-dequantized bf16 weights",
+        ms=round(ms, 4), plain_ms=round(plain, 4), bound_ms=round(b_ms, 4),
+        library_ms=round(lib, 4),
+        llama_int4_step_ms=round(steps["llama3.1-8b"][0], 4))
+
+
+E_SHAPES = {"wgu_e": (4096, 28672), "w_down": (14336, 4096)}  # mixtral-8x7b
+
+
+def phase_kernel_experts(results: dict) -> None:
+    """The expert grids of kernel A (int8) and kernel C (int4) against
+    their plain versions at mixtral-8x7b's expert shapes (8 experts), at a
+    layer offset of a 2-layer pool, over buckets of C in {1, 8, 32, 512}
+    rows; timings at the decode bucket C = 8 with the layers rotated."""
+    import torch
+    from p2p_llm_chat_tpu_torch.models.quant import (QTensor, dequantize,
+                                                     dequantize4)
+    from p2p_llm_chat_tpu_torch.ops import quant_mm as qmm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    NE, L = 8, 2
+    for mode, name in (("int8", "quant_matmul_experts_stacked"),
+                       ("int4", "quant_matmul_experts_stacked4")):
+        fn = getattr(qmm, name)
+        plain_fn = getattr(qmm, name + "_reference")
+        worst = 0.0
+        step = [0.0, 0.0, 0.0, 0.0]
+        for wname, (K, O) in E_SHAPES.items():
+            qt = _rand_pool(gen, L, K, O, mode, NE=NE)
+            ng = qt.s.shape[-2]
+            for C in (1, 8, 32, 512):
+                x = torch.randn((NE, C, K), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                worst = max(worst, _rel_err(
+                    f"{name} {wname} NE={NE} K={K} O={O} ng={ng} C={C} "
+                    f"layer=1", fn(x, qt.q, qt.s, 1),
+                    plain_fn(x, qt.q, qt.s, 1), C_TOL))
+            x = torch.randn((NE, 8, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            ms = time_ms(lambda i: fn(x, qt.q, qt.s, i % L), 20)
+            plain = time_ms(lambda i: plain_fn(x, qt.q, qt.s, i % L), 3,
+                            warmup=1)
+            deq = dequantize if mode == "int8" else dequantize4
+            wl = [deq(type(qt)(qt.q[i], qt.s[i])) for i in range(L)]
+            lib = time_ms(lambda i: torch.bmm(x, wl[i % L]), 20)
+            del wl
+            wbytes = qt.q[0].numel() + 4 * qt.s[0].numel()
+            b_ms, kind = bound_ms(wbytes + 2 * NE * 8 * (K + O),
+                                  2.0 * NE * 8 * K * O)
+            print(f"  {name} {wname} C=8: {ms * 1e3:.1f} us (bound "
+                  f"{b_ms * 1e3:.1f} us, {kind}; {b_ms / ms:.0%} of bound); "
+                  f"plain {plain * 1e3:.1f} us; torch.bmm on a "
+                  f"pre-dequantized bf16 pool {lib * 1e3:.1f} us")
+            for j, v in enumerate((ms, plain, b_ms, lib)):
+                step[j] += 32 * v
+            del qt
+            torch.cuda.empty_cache()
+        print(f"  {name} per mixtral-8x7b {mode} decode step (B=8, 64 "
+              f"launches): {step[0]:.3f} ms vs bound {step[2]:.3f} ms")
+        results[name] = dict(
+            name=name, route="cuda",
+            source=("p2p_llm_chat_tpu_torch/csrc/quant_mm.cu" if mode ==
+                    "int8" else "p2p_llm_chat_tpu_torch/csrc/quant_mm4.cu"),
+            replaces=("p2p_llm_chat_tpu/ops/quant_mm.py:518" if mode ==
+                      "int8" else "p2p_llm_chat_tpu/ops/quant_mm.py:564"),
+            max_abs_err=worst, bound_by="bytes",
+            scope=f"one mixtral-8x7b {mode} decode step at B=8 (dropless "
+                  "buckets of C=8): 32 x (wgu_e, w_down) = 64 launches; "
+                  "library_ms is torch.bmm on pre-dequantized bf16 pools",
+            ms=round(step[0], 4), plain_ms=round(step[1], 4),
+            bound_ms=round(step[2], 4), library_ms=round(step[3], 4))
+
+
 # -- phase 3: one full-width decode step, card vs CPU -------------------------
 
-def phase_step() -> None:
+def phase_step(model: str, quant: str) -> None:
+    """One decode step of ``model`` at full width, depth cut to 2 layers,
+    ``quant`` weights + an int8 pool: the prompt is prefilled on the card,
+    then the same step runs through the kernels on the card and through
+    the plain path on the CPU from the same weights and pool."""
     import torch
-    from p2p_llm_chat_tpu_torch.models import llama
+    from p2p_llm_chat_tpu_torch.models import family_for
     from p2p_llm_chat_tpu_torch.models.configs import get_config
-    from p2p_llm_chat_tpu_torch.models.quant import QTensor
+    from p2p_llm_chat_tpu_torch.models.quant import QTensor, QTensor4
     from p2p_llm_chat_tpu_torch.ops.paged_kv import (PagedKVCache,
                                                      write_prefill_batch)
-    cfg = get_config("llama3.1-8b").with_(num_layers=2)
+    cfg = get_config(model).with_(num_layers=2)
+    fam = family_for(cfg)
     dev = torch.device("cuda")
-    params = llama.init_params_quantized(cfg, seed=7, device=dev)
+    params = fam.init_params_quantized(cfg, seed=7, quant=quant, device=dev)
 
     def to_cpu(t):
         if isinstance(t, dict):
             return {k: to_cpu(v) for k, v in t.items()}
-        if isinstance(t, QTensor):
-            return QTensor(t.q.cpu(), t.s.cpu())
+        if isinstance(t, (QTensor, QTensor4)):
+            return type(t)(t.q.cpu(), t.s.cpu())
         return t.cpu()
 
     gen = torch.Generator().manual_seed(3)
@@ -411,8 +639,8 @@ def phase_step() -> None:
     cache = PagedKVCache.create(cfg, B, 1 + B * mppr, ps,
                                 max_pages_per_row=mppr, quantized=True,
                                 device=dev)
-    logits, k_all, v_all = llama.prefill(params, cfg, toks.to(dev),
-                                         lens.to(dev), last_only=True)
+    logits, k_all, v_all = fam.prefill(params, cfg, toks.to(dev),
+                                       lens.to(dev), last_only=True)
     tables = torch.tensor([[1, 2, 0, 0]], dtype=torch.int32)
     write_prefill_batch(cache, k_all, v_all, torch.tensor([0]), lens, tables)
     cpu_cache = PagedKVCache(*(None if t is None else t.cpu() for t in (
@@ -422,56 +650,66 @@ def phase_step() -> None:
     tokens = torch.cat([tok, torch.zeros_like(tok)])     # row 1 parked
     active = torch.tensor([True, False])
     pages = -(-n // ps)
-    out_gpu, _ = llama.decode_step_paged(params, cfg, tokens, cache,
-                                         active.to(dev), pages=pages)
+    out_gpu, _ = fam.decode_step_paged(params, cfg, tokens, cache,
+                                       active.to(dev), pages=pages)
     torch.cuda.synchronize()
     params_cpu = to_cpu(params)
-    del params
+    del params, logits, k_all, v_all
     torch.cuda.empty_cache()
     t0 = time.monotonic()
-    out_cpu, _ = llama.decode_step_paged(params_cpu, cfg, tokens.cpu(),
-                                         cpu_cache, active, pages=pages)
+    out_cpu, _ = fam.decode_step_paged(params_cpu, cfg, tokens.cpu(),
+                                       cpu_cache, active, pages=pages)
     cpu_s = time.monotonic() - t0
     g, c = out_gpu[0, 0].float().cpu(), out_cpu[0, 0].float()
-    check(bool(torch.isfinite(g).all()), "step: non-finite card logits")
+    check(bool(torch.isfinite(g).all()), f"step {model}: non-finite card "
+          "logits")
     err = (g - c).abs().max().item()
     scale = c.abs().max().item()
     same = int(g.argmax()) == int(c.argmax())
-    print(f"step: llama3.1-8b dims, 2 layers, int8 weights + int8 pool, "
+    print(f"step: {model} dims, 2 layers, {quant} weights + int8 pool, "
           f"prompt {n}: card vs CPU plain logits max_abs_err {err:.4f}, "
           f"max|logits| {scale:.3f} (tol {STEP_TOL:.0e} of max), argmax "
           f"{'equal' if same else 'differs'}; CPU step {cpu_s:.1f} s")
-    check(err <= STEP_TOL * scale, f"step: logits err {err:.4f} > "
-          f"{STEP_TOL} x {scale:.3f}")
+    check(err <= STEP_TOL * scale, f"step {model} {quant}: logits err "
+          f"{err:.4f} > {STEP_TOL} x {scale:.3f}")
+    if cfg.is_moe:
+        check(same, f"step {model} {quant}: argmax differs")
     check(torch.equal(cache.lengths.cpu(), cpu_cache.lengths),
-          "step: lengths differ")
+          f"step {model}: lengths differ")
 
 
 # -- optional phase: where one full-depth decode step spends its time ---------
 
 def _kernel_group(name: str) -> str:
+    if "qmm4_kernel" in name or "qmm4_reduce" in name:
+        return "kernel C (w4a16, dense and experts)"
     if "qmm_kernel" in name or "qmm_reduce" in name:
-        return "kernel A (quant_matmul)"
+        return "kernel A (w8a16, dense and experts)"
     if "append_split_kernel" in name or "append_combine_kernel" in name:
         return "kernel B (paged_attention_append)"
     return "other"
 
 
-def phase_profile(B: int = 8, W: int = 1024, steps: int = 10) -> None:
-    """One llama3.1-8b decode step (32 layers, int8 weights, int8 pool) at
-    ``B`` rows of ``W`` pool tokens: wall time with CUDA events over
+def phase_profile(model: str, quant: str, B: int = 8, W: int = 1024,
+                  steps: int = 10) -> None:
+    """One ``model`` decode step (32 layers, ``quant`` weights, int8 pool)
+    at ``B`` rows of ``W`` pool tokens: wall time with CUDA events over
     ``steps`` steps, then a torch.profiler pass summing device time by
     kernel (each kernel once, as its own event) and the device's idle
     share of the profiled wall time. Not part of the default run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from p2p_llm_chat_tpu_torch.models import llama
+    from p2p_llm_chat_tpu_torch.models import family_for
     from p2p_llm_chat_tpu_torch.models.configs import get_config
     from p2p_llm_chat_tpu_torch.ops.paged_kv import PagedKVCache
-    cfg = get_config("llama3.1-8b")
+    cfg = get_config(model)
+    fam = family_for(cfg)
     dev = torch.device("cuda")
-    params = llama.init_params_quantized(cfg, seed=5, device=dev)
+    print(f"profile: building {model} ({quant}); "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before",
+          flush=True)
+    params = fam.init_params_quantized(cfg, seed=5, quant=quant, device=dev)
     ps = 64
     per_row = W // ps + 1                       # + the page the step writes
     cache = PagedKVCache.create(cfg, B, 1 + B * per_row, ps,
@@ -491,8 +729,8 @@ def phase_profile(B: int = 8, W: int = 1024, steps: int = 10) -> None:
 
     def step(_i: int = 0) -> None:
         cache.lengths.fill_(W)
-        llama.decode_step_paged(params, cfg, tokens, cache, active,
-                                pages=pages)
+        fam.decode_step_paged(params, cfg, tokens, cache, active,
+                              pages=pages)
 
     wall = time_ms(step, steps)
     torch.cuda.synchronize()
@@ -522,7 +760,7 @@ def phase_profile(B: int = 8, W: int = 1024, steps: int = 10) -> None:
     # The profiler slows every launch on the host, so the idle share is
     # taken against the unprofiled step time (device kernel times are
     # not inflated by it).
-    print(f"profile: llama3.1-8b decode step, 32 layers, int8 weights + "
+    print(f"profile: {model} decode step, 32 layers, {quant} weights + "
           f"int8 pool, B={B} W={W}: {wall:.3f} ms per step (CUDA events, "
           f"{steps} steps, no profiler); device busy {busy:.3f} ms per "
           f"step -> idle share {max(0.0, 1 - busy / wall):.1%}; under the "
@@ -544,18 +782,39 @@ def _post(url: str, body: dict, timeout: float = 600.0):
         return r.status, r.read().decode()
 
 
-def phase_server(results: dict) -> None:
-    import torch
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port, by name (each counts its
+    launches in ``.launches``)."""
+    from p2p_llm_chat_tpu_torch.ops import quant_mm
     from p2p_llm_chat_tpu_torch.ops.paged_attention import \
         paged_attention_append
-    from p2p_llm_chat_tpu_torch.ops.quant_mm import quant_matmul
+    return {"quant_matmul": quant_mm.quant_matmul,
+            "paged_attention_append": paged_attention_append,
+            "quant_matmul4": quant_mm.quant_matmul4,
+            "quant_matmul_experts_stacked":
+                quant_mm.quant_matmul_experts_stacked,
+            "quant_matmul_experts_stacked4":
+                quant_mm.quant_matmul_experts_stacked4}
+
+
+def phase_server(results: dict, model: str, quant: str,
+                 expect: tuple[str, ...]) -> None:
+    """The engine for ``model`` at ``quant`` weights (32 layers, int8
+    paged KV, 8 slots, max_seq 4096) behind the Ollama front answers the
+    6-request burst and two greedy reruns; every kernel's launch counter
+    is zeroed just before the burst and read just after the reruns, and
+    each kernel in ``expect`` must have been launched."""
+    import torch
     from p2p_llm_chat_tpu_torch.serve.api import OllamaServer
     from p2p_llm_chat_tpu_torch.serve.engine import build_engine_from_env
 
-    os.environ.update(SERVE_BACKEND="torch", MODEL_CONFIG="llama3.1-8b",
-                      SERVE_KV="paged", SERVE_QUANT="int8",
+    label = f"{model} {quant}"
+    os.environ.update(SERVE_BACKEND="torch", MODEL_CONFIG=model,
+                      SERVE_KV="paged", SERVE_QUANT=quant,
                       SERVE_KV_QUANT="int8", SERVE_SLOTS="8",
                       SERVE_MAX_SEQ="4096", SERVE_DEVICE="cuda")
+    print(f"server {label}: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          "allocated before the build", flush=True)
     t0 = time.monotonic()
     engine = build_engine_from_env()
     server = OllamaServer(engine, addr="127.0.0.1:0").start()
@@ -566,8 +825,9 @@ def phase_server(results: dict) -> None:
             check(err is None, f"server: warmup failed: {err!r}")
             check(time.monotonic() < deadline, "server: never became ready")
             time.sleep(0.1)
-        print(f"server: llama3.1-8b (32 layers, int8 weights, int8 paged "
-              f"KV, 8 slots, max_seq 4096) ready in "
+        print(f"server {label}: {engine.config.num_layers} layers, int8 "
+              f"paged KV, 8 slots, "
+              f"max_seq 4096, ready in "
               f"{time.monotonic() - t0:.1f} s; "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
         url = server.url
@@ -592,8 +852,9 @@ def phase_server(results: dict) -> None:
                                "options": {"num_predict": 20,
                                            "repeat_penalty": 1.1}}),
         ]
-        quant_matmul.launches = 0
-        paged_attention_append.launches = 0
+        wrappers = _wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
         answers: list = [None] * len(reqs)
 
         def run(i: int) -> None:
@@ -635,15 +896,19 @@ def phase_server(results: dict) -> None:
         # same context ids.
         ctx = [json.loads(_post(url + reqs[0][0], reqs[0][1])[1])["context"]
                for _ in range(2)]
-        check(ctx[0] == ctx[1], "server: greedy reruns differ")
-        launches = {"quant_matmul": quant_matmul.launches,
-                    "paged_attention_append": paged_attention_append.launches}
-        print(f"server: 6 concurrent requests answered in {burst_s:.2f} s, "
-              f"greedy rerun identical ({len(ctx[0])} context ids); kernel "
-              f"launches on the main path: {launches}")
+        check(ctx[0] == ctx[1], f"server {label}: greedy reruns differ")
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        print(f"server {label}: 6 concurrent requests answered in "
+              f"{burst_s:.2f} s, greedy rerun identical ({len(ctx[0])} "
+              f"context ids); kernel launches on this path: {launches}")
+        for name in expect:
+            check(launches[name] > 0, f"server {label}: kernel {name} was "
+                  "never launched")
         for name, n in launches.items():
-            check(n > 0, f"server: kernel {name} was never launched")
-            results[name]["launches"] = n
+            if n:
+                rec = results[name]
+                rec.setdefault("launches_by_path", {})[label] = n
+                rec["launches"] = rec.get("launches", 0) + n
         ttft = sorted(r["prompt_eval_duration"] / 1e6 for r in finals)
         toks = sum(r["eval_count"] for r in finals)
         per_req = [r["eval_count"] / (r["eval_duration"] / 1e9)
@@ -652,7 +917,7 @@ def phase_server(results: dict) -> None:
             metrics = r.read().decode()
         step_ms = next((line.split()[-1] for line in metrics.splitlines()
                         if line.startswith("decode_wall_ms ")), "?")
-        print(f"server: TTFT p50 {ttft[len(ttft) // 2]:.1f} ms (max "
+        print(f"server {label}: TTFT p50 {ttft[len(ttft) // 2]:.1f} ms (max "
               f"{ttft[-1]:.1f} ms) over 6 requests; decode {toks} tokens in "
               f"{burst_s:.2f} s = {toks / burst_s:.1f} tok/s aggregate, "
               f"{sorted(per_req)[len(per_req) // 2]:.1f} tok/s per request "
@@ -662,11 +927,34 @@ def phase_server(results: dict) -> None:
         engine.stop()
 
 
+# Phase names for --only; a family name runs all of its members.
+PHASES = {
+    "build": ("build",),
+    "kernel": ("kernel_a", "kernel_b", "kernel_c", "kernel_experts"),
+    "step": ("step_llama", "step_mixtral"),
+    "server": ("server_llama", "server_mixtral"),
+    "profile": ("profile_llama", "profile_mixtral"),
+}
+
+
+def _free() -> None:
+    """Return what the last phase held to the card before the next one
+    builds (engines hold reference cycles through their threads)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="build,kernel,step,server",
-                    help="comma-separated phases to run")
-    phases = set(ap.parse_args().only.split(","))
+                    help="comma-separated phases to run: "
+                    + ", ".join(f"{k} ({'/'.join(v)})"
+                                for k, v in PHASES.items()))
+    phases = set()
+    for name in ap.parse_args().only.split(","):
+        phases.update(PHASES.get(name, (name,)))
     try:
         import torch
     except ImportError:
@@ -690,29 +978,44 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     results: dict = {}
     t0 = time.monotonic()
+
+    def done(what: str) -> None:
+        _free()
+        print(f"{what} done ({time.monotonic() - t0:.0f} s)", flush=True)
+
+    runs = [
+        ("build", phase_build),
+        ("kernel_a", lambda: phase_kernel_a(results)),
+        ("kernel_b", lambda: phase_kernel_b(results)),
+        ("kernel_c", lambda: phase_kernel_c(results)),
+        ("kernel_experts", lambda: phase_kernel_experts(results)),
+        ("step_llama", lambda: phase_step("llama3.1-8b", "int8")),
+        ("step_mixtral", lambda: phase_step("mixtral-8x7b", "int8")),
+        ("step_mixtral", lambda: phase_step("mixtral-8x7b", "int4")),
+        ("server_llama", lambda: phase_server(
+            results, "llama3.1-8b", "int8",
+            ("quant_matmul", "paged_attention_append"))),
+        ("server_mixtral", lambda: phase_server(
+            results, "mixtral-8x7b", "int8",
+            ("quant_matmul", "quant_matmul_experts_stacked",
+             "paged_attention_append"))),
+        ("server_mixtral", lambda: phase_server(
+            results, "mixtral-8x7b", "int4",
+            ("quant_matmul4", "quant_matmul_experts_stacked4",
+             "paged_attention_append"))),
+        ("profile_llama", lambda: phase_profile("llama3.1-8b", "int8")),
+        ("profile_mixtral", lambda: phase_profile("mixtral-8x7b", "int8")),
+        ("profile_mixtral", lambda: phase_profile("mixtral-8x7b", "int4")),
+    ]
     try:
-        if "build" in phases:
-            phase_build()
-        if "kernel" in phases:
-            print("kernel phase:", flush=True)
-            phase_kernel_a(results)
-            phase_kernel_b(results)
-            print(f"kernel phase done ({time.monotonic() - t0:.0f} s)",
-                  flush=True)
-        if "step" in phases:
-            phase_step()
-            print(f"step phase done ({time.monotonic() - t0:.0f} s)",
-                  flush=True)
-        if "server" in phases:
-            check("kernel" in phases, "the server phase reports into the "
-                  "kernel phase's results; run both")
-            phase_server(results)
-            print(f"server phase done ({time.monotonic() - t0:.0f} s)",
-                  flush=True)
-        if "profile" in phases:
-            phase_profile()
-            print(f"profile phase done ({time.monotonic() - t0:.0f} s)",
-                  flush=True)
+        if phases & {"server_llama", "server_mixtral"}:
+            check(set(PHASES["kernel"]) <= phases, "the server phases "
+                  "report into the kernel phases' results; run all of them")
+        for name, run in runs:
+            if name in phases:
+                print(f"{name}:", flush=True)
+                run()
+                done(name)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

@@ -1,7 +1,21 @@
 """Model definitions of the port: config registry (a copy of the
-reference's), layer primitives, int8 quantization, the llama decoder,
-sampling, and the numpy weight bridge."""
+reference's), layer primitives, int8/int4 quantization, the llama and
+mixtral decoders, sampling, and the numpy weight bridge."""
 
 from .configs import CONFIGS, ModelConfig, RopeScaling, get_config
 
-__all__ = ["CONFIGS", "ModelConfig", "RopeScaling", "get_config"]
+
+def family_for(config: ModelConfig):
+    """The model module (llama or mixtral) implementing this config. Both
+    expose the same surface the serving stack calls —
+    ``init_params_quantized``, ``fuse_params``, ``prefill``,
+    ``decode_step_paged`` — so it dispatches on ``config.is_moe`` alone."""
+    if config.is_moe:
+        from . import mixtral
+        return mixtral
+    from . import llama
+    return llama
+
+
+__all__ = ["CONFIGS", "ModelConfig", "RopeScaling", "family_for",
+           "get_config"]

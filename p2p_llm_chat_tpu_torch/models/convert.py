@@ -2,10 +2,14 @@
 package's weights to the port's, with no transposes (the layouts are the
 same).
 
-Leaves are numpy arrays, or any object with ``.q``/``.s`` (an int8
+Leaves are numpy arrays, or any object with ``.q``/``.s`` (a quantized
 weight and its scales — duck-typed, so nothing of the reference package
-is imported). bf16 arrays arrive as ``ml_dtypes.bfloat16``, which torch
-cannot read directly: they cross as their raw 16-bit words
+is imported). Shapes cannot tell the two precisions apart (an int4 leaf
+with one scale group has ``s [..., 1, O]`` like an int8 one), so a leaf
+whose type is named ``QTensor4`` becomes a :class:`~.quant.QTensor4` and
+any other ``.q``/``.s`` leaf a :class:`~.quant.QTensor`. bf16 arrays
+arrive as ``ml_dtypes.bfloat16``, which torch cannot read directly: they
+cross as their raw 16-bit words
 (``view(np.int16)`` -> ``torch.from_numpy`` -> ``view(torch.bfloat16)``).
 """
 
@@ -17,7 +21,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .quant import QTensor
+from .quant import QTensor, QTensor4
 
 
 def tensor_from_numpy(a, device: Optional[torch.device | str] = None
@@ -38,11 +42,13 @@ def tensor_from_numpy(a, device: Optional[torch.device | str] = None
 def params_from_numpy(tree, device: Optional[torch.device | str] = None):
     """The port's params on ``device`` (the card unless the CPU is asked
     for; see utils/device.py) from a numpy tree of the reference's layout
-    (dicts of arrays and ``.q``/``.s`` leaves)."""
+    (dicts of arrays and ``.q``/``.s`` leaves; 4-D expert leaves cross
+    as they are)."""
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if hasattr(tree, "q") and hasattr(tree, "s"):
-        return QTensor(q=tensor_from_numpy(tree.q, device),
-                       s=tensor_from_numpy(tree.s, device))
+        kind = QTensor4 if type(tree).__name__ == "QTensor4" else QTensor
+        return kind(q=tensor_from_numpy(tree.q, device),
+                    s=tensor_from_numpy(tree.s, device))
     return tensor_from_numpy(tree, device)

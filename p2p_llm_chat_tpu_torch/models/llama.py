@@ -1,6 +1,8 @@
 """llama-family decoder (3.x dense models), the port of
-p2p_llm_chat_tpu/models/llama.py for this slice: random int8 init, fused
-projections, whole-prompt prefill, and the paged decode step.
+p2p_llm_chat_tpu/models/llama.py for the paged decode path: random int8 /
+int4 init, fused projections, whole-prompt prefill, and the paged decode
+step, with the reference's ``mlp_fn`` hook through which the mixtral
+family (models/mixtral.py) plugs its sparse-MoE MLP in.
 
 Params keep the reference's tree and layouts (``embed`` [V, H], stacked
 ``layers`` with fused ``wqkv`` [L, H, Q+2KV] and ``wgu`` [L, H, 2E] as
@@ -24,7 +26,7 @@ from ..utils.device import resolve_device
 from .configs import ModelConfig
 from .layers import (apply_rope_tables, attend_gqa, causal_mask, rms_norm,
                      rope_frequencies, rope_tables)
-from .quant import QTensor, mm, quantize
+from .quant import QTensor, QTensor4, _quantize_leaf, mm, stream_bufs
 
 
 def init_params_quantized(config: ModelConfig, seed: int = 0,
@@ -38,15 +40,38 @@ def init_params_quantized(config: ModelConfig, seed: int = 0,
     and ALREADY FUSED (``wqkv = [q|k|v]``, ``wgu = [gate|up]``), so at
     most one layer's f32 weights exist next to the stacked tree — the
     8B int8 model (~7.5 GB + a 1 GB bf16 embedding) is built on the card
-    directly. ``quant``: ``int8`` (QTensor leaves) or ``""`` (plain
-    ``dtype`` leaves). The distribution is the reference's; the random
-    stream is not (torch and jax generators differ)."""
-    if quant not in ("int8", ""):
-        raise ValueError(f"quant must be int8 or '', got {quant!r}")
+    directly. ``quant``: ``int8`` (QTensor leaves), ``int4`` (QTensor4
+    leaves, group-wise; a leaf whose contraction cannot group keeps int8,
+    as in the reference) or ``""`` (plain ``dtype`` leaves). The
+    distribution is the reference's; the random stream is not (torch and
+    jax generators differ)."""
+    E = config.intermediate_size
+    dims = {
+        "wqkv": (config.hidden_size, config.q_dim + 2 * config.kv_dim),
+        "wo": (config.q_dim, config.hidden_size),
+        "wgu": (config.hidden_size, 2 * E),
+        "w_down": (E, config.hidden_size),
+    }
+    return random_tree(config, dims, {}, seed, dtype, quant, device)
+
+
+def random_tree(config: ModelConfig, dims: dict, plain_dims: dict,
+                seed: int, dtype: torch.dtype, quant: str,
+                device: Optional[torch.device | str]) -> dict:
+    """The layer-by-layer random build shared by both families: stacked
+    ``dims`` leaves (quantized at ``quant``; a 3-D shape is an expert
+    stack, generated and quantized one expert at a time, so one layer of
+    mixtral-8x7b's [8, 4096, 28672] experts never exists in f32 at once
+    — int8 scales are per (expert, column) and int4 scales per (expert,
+    group, column), so the result is the same), then stacked
+    ``plain_dims`` leaves in ``dtype``, then the embedding and an
+    untied lm_head."""
+    if quant not in ("int8", "int4", ""):
+        raise ValueError(f"quant must be int8, int4 or '', got {quant!r}")
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    L, H, E = config.num_layers, config.hidden_size, config.intermediate_size
+    L, H = config.num_layers, config.hidden_size
     std = H ** -0.5
 
     def normal(shape, scale=std):
@@ -54,36 +79,30 @@ def init_params_quantized(config: ModelConfig, seed: int = 0,
                         device=device)
         return (w * scale).to(dtype)
 
-    dims = {
-        "wqkv": (H, config.q_dim + 2 * config.kv_dim),
-        "wo": (config.q_dim, H),
-        "wgu": (H, 2 * E),
-        "w_down": (E, H),
-    }
     layers: dict = {
         "attn_norm": torch.ones((L, H), dtype=dtype, device=device),
         "mlp_norm": torch.ones((L, H), dtype=dtype, device=device),
     }
-    for name, (din, dout) in dims.items():
-        if quant:
-            layers[name] = QTensor(
-                q=torch.empty((L, din, dout), dtype=torch.int8,
-                              device=device),
-                s=torch.empty((L, 1, dout), dtype=torch.float32,
-                              device=device))
-        else:
-            layers[name] = torch.empty((L, din, dout), dtype=dtype,
-                                       device=device)
+    for name, shape in dims.items():
+        layers[name] = (stream_bufs(L, shape, quant, device) if quant else
+                        torch.empty((L, *shape), dtype=dtype, device=device))
+    for name, shape in plain_dims.items():
+        layers[name] = torch.empty((L, *shape), dtype=dtype, device=device)
     for li in range(L):
-        for name, (din, dout) in dims.items():
-            w = normal((din, dout))
-            if quant:
-                qt = quantize(w)
-                layers[name].q[li] = qt.q
-                layers[name].s[li] = qt.s
-            else:
-                layers[name][li] = w
-            del w
+        for name, shape in dims.items():
+            expert = len(shape) == 3
+            for idx in ([(li, e) for e in range(shape[0])] if expert
+                        else [(li,)]):
+                w = normal(shape[-2:])
+                if quant:
+                    qt = _quantize_leaf(w, quant, expert=expert)
+                    layers[name].q[idx] = qt.q
+                    layers[name].s[idx] = qt.s
+                else:
+                    layers[name][idx] = w
+                del w
+        for name, shape in plain_dims.items():
+            layers[name][li] = normal(shape)
     params = {
         "embed": normal((config.vocab_size, H), scale=1.0),
         "layers": layers,
@@ -91,28 +110,35 @@ def init_params_quantized(config: ModelConfig, seed: int = 0,
     }
     if not config.tie_embeddings:
         head = normal((H, config.vocab_size))
-        params["lm_head"] = quantize(head) if quant else head
+        params["lm_head"] = _quantize_leaf(head, quant) if quant else head
     return params
 
 
+def _ndim(leaf) -> int:
+    return leaf.q.ndim if isinstance(leaf, (QTensor, QTensor4)) else leaf.ndim
+
+
 def fuse_params(params: dict) -> dict:
-    """Concatenate per-layer ``wq|wk|wv -> wqkv`` and ``w_gate|w_up ->
-    wgu`` on the output axis (int8 scales ride their columns). No-op on
-    an already fused tree."""
+    """Concatenate per-layer ``wq|wk|wv -> wqkv`` and ``w_gate|w_up`` on
+    the output axis: ``wgu`` for dense [L, H, E] leaves, ``wgu_e`` for
+    per-expert [L, NE, H, F] ones (int8 scales ride their columns, and
+    int4's group scales ``[..., ng, O]`` concatenate the same way). No-op
+    on an already fused tree."""
     layers = params["layers"]
     if "wqkv" in layers:
         return params
 
     def cat(ws):
-        if isinstance(ws[0], QTensor):
-            return QTensor(q=torch.cat([w.q for w in ws], dim=-1),
-                           s=torch.cat([w.s for w in ws], dim=-1))
+        if isinstance(ws[0], (QTensor, QTensor4)):
+            return type(ws[0])(q=torch.cat([w.q for w in ws], dim=-1),
+                               s=torch.cat([w.s for w in ws], dim=-1))
         return torch.cat(ws, dim=-1)
 
     fused = {k: v for k, v in layers.items()
              if k not in ("wq", "wk", "wv", "w_gate", "w_up")}
     fused["wqkv"] = cat([layers["wq"], layers["wk"], layers["wv"]])
-    fused["wgu"] = cat([layers["w_gate"], layers["w_up"]])
+    gu = "wgu" if _ndim(layers["w_gate"]) == 3 else "wgu_e"
+    fused[gu] = cat([layers["w_gate"], layers["w_up"]])
     out = dict(params)
     out["layers"] = fused
     return out
@@ -146,11 +172,15 @@ def _attn_qkv(h: torch.Tensor, layers: dict, li: int, config: ModelConfig,
 
 
 def _post_attn(h: torch.Tensor, attn: torch.Tensor, layers: dict, li: int,
-               config: ModelConfig) -> torch.Tensor:
-    """Output projection + residual + SwiGLU MLP + residual."""
+               config: ModelConfig, mlp_fn=None) -> torch.Tensor:
+    """Output projection + residual + MLP + residual. The MLP is the
+    dense SwiGLU, or ``mlp_fn(x, layers, li)`` (models/mixtral.py plugs
+    its sparse-MoE MLP in here)."""
     B, S = attn.shape[:2]
     h = h + mm(attn.reshape(B, S, config.q_dim), layers["wo"], li)
     x = rms_norm(h, layers["mlp_norm"][li], config.rms_norm_eps)
+    if mlp_fn is not None:
+        return h + mlp_fn(x, layers, li)
     gu = mm(x, layers["wgu"], li)
     E = gu.shape[-1] // 2
     g = torch.nn.functional.silu(gu[..., :E]) * gu[..., E:]
@@ -166,14 +196,15 @@ def _logits(params: dict, config: ModelConfig, h: torch.Tensor
 
 
 def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,
-            prompt_lens: torch.Tensor, last_only: bool = False):
+            prompt_lens: torch.Tensor, last_only: bool = False, *,
+            mlp_fn=None):
     """Right-padded prompts from position 0 through a dense per-request
     cache (causal mask over the bucket; pads sit after each prompt).
 
     tokens: [R, S]; prompt_lens: [R]. Returns (logits — [R, 1, V] f32 at
     each row's last prompt position with ``last_only``, else [R, S, V] —
     and the chunk's k/v, each [L, R, S, Hkv, D], for
-    ops/paged_kv.write_prefill_batch)."""
+    ops/paged_kv.write_prefill_batch). ``mlp_fn``: see :func:`_post_attn`."""
     R, S = tokens.shape
     dev = tokens.device
     layers = params["layers"]
@@ -188,7 +219,8 @@ def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,
         q, k, v = _attn_qkv(h, layers, li, config, rope)
         k_all[li] = k
         v_all[li] = v
-        h = _post_attn(h, attend_gqa(q, k, v, mask), layers, li, config)
+        h = _post_attn(h, attend_gqa(q, k, v, mask), layers, li, config,
+                       mlp_fn)
     if last_only:
         idx = (prompt_lens.to(dev).long() - 1).clamp(min=0)
         h = h[torch.arange(R, device=dev), idx][:, None]
@@ -198,7 +230,7 @@ def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,
 def decode_step_paged(params: dict, config: ModelConfig,
                       tokens: torch.Tensor, cache: PagedKVCache,
                       active: Optional[torch.Tensor] = None, *,
-                      pages: int):
+                      pages: int, mlp_fn=None):
     """One autoregressive step over the paged pool for every row.
 
     tokens: [B, 1] (this step's input token per row, at position
@@ -209,7 +241,8 @@ def decode_step_paged(params: dict, config: ModelConfig,
     back quantized and can flip greedy ties on int8 pools). ``active``
     ([B] bool) parks rows: their length does not advance and their write
     lands where their (zeroed) table points. ``pages`` page-table entries
-    per row are walked (ceil(max live length / page_size)).
+    per row are walked (ceil(max live length / page_size)). ``mlp_fn``:
+    see :func:`_post_attn`.
 
     Returns (logits [B, 1, V] f32, cache) — the cache is updated in
     place, lengths advanced where active."""
@@ -224,7 +257,7 @@ def decode_step_paged(params: dict, config: ModelConfig,
         k0, v0 = k[:, 0].contiguous(), v[:, 0].contiguous()
         attn = paged_attention_append(q[:, 0].contiguous(), k0, v0, cache,
                                       cache.lengths, li, pages=pages)
-        h = _post_attn(h, attn[:, None], layers, li, config)
+        h = _post_attn(h, attn[:, None], layers, li, config, mlp_fn)
         k_steps.append(k0)
         v_steps.append(v0)
     logits = _logits(params, config, h)

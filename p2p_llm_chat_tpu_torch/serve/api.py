@@ -247,7 +247,8 @@ class OllamaServer:
                    "parameter_size": "", "quantization_level": ""}
         info = {}
         if cfg is not None:
-            info = {"general.architecture": "llama",
+            info = {"general.architecture": "llama" if cfg.num_experts == 0
+                    else "mixtral",
                     "llama.context_length": cfg.max_seq_len,
                     "llama.embedding_length": cfg.hidden_size,
                     "llama.block_count": cfg.num_layers,

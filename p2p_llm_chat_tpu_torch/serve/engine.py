@@ -6,11 +6,12 @@ reference's ``TPUEngine`` (p2p_llm_chat_tpu/serve/engine.py).
 :func:`build_engine_from_env` reads the same ``SERVE_*`` env surface and
 serves random-init weights of ``MODEL_CONFIG`` with the byte tokenizer.
 
-This slice serves one dense llama model on one card from a paged KV pool
-(bf16 or int8) with bf16 or int8 weights. Features of the reference that
-later slices port fail loudly when asked for explicitly (``SERVE_SPEC>0``,
-``SERVE_KV_HOST_GB>0``, ``SERVE_TP>1``, ``SERVE_MODELS``, ``CKPT_DIR``,
-``SERVE_QUANT=int4``, ``SERVE_KV=dense``, MoE configs, multi-host). The
+It serves one model on one card from a paged KV pool (bf16 or int8):
+a dense llama config or a mixtral (MoE) config, with bf16, int8 or int4
+weights, built through ``models.family_for(config)``. Features of the
+reference that later slices port fail loudly when asked for explicitly
+(``SERVE_SPEC>0``, ``SERVE_KV_HOST_GB>0``, ``SERVE_TP>1``,
+``SERVE_MODELS``, ``CKPT_DIR``, ``SERVE_KV=dense``, multi-host). The
 reference's defaults ``SERVE_PREFIX=1``, ``SERVE_FUSE=4`` and
 ``SERVE_PREFILL_CHUNK=256`` do not change its output, so here they are
 logged as not run yet.
@@ -23,8 +24,8 @@ from typing import Iterator, Optional
 
 import torch
 
+from ..models import family_for
 from ..models.configs import get_config
-from ..models.llama import init_params_quantized
 from ..tokenizer import ByteTokenizer
 from ..utils.device import resolve_device
 from ..utils.env import env_float, env_int, env_or
@@ -107,8 +108,9 @@ class TorchEngine:
 
 def _not_in_slice(what: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to the PyTorch engine yet "
-                      "(p2p_llm_chat_tpu_torch serves one dense llama "
-                      "model on one card in this version)")
+                      "(p2p_llm_chat_tpu_torch serves one llama or mixtral "
+                      "model from a paged KV pool on one card in this "
+                      "version)")
 
 
 def build_engine_from_env(device: Optional[str | torch.device] = None
@@ -130,9 +132,7 @@ def build_engine_from_env(device: Optional[str | torch.device] = None
     if env_or("CKPT_DIR", ""):
         raise _not_in_slice("checkpoint loading (CKPT_DIR)")
     quant = env_or("SERVE_QUANT", "")
-    if quant == "int4":
-        raise _not_in_slice("int4 weights (SERVE_QUANT=int4)")
-    if quant not in ("", "int8"):
+    if quant not in ("", "int8", "int4"):
         raise SystemExit(f"SERVE_QUANT must be one of '', 'int8', 'int4'; "
                          f"got {quant!r}")
     kv_mode = env_or("SERVE_KV", "paged")
@@ -145,8 +145,6 @@ def build_engine_from_env(device: Optional[str | torch.device] = None
         raise SystemExit(
             f"SERVE_KV_QUANT must be int8 or empty, got {kv_quant!r}")
     config = get_config(env_or("MODEL_CONFIG", "tiny"))
-    if config.is_moe:
-        raise _not_in_slice(f"the MoE config {config.name}")
     for flag, default, off in (("SERVE_PREFIX", "1", "0"),
                                ("SERVE_FUSE", "4", "1"),
                                ("SERVE_PREFILL_CHUNK", "256", "0")):
@@ -158,7 +156,8 @@ def build_engine_from_env(device: Optional[str | torch.device] = None
     qm = env_int("SERVE_QUEUE_MAX", -1)
     log.info("serving random-init %s (%s weights, %s KV) on %s", config.name,
              quant or "bf16", kv_quant or "bf16", dev)
-    params = init_params_quantized(config, seed=0, quant=quant, device=dev)
+    params = family_for(config).init_params_quantized(
+        config, seed=0, quant=quant, device=dev)
     engine = TorchEngine(
         params, config, ByteTokenizer(vocab_size=config.vocab_size),
         num_slots=env_int("SERVE_SLOTS", 8),

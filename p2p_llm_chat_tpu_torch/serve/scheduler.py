@@ -9,8 +9,9 @@ queues only:
   requests it raises :class:`OverloadError`, the front's 503);
 - admission groups pending requests by power-of-two prompt bucket,
   reserves each request's page budget from the :class:`PageAllocator`,
-  prefills the group together (models/llama.prefill), splices its KV into
-  the pool (ops/paged_kv.write_prefill_batch) and samples each row's
+  prefills the group together (the family's ``prefill``: models/llama.py
+  or models/mixtral.py, chosen by ``models.family_for``), splices its KV
+  into the pool (ops/paged_kv.write_prefill_batch) and samples each row's
   first token;
 - one ``decode_step_paged`` per tick runs every row (parked rows ride
   along; their writes land in the garbage page), walking
@@ -35,7 +36,7 @@ from typing import Iterator, Optional
 
 import torch
 
-from ..models import llama
+from ..models import family_for
 from ..models.configs import ModelConfig
 from ..models.quant import param_bytes, quant_mode
 from ..models.sampling import sample_step_batched
@@ -186,7 +187,8 @@ class BatchScheduler:
         self.kv_quant = kv_quant
         self.queue_timeout_s = queue_timeout_s
         self.queue_max = 8 * num_slots if queue_max is None else queue_max
-        self._params = llama.fuse_params(params)
+        self._family = family_for(config)
+        self._params = self._family.fuse_params(params)
         self._dtype = self._params["embed"].dtype
         self._weight_bytes = param_bytes(self._params)
         self._quant_mode = quant_mode(self._params)
@@ -342,12 +344,13 @@ class BatchScheduler:
                                    device=self.device)
                 lens = torch.full((1,), S, dtype=torch.long,
                                   device=self.device)
-                llama.prefill(self._params, self.config, toks, lens,
-                              last_only=True)
+                self._family.prefill(self._params, self.config, toks,
+                                     lens, last_only=True)
             active = torch.zeros((self.num_slots,), dtype=torch.bool,
                                  device=self.device)
-            llama.decode_step_paged(self._params, self.config, self._next,
-                                    self._cache, active, pages=1)
+            self._family.decode_step_paged(self._params, self.config,
+                                           self._next, self._cache, active,
+                                           pages=1)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
@@ -582,7 +585,7 @@ class BatchScheduler:
             lens[i] = n
             tables[i, :len(slot.pages)] = torch.tensor(slot.pages,
                                                        dtype=torch.int32)
-        logits, k_all, v_all = llama.prefill(
+        logits, k_all, v_all = self._family.prefill(
             self._params, self.config, tokens.to(dev), lens.to(dev),
             last_only=True)
         write_prefill_batch(self._cache, k_all, v_all,
@@ -651,7 +654,7 @@ class BatchScheduler:
         pages = max(1, -(-longest // self.page_size))
         active = torch.zeros((self.num_slots,), dtype=torch.bool)
         active[active_rows] = True
-        logits, _ = llama.decode_step_paged(
+        logits, _ = self._family.decode_step_paged(
             self._params, self.config, self._next, self._cache,
             active.to(self.device), pages=pages)
         # The sampled token follows this tick's input (at ctx_len).

@@ -19,6 +19,7 @@ from p2p_llm_chat_tpu_torch.models.configs import get_config
 from p2p_llm_chat_tpu_torch.ops import paged_kv
 from p2p_llm_chat_tpu_torch.ops.paged_attention import (
     paged_attention_append, paged_attention_append_reference)
+from p2p_llm_chat_tpu_torch.ops import quant_mm
 from p2p_llm_chat_tpu_torch.ops.quant_mm import (quant_matmul,
                                                  quant_matmul_reference)
 
@@ -58,7 +59,15 @@ def test_every_module_imports_without_jax_or_nvcc():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["bad"] == []
     assert got["nvcc"] is None and got["built"] == []
+    # The walk covers the whole package (a fixed list would miss new
+    # modules): every .py file under it is among the imported modules.
+    files = {".".join(f.relative_to(ROOT).with_suffix("").parts)
+             for f in PKG.rglob("*.py") if f.name != "__main__.py"}
+    files = {n[:-len(".__init__")] if n.endswith(".__init__") else n
+             for n in files} - {"p2p_llm_chat_tpu_torch"}
+    assert files == set(got["modules"])
     expected = {"p2p_llm_chat_tpu_torch.models.llama",
+                "p2p_llm_chat_tpu_torch.models.mixtral",
                 "p2p_llm_chat_tpu_torch.ops.quant_mm",
                 "p2p_llm_chat_tpu_torch.ops.paged_attention",
                 "p2p_llm_chat_tpu_torch.serve.api",
@@ -89,6 +98,9 @@ def test_no_source_of_the_port_or_chip_smoke_imports_jax():
 
 def test_kernel_sources_exist_for_every_kernel():
     from p2p_llm_chat_tpu_torch.ops import _build
+    # Every CUDA source is built, and every built kernel has a source.
+    assert set(_build.KERNELS) == {f.stem for f in
+                                   _build.CSRC_DIR.glob("*.cu")}
     for name in _build.KERNELS:
         src = _build.CSRC_DIR / f"{name}.cu"
         assert src.exists()
@@ -123,8 +135,24 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     want = paged_attention_append_reference(qq, kc, kc, cache,
                                             cache.lengths, 1, pages=2)
     assert torch.equal(got, want)
-    assert quant_matmul.launches == 0
-    assert paged_attention_append.launches == 0
+
+    q4 = torch.from_numpy(rng.integers(-128, 128, size=(2, 3, 32, 48),
+                                       dtype=np.int8))
+    s4 = torch.from_numpy(rng.random((2, 3, 2, 48), dtype=np.float32))
+    s8 = torch.from_numpy(rng.random((2, 3, 1, 48), dtype=np.float32))
+    xe = torch.from_numpy(rng.normal(size=(3, 4, 64)).astype(np.float32))
+    for fn, args in (
+            (quant_mm.quant_matmul4, (xe[0], q4[0, 0], s4[0, 0])),
+            (quant_mm.quant_matmul_experts_stacked, (xe[:, :, :32], q4, s8,
+                                                     1)),
+            (quant_mm.quant_matmul_experts_stacked4, (xe, q4, s4, 1))):
+        fn.launches = 0
+        plain = getattr(quant_mm, fn.__name__ + "_reference")
+        assert torch.equal(fn(*args), plain(*args))
+    for fn in (quant_matmul, paged_attention_append, quant_mm.quant_matmul4,
+               quant_mm.quant_matmul_experts_stacked,
+               quant_mm.quant_matmul_experts_stacked4):
+        assert fn.launches == 0, fn.__name__
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

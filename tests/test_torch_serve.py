@@ -1,6 +1,7 @@
 """The port's serving stack on the CPU: the Ollama front over the port's
-engine (``tiny``, paged pool, int8 weights, int8 KV), greedy output equal
-to the reference engine's on the same weights, and the device rule.
+engine (``tiny``, paged pool, int8 weights, int8 KV; ``tiny-moe`` with
+int4 weights), greedy output equal to the reference engine's on the same
+weights (llama and mixtral, int8 and int4), and the device rule.
 
 Greedy ``context`` ids are compared token for token on the
 quote-workload weights (models/synth.quote_params — clear argmax
@@ -131,18 +132,20 @@ def test_chat_tags_show_health_ready_metrics(server):
     assert snap["serve_kv_free_pages"] == snap["serve_kv_total_pages"]
 
 
-def _greedy_contexts_agree(prompts, **opts) -> None:
+def _greedy_contexts_agree(prompts, config="tiny", quant="int8",
+                           **opts) -> None:
     """Each prompt through the reference engine and the port's, one at a
     time, on the same quote weights: the greedy ``context`` ids agree."""
-    cfg = ref_config("tiny")
-    params = quote_params(cfg, jax.random.PRNGKey(5), quantized=True)
+    cfg = ref_config(config)
+    params = quote_params(cfg, jax.random.PRNGKey(5), quantized=True,
+                          quant=quant)
     ref_engine = TPUEngine(params, cfg, RefByteTokenizer(cfg.vocab_size),
                            num_slots=2, max_seq=128, kv_mode="paged",
                            page_size=16, kv_quant=True, prefix_cache=False,
                            decode_fuse_max=1, prefill_chunk=0)
     engine = TorchEngine(params_from_numpy(jax.tree.map(np.asarray, params),
                                            device="cpu"),
-                         get_config("tiny"), ByteTokenizer(cfg.vocab_size),
+                         get_config(config), ByteTokenizer(cfg.vocab_size),
                          num_slots=2, max_seq=128, page_size=16,
                          kv_quant=True, device="cpu")
     try:
@@ -163,6 +166,13 @@ def _greedy_contexts_agree(prompts, **opts) -> None:
 
 def test_greedy_context_matches_reference_engine():
     _greedy_contexts_agree(("abc", "the quick brown fox"))
+
+
+@pytest.mark.parametrize("config,quant", [("tiny-moe", "int4"),
+                                          ("tiny-moe", "int8"),
+                                          ("tiny", "int4")])
+def test_greedy_context_matches_reference_engine_int4_and_moe(config, quant):
+    _greedy_contexts_agree(("abc", "the quick brown fox"), config, quant)
 
 
 def test_penalised_greedy_context_matches_reference_engine():
@@ -194,6 +204,11 @@ def test_gpu_default_entry_point_raises_without_a_card(monkeypatch):
             make()
 
 
+# Features of the reference that the port now serves; the others still
+# exit with "not ported".
+_PORTED = ({"SERVE_QUANT": "int4"}, {"MODEL_CONFIG": "tiny-moe"})
+
+
 @pytest.mark.parametrize("env", [{"SERVE_SPEC": "2"},
                                  {"SERVE_KV_HOST_GB": "1"},
                                  {"SERVE_TP": "2"},
@@ -204,7 +219,42 @@ def test_gpu_default_entry_point_raises_without_a_card(monkeypatch):
                                  {"MODEL_CONFIG": "tiny-moe"}])
 def test_features_of_later_slices_fail_loudly(env, monkeypatch):
     monkeypatch.setenv("SERVE_DEVICE", "cpu")
+    monkeypatch.setenv("SERVE_WARMUP", "0")
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if env in _PORTED:
+        engine = build_engine_from_env()
+        engine.stop()
+        return
     with pytest.raises(SystemExit, match="not ported"):
         build_engine_from_env()
+
+
+def test_env_built_moe_int4_engine_serves(monkeypatch):
+    """The CPU drive of the README: tiny-moe, int4 weights, int8 paged
+    KV, built from the env and answering through the Ollama front."""
+    for k, v in dict(SERVE_DEVICE="cpu", MODEL_CONFIG="tiny-moe",
+                     SERVE_QUANT="int4", SERVE_KV="paged",
+                     SERVE_KV_QUANT="int8", SERVE_SLOTS="2",
+                     SERVE_MAX_SEQ="128", SERVE_WARMUP="16").items():
+        monkeypatch.setenv(k, v)
+    engine = build_engine_from_env()
+    srv = OllamaServer(engine, addr="127.0.0.1:0").start()
+    try:
+        deadline = time.monotonic() + 60
+        while not engine.ready() and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert engine.ready()
+        status, body = _post(srv.url + "/api/generate",
+                             {"prompt": "hello", "stream": False,
+                              "options": {"num_predict": 6}})
+        rec = json.loads(body)
+        assert status == 200 and rec["done"] is True
+        assert 0 < rec["eval_count"] <= 6
+        show = json.loads(_post(srv.url + "/api/show", {})[1])
+        assert show["model_info"]["general.architecture"] == "mixtral"
+        text = _get(srv.url + "/metrics")[1]
+        assert 'model_weight_bytes{quant="int4"}' in text
+    finally:
+        srv.stop()
+        engine.stop()
