@@ -12,27 +12,37 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the shapes its path gives it, with CUDA-event timings beside the bound:
    kernel A (w8a16) at the llama3.1-8b shapes, kernel B (paged attention),
    kernel C (w4a16) at the mixtral-8x7b and llama3.1-8b int4 shapes plus
-   ragged ones, and the expert grids of kernels A and C at mixtral-8x7b's
-   expert shapes;
+   ragged ones, the expert grids of kernels A and C at mixtral-8x7b's
+   expert shapes, and kernel D (causal prefill attention) on whole
+   prompts, the 256-wide chunks of a 2048 prompt (rows bitwise equal to
+   the whole prompt's), a co-pilot-template suffix and ragged shapes;
 3. step   — one full-width decode step (depth cut to 2 layers) through the
    kernels on the card, against the same step through the plain path on
    the CPU (same weights, same pool): llama3.1-8b int8, then mixtral-8x7b
-   int8 and int4;
+   int8 and int4; for the int8 models also a prefill through kernel D
+   against the CPU's plain prefill, and a chunked prefill against the
+   whole-prompt prefill on the card;
 4. server — the port's engine behind its Ollama front on localhost
-   answers 6 concurrent requests and two greedy reruns, three times:
-   llama3.1-8b int8, then mixtral-8x7b int8 and int4 (32 layers each, int8
-   paged KV). Before each burst every kernel's launch counter is zeroed;
-   after it, the kernels of that path must have grown.
+   answers 7 concurrent requests (one 1500-token prompt, one co-pilot
+   request) and two greedy reruns, four times: llama3.1-8b int8 with the
+   reference's admission defaults (chunked prefill at 256, the prefix
+   cache) and with SERVE_PREFILL_CHUNK=0, then mixtral-8x7b int8 and int4
+   (32 layers each, int8 paged KV). Before each burst every kernel's
+   launch counter is zeroed; after it, the kernels of that path must have
+   grown, the co-pilot request must have taken the prefix path and the
+   long prompt must have admitted in chunks where chunking is on.
 
 Optional (``--only build,profile``): ``profile`` — one 32-layer decode
 step at B=8, W=1024 of llama3.1-8b int8 and of mixtral-8x7b int8 and int4,
 timed with CUDA events and broken down by kernel with torch.profiler, with
-the device's idle share.
+the device's idle share; and one 32-layer llama3.1-8b int8 prefill of a
+2048-token prompt, whole and as 8 chunks of 256, broken down the same way.
 
 Prints the card's name and power limit early, a ``{"kernels": [...]}``
 JSON line before the last, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-``--only build,kernel`` runs a subset (for iterating on a kernel).
+``--only build,kernel`` runs a subset (``--only build,kernel_d`` iterates
+on one kernel).
 Exits non-zero, printing no result, where no CUDA device is available.
 """
 
@@ -61,6 +71,11 @@ B_TOL = 1e-2        # of max|plain|: the plain version rounds the p.v
 #                     keeps f32; plus one bf16 rounding of the output
 C_TOL = 1e-2        # of max|plain|: as A_TOL (the plain version sums the
 #                     dequantized f32 weight in another order)
+D_TOL = 1e-2        # of max|plain|: the plain version rounds the softmax-
+#                     normalised probabilities to bf16 for p.v, the kernel
+#                     rounds the unnormalised ones and divides after (2^-8
+#                     relative each), plus one bf16 rounding of the output
+#                     and the f32 summation order
 STEP_TOL = 5e-2     # of max|logits|: bf16 activations through 2 layers,
 #                     rounded at different places on the two paths
 
@@ -390,6 +405,117 @@ def phase_kernel_b(results: dict) -> None:
         bound_ms=round(32 * b_ms, 4), library_ms=round(32 * lib, 4))
 
 
+def _rand_qkv(gen, R, Sq, Skv, Hq, Hkv, D):
+    import torch
+    dev = torch.device("cuda")
+
+    def rand(S, H):
+        return torch.randn((R, S, H, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+    return rand(Sq, Hq), rand(Skv, Hkv), rand(Skv, Hkv)
+
+
+def phase_kernel_d(results: dict) -> None:
+    """Kernel D (causal prefill attention with a query offset) against its
+    plain version at llama3.1-8b / mixtral-8x7b geometry (Hq 32, Hkv 8,
+    D 128): whole prompts, the eight 256-wide chunks of a 2048 prompt over
+    a carry that holds NaN past each chunk, a suffix after the co-pilot
+    template's prefix, and ragged shapes at other head geometries. Chunk
+    and suffix rows must equal the whole-prompt rows bit for bit. Timing:
+    one 2048-token prompt, whole and as 8 chunks, beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from p2p_llm_chat_tpu_torch.models.layers import repeat_kv
+    from p2p_llm_chat_tpu_torch.ops.prefill_attention import (
+        prefill_attention, prefill_attention_reference)
+    from p2p_llm_chat_tpu_torch.serve.engine import SUGGEST_PREFIX
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = 0.0
+    nan = float("nan")
+
+    def case(label, q, k, v, off, poison=None):
+        """Kernel D against the plain version; with ``poison``, the kernel
+        sees k/v whose slots from ``poison`` on hold NaN (never read)."""
+        nonlocal worst
+        kk, vv = k, v
+        if poison is not None:
+            kk, vv = k.clone(), v.clone()
+            kk[:, poison:] = nan
+            vv[:, poison:] = nan
+        out = prefill_attention(q, kk, vv, off)
+        worst = max(worst, _rel_err(
+            f"kernel D {label}", out,
+            prefill_attention_reference(q, k, v, off), D_TOL))
+        return out
+
+    Hq, Hkv, D = 32, 8, 128
+    for R, S in ((8, 16), (5, 512)):
+        case(f"whole R={R} S={S}", *_rand_qkv(gen, R, S, S, Hq, Hkv, D), 0)
+    S, C = 2048, 256
+    q, k, v = _rand_qkv(gen, 1, S, S, Hq, Hkv, D)
+    whole = case(f"whole R=1 S={S}", q, k, v, 0)
+    for off in range(0, S, C):           # NaN in the unwritten carry slots
+        out = case(f"chunk off={off} C={C} of S={S} (NaN past the chunk)",
+                   q[:, off:off + C].contiguous(), k, v, off,
+                   poison=off + C)
+        check(torch.equal(out, whole[:, off:off + C]),
+              f"kernel D chunk off={off}: rows differ from the whole-prompt "
+              "rows")
+    print(f"  kernel D: the {S // C} chunk calls equal the whole-prompt rows "
+          "bit for bit")
+    # The co-pilot template's registered prefix (BOS + bytes, minus one).
+    P = len(SUGGEST_PREFIX.encode())
+    q, k, v = _rand_qkv(gen, 4, P + 128, P + 128, Hq, Hkv, D)
+    whole = prefill_attention(q, k, v, 0)
+    out = case(f"prefix suffix R=4 P={P} suffix 128", q[:, P:].contiguous(),
+               k, v, P)
+    check(torch.equal(out, whole[:, P:]), "kernel D prefix suffix: rows "
+          "differ from the whole-prompt rows")
+    # Ragged: odd offsets, other head groups (rep 3, 1, 8), D 64 and 32,
+    # kv slots past the last query position holding NaN.
+    for (R, Sq, off, Hq_, Hkv_, D_) in ((3, 77, 33, 12, 4, 64),
+                                        (2, 50, 0, 4, 4, 32),
+                                        (2, 40, 7, 64, 8, 128),
+                                        (1, 130, 301, 8, 4, 64)):
+        q, k, v = _rand_qkv(gen, R, Sq, off + Sq + 19, Hq_, Hkv_, D_)
+        case(f"ragged R={R} Sq={Sq} offset={off} Hq={Hq_} Hkv={Hkv_} "
+             f"D={D_}", q, k, v, off, poison=off + Sq)
+    # Timing: one llama3.1-8b layer's prefill attention at S = 2048.
+    R, S = 1, 2048
+    q, k, v = _rand_qkv(gen, R, S, S, Hq, Hkv, D)
+    ms = time_ms(lambda i: prefill_attention(q, k, v, 0), 50)
+    qcs = [q[:, o:o + C].contiguous() for o in range(0, S, C)]
+    chunk_ms = time_ms(lambda i: [prefill_attention(qc, k, v, j * C)
+                                  for j, qc in enumerate(qcs)], 20)
+    plain = time_ms(lambda i: prefill_attention_reference(q, k, v, 0), 3,
+                    warmup=1)
+    qs = q.transpose(1, 2)
+    ks = repeat_kv(k, Hq // Hkv).transpose(1, 2)
+    vs = repeat_kv(v, Hq // Hkv).transpose(1, 2)
+    lib = time_ms(lambda i: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True), 50)
+    flops = 4.0 * R * Hq * D * S * (S + 1) / 2
+    b_ms, kind = bound_ms(2 * (2 * R * S * Hq * D + 2 * R * S * Hkv * D),
+                          flops)
+    print(f"  kernel D whole prompt R={R} S={S} (8B geometry): {ms * 1e3:.1f} "
+          f"us per layer (bound {b_ms * 1e3:.1f} us, {kind}; {b_ms / ms:.0%} "
+          f"of bound; {flops / ms / 1e9:.1f} TFLOP/s); as {S // C} chunks "
+          f"of {C}: {chunk_ms * 1e3:.1f} us; plain {plain * 1e3:.1f} us; "
+          f"SDPA (is_causal, repeat_kv'd heads) {lib * 1e3:.1f} us")
+    results["prefill_attention"] = dict(
+        name="prefill_attention", route="cuda",
+        source="p2p_llm_chat_tpu_torch/csrc/prefill_attention.cu",
+        replaces="p2p_llm_chat_tpu/models/layers.py:226",
+        max_abs_err=worst, bound_by=kind,
+        scope="one 32-layer llama3.1-8b prefill of a 2048-token prompt "
+              "(R=1): 32 launches; chunked_ms is the same prompt as 8 "
+              "chunks of 256 (256 launches); library_ms is SDPA "
+              "(is_causal) over repeat_kv'd heads",
+        ms=round(32 * ms, 4), plain_ms=round(32 * plain, 4),
+        bound_ms=round(32 * b_ms, 4), library_ms=round(32 * lib, 4),
+        chunked_ms=round(32 * chunk_ms, 4))
+
+
 def _rel_err(label: str, out, ref, tol: float) -> float:
     """max|out - ref| checked against ``tol`` of max|ref|; returns the
     absolute error."""
@@ -606,11 +732,33 @@ def phase_kernel_experts(results: dict) -> None:
 
 # -- phase 3: one full-width decode step, card vs CPU -------------------------
 
-def phase_step(model: str, quant: str) -> None:
+def _chunked_prefill(fam, params, cfg, toks, n: int, C: int):
+    """``toks`` [1, S] (``n`` real tokens) prefilled in chunks of ``C``
+    through the family's ``prefill_chunk`` over a dense carry, as the
+    scheduler's chunked admission does; returns the last-prompt-position
+    logits [1, V]."""
+    import torch
+    S = toks.shape[1]
+    k, v = fam.new_carry(cfg, 1, S, torch.bfloat16, toks.device)
+    out = None
+    for off in range(0, S, C):
+        local = torch.tensor([n - 1 - off], device=toks.device)
+        lg = fam.prefill_chunk(params, cfg, toks[:, off:off + C], k, v, off,
+                               local.clamp(0, C - 1))
+        if 0 <= n - 1 - off < C:
+            out = lg[:, 0]
+    return out
+
+
+def phase_step(model: str, quant: str, prefill_check: bool) -> None:
     """One decode step of ``model`` at full width, depth cut to 2 layers,
     ``quant`` weights + an int8 pool: the prompt is prefilled on the card,
     then the same step runs through the kernels on the card and through
-    the plain path on the CPU from the same weights and pool."""
+    the plain path on the CPU from the same weights and pool. With
+    ``prefill_check``, also a 200-token prefill (bucket 256, kernel D) on
+    the card against the plain prefill on the CPU, and a 700-token prompt
+    prefilled in 4 chunks of 256 against its whole-prompt prefill (bucket
+    1024), both on the card."""
     import torch
     from p2p_llm_chat_tpu_torch.models import family_for
     from p2p_llm_chat_tpu_torch.models.configs import get_config
@@ -652,6 +800,37 @@ def phase_step(model: str, quant: str) -> None:
     pages = -(-n // ps)
     out_gpu, _ = fam.decode_step_paged(params, cfg, tokens, cache,
                                        active.to(dev), pages=pages)
+    if prefill_check:
+        pn, pS = 200, 256
+        ptoks = torch.zeros((1, pS), dtype=torch.long)
+        ptoks[0, :pn] = torch.randint(0, cfg.vocab_size, (pn,), generator=gen)
+        plens = torch.tensor([pn])
+        d_before = _wrappers()["prefill_attention"].launches
+        pre_gpu = fam.prefill(params, cfg, ptoks.to(dev), plens.to(dev),
+                              last_only=True)[0][0, 0].float().cpu()
+        check(_wrappers()["prefill_attention"].launches - d_before
+              == cfg.num_layers, f"step {model}: the card prefill did not "
+              "run kernel D on every layer")
+        cn, cS, C = 700, 1024, 256
+        ctoks = torch.zeros((1, cS), dtype=torch.long)
+        ctoks[0, :cn] = torch.randint(0, cfg.vocab_size, (cn,),
+                                      generator=gen)
+        whole = fam.prefill(params, cfg, ctoks.to(dev),
+                            torch.tensor([cn], device=dev),
+                            last_only=True)[0][0, 0].float()
+        chunked = _chunked_prefill(fam, params, cfg, ctoks.to(dev), cn,
+                                   C)[0].float()
+        check(bool(torch.isfinite(chunked).all()), f"step {model}: "
+              "non-finite chunked-prefill logits")
+        err = (chunked - whole).abs().max().item()
+        scale = whole.abs().max().item()
+        print(f"step: {model} dims, 2 layers, {quant} weights: prompt {cn} "
+              f"in {cS // C} chunks of {C} vs whole-prompt prefill on the "
+              f"card: logits max_abs_err {err:.4f}, max|logits| {scale:.3f} "
+              f"(tol {STEP_TOL:.0e} of max), argmax "
+              f"{'equal' if int(chunked.argmax()) == int(whole.argmax()) else 'differs'}")
+        check(err <= STEP_TOL * scale, f"step {model} {quant}: chunked "
+              f"prefill err {err:.4f} > {STEP_TOL} x {scale:.3f}")
     torch.cuda.synchronize()
     params_cpu = to_cpu(params)
     del params, logits, k_all, v_all
@@ -676,6 +855,24 @@ def phase_step(model: str, quant: str) -> None:
         check(same, f"step {model} {quant}: argmax differs")
     check(torch.equal(cache.lengths.cpu(), cpu_cache.lengths),
           f"step {model}: lengths differ")
+    if prefill_check:
+        t0 = time.monotonic()
+        pre_cpu = fam.prefill(params_cpu, cfg, ptoks, plens,
+                              last_only=True)[0][0, 0].float()
+        cpu_s = time.monotonic() - t0
+        check(bool(torch.isfinite(pre_gpu).all()), f"step {model}: "
+              "non-finite card prefill logits")
+        err = (pre_gpu - pre_cpu).abs().max().item()
+        scale = pre_cpu.abs().max().item()
+        same = int(pre_gpu.argmax()) == int(pre_cpu.argmax())
+        print(f"step: {model} dims, 2 layers, {quant} weights: prefill of "
+              f"{pn} tokens (bucket {pS}, kernel D) card vs CPU plain "
+              f"logits max_abs_err {err:.4f}, max|logits| {scale:.3f} (tol "
+              f"{STEP_TOL:.0e} of max), argmax "
+              f"{'equal' if same else 'differs'}; CPU prefill {cpu_s:.1f} s")
+        check(err <= STEP_TOL * scale, f"step {model} {quant}: prefill "
+              f"logits err {err:.4f} > {STEP_TOL} x {scale:.3f}")
+        check(same, f"step {model} {quant}: prefill argmax differs")
 
 
 # -- optional phase: where one full-depth decode step spends its time ---------
@@ -773,6 +970,78 @@ def phase_profile(model: str, quant: str, B: int = 8, W: int = 1024,
               f"{key[:90]}")
 
 
+def _prefill_group(name: str) -> str:
+    if "prefill_attn_kernel" in name:
+        return "kernel D (prefill attention)"
+    if "qmm_kernel" in name or "qmm_reduce" in name:
+        return "kernel A (w8a16, <= 512 rows)"
+    low = name.lower()
+    if any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "torch matmul on the dequantized weight (> 512 rows)"
+    return "other (dequantize, norms, rope, SwiGLU, copies)"
+
+
+def phase_profile_prefill(model: str, quant: str, S: int = 2048,
+                          C: int = 256, reps: int = 3) -> None:
+    """One 32-layer ``model`` prefill of an ``S``-token prompt (R = 1),
+    whole and as ``S // C`` chunks of ``C`` (the scheduler's chunked
+    admission): wall time with CUDA events, then device time by kernel
+    with torch.profiler, and the dequantize of every > 512-row projection
+    timed apart (its elementwise kernels fall under "other")."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from p2p_llm_chat_tpu_torch.models import family_for
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    from p2p_llm_chat_tpu_torch.models.quant import dequantize
+    cfg = get_config(model)
+    fam = family_for(cfg)
+    dev = torch.device("cuda")
+    params = fam.init_params_quantized(cfg, seed=6, quant=quant, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    toks = torch.randint(0, 256, (1, S), generator=gen, device=dev)
+    lens = torch.tensor([S], device=dev)
+
+    def whole(_i: int = 0) -> None:
+        fam.prefill(params, cfg, toks, lens, last_only=True)
+
+    def chunked(_i: int = 0) -> None:
+        _chunked_prefill(fam, params, cfg, toks, S, C)
+
+    layers = params["layers"]
+    names = [n for n in ("wqkv", "wo", "wgu", "w_down") if n in layers]
+    deq = time_ms(lambda i: [dequantize(type(layers[n])(
+        layers[n].q[i % cfg.num_layers], layers[n].s[i % cfg.num_layers]),
+        torch.bfloat16) for n in names], cfg.num_layers, warmup=1)
+    for label, fn in (("whole prompt", whole),
+                      (f"{S // C} chunks of {C}", chunked)):
+        wall = time_ms(fn, reps, warmup=1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        groups: dict[str, list] = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            acc = groups.setdefault(_prefill_group(e.name), [0.0, 0])
+            acc[0] += e.time_range.elapsed_us() / 1e3
+            acc[1] += 1
+        busy = sum(v[0] for v in groups.values())
+        check(busy > 0, "profile_prefill: the profiler saw no device time")
+        print(f"profile: {model} prefill, 32 layers, {quant} weights, R=1, "
+              f"S={S}, {label}: {wall:.3f} ms (CUDA events, {reps} runs, no "
+              f"profiler); device busy {busy:.3f} ms -> idle share "
+              f"{max(0.0, 1 - busy / wall):.1%}")
+        for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {g}: {ms:.3f} ms over {n} launches ({ms / busy:.1%} "
+                  "of device time)")
+    print(f"profile: dequantize of {len(names)} projections x "
+          f"{cfg.num_layers} layers (what the whole-prompt path runs before "
+          f"its matmuls): {deq * cfg.num_layers:.3f} ms")
+
+
 # -- phase 4: the server ------------------------------------------------------
 
 def _post(url: str, body: dict, timeout: float = 600.0):
@@ -788,8 +1057,11 @@ def _wrappers() -> dict:
     from p2p_llm_chat_tpu_torch.ops import quant_mm
     from p2p_llm_chat_tpu_torch.ops.paged_attention import \
         paged_attention_append
+    from p2p_llm_chat_tpu_torch.ops.prefill_attention import \
+        prefill_attention
     return {"quant_matmul": quant_mm.quant_matmul,
             "paged_attention_append": paged_attention_append,
+            "prefill_attention": prefill_attention,
             "quant_matmul4": quant_mm.quant_matmul4,
             "quant_matmul_experts_stacked":
                 quant_mm.quant_matmul_experts_stacked,
@@ -798,21 +1070,28 @@ def _wrappers() -> dict:
 
 
 def phase_server(results: dict, model: str, quant: str,
-                 expect: tuple[str, ...]) -> None:
+                 expect: tuple[str, ...], prefill_chunk: int = 256) -> None:
     """The engine for ``model`` at ``quant`` weights (32 layers, int8
-    paged KV, 8 slots, max_seq 4096) behind the Ollama front answers the
-    6-request burst and two greedy reruns; every kernel's launch counter
+    paged KV, 8 slots, max_seq 4096, the prefix cache on with the co-pilot
+    template registered, chunked prefill at ``prefill_chunk``; 0 admits
+    every prompt in one piece) behind the Ollama front answers the
+    7-request burst and two greedy reruns; every kernel's launch counter
     is zeroed just before the burst and read just after the reruns, and
-    each kernel in ``expect`` must have been launched."""
+    each kernel in ``expect`` must have been launched. The co-pilot
+    request must take the prefix path, and with chunking on the long
+    prompt must admit in chunks."""
     import torch
     from p2p_llm_chat_tpu_torch.serve.api import OllamaServer
-    from p2p_llm_chat_tpu_torch.serve.engine import build_engine_from_env
+    from p2p_llm_chat_tpu_torch.serve.engine import (SUGGEST_PREFIX,
+                                                     build_engine_from_env)
 
-    label = f"{model} {quant}"
+    label = f"{model} {quant}" + ("" if prefill_chunk else " chunk=0")
     os.environ.update(SERVE_BACKEND="torch", MODEL_CONFIG=model,
                       SERVE_KV="paged", SERVE_QUANT=quant,
                       SERVE_KV_QUANT="int8", SERVE_SLOTS="8",
-                      SERVE_MAX_SEQ="4096", SERVE_DEVICE="cuda")
+                      SERVE_MAX_SEQ="4096", SERVE_DEVICE="cuda",
+                      SERVE_PREFILL_CHUNK=str(prefill_chunk),
+                      SERVE_PREFIX="1")
     print(f"server {label}: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
           "allocated before the build", flush=True)
     t0 = time.monotonic()
@@ -851,6 +1130,9 @@ def phase_server(results: dict, model: str, quant: str,
             ("/api/generate", {"prompt": "penalised", "stream": False,
                                "options": {"num_predict": 20,
                                            "repeat_penalty": 1.1}}),
+            ("/api/generate", {"prompt": SUGGEST_PREFIX + "are we still on "
+                               "for lunch tomorrow?", "stream": False,
+                               "options": {"num_predict": 24}}),
         ]
         wrappers = _wrappers()
         for fn in wrappers.values():
@@ -898,18 +1180,35 @@ def phase_server(results: dict, model: str, quant: str,
                for _ in range(2)]
         check(ctx[0] == ctx[1], f"server {label}: greedy reruns differ")
         launches = {name: fn.launches for name, fn in wrappers.items()}
-        print(f"server {label}: 6 concurrent requests answered in "
+        print(f"server {label}: {len(reqs)} concurrent requests answered in "
               f"{burst_s:.2f} s, greedy rerun identical ({len(ctx[0])} "
               f"context ids); kernel launches on this path: {launches}")
         for name in expect:
             check(launches[name] > 0, f"server {label}: kernel {name} was "
                   "never launched")
+        snap = engine.metrics_snapshot()
+        print(f"server {label}: prefill_chunks_total "
+              f"{snap['prefill_chunks_total']}, serve_prefix_admits_total "
+              f"{snap['serve_prefix_admits_total']}, serve_prefix_entries "
+              f"{snap['serve_prefix_entries']}")
+        check(snap["serve_prefix_admits_total"] > 0, f"server {label}: the "
+              "co-pilot request did not take the prefix path")
+        check((snap["prefill_chunks_total"] > 0) == (prefill_chunk > 0),
+              f"server {label}: prefill_chunks_total "
+              f"{snap['prefill_chunks_total']} at SERVE_PREFILL_CHUNK="
+              f"{prefill_chunk}")
         for name, n in launches.items():
             if n:
                 rec = results[name]
                 rec.setdefault("launches_by_path", {})[label] = n
                 rec["launches"] = rec.get("launches", 0) + n
-        ttft = sorted(r["prompt_eval_duration"] / 1e6 for r in finals)
+        ttfts = [r["prompt_eval_duration"] / 1e6 for r in finals]
+        print(f"server {label}: TTFT ms by request: long prompt "
+              f"({finals[3]['prompt_eval_count']} tokens) {ttfts[3]:.1f}, "
+              f"co-pilot ({finals[6]['prompt_eval_count']} tokens) "
+              f"{ttfts[6]:.1f}, others "
+              f"{', '.join(f'{t:.1f}' for i, t in enumerate(ttfts) if i not in (3, 6))}")
+        ttft = sorted(ttfts)
         toks = sum(r["eval_count"] for r in finals)
         per_req = [r["eval_count"] / (r["eval_duration"] / 1e9)
                    for r in finals if r["eval_duration"] > 0]
@@ -918,7 +1217,8 @@ def phase_server(results: dict, model: str, quant: str,
         step_ms = next((line.split()[-1] for line in metrics.splitlines()
                         if line.startswith("decode_wall_ms ")), "?")
         print(f"server {label}: TTFT p50 {ttft[len(ttft) // 2]:.1f} ms (max "
-              f"{ttft[-1]:.1f} ms) over 6 requests; decode {toks} tokens in "
+              f"{ttft[-1]:.1f} ms) over {len(reqs)} requests; decode {toks} "
+              f"tokens in "
               f"{burst_s:.2f} s = {toks / burst_s:.1f} tok/s aggregate, "
               f"{sorted(per_req)[len(per_req) // 2]:.1f} tok/s per request "
               f"(p50); decode step p50 {step_ms} ms at B=8")
@@ -930,10 +1230,11 @@ def phase_server(results: dict, model: str, quant: str,
 # Phase names for --only; a family name runs all of its members.
 PHASES = {
     "build": ("build",),
-    "kernel": ("kernel_a", "kernel_b", "kernel_c", "kernel_experts"),
+    "kernel": ("kernel_a", "kernel_b", "kernel_c", "kernel_experts",
+               "kernel_d"),
     "step": ("step_llama", "step_mixtral"),
     "server": ("server_llama", "server_mixtral"),
-    "profile": ("profile_llama", "profile_mixtral"),
+    "profile": ("profile_llama", "profile_mixtral", "profile_prefill"),
 }
 
 
@@ -989,23 +1290,30 @@ def main() -> int:
         ("kernel_b", lambda: phase_kernel_b(results)),
         ("kernel_c", lambda: phase_kernel_c(results)),
         ("kernel_experts", lambda: phase_kernel_experts(results)),
-        ("step_llama", lambda: phase_step("llama3.1-8b", "int8")),
-        ("step_mixtral", lambda: phase_step("mixtral-8x7b", "int8")),
-        ("step_mixtral", lambda: phase_step("mixtral-8x7b", "int4")),
+        ("kernel_d", lambda: phase_kernel_d(results)),
+        ("step_llama", lambda: phase_step("llama3.1-8b", "int8", True)),
+        ("step_mixtral", lambda: phase_step("mixtral-8x7b", "int8", True)),
+        ("step_mixtral", lambda: phase_step("mixtral-8x7b", "int4", False)),
         ("server_llama", lambda: phase_server(
             results, "llama3.1-8b", "int8",
-            ("quant_matmul", "paged_attention_append"))),
+            ("quant_matmul", "paged_attention_append", "prefill_attention"))),
+        ("server_llama", lambda: phase_server(
+            results, "llama3.1-8b", "int8",
+            ("quant_matmul", "paged_attention_append", "prefill_attention"),
+            prefill_chunk=0)),
         ("server_mixtral", lambda: phase_server(
             results, "mixtral-8x7b", "int8",
             ("quant_matmul", "quant_matmul_experts_stacked",
-             "paged_attention_append"))),
+             "paged_attention_append", "prefill_attention"))),
         ("server_mixtral", lambda: phase_server(
             results, "mixtral-8x7b", "int4",
             ("quant_matmul4", "quant_matmul_experts_stacked4",
-             "paged_attention_append"))),
+             "paged_attention_append", "prefill_attention"))),
         ("profile_llama", lambda: phase_profile("llama3.1-8b", "int8")),
         ("profile_mixtral", lambda: phase_profile("mixtral-8x7b", "int8")),
         ("profile_mixtral", lambda: phase_profile("mixtral-8x7b", "int4")),
+        ("profile_prefill", lambda: phase_profile_prefill("llama3.1-8b",
+                                                          "int8")),
     ]
     try:
         if phases & {"server_llama", "server_mixtral"}:

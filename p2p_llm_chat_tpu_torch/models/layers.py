@@ -3,7 +3,8 @@
 Same conventions as the reference: activations in the params' dtype (bf16
 in serving), normalisation statistics and attention softmax in f32,
 weights stored ``[in, out]`` so matmuls are ``x @ w``, and the dense cache
-layout ``[batch, seq, kv_heads, head_dim]``.
+layout ``[batch, seq, kv_heads, head_dim]``. Prefill attention
+(:func:`attend_gqa_auto`) runs kernel D on the card.
 """
 
 from __future__ import annotations
@@ -106,6 +107,29 @@ def attend_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrst,btgd->bsgrd", probs.to(v.dtype), v)
     return out.reshape(B, Sq, Hq, D)
+
+
+def attend_gqa_causal0(q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    """Causal-from-position-0 attention over equal-length q/k/v
+    ([B, S, H*, D]): the whole-prompt prefill's shape, kernel D on the
+    card (ops/prefill_attention.py)."""
+    return attend_gqa_auto(q, k, v, 0)
+
+
+def attend_gqa_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Prefill attention under ``causal_mask(Sq, Skv, q_offset)``: query i
+    at absolute position ``q_offset + i`` sees kv positions
+    ``j <= q_offset + i``. q [B, Sq, Hq, D]; k/v [B, Skv, Hkv, D].
+
+    The reference's namesake picks by size (a dense XLA attend, an XLA
+    flash scan past ``_FLASH_SCORE_ELEMS``, the Pallas flash kernel for
+    causal-from-0 shapes with ``S % 512 == 0``); on the card kernel D
+    serves every size and offset, and on the CPU the plain
+    :func:`attend_gqa` runs (ops/prefill_attention.py)."""
+    from ..ops.prefill_attention import prefill_attention
+    return prefill_attention(q, k, v, q_offset)
 
 
 def causal_mask(q_len: int, kv_len: int, q_offset: int = 0,

@@ -1,7 +1,7 @@
 """llama-family decoder (3.x dense models), the port of
 p2p_llm_chat_tpu/models/llama.py for the paged decode path: random int8 /
-int4 init, fused projections, whole-prompt prefill, and the paged decode
-step, with the reference's ``mlp_fn`` hook through which the mixtral
+int4 init, fused projections, whole-prompt and continuation (chunk /
+prefix-suffix) prefill, and the paged decode step, with the reference's ``mlp_fn`` hook through which the mixtral
 family (models/mixtral.py) plugs its sparse-MoE MLP in.
 
 Params keep the reference's tree and layouts (``embed`` [V, H], stacked
@@ -24,7 +24,7 @@ from ..ops.paged_attention import paged_attention_append
 from ..ops.paged_kv import PagedKVCache, write_decode_burst
 from ..utils.device import resolve_device
 from .configs import ModelConfig
-from .layers import (apply_rope_tables, attend_gqa, causal_mask, rms_norm,
+from .layers import (apply_rope_tables, attend_gqa_auto, rms_norm,
                      rope_frequencies, rope_tables)
 from .quant import QTensor, QTensor4, _quantize_leaf, mm, stream_bufs
 
@@ -195,11 +195,35 @@ def _logits(params: dict, config: ModelConfig, h: torch.Tensor
     return mm(h, lm_head).float()
 
 
+def _stack(params: dict, config: ModelConfig, tokens: torch.Tensor,
+           positions: torch.Tensor, store, q_offset: int, mlp_fn,
+           last_idx: Optional[torch.Tensor]) -> torch.Tensor:
+    """The decoder stack over ``tokens`` [R, S] at ``positions``: each
+    layer's k/v go to ``store(li, k, v)``, which returns the k/v its
+    queries attend over (query i at absolute position ``q_offset + i``,
+    causally; kernel D on the card). Returns the logits at chunk-local
+    ``last_idx`` ([R, 1, V] f32), or at every position ([R, S, V])."""
+    layers = params["layers"]
+    rope = _rope(config, positions)
+    h = params["embed"][tokens]
+    for li in range(config.num_layers):
+        q, k, v = _attn_qkv(h, layers, li, config, rope)
+        k, v = store(li, k, v)
+        h = _post_attn(h, attend_gqa_auto(q, k, v, q_offset), layers, li,
+                       config, mlp_fn)
+    if last_idx is not None:
+        R = tokens.shape[0]
+        idx = last_idx.to(h.device).long()
+        h = h[torch.arange(R, device=h.device), idx][:, None]
+    return _logits(params, config, h)
+
+
 def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,
             prompt_lens: torch.Tensor, last_only: bool = False, *,
             mlp_fn=None):
     """Right-padded prompts from position 0 through a dense per-request
-    cache (causal mask over the bucket; pads sit after each prompt).
+    cache (causal from position 0 over the bucket; pads sit after each
+    prompt, so no real query sees them).
 
     tokens: [R, S]; prompt_lens: [R]. Returns (logits — [R, 1, V] f32 at
     each row's last prompt position with ``last_only``, else [R, S, V] —
@@ -207,24 +231,71 @@ def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,
     ops/paged_kv.write_prefill_batch). ``mlp_fn``: see :func:`_post_attn`."""
     R, S = tokens.shape
     dev = tokens.device
-    layers = params["layers"]
     positions = torch.arange(S, device=dev)[None, :].expand(R, S)
-    mask = causal_mask(S, S, 0, dev)
-    rope = _rope(config, positions)
-    h = params["embed"][tokens]
     shape = (config.num_layers, R, S, config.num_kv_heads, config.head_dim)
-    k_all = torch.empty(shape, dtype=h.dtype, device=dev)
-    v_all = torch.empty(shape, dtype=h.dtype, device=dev)
-    for li in range(config.num_layers):
-        q, k, v = _attn_qkv(h, layers, li, config, rope)
+    dtype = params["embed"].dtype
+    k_all = torch.empty(shape, dtype=dtype, device=dev)
+    v_all = torch.empty(shape, dtype=dtype, device=dev)
+
+    def store(li, k, v):
         k_all[li] = k
         v_all[li] = v
-        h = _post_attn(h, attend_gqa(q, k, v, mask), layers, li, config,
-                       mlp_fn)
-    if last_only:
-        idx = (prompt_lens.to(dev).long() - 1).clamp(min=0)
-        h = h[torch.arange(R, device=dev), idx][:, None]
-    return _logits(params, config, h), k_all, v_all
+        return k, v
+
+    last = ((prompt_lens.to(dev).long() - 1).clamp(min=0) if last_only
+            else None)
+    logits = _stack(params, config, tokens, positions, store, 0, mlp_fn,
+                    last)
+    return logits, k_all, v_all
+
+
+def new_carry(config: ModelConfig, R: int, W: int, dtype: torch.dtype,
+              device, prefix_k: Optional[torch.Tensor] = None,
+              prefix_v: Optional[torch.Tensor] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A zeroed dense continuation carry (k, v), each [L, R, W, Hkv, D],
+    for :func:`prefill_chunk`; a prefix's KV ([L, P, Hkv, D]) is
+    broadcast into every row's first P slots (the reference's prefix
+    splice, serve/scheduler.py _prefill_first_token_prefix)."""
+    shape = (config.num_layers, R, W, config.num_kv_heads, config.head_dim)
+    k = torch.zeros(shape, dtype=dtype, device=device)
+    v = torch.zeros(shape, dtype=dtype, device=device)
+    if prefix_k is not None:
+        P = prefix_k.shape[1]
+        k[:, :, :P] = prefix_k[:, None]
+        v[:, :, :P] = prefix_v[:, None]
+    return k, v
+
+
+def prefill_chunk(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                  carry_k: torch.Tensor, carry_v: torch.Tensor, offset: int,
+                  last_idx: Optional[torch.Tensor] = None, *,
+                  mlp_fn=None) -> torch.Tensor:
+    """Continuation prefill: C prompt tokens per row at positions
+    ``offset .. offset+C``, resuming from the KV already in the carry
+    (:func:`new_carry`, [L, R, W, Hkv, D]) — the chunked-admission unit,
+    and with ``offset`` = P over a prefix-seeded carry the prefix-spliced
+    suffix forward (the reference's ``prefill_chunk`` and
+    ``_prefill_first_token_prefix``).
+
+    Each row writes carry slots ``offset .. offset+C`` IN PLACE and
+    attends the carry under ``causal_mask(C, W, offset)``; kernel D never
+    reads a slot past the chunk's last position, and a query row's result
+    does not depend on how the prompt was cut into chunks.
+
+    ``last_idx`` ([R] int): CHUNK-LOCAL position to gather logits at.
+    Returns logits [R, 1, V] f32 (or [R, C, V] without ``last_idx``)."""
+    R, C = tokens.shape
+    dev = tokens.device
+    positions = (offset + torch.arange(C, device=dev))[None, :].expand(R, C)
+
+    def store(li, k, v):
+        carry_k[li, :, offset:offset + C] = k
+        carry_v[li, :, offset:offset + C] = v
+        return carry_k[li], carry_v[li]
+
+    return _stack(params, config, tokens, positions, store, offset, mlp_fn,
+                  last_idx)
 
 
 def decode_step_paged(params: dict, config: ModelConfig,

@@ -1,10 +1,10 @@
 """Mixtral-family sparse-MoE decoder, the port of
-p2p_llm_chat_tpu/models/mixtral.py for the paged decode path.
+p2p_llm_chat_tpu/models/mixtral.py for the paged serving path.
 
-The attention, cache and layer-loop mechanics are llama's: :func:`prefill`
-and :func:`decode_step_paged` pass the sparse-MoE MLP into
-models/llama.py through its ``mlp_fn`` hook, so only the expert MLP lives
-here.
+The attention, cache and layer-loop mechanics are llama's: :func:`prefill`,
+:func:`prefill_chunk` and :func:`decode_step_paged` pass the sparse-MoE
+MLP into models/llama.py through its ``mlp_fn`` hook, so only the expert
+MLP lives here.
 
 - **Scatter/gather dispatch** with static capacity buckets: each token's
   top-k expert assignments are scattered into an ``[NE*C, H]`` bucket
@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from . import llama
 from .configs import ModelConfig
-from .llama import fuse_params  # noqa: F401  (same fused layout)
+from .llama import fuse_params, new_carry  # noqa: F401  (llama's layout)
 from .quant import q_einsum
 
 # Sentinel: "derive capacity from config.moe_capacity_factor".
@@ -157,6 +157,22 @@ def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,
                         capacity)
     return llama.prefill(params, config, tokens, prompt_lens, last_only,
                          mlp_fn=_mlp_fn(config, cap))
+
+
+def prefill_chunk(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                  carry_k: torch.Tensor, carry_v: torch.Tensor, offset: int,
+                  last_idx: Optional[torch.Tensor] = None,
+                  capacity=_AUTO) -> torch.Tensor:
+    """llama.prefill_chunk with the MoE MLP (same contract). The capacity
+    is reckoned from the CHUNK's R*C tokens, as the reference's, so under
+    a bounding ``moe_capacity_factor`` (mixtral-8x7b prefills at 2.0) an
+    expert bucket can overflow differently than in the whole-prompt
+    bucket: chunked prefill is exact only while no bucket overflows (the
+    dropless configs, capacity None, are exact)."""
+    cap = _capacity_for(config, int(tokens.shape[0] * tokens.shape[1]),
+                        capacity)
+    return llama.prefill_chunk(params, config, tokens, carry_k, carry_v,
+                               offset, last_idx, mlp_fn=_mlp_fn(config, cap))
 
 
 def decode_step_paged(params: dict, config: ModelConfig,

@@ -1,4 +1,4 @@
-"""The paged KV pool and the hand-written CUDA kernels of the decode path,
+"""The paged KV pool and the hand-written CUDA kernels of the serving path,
 each beside its plain PyTorch version:
 
 - :mod:`.paged_kv` — PagedKVCache, host-side page allocator, pool writes;
@@ -7,5 +7,7 @@ each beside its plain PyTorch version:
   of experts;
 - :mod:`.paged_attention` — kernel B, paged decode-append attention
   (csrc/paged_attention.cu);
+- :mod:`.prefill_attention` — kernel D, causal GQA prefill attention with
+  a query offset (csrc/prefill_attention.cu);
 - :mod:`._build` — nvcc build on first use + ctypes binding.
 """

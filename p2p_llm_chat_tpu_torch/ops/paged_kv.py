@@ -159,22 +159,14 @@ def _page_tiling(S: int, ps: int) -> tuple[int, int]:
     return (1, S) if S < ps else (-(-S // ps), ps)
 
 
-def write_prefill_batch(cache: PagedKVCache, chunk_k: torch.Tensor,
-                        chunk_v: torch.Tensor, rows: torch.Tensor,
-                        lens: torch.Tensor,
-                        tables: torch.Tensor) -> PagedKVCache:
-    """Splice an admission chunk's prefill KV into the pool, one page tile
-    per (row, logical page), and install the rows' tables and lengths.
-
-    chunk_k/v: [L, R, S, Hkv, D]; rows: [R] target batch rows (entries
-    >= B are padding and install nothing); lens: [R] valid tokens;
-    tables: [R, max_pages_per_row] physical page ids, zero past each
-    row's allocation. Tiles past a row's allocation land in page 0."""
+def _tile_scatter(cache: PagedKVCache, chunk_k: torch.Tensor,
+                  chunk_v: torch.Tensor, phys: torch.Tensor, P: int,
+                  ps_eff: int) -> None:
+    """Land [L, R, S, Hkv, D] k/v as R*P page tiles of width ``ps_eff`` at
+    physical pages ``phys`` [R*P] (a pure reshape under the token-major
+    layout; the last tile is zero-padded when S does not page-align)."""
     L, R, S = chunk_k.shape[:3]
     ps = cache.page_size
-    P, ps_eff = _page_tiling(S, ps)
-    dev = cache.k.device
-    phys = tables[:, :P].reshape(R * P).to(device=dev, dtype=torch.long)
 
     def tiles(x: torch.Tensor) -> torch.Tensor:
         if S % ps and S >= ps:
@@ -189,11 +181,76 @@ def write_prefill_batch(cache: PagedKVCache, chunk_k: torch.Tensor,
         arr[:, phys, :, :ps_eff] = tiles(upd).transpose(2, 3)
 
     _scatter_kv(cache, chunk_k, chunk_v, scatter, sscatter)
+
+
+def write_prefill_batch(cache: PagedKVCache, chunk_k: torch.Tensor,
+                        chunk_v: torch.Tensor, rows: torch.Tensor,
+                        lens: torch.Tensor,
+                        tables: torch.Tensor) -> PagedKVCache:
+    """Splice an admission chunk's prefill KV into the pool, one page tile
+    per (row, logical page), and install the rows' tables and lengths.
+
+    chunk_k/v: [L, R, S, Hkv, D]; rows: [R] target batch rows (entries
+    >= B are padding and install nothing); lens: [R] valid tokens;
+    tables: [R, max_pages_per_row] physical page ids, zero past each
+    row's allocation. Tiles past a row's allocation land in page 0."""
+    R, S = chunk_k.shape[1:3]
+    P, ps_eff = _page_tiling(S, cache.page_size)
+    dev = cache.k.device
+    phys = tables[:, :P].reshape(R * P).to(device=dev, dtype=torch.long)
+    _tile_scatter(cache, chunk_k, chunk_v, phys, P, ps_eff)
     rows = rows.to(device=dev, dtype=torch.long)
     keep = rows < cache.page_table.shape[0]
     r = rows[keep]
     cache.page_table[r] = tables.to(device=dev, dtype=torch.int32)[keep]
     cache.lengths[r] = lens.to(device=dev, dtype=torch.int32)[keep]
+    return cache
+
+
+def write_prefill_chunk(cache: PagedKVCache, chunk_k: torch.Tensor,
+                        chunk_v: torch.Tensor, tables: torch.Tensor,
+                        start: int) -> PagedKVCache:
+    """Splice ONE continuation-prefill chunk into the pool: chunk_k/v
+    [L, R, C, Hkv, D] cover token positions ``start .. start+C`` of each
+    row; tables [R, max_pages_per_row] are the rows' physical pages
+    (zero past each allocation, all zero for padding entries).
+
+    Installs NEITHER tables NOR lengths: the scheduler installs a row's
+    state with its FINAL chunk, so a half-prefilled row never looks live
+    (its live page-table row stays zeroed, and parked-row garbage writes
+    keep landing in page 0 while the chunks accumulate).
+
+    A page-aligned ``start`` takes write_prefill_batch's page tiles
+    shifted by ``start // page_size``; an unaligned one (a prefix-offset
+    chunk) scatters per token. Positions past a row's allocation land in
+    page 0."""
+    L, R, C = chunk_k.shape[:3]
+    ps = cache.page_size
+    mppr = tables.shape[1]
+    dev = cache.k.device
+    tables = tables.to(device=dev, dtype=torch.long)
+    if start % ps == 0:
+        P, ps_eff = _page_tiling(C, ps)
+        lp = start // ps + torch.arange(P, device=dev)      # logical pages
+        phys = torch.where((lp < mppr)[None, :],
+                           tables[:, lp.clamp(max=mppr - 1)], 0)
+        _tile_scatter(cache, chunk_k, chunk_v, phys.reshape(R * P), P,
+                      ps_eff)
+        return cache
+    pos = start + torch.arange(C, device=dev)
+    logical = pos // ps
+    phys = torch.where((logical < mppr)[None, :],
+                       tables[:, logical.clamp(max=mppr - 1)], 0)  # [R, C]
+    slot = (pos % ps)[None, :].expand(R, C)
+
+    def scatter(arr, upd):
+        arr[:, phys, slot] = upd
+
+    def sscatter(arr, upd):
+        # non-adjacent advanced indices move to the front: [R, C, L, Hkv]
+        arr[:, phys, :, slot] = upd.permute(1, 2, 0, 3)
+
+    _scatter_kv(cache, chunk_k, chunk_v, scatter, sscatter)
     return cache
 
 

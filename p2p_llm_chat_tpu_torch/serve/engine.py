@@ -11,10 +11,14 @@ a dense llama config or a mixtral (MoE) config, with bf16, int8 or int4
 weights, built through ``models.family_for(config)``. Features of the
 reference that later slices port fail loudly when asked for explicitly
 (``SERVE_SPEC>0``, ``SERVE_KV_HOST_GB>0``, ``SERVE_TP>1``,
-``SERVE_MODELS``, ``CKPT_DIR``, ``SERVE_KV=dense``, multi-host). The
-reference's defaults ``SERVE_PREFIX=1``, ``SERVE_FUSE=4`` and
-``SERVE_PREFILL_CHUNK=256`` do not change its output, so here they are
-logged as not run yet.
+``SERVE_MODELS``, ``CKPT_DIR``, ``SERVE_KV=dense``, multi-host). Prompt
+admission runs the reference's defaults: chunked prefill
+(``SERVE_PREFILL_CHUNK``, default 256, 0 disables) and the prefix cache
+(``SERVE_PREFIX``, default on, with the co-pilot template registered at
+warmup; ``SERVE_PREFIX_TEXTS`` adds ``||``-separated templates and
+``SERVE_PREFIX_MB`` bounds the store by bytes). The reference's default
+``SERVE_FUSE=4`` does not change its output, so here it is logged as not
+run yet.
 """
 
 from __future__ import annotations
@@ -28,12 +32,20 @@ from ..models import family_for
 from ..models.configs import get_config
 from ..tokenizer import ByteTokenizer
 from ..utils.device import resolve_device
-from ..utils.env import env_float, env_int, env_or
+from ..utils.env import env_bool, env_float, env_int, env_or
 from ..utils.log import get_logger
 from .backend import Backend, GenerateRequest, RequestStats
 from .scheduler import BatchScheduler
 
 log = get_logger("serve.torch_engine")
+
+
+# The head of the reference co-pilot's fixed prompt template (a copy of
+# p2p_llm_chat_tpu/serve/engine.py SUGGEST_PREFIX): every suggestion
+# request starts with these bytes, so its KV is registered in the prefix
+# cache at warmup.
+SUGGEST_PREFIX = ("You are a helpful assistant. Draft a concise, friendly "
+                  "reply to the following message:\n\n")
 
 
 def default_chat_prompt(messages: list[dict]) -> str:
@@ -55,15 +67,20 @@ class TorchEngine:
                  page_size: int = 64, num_pages: Optional[int] = None,
                  queue_timeout_s: Optional[float] = 60.0,
                  queue_max: Optional[int] = None, kv_quant: bool = False,
+                 prefix_cache: bool = True,
+                 prefix_texts: tuple[str, ...] = (SUGGEST_PREFIX,),
+                 prefill_chunk: int = 256,
                  name: Optional[str] = None,
                  device: Optional[torch.device | str] = None) -> None:
         self.name = name or config.name
         self.config = config
+        self.prefix_texts = tuple(prefix_texts) if prefix_cache else ()
         self.scheduler = BatchScheduler(
             params, config, tokenizer, num_slots=num_slots, max_seq=max_seq,
             page_size=page_size, num_pages=num_pages,
             queue_timeout_s=queue_timeout_s, queue_max=queue_max,
-            kv_quant=kv_quant, device=device)
+            kv_quant=kv_quant, prefix_cache=prefix_cache,
+            prefill_chunk=prefill_chunk, device=device)
 
     def generate_stream(self, req: GenerateRequest,
                         stats: Optional[RequestStats] = None) -> Iterator[str]:
@@ -74,12 +91,13 @@ class TorchEngine:
 
     def warmup(self, buckets: tuple[int, ...] = (128,)) -> None:
         """Run the serving path once before traffic, on a background
-        thread (on the card this builds and loads the CUDA kernels);
-        /readyz stays not-ready until it is done, and for good if it
-        fails (the error is kept in :attr:`warmup_error`)."""
+        thread (on the card this builds and loads the CUDA kernels), and
+        register the prefix templates; /readyz stays not-ready until it is
+        done, and for good if it fails (the error is kept in
+        :attr:`warmup_error`)."""
         def run() -> None:
             try:
-                self.scheduler.warmup(buckets)
+                self.scheduler.warmup(buckets, self.prefix_texts)
             except Exception:   # noqa: BLE001 — kept as warmup_error
                 log.exception("warmup failed")
 
@@ -145,17 +163,20 @@ def build_engine_from_env(device: Optional[str | torch.device] = None
         raise SystemExit(
             f"SERVE_KV_QUANT must be int8 or empty, got {kv_quant!r}")
     config = get_config(env_or("MODEL_CONFIG", "tiny"))
-    for flag, default, off in (("SERVE_PREFIX", "1", "0"),
-                               ("SERVE_FUSE", "4", "1"),
-                               ("SERVE_PREFILL_CHUNK", "256", "0")):
-        if env_or(flag, default) != off:
-            log.info("%s=%s: not run yet by the PyTorch engine (output is "
-                     "the same without it)", flag, env_or(flag, default))
+    if env_or("SERVE_FUSE", "4") != "1":
+        log.info("SERVE_FUSE=%s: not run yet by the PyTorch engine (output "
+                 "is the same without it)", env_or("SERVE_FUSE", "4"))
+    prefill_chunk = max(0, env_int("SERVE_PREFILL_CHUNK", 256))
+    prefix_cache = env_bool("SERVE_PREFIX", True)
+    prefix_texts = (SUGGEST_PREFIX,) + tuple(
+        t for t in env_or("SERVE_PREFIX_TEXTS", "").split("||") if t)
     dev = resolve_device(device)
     qt = env_float("SERVE_QUEUE_TIMEOUT", 60.0)
     qm = env_int("SERVE_QUEUE_MAX", -1)
-    log.info("serving random-init %s (%s weights, %s KV) on %s", config.name,
-             quant or "bf16", kv_quant or "bf16", dev)
+    log.info("serving random-init %s (%s weights, %s KV) on %s; prefill "
+             "chunk %d, prefix cache %s", config.name, quant or "bf16",
+             kv_quant or "bf16", dev, prefill_chunk,
+             "on" if prefix_cache else "off")
     params = family_for(config).init_params_quantized(
         config, seed=0, quant=quant, device=dev)
     engine = TorchEngine(
@@ -166,7 +187,8 @@ def build_engine_from_env(device: Optional[str | torch.device] = None
         num_pages=env_int("SERVE_PAGES", 0) or None,
         queue_timeout_s=qt if qt > 0 else None,
         queue_max=None if qm < 0 else qm,
-        kv_quant=bool(kv_quant),
+        kv_quant=bool(kv_quant), prefix_cache=prefix_cache,
+        prefix_texts=prefix_texts, prefill_chunk=prefill_chunk,
         name=env_or("LLM_MODEL", config.name), device=dev)
     warm = env_or("SERVE_WARMUP", "128")
     if warm and warm != "0":

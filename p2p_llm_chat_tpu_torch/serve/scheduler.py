@@ -7,12 +7,23 @@ queues only:
 
 - ``submit`` enqueues a request (a bounded queue: at ``queue_max`` queued
   requests it raises :class:`OverloadError`, the front's 503);
-- admission groups pending requests by power-of-two prompt bucket,
-  reserves each request's page budget from the :class:`PageAllocator`,
-  prefills the group together (the family's ``prefill``: models/llama.py
-  or models/mixtral.py, chosen by ``models.family_for``), splices its KV
-  into the pool (ops/paged_kv.write_prefill_batch) and samples each row's
-  first token;
+- admission groups pending requests by (cached prefix, power-of-two
+  prompt bucket), reserves each request's page budget from the
+  :class:`PageAllocator`, prefills the group together (the family's
+  ``prefill``: models/llama.py or models/mixtral.py, chosen by
+  ``models.family_for``), splices its KV into the pool
+  (ops/paged_kv.write_prefill_batch) and samples each row's first token;
+- chunked prefill: a bucket larger than ``prefill_chunk`` (which divides
+  it) admits through a carry in chunks of that width, ONE chunk per loop
+  iteration with decode ticks in between; each chunk's KV lands in the
+  rows' pages as it is computed (write_prefill_chunk), and the rows'
+  tables and lengths install only with the final chunk, which samples
+  from the carried logits;
+- the prefix cache (serve/prefix.py): a prompt that begins with a cached
+  prefix (a registered template such as the co-pilot's, or a head
+  auto-promoted after repeated sightings) prefills only its suffix, at
+  positions P.. over the prefix KV broadcast into each row's carry; the
+  combined KV is copied into the row's own pages;
 - one ``decode_step_paged`` per tick runs every row (parked rows ride
   along; their writes land in the garbage page), walking
   ``ceil(max live length / page_size)`` pages;
@@ -21,9 +32,10 @@ queues only:
 - detokenization is incremental and UTF-8 safe, and holds back text that
   may be the start of a stop string.
 
-Not in this slice (later ones): prefix cache, chunked prefill, fused
-K-step decode, speculation, KV tiering, tensor parallelism. None of them
-changes greedy output in the reference.
+Every prefill attention (whole prompt, chunk, prefix suffix) runs kernel
+D on the card. Not in this slice (later ones): prefix export/import,
+fused K-step decode, speculation, KV tiering, tensor parallelism. None of
+them changes greedy output in the reference.
 """
 
 from __future__ import annotations
@@ -41,13 +53,15 @@ from ..models.configs import ModelConfig
 from ..models.quant import param_bytes, quant_mode
 from ..models.sampling import sample_step_batched
 from ..ops.paged_kv import (PageAllocator, PagedKVCache, set_row_table,
-                            write_prefill_batch)
+                            write_prefill_batch, write_prefill_chunk)
 from ..tokenizer import Tokenizer
 from ..utils.device import resolve_device
+from ..utils.env import env_float
 from ..utils.log import get_logger
 from ..utils.metrics import Histogram
 from .backend import (GenerateRequest, OverloadError, RequestStats,
                       normalize_request)
+from .prefix import DEFAULT_GRAIN_LADDER, PrefixEntry, PrefixStore
 
 log = get_logger("serve.torch_scheduler")
 
@@ -57,6 +71,12 @@ _MIN_BUCKET = 16
 _ADMIT_TOKEN_BUDGET = 16384
 # Repeat-penalty recent-token window (Ollama repeat_last_n default).
 _RING = 64
+# A registered template shorter than this is not cached (it would save
+# almost nothing).
+_MIN_REGISTER_PREFIX = 8
+# Under sustained load (never idle), build a queued prefix promotion at
+# most once per this many decode ticks.
+_PROMOTE_EVERY_TICKS = 256
 
 
 def _bucket(n: int, max_seq: int) -> int:
@@ -85,6 +105,8 @@ class _Slot:
     ctx_len: int = 0                                   # tokens in the pool
     ctx_budget: int = 0
     pages: Optional[list[int]] = None
+    prefix: Optional[PrefixEntry] = None               # matched cached prefix
+    prefix_checked: bool = False                       # match() ran
     cancelled: threading.Event = field(default_factory=threading.Event)
     error: Optional[str] = None
     last_emit_t: float = 0.0
@@ -114,6 +136,28 @@ class _Slot:
     def fail(self, msg: str) -> None:
         self.error = msg
         self.finish()
+
+
+@dataclass
+class _PrefillCarry:
+    """A half-prefilled admission chunk (chunked prefill). Touched only by
+    the scheduler thread. ``k``/``v`` are the dense carry [L, R, P0+S,
+    Hkv, D] (the prefix in its first P0 slots), ``logits`` [R, V] the
+    rows' last-prompt-position logits, merged as chunks pass them."""
+
+    chunk: list[_Slot]
+    rows: list[int]
+    S: int                         # suffix bucket, a multiple of C
+    C: int                         # chunk width
+    off: int                       # suffix tokens already prefilled
+    prefix: Optional[PrefixEntry]
+    tokens: torch.Tensor           # [R, S] right-padded suffix tokens
+    suf_lens: torch.Tensor         # [R] suffix lengths
+    total_lens: torch.Tensor       # [R] prefix + suffix lengths
+    tables: torch.Tensor           # [R, max_pages_per_row] page maps
+    k: Optional[torch.Tensor] = None
+    v: Optional[torch.Tensor] = None
+    logits: Optional[torch.Tensor] = None
 
 
 class _SlotStream:
@@ -173,9 +217,23 @@ class BatchScheduler:
                  num_pages: Optional[int] = None,
                  queue_timeout_s: Optional[float] = 60.0,
                  queue_max: Optional[int] = None, kv_quant: bool = False,
+                 prefix_cache: bool = False, prefill_chunk: int = 256,
                  device: Optional[torch.device | str] = None) -> None:
+        """``prefill_chunk``: chunked prefill — a prompt whose bucket
+        exceeds this budget (power-of-two snapped; it must divide the
+        bucket, else the bucket admits in one piece) prefills in chunks
+        the loop interleaves with decode ticks. 0 disables.
+
+        ``prefix_cache``: shared-prefix KV caching (serve/prefix.py).
+        Register templates with :meth:`register_prefix` / warmup
+        ``prefix_texts``; a head seen twice auto-promotes.
+        ``SERVE_PREFIX_MB`` > 0 bounds the store by bytes (cost eviction)
+        instead of 8 entries."""
         if queue_max is not None and queue_max < 0:
             raise ValueError(f"queue_max must be >= 0, got {queue_max}")
+        if prefill_chunk < 0:
+            raise ValueError(
+                f"prefill_chunk must be >= 0, got {prefill_chunk}")
         self.device = resolve_device(device)
         self.config = config
         self.tokenizer = tokenizer
@@ -217,6 +275,24 @@ class BatchScheduler:
         self._n_expired = 0
         self._tbt_hist = Histogram("inter_token_ms")
         self._step_hist = Histogram("decode_step_ms")
+        self.prefill_chunk = (_bucket(prefill_chunk, self.max_seq)
+                              if prefill_chunk else 0)
+        self._prefill_carry: Optional[_PrefillCarry] = None
+        self._n_prefill_chunks = 0
+        # Ladder grains that could never pass the admission guard (P +
+        # the smallest suffix bucket > max_seq) are left out up front.
+        self._prefix: Optional[PrefixStore] = None
+        ladder = tuple(g for g in DEFAULT_GRAIN_LADDER
+                       if g + _MIN_BUCKET <= self.max_seq)
+        if prefix_cache and ladder:
+            mb = env_float("SERVE_PREFIX_MB", 0.0)
+            self._prefix = PrefixStore(grain_ladder=ladder,
+                                       max_bytes=int(mb * 1e6),
+                                       max_entries=64 if mb > 0 else 8)
+        self._n_prefix_admits = 0
+        self._n_prefix_tokens = 0
+        self._promote_q: list[tuple[int, ...]] = []
+        self._last_promote_tick = 0
         self._reset_device_state()
         self._admit_q: "queue.Queue[Optional[object]]" = queue.Queue()
         self._closed = threading.Event()
@@ -329,12 +405,14 @@ class BatchScheduler:
         finally:
             slot.cancelled.set()
 
-    def warmup(self, prompt_buckets: tuple[int, ...] = (128,)) -> None:
+    def warmup(self, prompt_buckets: tuple[int, ...] = (128,),
+               prefix_texts: tuple[str, ...] = ()) -> None:
         """Run the serving path once before traffic: on the card this
-        builds and loads both CUDA kernels and launches them at the
-        serving shapes (a prefill per bucket, then one decode tick with
-        every row parked — its writes land in the garbage page).
-        Blocks until the scheduler thread has run it."""
+        builds and loads the CUDA kernels and launches them at the
+        serving shapes (a prefill per bucket, the registration of each
+        prefix template, then one decode tick with every row parked — its
+        writes land in the garbage page). Blocks until the scheduler
+        thread has run it."""
         self.note_warmup_pending()
 
         def run() -> None:
@@ -346,6 +424,8 @@ class BatchScheduler:
                                   device=self.device)
                 self._family.prefill(self._params, self.config, toks,
                                      lens, last_only=True)
+            for text in prefix_texts:
+                self.register_prefix(text)
             active = torch.zeros((self.num_slots,), dtype=torch.bool,
                                  device=self.device)
             self._family.decode_step_paged(self._params, self.config,
@@ -362,6 +442,58 @@ class BatchScheduler:
             raise job.err
         self._warmup_done_at = time.monotonic()
 
+    # -- shared-prefix KV cache (scheduler thread) --------------------------
+
+    def _registered_prefix_len(self, text: str) -> int:
+        """Cached length for a registered template (0 = not cached): its
+        token head minus ONE, since match() needs a proper prefix (a prompt
+        that IS the template must still have a suffix token to prefill)."""
+        ids = self.tokenizer.encode(text, add_bos=True)
+        if len(ids) < _MIN_REGISTER_PREFIX:
+            log.warning("prefix_text %r encodes to %d tokens — below the "
+                        "%d-token minimum, not cached", text[:40], len(ids),
+                        _MIN_REGISTER_PREFIX)
+            return 0
+        P = len(ids) - 1
+        if P + _MIN_BUCKET > self.max_seq:
+            log.warning("prefix_text %r encodes to %d tokens — too long to "
+                        "ever admit under max_seq=%d, not cached",
+                        text[:40], len(ids), self.max_seq)
+            return 0
+        return P
+
+    def register_prefix(self, text: str) -> int:
+        """Cache the KV of ``text``'s token head at its exact length (minus
+        one; see :meth:`_registered_prefix_len`), built by a whole-prompt
+        prefill (kernel D on the card). Returns the cached length (0 = not
+        cached). Runs on the scheduler thread (warmup jobs)."""
+        if self._prefix is None:
+            return 0
+        P = self._registered_prefix_len(text)
+        if P <= 0:
+            return 0
+        ids = self.tokenizer.encode(text, add_bos=True)[:P]
+        self._install_prefix(ids)
+        return P
+
+    def _install_prefix(self, ids) -> None:
+        toks = torch.tensor([list(ids)], dtype=torch.long, device=self.device)
+        lens = torch.full((1,), len(ids), dtype=torch.long,
+                          device=self.device)
+        _, k_all, v_all = self._family.prefill(self._params, self.config,
+                                               toks, lens, last_only=True)
+        self._prefix.put(PrefixEntry(ids=tuple(ids),
+                                     k=k_all[:, 0].contiguous(),
+                                     v=v_all[:, 0].contiguous()))
+        log.info("cached prefix KV: %d tokens (%d entries)", len(ids),
+                 len(self._prefix))
+
+    def _build_promotion(self) -> None:
+        """Build one queued auto-promoted head (a prefill of P tokens)
+        between decode ticks."""
+        self._last_promote_tick = self._n_decode_ticks
+        self._install_prefix(self._promote_q.pop(0))
+
     def stop(self) -> None:
         self._closed.set()
         self._admit_q.put(None)
@@ -370,7 +502,8 @@ class BatchScheduler:
             if s is not None:
                 s.finish()
                 self._slots[i] = None
-        for s in self._waiting + self._admit_carry:
+        pc, self._prefill_carry = self._prefill_carry, None
+        for s in self._waiting + self._admit_carry + (pc.chunk if pc else []):
             s.finish()
         self._waiting, self._admit_carry = [], []
         while True:
@@ -389,7 +522,7 @@ class BatchScheduler:
         series this slice has."""
         with self._depth_mu:
             shed = self._n_shed
-        return {
+        out = {
             "serve_batch_occupancy": sum(s is not None for s in self._slots),
             "serve_batch_slots": self.num_slots,
             f'model_weight_bytes{{quant="{self._quant_mode or "bf16"}"}}':
@@ -408,18 +541,38 @@ class BatchScheduler:
                 self._tbt_hist.percentile(95) or 0.0, 4),
             "serve_kv_free_pages": self._alloc.free_pages,
             "serve_kv_total_pages": self.num_pages - 1,
+            "prefill_chunks_total": self._n_prefill_chunks,
         }
+        if self._prefix is not None:
+            out["serve_prefix_entries"] = len(self._prefix)
+            out["serve_prefix_admits_total"] = self._n_prefix_admits
+            out["serve_prefix_tokens_saved_total"] = self._n_prefix_tokens
+            out["prefix_hits_total"] = self._prefix.hits_total
+            out["prefix_misses_total"] = self._prefix.misses_total
+            out["prefix_evictions_total"] = self._prefix.evictions_total
+            out["prefix_bytes"] = self._prefix.nbytes
+        return out
 
     # -- scheduler thread --------------------------------------------------
 
     def _loop(self) -> None:
         while not self._closed.is_set():
             try:
-                self._admit_pending(block=not self._any_active())
+                self._admit_pending(block=not self._any_active()
+                                    and self._prefill_carry is None)
                 if self._closed.is_set():
                     return
+                if self._prefill_carry is not None:
+                    # ONE continuation chunk per iteration: live streams
+                    # stall at most one chunk's compute.
+                    self._prefill_step()
                 if self._any_active():
                     self._decode_tick()
+                    if (self._promote_q and self._n_decode_ticks
+                            - self._last_promote_tick > _PROMOTE_EVERY_TICKS):
+                        self._build_promotion()
+                elif self._promote_q and self._prefill_carry is None:
+                    self._build_promotion()     # idle: nobody to stall
             except Exception:   # noqa: BLE001 — fail requests, keep serving
                 log.exception("serving tick failed; failing in-flight "
                               "requests")
@@ -466,6 +619,16 @@ class BatchScheduler:
             slot.ctx_budget = ctx_limit
             if slot.stats is not None:
                 slot.stats.prompt_tokens = len(ids)
+            if self._prefix is not None:
+                # Auto-promotion: a head seen promote_after times is built
+                # later, between ticks (a bounded, deduped queue; a queued
+                # longer head covers a shorter one).
+                head = self._prefix.observe(ids)
+                if (head is not None and len(self._promote_q) < 8
+                        and not any(len(q) >= len(head)
+                                    and q[:len(head)] == head
+                                    for q in self._promote_q)):
+                    self._promote_q.append(head)
             out.append(slot)
         return out
 
@@ -503,8 +666,13 @@ class BatchScheduler:
 
     def _admit_pending(self, block: bool) -> None:
         """Admit pending requests into free rows, one prefill per
-        (bucket, chunk). With live streams, at most one chunk per call (the
-        rest carries), so a burst cannot stall decoding for long."""
+        (prefix, bucket, chunk). With live streams, at most one chunk per
+        call (the rest carries), so a burst cannot stall decoding for
+        long. A chunked admission in progress owns its rows (they are not
+        in ``_slots`` until its final chunk) and everything else waits
+        behind it."""
+        if self._prefill_carry is not None:
+            return
         free = self._free_rows()
         if not free:
             return
@@ -543,55 +711,164 @@ class BatchScheduler:
                     pending.append(s)
         if not pending:
             return
-        groups: dict[int, list[_Slot]] = {}
+        # Group by (cached prefix, bucket): a chunk's rows share one prefix
+        # entry, and the bucket covers only the suffix of a matched slot.
+        groups: dict[tuple, list[_Slot]] = {}
         for s in pending:
-            groups.setdefault(_bucket(len(s.prompt_ids), self.max_seq),
-                              []).append(s)
-        order = [(S, g) for S, g in sorted(groups.items())]
-        for gi, (S, group) in enumerate(order):
+            if self._prefix is not None and not s.prefix_checked:
+                s.prefix = self._prefix.match(s.prompt_ids)
+                s.prefix_checked = True
+                # The spliced carry is P + suffix-bucket wide; a prompt
+                # whose suffix bucket rounds past max_seq admits plainly.
+                if s.prefix is not None and s.prefix.length + _bucket(
+                        len(s.prompt_ids) - s.prefix.length,
+                        self.max_seq) > self.max_seq:
+                    s.prefix = None
+            P = s.prefix.length if s.prefix is not None else 0
+            key = (s.prefix.ids if s.prefix is not None else (),
+                   _bucket(len(s.prompt_ids) - P, self.max_seq))
+            groups.setdefault(key, []).append(s)
+        order = [(pkey, S, g) for (pkey, S), g in sorted(groups.items())]
+        for gi, (pkey, S, group) in enumerate(order):
             while group:
-                R = max(1, min(len(group), _ADMIT_TOKEN_BUDGET // S))
+                R = max(1, min(len(group),
+                               _ADMIT_TOKEN_BUDGET // (S + len(pkey))))
                 chunk, group = group[:R], group[R:]
                 rows = [free.pop(0) for _ in chunk]
+                C = self.prefill_chunk
                 try:
+                    if C and S > C and S % C == 0:
+                        # Chunked admission: the loop runs one chunk per
+                        # iteration; everything else queues behind it.
+                        self._start_prefill_carry(chunk, rows, S, C)
+                        self._admit_carry = group + [
+                            x for _, _, g in order[gi + 1:] for x in g]
+                        return
                     self._admit_chunk(chunk, rows, S)
                 except Exception:   # noqa: BLE001
                     log.exception("admission failed for %d request(s)",
                                   len(chunk))
-                    for s in chunk + group + [x for _, g in order[gi + 1:]
-                                              for x in g]:
+                    for s in chunk + group + [
+                            x for _, _, g in order[gi + 1:] for x in g]:
                         s.fail("internal error: admission failed")
                     self._fail_all_and_reset()
                     return
                 if had_active and (group or gi + 1 < len(order)):
                     self._admit_carry = group + [
-                        x for _, g in order[gi + 1:] for x in g]
+                        x for _, _, g in order[gi + 1:] for x in g]
                     return
 
-    def _admit_chunk(self, chunk: list[_Slot], rows: list[int],
-                     S: int) -> None:
-        """Prefill ``chunk`` together, splice its KV into the pool at
-        ``rows``, install per-row sampling state and sample each row's
-        first token."""
+    def _host_arrays(self, chunk: list[_Slot], S: int) -> tuple:
+        """(tokens [R, S] right-padded suffixes, suffix lens [R], total
+        lens [R], tables [R, max_pages_per_row]) on the host, for a chunk
+        whose slots share ``chunk[0].prefix``."""
+        prefix = chunk[0].prefix
+        P = prefix.length if prefix is not None else 0
         R = len(chunk)
-        dev = self.device
         tokens = torch.zeros((R, S), dtype=torch.long)
-        lens = torch.zeros((R,), dtype=torch.long)
+        suf = torch.zeros((R,), dtype=torch.long)
+        total = torch.zeros((R,), dtype=torch.long)
         tables = torch.zeros((R, self._cache.max_pages_per_row),
                              dtype=torch.int32)
         for i, slot in enumerate(chunk):
-            n = len(slot.prompt_ids)
-            tokens[i, :n] = torch.tensor(slot.prompt_ids, dtype=torch.long)
-            lens[i] = n
+            ids = slot.prompt_ids[P:]
+            tokens[i, :len(ids)] = torch.tensor(ids, dtype=torch.long)
+            suf[i] = len(ids)
+            total[i] = len(slot.prompt_ids)
             tables[i, :len(slot.pages)] = torch.tensor(slot.pages,
                                                        dtype=torch.int32)
-        logits, k_all, v_all = self._family.prefill(
-            self._params, self.config, tokens.to(dev), lens.to(dev),
-            last_only=True)
+        return tokens, suf, total, tables
+
+    def _admit_chunk(self, chunk: list[_Slot], rows: list[int],
+                     S: int) -> None:
+        """Prefill ``chunk`` together in one piece, splice its KV into the
+        pool at ``rows``, install per-row sampling state and sample each
+        row's first token. A prefix-matched chunk prefills only its
+        suffixes, at positions P.. over the prefix broadcast into a
+        P + S carry, and splices prefix + suffix into each row's pages."""
+        dev = self.device
+        prefix = chunk[0].prefix
+        tokens, suf, total, tables = self._host_arrays(chunk, S)
+        if prefix is None:
+            logits, k_all, v_all = self._family.prefill(
+                self._params, self.config, tokens.to(dev), total.to(dev),
+                last_only=True)
+        else:
+            P = prefix.length
+            k_all, v_all = self._family.new_carry(
+                self.config, len(chunk), P + S, self._dtype, dev, prefix.k,
+                prefix.v)
+            logits = self._family.prefill_chunk(
+                self._params, self.config, tokens.to(dev), k_all, v_all, P,
+                (suf - 1).to(dev))
+            self._n_prefix_admits += len(chunk)
+            self._n_prefix_tokens += P * len(chunk)
         write_prefill_batch(self._cache, k_all, v_all,
-                            torch.tensor(rows, dtype=torch.long), lens,
+                            torch.tensor(rows, dtype=torch.long), total,
                             tables)
         del k_all, v_all
+        self._install_admitted(chunk, rows, logits[:, 0, :])
+
+    def _start_prefill_carry(self, chunk: list[_Slot], rows: list[int],
+                             S: int, C: int) -> None:
+        """Begin a chunked admission: the host arrays are built once here,
+        the chunks run in :meth:`_prefill_step`, one per loop
+        iteration."""
+        tokens, suf, total, tables = self._host_arrays(chunk, S)
+        self._prefill_carry = _PrefillCarry(
+            chunk=chunk, rows=rows, S=S, C=C, off=0, prefix=chunk[0].prefix,
+            tokens=tokens, suf_lens=suf, total_lens=total, tables=tables)
+
+    def _prefill_step(self) -> None:
+        """Run ONE continuation chunk of the admission in progress: the
+        chunk's forward over the carry (kernel D at offset P0 + off), the
+        logits of rows whose last prompt position falls in it merged into
+        the carried logits, and its KV spliced into the rows' pages. The
+        final chunk installs the rows' tables and lengths and samples
+        their first tokens (TTFT lands there)."""
+        pc = self._prefill_carry
+        dev = self.device
+        C, off = pc.C, pc.off
+        P0 = pc.prefix.length if pc.prefix is not None else 0
+        base = P0 + off
+        R = len(pc.chunk)
+        if off == 0:
+            pc.k, pc.v = self._family.new_carry(
+                self.config, R, P0 + pc.S, self._dtype, dev,
+                *((pc.prefix.k, pc.prefix.v) if pc.prefix is not None
+                  else ()))
+            pc.logits = torch.zeros((R, self.config.vocab_size),
+                                    dtype=torch.float32, device=dev)
+        local_last = (pc.suf_lens - 1 - off).to(dev)
+        logits = self._family.prefill_chunk(
+            self._params, self.config, pc.tokens[:, off:off + C].to(dev),
+            pc.k, pc.v, base, local_last.clamp(0, C - 1))
+        keep = (local_last >= 0) & (local_last < C)
+        pc.logits = torch.where(keep[:, None], logits[:, 0, :], pc.logits)
+        lo = 0 if off == 0 else base       # the first chunk carries the prefix
+        write_prefill_chunk(self._cache, pc.k[:, :, lo:base + C],
+                            pc.v[:, :, lo:base + C], pc.tables, lo)
+        self._n_prefill_chunks += 1
+        pc.off = off + C
+        if pc.off < pc.S:
+            return
+        self._prefill_carry = None
+        rows = torch.tensor(pc.rows, dtype=torch.long, device=dev)
+        self._cache.page_table[rows] = pc.tables.to(dev)
+        self._cache.lengths[rows] = pc.total_lens.to(
+            device=dev, dtype=torch.int32)
+        if pc.prefix is not None:
+            self._n_prefix_admits += R
+            self._n_prefix_tokens += P0 * R
+        self._install_admitted(pc.chunk, pc.rows, pc.logits)
+
+    def _install_admitted(self, chunk: list[_Slot], rows: list[int],
+                          logits: torch.Tensor) -> None:
+        """Admission epilogue shared by the one-piece and the chunked
+        paths: install per-row sampling state, sample each row's first
+        token from ``logits`` ([R, V]), install the slots and stream."""
+        R = len(chunk)
+        dev = self.device
         rings = torch.full((R, _RING), self.config.vocab_size,
                            dtype=torch.long)
         for i, (slot, row) in enumerate(zip(chunk, rows)):
@@ -610,7 +887,7 @@ class BatchScheduler:
             self._gens[row] = gen
         self._ring[torch.tensor(rows, device=dev)] = rings.to(dev)
         # Each row's first token sits at context position len(prompt).
-        first = self._sample(logits[:, 0, :], rows,
+        first = self._sample(logits, rows,
                              [len(s.prompt_ids) for s in chunk])
         self._next[torch.tensor(rows, device=dev), 0] = torch.tensor(
             first, dtype=torch.long, device=dev)
@@ -745,7 +1022,8 @@ class BatchScheduler:
             if s is not None:
                 s.fail("internal error: serving state was reset")
                 self._slots[i] = None
-        for s in self._admit_carry + self._waiting:
+        pc, self._prefill_carry = self._prefill_carry, None
+        for s in self._admit_carry + self._waiting + (pc.chunk if pc else []):
             s.pages = None
             s.fail("internal error: serving state was reset")
         self._admit_carry, self._waiting = [], []

@@ -19,6 +19,8 @@ from p2p_llm_chat_tpu_torch.models.configs import get_config
 from p2p_llm_chat_tpu_torch.ops import paged_kv
 from p2p_llm_chat_tpu_torch.ops.paged_attention import (
     paged_attention_append, paged_attention_append_reference)
+from p2p_llm_chat_tpu_torch.ops.prefill_attention import (
+    prefill_attention, prefill_attention_reference)
 from p2p_llm_chat_tpu_torch.ops import quant_mm
 from p2p_llm_chat_tpu_torch.ops.quant_mm import (quant_matmul,
                                                  quant_matmul_reference)
@@ -70,7 +72,9 @@ def test_every_module_imports_without_jax_or_nvcc():
                 "p2p_llm_chat_tpu_torch.models.mixtral",
                 "p2p_llm_chat_tpu_torch.ops.quant_mm",
                 "p2p_llm_chat_tpu_torch.ops.paged_attention",
+                "p2p_llm_chat_tpu_torch.ops.prefill_attention",
                 "p2p_llm_chat_tpu_torch.serve.api",
+                "p2p_llm_chat_tpu_torch.serve.prefix",
                 "p2p_llm_chat_tpu_torch.serve.scheduler"}
     assert expected <= set(got["modules"])
 
@@ -149,7 +153,13 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
         fn.launches = 0
         plain = getattr(quant_mm, fn.__name__ + "_reference")
         assert torch.equal(fn(*args), plain(*args))
-    for fn in (quant_matmul, paged_attention_append, quant_mm.quant_matmul4,
+    prefill_attention.launches = 0
+    qa = torch.from_numpy(rng.normal(size=(2, 5, 4, 32)).astype(np.float32))
+    assert torch.equal(prefill_attention(qa, ck[0, :, :9], ck[1, :, :9], 4),
+                       prefill_attention_reference(qa, ck[0, :, :9],
+                                                   ck[1, :, :9], 4))
+    for fn in (quant_matmul, paged_attention_append, prefill_attention,
+               quant_mm.quant_matmul4,
                quant_mm.quant_matmul_experts_stacked,
                quant_mm.quant_matmul_experts_stacked4):
         assert fn.launches == 0, fn.__name__
