@@ -10,30 +10,42 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 1. build  — nvcc builds every CUDA kernel from csrc/ (in parallel);
 2. kernel — each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with CUDA-event timings beside the bound:
-   kernel A (w8a16) at the llama3.1-8b shapes, kernel B (paged attention),
-   kernel C (w4a16) at the mixtral-8x7b and llama3.1-8b int4 shapes plus
-   ragged ones, the expert grids of kernels A and C at mixtral-8x7b's
-   expert shapes, and kernel D (causal prefill attention) on whole
-   prompts, the 256-wide chunks of a 2048 prompt (rows bitwise equal to
-   the whole prompt's), a co-pilot-template suffix and ragged shapes;
+   kernel A (w8a16) at the llama3.1-8b shapes, kernel B's append mode
+   (paged attention, current token seeded) and its pool mode
+   (write-then-attend: a bf16 pool at the llama3.1-8b step, ragged
+   geometries with NaN in every dead slot, an int8 pool under the gather
+   impl), kernel C (w4a16) at the mixtral-8x7b and llama3.1-8b int4
+   shapes plus ragged ones, the expert grids of kernels A and C at
+   mixtral-8x7b's expert shapes, kernel D (causal prefill attention) on
+   whole prompts, the 256-wide chunks of a 2048 prompt (rows bitwise
+   equal to the whole prompt's), a co-pilot-template suffix and ragged
+   shapes, and kernel E (w8a8 on int8 tensor cores, bitwise against its
+   plain version at the mm_micro and llama3.1-8b shapes and ragged ones),
+   after which the mm_micro twin (p2p_llm_chat_tpu_torch/tools/mm_micro)
+   runs once and prints its table;
 3. step   — one full-width decode step (depth cut to 2 layers) through the
    kernels on the card, against the same step through the plain path on
-   the CPU (same weights, same pool): llama3.1-8b int8, then mixtral-8x7b
-   int8 and int4; for the int8 models also a prefill through kernel D
-   against the CPU's plain prefill, and a chunked prefill against the
-   whole-prompt prefill on the card;
+   the CPU (same weights, same pool): llama3.1-8b int8 over an int8 pool
+   and over a bf16 pool through the write-then-attend branch
+   (PAGED_ATTN_IMPL=kernel), then mixtral-8x7b int8 and int4; for the
+   int8 models also a prefill through kernel D against the CPU's plain
+   prefill, and a chunked prefill against the whole-prompt prefill on the
+   card;
 4. server — the port's engine behind its Ollama front on localhost
    answers 7 concurrent requests (one 1500-token prompt, one co-pilot
-   request) and two greedy reruns, four times: llama3.1-8b int8 with the
+   request) and two greedy reruns, five times: llama3.1-8b int8 with the
    reference's admission defaults (chunked prefill at 256, the prefix
-   cache) and with SERVE_PREFILL_CHUNK=0, then mixtral-8x7b int8 and int4
-   (32 layers each, int8 paged KV). Before each burst every kernel's
-   launch counter is zeroed; after it, the kernels of that path must have
-   grown, the co-pilot request must have taken the prefix path and the
-   long prompt must have admitted in chunks where chunking is on.
+   cache) and with SERVE_PREFILL_CHUNK=0, llama3.1-8b int8 over a bf16
+   pool with PAGED_ATTN_IMPL=kernel (kernel B's pool mode only), then
+   mixtral-8x7b int8 and int4 (32 layers each, int8 paged KV). Before each
+   burst every kernel's launch counter is zeroed; after it, the kernels of
+   that path must have grown, the other decode branch's attention kernel
+   must not have, the co-pilot request must have taken the prefix path and
+   the long prompt must have admitted in chunks where chunking is on.
 
 Optional (``--only build,profile``): ``profile`` — one 32-layer decode
-step at B=8, W=1024 of llama3.1-8b int8 and of mixtral-8x7b int8 and int4,
+step at B=8, W=1024 of llama3.1-8b int8 (int8 pool, and bf16 pool through
+the write-then-attend branch) and of mixtral-8x7b int8 and int4,
 timed with CUDA events and broken down by kernel with torch.profiler, with
 the device's idle share; and one 32-layer llama3.1-8b int8 prefill of a
 2048-token prompt, whole and as 8 chunks of 256, broken down the same way.
@@ -62,6 +74,7 @@ import urllib.request
 # of its bytes over the memory rate and its operations over the bf16 rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 L2_BYTES = 50 * 2 ** 20
 
 A_TOL = 1e-2        # of max|plain|: one bf16 rounding of the output (2^-8)
@@ -89,8 +102,9 @@ def check(ok: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS
+             ) -> tuple[float, str]:
+    tb, tf = nbytes / PEAK_BYTES_PER_S, flops / peak
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -403,6 +417,205 @@ def phase_kernel_b(results: dict) -> None:
               "already-gathered dequantized window, excluding the gather",
         ms=round(32 * ms, 4), plain_ms=round(32 * plain, 4),
         bound_ms=round(32 * b_ms, 4), library_ms=round(32 * lib, 4))
+
+
+def _poison_dead(cache, lengths) -> None:
+    """NaN (int8 pools: NaN k scales, Inf v scales) in every slot of each
+    row's own pages at or past its length: never read by the kernel."""
+    ps = cache.page_size
+    pt = cache.page_table.cpu()
+    for b, n in enumerate(lengths):
+        for pos in range(n, pt.shape[1] * ps):
+            page = int(pt[b, pos // ps])
+            if page == 0:
+                break
+            if cache.quantized:
+                cache.k_scale[:, page, :, pos % ps] = float("nan")
+                cache.v_scale[:, page, :, pos % ps] = float("inf")
+            else:
+                cache.k[:, page, pos % ps] = float("nan")
+                cache.v[:, page, pos % ps] = float("nan")
+
+
+def phase_kernel_b_pool(results: dict) -> None:
+    """Kernel B's pool mode (write-then-attend: TPU kernel rows 4 and 6,
+    and the gather impl's int8 pool) against the plain version of each
+    impl: llama3.1-8b geometry (B=8, Hq 32, Hkv 8, D 128, W=1024, a bf16
+    pool of 32 layers), ragged geometries (rep 1, 3, 8; D 32, 64; lengths
+    of 1, on a page boundary and short of a window that reaches past the
+    live pages, with NaN in every dead slot), and an int8 pool under
+    impl="gather". Timed per 32-layer step beside its bound and SDPA over
+    the already-gathered window."""
+    import torch
+    import torch.nn.functional as F
+    from p2p_llm_chat_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_plain)
+    worst = 0.0
+
+    def case(label, cache, q, pages, layer, impl):
+        nonlocal worst
+        args = (q, cache.k, cache.v, cache.page_table, cache.lengths, layer)
+        kw = dict(pages=pages, impl=impl, k_scale=cache.k_scale,
+                  v_scale=cache.v_scale)
+        worst = max(worst, _rel_err(f"kernel B pool {label} impl={impl}",
+                                    paged_attention(*args, **kw),
+                                    paged_attention_plain(*args, **kw),
+                                    B_TOL))
+
+    for (Hq, Hkv, D) in ((8, 8, 64), (12, 4, 32), (64, 8, 64)):
+        # A single token, a page boundary, a partial last page, a row
+        # whose window reaches past its live pages into NaN page 0.
+        W = 300
+        lengths = [1, 128, 257, 64]
+        cache, q, _, _, pages = _paged_case(False, Hq, Hkv, D, W, lengths,
+                                            seed=Hq + D)
+        _poison_dead(cache, lengths)
+        for impl in ("kernel", "flash"):
+            case(f"bf16 Hq={Hq} Hkv={Hkv} D={D} W={pages * 64} "
+                 f"lengths={lengths}", cache, q, pages, 1, impl)
+        del cache
+    for quantized in (True, False):
+        lengths = [1024, 64, 1000, 1]
+        cache, q, _, _, pages = _paged_case(quantized, 32, 8, 128, 1024,
+                                            lengths, seed=7)
+        _poison_dead(cache, lengths)
+        case(f"{'int8' if quantized else 'bf16'} Hq=32 Hkv=8 D=128 W=1024 "
+             f"lengths={lengths}", cache, q, pages, 1,
+             "gather" if quantized else "kernel")
+        del cache
+    # llama3.1-8b step: B=8, W=1024 (the slot this step wrote included),
+    # a bf16 pool of 32 layers; one launch per layer.
+    B, W, Hq, Hkv, D, L = 8, 1024, 32, 8, 128, 32
+    cache, q, _, _, pages = _paged_case(False, Hq, Hkv, D, W, [W] * B, L=L,
+                                        seed=98, nan_page0=False)
+    args = lambda i: (q, cache.k, cache.v, cache.page_table, cache.lengths,
+                      i % L)
+    for layer in (0, 17, 31):
+        case(f"bf16 B={B} W={W} layer {layer} (8B step)", cache, q, pages,
+             layer, "kernel")
+    ms = time_ms(lambda i: paged_attention(*args(i), pages=pages,
+                                           impl="kernel"), 3 * L)
+    plain = time_ms(lambda i: paged_attention_plain(*args(i), pages=pages,
+                                                    impl="kernel"), 8,
+                    warmup=1)
+    kw, vw = [], []
+    for layer in range(L):
+        idx = cache.page_table[:, :pages].long()
+        kw.append(cache.k[layer][idx].reshape(B, W, Hkv, D).permute(
+            0, 2, 1, 3).repeat_interleave(Hq // Hkv, 1))
+        vw.append(cache.v[layer][idx].reshape(B, W, Hkv, D).permute(
+            0, 2, 1, 3).repeat_interleave(Hq // Hkv, 1))
+    q4 = q[:, :, None, :]
+    lib = time_ms(lambda i: F.scaled_dot_product_attention(
+        q4, kw[i % L], vw[i % L]), 3 * L)
+    del kw, vw
+    tokens = B * W
+    nbytes = tokens * Hkv * D * 2 * 2 + 2 * q.numel() * 2 + 4 * B
+    b_ms, kind = bound_ms(nbytes, 4.0 * tokens * Hq * D)
+    print(f"  kernel B pool bf16 B={B} W={W} (8B geometry): {ms * 1e3:.1f} "
+          f"us per layer (bound {b_ms * 1e3:.1f} us, {kind}; "
+          f"{b_ms / ms:.0%} of bound); plain {plain * 1e3:.1f} us; SDPA on "
+          f"a pre-gathered window (gather excluded) {lib * 1e3:.1f} us")
+    results["paged_attention"] = dict(
+        name="paged_attention", route="cuda",
+        source="p2p_llm_chat_tpu_torch/csrc/paged_attention.cu",
+        replaces="p2p_llm_chat_tpu/ops/paged_attention.py:160",
+        also_replaces="p2p_llm_chat_tpu/ops/paged_attention.py:1086",
+        max_abs_err=worst, bound_by=kind,
+        scope="kernel B pool mode (write-then-attend), one llama3.1-8b "
+              "decode step at B=8, W=1024, bf16 pool: 32 launches; "
+              "library_ms is SDPA over an already-gathered window, "
+              "excluding the gather",
+        ms=round(L * ms, 4), plain_ms=round(L * plain, 4),
+        bound_ms=round(L * b_ms, 4), library_ms=round(L * lib, 4))
+
+
+def phase_kernel_e(results: dict) -> None:
+    """Kernel E (w8a8, int8 tensor cores) against its plain version,
+    bitwise or within 1 bf16 ulp (the count of differing elements is
+    printed): the reference's five SHAPES and llama3.1-8b's five
+    projections at M = 32, plus ragged shapes (M, H, O off every tile
+    and vector width, split and unsplit). Then the mm_micro twin runs once
+    over both tables (its launches are this entry point's) and its times
+    fill the record: the w8a8 walk over the reference's SHAPES beside its
+    bound, the plain version and torch._int_mm."""
+    import torch
+    from p2p_llm_chat_tpu_torch.models.quant import quantize
+    from p2p_llm_chat_tpu_torch.tools import mm_micro
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    worst_ulp, worst_abs = 0, 0.0
+    plain_ms = 0.0
+    shapes = [(32, H, O) for H, O in mm_micro.SHAPES + mm_micro.PROJ]
+    shapes += [(5, 100, 200), (37, 4100, 1000), (3, 64, 16), (33, 2048, 136)]
+    for M, H, O in shapes:
+        qt = quantize((torch.randn((H, O), generator=gen, device=dev)
+                       * H ** -0.5).to(torch.bfloat16))
+        x = torch.randn((M, H), generator=gen, device=dev).to(torch.bfloat16)
+        out = mm_micro.w8a8_matmul(x, qt.q, qt.s)
+        ref = mm_micro.w8a8_matmul_reference(x, qt.q, qt.s)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"kernel E M={M} H={H} "
+              f"O={O}: non-finite output")
+        ulp = (out.view(torch.int16).int() - ref.view(torch.int16).int()
+               ).abs()
+        n_diff = int((ulp > 0).sum())
+        worst_ulp = max(worst_ulp, int(ulp.max()))
+        worst_abs = max(worst_abs, (out.float() - ref.float()).abs().max()
+                        .item())
+        print(f"  kernel E M={M} H={H} O={O}: {n_diff} of {out.numel()} "
+              f"elements differ from the plain version, max "
+              f"{int(ulp.max())} bf16 ulp (tol 1)")
+        check(int(ulp.max()) <= 1, f"kernel E M={M} H={H} O={O}: "
+              f"{int(ulp.max())} ulp > 1")
+        if (H, O) in mm_micro.SHAPES and M == 32:
+            plain_ms += time_ms(lambda i: mm_micro.w8a8_matmul_reference(
+                x, qt.q, qt.s), 3, warmup=1)
+        del qt
+        torch.cuda.empty_cache()
+    mm_micro.w8a8_matmul.launches = 0
+    table = mm_micro.main(["--proj", "all"])
+    launches = mm_micro.w8a8_matmul.launches
+    check(launches > 0, "the mm_micro twin never launched kernel E")
+    ref_rows = [table[hw] for hw in mm_micro.SHAPES]
+    llama_rows = [table[hw] for hw in mm_micro.PROJ]
+    tot = {k: sum(r[k] for r in ref_rows) for k in ref_rows[0]}
+    llama = {k: sum(r[k] for r in llama_rows) for k in llama_rows[0]}
+    ops = sum(2.0 * 32 * H * O for H, O in mm_micro.SHAPES)
+    # Kernel E's own operands: the int8 weight and rows, both scales, the
+    # bf16 output.
+    nbytes = sum(H * O + 4 * O + 32 * H + 4 * 32 + 2 * 32 * O
+                 for H, O in mm_micro.SHAPES)
+    b_ms, kind = bound_ms(nbytes, ops, PEAK_INT8_OPS)
+    print(f"  kernel E over the reference's SHAPES at M=32: "
+          f"{tot['w8a8-kernel']:.4f} ms (bound {b_ms:.4f} ms, {kind}; "
+          f"{b_ms / tot['w8a8-kernel']:.0%} of bound); with the torch row "
+          f"quantization {tot['w8a8']:.4f} ms; plain {plain_ms:.4f} ms; "
+          f"torch._int_mm + epilogue {tot['int8-lib']:.4f} ms; kernel A "
+          f"(w8a16) {tot['w8a16']:.4f} ms; bf16 torch.matmul "
+          f"{tot['bf16']:.4f} ms. llama3.1-8b projections at M=32: kernel E "
+          f"{llama['w8a8-kernel']:.4f} ms, kernel A {llama['w8a16']:.4f} ms, "
+          f"torch._int_mm {llama['int8-lib']:.4f} ms, bf16 torch.matmul "
+          f"{llama['bf16']:.4f} ms")
+    results["w8a8_matmul"] = dict(
+        name="w8a8_matmul", route="cuda",
+        source="p2p_llm_chat_tpu_torch/csrc/w8a8_mm.cu",
+        replaces="tools/mm_micro.py:53",
+        launches=launches,
+        launches_by_path={"mm_micro --proj all": launches},
+        max_abs_err=worst_abs, max_ulp=worst_ulp, bound_by=kind,
+        scope="kernel E alone on quantized rows, one walk over the "
+              "reference's five mm_micro SHAPES at M=32 (5 launches); "
+              "function_ms adds the torch row quantization (w8a8_matmul); "
+              "plain_ms is the plain w8a8_matmul_reference; library_ms is "
+              "torch._int_mm with the same epilogue",
+        ms=round(tot["w8a8-kernel"], 4), plain_ms=round(plain_ms, 4),
+        bound_ms=round(b_ms, 4), library_ms=round(tot["int8-lib"], 4),
+        function_ms=round(tot["w8a8"], 4),
+        kernel_a_ms=round(tot["w8a16"], 4),
+        llama_proj_ms=round(llama["w8a8-kernel"], 4),
+        llama_proj_kernel_a_ms=round(llama["w8a16"], 4),
+        llama_proj_library_ms=round(llama["int8-lib"], 4))
 
 
 def _rand_qkv(gen, R, Sq, Skv, Hq, Hkv, D):
@@ -750,9 +963,11 @@ def _chunked_prefill(fam, params, cfg, toks, n: int, C: int):
     return out
 
 
-def phase_step(model: str, quant: str, prefill_check: bool) -> None:
+def phase_step(model: str, quant: str, prefill_check: bool,
+               impl: str = "gather") -> None:
     """One decode step of ``model`` at full width, depth cut to 2 layers,
-    ``quant`` weights + an int8 pool: the prompt is prefilled on the card,
+    ``quant`` weights + an int8 pool (a bf16 pool under a write-then-attend
+    ``impl``, kernel B's pool mode): the prompt is prefilled on the card,
     then the same step runs through the kernels on the card and through
     the plain path on the CPU from the same weights and pool. With
     ``prefill_check``, also a 200-token prefill (bucket 256, kernel D) on
@@ -784,8 +999,9 @@ def phase_step(model: str, quant: str, prefill_check: bool) -> None:
     toks[0, :n] = torch.randint(0, cfg.vocab_size, (n,), generator=gen)
     lens = torch.tensor([n])
     ps, B, mppr = 64, 2, 4
+    wta = impl != "gather"
     cache = PagedKVCache.create(cfg, B, 1 + B * mppr, ps,
-                                max_pages_per_row=mppr, quantized=True,
+                                max_pages_per_row=mppr, quantized=not wta,
                                 device=dev)
     logits, k_all, v_all = fam.prefill(params, cfg, toks.to(dev),
                                        lens.to(dev), last_only=True)
@@ -797,9 +1013,15 @@ def phase_step(model: str, quant: str, prefill_check: bool) -> None:
     tok = logits[:, 0].argmax(-1).reshape(1, 1)
     tokens = torch.cat([tok, torch.zeros_like(tok)])     # row 1 parked
     active = torch.tensor([True, False])
-    pages = -(-n // ps)
+    pages = -(-(n + wta) // ps)
+    launched = {k: f.launches for k, f in _wrappers().items()}
     out_gpu, _ = fam.decode_step_paged(params, cfg, tokens, cache,
-                                       active.to(dev), pages=pages)
+                                       active.to(dev), pages=pages,
+                                       impl=impl)
+    attn = "paged_attention" if wta else "paged_attention_append"
+    check(_wrappers()[attn].launches - launched[attn] == cfg.num_layers,
+          f"step {model} impl={impl}: {attn} was not launched on every "
+          "layer")
     if prefill_check:
         pn, pS = 200, 256
         ptoks = torch.zeros((1, pS), dtype=torch.long)
@@ -837,7 +1059,8 @@ def phase_step(model: str, quant: str, prefill_check: bool) -> None:
     torch.cuda.empty_cache()
     t0 = time.monotonic()
     out_cpu, _ = fam.decode_step_paged(params_cpu, cfg, tokens.cpu(),
-                                       cpu_cache, active, pages=pages)
+                                       cpu_cache, active, pages=pages,
+                                       impl=impl)
     cpu_s = time.monotonic() - t0
     g, c = out_gpu[0, 0].float().cpu(), out_cpu[0, 0].float()
     check(bool(torch.isfinite(g).all()), f"step {model}: non-finite card "
@@ -845,16 +1068,26 @@ def phase_step(model: str, quant: str, prefill_check: bool) -> None:
     err = (g - c).abs().max().item()
     scale = c.abs().max().item()
     same = int(g.argmax()) == int(c.argmax())
-    print(f"step: {model} dims, 2 layers, {quant} weights + int8 pool, "
-          f"prompt {n}: card vs CPU plain logits max_abs_err {err:.4f}, "
+    print(f"step: {model} dims, 2 layers, {quant} weights + "
+          f"{'bf16 pool, write-then-attend' if wta else 'int8 pool'} "
+          f"(impl={impl}), prompt {n}: card vs CPU plain logits max_abs_err "
+          f"{err:.4f}, "
           f"max|logits| {scale:.3f} (tol {STEP_TOL:.0e} of max), argmax "
           f"{'equal' if same else 'differs'}; CPU step {cpu_s:.1f} s")
     check(err <= STEP_TOL * scale, f"step {model} {quant}: logits err "
           f"{err:.4f} > {STEP_TOL} x {scale:.3f}")
-    if cfg.is_moe:
-        check(same, f"step {model} {quant}: argmax differs")
+    if cfg.is_moe or wta:
+        check(same, f"step {model} {quant} impl={impl}: argmax differs")
     check(torch.equal(cache.lengths.cpu(), cpu_cache.lengths),
           f"step {model}: lengths differ")
+    if wta:    # both pools hold the step's k/v, one bf16 rounding apart
+        live = cache.page_table[0, :pages].long().cpu()
+        for name in ("k", "v"):
+            g = getattr(cache, name)[:, live].float().cpu()
+            c = getattr(cpu_cache, name)[:, live].float()
+            err = (g - c).abs().max().item()
+            check(err <= STEP_TOL * c.abs().max().item(),
+                  f"step {model} impl={impl}: pool {name} err {err:.4f}")
     if prefill_check:
         t0 = time.monotonic()
         pre_cpu = fam.prefill(params_cpu, cfg, ptoks, plens,
@@ -882,15 +1115,16 @@ def _kernel_group(name: str) -> str:
         return "kernel C (w4a16, dense and experts)"
     if "qmm_kernel" in name or "qmm_reduce" in name:
         return "kernel A (w8a16, dense and experts)"
-    if "append_split_kernel" in name or "append_combine_kernel" in name:
-        return "kernel B (paged_attention_append)"
+    if "paged_split_kernel" in name or "paged_combine_kernel" in name:
+        return "kernel B (paged attention, append or pool mode)"
     return "other"
 
 
 def phase_profile(model: str, quant: str, B: int = 8, W: int = 1024,
-                  steps: int = 10) -> None:
-    """One ``model`` decode step (32 layers, ``quant`` weights, int8 pool)
-    at ``B`` rows of ``W`` pool tokens: wall time with CUDA events over
+                  steps: int = 10, impl: str = "gather") -> None:
+    """One ``model`` decode step (32 layers, ``quant`` weights, an int8
+    pool; under a write-then-attend ``impl`` a bf16 pool) at ``B`` rows
+    of ``W`` pool tokens: wall time with CUDA events over
     ``steps`` steps, then a torch.profiler pass summing device time by
     kernel (each kernel once, as its own event) and the device's idle
     share of the profiled wall time. Not part of the default run."""
@@ -909,14 +1143,19 @@ def phase_profile(model: str, quant: str, B: int = 8, W: int = 1024,
     params = fam.init_params_quantized(cfg, seed=5, quant=quant, device=dev)
     ps = 64
     per_row = W // ps + 1                       # + the page the step writes
+    wta = impl != "gather"
     cache = PagedKVCache.create(cfg, B, 1 + B * per_row, ps,
-                                max_pages_per_row=per_row, quantized=True,
+                                max_pages_per_row=per_row, quantized=not wta,
                                 device=dev)
     gen = torch.Generator(device=dev).manual_seed(5)
-    cache.k.random_(-127, 128, generator=gen)
-    cache.v.random_(-127, 128, generator=gen)
-    cache.k_scale.uniform_(0.0, 1.0 / 64, generator=gen)
-    cache.v_scale.uniform_(0.0, 1.0 / 64, generator=gen)
+    if wta:
+        cache.k.normal_(generator=gen)
+        cache.v.normal_(generator=gen)
+    else:
+        cache.k.random_(-127, 128, generator=gen)
+        cache.v.random_(-127, 128, generator=gen)
+        cache.k_scale.uniform_(0.0, 1.0 / 64, generator=gen)
+        cache.v_scale.uniform_(0.0, 1.0 / 64, generator=gen)
     cache.page_table.copy_(1 + torch.arange(B * per_row, device=dev,
                                             dtype=torch.int32).reshape(
                                                 B, per_row))
@@ -927,7 +1166,7 @@ def phase_profile(model: str, quant: str, B: int = 8, W: int = 1024,
     def step(_i: int = 0) -> None:
         cache.lengths.fill_(W)
         fam.decode_step_paged(params, cfg, tokens, cache, active,
-                              pages=pages)
+                              pages=pages, impl=impl)
 
     wall = time_ms(step, steps)
     torch.cuda.synchronize()
@@ -958,7 +1197,8 @@ def phase_profile(model: str, quant: str, B: int = 8, W: int = 1024,
     # taken against the unprofiled step time (device kernel times are
     # not inflated by it).
     print(f"profile: {model} decode step, 32 layers, {quant} weights + "
-          f"int8 pool, B={B} W={W}: {wall:.3f} ms per step (CUDA events, "
+          f"{'bf16 pool (write-then-attend)' if wta else 'int8 pool'}, "
+          f"B={B} W={W}: {wall:.3f} ms per step (CUDA events, "
           f"{steps} steps, no profiler); device busy {busy:.3f} ms per "
           f"step -> idle share {max(0.0, 1 - busy / wall):.1%}; under the "
           f"profiler {prof_wall:.3f} ms wall per step")
@@ -1055,12 +1295,15 @@ def _wrappers() -> dict:
     """Every kernel wrapper of the port, by name (each counts its
     launches in ``.launches``)."""
     from p2p_llm_chat_tpu_torch.ops import quant_mm
-    from p2p_llm_chat_tpu_torch.ops.paged_attention import \
-        paged_attention_append
+    from p2p_llm_chat_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_append)
     from p2p_llm_chat_tpu_torch.ops.prefill_attention import \
         prefill_attention
+    from p2p_llm_chat_tpu_torch.tools.mm_micro import w8a8_matmul
     return {"quant_matmul": quant_mm.quant_matmul,
             "paged_attention_append": paged_attention_append,
+            "paged_attention": paged_attention,
+            "w8a8_matmul": w8a8_matmul,
             "prefill_attention": prefill_attention,
             "quant_matmul4": quant_mm.quant_matmul4,
             "quant_matmul_experts_stacked":
@@ -1070,28 +1313,34 @@ def _wrappers() -> dict:
 
 
 def phase_server(results: dict, model: str, quant: str,
-                 expect: tuple[str, ...], prefill_chunk: int = 256) -> None:
-    """The engine for ``model`` at ``quant`` weights (32 layers, int8
-    paged KV, 8 slots, max_seq 4096, the prefix cache on with the co-pilot
-    template registered, chunked prefill at ``prefill_chunk``; 0 admits
-    every prompt in one piece) behind the Ollama front answers the
-    7-request burst and two greedy reruns; every kernel's launch counter
-    is zeroed just before the burst and read just after the reruns, and
-    each kernel in ``expect`` must have been launched. The co-pilot
-    request must take the prefix path, and with chunking on the long
-    prompt must admit in chunks."""
+                 expect: tuple[str, ...], prefill_chunk: int = 256,
+                 impl: str = "gather") -> None:
+    """The engine for ``model`` at ``quant`` weights (32 layers, paged KV
+    — int8 under the default attend-then-write ``impl``, bf16 under a
+    write-then-attend one — 8 slots, max_seq 4096, the prefix cache on
+    with the co-pilot template registered, chunked prefill at
+    ``prefill_chunk``; 0 admits every prompt in one piece) behind the
+    Ollama front answers the 7-request burst and two greedy reruns; every
+    kernel's launch counter is zeroed just before the burst and read just
+    after the reruns, each kernel in ``expect`` must have been launched
+    and the other branch's attention kernel never. The co-pilot request
+    must take the prefix path, and with chunking on the long prompt must
+    admit in chunks."""
     import torch
     from p2p_llm_chat_tpu_torch.serve.api import OllamaServer
     from p2p_llm_chat_tpu_torch.serve.engine import (SUGGEST_PREFIX,
                                                      build_engine_from_env)
 
-    label = f"{model} {quant}" + ("" if prefill_chunk else " chunk=0")
+    wta = impl != "gather"
+    kv = "bf16" if wta else "int8"
+    label = (f"{model} {quant}" + ("" if prefill_chunk else " chunk=0")
+             + (f" {kv} KV impl={impl}" if wta else ""))
     os.environ.update(SERVE_BACKEND="torch", MODEL_CONFIG=model,
                       SERVE_KV="paged", SERVE_QUANT=quant,
-                      SERVE_KV_QUANT="int8", SERVE_SLOTS="8",
+                      SERVE_KV_QUANT="" if wta else "int8", SERVE_SLOTS="8",
                       SERVE_MAX_SEQ="4096", SERVE_DEVICE="cuda",
                       SERVE_PREFILL_CHUNK=str(prefill_chunk),
-                      SERVE_PREFIX="1")
+                      SERVE_PREFIX="1", PAGED_ATTN_IMPL=impl)
     print(f"server {label}: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
           "allocated before the build", flush=True)
     t0 = time.monotonic()
@@ -1104,7 +1353,9 @@ def phase_server(results: dict, model: str, quant: str,
             check(err is None, f"server: warmup failed: {err!r}")
             check(time.monotonic() < deadline, "server: never became ready")
             time.sleep(0.1)
-        print(f"server {label}: {engine.config.num_layers} layers, int8 "
+        check(engine.scheduler.attn_impl == impl, f"server {label}: the "
+              f"engine serves impl {engine.scheduler.attn_impl!r}")
+        print(f"server {label}: {engine.config.num_layers} layers, {kv} "
               f"paged KV, 8 slots, "
               f"max_seq 4096, ready in "
               f"{time.monotonic() - t0:.1f} s; "
@@ -1186,6 +1437,9 @@ def phase_server(results: dict, model: str, quant: str,
         for name in expect:
             check(launches[name] > 0, f"server {label}: kernel {name} was "
                   "never launched")
+        other = "paged_attention_append" if wta else "paged_attention"
+        check(launches[other] == 0, f"server {label}: {other} was launched "
+              f"{launches[other]} times on the {impl} branch")
         snap = engine.metrics_snapshot()
         print(f"server {label}: prefill_chunks_total "
               f"{snap['prefill_chunks_total']}, serve_prefix_admits_total "
@@ -1230,11 +1484,12 @@ def phase_server(results: dict, model: str, quant: str,
 # Phase names for --only; a family name runs all of its members.
 PHASES = {
     "build": ("build",),
-    "kernel": ("kernel_a", "kernel_b", "kernel_c", "kernel_experts",
-               "kernel_d"),
-    "step": ("step_llama", "step_mixtral"),
-    "server": ("server_llama", "server_mixtral"),
-    "profile": ("profile_llama", "profile_mixtral", "profile_prefill"),
+    "kernel": ("kernel_a", "kernel_b", "kernel_b_pool", "kernel_c",
+               "kernel_experts", "kernel_d", "kernel_e"),
+    "step": ("step_llama", "step_llama_wta", "step_mixtral"),
+    "server": ("server_llama", "server_llama_wta", "server_mixtral"),
+    "profile": ("profile_llama", "profile_llama_wta", "profile_mixtral",
+                "profile_prefill"),
 }
 
 
@@ -1288,10 +1543,14 @@ def main() -> int:
         ("build", phase_build),
         ("kernel_a", lambda: phase_kernel_a(results)),
         ("kernel_b", lambda: phase_kernel_b(results)),
+        ("kernel_b_pool", lambda: phase_kernel_b_pool(results)),
         ("kernel_c", lambda: phase_kernel_c(results)),
         ("kernel_experts", lambda: phase_kernel_experts(results)),
         ("kernel_d", lambda: phase_kernel_d(results)),
+        ("kernel_e", lambda: phase_kernel_e(results)),
         ("step_llama", lambda: phase_step("llama3.1-8b", "int8", True)),
+        ("step_llama_wta", lambda: phase_step("llama3.1-8b", "int8", False,
+                                              impl="kernel")),
         ("step_mixtral", lambda: phase_step("mixtral-8x7b", "int8", True)),
         ("step_mixtral", lambda: phase_step("mixtral-8x7b", "int4", False)),
         ("server_llama", lambda: phase_server(
@@ -1301,6 +1560,10 @@ def main() -> int:
             results, "llama3.1-8b", "int8",
             ("quant_matmul", "paged_attention_append", "prefill_attention"),
             prefill_chunk=0)),
+        ("server_llama_wta", lambda: phase_server(
+            results, "llama3.1-8b", "int8",
+            ("quant_matmul", "paged_attention", "prefill_attention"),
+            impl="kernel")),
         ("server_mixtral", lambda: phase_server(
             results, "mixtral-8x7b", "int8",
             ("quant_matmul", "quant_matmul_experts_stacked",
@@ -1310,13 +1573,15 @@ def main() -> int:
             ("quant_matmul4", "quant_matmul_experts_stacked4",
              "paged_attention_append", "prefill_attention"))),
         ("profile_llama", lambda: phase_profile("llama3.1-8b", "int8")),
+        ("profile_llama_wta", lambda: phase_profile("llama3.1-8b", "int8",
+                                                    impl="kernel")),
         ("profile_mixtral", lambda: phase_profile("mixtral-8x7b", "int8")),
         ("profile_mixtral", lambda: phase_profile("mixtral-8x7b", "int4")),
         ("profile_prefill", lambda: phase_profile_prefill("llama3.1-8b",
                                                           "int8")),
     ]
     try:
-        if phases & {"server_llama", "server_mixtral"}:
+        if phases & set(PHASES["server"]):
             check(set(PHASES["kernel"]) <= phases, "the server phases "
                   "report into the kernel phases' results; run all of them")
         for name, run in runs:
@@ -1327,6 +1592,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
+    print(f"chip_smoke: every phase passed in {time.monotonic() - t0:.0f} s",
+          flush=True)
     print(f"card: {card_line()}", flush=True)
     if results:
         print(json.dumps({"kernels": list(results.values())}), flush=True)

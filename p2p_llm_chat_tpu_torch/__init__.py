@@ -9,7 +9,8 @@ Layout mirrors the reference's module names so each counterpart is easy to
 find: ``models/`` (configs, layers, quant, llama, sampling, convert),
 ``ops/`` (paged KV pool, paged attention, w8a16 matmul, and the CUDA build),
 ``csrc/`` (hand-written Hopper kernels), ``serve/`` (backend protocol,
-scheduler, engine, Ollama-compatible HTTP front).
+scheduler, engine, Ollama-compatible HTTP front), ``tools/`` (twins of
+the reference's kernel-reaching tools: the w8a8 matmul microbenchmark).
 
 Device rule: entry points run on ``cuda`` unless the caller asks for the
 CPU (``device="cpu"`` or ``SERVE_DEVICE=cpu``); with no GPU and no explicit

@@ -1,27 +1,39 @@
-// Kernel B: paged decode-append attention for Hopper (sm_90a), plain C
-// interface for ctypes.
+// Kernel B: paged decode attention for Hopper (sm_90a), plain C
+// interface for ctypes. Two modes over one split-K kernel.
 //
-// Replaces p2p_llm_chat_tpu/ops/paged_attention.py
-// _paged_attention_flash_append (body _flash_append_kernel_body) and, on
-// this card, also the XLA gather path that the TPU ran at short windows:
-// one split-K kernel covers every window.
-//
-// For each row b, kv head g and each of its `rep` query heads:
+// Append mode (paged_append_launch) replaces
+// p2p_llm_chat_tpu/ops/paged_attention.py _paged_attention_flash_append
+// (:993, body _flash_append_kernel_body) and _paged_append_kernel_call
+// (:331, the same function over an XLA-gathered window with
+// selection-matmul GQA), and on this card also the XLA gather path that
+// the TPU ran at short windows. For each row b, kv head g and each of its
+// `rep` query heads:
 //   s_t   = (q . k_t) / sqrt(D) * sk_t      for t < lengths[b]
 //   s_cur = (q . k_cur) / sqrt(D)
 //   out   = (sum_t e^{s_t-m} sv_t v_t + e^{s_cur-m} v_cur)
 //         / (sum_t e^{s_t-m} + e^{s_cur-m})
 // The current token is attended at full precision and is NOT in the pool
-// (the model lands the whole step's k/v after the layer loop). Positions
-// >= lengths[b] are skipped, never multiplied by 0: a garbage page may
-// hold NaN or Inf.
+// (the model lands the whole step's k/v after the layer loop).
+//
+// Pool mode (paged_pool_launch) replaces _paged_attention_kernel (:160,
+// grid (B, pages)) and _paged_attention_flash (:1086, a per-row DMA chunk
+// loop), which compute one function, and serves the gather impl's int8
+// pool (_paged_attention_gather_quant, :536): write-then-attend, the
+// caller has written this step's k/v into the pool and passes lengths
+// counting it, so
+//   out = sum_t e^{s_t-m} sv_t v_t / sum_t e^{s_t-m}   for t < lengths[b]
+// with no current-token term (sk = sv = 1 on bf16 pools).
+//
+// In both modes positions >= lengths[b] are skipped, never loaded and
+// multiplied by 0: a garbage page may hold NaN or Inf.
 //
 // Bound on an H100 SXM: the pool read. At B = 8, W = 1024, Hkv = 8,
 // D = 128 an int8 layer reads 16.8 MB of k/v (+ scales) -> ~5 us at
-// 3.35 TB/s; the FLOPs (4 per k/v element per query head) are far below
-// the card's rate.
+// 3.35 TB/s, a bf16 layer 33.6 MB -> ~10 us; the FLOPs (4 per k/v element
+// per query head) are far below the card's rate.
 //
-// Design:
+// Design (the TPU kernels' VMEM budgets, DMA chunking and (B, pages)
+// grid do not carry over: blocks here run in parallel, not in order):
 // - grid (B, Hkv, splits): a block owns one kv head of one row and a
 //   512-token share of its window, so long windows spread over many SMs
 //   (split-K / flash-decoding); a block loads its `rep` query rows once;
@@ -32,7 +44,9 @@
 //   query head on one warp (the tile is exactly a warp wide); p.v with
 //   threads along D;
 // - partial (m, l, acc) go to an f32 workspace; a small combine kernel
-//   merges the splits with the current-token seed, normalises, stores bf16.
+//   merges the splits, in append mode seeded with the current token
+//   (m = s_cur, l = 1, acc = v_cur), in pool mode from (m = -inf, l = 0,
+//   acc = 0), normalises and stores bf16.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -71,7 +85,7 @@ __device__ __forceinline__ float warp_sum(float v)
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
-append_split_kernel(const __nv_bfloat16* __restrict__ q,
+paged_split_kernel(const __nv_bfloat16* __restrict__ q,
                     const T* __restrict__ kp, const T* __restrict__ vp,
                     const float* __restrict__ ks,
                     const float* __restrict__ vs,
@@ -214,16 +228,19 @@ append_split_kernel(const __nv_bfloat16* __restrict__ q,
     }
 }
 
-// Merge the splits with the current token's term (m = s_cur, l = 1,
-// acc = v_cur) and normalise. Grid (B, Hq), one thread per element of D.
-__global__ void append_combine_kernel(const __nv_bfloat16* __restrict__ q,
-                                      const __nv_bfloat16* __restrict__ kc,
-                                      const __nv_bfloat16* __restrict__ vc,
-                                      const float* __restrict__ ws_acc,
-                                      const float* __restrict__ ws_ml,
-                                      __nv_bfloat16* __restrict__ out,
-                                      int Hq, int Hkv, int D, int splits,
-                                      float scale)
+// Merge the splits and normalise; append mode (kc != nullptr) seeds the
+// merge with the current token's term (m = s_cur, l = 1, acc = v_cur),
+// pool mode starts from (m = -inf, l = 0, acc = 0). A row with nothing to
+// attend (pool mode, lengths[b] = 0: outside the serving contract) gets
+// zeros. Grid (B, Hq), one thread per element of D.
+__global__ void paged_combine_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ kc,
+                               const __nv_bfloat16* __restrict__ vc,
+                               const float* __restrict__ ws_acc,
+                               const float* __restrict__ ws_ml,
+                               __nv_bfloat16* __restrict__ out,
+                               int Hq, int Hkv, int D, int splits,
+                               float scale)
 {
     const int b = blockIdx.x;
     const int h = blockIdx.y;
@@ -231,22 +248,30 @@ __global__ void append_combine_kernel(const __nv_bfloat16* __restrict__ q,
     const int g = h / (Hq / Hkv);
     const size_t qi = ((size_t)b * Hq + h) * D;
     const size_t ki = ((size_t)b * Hkv + g) * D;
-    float s = 0.f;
-    for (int i = 0; i < D; ++i)
-        s = fmaf(__bfloat162float(q[qi + i]), __bfloat162float(kc[ki + i]), s);
-    s *= scale;
     const size_t wb = ((size_t)b * Hq + h) * splits;
-    float m = s;
+    float s = 0.f;
+    float m = NEG;
+    if (kc != nullptr) {
+        for (int i = 0; i < D; ++i)
+            s = fmaf(__bfloat162float(q[qi + i]),
+                     __bfloat162float(kc[ki + i]), s);
+        s *= scale;
+        m = s;
+    }
     for (int sp = 0; sp < splits; ++sp) m = fmaxf(m, ws_ml[(wb + sp) * 2]);
-    const float pc = expf(s - m);
-    float den = pc;
-    float num = pc * __bfloat162float(vc[ki + d]);
+    float den = 0.f;
+    float num = 0.f;
+    if (kc != nullptr) {
+        const float pc = expf(s - m);
+        den = pc;
+        num = pc * __bfloat162float(vc[ki + d]);
+    }
     for (int sp = 0; sp < splits; ++sp) {
         const float f = expf(ws_ml[(wb + sp) * 2] - m);
         den += ws_ml[(wb + sp) * 2 + 1] * f;
         num += ws_acc[(wb + sp) * D + d] * f;
     }
-    out[qi + d] = __float2bfloat16(num / den);
+    out[qi + d] = __float2bfloat16(den > 0.f ? num / den : 0.f);
 }
 
 template <typename T, int D>
@@ -257,7 +282,7 @@ void launch_split(dim3 grid, cudaStream_t st, const void* q, const void* kp,
                   int ps_pad, int Hkv, int rep, int pages, int split_tokens,
                   float scale)
 {
-    append_split_kernel<T, D><<<grid, THREADS, 0, st>>>(
+    paged_split_kernel<T, D><<<grid, THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kp),
         static_cast<const T*>(vp), static_cast<const float*>(ks),
         static_cast<const float*>(vs), static_cast<const int*>(pt), pt_stride,
@@ -266,14 +291,54 @@ void launch_split(dim3 grid, cudaStream_t st, const void* q, const void* kp,
         split_tokens, scale);
 }
 
+// Both modes: the split kernel over the pool, then the combine (kc/vc
+// null in pool mode).
+int launch(const void* q, const void* kc, const void* vc, const void* kp,
+           const void* vp, const void* ks, const void* vs, const void* pt,
+           int pt_stride, const void* lengths, void* ws_acc, void* ws_ml,
+           void* out, int B, int Hq, int Hkv, int D, int N, int ps,
+           int ps_pad, int layer, int pages, int splits, int split_tokens,
+           int quantized, void* stream)
+{
+    cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    const int rep = Hkv > 0 ? Hq / Hkv : 0;
+    if (rep < 1 || rep > MAX_REP || rep * Hkv != Hq || split_tokens % TILE
+            || (D != 32 && D != 64 && D != 128))
+        return (int)cudaErrorInvalidValue;
+    const float scale = 1.f / sqrtf((float)D);
+    dim3 grid(B, Hkv, splits);
+#define PA_ARGS grid, st, q, kp, vp, ks, vs, pt, pt_stride, lengths, ws_acc, \
+    ws_ml, layer, N, ps, ps_pad, Hkv, rep, pages, split_tokens, scale
+    if (quantized) {
+        if (D == 32) launch_split<int8_t, 32>(PA_ARGS);
+        else if (D == 64) launch_split<int8_t, 64>(PA_ARGS);
+        else launch_split<int8_t, 128>(PA_ARGS);
+    } else {
+        if (D == 32) launch_split<__nv_bfloat16, 32>(PA_ARGS);
+        else if (D == 64) launch_split<__nv_bfloat16, 64>(PA_ARGS);
+        else launch_split<__nv_bfloat16, 128>(PA_ARGS);
+    }
+#undef PA_ARGS
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    paged_combine_kernel<<<dim3(B, Hq), D, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(kc),
+        static_cast<const __nv_bfloat16*>(vc),
+        static_cast<const float*>(ws_acc), static_cast<const float*>(ws_ml),
+        static_cast<__nv_bfloat16*>(out), Hq, Hkv, D, splits, scale);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// q [B,Hq,D] bf16; kc/vc [B,Hkv,D] bf16; kp/vp [L,N,ps,Hkv,D] int8
-// (quantized != 0, with ks/vs [L,N,Hkv,ps_pad] f32) or bf16 (ks/vs
-// null); pt [B,pt_stride] int32; lengths [B] int32; ws_acc
-// [B,Hq,splits,D] f32; ws_ml [B,Hq,splits,2] f32; out [B,Hq,D] bf16.
+// Append mode. q [B,Hq,D] bf16; kc/vc [B,Hkv,D] bf16; kp/vp
+// [L,N,ps,Hkv,D] int8 (quantized != 0, with ks/vs [L,N,Hkv,ps_pad] f32)
+// or bf16 (ks/vs null); pt [B,pt_stride] int32; lengths [B] int32 tokens
+// in the pool, the current one not counted; ws_acc [B,Hq,splits,D] f32;
+// ws_ml [B,Hq,splits,2] f32; out [B,Hq,D] bf16.
 int paged_append_launch(const void* q, const void* kc, const void* vc,
                         const void* kp, const void* vp, const void* ks,
                         const void* vs, const void* pt, int pt_stride,
@@ -283,35 +348,25 @@ int paged_append_launch(const void* q, const void* kc, const void* vc,
                         int splits, int split_tokens, int quantized,
                         void* stream)
 {
-    cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-    const int rep = Hq / Hkv;
-    if (rep < 1 || rep > MAX_REP || rep * Hkv != Hq || split_tokens % TILE)
-        return (int)cudaErrorInvalidValue;
-    const float scale = 1.f / sqrtf((float)D);
-    dim3 grid(B, Hkv, splits);
-#define PA_ARGS grid, st, q, kp, vp, ks, vs, pt, pt_stride, lengths, ws_acc, \
-    ws_ml, layer, N, ps, ps_pad, Hkv, rep, pages, split_tokens, scale
-    if (quantized) {
-        if (D == 32) launch_split<int8_t, 32>(PA_ARGS);
-        else if (D == 64) launch_split<int8_t, 64>(PA_ARGS);
-        else if (D == 128) launch_split<int8_t, 128>(PA_ARGS);
-        else return (int)cudaErrorInvalidValue;
-    } else {
-        if (D == 32) launch_split<__nv_bfloat16, 32>(PA_ARGS);
-        else if (D == 64) launch_split<__nv_bfloat16, 64>(PA_ARGS);
-        else if (D == 128) launch_split<__nv_bfloat16, 128>(PA_ARGS);
-        else return (int)cudaErrorInvalidValue;
-    }
-#undef PA_ARGS
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    append_combine_kernel<<<dim3(B, Hq), D, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(kc),
-        static_cast<const __nv_bfloat16*>(vc),
-        static_cast<const float*>(ws_acc), static_cast<const float*>(ws_ml),
-        static_cast<__nv_bfloat16*>(out), Hq, Hkv, D, splits, scale);
-    return (int)cudaGetLastError();
+    if (kc == nullptr || vc == nullptr) return (int)cudaErrorInvalidValue;
+    return launch(q, kc, vc, kp, vp, ks, vs, pt, pt_stride, lengths, ws_acc,
+                  ws_ml, out, B, Hq, Hkv, D, N, ps, ps_pad, layer, pages,
+                  splits, split_tokens, quantized, stream);
+}
+
+// Pool mode: the append mode's operands without kc/vc; lengths [B] counts
+// the slot this step wrote.
+int paged_pool_launch(const void* q, const void* kp, const void* vp,
+                      const void* ks, const void* vs, const void* pt,
+                      int pt_stride, const void* lengths, void* ws_acc,
+                      void* ws_ml, void* out, int B, int Hq, int Hkv, int D,
+                      int N, int ps, int ps_pad, int layer, int pages,
+                      int splits, int split_tokens, int quantized,
+                      void* stream)
+{
+    return launch(q, nullptr, nullptr, kp, vp, ks, vs, pt, pt_stride,
+                  lengths, ws_acc, ws_ml, out, B, Hq, Hkv, D, N, ps, ps_pad,
+                  layer, pages, splits, split_tokens, quantized, stream);
 }
 
 const char* paged_append_error_string(int code)

@@ -1,8 +1,10 @@
 """llama-family decoder (3.x dense models), the port of
 p2p_llm_chat_tpu/models/llama.py for the paged decode path: random int8 /
 int4 init, fused projections, whole-prompt and continuation (chunk /
-prefix-suffix) prefill, and the paged decode step, with the reference's ``mlp_fn`` hook through which the mixtral
-family (models/mixtral.py) plugs its sparse-MoE MLP in.
+prefix-suffix) prefill, and the paged decode step in both of the
+reference's orderings (attend-then-write, write-then-attend), with the
+reference's ``mlp_fn`` hook through which the mixtral family
+(models/mixtral.py) plugs its sparse-MoE MLP in.
 
 Params keep the reference's tree and layouts (``embed`` [V, H], stacked
 ``layers`` with fused ``wqkv`` [L, H, Q+2KV] and ``wgu`` [L, H, 2E] as
@@ -20,8 +22,10 @@ from typing import Optional
 
 import torch
 
-from ..ops.paged_attention import paged_attention_append
-from ..ops.paged_kv import PagedKVCache, write_decode_burst
+from ..ops import paged_attention as pa
+from ..ops.paged_attention import (check_impl, paged_attention,
+                                   paged_attention_append)
+from ..ops.paged_kv import PagedKVCache, write_decode, write_decode_burst
 from ..utils.device import resolve_device
 from .configs import ModelConfig
 from .layers import (apply_rope_tables, attend_gqa_auto, rms_norm,
@@ -301,27 +305,53 @@ def prefill_chunk(params: dict, config: ModelConfig, tokens: torch.Tensor,
 def decode_step_paged(params: dict, config: ModelConfig,
                       tokens: torch.Tensor, cache: PagedKVCache,
                       active: Optional[torch.Tensor] = None, *,
-                      pages: int, mlp_fn=None):
+                      pages: int, mlp_fn=None, impl: Optional[str] = None):
     """One autoregressive step over the paged pool for every row.
 
     tokens: [B, 1] (this step's input token per row, at position
-    ``cache.lengths[b]``). Attend-then-write: each layer attends its pool
-    window plus the current token at full precision (kernel B), and ONE
-    write_decode_burst lands every layer's k/v after the loop — the
-    reference's ordering (write-then-attend would read the current token
-    back quantized and can flip greedy ties on int8 pools). ``active``
-    ([B] bool) parks rows: their length does not advance and their write
-    lands where their (zeroed) table points. ``pages`` page-table entries
-    per row are walked (ceil(max live length / page_size)). ``mlp_fn``:
-    see :func:`_post_attn`.
+    ``cache.lengths[b]``). ``impl`` (gather | kernel | flash; None = the
+    ``PAGED_ATTN_IMPL`` default of ops/paged_attention) picks the branch,
+    as in the reference (llama.py:1089-1109):
+
+    - ``gather``, attend-then-write: each layer attends its pool window
+      plus the current token at full precision (kernel B, append mode),
+      and ONE write_decode_burst lands every layer's k/v after the loop
+      (write-then-attend would read the current token back quantized and
+      can flip greedy ties on int8 pools); ``pages`` must cover
+      ``lengths``;
+    - ``kernel``/``flash``, write-then-attend: each layer writes its k/v
+      into the pool (write_decode), then attends ``lengths + 1``
+      positions (kernel B, pool mode; bf16 pools only, as the
+      reference's ``paged_attention`` refuses an int8 pool there);
+      ``pages`` must cover ``lengths + 1``.
+
+    ``active`` ([B] bool) parks rows: their length does not advance and
+    their write lands where their (zeroed) table points. ``mlp_fn``: see
+    :func:`_post_attn`.
 
     Returns (logits [B, 1, V] f32, cache) — the cache is updated in
     place, lengths advanced where active."""
+    impl = check_impl(pa._DEFAULT_IMPL if impl is None else impl)
     B = tokens.shape[0]
     dev = tokens.device
     layers = params["layers"]
     rope = _rope(config, cache.lengths[:, None])
     h = params["embed"][tokens]
+    inc = (torch.ones(B, dtype=torch.int32, device=dev) if active is None
+           else active.to(torch.int32))
+    if impl != "gather":
+        attend_len = cache.lengths + 1
+        for li in range(config.num_layers):
+            q, k, v = _attn_qkv(h, layers, li, config, rope)
+            write_decode(cache, li, k[:, 0], v[:, 0])
+            attn = paged_attention(q[:, 0].contiguous(), cache.k, cache.v,
+                                   cache.page_table, attend_len, li,
+                                   pages=pages, impl=impl,
+                                   k_scale=cache.k_scale,
+                                   v_scale=cache.v_scale)
+            h = _post_attn(h, attn[:, None], layers, li, config, mlp_fn)
+        cache.lengths += inc
+        return _logits(params, config, h), cache
     k_steps, v_steps = [], []
     for li in range(config.num_layers):
         q, k, v = _attn_qkv(h, layers, li, config, rope)
@@ -332,7 +362,5 @@ def decode_step_paged(params: dict, config: ModelConfig,
         k_steps.append(k0)
         v_steps.append(v0)
     logits = _logits(params, config, h)
-    inc = (torch.ones(B, dtype=torch.int32, device=dev) if active is None
-           else active.to(torch.int32))
     write_decode_burst(cache, torch.stack(k_steps), torch.stack(v_steps), inc)
     return logits, cache

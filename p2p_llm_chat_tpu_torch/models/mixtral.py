@@ -177,8 +177,11 @@ def prefill_chunk(params: dict, config: ModelConfig, tokens: torch.Tensor,
 
 def decode_step_paged(params: dict, config: ModelConfig,
                       tokens: torch.Tensor, cache, active=None, *,
-                      pages: int):
-    """llama.decode_step_paged with the MoE MLP (same contract). Decode
-    is always dropless: C = the batch."""
+                      pages: int, impl: Optional[str] = None):
+    """llama.decode_step_paged with the MoE MLP (same contract, both
+    branches: the attention impl rides along below the ``mlp_fn`` seam,
+    as in the reference's mixtral.py:403-417). Decode is always dropless:
+    C = the batch."""
     return llama.decode_step_paged(params, config, tokens, cache, active,
-                                   pages=pages, mlp_fn=_mlp_fn(config, None))
+                                   pages=pages, mlp_fn=_mlp_fn(config, None),
+                                   impl=impl)

@@ -28,7 +28,8 @@ from typing import Callable
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-KERNELS = ("quant_mm", "quant_mm4", "paged_attention", "prefill_attention")
+KERNELS = ("quant_mm", "quant_mm4", "paged_attention", "prefill_attention",
+           "w8a8_mm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

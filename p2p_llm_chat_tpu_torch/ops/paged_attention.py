@@ -1,19 +1,33 @@
-"""Decode-append attention over the paged KV pool: kernel B
-(csrc/paged_attention.cu) and its plain version.
+"""Decode attention over the paged KV pool: kernel B
+(csrc/paged_attention.cu) in its two modes, and the plain versions.
 
-One query token per row attends its pool window (positions < ``lengths``,
-walked through the page table) plus the current token's own (k_cur,
-v_cur), which is not in the pool yet: the model lands the whole step's
-k/v after the layer loop (models/llama.decode_step_paged). On int8 pools
-the k scales fold into the scores and the v scales into the
-probabilities of the numerator only.
+- Append mode, :func:`paged_attention_append`: one query token per row
+  attends its pool window (positions < ``lengths``, walked through the
+  page table) plus the current token's own (k_cur, v_cur), which is not
+  in the pool yet: the model lands the whole step's k/v after the layer
+  loop (models/llama.decode_step_paged's default branch).
+- Pool mode, :func:`paged_attention`: write-then-attend. The caller has
+  already written this step's k/v into the pool (ops/paged_kv.
+  write_decode) and passes ``lengths`` counting it, so the window alone
+  is attended (the branch ``PAGED_ATTN_IMPL=kernel|flash`` selects).
 
-The reference splits this op by window on the TPU (an XLA gather at short
-windows, the Pallas ``_paged_attention_flash_append`` at long ones); that
-split and its VMEM budgets are TPU artifacts. Here one split-K kernel
-serves every window. :func:`paged_attention_append` launches it for CUDA
-tensors (or raises) and runs :func:`paged_attention_append_reference`
-only for tensors on the CPU. ``paged_attention_append.launches`` counts
+On int8 pools the k scales fold into the scores and the v scales into
+the probabilities of the numerator only.
+
+The reference splits each function by TPU strategy: the append function
+into an XLA gather, the Pallas ``_paged_append_kernel_call`` over a
+gathered window and the Pallas ``_paged_attention_flash_append``; the
+pool function into an XLA gather, the Pallas ``_paged_attention_kernel``
+(grid (B, pages)) and ``_paged_attention_flash`` (a per-row chunk loop).
+Those splits, and their VMEM and DMA budgets, are TPU artifacts: here one
+split-K kernel per function serves every window and every impl. The impl
+names are still read under the reference's env names and defaults
+(``PAGED_ATTN_IMPL``, ``PAGED_APPEND_IMPL``, both ``gather``), because
+they choose the model's branch and the reference's refusals: an int8
+pool is served only under the gather attention impl.
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and runs a
+plain version only for tensors on the CPU; ``<wrapper>.launches`` counts
 kernel launches.
 """
 
@@ -25,12 +39,29 @@ import math
 import torch
 
 from . import _build
+from ..utils.env import env_or
 from .paged_kv import PagedKVCache
 
 NEG_INF = -1e30
+IMPLS = ("gather", "kernel", "flash")
+# Process-wide defaults, read at import under the reference's names
+# (p2p_llm_chat_tpu/ops/paged_attention.py:108, :403). The attention
+# impl picks decode_step_paged's branch: ``gather`` = attend-then-write
+# (append mode), ``kernel``/``flash`` = write-then-attend (pool mode).
+# Engines built from the env read PAGED_ATTN_IMPL anew at each build and
+# pass it down explicitly (serve/engine.py).
+_DEFAULT_IMPL = env_or("PAGED_ATTN_IMPL", "gather")
+_APPEND_IMPL = env_or("PAGED_APPEND_IMPL", "gather")
 # Tokens per split-K slice of kernel B: one block per (row, kv head, 512
 # tokens), so a window of W tokens spreads over ceil(W / 512) blocks.
 SPLIT_TOKENS = 512
+
+
+def check_impl(impl: str, what: str = "PAGED_ATTN_IMPL") -> str:
+    """``impl`` if it names one of :data:`IMPLS`, else ValueError."""
+    if impl not in IMPLS:
+        raise ValueError(f"{what} must be gather|kernel|flash, got {impl!r}")
+    return impl
 
 
 def _gather_window_scores(q4, k_pages, v_pages, k_scale, v_scale,
@@ -61,17 +92,30 @@ def _gather_window_scores(q4, k_pages, v_pages, k_scale, v_scale,
     return scores, v, sv, mask
 
 
+def _live(v: torch.Tensor, sv, mask: torch.Tensor):
+    """Zero the dead window positions of v [B, W, Hkv, D] (and of the v
+    scales sv [B, G, W]): positions past ``lengths`` are skipped, and a
+    garbage page may hold NaN/Inf, which 0 * NaN would let into the row.
+    On finite pools this changes nothing."""
+    v = torch.where(mask[:, :, None, None], v,
+                    torch.zeros((), dtype=v.dtype, device=v.device))
+    if sv is not None:
+        sv = torch.where(mask[:, None, :], sv,
+                         torch.zeros((), device=sv.device))
+    return v, sv
+
+
 def paged_attention_append_reference(q: torch.Tensor, k_cur: torch.Tensor,
                                      v_cur: torch.Tensor,
                                      cache: PagedKVCache,
                                      lengths: torch.Tensor, layer: int, *,
                                      pages: int) -> torch.Tensor:
-    """Plain PyTorch version (the reference's gather + merge math).
+    """Plain PyTorch version of the append function (the reference's
+    gather + merge math).
 
     q [B, Hq, D]; k_cur/v_cur [B, Hkv, D]; lengths [B] tokens already in
-    the pool (NOT counting the current token). Dead window positions are
-    zeroed before the p.v product: a garbage page may hold NaN/Inf, and
-    0 * NaN would poison the row. Returns [B, Hq, D] in q.dtype."""
+    the pool (NOT counting the current token). Returns [B, Hq, D] in
+    q.dtype."""
     B, Hq, D = q.shape
     Hkv = k_cur.shape[1]
     rep = Hq // Hkv
@@ -85,10 +129,8 @@ def paged_attention_append_reference(q: torch.Tensor, k_cur: torch.Tensor,
     m = torch.maximum(scores.amax(dim=-1, keepdim=True), s_cur)
     p = torch.exp(scores - m)
     p_cur = torch.exp(s_cur - m)
-    v = torch.where(mask[:, :, None, None], v, torch.zeros((), dtype=v.dtype,
-                                                           device=v.device))
+    v, sv = _live(v, sv, mask)
     if sv is not None:
-        sv = torch.where(mask[:, None, :], sv, torch.zeros((), device=sv.device))
         pv = torch.einsum("bgrst,btgd->bgrsd",
                           (p * sv[:, :, None, None, :]).to(q.dtype),
                           v.to(q.dtype)).float()
@@ -100,56 +142,128 @@ def paged_attention_append_reference(q: torch.Tensor, k_cur: torch.Tensor,
     return out[:, :, :, 0].reshape(B, Hq, D).to(q.dtype)
 
 
+def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor, page_table: torch.Tensor,
+                              lengths: torch.Tensor, layer: int, *,
+                              pages: int) -> torch.Tensor:
+    """The oracle of the pool function (reference :1164-1184): every
+    window slot fetched one by one through the page table (no whole-page
+    reshape), then masked ``attend_gqa``. q [B, Hq, D]; pools
+    [L, N, ps, Hkv, D] (bf16 or f32); lengths [B] tokens to attend,
+    the slot this step wrote included."""
+    from ..models.layers import attend_gqa
+    B, ps = q.shape[0], k_pages.shape[2]
+    pos = torch.arange(pages * ps, device=q.device)
+    phys = page_table[:, :pages].long()[:, pos // ps]          # [B, W]
+    slot = (pos % ps)[None, :].expand(B, -1)
+    k = k_pages[layer][phys, slot]                             # [B,W,Hkv,D]
+    mask = pos[None, :] < lengths[:, None].long()              # [B, W]
+    v, _ = _live(v_pages[layer][phys, slot], None, mask)
+    return attend_gqa(q[:, None], k, v, mask[:, None, None, :])[:, 0].to(
+        q.dtype)
+
+
+def _paged_attention_gather(q, k_pages, v_pages, page_table, lengths,
+                            layer: int, *, pages: int) -> torch.Tensor:
+    """The gather impl (reference :196-214): whole pages gathered, f32
+    scores and softmax, the probabilities cast to the pool dtype for p.v
+    (``attend_gqa``'s precision)."""
+    B, Hq, D = q.shape
+    scores, v, _, mask = _gather_window_scores(
+        q[:, None], k_pages, v_pages, None, None, page_table, lengths,
+        layer, pages)
+    v, _ = _live(v, None, mask)
+    out = torch.einsum("bgrst,btgd->bsgrd",
+                       torch.softmax(scores, dim=-1).to(v.dtype), v)
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def _paged_attention_gather_quant(q, k_pages, v_pages, k_scale, v_scale,
+                                  page_table, lengths, layer: int, *,
+                                  pages: int) -> torch.Tensor:
+    """The gather impl over an int8 pool (reference :536-556): scores x
+    k scales, softmax, probabilities x v scales, p.v in q's dtype."""
+    B, Hq, D = q.shape
+    scores, v, sv, mask = _gather_window_scores(
+        q[:, None], k_pages, v_pages, k_scale, v_scale, page_table, lengths,
+        layer, pages)
+    v, sv = _live(v, sv, mask)
+    probs = torch.softmax(scores, dim=-1) * sv[:, :, None, None, :]
+    out = torch.einsum("bgrst,btgd->bsgrd", probs.to(q.dtype),
+                       v.to(q.dtype))
+    return out.reshape(B, Hq, D)
+
+
+def _paged_attention_f32(q, k_pages, v_pages, page_table, lengths,
+                         layer: int, *, pages: int) -> torch.Tensor:
+    """The kernel and flash impls' function (reference
+    ``_paged_attention_kernel`` :160 and ``_paged_attention_flash``
+    :1086): the gather impl's, with p.v in f32 as the Pallas kernels
+    compute it."""
+    B, Hq, D = q.shape
+    scores, v, _, mask = _gather_window_scores(
+        q[:, None], k_pages, v_pages, None, None, page_table, lengths,
+        layer, pages)
+    v, _ = _live(v, None, mask)
+    out = torch.einsum("bgrst,btgd->bsgrd", torch.softmax(scores, dim=-1),
+                       v.float())
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.paged_append_launch.restype = i
     lib.paged_append_launch.argtypes = (
         [p] * 8 + [i, p, p, p, p] + [i] * 12 + [p])
+    lib.paged_pool_launch.restype = i
+    lib.paged_pool_launch.argtypes = (
+        [p] * 6 + [i, p, p, p, p] + [i] * 12 + [p])
 
 
-def paged_attention_append(q: torch.Tensor, k_cur: torch.Tensor,
-                           v_cur: torch.Tensor, cache: PagedKVCache,
-                           lengths: torch.Tensor, layer: int, *,
-                           pages: int) -> torch.Tensor:
-    """Decode attention for one layer: q [B, Hq, D], k_cur/v_cur
-    [B, Hkv, D] (bf16 on the card), the pool window of ``pages`` table
-    entries per row, ``lengths`` [B] int32 tokens in the pool. Returns
-    [B, Hq, D] in q.dtype."""
-    if q.device.type == "cpu":
-        return paged_attention_append_reference(q, k_cur, v_cur, cache,
-                                                lengths, layer, pages=pages)
+def _launch(what: str, q, k_cur, v_cur, k_pages, v_pages, k_scale, v_scale,
+            page_table, lengths, layer: int, pages: int) -> torch.Tensor:
+    """Check the operands and launch kernel B: append mode with
+    ``k_cur``/``v_cur``, pool mode without."""
     if q.device.type != "cuda":
-        raise ValueError(f"paged_attention_append: unsupported device "
-                         f"{q.device}")
+        raise ValueError(f"{what}: unsupported device {q.device}")
     B, Hq, D = q.shape
-    L, N, ps, Hkv, Dp = cache.k.shape
-    for name, t in (("q", q), ("k_cur", k_cur), ("v_cur", v_cur)):
+    L, N, ps, Hkv, Dp = k_pages.shape
+    cur = () if k_cur is None else (("k_cur", k_cur), ("v_cur", v_cur))
+    for name, t in (("q", q),) + cur:
         if t.dtype != torch.bfloat16 or not t.is_contiguous() \
                 or t.device != q.device:
-            raise ValueError(f"paged_attention_append: {name} must be a "
-                             "contiguous bf16 tensor on q's device")
-    if (k_cur.shape != (B, Hkv, D) or v_cur.shape != (B, Hkv, D) or Dp != D
+            raise ValueError(f"{what}: {name} must be a contiguous bf16 "
+                             "tensor on q's device")
+    if (any(t.shape != (B, Hkv, D) for _, t in cur) or Dp != D
             or Hq % Hkv or D not in (32, 64, 128) or Hq // Hkv > 8):
-        raise ValueError(f"paged_attention_append: unsupported geometry q "
-                         f"{tuple(q.shape)} pool {tuple(cache.k.shape)}")
-    quantized = cache.quantized
+        raise ValueError(f"{what}: unsupported geometry q {tuple(q.shape)} "
+                         f"pool {tuple(k_pages.shape)}")
+    quantized = k_scale is not None
     want = torch.int8 if quantized else torch.bfloat16
-    if cache.k.dtype != want or cache.v.dtype != want:
-        raise ValueError(f"paged_attention_append: pool must be {want}")
-    pt, ln = cache.page_table, lengths
+    if (k_pages.dtype != want or v_pages.dtype != want
+            or v_pages.shape != k_pages.shape or not k_pages.is_contiguous()
+            or not v_pages.is_contiguous() or k_pages.device != q.device
+            or v_pages.device != q.device):
+        raise ValueError(f"{what}: pools must be contiguous {want} of one "
+                         "shape on q's device")
+    pt, ln = page_table, lengths
     if (pt.dtype != torch.int32 or ln.dtype != torch.int32
             or not pt.is_contiguous() or not ln.is_contiguous()
+            or pt.device != q.device or ln.device != q.device
             or pt.shape[0] != B or ln.shape != (B,)
             or not 1 <= pages <= pt.shape[1] or not 0 <= layer < L):
-        raise ValueError("paged_attention_append: page_table [B, P] and "
-                         "lengths [B] must be contiguous int32, with "
+        raise ValueError(f"{what}: page_table [B, P] and lengths [B] must "
+                         "be contiguous int32 on q's device, with "
                          "1 <= pages <= P and 0 <= layer < L")
     if quantized:
-        ks, vs = cache.k_scale, cache.v_scale
-        if ks.dtype != torch.float32 or not ks.is_contiguous() \
-                or not vs.is_contiguous():
-            raise ValueError("paged_attention_append: scales must be "
-                             "contiguous f32")
+        ks, vs = k_scale, v_scale
+        if (ks.dtype != torch.float32 or vs.dtype != torch.float32
+                or not ks.is_contiguous() or not vs.is_contiguous()
+                or ks.shape != vs.shape or ks.shape[:3] != (L, N, Hkv)
+                or ks.shape[3] < ps or ks.device != q.device
+                or vs.device != q.device):
+            raise ValueError(f"{what}: scales must be contiguous f32 "
+                             "[L, N, Hkv, ps_pad] on q's device")
         ks_ptr, vs_ptr, ps_pad = ks.data_ptr(), vs.data_ptr(), ks.shape[-1]
     else:
         ks_ptr, vs_ptr, ps_pad = None, None, ps
@@ -160,17 +274,102 @@ def paged_attention_append(q: torch.Tensor, k_cur: torch.Tensor,
                         device=q.device)
     out = torch.empty_like(q)
     lib = _build.load("paged_attention", _bind)
-    rc = lib.paged_append_launch(
-        q.data_ptr(), k_cur.data_ptr(), v_cur.data_ptr(),
-        cache.k.data_ptr(), cache.v.data_ptr(), ks_ptr, vs_ptr,
-        pt.data_ptr(), pt.shape[1], ln.data_ptr(), ws_acc.data_ptr(),
-        ws_ml.data_ptr(), out.data_ptr(), B, Hq, Hkv, D, N, ps, ps_pad,
-        layer, pages, splits, SPLIT_TOKENS, int(quantized),
-        _build.stream_ptr(q.device))
-    _build.check(rc, lib, "paged_append_error_string",
-                 "paged_attention_append")
+    tail = (pt.data_ptr(), pt.shape[1], ln.data_ptr(), ws_acc.data_ptr(),
+            ws_ml.data_ptr(), out.data_ptr(), B, Hq, Hkv, D, N, ps, ps_pad,
+            layer, pages, splits, SPLIT_TOKENS, int(quantized),
+            _build.stream_ptr(q.device))
+    if k_cur is None:
+        rc = lib.paged_pool_launch(q.data_ptr(), k_pages.data_ptr(),
+                                   v_pages.data_ptr(), ks_ptr, vs_ptr, *tail)
+    else:
+        rc = lib.paged_append_launch(q.data_ptr(), k_cur.data_ptr(),
+                                     v_cur.data_ptr(), k_pages.data_ptr(),
+                                     v_pages.data_ptr(), ks_ptr, vs_ptr,
+                                     *tail)
+    _build.check(rc, lib, "paged_append_error_string", what)
+    return out
+
+
+def paged_attention_append(q: torch.Tensor, k_cur: torch.Tensor,
+                           v_cur: torch.Tensor, cache: PagedKVCache,
+                           lengths: torch.Tensor, layer: int, *,
+                           pages: int) -> torch.Tensor:
+    """Decode attention for one layer, append mode: q [B, Hq, D],
+    k_cur/v_cur [B, Hkv, D] (bf16 on the card), the pool window of
+    ``pages`` table entries per row, ``lengths`` [B] int32 tokens in the
+    pool. Returns [B, Hq, D] in q.dtype.
+
+    ``PAGED_APPEND_IMPL`` (gather | kernel | flash, read at import into
+    ``_APPEND_IMPL``) names the reference's three implementations of this
+    one function (reference :403-469); each launches kernel B's append
+    mode on the card, and the plain version runs on the CPU."""
+    check_impl(_APPEND_IMPL, "PAGED_APPEND_IMPL")
+    if q.device.type == "cpu":
+        return paged_attention_append_reference(q, k_cur, v_cur, cache,
+                                                lengths, layer, pages=pages)
+    out = _launch("paged_attention_append", q, k_cur, v_cur, cache.k,
+                  cache.v, cache.k_scale, cache.v_scale, cache.page_table,
+                  lengths, layer, pages)
     paged_attention_append.launches += 1
     return out
 
 
+def _pool_impl(impl, k_scale) -> str:
+    impl = check_impl(_DEFAULT_IMPL if impl is None else impl, "impl")
+    if k_scale is not None and impl != "gather":
+        raise ValueError(
+            f"int8 KV pools support impl='gather' only, got {impl!r}")
+    return impl
+
+
+def paged_attention_plain(q, k_pages, v_pages, page_table, lengths,
+                          layer: int, *, pages: int, impl: str | None = None,
+                          k_scale=None, v_scale=None) -> torch.Tensor:
+    """The plain version of :func:`paged_attention` for ``impl`` (what
+    the wrapper runs on CPU tensors; it runs on any device): the gather
+    math for ``gather`` (int8 pools: its quantized form), f32 p.v for
+    ``kernel``/``flash``."""
+    impl = _pool_impl(impl, k_scale)
+    if k_scale is not None:
+        return _paged_attention_gather_quant(
+            q, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
+            layer, pages=pages)
+    plain = (_paged_attention_gather if impl == "gather"
+             else _paged_attention_f32)
+    return plain(q, k_pages, v_pages, page_table, lengths, layer,
+                 pages=pages)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, page_table: torch.Tensor,
+                    lengths: torch.Tensor, layer: int, *, pages: int,
+                    impl: str | None = None,
+                    k_scale: torch.Tensor | None = None,
+                    v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Decode attention for one layer, pool mode (write-then-attend; the
+    reference's ``paged_attention``, :1120-1161).
+
+    q [B, Hq, D]; k_pages/v_pages the whole pool [L, N, ps, Hkv, D]
+    (``layer`` selects inside the op); page_table [B, >= pages]; lengths
+    [B] tokens to attend per row, the slot this step wrote included
+    (callers pass ``cache.lengths + 1``); impl gather | kernel | flash
+    (None = ``_DEFAULT_IMPL``, from ``PAGED_ATTN_IMPL``). An int8 pool
+    passes ``k_scale``/``v_scale`` ([L, N, Hkv, ps_pad] f32) and is
+    served under ``impl="gather"`` only, as in the reference.
+
+    On the card every impl launches kernel B's pool mode (bf16 pools, or
+    int8 with scales); on the CPU :func:`paged_attention_plain` runs.
+    Returns [B, Hq, D] in q.dtype."""
+    impl = _pool_impl(impl, k_scale)
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, page_table,
+                                     lengths, layer, pages=pages, impl=impl,
+                                     k_scale=k_scale, v_scale=v_scale)
+    out = _launch("paged_attention", q, None, None, k_pages, v_pages,
+                  k_scale, v_scale, page_table, lengths, layer, pages)
+    paged_attention.launches += 1
+    return out
+
+
 paged_attention_append.launches = 0
+paged_attention.launches = 0

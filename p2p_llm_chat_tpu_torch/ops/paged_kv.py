@@ -254,6 +254,37 @@ def write_prefill_chunk(cache: PagedKVCache, chunk_k: torch.Tensor,
     return cache
 
 
+def _decode_slots(cache: PagedKVCache) -> tuple[torch.Tensor, torch.Tensor]:
+    """(physical page, slot) [B] of each row's next write, at position
+    ``lengths[b]``."""
+    ps = cache.page_size
+    lengths = cache.lengths.long()
+    phys = cache.page_table.gather(1, (lengths // ps)[:, None])[:, 0].long()
+    return phys, lengths % ps
+
+
+def write_decode(cache: PagedKVCache, layer: int, k: torch.Tensor,
+                 v: torch.Tensor) -> PagedKVCache:
+    """Write one decode step's k/v of ONE layer for every row (the
+    write-then-attend branch of models/llama.decode_step_paged): row b
+    writes page ``page_table[b, lengths[b] // ps]`` slot ``lengths[b] %
+    ps`` of ``layer``. Lengths do not move (the caller advances them after
+    the layer loop); parked rows overwrite the same slot next step, and a
+    released row's zeroed table routes its write to the garbage page.
+    k/v: [B, Hkv, D]."""
+    phys, slot = _decode_slots(cache)
+
+    def scatter(arr, upd):
+        arr[layer, phys, slot] = upd
+
+    def sscatter(arr, upd):
+        # layer-sliced target [N, Hkv, ps]; advanced dims 0, 2 -> [B, Hkv]
+        arr[layer, phys, :, slot] = upd
+
+    _scatter_kv(cache, k, v, scatter, sscatter)
+    return cache
+
+
 def write_decode_burst(cache: PagedKVCache, k_all: torch.Tensor,
                        v_all: torch.Tensor, inc: torch.Tensor
                        ) -> PagedKVCache:
@@ -262,10 +293,7 @@ def write_decode_burst(cache: PagedKVCache, k_all: torch.Tensor,
     layers, then ``lengths += inc`` ([B] int — the active mask; parked rows
     keep their position, and their zeroed table routes the write to the
     garbage page). k_all/v_all: [L, B, Hkv, D]."""
-    ps = cache.page_size
-    lengths = cache.lengths.long()
-    phys = cache.page_table.gather(1, (lengths // ps)[:, None])[:, 0].long()
-    slot = lengths % ps
+    phys, slot = _decode_slots(cache)
 
     def scatter(arr, upd):
         arr[:, phys, slot] = upd

@@ -16,7 +16,12 @@ admission runs the reference's defaults: chunked prefill
 (``SERVE_PREFILL_CHUNK``, default 256, 0 disables) and the prefix cache
 (``SERVE_PREFIX``, default on, with the co-pilot template registered at
 warmup; ``SERVE_PREFIX_TEXTS`` adds ``||``-separated templates and
-``SERVE_PREFIX_MB`` bounds the store by bytes). The reference's default
+``SERVE_PREFIX_MB`` bounds the store by bytes). ``PAGED_ATTN_IMPL``
+(gather | kernel | flash, read anew at each build) picks the decode
+branch: ``gather`` attends then writes (kernel B's append mode),
+``kernel``/``flash`` write then attend (its pool mode, bf16 pool only:
+``SERVE_KV_QUANT=int8`` with them is refused at build, as in the
+reference). The reference's default
 ``SERVE_FUSE=4`` does not change its output, so here it is logged as not
 run yet.
 """
@@ -70,6 +75,7 @@ class TorchEngine:
                  prefix_cache: bool = True,
                  prefix_texts: tuple[str, ...] = (SUGGEST_PREFIX,),
                  prefill_chunk: int = 256,
+                 attn_impl: Optional[str] = None,
                  name: Optional[str] = None,
                  device: Optional[torch.device | str] = None) -> None:
         self.name = name or config.name
@@ -80,7 +86,8 @@ class TorchEngine:
             page_size=page_size, num_pages=num_pages,
             queue_timeout_s=queue_timeout_s, queue_max=queue_max,
             kv_quant=kv_quant, prefix_cache=prefix_cache,
-            prefill_chunk=prefill_chunk, device=device)
+            prefill_chunk=prefill_chunk, attn_impl=attn_impl,
+            device=device)
 
     def generate_stream(self, req: GenerateRequest,
                         stats: Optional[RequestStats] = None) -> Iterator[str]:
@@ -166,6 +173,10 @@ def build_engine_from_env(device: Optional[str | torch.device] = None
     if env_or("SERVE_FUSE", "4") != "1":
         log.info("SERVE_FUSE=%s: not run yet by the PyTorch engine (output "
                  "is the same without it)", env_or("SERVE_FUSE", "4"))
+    # Read at each build (not the module's import-time default), so one
+    # process can build engines with either branch; BatchScheduler checks
+    # it and refuses an int8 pool under a non-gather impl.
+    attn_impl = env_or("PAGED_ATTN_IMPL", "gather")
     prefill_chunk = max(0, env_int("SERVE_PREFILL_CHUNK", 256))
     prefix_cache = env_bool("SERVE_PREFIX", True)
     prefix_texts = (SUGGEST_PREFIX,) + tuple(
@@ -173,9 +184,11 @@ def build_engine_from_env(device: Optional[str | torch.device] = None
     dev = resolve_device(device)
     qt = env_float("SERVE_QUEUE_TIMEOUT", 60.0)
     qm = env_int("SERVE_QUEUE_MAX", -1)
-    log.info("serving random-init %s (%s weights, %s KV) on %s; prefill "
-             "chunk %d, prefix cache %s", config.name, quant or "bf16",
-             kv_quant or "bf16", dev, prefill_chunk,
+    log.info("serving random-init %s (%s weights, %s KV) on %s; paged "
+             "attention impl %s (%s); prefill chunk %d, prefix cache %s",
+             config.name, quant or "bf16", kv_quant or "bf16", dev,
+             attn_impl, "attend-then-write" if attn_impl == "gather"
+             else "write-then-attend", prefill_chunk,
              "on" if prefix_cache else "off")
     params = family_for(config).init_params_quantized(
         config, seed=0, quant=quant, device=dev)
@@ -189,7 +202,7 @@ def build_engine_from_env(device: Optional[str | torch.device] = None
         queue_max=None if qm < 0 else qm,
         kv_quant=bool(kv_quant), prefix_cache=prefix_cache,
         prefix_texts=prefix_texts, prefill_chunk=prefill_chunk,
-        name=env_or("LLM_MODEL", config.name), device=dev)
+        attn_impl=attn_impl, name=env_or("LLM_MODEL", config.name), device=dev)
     warm = env_or("SERVE_WARMUP", "128")
     if warm and warm != "0":
         engine.warmup(tuple(int(b) for b in warm.split(",") if b.strip()))

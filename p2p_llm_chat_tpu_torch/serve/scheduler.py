@@ -26,7 +26,10 @@ queues only:
   combined KV is copied into the row's own pages;
 - one ``decode_step_paged`` per tick runs every row (parked rows ride
   along; their writes land in the garbage page), walking
-  ``ceil(max live length / page_size)`` pages;
+  ``ceil(max live length / page_size)`` pages under the default
+  attend-then-write branch (``attn_impl="gather"``), and
+  ``ceil((max live length + 1) / page_size)`` under write-then-attend
+  (``kernel``/``flash``), whose window holds the slot the step writes;
 - a request stops on EOS, ``num_predict``, a ``stop`` string or its
   context budget; its row's page table is zeroed and its pages freed;
 - detokenization is incremental and UTF-8 safe, and holds back text that
@@ -52,6 +55,7 @@ from ..models import family_for
 from ..models.configs import ModelConfig
 from ..models.quant import param_bytes, quant_mode
 from ..models.sampling import sample_step_batched
+from ..ops import paged_attention as pa
 from ..ops.paged_kv import (PageAllocator, PagedKVCache, set_row_table,
                             write_prefill_batch, write_prefill_chunk)
 from ..tokenizer import Tokenizer
@@ -218,8 +222,16 @@ class BatchScheduler:
                  queue_timeout_s: Optional[float] = 60.0,
                  queue_max: Optional[int] = None, kv_quant: bool = False,
                  prefix_cache: bool = False, prefill_chunk: int = 256,
+                 attn_impl: Optional[str] = None,
                  device: Optional[torch.device | str] = None) -> None:
-        """``prefill_chunk``: chunked prefill — a prompt whose bucket
+        """``attn_impl``: the paged decode attention impl (gather |
+        kernel | flash; None = ``PAGED_ATTN_IMPL``'s default in
+        ops/paged_attention), which picks decode_step_paged's branch. An
+        int8 pool (``kv_quant``) is served under ``gather`` only, as in the
+        reference, and a non-gather impl with it is refused here, not at
+        the first decode tick.
+
+        ``prefill_chunk``: chunked prefill — a prompt whose bucket
         exceeds this budget (power-of-two snapped; it must divide the
         bucket, else the bucket admits in one piece) prefills in chunks
         the loop interleaves with decode ticks. 0 disables.
@@ -234,6 +246,12 @@ class BatchScheduler:
         if prefill_chunk < 0:
             raise ValueError(
                 f"prefill_chunk must be >= 0, got {prefill_chunk}")
+        self.attn_impl = pa.check_impl(
+            pa._DEFAULT_IMPL if attn_impl is None else attn_impl)
+        if kv_quant and self.attn_impl != "gather":
+            raise ValueError(
+                "kv_quant=True requires the gather attention impl; "
+                f"PAGED_ATTN_IMPL={self.attn_impl!r} is set")
         self.device = resolve_device(device)
         self.config = config
         self.tokenizer = tokenizer
@@ -411,7 +429,8 @@ class BatchScheduler:
         builds and loads the CUDA kernels and launches them at the
         serving shapes (a prefill per bucket, the registration of each
         prefix template, then one decode tick with every row parked — its
-        writes land in the garbage page). Blocks until the scheduler
+        writes land in the garbage page; one page covers its window under
+        either branch, every length being 0). Blocks until the scheduler
         thread has run it."""
         self.note_warmup_pending()
 
@@ -430,7 +449,7 @@ class BatchScheduler:
                                  device=self.device)
             self._family.decode_step_paged(self._params, self.config,
                                            self._next, self._cache, active,
-                                           pages=1)
+                                           pages=1, impl=self.attn_impl)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
@@ -927,13 +946,16 @@ class BatchScheduler:
     def _decode_tick(self) -> None:
         t0 = time.monotonic()
         active_rows = [i for i, s in enumerate(self._slots) if s is not None]
-        longest = max(self._slots[r].ctx_len for r in active_rows)
+        # The window covers every live row's pool; write-then-attend also
+        # attends the slot this tick writes (position ctx_len).
+        extra = 0 if self.attn_impl == "gather" else 1
+        longest = max(self._slots[r].ctx_len for r in active_rows) + extra
         pages = max(1, -(-longest // self.page_size))
         active = torch.zeros((self.num_slots,), dtype=torch.bool)
         active[active_rows] = True
         logits, _ = self._family.decode_step_paged(
             self._params, self.config, self._next, self._cache,
-            active.to(self.device), pages=pages)
+            active.to(self.device), pages=pages, impl=self.attn_impl)
         # The sampled token follows this tick's input (at ctx_len).
         toks = self._sample(logits[active_rows, 0, :], active_rows,
                             [self._slots[r].ctx_len + 1 for r in active_rows])

@@ -18,12 +18,15 @@ import torch
 from p2p_llm_chat_tpu_torch.models.configs import get_config
 from p2p_llm_chat_tpu_torch.ops import paged_kv
 from p2p_llm_chat_tpu_torch.ops.paged_attention import (
-    paged_attention_append, paged_attention_append_reference)
+    paged_attention, paged_attention_append, paged_attention_append_reference,
+    paged_attention_plain)
 from p2p_llm_chat_tpu_torch.ops.prefill_attention import (
     prefill_attention, prefill_attention_reference)
 from p2p_llm_chat_tpu_torch.ops import quant_mm
 from p2p_llm_chat_tpu_torch.ops.quant_mm import (quant_matmul,
                                                  quant_matmul_reference)
+from p2p_llm_chat_tpu_torch.tools.mm_micro import (w8a8_matmul,
+                                                   w8a8_matmul_reference)
 
 torch.set_num_threads(2)
 
@@ -75,7 +78,9 @@ def test_every_module_imports_without_jax_or_nvcc():
                 "p2p_llm_chat_tpu_torch.ops.prefill_attention",
                 "p2p_llm_chat_tpu_torch.serve.api",
                 "p2p_llm_chat_tpu_torch.serve.prefix",
-                "p2p_llm_chat_tpu_torch.serve.scheduler"}
+                "p2p_llm_chat_tpu_torch.serve.scheduler",
+                "p2p_llm_chat_tpu_torch.tools",
+                "p2p_llm_chat_tpu_torch.tools.mm_micro"}
     assert expected <= set(got["modules"])
 
 
@@ -105,6 +110,7 @@ def test_kernel_sources_exist_for_every_kernel():
     # Every CUDA source is built, and every built kernel has a source.
     assert set(_build.KERNELS) == {f.stem for f in
                                    _build.CSRC_DIR.glob("*.cu")}
+    assert {"paged_attention", "w8a8_mm"} <= set(_build.KERNELS)
     for name in _build.KERNELS:
         src = _build.CSRC_DIR / f"{name}.cu"
         assert src.exists()
@@ -158,8 +164,18 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     assert torch.equal(prefill_attention(qa, ck[0, :, :9], ck[1, :, :9], 4),
                        prefill_attention_reference(qa, ck[0, :, :9],
                                                    ck[1, :, :9], 4))
+    paged_attention.launches = 0
+    pool = (qq, cache.k, cache.v, cache.page_table, cache.lengths + 1, 1)
+    assert torch.equal(
+        paged_attention(*pool, pages=2, impl="gather", k_scale=cache.k_scale,
+                        v_scale=cache.v_scale),
+        paged_attention_plain(*pool, pages=2, impl="gather",
+                              k_scale=cache.k_scale, v_scale=cache.v_scale))
+    w8a8_matmul.launches = 0
+    xb = x.to(torch.bfloat16)
+    assert torch.equal(w8a8_matmul(xb, q, s), w8a8_matmul_reference(xb, q, s))
     for fn in (quant_matmul, paged_attention_append, prefill_attention,
-               quant_mm.quant_matmul4,
+               paged_attention, w8a8_matmul, quant_mm.quant_matmul4,
                quant_mm.quant_matmul_experts_stacked,
                quant_mm.quant_matmul_experts_stacked4):
         assert fn.launches == 0, fn.__name__

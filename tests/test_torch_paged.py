@@ -1,8 +1,10 @@
-"""Paged KV pool writes and decode-append attention of the port, held
-against the reference on the same numpy-seeded inputs.
+"""Paged KV pool writes and decode attention of the port (both modes of
+kernel B's plain versions), held against the reference on the same
+numpy-seeded inputs.
 
 - ``quant_kv`` and the pool after ``write_prefill_batch`` /
-  ``write_decode_burst`` must be BITWISE equal to the reference's (int8
+  ``write_decode_burst`` / ``write_decode`` must be BITWISE equal to the
+  reference's (int8
   bytes, head-major scales, bf16 pools, page tables, lengths). Page 0 is
   the garbage page by contract (duplicate writes land there in an
   unspecified order) and is excluded.
@@ -13,6 +15,13 @@ against the reference on the same numpy-seeded inputs.
   pools agree to 2e-5 (f32 reduction order only); bf16 pools to 1e-2
   (the p.v product runs in the pool dtype on the gather paths, f32 in
   the interpreted kernel — one bf16 rounding apart).
+- pool mode, ``paged_attention`` (write-then-attend): each impl against
+  the reference's same impl (``gather``; ``kernel`` = Pallas
+  ``_paged_attention_kernel``, ``flash`` = ``_paged_attention_flash``,
+  both interpreted) on f32 pools at 1e-5, the int8 gather path at 1e-4,
+  and the refusal of an int8 pool under a non-gather impl;
+- append mode under ``PAGED_APPEND_IMPL=kernel`` against the Pallas
+  ``_paged_append_kernel_call`` at 2e-2 (bf16 roundings inside it).
 """
 
 import importlib
@@ -29,9 +38,11 @@ from p2p_llm_chat_tpu_torch.models.configs import get_config
 from p2p_llm_chat_tpu_torch.models.convert import tensor_from_numpy
 from p2p_llm_chat_tpu_torch.ops import paged_kv
 from p2p_llm_chat_tpu_torch.ops.paged_attention import (
-    paged_attention_append, paged_attention_append_reference)
+    paged_attention, paged_attention_append, paged_attention_append_reference,
+    paged_attention_reference)
 
 ref_pa = importlib.import_module("p2p_llm_chat_tpu.ops.paged_attention")
+port_pa = importlib.import_module("p2p_llm_chat_tpu_torch.ops.paged_attention")
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.model
@@ -205,3 +216,154 @@ def test_append_skips_nan_garbage_page(quantized):
     assert torch.isfinite(dirty).all()
     np.testing.assert_allclose(dirty[0].numpy(), clean[0].numpy(),
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+def test_write_decode_bitwise(pool):
+    """One step's k/v written layer by layer (the write-then-attend
+    branch): live rows at a slot mid-page, on a page boundary and at 0,
+    a released row whose zeroed table routes its write to page 0."""
+    rng = np.random.default_rng(4)
+    cfg = ref_config("tiny")
+    B, N, mppr = 4, 24, 4
+    L, Hkv, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    quantized = pool == "int8"
+    dt = jnp.float32 if pool == "f32" else jnp.bfloat16
+    rc = ref_kv.PagedKVCache.create(cfg, B, N, PS, max_pages_per_row=mppr,
+                                    dtype=dt, quantized=quantized)
+    tables = np.zeros((B, mppr), np.int32)
+    tables[0, :2] = [3, 4]
+    tables[1, :2] = [5, 6]
+    tables[2, :3] = [7, 8, 9]
+    lens = np.array([5, PS, 0, 6], np.int32)        # row 3: released
+    rc = rc._replace(page_table=jnp.asarray(tables),
+                     lengths=jnp.asarray(lens))
+    tc = _cache_to_torch(rc)
+    in_dt = jnp.float32 if quantized else dt
+    for layer in range(L):
+        k = jnp.asarray(rng.normal(size=(B, Hkv, D)), in_dt)
+        v = jnp.asarray(rng.normal(size=(B, Hkv, D)), in_dt)
+        rc = ref_kv.write_decode(rc, jnp.asarray(layer), k, v)
+        assert paged_kv.write_decode(tc, layer, _t(k), _t(v)) is tc
+        _assert_pools_equal(tc, rc)
+
+
+def _poisoned(quantized, lengths, pages, seed):
+    """_filled's pool with every table entry past a row's live pages
+    pointing at page 0, which holds 1e4 (int8 pools: 1e4 scales)."""
+    cache, q, _, _ = _filled(quantized, jnp.float32, lengths, pages, seed)
+    pt = np.asarray(cache.page_table).copy()
+    for b, n in enumerate(lengths):
+        pt[b, -(-n // PS):] = 0
+    cache = cache._replace(page_table=jnp.asarray(pt))
+    if quantized:
+        return cache._replace(k_scale=cache.k_scale.at[:, 0].set(1e4),
+                              v_scale=cache.v_scale.at[:, 0].set(1e4)), q
+    return cache._replace(k=cache.k.at[:, 0].set(1e4),
+                          v=cache.v.at[:, 0].set(1e4)), q
+
+
+@pytest.mark.parametrize("impl", ["gather", "kernel", "flash"])
+def test_paged_attention_matches_reference_impls(impl):
+    """Pool mode (write-then-attend) on f32 pools, each impl against the
+    reference's same impl (its Pallas kernels in interpret mode) and the
+    index-naive oracles of both packages, at the reference's own 1e-5:
+    a single token, a page boundary, a partial page; windows reaching
+    past the live pages into page 0."""
+    lengths = [1, 16, 27, 8]
+    pages = 4
+    cache, q = _poisoned(False, lengths, pages, 5)
+    tcache = _cache_to_torch(cache)
+    lens = jnp.asarray(lengths, jnp.int32)
+    before = paged_attention.launches
+    for layer in range(2):
+        got = paged_attention(
+            torch.from_numpy(q), tcache.k, tcache.v, tcache.page_table,
+            tcache.lengths, layer, pages=pages, impl=impl).numpy()
+        ref = ref_pa.paged_attention(
+            jnp.asarray(q), cache.k, cache.v, cache.page_table, lens,
+            jnp.asarray(layer), pages=pages, interpret=True, impl=impl)
+        np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5,
+                                   atol=1e-5, err_msg=f"{impl} {layer}")
+        oracle = paged_attention_reference(
+            torch.from_numpy(q), tcache.k, tcache.v, tcache.page_table,
+            tcache.lengths, layer, pages=pages).numpy()
+        ref_oracle = ref_pa.paged_attention_reference(
+            jnp.asarray(q), cache.k, cache.v, cache.page_table, lens, layer,
+            pages=pages)
+        np.testing.assert_allclose(oracle, np.asarray(ref_oracle),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5)
+    assert paged_attention.launches == before            # plain on CPU
+
+
+def test_paged_attention_int8_pool_gather_only(monkeypatch):
+    """An int8 pool under impl="gather" (scores x k scales, softmax,
+    probabilities x v scales) against the reference's at 1e-4 (f32 q:
+    the p.v product runs in f32 on both sides); any other impl raises,
+    in the reference and in the port alike, also as the env default."""
+    lengths = [3, 16, 21]
+    pages = 3
+    cache, q = _poisoned(True, lengths, pages, 6)
+    tcache = _cache_to_torch(cache)
+    lens = jnp.asarray(lengths, jnp.int32)
+    tq = torch.from_numpy(q)
+    for layer in range(2):
+        got = paged_attention(tq, tcache.k, tcache.v, tcache.page_table,
+                              tcache.lengths, layer, pages=pages,
+                              impl="gather", k_scale=tcache.k_scale,
+                              v_scale=tcache.v_scale).numpy()
+        ref = ref_pa.paged_attention(
+            jnp.asarray(q), cache.k, cache.v, cache.page_table, lens,
+            jnp.asarray(layer), pages=pages, impl="gather",
+            k_scale=cache.k_scale, v_scale=cache.v_scale)
+        np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-4,
+                                   atol=1e-4)
+    for impl in ("kernel", "flash"):
+        with pytest.raises(ValueError, match="gather"):
+            ref_pa.paged_attention(
+                jnp.asarray(q), cache.k, cache.v, cache.page_table, lens,
+                jnp.asarray(0), pages=pages, impl=impl,
+                k_scale=cache.k_scale, v_scale=cache.v_scale)
+        with pytest.raises(ValueError, match="gather"):
+            paged_attention(tq, tcache.k, tcache.v, tcache.page_table,
+                            tcache.lengths, 0, pages=pages, impl=impl,
+                            k_scale=tcache.k_scale, v_scale=tcache.v_scale)
+        monkeypatch.setattr(port_pa, "_DEFAULT_IMPL", impl)
+        with pytest.raises(ValueError, match="gather"):
+            paged_attention(tq, tcache.k, tcache.v, tcache.page_table,
+                            tcache.lengths, 0, pages=pages,
+                            k_scale=tcache.k_scale, v_scale=tcache.v_scale)
+    with pytest.raises(ValueError, match="gather|kernel|flash"):
+        paged_attention(tq, tcache.k, tcache.v, tcache.page_table,
+                        tcache.lengths, 0, pages=pages, impl="pallas")
+
+
+@pytest.mark.parametrize("quantized", [True, False], ids=["int8", "f32"])
+def test_append_under_kernel_impl_matches_pallas_block_kernel(quantized,
+                                                              monkeypatch):
+    """PAGED_APPEND_IMPL=kernel (row 5, the append function over an
+    XLA-gathered window) against the reference's
+    ``_paged_append_kernel_call`` in interpret mode, at the reference's
+    own 2e-2: that kernel rounds q, k, v, p.sv and the numerator to bf16
+    inside. A value outside gather|kernel|flash raises."""
+    monkeypatch.setattr(port_pa, "_APPEND_IMPL", "kernel")
+    lengths = [1, 7, 16, 33, 39]
+    pages = 5
+    cache, q, kc, vc = _filled(quantized, jnp.float32, lengths, pages, 2)
+    tcache = _cache_to_torch(cache)
+    lens = jnp.asarray(lengths, jnp.int32)
+    args = (torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+            tcache, tcache.lengths)
+    for layer in range(2):
+        got = paged_attention_append(*args, layer, pages=pages).numpy()
+        kern = ref_pa._paged_append_kernel_call(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), cache.k,
+            cache.v, cache.k_scale, cache.v_scale, cache.page_table, lens,
+            jnp.asarray(layer), pages=pages, quantized=quantized,
+            interpret=True)
+        np.testing.assert_allclose(got, np.asarray(kern), rtol=2e-2,
+                                   atol=2e-2, err_msg=f"layer {layer}")
+    monkeypatch.setattr(port_pa, "_APPEND_IMPL", "pallas")
+    with pytest.raises(ValueError, match="PAGED_APPEND_IMPL"):
+        paged_attention_append(*args, 0, pages=pages)
