@@ -10,7 +10,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 1. build  — nvcc builds every CUDA kernel from csrc/ (in parallel);
 2. kernel — each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with CUDA-event timings beside the bound:
-   kernel A (w8a16) at the llama3.1-8b shapes, kernel B's append mode
+   kernel A (w8a16 on tensor cores) exact on all 256 int8 values, at every
+   row count around its 16-, 64- and 128-row tiles on ragged shapes, at the
+   llama3.1-8b shapes with bitwise reruns and rows independent of M, timed
+   per decode step and per 256-row prefill chunk, kernel B's append mode
    (paged attention, current token seeded) and its pool mode
    (write-then-attend: a bf16 pool at the llama3.1-8b step, ragged
    geometries with NaN in every dead slot, an int8 pool under the gather
@@ -161,7 +164,8 @@ def phase_build() -> None:
           f"{time.monotonic() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or (name == "quant_mm" and "entry function" in line)):
                 print(f"  ptxas {name}: {line.strip()}")
 
 
@@ -205,14 +209,47 @@ def phase_kernel_a(results: dict) -> None:
         w = torch.randn(shape, generator=gen, device=dev) * H ** -0.5
         return quantize(w.to(torch.bfloat16))
 
-    # Ragged tiny shapes: O not a multiple of 16 (the byte-load path), H
-    # not a multiple of the 64-wide K step, stacked at a layer offset.
-    for (M, H, O) in ((5, 100, 200), (3, 128, 256)):
+    def rand_x(M, H):
+        return torch.randn((M, H), generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    # The int8 -> bf16 conversion is exact for all 256 values: identity
+    # rows against a weight holding every value in every row give the
+    # weight back exactly (unit scales), through the 16- and 128-row tiles.
+    vals = (torch.arange(256, device=dev)[:, None]
+            + torch.arange(256, device=dev)[None, :]) % 256 - 128
+    q_all = vals.to(torch.int8).contiguous()
+    s_one = torch.ones((1, 256), device=dev)
+    for M in (16, 256):
+        eye = torch.eye(256, device=dev)[:M].to(torch.bfloat16).contiguous()
+        out = quant_matmul(eye, q_all, s_one)
+        torch.cuda.synchronize()
+        check(torch.equal(out.float(), q_all[:M].float()),
+              f"kernel A: int8 -> bf16 not exact at M={M}")
+    print("  kernel A: all 256 int8 values exact through the bf16 tiles "
+          "(M=16 and M=256)")
+
+    # Ragged shapes at a layer offset, at every row count around the row
+    # tiles (16, 64, 128): O not a multiple of 16 (masked weight loads), H
+    # not a multiple of 8 (masked x loads), both, neither; then an x whose
+    # base is not 16-byte aligned (masked x loads at H % 8 == 0).
+    ragged_m = (1, 8, 15, 16, 17, 63, 64, 65, 255, 256, 257, 512)
+    for (H, O) in ((100, 200), (128, 256), (128, 136), (100, 256)):
         qt = rand_q(H, O, L=2)
-        x = torch.randn((M, H), generator=gen, device=dev).to(torch.bfloat16)
-        check_case(f"ragged M={M} H={H} O={O} layer=1", x, qt.q, qt.s, 1)
+        for M in ragged_m:
+            check_case(f"ragged M={M} H={H} O={O} layer=1", rand_x(M, H),
+                       qt.q, qt.s, 1)
+    qt = rand_q(128, 256, L=2)
+    flat = torch.randn((1 + 65 * 128,), generator=gen, device=dev).to(
+        torch.bfloat16)
+    for M in (5, 17, 65):
+        x = flat[1:1 + M * 128].view(M, 128)
+        check(x.data_ptr() % 16 != 0, "misaligned case is aligned")
+        check_case(f"ragged M={M} H=128 O=256 x at +2 bytes", x, qt.q,
+                   qt.s, 1)
 
     step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    chunk = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     prefill_ms = 0.0
     bound_kind = {"bytes": 0, "operations": 0}
     for name, (H, O, per_step) in A_SHAPES.items():
@@ -223,22 +260,47 @@ def phase_kernel_a(results: dict) -> None:
         qt = rand_q(H, O, L=None if name == "lm_head" else nl)
         layer_of = (lambda i: None) if name == "lm_head" else \
             (lambda i, nl=nl: i % nl)
-        for M in (1, 8, 32, 512):
-            x = torch.randn((M, H), generator=gen, device=dev).to(
-                torch.bfloat16)
-            check_case(f"{name} M={M} H={H} O={O}", x, qt.q, qt.s,
-                       layer_of(1))
-        # Prefill-shaped calls (up to 512 rows) run kernel A too.
-        x = torch.randn((512, H), generator=gen, device=dev).to(
-            torch.bfloat16)
-        ms = time_ms(lambda i: quant_matmul(x, qt.q, qt.s, layer_of(i)), 10)
-        b_ms, kind = bound_ms(H * O + 4 * O + 2 * 512 * (H + O),
-                              2.0 * 512 * H * O)
-        print(f"  kernel A {name} M=512: {ms * 1e3:.1f} us (bound "
-              f"{b_ms * 1e3:.1f} us, {kind}; {b_ms / ms:.0%} of bound; "
-              f"{2.0 * 512 * H * O / ms / 1e9:.1f} TFLOP/s)")
-        if name != "lm_head":      # prefill's lm_head sees 1 row/prompt
-            prefill_ms += per_step * ms
+        for M in (1, 8, 32, 256, 512):
+            check_case(f"{name} M={M} H={H} O={O}", rand_x(M, H), qt.q,
+                       qt.s, layer_of(1))
+        # Determinism and row independence: a rerun is bitwise the same,
+        # and the first rows of a 256-row call are bitwise the calls on
+        # those rows alone (the K order and split plan never depend on M).
+        x = rand_x(256, H)
+        full = quant_matmul(x, qt.q, qt.s, layer_of(1))
+        check(torch.equal(full, quant_matmul(x, qt.q, qt.s, layer_of(1))),
+              f"kernel A {name}: reruns differ")
+        for M in (1, 8, 17):
+            check(torch.equal(full[:M], quant_matmul(
+                x[:M].contiguous(), qt.q, qt.s, layer_of(1))),
+                f"kernel A {name}: rows of the M=256 call differ from the "
+                f"M={M} call")
+        print(f"  kernel A {name}: reruns bitwise equal; rows of M=256 "
+              f"bitwise equal to the M=1, 8, 17 calls")
+        # Prefill-shaped calls: a 256-row chunk (the scheduler's default
+        # SERVE_PREFILL_CHUNK) and a 512-row whole prompt.
+        for M in (256, 512):
+            x = rand_x(M, H)
+            ms = time_ms(lambda i: quant_matmul(x, qt.q, qt.s, layer_of(i)),
+                         10)
+            b_ms, kind = bound_ms(H * O + 4 * O + 2 * M * (H + O),
+                                  2.0 * M * H * O)
+            lib_note = ""
+            if M == 256 and name != "lm_head":
+                wl = [dequantize(type(qt)(qt.q[i], qt.s[i]), torch.bfloat16)
+                      for i in range(nl)]
+                lib = time_ms(lambda i: torch.matmul(x, wl[i % nl]), 10)
+                del wl
+                lib_note = f"; torch.matmul on pre-dequantized bf16 " \
+                           f"{lib * 1e3:.1f} us"
+                chunk["ms"] += per_step * ms
+                chunk["bound_ms"] += per_step * b_ms
+                chunk["library_ms"] += per_step * lib
+            print(f"  kernel A {name} M={M}: {ms * 1e3:.1f} us (bound "
+                  f"{b_ms * 1e3:.1f} us, {kind}; {b_ms / ms:.0%} of bound; "
+                  f"{2.0 * M * H * O / ms / 1e9:.1f} TFLOP/s){lib_note}")
+            if M == 512 and name != "lm_head":   # 1 lm_head row per prompt
+                prefill_ms += per_step * ms
         M = 8                      # the decode tick at SERVE_SLOTS=8
         x = torch.randn((M, H), generator=gen, device=dev).to(torch.bfloat16)
         ms = time_ms(lambda i: quant_matmul(x, qt.q, qt.s, layer_of(i)), 50)
@@ -265,8 +327,13 @@ def phase_kernel_a(results: dict) -> None:
         del qt
         torch.cuda.empty_cache()
     print(f"  kernel A per decode step (129 launches, B=8): "
-          f"{step['ms']:.3f} ms vs bound {step['bound_ms']:.3f} ms; the 128 "
-          f"layer launches of a 512-row prefill: {prefill_ms:.3f} ms")
+          f"{step['ms']:.3f} ms vs bound {step['bound_ms']:.3f} ms; "
+          f"torch.matmul on pre-dequantized bf16 {step['library_ms']:.3f} ms")
+    print(f"  kernel A per 256-row prefill chunk (128 layer launches): "
+          f"{chunk['ms']:.3f} ms vs bound {chunk['bound_ms']:.3f} ms "
+          f"(operations); torch.matmul on pre-dequantized bf16 "
+          f"{chunk['library_ms']:.3f} ms; the 128 layer launches of a "
+          f"512-row prompt: {prefill_ms:.3f} ms")
     results["quant_matmul"] = dict(
         name="quant_matmul", route="cuda",
         source="p2p_llm_chat_tpu_torch/csrc/quant_mm.cu",
@@ -276,8 +343,10 @@ def phase_kernel_a(results: dict) -> None:
         bound_by=max(bound_kind, key=bound_kind.get),
         scope="one llama3.1-8b decode step at B=8: 32 x (wqkv, wo, wgu, "
               "w_down) + lm_head = 129 launches; library_ms is torch.matmul "
-              "on pre-dequantized bf16 weights",
-        **{k: round(v, 4) for k, v in step.items()})
+              "on pre-dequantized bf16 weights; prefill_chunk_* are the 128 "
+              "layer launches of one 256-row chunk (bound by operations)",
+        **{k: round(v, 4) for k, v in step.items()},
+        **{f"prefill_chunk_{k}": round(v, 4) for k, v in chunk.items()})
 
 
 def _paged_case(quantized, Hq, Hkv, D, W, lengths, L=2, ps=64, seed=0,
@@ -897,22 +966,44 @@ def phase_kernel_experts(results: dict) -> None:
         plain_fn = getattr(qmm, name + "_reference")
         worst = 0.0
         step = [0.0, 0.0, 0.0, 0.0]
+        bucket = [0.0, 0.0, 0.0]
+        # Kernel A's row tiles are 16, 64 and 128: its grid also gets buckets
+        # that are not a tile multiple (17, 100) and the 128-row bucket a
+        # 256-row mixtral chunk gives each expert (top-2 of 8, capacity 2).
+        sizes = (1, 8, 17, 32, 100, 128, 512) if mode == "int8" else \
+            (1, 8, 32, 512)
         for wname, (K, O) in E_SHAPES.items():
             qt = _rand_pool(gen, L, K, O, mode, NE=NE)
             ng = qt.s.shape[-2]
-            for C in (1, 8, 32, 512):
+            deq = dequantize if mode == "int8" else dequantize4
+            for C in sizes:
                 x = torch.randn((NE, C, K), generator=gen, device=dev).to(
                     torch.bfloat16)
                 worst = max(worst, _rel_err(
                     f"{name} {wname} NE={NE} K={K} O={O} ng={ng} C={C} "
                     f"layer=1", fn(x, qt.q, qt.s, 1),
                     plain_fn(x, qt.q, qt.s, 1), C_TOL))
+            if mode == "int8":
+                x = torch.randn((NE, 128, K), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                ms = time_ms(lambda i: fn(x, qt.q, qt.s, i % L), 10)
+                wl = [deq(type(qt)(qt.q[i], qt.s[i])) for i in range(L)]
+                lib = time_ms(lambda i: torch.bmm(x, wl[i % L]), 10)
+                del wl
+                b_ms, kind = bound_ms(qt.q[0].numel() + 4 * qt.s[0].numel()
+                                      + 2 * NE * 128 * (K + O),
+                                      2.0 * NE * 128 * K * O)
+                print(f"  {name} {wname} C=128: {ms * 1e3:.1f} us (bound "
+                      f"{b_ms * 1e3:.1f} us, {kind}; {b_ms / ms:.0%} of "
+                      f"bound); torch.bmm on a pre-dequantized bf16 pool "
+                      f"{lib * 1e3:.1f} us")
+                for j, v in enumerate((ms, b_ms, lib)):
+                    bucket[j] += 32 * v
             x = torch.randn((NE, 8, K), generator=gen, device=dev).to(
                 torch.bfloat16)
             ms = time_ms(lambda i: fn(x, qt.q, qt.s, i % L), 20)
             plain = time_ms(lambda i: plain_fn(x, qt.q, qt.s, i % L), 3,
                             warmup=1)
-            deq = dequantize if mode == "int8" else dequantize4
             wl = [deq(type(qt)(qt.q[i], qt.s[i])) for i in range(L)]
             lib = time_ms(lambda i: torch.bmm(x, wl[i % L]), 20)
             del wl
@@ -929,6 +1020,14 @@ def phase_kernel_experts(results: dict) -> None:
             torch.cuda.empty_cache()
         print(f"  {name} per mixtral-8x7b {mode} decode step (B=8, 64 "
               f"launches): {step[0]:.3f} ms vs bound {step[2]:.3f} ms")
+        extra = {}
+        if mode == "int8":
+            print(f"  {name} per 256-row mixtral-8x7b chunk (buckets of "
+                  f"C=128, 64 launches): {bucket[0]:.3f} ms vs bound "
+                  f"{bucket[1]:.3f} ms; torch.bmm on pre-dequantized bf16 "
+                  f"{bucket[2]:.3f} ms")
+            extra = {f"prefill_chunk_{k}": round(v, 4) for k, v in
+                     zip(("ms", "bound_ms", "library_ms"), bucket)}
         results[name] = dict(
             name=name, route="cuda",
             source=("p2p_llm_chat_tpu_torch/csrc/quant_mm.cu" if mode ==
@@ -940,7 +1039,8 @@ def phase_kernel_experts(results: dict) -> None:
                   "buckets of C=8): 32 x (wgu_e, w_down) = 64 launches; "
                   "library_ms is torch.bmm on pre-dequantized bf16 pools",
             ms=round(step[0], 4), plain_ms=round(step[1], 4),
-            bound_ms=round(step[2], 4), library_ms=round(step[3], 4))
+            bound_ms=round(step[2], 4), library_ms=round(step[3], 4),
+            **extra)
 
 
 # -- phase 3: one full-width decode step, card vs CPU -------------------------
@@ -1262,12 +1362,15 @@ def phase_profile_prefill(model: str, quant: str, S: int = 2048,
             fn()
             torch.cuda.synchronize()
         groups: dict[str, list] = {}
+        reduce_ms = 0.0          # kernel A's split-K reduce, within its group
         for e in prof.events():
             if e.device_type != DeviceType.CUDA:
                 continue
             acc = groups.setdefault(_prefill_group(e.name), [0.0, 0])
             acc[0] += e.time_range.elapsed_us() / 1e3
             acc[1] += 1
+            if "qmm_reduce" in e.name:
+                reduce_ms += e.time_range.elapsed_us() / 1e3
         busy = sum(v[0] for v in groups.values())
         check(busy > 0, "profile_prefill: the profiler saw no device time")
         print(f"profile: {model} prefill, 32 layers, {quant} weights, R=1, "
@@ -1277,6 +1380,7 @@ def phase_profile_prefill(model: str, quant: str, S: int = 2048,
         for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
             print(f"  {g}: {ms:.3f} ms over {n} launches ({ms / busy:.1%} "
                   "of device time)")
+        print(f"    of kernel A, its split-K reduce: {reduce_ms:.3f} ms")
     print(f"profile: dequantize of {len(names)} projections x "
           f"{cfg.num_layers} layers (what the whole-prompt path runs before "
           f"its matmuls): {deq * cfg.num_layers:.3f} ms")

@@ -2,7 +2,8 @@
 
 The reference's ``OllamaServer`` (p2p_llm_chat_tpu/serve/api.py) cut down
 to ``POST /api/generate``, ``POST /api/chat``, ``GET /api/tags``,
-``POST /api/show``, ``GET /healthz``, ``GET /readyz`` and ``GET /metrics``.
+``POST /api/show``, ``GET /healthz``, ``GET /readyz``, ``GET /metrics`` and
+``POST /admin/drain`` / ``POST /admin/undrain``.
 The JSON wire format is the reference's, key for key (``json.dumps`` with
 its default separators): non-streaming responses carry ``response`` /
 ``message`` plus Ollama's timing fields and, for /api/generate, the
@@ -72,11 +73,22 @@ class OllamaServer:
         self.router.add("GET", "/healthz",
                         lambda r: Response(200, {"status": "ok"}))
         self.router.add("GET", "/readyz", self._readyz)
+        # Drain hooks (the reference router's retire path): draining
+        # finishes in-flight streams, refuses new work with 503 and flips
+        # /readyz. The front-level flag covers backends without their own
+        # drain() (FakeLLM); the engine's scheduler drains too, so direct
+        # submits shed as well.
+        self._draining = threading.Event()
+        self.router.add("POST", "/admin/drain", self._drain)
+        self.router.add("POST", "/admin/undrain", self._undrain)
         self._server: Optional[HttpServer] = None
 
     # -- helpers -------------------------------------------------------------
 
     def _readyz(self, req: Request) -> Response:
+        if self._draining.is_set():
+            return Response(503, {"status": "draining", "class": REPLICA_CLASS},
+                            headers={"Retry-After": "5"})
         fn = getattr(self.backend, "ready", None)
         try:
             ok = bool(fn()) if callable(fn) else True
@@ -87,6 +99,25 @@ class OllamaServer:
             return Response(200, {"status": "ready", "class": REPLICA_CLASS})
         return Response(503, {"status": "warming", "class": REPLICA_CLASS},
                         headers={"Retry-After": "2"})
+
+    def _drain(self, req: Request) -> Response:
+        """POST /admin/drain: refuse new work (503 + Retry-After, /readyz
+        "draining"); in-flight streams finish."""
+        self._draining.set()
+        fn = getattr(self.backend, "drain", None)
+        if callable(fn):
+            fn()
+        log.info("draining: new requests refused, in-flight streams "
+                 "finishing")
+        return Response(200, {"status": "draining"})
+
+    def _undrain(self, req: Request) -> Response:
+        self._draining.clear()
+        fn = getattr(self.backend, "undrain", None)
+        if callable(fn):
+            fn()
+        log.info("undrained: accepting new requests")
+        return Response(200, {"status": "ready"})
 
     def _metrics(self, req: Request) -> Response:
         text = self.metrics.render()
@@ -151,6 +182,14 @@ class OllamaServer:
         self._m_requests.inc()
         self._m_inflight.add(1)
         started = time.monotonic()
+        # Drain shed after the request counters move, as the scheduler's
+        # OverloadError path below does (shed <= requests on /metrics).
+        if self._draining.is_set():
+            self._m_inflight.add(-1)
+            self._m_shed.inc()
+            return Response(503, {"error": "server is draining; retry "
+                                           "elsewhere"},
+                            headers={"Retry-After": "5"})
         try:
             deltas = self.backend.generate_stream(greq, stats)
         except OverloadError as e:

@@ -11,7 +11,10 @@ a dense llama config or a mixtral (MoE) config, with bf16, int8 or int4
 weights, built through ``models.family_for(config)``. Features of the
 reference that later slices port fail loudly when asked for explicitly
 (``SERVE_SPEC>0``, ``SERVE_KV_HOST_GB>0``, ``SERVE_TP>1``,
-``SERVE_MODELS``, ``CKPT_DIR``, ``SERVE_KV=dense``, multi-host). Prompt
+``SERVE_MODELS``, ``CKPT_DIR``, ``SERVE_KV=dense``,
+``SERVE_PROFILE_PORT>0``, multi-host). ``SERVE_ADMIT_CHUNK`` caps the rows
+of each admission prefill, and ``SERVE_WARMUP`` (default ``128,256``)
+names the warmup buckets, as in the reference. Prompt
 admission runs the reference's defaults: chunked prefill
 (``SERVE_PREFILL_CHUNK``, default 256, 0 disables) and the prefix cache
 (``SERVE_PREFIX``, default on, with the co-pilot template registered at
@@ -76,6 +79,7 @@ class TorchEngine:
                  prefix_texts: tuple[str, ...] = (SUGGEST_PREFIX,),
                  prefill_chunk: int = 256,
                  attn_impl: Optional[str] = None,
+                 admit_chunk: Optional[int] = None,
                  name: Optional[str] = None,
                  device: Optional[torch.device | str] = None) -> None:
         self.name = name or config.name
@@ -87,7 +91,7 @@ class TorchEngine:
             queue_timeout_s=queue_timeout_s, queue_max=queue_max,
             kv_quant=kv_quant, prefix_cache=prefix_cache,
             prefill_chunk=prefill_chunk, attn_impl=attn_impl,
-            device=device)
+            admit_chunk=admit_chunk, device=device)
 
     def generate_stream(self, req: GenerateRequest,
                         stats: Optional[RequestStats] = None) -> Iterator[str]:
@@ -96,7 +100,7 @@ class TorchEngine:
     def render_chat(self, messages: list[dict]) -> str:
         return default_chat_prompt(messages)
 
-    def warmup(self, buckets: tuple[int, ...] = (128,)) -> None:
+    def warmup(self, buckets: tuple[int, ...] = (128, 256)) -> None:
         """Run the serving path once before traffic, on a background
         thread (on the card this builds and loads the CUDA kernels), and
         register the prefix templates; /readyz stays not-ready until it is
@@ -127,6 +131,12 @@ class TorchEngine:
     def drain(self) -> None:
         self.scheduler.drain()
 
+    def undrain(self) -> None:
+        self.scheduler.undrain()
+
+    def draining(self) -> bool:
+        return self.scheduler.draining
+
     def stop(self) -> None:
         self.scheduler.stop()
 
@@ -156,6 +166,8 @@ def build_engine_from_env(device: Optional[str | torch.device] = None
         raise _not_in_slice("multi-model serving (SERVE_MODELS)")
     if env_or("CKPT_DIR", ""):
         raise _not_in_slice("checkpoint loading (CKPT_DIR)")
+    if env_int("SERVE_PROFILE_PORT", 0) > 0:
+        raise _not_in_slice("the live profiler server (SERVE_PROFILE_PORT)")
     quant = env_or("SERVE_QUANT", "")
     if quant not in ("", "int8", "int4"):
         raise SystemExit(f"SERVE_QUANT must be one of '', 'int8', 'int4'; "
@@ -202,8 +214,10 @@ def build_engine_from_env(device: Optional[str | torch.device] = None
         queue_max=None if qm < 0 else qm,
         kv_quant=bool(kv_quant), prefix_cache=prefix_cache,
         prefix_texts=prefix_texts, prefill_chunk=prefill_chunk,
-        attn_impl=attn_impl, name=env_or("LLM_MODEL", config.name), device=dev)
-    warm = env_or("SERVE_WARMUP", "128")
+        attn_impl=attn_impl,
+        admit_chunk=env_int("SERVE_ADMIT_CHUNK", 0) or None,
+        name=env_or("LLM_MODEL", config.name), device=dev)
+    warm = env_or("SERVE_WARMUP", "128,256")
     if warm and warm != "0":
         engine.warmup(tuple(int(b) for b in warm.split(",") if b.strip()))
     return engine

@@ -223,8 +223,15 @@ class BatchScheduler:
                  queue_max: Optional[int] = None, kv_quant: bool = False,
                  prefix_cache: bool = False, prefill_chunk: int = 256,
                  attn_impl: Optional[str] = None,
+                 admit_chunk: Optional[int] = None,
                  device: Optional[torch.device | str] = None) -> None:
-        """``attn_impl``: the paged decode attention impl (gather |
+        """``admit_chunk``: burst-admission width (the reference's
+        ``SERVE_ADMIT_CHUNK``). None admits as many rows per prefill as
+        the admission token budget allows; a fixed width caps each
+        prefill's rows, so a burst's first tokens land before the whole
+        burst is prefilled.
+
+        ``attn_impl``: the paged decode attention impl (gather |
         kernel | flash; None = ``PAGED_ATTN_IMPL``'s default in
         ops/paged_attention), which picks decode_step_paged's branch. An
         int8 pool (``kv_quant``) is served under ``gather`` only, as in the
@@ -246,6 +253,9 @@ class BatchScheduler:
         if prefill_chunk < 0:
             raise ValueError(
                 f"prefill_chunk must be >= 0, got {prefill_chunk}")
+        if admit_chunk is not None and admit_chunk < 1:
+            raise ValueError(f"admit_chunk must be >= 1, got {admit_chunk}")
+        self.admit_chunk = admit_chunk
         self.attn_impl = pa.check_impl(
             pa._DEFAULT_IMPL if attn_impl is None else attn_impl)
         if kv_quant and self.attn_impl != "gather":
@@ -356,8 +366,15 @@ class BatchScheduler:
 
     def drain(self) -> None:
         """Stop taking new work (submit sheds, /readyz turns 503); what is
-        queued or running finishes."""
+        queued or running finishes. Reversible with :meth:`undrain`."""
         self._draining.set()
+
+    def undrain(self) -> None:
+        self._draining.clear()
+
+    @property
+    def draining(self) -> bool:
+        return self._draining.is_set()
 
     def submit(self, req: GenerateRequest,
                stats: Optional[RequestStats] = None) -> Iterator[str]:
@@ -751,7 +768,8 @@ class BatchScheduler:
         for gi, (pkey, S, group) in enumerate(order):
             while group:
                 R = max(1, min(len(group),
-                               _ADMIT_TOKEN_BUDGET // (S + len(pkey))))
+                               _ADMIT_TOKEN_BUDGET // (S + len(pkey)),
+                               self.admit_chunk or len(group)))
                 chunk, group = group[:R], group[R:]
                 rows = [free.pop(0) for _ in chunk]
                 C = self.prefill_chunk

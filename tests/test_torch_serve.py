@@ -214,6 +214,7 @@ _PORTED = ({"SERVE_QUANT": "int4"}, {"MODEL_CONFIG": "tiny-moe"})
                                  {"SERVE_TP": "2"},
                                  {"SERVE_MODELS": "a=tiny"},
                                  {"CKPT_DIR": "/nonexistent"},
+                                 {"SERVE_PROFILE_PORT": "9999"},
                                  {"SERVE_QUANT": "int4"},
                                  {"SERVE_KV": "dense"},
                                  {"MODEL_CONFIG": "tiny-moe"}])
