@@ -22,7 +22,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    mixtral-8x7b's expert shapes, kernel D (causal prefill attention) on
    whole prompts, the 256-wide chunks of a 2048 prompt (rows bitwise
    equal to the whole prompt's), a co-pilot-template suffix and ragged
-   shapes, and kernel E (w8a8 on int8 tensor cores, bitwise against its
+   shapes that run every q tile its plan picks, timed whole and in chunks
+   beside SDPA and the bound, and kernel E (w8a8 on int8 tensor cores, bitwise against its
    plain version at the mm_micro and llama3.1-8b shapes and ragged ones),
    after which the mm_micro twin (p2p_llm_chat_tpu_torch/tools/mm_micro)
    runs once and prints its table;
@@ -56,8 +57,8 @@ the device's idle share; and one 32-layer llama3.1-8b int8 prefill of a
 Prints the card's name and power limit early, a ``{"kernels": [...]}``
 JSON line before the last, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-``--only build,kernel`` runs a subset (``--only build,kernel_d`` iterates
-on one kernel).
+``--only build,kernel`` runs a subset (``--only
+build,kernel_d,profile_prefill`` iterates on one kernel).
 Exits non-zero, printing no result, where no CUDA device is available.
 """
 
@@ -165,7 +166,8 @@ def phase_build() -> None:
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if ("registers" in line or "spill" in line
-                    or (name == "quant_mm" and "entry function" in line)):
+                    or (name in ("quant_mm", "prefill_attention")
+                        and "entry function" in line)):
                 print(f"  ptxas {name}: {line.strip()}")
 
 
@@ -702,23 +704,32 @@ def phase_kernel_d(results: dict) -> None:
     plain version at llama3.1-8b / mixtral-8x7b geometry (Hq 32, Hkv 8,
     D 128): whole prompts, the eight 256-wide chunks of a 2048 prompt over
     a carry that holds NaN past each chunk, a suffix after the co-pilot
-    template's prefix, and ragged shapes at other head geometries. Chunk
-    and suffix rows must equal the whole-prompt rows bit for bit. Timing:
-    one 2048-token prompt, whole and as 8 chunks, beside SDPA."""
+    template's prefix, and ragged shapes at other head geometries chosen so
+    that every q tile the plan can pick (QW = 1, 2, 4, 8 warps per head)
+    runs, each with NaN past the last query position. Chunk and suffix rows
+    must equal the whole-prompt rows bit for bit, and a rerun the first
+    run. Timing: one 2048-token prompt, whole and as 8 chunks, beside SDPA
+    (is_causal whole; per chunk over the carry with a lower-right causal
+    mask) and beside the bound of the same causal triangle."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
     from p2p_llm_chat_tpu_torch.models.layers import repeat_kv
     from p2p_llm_chat_tpu_torch.ops.prefill_attention import (
-        prefill_attention, prefill_attention_reference)
+        prefill_attention, prefill_attention_reference, q_tile_plan)
     from p2p_llm_chat_tpu_torch.serve.engine import SUGGEST_PREFIX
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = 0.0
     nan = float("nan")
+    tiles: set[int] = set()
 
     def case(label, q, k, v, off, poison=None):
         """Kernel D against the plain version; with ``poison``, the kernel
         sees k/v whose slots from ``poison`` on hold NaN (never read)."""
         nonlocal worst
+        R, Sq, Hq, D = q.shape
+        qw, smem = q_tile_plan(R, Sq, Hq, k.shape[2], D)
+        tiles.add(qw)
         kk, vv = k, v
         if poison is not None:
             kk, vv = k.clone(), v.clone()
@@ -726,7 +737,8 @@ def phase_kernel_d(results: dict) -> None:
             vv[:, poison:] = nan
         out = prefill_attention(q, kk, vv, off)
         worst = max(worst, _rel_err(
-            f"kernel D {label}", out,
+            f"kernel D {label} [q tile {16 * qw} x {Hq // k.shape[2]} "
+            f"heads, {Hq // k.shape[2] * qw} warps, {smem} B shared]", out,
             prefill_attention_reference(q, k, v, off), D_TOL))
         return out
 
@@ -736,6 +748,8 @@ def phase_kernel_d(results: dict) -> None:
     S, C = 2048, 256
     q, k, v = _rand_qkv(gen, 1, S, S, Hq, Hkv, D)
     whole = case(f"whole R=1 S={S}", q, k, v, 0)
+    check(torch.equal(prefill_attention(q, k, v, 0), whole),
+          "kernel D: a rerun differs from the first run")
     for off in range(0, S, C):           # NaN in the unwritten carry slots
         out = case(f"chunk off={off} C={C} of S={S} (NaN past the chunk)",
                    q[:, off:off + C].contiguous(), k, v, off,
@@ -744,7 +758,7 @@ def phase_kernel_d(results: dict) -> None:
               f"kernel D chunk off={off}: rows differ from the whole-prompt "
               "rows")
     print(f"  kernel D: the {S // C} chunk calls equal the whole-prompt rows "
-          "bit for bit")
+          "bit for bit; a rerun equals the first run")
     # The co-pilot template's registered prefix (BOS + bytes, minus one).
     P = len(SUGGEST_PREFIX.encode())
     q, k, v = _rand_qkv(gen, 4, P + 128, P + 128, Hq, Hkv, D)
@@ -753,15 +767,23 @@ def phase_kernel_d(results: dict) -> None:
                k, v, P)
     check(torch.equal(out, whole[:, P:]), "kernel D prefix suffix: rows "
           "differ from the whole-prompt rows")
-    # Ragged: odd offsets, other head groups (rep 3, 1, 8), D 64 and 32,
-    # kv slots past the last query position holding NaN.
+    # Ragged: odd offsets and lengths, other head groups (rep 1, 2, 3, 8),
+    # D 64 and 32, kv slots past the last query position holding NaN; the
+    # larger ones fill 132 SMs with 2-8 warps per head.
     for (R, Sq, off, Hq_, Hkv_, D_) in ((3, 77, 33, 12, 4, 64),
                                         (2, 50, 0, 4, 4, 32),
                                         (2, 40, 7, 64, 8, 128),
-                                        (1, 130, 301, 8, 4, 64)):
+                                        (1, 130, 301, 8, 4, 64),
+                                        (2, 1100, 13, 8, 8, 32),
+                                        (2, 540, 9, 8, 8, 128),
+                                        (1, 600, 3, 8, 8, 32),
+                                        (2, 540, 5, 16, 8, 64),
+                                        (2, 601, 31, 12, 4, 64)):
         q, k, v = _rand_qkv(gen, R, Sq, off + Sq + 19, Hq_, Hkv_, D_)
         case(f"ragged R={R} Sq={Sq} offset={off} Hq={Hq_} Hkv={Hkv_} "
              f"D={D_}", q, k, v, off, poison=off + Sq)
+    check(tiles >= {1, 2, 4, 8}, f"kernel D: the cases ran q tiles of "
+          f"{sorted(tiles)} warps per head only, not 1, 2, 4 and 8")
     # Timing: one llama3.1-8b layer's prefill attention at S = 2048.
     R, S = 1, 2048
     q, k, v = _rand_qkv(gen, R, S, S, Hq, Hkv, D)
@@ -776,26 +798,47 @@ def phase_kernel_d(results: dict) -> None:
     vs = repeat_kv(v, Hq // Hkv).transpose(1, 2)
     lib = time_ms(lambda i: F.scaled_dot_product_attention(
         qs, ks, vs, is_causal=True), 50)
+    # The chunked form's yardstick: one SDPA call per chunk over the carry
+    # up to the chunk's end, the causal mask aligned to the lower right.
+    lib_chunks = [(qs[:, :, o:o + C], ks[:, :, :o + C], vs[:, :, :o + C],
+                   causal_lower_right(C, o + C)) for o in range(0, S, C)]
+    chunk_lib = time_ms(lambda i: [F.scaled_dot_product_attention(
+        a, b, c, attn_mask=m) for a, b, c, m in lib_chunks], 20)
     flops = 4.0 * R * Hq * D * S * (S + 1) / 2
     b_ms, kind = bound_ms(2 * (2 * R * S * Hq * D + 2 * R * S * Hkv * D),
                           flops)
+    # The same causal triangle as chunks: each reads its q rows and the
+    # carry up to its end, and writes its rows.
+    c_flops = sum(4.0 * R * Hq * D * (C * o + C * (C + 1) / 2)
+                  for o in range(0, S, C))
+    c_bytes = sum(2 * (2 * R * C * Hq * D + 2 * R * (o + C) * Hkv * D)
+                  for o in range(0, S, C))
+    cb_ms, c_kind = bound_ms(c_bytes, c_flops)
     print(f"  kernel D whole prompt R={R} S={S} (8B geometry): {ms * 1e3:.1f} "
           f"us per layer (bound {b_ms * 1e3:.1f} us, {kind}; {b_ms / ms:.0%} "
-          f"of bound; {flops / ms / 1e9:.1f} TFLOP/s); as {S // C} chunks "
-          f"of {C}: {chunk_ms * 1e3:.1f} us; plain {plain * 1e3:.1f} us; "
-          f"SDPA (is_causal, repeat_kv'd heads) {lib * 1e3:.1f} us")
+          f"of bound; {flops / ms / 1e9:.1f} TFLOP/s); plain "
+          f"{plain * 1e3:.1f} us; SDPA (is_causal, repeat_kv'd heads) "
+          f"{lib * 1e3:.1f} us")
+    print(f"  kernel D as {S // C} chunks of {C}: {chunk_ms * 1e3:.1f} us per "
+          f"layer (bound {cb_ms * 1e3:.1f} us, {c_kind}; {cb_ms / chunk_ms:.0%}"
+          f" of bound; {c_flops / chunk_ms / 1e9:.1f} TFLOP/s); SDPA per "
+          f"chunk (causal_lower_right over the carry) {chunk_lib * 1e3:.1f} "
+          "us")
     results["prefill_attention"] = dict(
         name="prefill_attention", route="cuda",
         source="p2p_llm_chat_tpu_torch/csrc/prefill_attention.cu",
         replaces="p2p_llm_chat_tpu/models/layers.py:226",
         max_abs_err=worst, bound_by=kind,
         scope="one 32-layer llama3.1-8b prefill of a 2048-token prompt "
-              "(R=1): 32 launches; chunked_ms is the same prompt as 8 "
+              "(R=1): 32 launches; chunked_* is the same prompt as 8 "
               "chunks of 256 (256 launches); library_ms is SDPA "
-              "(is_causal) over repeat_kv'd heads",
+              "(is_causal) over repeat_kv'd heads, chunked_library_ms one "
+              "SDPA call per chunk with causal_lower_right",
         ms=round(32 * ms, 4), plain_ms=round(32 * plain, 4),
         bound_ms=round(32 * b_ms, 4), library_ms=round(32 * lib, 4),
-        chunked_ms=round(32 * chunk_ms, 4))
+        chunked_ms=round(32 * chunk_ms, 4),
+        chunked_bound_ms=round(32 * cb_ms, 4),
+        chunked_library_ms=round(32 * chunk_lib, 4))
 
 
 def _rel_err(label: str, out, ref, tol: float) -> float:

@@ -44,6 +44,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.prefill_attention_launch.restype = i
     lib.prefill_attention_launch.argtypes = [p] * 4 + [i] * 7 + [p]
+    lib.prefill_attention_plan.restype = i
+    lib.prefill_attention_plan.argtypes = [i] * 5 + [p] * 2
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -56,6 +58,15 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return prefill_attention_reference(q, k, v, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"prefill_attention: unsupported device {q.device}")
+    return _launch(q, k, v, q_offset)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            q_offset: int) -> torch.Tensor:
+    """Check the operands and launch kernel D. The kernel picks its q tile
+    from the geometry and the card (:func:`q_tile_plan`); its kv tiles sit
+    at absolute offsets of 64, so nothing handed over here but ``Sq`` and
+    ``q_offset`` differs between a chunk call and the whole prompt."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (t.dtype != torch.bfloat16 or not t.is_contiguous()
                 or t.device != q.device or t.ndim != 4
@@ -80,6 +91,21 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  "prefill_attention")
     prefill_attention.launches += 1
     return out
+
+
+def q_tile_plan(R: int, Sq: int, Hq: int, Hkv: int, D: int
+                ) -> tuple[int, int]:
+    """The q tile kernel D runs a call of this geometry with on the current
+    card: (warps per head QW, the block's dynamic shared memory in bytes).
+    A block holds 16 QW query positions of every head of one kv-head group
+    on (Hq / Hkv) QW warps. Launches nothing."""
+    lib = _build.load("prefill_attention", _bind)
+    qw, smem = ctypes.c_int(), ctypes.c_int()
+    rc = lib.prefill_attention_plan(R, Sq, Hq, Hkv, D, ctypes.byref(qw),
+                                    ctypes.byref(smem))
+    _build.check(rc, lib, "prefill_attention_error_string",
+                 "prefill_attention_plan")
+    return qw.value, smem.value
 
 
 prefill_attention.launches = 0
