@@ -17,9 +17,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (paged attention, current token seeded) and its pool mode
    (write-then-attend: a bf16 pool at the llama3.1-8b step, ragged
    geometries with NaN in every dead slot, an int8 pool under the gather
-   impl), kernel C (w4a16) at the mixtral-8x7b and llama3.1-8b int4
-   shapes plus ragged ones, the expert grids of kernels A and C at
-   mixtral-8x7b's expert shapes, kernel D (causal prefill attention) on
+   impl), kernel C (w4a16 on tensor cores) exact on all 256 byte values,
+   on ragged shapes that run every row tile and both of its routes, at
+   the mixtral-8x7b and llama3.1-8b int4 shapes with bitwise reruns and
+   rows independent of M, timed per decode step and per 256-row chunk,
+   the expert grids of kernels A and C at mixtral-8x7b's expert shapes
+   (ragged buckets, bitwise reruns, decode and chunk buckets timed),
+   kernel D (causal prefill attention) on
    whole prompts, the 256-wide chunks of a 2048 prompt (rows bitwise
    equal to the whole prompt's), a co-pilot-template suffix and ragged
    shapes that run every q tile its plan picks, timed whole and in chunks
@@ -128,6 +132,24 @@ def time_ms(fn, n: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
+def graph_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """Device ms per call of ``fn(i)``: ``n`` calls captured in one CUDA
+    graph and replayed, so the host's cost per call is left out (the
+    wrappers' checks, allocations and launches; ``time_ms`` of small calls
+    measures that instead)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(0)                    # first launch (opt-ins) outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(i)
+    return time_ms(lambda _i: graph.replay(), reps) / n
+
+
 def card_line() -> str:
     try:
         out = subprocess.run(
@@ -166,7 +188,8 @@ def phase_build() -> None:
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if ("registers" in line or "spill" in line
-                    or (name in ("quant_mm", "prefill_attention")
+                    or (name in ("quant_mm", "quant_mm4",
+                                 "prefill_attention")
                         and "entry function" in line)):
                 print(f"  ptxas {name}: {line.strip()}")
 
@@ -900,41 +923,112 @@ C_SHAPES = {    # int4 projections: (K, O, launches per decode step)
 }
 
 
+def _c_route(M: int, K: int, ng: int) -> str:
+    """The route and row tile kernel C takes for M rows of a (K, ng)
+    weight, as csrc/quant_mm4.cu's qmm4_plan reports them."""
+    from p2p_llm_chat_tpu_torch.ops.quant_mm import kernel_c_plan
+    seg, bm = kernel_c_plan(M, K, ng)
+    return f"{'mma' if seg else 'fma'} BM={bm}"
+
+
 def phase_kernel_c(results: dict) -> None:
-    """Kernel C (w4a16) against its plain version at the int4 projections
-    of mixtral-8x7b and llama3.1-8b, ragged shapes at a layer offset (both
-    of the kernel's scale-fold paths), group 64, ng = 1 and the odd ng = 45
-    of mixtral-large's w_down; timings at M = 8 with the layers rotated so
-    the weight reads stay cold in L2."""
+    """Kernel C (w4a16) against its plain version: every served int4
+    grouping planned onto the tensor cores; every byte value exact through
+    the 16-, 64- and 128-row tiles; ragged shapes at a layer offset at
+    every row count around the tiles, on both routes (the tensor-core
+    kernel where 64 divides the group and K/2, else the CUDA-core kernel),
+    masked weight and x loads, group 64, ng = 1 and the odd ng = 45 of
+    mixtral-large's w_down; the
+    int4 projections of mixtral-8x7b and llama3.1-8b with bitwise reruns
+    and rows independent of M; timings at M = 8 (decode) and M = 256 (a
+    prefill chunk) with the layers rotated so the weight reads stay cold
+    in L2."""
     import torch
-    from p2p_llm_chat_tpu_torch.models.quant import QTensor4, dequantize4
-    from p2p_llm_chat_tpu_torch.ops.quant_mm import (quant_matmul4,
-                                                     quant_matmul4_reference)
+    from p2p_llm_chat_tpu_torch.models.configs import CONFIGS
+    from p2p_llm_chat_tpu_torch.models.quant import (QTensor4, _int4_group,
+                                                     dequantize4)
+    from p2p_llm_chat_tpu_torch.ops.quant_mm import (kernel_c_plan,
+                                                     quant_matmul4,
+                                                     quant_matmul4_reference,
+                                                     unpack4)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     worst = 0.0
+    routes: set = set()
+
+    # Every contraction the quantizer packs to int4, at every registered
+    # config's widths, takes the tensor-core route.
+    for cname, cfg in CONFIGS.items():
+        for K in {cfg.hidden_size, cfg.num_heads * cfg.head_dim,
+                  cfg.intermediate_size}:
+            for expert in (False, True):
+                group = _int4_group(K, expert)
+                if group is not None:
+                    check(kernel_c_plan(1, K, K // group)[0] == 64,
+                          f"kernel C: {cname} K={K} group={group} is not "
+                          f"planned onto the tensor cores")
+    print("  kernel C: every served int4 grouping planned onto the tensor "
+          "cores (64-row segments)")
 
     def check_case(label, x, qt, layer):
         nonlocal worst
+        route = _c_route(x.shape[0], x.shape[1], qt.s.shape[-2])
+        routes.add(route)
         worst = max(worst, _rel_err(
-            f"kernel C {label}", quant_matmul4(x, qt.q, qt.s, layer),
+            f"kernel C {label} [{route}]", quant_matmul4(x, qt.q, qt.s, layer),
             quant_matmul4_reference(x, qt.q, qt.s, layer), C_TOL))
 
     def rand_x(M, K):
         return torch.randn((M, K), generator=gen, device=dev).to(
             torch.bfloat16)
 
-    # (K, O, group): group 64 with odd ng = 3; ng = 1 (tiny's trunk); two
-    # groupings off the per-step fold (G or K/2 not a multiple of 32);
-    # mixtral-large's w_down, ng = 45 (the high half starts mid-group).
-    for (K, O, group) in ((192, 200, 64), (128, 256, 128), (100, 130, 50),
-                          (96, 40, 96), (11520, 4096, 256)):
+    # Every byte value in every packed row, unit scales: identity rows give
+    # the weight back exactly (rows < 128 the low nibbles, the rest the
+    # high ones), through each row tile.
+    vals = (torch.arange(128, device=dev)[:, None]
+            + torch.arange(256, device=dev)[None, :]) % 256
+    q_all = vals.to(torch.uint8).view(torch.int8).contiguous()
+    s_one = torch.ones((1, 256), device=dev)
+    w_all = unpack4(q_all).float()
+    for M in (16, 64, 256):
+        eye = torch.eye(256, device=dev)[:M].to(torch.bfloat16).contiguous()
+        out = quant_matmul4(eye, q_all, s_one)
+        torch.cuda.synchronize()
+        check(torch.equal(out.float(), w_all[:M]),
+              f"kernel C: nibble -> bf16 not exact at M={M}")
+        routes.add(_c_route(M, 256, 1))
+    print("  kernel C: all 256 byte values exact, both nibbles, through the "
+          "16-, 64- and 128-row tiles")
+
+    # (K, O, group): the tensor-core route at odd ng = 3 with G = 128 (the
+    # high half starts mid-group; O % 16 != 0: masked weight loads), at ng
+    # = 1 (one tile) and at mixtral-large's w_down, ng = 45; the CUDA-core
+    # route at G = 64 with odd ng = 3 (K/2 = 96), G = 48, K = 96 with ng =
+    # 1, and G = 50.
+    ragged_m = (1, 8, 15, 16, 17, 63, 64, 65, 100, 128, 255, 256, 257, 512)
+    for (K, O, group, ms) in ((384, 136, 128, ragged_m),
+                              (128, 256, 128, ragged_m),
+                              (192, 200, 64, ragged_m),
+                              (288, 264, 48, ragged_m),
+                              (96, 40, 96, ragged_m),
+                              (100, 130, 50, ragged_m),
+                              (11520, 4096, 256, (1, 8, 17, 128, 512))):
         qt = _rand_pool(gen, 2, K, O, "int4", group=group)
-        for M in (1, 8, 32, 512):
+        for M in ms:
             check_case(f"K={K} O={O} G={group} ng={K // group} M={M} "
                        f"layer=1", rand_x(M, K), qt, 1)
         del qt
+    # x not 16-byte aligned: masked x loads on every tile.
+    qt = _rand_pool(gen, 2, 128, 256, "int4", group=128)
+    flat = torch.randn((1 + 65 * 128,), generator=gen, device=dev).to(
+        torch.bfloat16)
+    for M in (5, 17, 65):
+        x = flat[1:1 + M * 128].view(M, 128)
+        check(x.data_ptr() % 16 != 0, "misaligned case is aligned")
+        check_case(f"K=128 O=256 M={M} x at +2 bytes", x, qt, 1)
+    del qt
     per_ms: dict = {}
+    chunk = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     for (model, name), (K, O, per_step) in C_SHAPES.items():
         lm = name == "lm_head"
         nl = 1 if lm else max(2, min(8, math.ceil(
@@ -942,24 +1036,55 @@ def phase_kernel_c(results: dict) -> None:
         qt = _rand_pool(gen, None if lm else nl, K, O, "int4")
         ng = qt.s.shape[-2]
         layer_of = (lambda i: None) if lm else (lambda i, nl=nl: i % nl)
-        for M in (1, 8, 32, 512):
+        for M in (1, 8, 17, 32, 100, 512):
             check_case(f"{model} {name} K={K} O={O} ng={ng} M={M}",
                        rand_x(M, K), qt, layer_of(1))
-        x = rand_x(8, K)
-        ms = time_ms(lambda i: quant_matmul4(x, qt.q, qt.s, layer_of(i)), 50)
-        plain = time_ms(lambda i: quant_matmul4_reference(
-            x, qt.q, qt.s, layer_of(i)), 3, warmup=1)
+        # Determinism and row independence, as for kernel A.
+        x = rand_x(256, K)
+        full = quant_matmul4(x, qt.q, qt.s, layer_of(1))
+        check(torch.equal(full, quant_matmul4(x, qt.q, qt.s, layer_of(1))),
+              f"kernel C {model} {name}: reruns differ")
+        for M in (1, 8, 17):
+            check(torch.equal(full[:M], quant_matmul4(
+                x[:M].contiguous(), qt.q, qt.s, layer_of(1))),
+                f"kernel C {model} {name}: rows of the M=256 call differ "
+                f"from the M={M} call")
+        print(f"  kernel C {model} {name}: reruns bitwise equal; rows of "
+              f"M=256 bitwise equal to the M=1, 8, 17 calls")
         wl = ([dequantize4(qt)] if lm else
               [dequantize4(QTensor4(qt.q[i], qt.s[i])) for i in range(nl)])
+        wbytes = K // 2 * O + 4 * ng * O
+        if not lm:                 # a 256-row prefill chunk
+            M = 256
+            xc = rand_x(M, K)
+            ms = time_ms(lambda i: quant_matmul4(xc, qt.q, qt.s,
+                                                 layer_of(i)), 10)
+            lib = time_ms(lambda i: torch.matmul(xc, wl[i % nl]), 10)
+            b_ms, kind = bound_ms(wbytes + 2 * M * (K + O), 2.0 * M * K * O)
+            print(f"  kernel C {model} {name} M=256: {ms * 1e3:.1f} us "
+                  f"(bound {b_ms * 1e3:.1f} us, {kind}; {b_ms / ms:.0%} of "
+                  f"bound; {2.0 * M * K * O / ms / 1e9:.1f} TFLOP/s); "
+                  f"torch.matmul on a pre-dequantized bf16 weight "
+                  f"{lib * 1e3:.1f} us")
+            if model == "mixtral-8x7b":
+                for k, v in zip(("ms", "bound_ms", "library_ms"),
+                                (ms, b_ms, lib)):
+                    chunk[k] += per_step * v
+        x = rand_x(8, K)
+        ms = time_ms(lambda i: quant_matmul4(x, qt.q, qt.s, layer_of(i)), 50)
+        dev_ms = graph_ms(lambda i: quant_matmul4(x, qt.q, qt.s,
+                                                  layer_of(i)))
+        plain = time_ms(lambda i: quant_matmul4_reference(
+            x, qt.q, qt.s, layer_of(i)), 3, warmup=1)
         lib = time_ms(lambda i: torch.matmul(x, wl[i % len(wl)]), 50)
         del wl
-        b_ms, kind = bound_ms(K // 2 * O + 4 * ng * O + 2 * 8 * (K + O),
-                              2.0 * 8 * K * O)
+        b_ms, kind = bound_ms(wbytes + 2 * 8 * (K + O), 2.0 * 8 * K * O)
         print(f"  kernel C {model} {name} M=8: {ms * 1e3:.1f} us (bound "
-              f"{b_ms * 1e3:.1f} us, {kind}; {b_ms / ms:.0%} of bound); "
-              f"plain {plain * 1e3:.1f} us; torch.matmul on a "
-              f"pre-dequantized bf16 weight {lib * 1e3:.1f} us")
-        per_ms[(model, name)] = (ms, plain, b_ms, lib, per_step)
+              f"{b_ms * 1e3:.1f} us, {kind}; {b_ms / ms:.0%} of bound; "
+              f"device {dev_ms * 1e3:.1f} us in a CUDA graph); plain "
+              f"{plain * 1e3:.1f} us; torch.matmul on a pre-dequantized "
+              f"bf16 weight {lib * 1e3:.1f} us")
+        per_ms[(model, name)] = (ms, plain, b_ms, lib, dev_ms, per_step)
         del qt
         torch.cuda.empty_cache()
     per_ms[("llama3.1-8b", "wqkv")] = per_ms[("mixtral-8x7b", "wqkv")]
@@ -967,13 +1092,22 @@ def phase_kernel_c(results: dict) -> None:
     steps = {}
     for model in ("mixtral-8x7b", "llama3.1-8b"):
         rows = [v for (m, _), v in per_ms.items() if m == model]
-        steps[model] = [sum(r[j] * r[4] for r in rows) for j in range(4)]
+        steps[model] = [sum(r[j] * r[5] for r in rows) for j in range(5)]
         print(f"  kernel C per {model} int4 decode step (B=8, "
-              f"{sum(r[4] for r in rows)} launches): {steps[model][0]:.3f} "
-              f"ms vs bound {steps[model][2]:.3f} ms; plain "
+              f"{sum(r[5] for r in rows)} launches): {steps[model][0]:.3f} "
+              f"ms vs bound {steps[model][2]:.3f} ms (device "
+              f"{steps[model][4]:.3f} ms in CUDA graphs); plain "
               f"{steps[model][1]:.3f} ms; torch.matmul on pre-dequantized "
               f"bf16 {steps[model][3]:.3f} ms")
-    ms, plain, b_ms, lib = steps["mixtral-8x7b"]
+    print(f"  kernel C per 256-row mixtral-8x7b int4 chunk (wqkv, wo: 64 "
+          f"layer launches): {chunk['ms']:.3f} ms vs bound "
+          f"{chunk['bound_ms']:.3f} ms; torch.matmul on pre-dequantized "
+          f"bf16 {chunk['library_ms']:.3f} ms")
+    print(f"  kernel C routes run: {', '.join(sorted(routes))}")
+    for want in ("fma BM=16", "mma BM=16", "mma BM=64", "mma BM=128"):
+        check(want in routes,
+              f"kernel C: no case ran {want}")
+    ms, plain, b_ms, lib, dev_ms = steps["mixtral-8x7b"]
     results["quant_matmul4"] = dict(
         name="quant_matmul4", route="cuda",
         source="p2p_llm_chat_tpu_torch/csrc/quant_mm4.cu",
@@ -982,10 +1116,14 @@ def phase_kernel_c(results: dict) -> None:
         max_abs_err=worst, bound_by="bytes",
         scope="one mixtral-8x7b int4 decode step at B=8: 32 x (wqkv, wo) + "
               "lm_head = 65 launches; library_ms is torch.matmul on "
-              "pre-dequantized bf16 weights",
+              "pre-dequantized bf16 weights; device_ms is the same step's "
+              "launches replayed from CUDA graphs (no host cost); "
+              "prefill_chunk_* are the 64 layer launches of one 256-row "
+              "chunk",
         ms=round(ms, 4), plain_ms=round(plain, 4), bound_ms=round(b_ms, 4),
-        library_ms=round(lib, 4),
-        llama_int4_step_ms=round(steps["llama3.1-8b"][0], 4))
+        library_ms=round(lib, 4), device_ms=round(dev_ms, 4),
+        llama_int4_step_ms=round(steps["llama3.1-8b"][0], 4),
+        **{f"prefill_chunk_{k}": round(v, 4) for k, v in chunk.items()})
 
 
 E_SHAPES = {"wgu_e": (4096, 28672), "w_down": (14336, 4096)}  # mixtral-8x7b
@@ -994,11 +1132,12 @@ E_SHAPES = {"wgu_e": (4096, 28672), "w_down": (14336, 4096)}  # mixtral-8x7b
 def phase_kernel_experts(results: dict) -> None:
     """The expert grids of kernel A (int8) and kernel C (int4) against
     their plain versions at mixtral-8x7b's expert shapes (8 experts), at a
-    layer offset of a 2-layer pool, over buckets of C in {1, 8, 32, 512}
-    rows; timings at the decode bucket C = 8 with the layers rotated."""
+    layer offset of a 2-layer pool, over buckets of C in {1, 8, 17, 32,
+    100, 128, 512} rows, with bitwise reruns and bucket rows independent
+    of C; timings at the decode bucket C = 8 and at the 128-row buckets of
+    a 256-row chunk, with the layers rotated."""
     import torch
-    from p2p_llm_chat_tpu_torch.models.quant import (QTensor, dequantize,
-                                                     dequantize4)
+    from p2p_llm_chat_tpu_torch.models.quant import dequantize, dequantize4
     from p2p_llm_chat_tpu_torch.ops import quant_mm as qmm
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -1010,47 +1149,54 @@ def phase_kernel_experts(results: dict) -> None:
         worst = 0.0
         step = [0.0, 0.0, 0.0, 0.0]
         bucket = [0.0, 0.0, 0.0]
-        # Kernel A's row tiles are 16, 64 and 128: its grid also gets buckets
-        # that are not a tile multiple (17, 100) and the 128-row bucket a
-        # 256-row mixtral chunk gives each expert (top-2 of 8, capacity 2).
-        sizes = (1, 8, 17, 32, 100, 128, 512) if mode == "int8" else \
-            (1, 8, 32, 512)
+        # Row tiles are 16, 64 and 128: buckets that are not a tile
+        # multiple (17, 100) and the 128-row bucket a 256-row mixtral
+        # chunk gives each expert (top-2 of 8, capacity 2).
         for wname, (K, O) in E_SHAPES.items():
             qt = _rand_pool(gen, L, K, O, mode, NE=NE)
             ng = qt.s.shape[-2]
             deq = dequantize if mode == "int8" else dequantize4
-            for C in sizes:
+            for C in (1, 8, 17, 32, 100, 128, 512):
                 x = torch.randn((NE, C, K), generator=gen, device=dev).to(
                     torch.bfloat16)
+                route = "" if mode == "int8" else f" [{_c_route(C, K, ng)}]"
                 worst = max(worst, _rel_err(
                     f"{name} {wname} NE={NE} K={K} O={O} ng={ng} C={C} "
-                    f"layer=1", fn(x, qt.q, qt.s, 1),
+                    f"layer=1{route}", fn(x, qt.q, qt.s, 1),
                     plain_fn(x, qt.q, qt.s, 1), C_TOL))
-            if mode == "int8":
-                x = torch.randn((NE, 128, K), generator=gen, device=dev).to(
-                    torch.bfloat16)
-                ms = time_ms(lambda i: fn(x, qt.q, qt.s, i % L), 10)
-                wl = [deq(type(qt)(qt.q[i], qt.s[i])) for i in range(L)]
-                lib = time_ms(lambda i: torch.bmm(x, wl[i % L]), 10)
-                del wl
-                b_ms, kind = bound_ms(qt.q[0].numel() + 4 * qt.s[0].numel()
-                                      + 2 * NE * 128 * (K + O),
-                                      2.0 * NE * 128 * K * O)
-                print(f"  {name} {wname} C=128: {ms * 1e3:.1f} us (bound "
-                      f"{b_ms * 1e3:.1f} us, {kind}; {b_ms / ms:.0%} of "
-                      f"bound); torch.bmm on a pre-dequantized bf16 pool "
-                      f"{lib * 1e3:.1f} us")
-                for j, v in enumerate((ms, b_ms, lib)):
-                    bucket[j] += 32 * v
+            x = torch.randn((NE, 256, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            full = fn(x, qt.q, qt.s, 1)
+            check(torch.equal(full, fn(x, qt.q, qt.s, 1)),
+                  f"{name} {wname}: reruns differ")
+            for C in (1, 8, 17):
+                check(torch.equal(full[:, :C], fn(
+                    x[:, :C].contiguous(), qt.q, qt.s, 1)),
+                    f"{name} {wname}: bucket rows of the C=256 call differ "
+                    f"from the C={C} call")
+            print(f"  {name} {wname}: reruns bitwise equal; bucket rows of "
+                  f"C=256 bitwise equal to the C=1, 8, 17 calls")
+            wbytes = qt.q[0].numel() + 4 * qt.s[0].numel()
+            wl = [deq(type(qt)(qt.q[i], qt.s[i])) for i in range(L)]
+            x = torch.randn((NE, 128, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            ms = time_ms(lambda i: fn(x, qt.q, qt.s, i % L), 10)
+            lib = time_ms(lambda i: torch.bmm(x, wl[i % L]), 10)
+            b_ms, kind = bound_ms(wbytes + 2 * NE * 128 * (K + O),
+                                  2.0 * NE * 128 * K * O)
+            print(f"  {name} {wname} C=128: {ms * 1e3:.1f} us (bound "
+                  f"{b_ms * 1e3:.1f} us, {kind}; {b_ms / ms:.0%} of "
+                  f"bound); torch.bmm on a pre-dequantized bf16 pool "
+                  f"{lib * 1e3:.1f} us")
+            for j, v in enumerate((ms, b_ms, lib)):
+                bucket[j] += 32 * v
             x = torch.randn((NE, 8, K), generator=gen, device=dev).to(
                 torch.bfloat16)
             ms = time_ms(lambda i: fn(x, qt.q, qt.s, i % L), 20)
             plain = time_ms(lambda i: plain_fn(x, qt.q, qt.s, i % L), 3,
                             warmup=1)
-            wl = [deq(type(qt)(qt.q[i], qt.s[i])) for i in range(L)]
             lib = time_ms(lambda i: torch.bmm(x, wl[i % L]), 20)
             del wl
-            wbytes = qt.q[0].numel() + 4 * qt.s[0].numel()
             b_ms, kind = bound_ms(wbytes + 2 * NE * 8 * (K + O),
                                   2.0 * NE * 8 * K * O)
             print(f"  {name} {wname} C=8: {ms * 1e3:.1f} us (bound "
@@ -1062,15 +1208,12 @@ def phase_kernel_experts(results: dict) -> None:
             del qt
             torch.cuda.empty_cache()
         print(f"  {name} per mixtral-8x7b {mode} decode step (B=8, 64 "
-              f"launches): {step[0]:.3f} ms vs bound {step[2]:.3f} ms")
-        extra = {}
-        if mode == "int8":
-            print(f"  {name} per 256-row mixtral-8x7b chunk (buckets of "
-                  f"C=128, 64 launches): {bucket[0]:.3f} ms vs bound "
-                  f"{bucket[1]:.3f} ms; torch.bmm on pre-dequantized bf16 "
-                  f"{bucket[2]:.3f} ms")
-            extra = {f"prefill_chunk_{k}": round(v, 4) for k, v in
-                     zip(("ms", "bound_ms", "library_ms"), bucket)}
+              f"launches): {step[0]:.3f} ms vs bound {step[2]:.3f} ms; "
+              f"torch.bmm on pre-dequantized bf16 {step[3]:.3f} ms")
+        print(f"  {name} per 256-row mixtral-8x7b chunk (buckets of "
+              f"C=128, 64 launches): {bucket[0]:.3f} ms vs bound "
+              f"{bucket[1]:.3f} ms; torch.bmm on pre-dequantized bf16 "
+              f"{bucket[2]:.3f} ms")
         results[name] = dict(
             name=name, route="cuda",
             source=("p2p_llm_chat_tpu_torch/csrc/quant_mm.cu" if mode ==
@@ -1080,10 +1223,13 @@ def phase_kernel_experts(results: dict) -> None:
             max_abs_err=worst, bound_by="bytes",
             scope=f"one mixtral-8x7b {mode} decode step at B=8 (dropless "
                   "buckets of C=8): 32 x (wgu_e, w_down) = 64 launches; "
-                  "library_ms is torch.bmm on pre-dequantized bf16 pools",
+                  "library_ms is torch.bmm on pre-dequantized bf16 pools; "
+                  "prefill_chunk_* are the 64 launches of one 256-row "
+                  "chunk (buckets of C=128)",
             ms=round(step[0], 4), plain_ms=round(step[1], 4),
             bound_ms=round(step[2], 4), library_ms=round(step[3], 4),
-            **extra)
+            **{f"prefill_chunk_{k}": round(v, 4) for k, v in
+               zip(("ms", "bound_ms", "library_ms"), bucket)})
 
 
 # -- phase 3: one full-width decode step, card vs CPU -------------------------
@@ -1254,7 +1400,7 @@ def phase_step(model: str, quant: str, prefill_check: bool,
 # -- optional phase: where one full-depth decode step spends its time ---------
 
 def _kernel_group(name: str) -> str:
-    if "qmm4_kernel" in name or "qmm4_reduce" in name:
+    if "qmm4_" in name:
         return "kernel C (w4a16, dense and experts)"
     if "qmm_kernel" in name or "qmm_reduce" in name:
         return "kernel A (w8a16, dense and experts)"

@@ -24,6 +24,7 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -31,7 +32,7 @@ import torch
 from . import _build
 
 _BK = 64          # kernel A's contraction step
-_BKP = 32         # kernel C's step in packed byte rows (64 logical rows)
+_BKP = 64         # kernel C's step in packed byte rows (128 logical rows)
 _BO = 128         # output-tile width of kernels A and C
 _TARGET_WAVES = 2
 
@@ -122,6 +123,8 @@ def _bind_c(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.qmm4_launch.restype = i
     lib.qmm4_launch.argtypes = [p, p, p, p, p] + [i] * 9 + [p]
+    lib.qmm4_plan.restype = i
+    lib.qmm4_plan.argtypes = [i] * 3 + [p] * 2
 
 
 _sm_count: dict[int, int] = {}
@@ -161,8 +164,9 @@ def _layer_offsets(q, s, layer: Optional[int]) -> tuple[int, int]:
         return q.data_ptr(), s.data_ptr()
     if not 0 <= layer < q.shape[0]:
         raise IndexError(f"layer {layer} out of range {q.shape[0]}")
-    return (q.data_ptr() + layer * q[0].numel(),
-            s.data_ptr() + layer * s[0].numel() * 4)
+    # Contiguous: stride(0) is one layer's element count (no view made).
+    return (q.data_ptr() + layer * q.stride(0),
+            s.data_ptr() + layer * s.stride(0) * 4)
 
 
 def _launch_a(x, q_ptr, s_ptr, out, batch, M, H, O) -> None:
@@ -182,17 +186,40 @@ def _launch_a(x, q_ptr, s_ptr, out, batch, M, H, O) -> None:
     _build.check(rc, lib, "qmm_error_string", "kernel A")
 
 
+def kernel_c_plan(M: int, K: int, ng: int) -> tuple[int, int]:
+    """Kernel C's (fold segment, row tile) for an M-row call on a weight of
+    contraction ``K`` in ``ng`` scale groups, as csrc/quant_mm4.cu picks
+    them from the shape (``qmm4_plan``): segment 64 on the tensor cores,
+    the row tile 16, 64 or 128 from M, where 64 divides both the group
+    ``K / ng`` and ``K / 2``; else segment 0, the CUDA-core kernel."""
+    lib = _build.load("quant_mm4", _bind_c)
+    seg, bm = ctypes.c_int(), ctypes.c_int()
+    rc = lib.qmm4_plan(M, K, ng, ctypes.byref(seg), ctypes.byref(bm))
+    _build.check(rc, lib, "qmm4_error_string", "kernel C plan")
+    return seg.value, bm.value
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_c(K: int, O: int, ng: int, batch: int, sms: int
+            ) -> tuple[int, int, int]:
+    """Kernel C's (splits, 64-row tiles per split, fold segment): from the
+    weight's shape, the batch and the card, never from M (the segment
+    follows (K, ng) alone; M = 1 only fills the row-tile slot, which the
+    launch picks itself)."""
+    return (*split_plan(-(-(K // 2) // _BKP), O, sms, batch),
+            kernel_c_plan(1, K, ng)[0])
+
+
 def _launch_c(x, q_ptr, s_ptr, out, batch, M, K, O, ng) -> None:
-    Kh = K // 2
-    splits, per = split_plan(-(-Kh // _BKP), O, _sms(x.device), batch)
+    dev = x.device
+    splits, per, seg = _plan_c(K, O, ng, batch, _sms(dev))
     ws = (torch.empty((batch, splits, M, O), dtype=torch.float32,
-                      device=x.device) if splits > 1 else out)
+                      device=dev) if splits > 1 else out)
     vec = int(O % 16 == 0 and q_ptr % 16 == 0)
     lib = _build.load("quant_mm4", _bind_c)
     rc = lib.qmm4_launch(x.data_ptr(), q_ptr, s_ptr, out.data_ptr(),
                          ws.data_ptr(), batch, M, K, O, ng, splits, per, vec,
-                         int((K // ng) % _BKP == 0 and Kh % _BKP == 0),
-                         _build.stream_ptr(x.device))
+                         seg, _build.stream_ptr(dev))
     _build.check(rc, lib, "qmm4_error_string", "kernel C")
 
 

@@ -5,7 +5,7 @@ Kernel A's K order and split plan must not depend on M (a row's result
 must not change with how many rows share its call): the split count,
 K tiles per split and the workspace shape per row follow the weight's
 shape, the batch and the card only. Kernel C's launch arguments are those
-of its own plan, untouched by kernel A's tiles.
+of its own plan (64 packed rows per tile, a fold segment of (K, ng)).
 """
 
 import pytest
@@ -88,9 +88,17 @@ def test_kernel_a_expert_grid_plan_does_not_depend_on_bucket_rows(lib, C):
     assert ws == ((8, splits, C, 28672) if splits > 1 else None)
 
 
-def test_kernel_a_k_step_and_kernel_c_plan_are_unchanged(lib):
-    assert (qmm._BK, qmm._BKP, qmm._BO) == (64, 32, 128)
+def test_kernel_a_k_step_and_kernel_c_plan_are_unchanged(lib, monkeypatch):
+    """Kernel A's 64-wide K step, and kernel C's plan: 64 packed rows per
+    tile (128 logical rows) and the fold segment its kernel's plan gives
+    for mixtral-8x7b's wqkv, the same at every M
+    (tests/test_torch_kernel_c_plan.py pins the rest of kernel C's
+    plan)."""
+    assert (qmm._BK, qmm._BKP, qmm._BO) == (64, 64, 128)
     K, O, ng = 4096, 6144, 32
+    monkeypatch.setattr(qmm, "kernel_c_plan",
+                        lambda M, k, g: (64 if (k, g) == (K, ng) else 0, 16))
+    qmm._plan_c.cache_clear()
     for M in (1, 8, 256):
         x = torch.zeros((M, K), dtype=torch.bfloat16)
         out = torch.zeros((M, O), dtype=torch.bfloat16)
@@ -98,5 +106,6 @@ def test_kernel_a_k_step_and_kernel_c_plan_are_unchanged(lib):
         qmm._launch_c(x, 4096, 8192, out, 1, M, K, O, ng)
         (name, args), = lib.calls
         assert name == "qmm4_launch"
-        splits, per = qmm.split_plan(-(-(K // 2) // 32), O, 132, 1)
-        assert args[5:14] == (1, M, K, O, ng, splits, per, 1, 1)
+        splits, per = qmm.split_plan(-(-(K // 2) // 64), O, 132, 1)
+        assert args[5:14] == (1, M, K, O, ng, splits, per, 1, 64)
+    qmm._plan_c.cache_clear()
