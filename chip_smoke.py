@@ -13,11 +13,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    kernel A (w8a16 on tensor cores) exact on all 256 int8 values, at every
    row count around its 16-, 64- and 128-row tiles on ragged shapes, at the
    llama3.1-8b shapes with bitwise reruns and rows independent of M, timed
-   per decode step and per 256-row prefill chunk, kernel B's append mode
-   (paged attention, current token seeded) and its pool mode
-   (write-then-attend: a bf16 pool at the llama3.1-8b step, ragged
-   geometries with NaN in every dead slot, an int8 pool under the gather
-   impl), kernel C (w4a16 on tensor cores) exact on all 256 byte values,
+   per decode step and per 256-row prefill chunk, kernel B (paged decode
+   attention on tensor cores) in its append mode (current token seeded)
+   and its pool mode (write-then-attend), int8 and bf16 pools, on ragged
+   geometries (rep 1-8, D 32-128, page sizes 16, 48 and 64, windows up
+   to 4096, NaN in every dead slot), each case bitwise against a rerun,
+   its rows' B = 1 calls and a window twice as wide, timed per
+   llama3.1-8b step as timed and on the device (CUDA graphs), kernel C (w4a16 on tensor cores) exact on all 256 byte values,
    on ragged shapes that run every row tile and both of its routes, at
    the mixtral-8x7b and llama3.1-8b int4 shapes with bitwise reruns and
    rows independent of M, timed per decode step and per 256-row chunk,
@@ -87,9 +89,14 @@ L2_BYTES = 50 * 2 ** 20
 
 A_TOL = 1e-2        # of max|plain|: one bf16 rounding of the output (2^-8)
 #                     either side + f32 summation order
-B_TOL = 1e-2        # of max|plain|: the plain version rounds the p.v
-#                     operands to bf16 (2^-8 relative each), the kernel
-#                     keeps f32; plus one bf16 rounding of the output
+B_TOL = 1e-2        # of max|plain|: the kernel rounds the unnormalised
+#                     probabilities (times the v scales on int8 pools) to
+#                     bf16 for p.v and divides after; the plain versions
+#                     round the same (append mode), the normalised ones
+#                     (the gather impl) or none (the kernel and flash
+#                     impls' f32 p.v): 2^-9 relative per term at most;
+#                     plus one bf16 rounding of the output either side
+#                     and the f32 summation order
 C_TOL = 1e-2        # of max|plain|: as A_TOL (the plain version sums the
 #                     dequantized f32 weight in another order)
 D_TOL = 1e-2        # of max|plain|: the plain version rounds the softmax-
@@ -189,7 +196,7 @@ def phase_build() -> None:
         for line in log.splitlines():
             if ("registers" in line or "spill" in line
                     or (name in ("quant_mm", "quant_mm4",
-                                 "prefill_attention")
+                                 "prefill_attention", "paged_attention")
                         and "entry function" in line)):
                 print(f"  ptxas {name}: {line.strip()}")
 
@@ -426,14 +433,139 @@ def _paged_case(quantized, Hq, Hkv, D, W, lengths, L=2, ps=64, seed=0,
     return cache, q, kc, vc, pages
 
 
-def phase_kernel_b(results: dict) -> None:
+def _b_call(cache, q, kc, vc, pages, layer, impl=None):
+    """Kernel B through its wrapper: append mode with ``kc``/``vc``, pool
+    mode (``impl``) without."""
+    from p2p_llm_chat_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_append)
+    if kc is not None:
+        return paged_attention_append(q, kc, vc, cache, cache.lengths, layer,
+                                      pages=pages)
+    return paged_attention(q, cache.k, cache.v, cache.page_table,
+                           cache.lengths, layer, pages=pages, impl=impl,
+                           k_scale=cache.k_scale, v_scale=cache.v_scale)
+
+
+def _b_plain(cache, q, kc, vc, pages, layer, impl=None):
+    from p2p_llm_chat_tpu_torch.ops.paged_attention import (
+        paged_attention_append_reference, paged_attention_plain)
+    if kc is not None:
+        return paged_attention_append_reference(q, kc, vc, cache,
+                                                cache.lengths, layer,
+                                                pages=pages)
+    return paged_attention_plain(q, cache.k, cache.v, cache.page_table,
+                                 cache.lengths, layer, pages=pages,
+                                 impl=impl, k_scale=cache.k_scale,
+                                 v_scale=cache.v_scale)
+
+
+def _b_case(label, cache, q, kc, vc, pages, layer=1, impl=None) -> float:
+    """One kernel B case: within B_TOL of the plain version, a rerun
+    bitwise equal, and each row bitwise equal to its own B = 1 call and
+    to the call over a window of 2 ``pages`` (the extra table entries
+    point at page 0, NaN/Inf garbage). Returns the absolute error."""
+    import dataclasses
+    import torch
+    out = _b_call(cache, q, kc, vc, pages, layer, impl)
+    err = _rel_err(label, out, _b_plain(cache, q, kc, vc, pages, layer,
+                                        impl), B_TOL)
+    check(torch.equal(_b_call(cache, q, kc, vc, pages, layer, impl), out),
+          f"{label}: a rerun differs from the first run")
+    pt = cache.page_table[:, :pages]
+    wide = dataclasses.replace(cache, page_table=torch.cat(
+        [pt, torch.zeros_like(pt)], 1))
+    check(torch.equal(_b_call(wide, q, kc, vc, 2 * pages, layer, impl), out),
+          f"{label}: rows differ at a window of {2 * pages} pages")
+    for b in range(q.shape[0]):
+        one = dataclasses.replace(
+            cache, page_table=cache.page_table[b:b + 1].contiguous(),
+            lengths=cache.lengths[b:b + 1].contiguous())
+        row = lambda t: None if t is None else t[b:b + 1].contiguous()
+        check(torch.equal(_b_call(one, row(q), row(kc), row(vc), pages,
+                                  layer, impl), out[b:b + 1]),
+              f"{label}: row {b} differs between B = 1 and B = "
+              f"{q.shape[0]}")
+    return err
+
+
+def _b_timing(mode: str, cache, q, kc, vc, pages, L, impl=None) -> dict:
+    """One llama3.1-8b step of kernel B (32 layer launches, rotating over
+    the pool's ``L`` layers so the reads stay cold in L2): CUDA events
+    back to back (``ms``, the host's cost per call included) and device
+    time replayed from a CUDA graph (``device_ms``), beside the plain
+    version and SDPA over an already-gathered (dequantized) window with
+    the current token appended in append mode, the gather not timed."""
     import torch
     import torch.nn.functional as F
-    from p2p_llm_chat_tpu_torch.ops.paged_attention import (
-        paged_attention_append, paged_attention_append_reference)
+    B, Hq, D = q.shape
+    Hkv, ps = cache.k.shape[3], cache.page_size
+    W = pages * ps
+    call = lambda i: _b_call(cache, q, kc, vc, pages, i % L, impl)
+    ms = time_ms(call, 96, warmup=L)
+    dev = graph_ms(call, n=2 * L)
+    plain = time_ms(lambda i: _b_plain(cache, q, kc, vc, pages, i % L,
+                                       impl), 8, warmup=1)
+    kw, vw = [], []
+    idx = cache.page_table[:, :pages].long()
+    for layer in range(L):
+        kl = cache.k[layer][idx].reshape(B, W, Hkv, D).float()
+        vl = cache.v[layer][idx].reshape(B, W, Hkv, D).float()
+        if cache.quantized:
+            sk = cache.k_scale[layer][idx][..., :ps].transpose(1, 2)
+            sv = cache.v_scale[layer][idx][..., :ps].transpose(1, 2)
+            kl = kl * sk.reshape(B, Hkv, W).transpose(1, 2)[..., None]
+            vl = vl * sv.reshape(B, Hkv, W).transpose(1, 2)[..., None]
+        if kc is not None:
+            kl = torch.cat([kl, kc.float()[:, None]], 1)
+            vl = torch.cat([vl, vc.float()[:, None]], 1)
+        kw.append(kl.to(torch.bfloat16).permute(0, 2, 1, 3)
+                  .repeat_interleave(Hq // Hkv, 1))
+        vw.append(vl.to(torch.bfloat16).permute(0, 2, 1, 3)
+                  .repeat_interleave(Hq // Hkv, 1))
+    q4 = q[:, :, None, :]
+    sdpa = lambda i: F.scaled_dot_product_attention(q4, kw[i % L], vw[i % L])
+    lib = time_ms(sdpa, 96, warmup=L)
+    lib_dev = graph_ms(sdpa, n=2 * L)
+    del kw, vw
+    tokens = B * W
+    el = 1 if cache.quantized else 2
+    nbytes = (2 * tokens * Hkv * D * el
+              + (2 * tokens * Hkv * 4 if cache.quantized else 0)
+              + 2 * q.numel() * 2 + 4 * B * (1 + pages)
+              + (0 if kc is None else (kc.numel() + vc.numel()) * 2))
+    b_ms, kind = bound_ms(nbytes, 4.0 * tokens * Hq * D)
+    print(f"  kernel B {mode} {'int8' if cache.quantized else 'bf16'} B={B} "
+          f"W={W} (8B geometry), per layer: {ms * 1e3:.1f} us as timed, "
+          f"{dev * 1e3:.1f} us on the device (bound {b_ms * 1e3:.1f} us, "
+          f"{kind}; {b_ms / dev:.0%} of bound; host gap "
+          f"{(ms - dev) * 1e3:.1f} us); plain {plain * 1e3:.1f} us; SDPA on "
+          f"a pre-gathered window (gather excluded) {lib * 1e3:.1f} us as "
+          f"timed, {lib_dev * 1e3:.1f} us on the device")
+    return dict(ms=round(32 * ms, 4), device_ms=round(32 * dev, 4),
+                plain_ms=round(32 * plain, 4), bound_ms=round(32 * b_ms, 4),
+                library_ms=round(32 * lib, 4),
+                library_device_ms=round(32 * lib_dev, 4), bound_by=kind)
+
+
+def phase_kernel_b(results: dict) -> None:
+    """Kernel B's append mode (TPU kernel rows 3 and 5) against its plain
+    version: int8 and bf16 pools at rep 2, 4 and 8 (D 32 and 128), windows
+    of 64, 1000 and 4096 tokens with ragged lengths reaching into the
+    NaN-filled page 0, page sizes 16 and 48 (chunks straddle pages,
+    slices start mid-page); each case also bitwise against a rerun, its
+    rows' B = 1 calls and a window twice as wide. Timed per 32-layer
+    llama3.1-8b step at B = 8, W = 1024 on an int8 pool."""
+    from p2p_llm_chat_tpu_torch.ops import _build
+    from p2p_llm_chat_tpu_torch.ops import paged_attention as pa
+    lib = _build.load("paged_attention", pa._bind)
+    print("  kernel B split kernel, dynamic shared memory per block: "
+          + ", ".join(f"{'int8' if qz else 'bf16'} D={D} "
+                      f"{lib.paged_split_smem(qz, D)} B"
+                      for qz in (1, 0) for D in (32, 64, 128)))
     worst = 0.0
     for quantized in (True, False):
-        for (Hq, Hkv, D) in ((4, 2, 32), (32, 8, 128)):
+        pool = "int8" if quantized else "bf16"
+        for (Hq, Hkv, D) in ((4, 2, 32), (32, 8, 128), (64, 8, 128)):
             for W in (64, 1000, 4096):
                 # Ragged: a full window, a partial last page, one short
                 # row, a single token; windows past the allocation read
@@ -441,76 +573,31 @@ def phase_kernel_b(results: dict) -> None:
                 lengths = [W, max(1, W - 37), max(1, W // 3 + 5), 1]
                 cache, q, kc, vc, pages = _paged_case(quantized, Hq, Hkv, D,
                                                       W, lengths, seed=W)
-                out = paged_attention_append(q, kc, vc, cache, cache.lengths,
-                                             1, pages=pages)
-                ref = paged_attention_append_reference(
-                    q, kc, vc, cache, cache.lengths, 1, pages=pages)
-                torch.cuda.synchronize()
-                label = (f"{'int8' if quantized else 'bf16'} Hq={Hq} "
-                         f"Hkv={Hkv} D={D} W={W} lengths={lengths}")
-                check(bool(torch.isfinite(out).all()),
-                      f"kernel B {label}: non-finite output")
-                check(bool(torch.isfinite(ref).all()),
-                      f"kernel B {label}: non-finite plain output")
-                err = (out.float() - ref.float()).abs().max().item()
-                scale = ref.float().abs().max().item()
-                rel = err / max(scale, 1e-30)
-                worst = max(worst, err)
-                print(f"  kernel B {label}: max_abs_err {err:.3e} "
-                      f"max_rel_err {rel:.3e} (tol {B_TOL:.0e} of "
-                      f"max|plain| {scale:.3f})")
-                check(rel <= B_TOL, f"kernel B {label}: rel err {rel:.3e} "
-                      f"> {B_TOL}")
+                worst = max(worst, _b_case(
+                    f"kernel B {pool} Hq={Hq} Hkv={Hkv} D={D} W={W} "
+                    f"lengths={lengths}", cache, q, kc, vc, pages))
                 del cache
-    # Timing at the serving shape: llama3.1-8b geometry, B=8, W=1024, int8,
-    # a pool of 8 layers so rotating layers keeps the reads cold in L2.
+        for ps in (16, 48):
+            lengths = [1000, 300, 17, 1]
+            cache, q, kc, vc, pages = _paged_case(quantized, 32, 8, 128, 1000,
+                                                  lengths, ps=ps, seed=ps)
+            worst = max(worst, _b_case(
+                f"kernel B {pool} Hq=32 Hkv=8 D=128 ps={ps} W={pages * ps} "
+                f"lengths={lengths}", cache, q, kc, vc, pages))
+            del cache
     B, W, Hq, Hkv, D, L = 8, 1024, 32, 8, 128, 8
     cache, q, kc, vc, pages = _paged_case(True, Hq, Hkv, D, W, [W] * B, L=L,
                                           seed=99, nan_page0=False)
-    ms = time_ms(lambda i: paged_attention_append(
-        q, kc, vc, cache, cache.lengths, i % L, pages=pages), 100)
-    plain = time_ms(lambda i: paged_attention_append_reference(
-        q, kc, vc, cache, cache.lengths, i % L, pages=pages), 10, warmup=1)
-    # Yardstick: SDPA over an already-gathered, dequantized window with
-    # the current token appended (the gather is NOT timed).
-    ps = cache.page_size
-    kw, vw = [], []
-    for layer in range(L):
-        idx = cache.page_table[:, :pages].long()
-        kl = cache.k[layer][idx].reshape(B, W, Hkv, D).float()
-        vl = cache.v[layer][idx].reshape(B, W, Hkv, D).float()
-        sk = cache.k_scale[layer][idx][..., :ps].transpose(1, 2).reshape(
-            B, Hkv, W)
-        sv = cache.v_scale[layer][idx][..., :ps].transpose(1, 2).reshape(
-            B, Hkv, W)
-        kl = kl * sk.transpose(1, 2)[..., None]
-        vl = vl * sv.transpose(1, 2)[..., None]
-        kl = torch.cat([kl, kc.float()[:, None]], 1).to(torch.bfloat16)
-        vl = torch.cat([vl, vc.float()[:, None]], 1).to(torch.bfloat16)
-        kw.append(kl.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, 1))
-        vw.append(vl.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, 1))
-    q4 = q[:, :, None, :]
-    lib = time_ms(lambda i: F.scaled_dot_product_attention(
-        q4, kw[i % L], vw[i % L]), 100)
-    del kw, vw
-    tokens = B * W
-    nbytes = (tokens * Hkv * D * 2 + tokens * Hkv * 2 * 4
-              + (q.numel() + kc.numel() + vc.numel() + q.numel()) * 2)
-    b_ms, kind = bound_ms(nbytes, 4.0 * tokens * Hq * D)
-    print(f"  kernel B int8 B={B} W={W} (8B geometry): {ms * 1e3:.1f} us "
-          f"per layer (bound {b_ms * 1e3:.1f} us, {kind}; "
-          f"{b_ms / ms:.0%} of bound); plain {plain * 1e3:.1f} us; SDPA on "
-          f"a pre-gathered bf16 window (gather excluded) {lib * 1e3:.1f} us")
+    t = _b_timing("append", cache, q, kc, vc, pages, L)
     results["paged_attention_append"] = dict(
         name="paged_attention_append", route="cuda",
         source="p2p_llm_chat_tpu_torch/csrc/paged_attention.cu",
         replaces="p2p_llm_chat_tpu/ops/paged_attention.py:993",
-        max_abs_err=worst, bound_by=kind,
+        max_abs_err=worst,
         scope="one llama3.1-8b decode step at B=8, W=1024, int8 pool: 32 "
-              "launches (one per layer); library_ms is SDPA over an "
-              "already-gathered dequantized window, excluding the gather",
-        ms=round(32 * ms, 4), plain_ms=round(32 * plain, 4),
-        bound_ms=round(32 * b_ms, 4), library_ms=round(32 * lib, 4))
+              "launches (one per layer); device_ms replays them from a "
+              "CUDA graph; library_ms is SDPA over an already-gathered "
+              "dequantized window, excluding the gather", **t)
 
 
 def _poison_dead(cache, lengths) -> None:
@@ -534,28 +621,14 @@ def _poison_dead(cache, lengths) -> None:
 def phase_kernel_b_pool(results: dict) -> None:
     """Kernel B's pool mode (write-then-attend: TPU kernel rows 4 and 6,
     and the gather impl's int8 pool) against the plain version of each
-    impl: llama3.1-8b geometry (B=8, Hq 32, Hkv 8, D 128, W=1024, a bf16
-    pool of 32 layers), ragged geometries (rep 1, 3, 8; D 32, 64; lengths
-    of 1, on a page boundary and short of a window that reaches past the
-    live pages, with NaN in every dead slot), and an int8 pool under
-    impl="gather". Timed per 32-layer step beside its bound and SDPA over
-    the already-gathered window."""
-    import torch
-    import torch.nn.functional as F
-    from p2p_llm_chat_tpu_torch.ops.paged_attention import (
-        paged_attention, paged_attention_plain)
+    impl: ragged geometries (rep 1, 3, 8; D 32, 64; lengths of 1, on a
+    page boundary and short of a window that reaches past the live pages,
+    with NaN in every dead slot), rep 8 at D 128 over a 4096-token window,
+    page sizes 16 and 48, an int8 pool under impl="gather", and the
+    llama3.1-8b step's bf16 pool; each case also bitwise against a rerun,
+    its rows' B = 1 calls and a window twice as wide. Timed per 32-layer
+    step beside its bound and SDPA over the already-gathered window."""
     worst = 0.0
-
-    def case(label, cache, q, pages, layer, impl):
-        nonlocal worst
-        args = (q, cache.k, cache.v, cache.page_table, cache.lengths, layer)
-        kw = dict(pages=pages, impl=impl, k_scale=cache.k_scale,
-                  v_scale=cache.v_scale)
-        worst = max(worst, _rel_err(f"kernel B pool {label} impl={impl}",
-                                    paged_attention(*args, **kw),
-                                    paged_attention_plain(*args, **kw),
-                                    B_TOL))
-
     for (Hq, Hkv, D) in ((8, 8, 64), (12, 4, 32), (64, 8, 64)):
         # A single token, a page boundary, a partial last page, a row
         # whose window reaches past its live pages into NaN page 0.
@@ -565,63 +638,47 @@ def phase_kernel_b_pool(results: dict) -> None:
                                             seed=Hq + D)
         _poison_dead(cache, lengths)
         for impl in ("kernel", "flash"):
-            case(f"bf16 Hq={Hq} Hkv={Hkv} D={D} W={pages * 64} "
-                 f"lengths={lengths}", cache, q, pages, 1, impl)
+            worst = max(worst, _b_case(
+                f"kernel B pool bf16 Hq={Hq} Hkv={Hkv} D={D} W={pages * 64} "
+                f"lengths={lengths} impl={impl}", cache, q, None, None,
+                pages, impl=impl))
         del cache
     for quantized in (True, False):
-        lengths = [1024, 64, 1000, 1]
-        cache, q, _, _, pages = _paged_case(quantized, 32, 8, 128, 1024,
-                                            lengths, seed=7)
-        _poison_dead(cache, lengths)
-        case(f"{'int8' if quantized else 'bf16'} Hq=32 Hkv=8 D=128 W=1024 "
-             f"lengths={lengths}", cache, q, pages, 1,
-             "gather" if quantized else "kernel")
-        del cache
+        impl = "gather" if quantized else "kernel"
+        pool = "int8" if quantized else "bf16"
+        for (Hq, W, ps, lengths) in ((32, 1024, 64, [1024, 64, 1000, 1]),
+                                     (64, 4096, 64, [4096, 2100, 513, 1]),
+                                     (32, 1000, 16, [1000, 300, 17, 1]),
+                                     (32, 1000, 48, [1000, 300, 17, 1])):
+            cache, q, _, _, pages = _paged_case(quantized, Hq, 8, 128, W,
+                                                lengths, ps=ps, seed=7 + ps)
+            _poison_dead(cache, lengths)
+            worst = max(worst, _b_case(
+                f"kernel B pool {pool} Hq={Hq} Hkv=8 D=128 ps={ps} "
+                f"W={pages * ps} lengths={lengths} impl={impl}", cache, q,
+                None, None, pages, impl=impl))
+            del cache
     # llama3.1-8b step: B=8, W=1024 (the slot this step wrote included),
     # a bf16 pool of 32 layers; one launch per layer.
     B, W, Hq, Hkv, D, L = 8, 1024, 32, 8, 128, 32
     cache, q, _, _, pages = _paged_case(False, Hq, Hkv, D, W, [W] * B, L=L,
                                         seed=98, nan_page0=False)
-    args = lambda i: (q, cache.k, cache.v, cache.page_table, cache.lengths,
-                      i % L)
     for layer in (0, 17, 31):
-        case(f"bf16 B={B} W={W} layer {layer} (8B step)", cache, q, pages,
-             layer, "kernel")
-    ms = time_ms(lambda i: paged_attention(*args(i), pages=pages,
-                                           impl="kernel"), 3 * L)
-    plain = time_ms(lambda i: paged_attention_plain(*args(i), pages=pages,
-                                                    impl="kernel"), 8,
-                    warmup=1)
-    kw, vw = [], []
-    for layer in range(L):
-        idx = cache.page_table[:, :pages].long()
-        kw.append(cache.k[layer][idx].reshape(B, W, Hkv, D).permute(
-            0, 2, 1, 3).repeat_interleave(Hq // Hkv, 1))
-        vw.append(cache.v[layer][idx].reshape(B, W, Hkv, D).permute(
-            0, 2, 1, 3).repeat_interleave(Hq // Hkv, 1))
-    q4 = q[:, :, None, :]
-    lib = time_ms(lambda i: F.scaled_dot_product_attention(
-        q4, kw[i % L], vw[i % L]), 3 * L)
-    del kw, vw
-    tokens = B * W
-    nbytes = tokens * Hkv * D * 2 * 2 + 2 * q.numel() * 2 + 4 * B
-    b_ms, kind = bound_ms(nbytes, 4.0 * tokens * Hq * D)
-    print(f"  kernel B pool bf16 B={B} W={W} (8B geometry): {ms * 1e3:.1f} "
-          f"us per layer (bound {b_ms * 1e3:.1f} us, {kind}; "
-          f"{b_ms / ms:.0%} of bound); plain {plain * 1e3:.1f} us; SDPA on "
-          f"a pre-gathered window (gather excluded) {lib * 1e3:.1f} us")
+        worst = max(worst, _b_case(
+            f"kernel B pool bf16 B={B} W={W} layer {layer} (8B step)", cache,
+            q, None, None, pages, layer=layer, impl="kernel"))
+    t = _b_timing("pool", cache, q, None, None, pages, L, impl="kernel")
     results["paged_attention"] = dict(
         name="paged_attention", route="cuda",
         source="p2p_llm_chat_tpu_torch/csrc/paged_attention.cu",
         replaces="p2p_llm_chat_tpu/ops/paged_attention.py:160",
         also_replaces="p2p_llm_chat_tpu/ops/paged_attention.py:1086",
-        max_abs_err=worst, bound_by=kind,
+        max_abs_err=worst,
         scope="kernel B pool mode (write-then-attend), one llama3.1-8b "
               "decode step at B=8, W=1024, bf16 pool: 32 launches; "
-              "library_ms is SDPA over an already-gathered window, "
-              "excluding the gather",
-        ms=round(L * ms, 4), plain_ms=round(L * plain, 4),
-        bound_ms=round(L * b_ms, 4), library_ms=round(L * lib, 4))
+              "device_ms replays them from a CUDA graph; library_ms is "
+              "SDPA over an already-gathered window, excluding the gather",
+        **t)
 
 
 def phase_kernel_e(results: dict) -> None:
@@ -1409,6 +1466,16 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
+def _union_ms(spans) -> float:
+    """Length in ms of the union of (start, end) intervals in us."""
+    total, reach = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > reach:
+            total += b - max(a, reach)
+            reach = b
+    return total / 1e3
+
+
 def phase_profile(model: str, quant: str, B: int = 8, W: int = 1024,
                   steps: int = 10, impl: str = "gather") -> None:
     """One ``model`` decode step (32 layers, ``quant`` weights, an int8
@@ -1467,20 +1534,28 @@ def phase_profile(model: str, quant: str, B: int = 8, W: int = 1024,
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3 / steps
     # Device-side events only (kernels, copies, sets), each counted once;
-    # a CPU op's device time would count its kernels a second time.
-    groups: dict[str, list] = {}
+    # a CPU op's device time would count its kernels a second time. Times
+    # are unions of kernel intervals: kernel B's combine, a programmatic
+    # dependent of its split kernel, starts while the split still runs.
+    # The sums of kernel times are printed beside them; the two agree
+    # wherever kernels do not overlap.
+    spans: dict[str, list] = {}
     other: dict[str, list] = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        ms = e.time_range.elapsed_us() / 1e3 / steps
         g = _kernel_group(e.name)
-        keys = [(groups, g)] + ([(other, e.name)] if g == "other" else [])
+        span = (e.time_range.start, e.time_range.end)
+        keys = [(spans, g)] + ([(other, e.name)] if g == "other" else [])
         for d, key in keys:
-            acc = d.setdefault(key, [0.0, 0])
-            acc[0] += ms
-            acc[1] += 1
-    busy = sum(v[0] for v in groups.values())
+            d.setdefault(key, []).append(span)
+    def summed(v) -> float:
+        return sum(b - a for a, b in v) / 1e3 / steps
+    groups = {g: [_union_ms(v) / steps, len(v), summed(v)]
+              for g, v in spans.items()}
+    other = {k: [_union_ms(v) / steps, len(v)] for k, v in other.items()}
+    busy = _union_ms([x for v in spans.values() for x in v]) / steps
+    busy_sum = sum(v[2] for v in groups.values())
     check(busy > 0, "profile: the profiler saw no device time")
     # The profiler slows every launch on the host, so the idle share is
     # taken against the unprofiled step time (device kernel times are
@@ -1489,11 +1564,13 @@ def phase_profile(model: str, quant: str, B: int = 8, W: int = 1024,
           f"{'bf16 pool (write-then-attend)' if wta else 'int8 pool'}, "
           f"B={B} W={W}: {wall:.3f} ms per step (CUDA events, "
           f"{steps} steps, no profiler); device busy {busy:.3f} ms per "
-          f"step -> idle share {max(0.0, 1 - busy / wall):.1%}; under the "
-          f"profiler {prof_wall:.3f} ms wall per step")
-    for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {g}: {ms:.3f} ms per step over {n // steps} launches "
-              f"({ms / busy:.1%} of device time)")
+          f"step (sum of kernel times {busy_sum:.3f}) -> idle share "
+          f"{max(0.0, 1 - busy / wall):.1%}; under the profiler "
+          f"{prof_wall:.3f} ms wall per step")
+    for g, (ms, n, ms_sum) in sorted(groups.items(),
+                                     key=lambda kv: -kv[1][0]):
+        print(f"  {g}: {ms:.3f} ms per step (sum {ms_sum:.3f}) over "
+              f"{n // steps} launches ({ms / busy:.1%} of device time)")
     for key, (ms, n) in sorted(other.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"    other: {ms:.3f} ms per step, {n // steps} launches: "
               f"{key[:90]}")

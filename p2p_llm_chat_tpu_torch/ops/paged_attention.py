@@ -20,11 +20,12 @@ gathered window and the Pallas ``_paged_attention_flash_append``; the
 pool function into an XLA gather, the Pallas ``_paged_attention_kernel``
 (grid (B, pages)) and ``_paged_attention_flash`` (a per-row chunk loop).
 Those splits, and their VMEM and DMA budgets, are TPU artifacts: here one
-split-K kernel per function serves every window and every impl. The impl
-names are still read under the reference's env names and defaults
-(``PAGED_ATTN_IMPL``, ``PAGED_APPEND_IMPL``, both ``gather``), because
-they choose the model's branch and the reference's refusals: an int8
-pool is served only under the gather attention impl.
+kernel (a split over fixed slices of the window, then a combine) serves
+every window and every impl. The impl names are still read under the
+reference's env names and defaults (``PAGED_ATTN_IMPL``,
+``PAGED_APPEND_IMPL``, both ``gather``), because they choose the model's
+branch and the reference's refusals: an int8 pool is served only under
+the gather attention impl.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs a
 plain version only for tensors on the CPU; ``<wrapper>.launches`` counts
@@ -52,9 +53,6 @@ IMPLS = ("gather", "kernel", "flash")
 # pass it down explicitly (serve/engine.py).
 _DEFAULT_IMPL = env_or("PAGED_ATTN_IMPL", "gather")
 _APPEND_IMPL = env_or("PAGED_APPEND_IMPL", "gather")
-# Tokens per split-K slice of kernel B: one block per (row, kv head, 512
-# tokens), so a window of W tokens spreads over ceil(W / 512) blocks.
-SPLIT_TOKENS = 512
 
 
 def check_impl(impl: str, what: str = "PAGED_ATTN_IMPL") -> str:
@@ -214,18 +212,20 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.paged_append_launch.restype = i
     lib.paged_append_launch.argtypes = (
-        [p] * 8 + [i, p, p, p, p] + [i] * 12 + [p])
+        [p] * 8 + [i, p, p, p, p] + [i] * 11 + [p])
     lib.paged_pool_launch.restype = i
     lib.paged_pool_launch.argtypes = (
-        [p] * 6 + [i, p, p, p, p] + [i] * 12 + [p])
+        [p] * 6 + [i, p, p, p, p] + [i] * 11 + [p])
+    lib.paged_split_smem.restype = i
+    lib.paged_split_smem.argtypes = [i, i]
+    lib.paged_slice_tokens.restype = i
+    lib.paged_slice_tokens.argtypes = []
 
 
 def _launch(what: str, q, k_cur, v_cur, k_pages, v_pages, k_scale, v_scale,
             page_table, lengths, layer: int, pages: int) -> torch.Tensor:
     """Check the operands and launch kernel B: append mode with
     ``k_cur``/``v_cur``, pool mode without."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {q.device}")
     B, Hq, D = q.shape
     L, N, ps, Hkv, Dp = k_pages.shape
     cur = () if k_cur is None else (("k_cur", k_cur), ("v_cur", v_cur))
@@ -267,16 +267,19 @@ def _launch(what: str, q, k_cur, v_cur, k_pages, v_pages, k_scale, v_scale,
         ks_ptr, vs_ptr, ps_pad = ks.data_ptr(), vs.data_ptr(), ks.shape[-1]
     else:
         ks_ptr, vs_ptr, ps_pad = None, None, ps
-    splits = max(1, -(-(pages * ps) // SPLIT_TOKENS))
-    ws_acc = torch.empty((B, Hq, splits, D), dtype=torch.float32,
-                         device=q.device)
-    ws_ml = torch.empty((B, Hq, splits, 2), dtype=torch.float32,
-                        device=q.device)
-    out = torch.empty_like(q)
     lib = _build.load("paged_attention", _bind)
-    tail = (pt.data_ptr(), pt.shape[1], ln.data_ptr(), ws_acc.data_ptr(),
-            ws_ml.data_ptr(), out.data_ptr(), B, Hq, Hkv, D, N, ps, ps_pad,
-            layer, pages, splits, SPLIT_TOKENS, int(quantized),
+    # One block per (row, kv head, slice of the source's SLICE tokens at
+    # fixed absolute positions): the slice count follows the window alone.
+    # One f32 workspace: the slices' accumulators [B, Hq, splits, D], then
+    # their (m, l) [B, Hq, splits, 2].
+    splits = max(1, -(-(pages * ps) // lib.paged_slice_tokens()))
+    ws = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32,
+                     device=q.device)
+    out = torch.empty_like(q)
+    acc_ptr = ws.data_ptr()
+    tail = (pt.data_ptr(), pt.shape[1], ln.data_ptr(), acc_ptr,
+            acc_ptr + B * Hq * splits * D * 4, out.data_ptr(), B, Hq, Hkv,
+            D, N, ps, ps_pad, layer, pages, splits, int(quantized),
             _build.stream_ptr(q.device))
     if k_cur is None:
         rc = lib.paged_pool_launch(q.data_ptr(), k_pages.data_ptr(),
@@ -307,6 +310,9 @@ def paged_attention_append(q: torch.Tensor, k_cur: torch.Tensor,
     if q.device.type == "cpu":
         return paged_attention_append_reference(q, k_cur, v_cur, cache,
                                                 lengths, layer, pages=pages)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_append: unsupported device "
+                         f"{q.device}")
     out = _launch("paged_attention_append", q, k_cur, v_cur, cache.k,
                   cache.v, cache.k_scale, cache.v_scale, cache.page_table,
                   lengths, layer, pages)
@@ -365,6 +371,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return paged_attention_plain(q, k_pages, v_pages, page_table,
                                      lengths, layer, pages=pages, impl=impl,
                                      k_scale=k_scale, v_scale=v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
     out = _launch("paged_attention", q, None, None, k_pages, v_pages,
                   k_scale, v_scale, page_table, lengths, layer, pages)
     paged_attention.launches += 1
