@@ -40,7 +40,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (PAGED_ATTN_IMPL=kernel), then mixtral-8x7b int8 and int4; for the
    int8 models also a prefill through kernel D against the CPU's plain
    prefill, and a chunked prefill against the whole-prompt prefill on the
-   card;
+   card; and for each, the scheduler's decode programs at B = 8: the
+   CUDA graphs of every (window, K) captured as the warmup does, the
+   K = 1 replay bitwise equal to the eager step with the same launch
+   counts, the K = 4 replay bitwise equal to four K = 1 replays and to
+   eager ``decode_fused`` (greedy and sampled rows, one EOS mid-burst);
 4. server — the port's engine behind its Ollama front on localhost
    answers 7 concurrent requests (one 1500-token prompt, one co-pilot
    request) and two greedy reruns, five times: llama3.1-8b int8 with the
@@ -50,14 +54,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    mixtral-8x7b int8 and int4 (32 layers each, int8 paged KV). Before each
    burst every kernel's launch counter is zeroed; after it, the kernels of
    that path must have grown, the other decode branch's attention kernel
-   must not have, the co-pilot request must have taken the prefix path and
-   the long prompt must have admitted in chunks where chunking is on.
+   must not have, the co-pilot request must have taken the prefix path,
+   the long prompt must have admitted in chunks where chunking is on, and
+   decode must have run fused ticks (``decode_fused_mean_k`` > 1 on
+   ``/metrics``) replayed from CUDA graphs (the launch counters grow by
+   what each replay's capture recorded).
 
 Optional (``--only build,profile``): ``profile`` — one 32-layer decode
-step at B=8, W=1024 of llama3.1-8b int8 (int8 pool, and bf16 pool through
-the write-then-attend branch) and of mixtral-8x7b int8 and int4,
-timed with CUDA events and broken down by kernel with torch.profiler, with
-the device's idle share; and one 32-layer llama3.1-8b int8 prefill of a
+step at B=8, W=1020 of llama3.1-8b int8 (int8 pool, and bf16 pool through
+the write-then-attend branch) and of mixtral-8x7b int8 and int4, eager
+(the bare step, and the step with the device sampler) and replayed from
+the scheduler's K = 1 and K = 4 CUDA graphs, each timed with CUDA events
+and broken down by kernel with torch.profiler, with the device's idle
+share; and one 32-layer llama3.1-8b int8 prefill of a
 2048-token prompt, whole and as 8 chunks of 256, broken down the same way.
 
 Prints the card's name and power limit early, a ``{"kernels": [...]}``
@@ -1309,6 +1318,172 @@ def _chunked_prefill(fam, params, cfg, toks, n: int, C: int):
     return out
 
 
+def _persistent(sched) -> dict:
+    """The scheduler's persistent decode state by name: what a decode
+    program reads and writes in place."""
+    c = sched._cache
+    out = {"k": c.k, "v": c.v, "page_table": c.page_table,
+           "lengths": c.lengths, "next": sched._next,
+           "keys": sched._keys_dev, "ring": sched._ring_dev,
+           "active": sched._active_dev}
+    if c.k_scale is not None:
+        out.update(k_scale=c.k_scale, v_scale=c.v_scale)
+    return out
+
+
+def _snapshot(sched, K: int = 0) -> dict:
+    snap = {n: t.clone() for n, t in _persistent(sched).items()}
+    if K:
+        snap["toks"] = sched._toks_out[K].clone()
+    return snap
+
+
+def _restore(sched, snap: dict) -> None:
+    for n, t in _persistent(sched).items():
+        t.copy_(snap[n])
+
+
+def _bitwise(label: str, a: dict, b: dict) -> None:
+    import torch
+    for name in a:
+        if name in b:
+            check(torch.equal(a[name], b[name]), f"{label}: {name} differs")
+
+
+def _launch_counts() -> dict:
+    return {n: f.launches for n, f in _wrappers().items()}
+
+
+def _fill_decode_state(sched, lengths, gen) -> None:
+    """Random pool contents (int8 values and scales, or bf16 normals),
+    rows' tables 1.., ``lengths``, random feed, greedy rows 0-3 and
+    sampled rows 4-7 (temperature with top-p, top-k or a repeat penalty),
+    keys [100 + b, 0], a ring holding a few ids, every row live."""
+    import torch
+    c = sched._cache
+    B, mppr, dev = sched.num_slots, c.max_pages_per_row, c.k.device
+    if c.k_scale is not None:
+        c.k.random_(-127, 128, generator=gen)
+        c.v.random_(-127, 128, generator=gen)
+        c.k_scale.uniform_(0.0, 1.0 / 64, generator=gen)
+        c.v_scale.uniform_(0.0, 1.0 / 64, generator=gen)
+    else:
+        c.k.normal_(generator=gen)
+        c.v.normal_(generator=gen)
+    c.page_table.copy_(1 + torch.arange(B * mppr, dtype=torch.int32,
+                                        device=dev).reshape(B, mppr))
+    c.lengths.copy_(torch.tensor(lengths, dtype=torch.int32, device=dev))
+    V = sched.config.vocab_size
+    sched._next.random_(0, V, generator=gen)
+    sampled = [0.0] * 4 + [0.8, 0.7, 1.0, 0.6]
+    sched._temps_dev.copy_(torch.tensor(sampled[:B]))
+    sched._top_ks_dev.copy_(torch.tensor([0, 0, 0, 0, 0, 40, 0, 9][:B]))
+    sched._top_ps_dev.copy_(torch.tensor([1.0] * 4 + [0.9, 1.0, 0.95,
+                                                      1.0][:B]))
+    sched._rps_dev.copy_(torch.tensor([1.0, 1.0, 1.1, 1.0, 1.0, 1.0, 1.2,
+                                       1.0][:B]))
+    sched._keys_dev.copy_(torch.tensor([[100 + b, 0] for b in range(B)]))
+    sched._ring_dev.fill_(V)
+    sched._ring_dev[:, :8].random_(0, V, generator=gen)
+    sched._active_dev.fill_(True)
+
+
+def _graph_checks(label: str, cfg, params, impl: str,
+                  quantized: bool) -> None:
+    """The scheduler's decode programs on the card at full width (B = 8
+    rows of the phase's model): the window ladder captured as warmup
+    does it (graphs, their capture time and the memory reserved meanwhile
+    printed); then from one state (random pool, rows 63-504 tokens long,
+    greedy and sampled rows) the K = 1 graph replay bitwise against the
+    eager step function (tokens, pool bytes, lengths, feed, keys, ring)
+    with the same launch-counter deltas; and the K = 4 graph bitwise
+    against four K = 1 replays (the host parking a row at its stop
+    token between them) and against eager ``decode_fused``, with greedy
+    row 0's EOS landing mid-burst."""
+    import torch
+    from p2p_llm_chat_tpu_torch.serve.scheduler import BatchScheduler
+    from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
+    B, w = 8, 512
+    sched = BatchScheduler(params, cfg, ByteTokenizer(cfg.vocab_size),
+                           num_slots=B, max_seq=1024, page_size=64,
+                           kv_quant=quantized, attn_impl=impl,
+                           decode_fuse_max=4, device="cuda")
+    sched.stop()          # the test drives the programs from this thread
+    torch.cuda.synchronize()
+    # Unused cached blocks are returned before and after, so what stays
+    # reserved is the graphs' shared pool (each capture empties the cache
+    # on entry).
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.monotonic()
+    for win in sched._window_ladder():
+        sched._warm_window(win)
+    torch.cuda.synchronize()
+    cap_s = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    pool_mb = (torch.cuda.memory_reserved() - reserved) / 2 ** 20
+    check(len(sched._programs) == len(sched._window_ladder()) * 3,
+          f"step {label}: {len(sched._programs)} programs captured")
+    w = min(w, sched.max_seq)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    _fill_decode_state(sched, [(w - 8) * (b + 1) // B for b in range(B)],
+                       gen)
+    s0 = _snapshot(sched)
+
+    c0 = _launch_counts()
+    sched._step_fn(w, 1)()
+    eager_n = {n: v - c0[n] for n, v in _launch_counts().items()
+               if v != c0[n]}
+    eager = _snapshot(sched, 1)
+    _restore(sched, s0)
+    k1 = sched._decode_for(w)
+    c0 = _launch_counts()
+    k1()
+    replay_n = {n: v - c0[n] for n, v in _launch_counts().items()
+                if v != c0[n]}
+    _bitwise(f"step {label}: K=1 graph replay vs eager step", eager,
+             _snapshot(sched, 1))
+    check(replay_n == eager_n, f"step {label}: a K=1 replay counts "
+          f"{replay_n}, the eager step launched {eager_n}")
+
+    k4 = sched._decode_fused_for(w, 4)
+    _restore(sched, s0)
+    k4()
+    stop = int(sched._toks_out[4][1, 0])     # greedy row 0's 2nd token
+    stop_ids = sched._stop_dev.clone()
+    sched._stop_dev[0] = stop
+    _restore(sched, s0)
+    k4()
+    fused = _snapshot(sched, 4)
+    steps = int(fused["lengths"][0] - s0["lengths"][0])
+    check(steps < 4, f"step {label}: row 0's EOS did not land mid-burst")
+    _restore(sched, s0)
+    toks = []
+    for _ in range(4):
+        k1()
+        t = sched._toks_out[1][0].clone()
+        toks.append(t)
+        sched._active_dev &= ~torch.isin(t, sched._stop_dev)
+    plain = _snapshot(sched)
+    plain["toks"] = torch.stack(toks)
+    del plain["active"]        # the host parked row 0; the graph did not
+    _bitwise(f"step {label}: K=4 graph vs 4 K=1 replays", fused, plain)
+    _restore(sched, s0)
+    sched._step_fn(w, 4)()
+    _bitwise(f"step {label}: K=4 graph vs eager decode_fused", fused,
+             _snapshot(sched, 4))
+    sched._stop_dev.copy_(stop_ids)
+    torch.cuda.synchronize()
+    print(f"step: {label}: {len(sched._programs)} decode graphs "
+          f"({len(sched._window_ladder())} windows x K 1, 2, 4) captured in "
+          f"{cap_s:.1f} s, their pool {pool_mb:.1f} MB; at W={w}, "
+          f"B={B} (4 greedy, 4 sampled rows): K=1 replay bitwise equal to "
+          f"the eager step, launches per replay {replay_n}; K=4 replay "
+          f"bitwise equal to 4 K=1 replays and to eager decode_fused, row "
+          f"0 parked after {steps} steps by EOS {stop}; tokens "
+          f"{fused['toks'][:, :].tolist()}", flush=True)
+
+
 def phase_step(model: str, quant: str, prefill_check: bool,
                impl: str = "gather") -> None:
     """One decode step of ``model`` at full width, depth cut to 2 layers,
@@ -1399,6 +1574,8 @@ def phase_step(model: str, quant: str, prefill_check: bool,
               f"{'equal' if int(chunked.argmax()) == int(whole.argmax()) else 'differs'}")
         check(err <= STEP_TOL * scale, f"step {model} {quant}: chunked "
               f"prefill err {err:.4f} > {STEP_TOL} x {scale:.3f}")
+    _graph_checks(f"{model} {quant} impl={impl}", cfg, params, impl,
+                  quantized=not wta)
     torch.cuda.synchronize()
     params_cpu = to_cpu(params)
     del params, logits, k_all, v_all
@@ -1476,104 +1653,127 @@ def _union_ms(spans) -> float:
     return total / 1e3
 
 
-def phase_profile(model: str, quant: str, B: int = 8, W: int = 1024,
-                  steps: int = 10, impl: str = "gather") -> None:
-    """One ``model`` decode step (32 layers, ``quant`` weights, an int8
-    pool; under a write-then-attend ``impl`` a bf16 pool) at ``B`` rows
-    of ``W`` pool tokens: wall time with CUDA events over
-    ``steps`` steps, then a torch.profiler pass summing device time by
-    kernel (each kernel once, as its own event) and the device's idle
-    share of the profiled wall time. Not part of the default run."""
+def _profiled(fn, steps: int):
+    """(wall ms per call with CUDA events, no profiler; device events of
+    ``steps`` calls under torch.profiler, as (name, start us, end us))."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from p2p_llm_chat_tpu_torch.models import family_for
-    from p2p_llm_chat_tpu_torch.models.configs import get_config
-    from p2p_llm_chat_tpu_torch.ops.paged_kv import PagedKVCache
-    cfg = get_config(model)
-    fam = family_for(cfg)
-    dev = torch.device("cuda")
-    print(f"profile: building {model} ({quant}); "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before",
-          flush=True)
-    params = fam.init_params_quantized(cfg, seed=5, quant=quant, device=dev)
-    ps = 64
-    per_row = W // ps + 1                       # + the page the step writes
-    wta = impl != "gather"
-    cache = PagedKVCache.create(cfg, B, 1 + B * per_row, ps,
-                                max_pages_per_row=per_row, quantized=not wta,
-                                device=dev)
-    gen = torch.Generator(device=dev).manual_seed(5)
-    if wta:
-        cache.k.normal_(generator=gen)
-        cache.v.normal_(generator=gen)
-    else:
-        cache.k.random_(-127, 128, generator=gen)
-        cache.v.random_(-127, 128, generator=gen)
-        cache.k_scale.uniform_(0.0, 1.0 / 64, generator=gen)
-        cache.v_scale.uniform_(0.0, 1.0 / 64, generator=gen)
-    cache.page_table.copy_(1 + torch.arange(B * per_row, device=dev,
-                                            dtype=torch.int32).reshape(
-                                                B, per_row))
-    tokens = torch.randint(0, 256, (B, 1), generator=gen, device=dev)
-    active = torch.ones((B,), dtype=torch.bool, device=dev)
-    pages = -(-(W + 1) // ps)
-
-    def step(_i: int = 0) -> None:
-        cache.lengths.fill_(W)
-        fam.decode_step_paged(params, cfg, tokens, cache, active,
-                              pages=pages, impl=impl)
-
-    wall = time_ms(step, steps)
+    wall = time_ms(fn, steps)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         for _ in range(steps):
-            step()
+            fn()
         torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) * 1e3 / steps
     # Device-side events only (kernels, copies, sets), each counted once;
-    # a CPU op's device time would count its kernels a second time. Times
-    # are unions of kernel intervals: kernel B's combine, a programmatic
-    # dependent of its split kernel, starts while the split still runs.
-    # The sums of kernel times are printed beside them; the two agree
-    # wherever kernels do not overlap.
-    spans: dict[str, list] = {}
-    other: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        g = _kernel_group(e.name)
-        span = (e.time_range.start, e.time_range.end)
-        keys = [(spans, g)] + ([(other, e.name)] if g == "other" else [])
-        for d, key in keys:
-            d.setdefault(key, []).append(span)
-    def summed(v) -> float:
-        return sum(b - a for a, b in v) / 1e3 / steps
-    groups = {g: [_union_ms(v) / steps, len(v), summed(v)]
-              for g, v in spans.items()}
-    other = {k: [_union_ms(v) / steps, len(v)] for k, v in other.items()}
-    busy = _union_ms([x for v in spans.values() for x in v]) / steps
-    busy_sum = sum(v[2] for v in groups.values())
-    check(busy > 0, "profile: the profiler saw no device time")
-    # The profiler slows every launch on the host, so the idle share is
-    # taken against the unprofiled step time (device kernel times are
-    # not inflated by it).
-    print(f"profile: {model} decode step, 32 layers, {quant} weights + "
+    # a CPU op's device time would count its kernels a second time.
+    return wall, [(e.name, e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def phase_profile(model: str, quant: str, B: int = 8, W: int = 1020,
+                  steps: int = 10, impl: str = "gather") -> None:
+    """Where one ``model`` decode step (32 layers, ``quant`` weights, an
+    int8 pool; under a write-then-attend ``impl`` a bf16 pool) spends its
+    time at ``B`` rows of ``W`` pool tokens, in the scheduler's state and
+    at its window (1024: W + 4 fits it, so K = 1 and K = 4 share it),
+    four ways: the bare eager ``decode_step_paged``; the eager tick
+    (the step, the device sampler and the write-backs: the K = 1 program
+    without a graph); and the K = 1 and K = 4 programs replayed from their
+    CUDA graphs. Each: wall time per step with CUDA events over ``steps``
+    calls, then a torch.profiler pass summing device time by kernel and
+    the device's idle share of the wall time. Not part of the default
+    run."""
+    import torch
+    from p2p_llm_chat_tpu_torch.models import family_for
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    from p2p_llm_chat_tpu_torch.serve.scheduler import BatchScheduler
+    from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
+    cfg = get_config(model)
+    fam = family_for(cfg)
+    print(f"profile: building {model} ({quant}); "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before",
+          flush=True)
+    params = fam.init_params_quantized(cfg, seed=5, quant=quant,
+                                       device="cuda")
+    wta = impl != "gather"
+    window = 1024
+    sched = BatchScheduler(params, cfg, ByteTokenizer(cfg.vocab_size),
+                           num_slots=B, max_seq=2 * window, page_size=64,
+                           kv_quant=not wta, attn_impl=impl,
+                           decode_fuse_max=4, device="cuda")
+    sched.stop()
+    t0 = time.monotonic()
+    sched._warm_window(window)
+    torch.cuda.synchronize()
+    cap_s = time.monotonic() - t0
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    _fill_decode_state(sched, [W] * B, gen)
+    sched._temps_dev.zero_()
+    cache = sched._cache
+    pages = window // 64
+
+    def bare() -> None:
+        fam.decode_step_paged(params, cfg, sched._next, cache,
+                              sched._active_dev, pages=pages, impl=impl)
+
+    variants = (("eager step (decode_step_paged)", bare, 1),
+                ("eager tick (step + device sampler, no graph)",
+                 sched._step_fn(window, 1), 1),
+                ("graph K=1 replay", sched._decode_for(window), 1),
+                ("graph K=4 replay", sched._decode_fused_for(window, 4), 4))
+    print(f"profile: {model} decode, 32 layers, {quant} weights + "
           f"{'bf16 pool (write-then-attend)' if wta else 'int8 pool'}, "
-          f"B={B} W={W}: {wall:.3f} ms per step (CUDA events, "
-          f"{steps} steps, no profiler); device busy {busy:.3f} ms per "
-          f"step (sum of kernel times {busy_sum:.3f}) -> idle share "
-          f"{max(0.0, 1 - busy / wall):.1%}; under the profiler "
-          f"{prof_wall:.3f} ms wall per step")
-    for g, (ms, n, ms_sum) in sorted(groups.items(),
-                                     key=lambda kv: -kv[1][0]):
-        print(f"  {g}: {ms:.3f} ms per step (sum {ms_sum:.3f}) over "
-              f"{n // steps} launches ({ms / busy:.1%} of device time)")
-    for key, (ms, n) in sorted(other.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"    other: {ms:.3f} ms per step, {n // steps} launches: "
-              f"{key[:90]}")
+          f"B={B} W={W}, window {window}: {len(sched._programs)} graphs "
+          f"captured in {cap_s:.1f} s", flush=True)
+    for label, fn, K in variants:
+        def call(_i: int = 0, fn=fn) -> None:
+            cache.lengths.fill_(W)
+            fn()
+        wall, events = _profiled(call, steps)
+        wall /= K
+        spans: dict[str, list] = {}
+        other: dict[str, list] = {}
+        for name, a, b in events:
+            g = _kernel_group(name)
+            keys = [(spans, g)] + ([(other, name)] if g == "other" else [])
+            for d, key in keys:
+                d.setdefault(key, []).append((a, b))
+        n = steps * K
+
+        def summed(v) -> float:
+            return sum(b - a for a, b in v) / 1e3 / n
+        # Times are unions of kernel intervals: kernel B's combine, a
+        # programmatic dependent of its split kernel, starts while the
+        # split still runs. The sums of kernel times are printed beside
+        # them; the two agree wherever kernels do not overlap.
+        groups = {g: [_union_ms(v) / n, len(v), summed(v)]
+                  for g, v in spans.items()}
+        other_ms = {k: [_union_ms(v) / n, len(v)] for k, v in other.items()}
+        busy = _union_ms([x for v in spans.values() for x in v]) / n
+        busy_sum = sum(v[2] for v in groups.values())
+        if K == 1 and "graph" not in label:
+            check(busy > 0, "profile: the profiler saw no device time")
+        if busy == 0:
+            print(f"  {label}: {wall:.3f} ms per step (CUDA events); the "
+                  "profiler saw no kernel inside the replays", flush=True)
+            continue
+        # The profiler slows every launch on the host, so the idle share
+        # is taken against the unprofiled step time.
+        print(f"  {label}: {wall:.3f} ms per step (CUDA events, {steps} "
+              f"calls of {K} step{'s' * (K > 1)}, no profiler); device "
+              f"busy {busy:.3f} ms per step (sum of kernel times "
+              f"{busy_sum:.3f}) -> idle share {max(0.0, 1 - busy / wall):.1%}"
+              f"; {len(events) // n} device events per step", flush=True)
+        for g, (ms, cnt, ms_sum) in sorted(groups.items(),
+                                           key=lambda kv: -kv[1][0]):
+            print(f"    {g}: {ms:.3f} ms per step (sum {ms_sum:.3f}) over "
+                  f"{cnt // n} launches ({ms / busy:.1%} of device time)")
+        for key, (ms, cnt) in sorted(other_ms.items(),
+                                     key=lambda kv: -kv[1][0])[:6]:
+            print(f"      other: {ms:.3f} ms per step, {cnt // n} launches: "
+                  f"{key[:90]}")
 
 
 def _prefill_group(name: str) -> str:
@@ -1663,23 +1863,10 @@ def _post(url: str, body: dict, timeout: float = 600.0):
 
 def _wrappers() -> dict:
     """Every kernel wrapper of the port, by name (each counts its
-    launches in ``.launches``)."""
-    from p2p_llm_chat_tpu_torch.ops import quant_mm
-    from p2p_llm_chat_tpu_torch.ops.paged_attention import (
-        paged_attention, paged_attention_append)
-    from p2p_llm_chat_tpu_torch.ops.prefill_attention import \
-        prefill_attention
+    launches in ``.launches``): the serving path's and kernel E's."""
+    from p2p_llm_chat_tpu_torch import ops
     from p2p_llm_chat_tpu_torch.tools.mm_micro import w8a8_matmul
-    return {"quant_matmul": quant_mm.quant_matmul,
-            "paged_attention_append": paged_attention_append,
-            "paged_attention": paged_attention,
-            "w8a8_matmul": w8a8_matmul,
-            "prefill_attention": prefill_attention,
-            "quant_matmul4": quant_mm.quant_matmul4,
-            "quant_matmul_experts_stacked":
-                quant_mm.quant_matmul_experts_stacked,
-            "quant_matmul_experts_stacked4":
-                quant_mm.quant_matmul_experts_stacked4}
+    return {**ops.wrappers(), "w8a8_matmul": w8a8_matmul}
 
 
 def phase_server(results: dict, model: str, quant: str,
@@ -1837,15 +2024,28 @@ def phase_server(results: dict, model: str, quant: str,
         per_req = [r["eval_count"] / (r["eval_duration"] / 1e9)
                    for r in finals if r["eval_duration"] > 0]
         with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
-            metrics = r.read().decode()
-        step_ms = next((line.split()[-1] for line in metrics.splitlines()
-                        if line.startswith("decode_wall_ms ")), "?")
+            metrics = dict(line.rsplit(None, 1) for line in
+                           r.read().decode().splitlines()
+                           if line.strip() and not line.startswith("#"))
+        fused = {k: float(metrics.get(k, 0)) for k in (
+            "decode_fused_ticks_total", "decode_fused_steps_total",
+            "decode_fused_mean_k", "decode_wall_ms", "decode_stall_ms",
+            "serve_decode_ticks_total")}
+        check(fused["decode_fused_ticks_total"] > 0
+              and fused["decode_fused_mean_k"] > 1, f"server {label}: "
+              f"decode did not fuse ({fused})")
         print(f"server {label}: TTFT p50 {ttft[len(ttft) // 2]:.1f} ms (max "
               f"{ttft[-1]:.1f} ms) over {len(reqs)} requests; decode {toks} "
               f"tokens in "
               f"{burst_s:.2f} s = {toks / burst_s:.1f} tok/s aggregate, "
               f"{sorted(per_req)[len(per_req) // 2]:.1f} tok/s per request "
-              f"(p50); decode step p50 {step_ms} ms at B=8")
+              f"(p50); decode_wall_ms (p50 per step) "
+              f"{fused['decode_wall_ms']:.3f} at B=8; "
+              f"{fused['serve_decode_ticks_total']:.0f} ticks, "
+              f"{fused['decode_fused_ticks_total']:.0f} fused, mean K "
+              f"{fused['decode_fused_mean_k']:.3f}, decode_stall_ms "
+              f"{fused['decode_stall_ms']:.3f}; "
+              f"{len(engine.scheduler._programs)} decode graphs")
     finally:
         server.stop()
         engine.stop()

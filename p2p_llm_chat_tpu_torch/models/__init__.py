@@ -9,7 +9,8 @@ def family_for(config: ModelConfig):
     """The model module (llama or mixtral) implementing this config. Both
     expose the same surface the serving stack calls —
     ``init_params_quantized``, ``fuse_params``, ``prefill``,
-    ``decode_step_paged`` — so it dispatches on ``config.is_moe`` alone."""
+    ``prefill_chunk``, ``new_carry``, ``decode_step_paged``,
+    ``decode_fused`` — so it dispatches on ``config.is_moe`` alone."""
     if config.is_moe:
         from . import mixtral
         return mixtral

@@ -1,8 +1,9 @@
 """llama-family decoder (3.x dense models), the port of
 p2p_llm_chat_tpu/models/llama.py for the paged decode path: random int8 /
 int4 init, fused projections, whole-prompt and continuation (chunk /
-prefix-suffix) prefill, and the paged decode step in both of the
-reference's orderings (attend-then-write, write-then-attend), with the
+prefix-suffix) prefill, the paged decode step in both of the
+reference's orderings (attend-then-write, write-then-attend) and its
+fused K-step form (:func:`decode_fused`), with the
 reference's ``mlp_fn`` hook through which the mixtral family
 (models/mixtral.py) plugs its sparse-MoE MLP in.
 
@@ -364,3 +365,54 @@ def decode_step_paged(params: dict, config: ModelConfig,
     logits = _logits(params, config, h)
     write_decode_burst(cache, torch.stack(k_steps), torch.stack(v_steps), inc)
     return logits, cache
+
+
+def decode_fused(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                 cache: PagedKVCache, active: Optional[torch.Tensor] = None,
+                 *, num_steps: int, sample_fn, sample_state, stop_ids,
+                 pages: int, impl: Optional[str] = None, step_fn=None):
+    """``num_steps`` autoregressive steps in one call (the reference's
+    ``decode_fused``, llama.py:677-744, with a Python loop in place of
+    ``lax.scan``), so the serving loop captures K steps in one CUDA graph
+    and pays the host one launch for them.
+
+    Each iteration IS the plain step: ``step_fn`` (default
+    :func:`decode_step_paged`, either branch by ``impl``) at ``pages``,
+    then ``sample_fn(logits [B, V], state, emit_pos [B], active [B]) ->
+    (tokens [B], state)`` (the scheduler passes
+    models/sampling.sample_step_batched), then the next-token feed — so
+    the emitted stream is bitwise the stream of K sequential plain steps.
+
+    **EOS parks inside the loop**: a row whose sampled token is in
+    ``stop_ids`` ([n] int64 on the cache's device; empty disables)
+    retires there — its length stops advancing, its ring writes drop and
+    its feed freezes, the state the host's release would have left
+    between two plain steps. ``active`` is a local tensor of the loop and
+    is never read back to the host. Later positions of a retired row are
+    garbage the caller discards. The caller guarantees every active row
+    can absorb ``num_steps`` positions of its KV budget.
+
+    Returns (tokens [K, B], emitted [K, B] bool — whether the row was
+    live when that step sampled, next_tokens [B, 1], cache, active [B],
+    sample_state). The cache is updated in place."""
+    if step_fn is None:
+        step_fn = decode_step_paged
+    B = tokens.shape[0]
+    act = (torch.ones((B,), dtype=torch.bool, device=tokens.device)
+           if active is None else active)
+    toks_all, emitted = [], []
+    for _ in range(num_steps):
+        emit_pos = cache.lengths + 1       # emitted token's context slot
+        logits, cache = step_fn(params, config, tokens, cache, act,
+                                pages=pages, impl=impl)
+        toks, sample_state = sample_fn(logits[:, 0, :], sample_state,
+                                       emit_pos, act)
+        # Parked rows keep their previous input token (the plain step's
+        # next-token rule).
+        tokens = torch.where(act[:, None], toks[:, None], tokens)
+        toks_all.append(toks)
+        emitted.append(act)
+        if stop_ids.numel():
+            act = act & (toks[:, None] != stop_ids[None, :]).all(dim=1)
+    return (torch.stack(toks_all), torch.stack(emitted), tokens, cache, act,
+            sample_state)

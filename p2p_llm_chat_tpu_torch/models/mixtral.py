@@ -3,8 +3,9 @@ p2p_llm_chat_tpu/models/mixtral.py for the paged serving path.
 
 The attention, cache and layer-loop mechanics are llama's: :func:`prefill`,
 :func:`prefill_chunk` and :func:`decode_step_paged` pass the sparse-MoE
-MLP into models/llama.py through its ``mlp_fn`` hook, so only the expert
-MLP lives here.
+MLP into models/llama.py through its ``mlp_fn`` hook (and
+:func:`decode_fused` runs llama's loop over this module's step), so only
+the expert MLP lives here.
 
 - **Scatter/gather dispatch** with static capacity buckets: each token's
   top-k expert assignments are scattered into an ``[NE*C, H]`` bucket
@@ -185,3 +186,18 @@ def decode_step_paged(params: dict, config: ModelConfig,
     return llama.decode_step_paged(params, config, tokens, cache, active,
                                    pages=pages, mlp_fn=_mlp_fn(config, None),
                                    impl=impl)
+
+
+def decode_fused(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                 cache, active=None, *, num_steps: int, sample_fn,
+                 sample_state, stop_ids, pages: int,
+                 impl: Optional[str] = None):
+    """llama.decode_fused over the MoE step (the reference's
+    mixtral.py:355-372; same contract: K steps in one call, EOS parks
+    inside the loop, bitwise K sequential plain steps). Decode is
+    dropless: C = the batch."""
+    return llama.decode_fused(params, config, tokens, cache, active,
+                              num_steps=num_steps, sample_fn=sample_fn,
+                              sample_state=sample_state, stop_ids=stop_ids,
+                              pages=pages, impl=impl,
+                              step_fn=decode_step_paged)

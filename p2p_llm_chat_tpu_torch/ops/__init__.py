@@ -12,3 +12,20 @@ each beside its plain PyTorch version:
   a query offset (csrc/prefill_attention.cu);
 - :mod:`._build` — nvcc build on first use + ctypes binding.
 """
+
+
+def wrappers() -> dict:
+    """Every kernel wrapper of the serving path, by name; each counts the
+    launches of its kernel in ``.launches``."""
+    from . import quant_mm
+    from .paged_attention import paged_attention, paged_attention_append
+    from .prefill_attention import prefill_attention
+    return {"quant_matmul": quant_mm.quant_matmul,
+            "quant_matmul4": quant_mm.quant_matmul4,
+            "quant_matmul_experts_stacked":
+                quant_mm.quant_matmul_experts_stacked,
+            "quant_matmul_experts_stacked4":
+                quant_mm.quant_matmul_experts_stacked4,
+            "paged_attention_append": paged_attention_append,
+            "paged_attention": paged_attention,
+            "prefill_attention": prefill_attention}

@@ -256,10 +256,15 @@ def write_prefill_chunk(cache: PagedKVCache, chunk_k: torch.Tensor,
 
 def _decode_slots(cache: PagedKVCache) -> tuple[torch.Tensor, torch.Tensor]:
     """(physical page, slot) [B] of each row's next write, at position
-    ``lengths[b]``."""
+    ``lengths[b]``. A position past the row's page table (a finished row
+    that a pipelined tick ran one step further) lands in the garbage
+    page."""
     ps = cache.page_size
     lengths = cache.lengths.long()
-    phys = cache.page_table.gather(1, (lengths // ps)[:, None])[:, 0].long()
+    logical = lengths // ps
+    mppr = cache.max_pages_per_row
+    phys = cache.page_table.gather(1, logical.clamp(max=mppr - 1)[:, None])
+    phys = torch.where(logical < mppr, phys[:, 0].long(), 0)
     return phys, lengths % ps
 
 
@@ -305,15 +310,3 @@ def write_decode_burst(cache: PagedKVCache, k_all: torch.Tensor,
     _scatter_kv(cache, k_all, v_all, scatter, sscatter)
     cache.lengths += inc.to(cache.lengths.dtype)
     return cache
-
-
-def set_row_table(cache: PagedKVCache, row: int,
-                  pages: torch.Tensor) -> PagedKVCache:
-    """Install a row's page map (physical ids, 0-padded to
-    max_pages_per_row) and reset its length to 0. Releasing a row installs
-    all zeros, so its later parked-row writes land in the garbage page."""
-    cache.page_table[row] = pages.to(device=cache.page_table.device,
-                                     dtype=torch.int32)
-    cache.lengths[row] = 0
-    return cache
-

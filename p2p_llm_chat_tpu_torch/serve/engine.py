@@ -24,9 +24,10 @@ warmup; ``SERVE_PREFIX_TEXTS`` adds ``||``-separated templates and
 branch: ``gather`` attends then writes (kernel B's append mode),
 ``kernel``/``flash`` write then attend (its pool mode, bf16 pool only:
 ``SERVE_KV_QUANT=int8`` with them is refused at build, as in the
-reference). The reference's default
-``SERVE_FUSE=4`` does not change its output, so here it is logged as not
-run yet.
+reference). Decode runs fused K-step ticks as the reference does
+(``SERVE_FUSE``, default 4, 1 disables): CUDA graphs per (attention
+window, K) on the card, captured by the warmup, and the same functions
+run eagerly on the CPU.
 """
 
 from __future__ import annotations
@@ -80,6 +81,7 @@ class TorchEngine:
                  prefill_chunk: int = 256,
                  attn_impl: Optional[str] = None,
                  admit_chunk: Optional[int] = None,
+                 decode_fuse_max: int = 4,
                  name: Optional[str] = None,
                  device: Optional[torch.device | str] = None) -> None:
         self.name = name or config.name
@@ -91,7 +93,8 @@ class TorchEngine:
             queue_timeout_s=queue_timeout_s, queue_max=queue_max,
             kv_quant=kv_quant, prefix_cache=prefix_cache,
             prefill_chunk=prefill_chunk, attn_impl=attn_impl,
-            admit_chunk=admit_chunk, device=device)
+            admit_chunk=admit_chunk, decode_fuse_max=decode_fuse_max,
+            device=device)
 
     def generate_stream(self, req: GenerateRequest,
                         stats: Optional[RequestStats] = None) -> Iterator[str]:
@@ -102,8 +105,9 @@ class TorchEngine:
 
     def warmup(self, buckets: tuple[int, ...] = (128, 256)) -> None:
         """Run the serving path once before traffic, on a background
-        thread (on the card this builds and loads the CUDA kernels), and
-        register the prefix templates; /readyz stays not-ready until it is
+        thread (on the card this builds and loads the CUDA kernels and
+        captures the decode graphs of every window and K), and register
+        the prefix templates; /readyz stays not-ready until it is
         done, and for good if it fails (the error is kept in
         :attr:`warmup_error`)."""
         def run() -> None:
@@ -182,9 +186,9 @@ def build_engine_from_env(device: Optional[str | torch.device] = None
         raise SystemExit(
             f"SERVE_KV_QUANT must be int8 or empty, got {kv_quant!r}")
     config = get_config(env_or("MODEL_CONFIG", "tiny"))
-    if env_or("SERVE_FUSE", "4") != "1":
-        log.info("SERVE_FUSE=%s: not run yet by the PyTorch engine (output "
-                 "is the same without it)", env_or("SERVE_FUSE", "4"))
+    # Fused multi-step decode: up to this many decode steps per tick
+    # (adaptive, scheduler._choose_fuse_k). 1 disables.
+    decode_fuse_max = max(1, env_int("SERVE_FUSE", 4))
     # Read at each build (not the module's import-time default), so one
     # process can build engines with either branch; BatchScheduler checks
     # it and refuses an int8 pool under a non-gather impl.
@@ -197,11 +201,12 @@ def build_engine_from_env(device: Optional[str | torch.device] = None
     qt = env_float("SERVE_QUEUE_TIMEOUT", 60.0)
     qm = env_int("SERVE_QUEUE_MAX", -1)
     log.info("serving random-init %s (%s weights, %s KV) on %s; paged "
-             "attention impl %s (%s); prefill chunk %d, prefix cache %s",
+             "attention impl %s (%s); prefill chunk %d, prefix cache %s, "
+             "fused decode up to %d steps a tick",
              config.name, quant or "bf16", kv_quant or "bf16", dev,
              attn_impl, "attend-then-write" if attn_impl == "gather"
              else "write-then-attend", prefill_chunk,
-             "on" if prefix_cache else "off")
+             "on" if prefix_cache else "off", decode_fuse_max)
     params = family_for(config).init_params_quantized(
         config, seed=0, quant=quant, device=dev)
     engine = TorchEngine(
@@ -216,6 +221,7 @@ def build_engine_from_env(device: Optional[str | torch.device] = None
         prefix_texts=prefix_texts, prefill_chunk=prefill_chunk,
         attn_impl=attn_impl,
         admit_chunk=env_int("SERVE_ADMIT_CHUNK", 0) or None,
+        decode_fuse_max=decode_fuse_max,
         name=env_or("LLM_MODEL", config.name), device=dev)
     warm = env_or("SERVE_WARMUP", "128,256")
     if warm and warm != "0":

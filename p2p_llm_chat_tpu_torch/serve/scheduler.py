@@ -24,12 +24,23 @@ queues only:
   auto-promoted after repeated sightings) prefills only its suffix, at
   positions P.. over the prefix KV broadcast into each row's carry; the
   combined KV is copied into the row's own pages;
-- one ``decode_step_paged`` per tick runs every row (parked rows ride
-  along; their writes land in the garbage page), walking
-  ``ceil(max live length / page_size)`` pages under the default
-  attend-then-write branch (``attn_impl="gather"``), and
-  ``ceil((max live length + 1) / page_size)`` under write-then-attend
-  (``kernel``/``flash``), whose window holds the slot the step writes;
+- decode runs as fused K-step ticks (the reference's ``SERVE_FUSE``,
+  default 4): one tick is ``decode_fused`` over K steps of
+  ``decode_step_paged`` (every row; parked rows ride along, their writes
+  land in the garbage page or past their trusted length), each step
+  sampling on the device — per-row options, keys, penalty rings, the
+  next-token feed and EOS parking live in tensors allocated once. On the
+  card each (attention window, K) program is a CUDA graph captured at
+  warmup and replayed with one host launch; on the CPU the same function
+  runs eagerly. K follows the reference's adaptive ramp
+  (:meth:`BatchScheduler._choose_fuse_k`) and the window its power-of-two
+  ladder (:meth:`BatchScheduler._window`), covering every live row's
+  context under either attention branch;
+- dispatch is pipelined one tick deep: tick N+1 is launched before tick
+  N's ``[K, B]`` token block is read back (copied behind a CUDA event),
+  so the host's bookkeeping and streaming overlap the device's work;
+  every device operation runs on one stream, which keeps a released
+  row's pages safe to reuse;
 - a request stops on EOS, ``num_predict``, a ``stop`` string or its
   context budget; its row's page table is zeroed and its pages freed;
 - detokenization is incremental and UTF-8 safe, and holds back text that
@@ -37,8 +48,8 @@ queues only:
 
 Every prefill attention (whole prompt, chunk, prefix suffix) runs kernel
 D on the card. Not in this slice (later ones): prefix export/import,
-fused K-step decode, speculation, KV tiering, tensor parallelism. None of
-them changes greedy output in the reference.
+speculation, KV tiering, tensor parallelism. None of them changes greedy
+output in the reference.
 """
 
 from __future__ import annotations
@@ -51,12 +62,13 @@ from typing import Iterator, Optional
 
 import torch
 
+from .. import ops
 from ..models import family_for
 from ..models.configs import ModelConfig
 from ..models.quant import param_bytes, quant_mode
 from ..models.sampling import sample_step_batched
 from ..ops import paged_attention as pa
-from ..ops.paged_kv import (PageAllocator, PagedKVCache, set_row_table,
+from ..ops.paged_kv import (PageAllocator, PagedKVCache,
                             write_prefill_batch, write_prefill_chunk)
 from ..tokenizer import Tokenizer
 from ..utils.device import resolve_device
@@ -81,6 +93,29 @@ _MIN_REGISTER_PREFIX = 8
 # Under sustained load (never idle), build a queued prefix promotion at
 # most once per this many decode ticks.
 _PROMOTE_EVERY_TICKS = 256
+
+
+class _DecodeProgram:
+    """K decode steps at one attention window. On the card, a CUDA graph
+    captured over the step function: a call replays it and adds to each
+    kernel wrapper's launch counter what the capture recorded, so the
+    counters go on counting what ran. On the CPU, the step function
+    itself."""
+
+    __slots__ = ("fn", "graph", "launches")
+
+    def __init__(self, fn, graph=None, launches=()) -> None:
+        self.fn = fn
+        self.graph = graph
+        self.launches = launches
+
+    def __call__(self) -> None:
+        if self.graph is None:
+            self.fn()
+            return
+        self.graph.replay()
+        for wrapper, n in self.launches:
+            wrapper.launches += n
 
 
 def _bucket(n: int, max_seq: int) -> int:
@@ -224,8 +259,14 @@ class BatchScheduler:
                  prefix_cache: bool = False, prefill_chunk: int = 256,
                  attn_impl: Optional[str] = None,
                  admit_chunk: Optional[int] = None,
+                 decode_fuse_max: int = 4,
                  device: Optional[torch.device | str] = None) -> None:
-        """``admit_chunk``: burst-admission width (the reference's
+        """``decode_fuse_max``: fused multi-step decode (the reference's
+        ``SERVE_FUSE``) — one tick runs up to this many decode steps
+        (adaptive: :meth:`_choose_fuse_k`), each exactly the plain step,
+        so the output does not change. 1 disables.
+
+        ``admit_chunk``: burst-admission width (the reference's
         ``SERVE_ADMIT_CHUNK``). None admits as many rows per prefill as
         the admission token budget allows; a fixed width caps each
         prefill's rows, so a burst's first tokens land before the whole
@@ -255,6 +296,11 @@ class BatchScheduler:
                 f"prefill_chunk must be >= 0, got {prefill_chunk}")
         if admit_chunk is not None and admit_chunk < 1:
             raise ValueError(f"admit_chunk must be >= 1, got {admit_chunk}")
+        if decode_fuse_max < 1:
+            raise ValueError(
+                f"decode_fuse_max must be >= 1, got {decode_fuse_max}")
+        self.decode_fuse_max = decode_fuse_max
+        self._fuse_ramp = 1
         self.admit_chunk = admit_chunk
         self.attn_impl = pa.check_impl(
             pa._DEFAULT_IMPL if attn_impl is None else attn_impl)
@@ -300,9 +346,19 @@ class BatchScheduler:
         self._admit_carry: list[_Slot] = []
         self._n_admitted = 0
         self._n_decode_ticks = 0
+        self._n_decode_steps = 0
+        self._n_fused_ticks = 0
+        self._n_fused_steps = 0
         self._n_expired = 0
         self._tbt_hist = Histogram("inter_token_ms")
-        self._step_hist = Histogram("decode_step_ms")
+        # Steady-state wall per decode step: the interval between two
+        # dispatches over the earlier one's K.
+        self._wall_hist = Histogram("decode_wall_ms")
+        self._last_dispatch: Optional[tuple[float, int]] = None
+        # The longest decode-dispatch gap across admission work.
+        self._decode_stall_ms = 0.0
+        self._last_decode_t: Optional[float] = None
+        self._admit_since_tick = False
         self.prefill_chunk = (_bucket(prefill_chunk, self.max_seq)
                               if prefill_chunk else 0)
         self._prefill_carry: Optional[_PrefillCarry] = None
@@ -321,7 +377,7 @@ class BatchScheduler:
         self._n_prefix_tokens = 0
         self._promote_q: list[tuple[int, ...]] = []
         self._last_promote_tick = 0
-        self._reset_device_state()
+        self._alloc_device_state()
         self._admit_q: "queue.Queue[Optional[object]]" = queue.Queue()
         self._closed = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -330,25 +386,68 @@ class BatchScheduler:
 
     # -- device state ------------------------------------------------------
 
-    def _reset_device_state(self) -> None:
-        B = self.num_slots
-        self._alloc = PageAllocator(self.num_pages, self.page_size)
+    def _alloc_device_state(self) -> None:
+        """The pool, the per-row sampling state and the decode programs'
+        inputs and outputs, allocated ONCE: every captured CUDA graph
+        holds their addresses, so later writes go into them in place
+        (admission and release index-write them between ticks, and
+        :meth:`_reset_device_state` clears them in place)."""
+        B, dev = self.num_slots, self.device
         self._cache = PagedKVCache.create(
             self.config, B, self.num_pages, self.page_size,
             max_pages_per_row=-(-self.max_seq // self.page_size),
-            dtype=self._dtype, quantized=self.kv_quant, device=self.device)
-        self._next = torch.zeros((B, 1), dtype=torch.long,
-                                 device=self.device)
-        # Per-row sampling options, host-side (installed at admission),
-        # and each row's repeat-penalty ring on the device: the token at
-        # context position p sits at p % _RING (ids >= vocab are empty).
-        self._temps = [0.0] * B
-        self._top_ks = [0] * B
-        self._top_ps = [1.0] * B
-        self._rps = [1.0] * B
-        self._ring = torch.full((B, _RING), self.config.vocab_size,
-                                dtype=torch.long, device=self.device)
-        self._gens: list[Optional[torch.Generator]] = [None] * B
+            dtype=self._dtype, quantized=self.kv_quant, device=dev)
+        self._next = torch.zeros((B, 1), dtype=torch.long, device=dev)
+        # Per-row sampling options, keys ([seed, counter]) and penalty
+        # ring (the token at context position p sits at p % _RING; ids >=
+        # vocab are empty), installed at admission.
+        self._temps_dev = torch.zeros((B,), dtype=torch.float32, device=dev)
+        self._top_ks_dev = torch.zeros((B,), dtype=torch.long, device=dev)
+        self._top_ps_dev = torch.ones((B,), dtype=torch.float32, device=dev)
+        self._rps_dev = torch.ones((B,), dtype=torch.float32, device=dev)
+        self._keys_dev = torch.zeros((B, 2), dtype=torch.long, device=dev)
+        self._ring_dev = torch.full((B, _RING), self.config.vocab_size,
+                                    dtype=torch.long, device=dev)
+        self._active_dev = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self._active_host: Optional[tuple[bool, ...]] = None
+        self._stop_dev = torch.tensor(sorted(self._stop_ids),
+                                      dtype=torch.long, device=dev)
+        # Each program's token block, and two host buffers its copies
+        # alternate between (pinned on the card: the copy runs behind an
+        # event while the next tick is queued).
+        self._toks_out = {K: torch.zeros((K, B), dtype=torch.long,
+                                         device=dev)
+                          for K in (1,) + self._fuse_ladder}
+        cuda = dev.type == "cuda"
+        self._host_toks = [torch.zeros((self.decode_fuse_max, B),
+                                       dtype=torch.long, pin_memory=cuda)
+                           for _ in range(2)]
+        self._flip = 0
+        self._programs: dict[tuple[int, int], _DecodeProgram] = {}
+        # The graphs share one memory pool: every result a graph leaves
+        # behind is copied into the tensors above, and all replays run
+        # on one stream, so no graph's scratch outlives its replay.
+        self._graph_pool = torch.cuda.graph_pool_handle() if cuda else None
+        self._capture_stream = torch.cuda.Stream(dev) if cuda else None
+        self._alloc = PageAllocator(self.num_pages, self.page_size)
+
+    def _reset_device_state(self) -> None:
+        """Back to no live row, in place (the captured graphs stay
+        valid): tables and lengths zeroed — pool contents past a zero
+        length are never read —, options, keys, rings, feed and mask
+        cleared, and a fresh page allocator."""
+        self._alloc = PageAllocator(self.num_pages, self.page_size)
+        self._cache.page_table.zero_()
+        self._cache.lengths.zero_()
+        self._next.zero_()
+        self._temps_dev.zero_()
+        self._top_ks_dev.zero_()
+        self._top_ps_dev.fill_(1.0)
+        self._rps_dev.fill_(1.0)
+        self._keys_dev.zero_()
+        self._ring_dev.fill_(self.config.vocab_size)
+        self._active_dev.zero_()
+        self._active_host = None
 
     # -- client side (HTTP threads) ----------------------------------------
 
@@ -445,10 +544,11 @@ class BatchScheduler:
         """Run the serving path once before traffic: on the card this
         builds and loads the CUDA kernels and launches them at the
         serving shapes (a prefill per bucket, the registration of each
-        prefix template, then one decode tick with every row parked — its
-        writes land in the garbage page; one page covers its window under
-        either branch, every length being 0). Blocks until the scheduler
-        thread has run it."""
+        prefix template), then, per window of the ladder, one plain
+        decode step with every row parked and the capture of the
+        window's decode graphs (:meth:`_warm_window`). A capture that
+        fails fails the warmup. Blocks until the scheduler thread has run
+        it."""
         self.note_warmup_pending()
 
         def run() -> None:
@@ -462,11 +562,8 @@ class BatchScheduler:
                                      lens, last_only=True)
             for text in prefix_texts:
                 self.register_prefix(text)
-            active = torch.zeros((self.num_slots,), dtype=torch.bool,
-                                 device=self.device)
-            self._family.decode_step_paged(self._params, self.config,
-                                           self._next, self._cache, active,
-                                           pages=1, impl=self.attn_impl)
+            for w in self._window_ladder():
+                self._warm_window(w)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
@@ -477,6 +574,177 @@ class BatchScheduler:
             self.warmup_error = job.err
             raise job.err
         self._warmup_done_at = time.monotonic()
+
+    # -- decode programs (scheduler thread) ---------------------------------
+
+    def _window_ladder(self) -> tuple[int, ...]:
+        """Every window :meth:`_window` can return: powers of two from
+        128, capped at max_seq."""
+        w, out = min(128, self.max_seq), []
+        while True:
+            out.append(w)
+            if w >= self.max_seq:
+                return tuple(out)
+            w = min(2 * w, self.max_seq)
+
+    def _window(self, extra: int = 0) -> int:
+        """Smallest power-of-two (>= 128, <= max_seq) attention window
+        covering every live row's context plus ``1 + extra`` slots (the
+        reference's ladder, scheduler.py:1717-1725)."""
+        need = 1 + extra + max(s.ctx_len for s in self._slots
+                               if s is not None)
+        w = min(128, self.max_seq)
+        while w < need:
+            w *= 2
+        return min(w, self.max_seq)
+
+    @property
+    def _fuse_ladder(self) -> tuple[int, ...]:
+        """Fused-K sizes: powers of two up to decode_fuse_max (plus the
+        cap itself) — the ramp climbs this ladder, so each window holds a
+        handful of programs, not one per possible K."""
+        ks, k = [], 2
+        while k < self.decode_fuse_max:
+            ks.append(k)
+            k *= 2
+        if self.decode_fuse_max > 1:
+            ks.append(self.decode_fuse_max)
+        return tuple(ks)
+
+    def _choose_fuse_k(self, inflight: int) -> int:
+        """Adaptive fused-K for this tick (the reference's decision
+        table, scheduler.py:1641-1695). Collapses to 1 whenever fusing
+        could overrun a budget THIS tick:
+
+        - any live row within K tokens of its ``max_new`` or KV budget —
+          the device must never write a slot past a row's allocation, and
+          ``inflight`` unprocessed pipelined steps count against the
+          headroom (the device's lengths run ahead of the host's ctx_len
+          by up to that many slots);
+        - admissions pending while chunking is disabled or cannot cover
+          every bucket (``max_seq % prefill_chunk != 0``): a pending
+          admission may then put an unbounded prefill after this tick.
+          With chunking covering every bucket, pending admissions do not
+          collapse K: each admission step is bounded to one chunk;
+
+        otherwise K doubles along the ladder up to ``decode_fuse_max``,
+        so a stream that just admitted ramps 1 -> 2 -> 4."""
+        kmax = self.decode_fuse_max
+        if kmax <= 1:
+            return 1
+        C = self.prefill_chunk
+        if ((not C or self.max_seq % C)
+                and (self._admit_carry or self._waiting
+                     or not self._admit_q.empty())):
+            self._fuse_ramp = 1
+            return 1
+        cap = kmax
+        for s in self._slots:
+            if s is None:
+                continue
+            cap = min(cap,
+                      s.max_new - len(s.ids) - inflight,
+                      s.ctx_budget - s.ctx_len - inflight)
+            if cap < 2:
+                self._fuse_ramp = 1
+                return 1
+        k = 1
+        target = min(cap, self._fuse_ramp * 2)
+        for cand in self._fuse_ladder:
+            if cand <= target:
+                k = cand
+        self._fuse_ramp = max(k, 1)
+        return max(k, 1)
+
+    def _step_fn(self, window: int, K: int):
+        """The function of one decode tick: ``decode_fused`` over K steps
+        at ``window`` on the persistent state (the live-row mask
+        ``_active_dev`` unless ``active`` is given), each step sampling
+        with the rows' options, keys and rings on the device; the token
+        block lands in ``_toks_out[K]`` and the feed, keys and ring are
+        written back in place. K = 1 is the plain step."""
+        pages = -(-window // self.page_size)
+
+        def sample_fn(logits, state, emit_pos, act):
+            keys, ring = state
+            toks, keys, ring = sample_step_batched(
+                logits, keys, self._temps_dev, self._top_ks_dev,
+                self._top_ps_dev, ring=ring, rp=self._rps_dev,
+                emit_pos=emit_pos, active=act)
+            return toks, (keys, ring)
+
+        def run(active: Optional[torch.Tensor] = None) -> None:
+            toks, _, nxt, _, _, (keys, ring) = self._family.decode_fused(
+                self._params, self.config, self._next, self._cache,
+                self._active_dev if active is None else active,
+                num_steps=K, sample_fn=sample_fn,
+                sample_state=(self._keys_dev, self._ring_dev),
+                stop_ids=self._stop_dev, pages=pages, impl=self.attn_impl)
+            self._toks_out[K].copy_(toks)
+            self._next.copy_(nxt)
+            self._keys_dev.copy_(keys)
+            self._ring_dev.copy_(ring)
+
+        return run
+
+    def _decode_fused_for(self, window: int, K: int) -> _DecodeProgram:
+        """The program of K steps at ``window``: on the card a CUDA graph,
+        captured on first use (warmup captures the whole ladder) on the
+        scheduler's capture stream into the shared pool — capture only,
+        nothing runs on live rows. The wrappers' launch counts that the
+        capture recorded are taken back and re-added at each replay."""
+        key = (window, K)
+        prog = self._programs.get(key)
+        if prog is not None:
+            return prog
+        fn = self._step_fn(window, K)
+        if self.device.type != "cuda":
+            prog = _DecodeProgram(fn)
+        else:
+            wrappers = ops.wrappers()
+            before = {n: w.launches for n, w in wrappers.items()}
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, pool=self._graph_pool,
+                                      stream=self._capture_stream):
+                    fn()
+            finally:
+                launches = []
+                for name, w in wrappers.items():
+                    if w.launches != before[name]:
+                        launches.append((w, w.launches - before[name]))
+                        w.launches = before[name]
+            prog = _DecodeProgram(fn, graph, tuple(launches))
+        self._programs[key] = prog
+        return prog
+
+    def _decode_for(self, window: int) -> _DecodeProgram:
+        """The plain (K = 1) program at ``window``."""
+        return self._decode_fused_for(window, 1)
+
+    def _warm_window(self, w: int) -> None:
+        """One plain step at window ``w`` with every row parked, then the
+        capture of the window's programs for K in {1} and the fuse
+        ladder. Parked rows write only to the garbage page or past their
+        trusted length, and keep their lengths, feed and rings; their
+        keys advance, so the keys are saved and restored around the step
+        (a warmup between live ticks must not move seeded streams). On
+        the card the step runs on the capture stream, so the lazy state
+        of every library call it makes exists before the capture."""
+        keys = self._keys_dev.clone()
+        fn = self._step_fn(w, 1)
+        parked = torch.zeros_like(self._active_dev)
+        if self.device.type == "cuda":
+            cur = torch.cuda.current_stream(self.device)
+            self._capture_stream.wait_stream(cur)
+            with torch.cuda.stream(self._capture_stream):
+                fn(parked)
+            cur.wait_stream(self._capture_stream)
+        else:
+            fn(parked)
+        self._keys_dev.copy_(keys)
+        for K in (1,) + self._fuse_ladder:
+            self._decode_fused_for(w, K)
 
     # -- shared-prefix KV cache (scheduler thread) --------------------------
 
@@ -570,7 +838,17 @@ class BatchScheduler:
             "serve_queue_expired_total": self._n_expired,
             "requests_shed_total": shed,
             "serve_draining": int(self._draining.is_set()),
-            "decode_wall_ms": round(self._step_hist.percentile(50) or 0.0, 4),
+            # Fused multi-step decode: ticks that fused K > 1 steps, their
+            # steps, and the mean K over every decode tick.
+            "decode_fused_ticks_total": self._n_fused_ticks,
+            "decode_fused_steps_total": self._n_fused_steps,
+            "decode_fused_mean_k": round(
+                self._n_decode_steps / max(1, self._n_decode_ticks), 3),
+            # p50 of the steady-state interval between dispatches, per
+            # step; and the longest dispatch gap across admission work.
+            "decode_wall_ms": round(self._wall_hist.percentile(50) or 0.0,
+                                    4),
+            "decode_stall_ms": round(self._decode_stall_ms, 3),
             "inter_token_p50_ms": round(
                 self._tbt_hist.percentile(50) or 0.0, 4),
             "inter_token_p95_ms": round(
@@ -592,9 +870,18 @@ class BatchScheduler:
     # -- scheduler thread --------------------------------------------------
 
     def _loop(self) -> None:
+        """Serving loop with one-tick pipelining (the reference's,
+        scheduler.py:2549-2640): tick N+1 is dispatched BEFORE tick N's
+        tokens are read back, so the readback and the host's per-row
+        work overlap N+1's device time. The device carries its own
+        next-token feed, so the host's one-tick lag only delays streaming
+        and stop detection: a stopped row decodes one more tick, whose
+        writes land past its trusted length or in the garbage page."""
+        pending: Optional[tuple] = None   # (toks, event, snapshot, K)
         while not self._closed.is_set():
             try:
                 self._admit_pending(block=not self._any_active()
+                                    and pending is None
                                     and self._prefill_carry is None)
                 if self._closed.is_set():
                     return
@@ -602,16 +889,27 @@ class BatchScheduler:
                     # ONE continuation chunk per iteration: live streams
                     # stall at most one chunk's compute.
                     self._prefill_step()
-                if self._any_active():
-                    self._decode_tick()
-                    if (self._promote_q and self._n_decode_ticks
-                            - self._last_promote_tick > _PROMOTE_EVERY_TICKS):
-                        self._build_promotion()
-                elif self._promote_q and self._prefill_carry is None:
-                    self._build_promotion()     # idle: nobody to stall
+                if not self._any_active():
+                    # Idle gaps are not admission stalls.
+                    self._last_decode_t = None
+                    if pending is not None:
+                        self._process_tick(*pending)
+                        pending = None
+                    elif self._promote_q and self._prefill_carry is None:
+                        self._build_promotion()     # idle: nobody to stall
+                    continue
+                new = self._dispatch_tick(
+                    inflight=pending[3] if pending is not None else 0)
+                if pending is not None:
+                    self._process_tick(*pending)
+                pending = new
+                if (self._promote_q and self._n_decode_ticks
+                        - self._last_promote_tick > _PROMOTE_EVERY_TICKS):
+                    self._build_promotion()
             except Exception:   # noqa: BLE001 — fail requests, keep serving
                 log.exception("serving tick failed; failing in-flight "
                               "requests")
+                pending = None
                 self._fail_all_and_reset()
 
     def _any_active(self) -> bool:
@@ -844,6 +1142,7 @@ class BatchScheduler:
                             torch.tensor(rows, dtype=torch.long), total,
                             tables)
         del k_all, v_all
+        self._admit_since_tick = True
         self._install_admitted(chunk, rows, logits[:, 0, :])
 
     def _start_prefill_carry(self, chunk: list[_Slot], rows: list[int],
@@ -886,6 +1185,7 @@ class BatchScheduler:
         write_prefill_chunk(self._cache, pc.k[:, :, lo:base + C],
                             pc.v[:, :, lo:base + C], pc.tables, lo)
         self._n_prefill_chunks += 1
+        self._admit_since_tick = True
         pc.off = off + C
         if pc.off < pc.S:
             return
@@ -902,32 +1202,43 @@ class BatchScheduler:
     def _install_admitted(self, chunk: list[_Slot], rows: list[int],
                           logits: torch.Tensor) -> None:
         """Admission epilogue shared by the one-piece and the chunked
-        paths: install per-row sampling state, sample each row's first
-        token from ``logits`` ([R, V]), install the slots and stream."""
+        paths: write the rows' options, keys (``[seed, 0]``) and rings
+        into the persistent device state in place, sample each row's
+        first token from ``logits`` ([R, V]) with the device sampler,
+        install the slots and stream."""
         R = len(chunk)
         dev = self.device
+        idx = torch.tensor(rows, dtype=torch.long, device=dev)
+        opts = [slot.req.options for slot in chunk]
         rings = torch.full((R, _RING), self.config.vocab_size,
                            dtype=torch.long)
-        for i, (slot, row) in enumerate(zip(chunk, rows)):
-            o = slot.req.options
-            self._temps[row] = o.temperature
-            self._top_ks[row] = o.top_k
-            self._top_ps[row] = o.top_p
-            self._rps[row] = o.repeat_penalty
+        for i, slot in enumerate(chunk):
             n = len(slot.prompt_ids)
             for p in range(max(0, n - _RING), n):    # the prompt's tail
                 rings[i, p % _RING] = slot.prompt_ids[p]
-            gen = None
-            if o.temperature > 0.0:
-                gen = torch.Generator(device=dev)
-                gen.manual_seed(slot.seed)
-            self._gens[row] = gen
-        self._ring[torch.tensor(rows, device=dev)] = rings.to(dev)
+        self._temps_dev[idx] = torch.tensor(
+            [o.temperature for o in opts], dtype=torch.float32, device=dev)
+        self._top_ks_dev[idx] = torch.tensor(
+            [o.top_k for o in opts], dtype=torch.long, device=dev)
+        self._top_ps_dev[idx] = torch.tensor(
+            [o.top_p for o in opts], dtype=torch.float32, device=dev)
+        self._rps_dev[idx] = torch.tensor(
+            [o.repeat_penalty for o in opts], dtype=torch.float32,
+            device=dev)
+        self._keys_dev[idx] = torch.tensor(
+            [[slot.seed, 0] for slot in chunk], dtype=torch.long, device=dev)
+        self._ring_dev[idx] = rings.to(dev)
         # Each row's first token sits at context position len(prompt).
-        first = self._sample(logits, rows,
-                             [len(s.prompt_ids) for s in chunk])
-        self._next[torch.tensor(rows, device=dev), 0] = torch.tensor(
-            first, dtype=torch.long, device=dev)
+        emit = torch.tensor([len(s.prompt_ids) for s in chunk], device=dev)
+        toks, keys, ring = sample_step_batched(
+            logits, self._keys_dev[idx], self._temps_dev[idx],
+            self._top_ks_dev[idx], self._top_ps_dev[idx],
+            ring=self._ring_dev[idx], rp=self._rps_dev[idx], emit_pos=emit,
+            active=torch.ones((R,), dtype=torch.bool, device=dev))
+        self._keys_dev[idx] = keys
+        self._ring_dev[idx] = ring
+        self._next[idx, 0] = toks
+        first = toks.tolist()
         now = time.monotonic()
         self._n_admitted += R
         for slot, row, tok in zip(chunk, rows, first):
@@ -939,56 +1250,80 @@ class BatchScheduler:
             if not self._append_token(slot, row, tok):
                 self._release(row)
 
-    def _sample(self, logits: torch.Tensor, rows: list[int],
-                emit_pos: list[int]) -> list[int]:
-        """Sample one token per row of ``logits`` ([len(rows), V]) with
-        the rows' installed options, generators and penalty rings; each
-        token joins its row's ring at context position ``emit_pos``."""
-        dev = self.device
-        idx = torch.tensor(rows, device=dev)
-        toks, ring = sample_step_batched(
-            logits,
-            [self._gens[r] for r in rows],
-            torch.tensor([self._temps[r] for r in rows], dtype=torch.float32),
-            torch.tensor([self._top_ks[r] for r in rows], dtype=torch.long),
-            torch.tensor([self._top_ps[r] for r in rows],
-                         dtype=torch.float32),
-            ring=self._ring[idx],
-            rp=torch.tensor([self._rps[r] for r in rows],
-                            dtype=torch.float32, device=dev),
-            emit_pos=torch.tensor(emit_pos, device=dev),
-            active=torch.ones((len(rows),), dtype=torch.bool, device=dev))
-        self._ring[idx] = ring
-        return toks.tolist()
+    def _note_admission_gap(self, now: float) -> None:
+        """The decode_stall_ms tracker: the dispatch-to-dispatch interval
+        across an iteration that did admission work (a prefill or a
+        continuation chunk) is the stall live streams saw."""
+        if self._last_decode_t is not None and self._admit_since_tick:
+            self._decode_stall_ms = max(self._decode_stall_ms,
+                                        (now - self._last_decode_t) * 1e3)
+        self._last_decode_t = now
+        self._admit_since_tick = False
 
-    def _decode_tick(self) -> None:
-        t0 = time.monotonic()
-        active_rows = [i for i, s in enumerate(self._slots) if s is not None]
-        # The window covers every live row's pool; write-then-attend also
-        # attends the slot this tick writes (position ctx_len).
-        extra = 0 if self.attn_impl == "gather" else 1
-        longest = max(self._slots[r].ctx_len for r in active_rows) + extra
-        pages = max(1, -(-longest // self.page_size))
-        active = torch.zeros((self.num_slots,), dtype=torch.bool)
-        active[active_rows] = True
-        logits, _ = self._family.decode_step_paged(
-            self._params, self.config, self._next, self._cache,
-            active.to(self.device), pages=pages, impl=self.attn_impl)
-        # The sampled token follows this tick's input (at ctx_len).
-        toks = self._sample(logits[active_rows, 0, :], active_rows,
-                            [self._slots[r].ctx_len + 1 for r in active_rows])
-        self._next[torch.tensor(active_rows, device=self.device), 0] = \
-            torch.tensor(toks, dtype=torch.long, device=self.device)
+    def _dispatch_tick(self, inflight: int = 0) -> tuple:
+        """Launch one decode tick without reading anything back (the
+        reference's ``_dispatch_tick``, scheduler.py:3904-3966): K from
+        :meth:`_choose_fuse_k`, the window covering every live row's
+        deepest attended position (``ctx_len + inflight + K - 1``:
+        under pipelining the device runs up to ``inflight`` slots ahead
+        of the host's ctx_len), the live-row mask re-uploaded only when
+        the set of live rows changed, then one program call and the copy
+        of its token block into a host buffer behind an event. Returns
+        (toks [K, B] host, event or None, the rows it decoded for, K)
+        for :meth:`_process_tick`, one tick later."""
+        K = self._choose_fuse_k(inflight)
         self._n_decode_ticks += 1
-        self._step_hist.observe((time.monotonic() - t0) * 1e3)
-        for row, tok in zip(active_rows, toks):
-            slot = self._slots[row]
+        self._n_decode_steps += K
+        if K > 1:
+            self._n_fused_ticks += 1
+            self._n_fused_steps += K
+        now = time.monotonic()
+        self._note_admission_gap(now)
+        if (self._last_dispatch is not None
+                and now - self._last_dispatch[0] < 0.25):
+            # Idle gaps (> 250 ms) are load valleys, not decode wall.
+            self._wall_hist.observe(
+                (now - self._last_dispatch[0]) * 1e3 / self._last_dispatch[1])
+        self._last_dispatch = (now, K)
+        active = tuple(s is not None for s in self._slots)
+        if active != self._active_host:
+            self._active_host = active
+            mask = torch.tensor(active, dtype=torch.bool)
+            if self.device.type == "cuda":
+                mask = mask.pin_memory()
+            self._active_dev.copy_(mask, non_blocking=True)
+        window = self._window(extra=max(1, inflight + K - 1))
+        self._decode_fused_for(window, K)()
+        toks = self._host_toks[self._flip][:K]
+        self._flip ^= 1
+        toks.copy_(self._toks_out[K], non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return toks, event, list(self._slots), K
+
+    def _process_tick(self, toks: torch.Tensor, event, snapshot: list,
+                      K: int) -> None:
+        """Host half of a decode tick (the reference's ``_process_tick``,
+        scheduler.py:3968-4000): wait for its token block and drain each
+        row's burst in order, up to its first finisher (EOS parked the
+        row on the device at exactly that point). Rows released or
+        re-admitted since dispatch are skipped by identity."""
+        if event is not None:
+            event.synchronize()
+        block = toks.tolist()
+        for row, slot in enumerate(snapshot):
+            if slot is None or slot.done or self._slots[row] is not slot:
+                continue
             if slot.cancelled.is_set():
                 self._release(row)
                 continue
-            slot.ctx_len += 1           # the input token landed in the pool
-            if not self._append_token(slot, row, tok):
-                self._release(row)
+            for k in range(K):
+                slot.ctx_len += 1       # the step's input landed in the pool
+                if not self._append_token(slot, row, block[k][row]):
+                    self._release(row)
+                    break
 
     def _append_token(self, slot: _Slot, row: int, tok: int) -> bool:
         """Record one sampled token and stream its text. False = the
@@ -1050,10 +1385,11 @@ class BatchScheduler:
         in the garbage page) BEFORE its pages return to the allocator."""
         slot = self._slots[row]
         self._slots[row] = None
-        self._gens[row] = None
         if slot is not None and slot.pages:
-            set_row_table(self._cache, row, torch.zeros(
-                (self._cache.max_pages_per_row,), dtype=torch.int32))
+            # Fills on the stream, after every tick already queued: a
+            # tick in flight still writes this row's own pages.
+            self._cache.page_table[row].zero_()
+            self._cache.lengths[row].zero_()
             self._alloc.free(slot.pages)
             slot.pages = None
 
