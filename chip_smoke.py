@@ -26,7 +26,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the expert grids of kernels A and C at mixtral-8x7b's expert shapes
    (ragged buckets, bitwise reruns, decode and chunk buckets timed),
    kernel D (causal prefill attention) on
-   whole prompts, the 256-wide chunks of a 2048 prompt (rows bitwise
+   whole prompts (the embed path's batches among them: R = 8 and 16 at
+   S = 256 and 2048), the 256-wide chunks of a 2048 prompt (rows bitwise
    equal to the whole prompt's), a co-pilot-template suffix and ragged
    shapes that run every q tile its plan picks, timed whole and in chunks
    beside SDPA and the bound, and kernel E (w8a8 on int8 tensor cores, bitwise against its
@@ -39,8 +40,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    and over a bf16 pool through the write-then-attend branch
    (PAGED_ATTN_IMPL=kernel), then mixtral-8x7b int8 and int4; for the
    int8 models also a prefill through kernel D against the CPU's plain
-   prefill, and a chunked prefill against the whole-prompt prefill on the
-   card; and for each, the scheduler's decode programs at B = 8: the
+   prefill, a chunked prefill against the whole-prompt prefill on the
+   card, and ``embed_pooled`` of six texts (R = 2 at S = 256, R = 4 at
+   S = 128: kernel A or the expert grid, and kernel D) against the CPU's
+   plain embedding at cosine >= 0.999; and for each, the scheduler's decode programs at B = 8: the
    CUDA graphs of every (window, K) captured as the warmup does, the
    K = 1 replay bitwise equal to the eager step with the same launch
    counts, the K = 4 replay bitwise equal to four K = 1 replays and to
@@ -58,7 +61,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the long prompt must have admitted in chunks where chunking is on, and
    decode must have run fused ticks (``decode_fused_mean_k`` > 1 on
    ``/metrics``) replayed from CUDA graphs (the launch counters grow by
-   what each replay's capture recorded).
+   what each replay's capture recorded). Each server also: reads
+   ``decode_device_ms`` (the warmup's probe) beside the CUDA-event time of
+   the same K = 1 graph (within 15%) and the loop-stall gauges; answers
+   ``/api/embed`` (2 texts: R = 2, S = 256; 5 texts, one of 1,500 bytes:
+   R = 8, S = 2048; 12 texts: R = 16, S = 256) and ``/api/embeddings`` on
+   the idle server (counters zeroed: kernel A or C and kernel D must
+   launch; unit vectors of the hidden size), greedy reruns while an
+   R = 8, S = 2048 embed is in flight (equal to the idle reruns), then
+   the probe's graph replayed during an embed and the same embeds from a
+   second thread during a rerun of the burst, with the loop on its own
+   stream and moved to one of the other end of the priority range
+   (cosine >= 0.9999 to the idle ones, greedy rerun unchanged; replay
+   times, and decode p50 without embeds and under each priority,
+   printed); recovers
+   from ``serve.scheduler.dispatch`` and ``serve.engine.readback`` armed
+   ``raise*1`` (a streamed request ends in an error record, one
+   ``failpoint_hits_total``, greedy rerun unchanged); and holds a pinned
+   ``X-Graft-Trace`` request's ``api.request`` and ``sched.*`` spans on
+   ``/admin/trace``, with ``/admin/trace/dump`` writing its file.
 
 Optional (``--only build,profile``): ``profile`` — one 32-layer decode
 step at B=8, W=1020 of llama3.1-8b int8 (int8 pool, and bf16 pool through
@@ -832,7 +853,9 @@ def phase_kernel_d(results: dict) -> None:
         return out
 
     Hq, Hkv, D = 32, 8, 128
-    for R, S in ((8, 16), (5, 512)):
+    # Whole prompts: a burst's admission groups, and every batch shape of
+    # the embed path (R = 2, 4, 8 or 16 rows at S up to 2048).
+    for R, S in ((8, 16), (5, 512), (8, 2048), (16, 256), (16, 2048)):
         case(f"whole R={R} S={S}", *_rand_qkv(gen, R, S, S, Hq, Hkv, D), 0)
     S, C = 2048, 256
     q, k, v = _rand_qkv(gen, 1, S, S, Hq, Hkv, D)
@@ -1484,6 +1507,71 @@ def _graph_checks(label: str, cfg, params, impl: str,
           f"{fused['toks'][:, :].tolist()}", flush=True)
 
 
+# Texts of the embed legs (a text of n bytes is n + 1 tokens with BOS,
+# and S is the power of two above the longest): two, the longer of 128-254
+# bytes (R = 2, S = 256: the dense projections at 512 rows go to kernel A
+# or C), four, the longest of 64-126 (R = 4, S = 128: 512 rows again),
+# five with one of 1,500 bytes (R = 8, S = 2048: the dequantize path,
+# kernel D at R = 8), and twelve of at most 254 (R = 16, S = 256: a whole
+# chunk of 16 rows).
+EMBED_SHORT = ["see you at noon?", "The co-pilot drafts a friendly reply "
+               "to the last message of the conversation, keeping the tone of "
+               "the thread and the plans it already holds."]
+EMBED_QUAD = ["hi", "how are you?", "lunch tomorrow works for me, the usual "
+              "place at half past twelve if that suits", "ok"]
+EMBED_LONG = ["short one", "are we still on for lunch tomorrow?",
+              ("The co-pilot reads the whole conversation before it drafts "
+               "a reply. " * 40)[:1500], "thanks!", "sounds good to me"]
+EMBED_WIDE = EMBED_SHORT + EMBED_QUAD + [
+    "running five minutes late", "can you send the address?", "yes",
+    "what time works for you?", "see you there", "great, thanks!"]
+EMBED_SHAPES = {"short": (2, 256), "quad": (4, 128), "long": (8, 2048),
+                "wide": (16, 256)}
+EMBED_TOL = 1e-3    # cosine 0.999, card vs CPU: bf16 activations through
+#                     2 layers rounded at different places on the two
+#                     paths (STEP_TOL's reason), averaged over the text
+
+
+def _embed_shapes(texts, vocab_size: int) -> list:
+    """The (R, S) of each chunk the engine makes of ``texts``
+    (serve/engine.embed_batches at max_seq 4096)."""
+    from p2p_llm_chat_tpu_torch.serve.engine import embed_batches
+    from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
+    tok = ByteTokenizer(vocab_size)
+    ids = [tok.encode(t, add_bos=True) for t in texts]
+    return [tuple(toks.shape) for _, toks, _ in embed_batches(ids, 4096)]
+
+
+def _check_embed_shapes(vocab_size: int) -> None:
+    """Each group of embed texts makes the one chunk its labels name."""
+    for name, want in EMBED_SHAPES.items():
+        got = _embed_shapes(globals()[f"EMBED_{name.upper()}"], vocab_size)
+        check(got == [want], f"EMBED_{name.upper()} makes chunks {got}, "
+              f"not {[want]}")
+
+
+def _embed_vectors(fam, params, cfg, groups, device):
+    """``embed_pooled`` over each group of texts, bucketed as the engine
+    does (serve/engine.embed_batches); [n, H] f32 on the host."""
+    import torch
+    from p2p_llm_chat_tpu_torch.serve.engine import embed_batches
+    from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
+    tok = ByteTokenizer(cfg.vocab_size)
+    out = []
+    for texts in groups:
+        ids = [tok.encode(t, add_bos=True) for t in texts]
+        for n, toks, lens in embed_batches(ids, 4096):
+            out.append(fam.embed_pooled(params, cfg, toks.to(device),
+                                        lens.to(device))[:n].float().cpu())
+    return torch.cat(out)
+
+
+def _cosines(a, b):
+    import torch
+    return (a * b).sum(-1) / (torch.linalg.vector_norm(a, dim=-1)
+                              * torch.linalg.vector_norm(b, dim=-1))
+
+
 def phase_step(model: str, quant: str, prefill_check: bool,
                impl: str = "gather") -> None:
     """One decode step of ``model`` at full width, depth cut to 2 layers,
@@ -1494,7 +1582,9 @@ def phase_step(model: str, quant: str, prefill_check: bool,
     ``prefill_check``, also a 200-token prefill (bucket 256, kernel D) on
     the card against the plain prefill on the CPU, and a 700-token prompt
     prefilled in 4 chunks of 256 against its whole-prompt prefill (bucket
-    1024), both on the card."""
+    1024), both on the card; and ``embed_pooled`` of six texts (R = 2 at
+    S = 256, R = 4 at S = 128: kernel A or the expert grid, and kernel D)
+    on the card against the CPU's plain path, cosine >= 0.999 each."""
     import torch
     from p2p_llm_chat_tpu_torch.models import family_for
     from p2p_llm_chat_tpu_torch.models.configs import get_config
@@ -1574,6 +1664,17 @@ def phase_step(model: str, quant: str, prefill_check: bool,
               f"{'equal' if int(chunked.argmax()) == int(whole.argmax()) else 'differs'}")
         check(err <= STEP_TOL * scale, f"step {model} {quant}: chunked "
               f"prefill err {err:.4f} > {STEP_TOL} x {scale:.3f}")
+        _check_embed_shapes(cfg.vocab_size)
+        c0 = _launch_counts()
+        emb_gpu = _embed_vectors(fam, params, cfg, (EMBED_SHORT, EMBED_QUAD),
+                                 dev)
+        moved = {n: v - c0[n] for n, v in _launch_counts().items()
+                 if v != c0[n]}
+        mm = ("quant_matmul_experts_stacked" if cfg.is_moe
+              else "quant_matmul")
+        check(moved.get(mm, 0) > 0 and moved.get("prefill_attention")
+              == 2 * cfg.num_layers, f"step {model}: the card embed "
+              f"launched {moved}")
     _graph_checks(f"{model} {quant} impl={impl}", cfg, params, impl,
                   quantized=not wta)
     torch.cuda.synchronize()
@@ -1629,6 +1730,21 @@ def phase_step(model: str, quant: str, prefill_check: bool,
         check(err <= STEP_TOL * scale, f"step {model} {quant}: prefill "
               f"logits err {err:.4f} > {STEP_TOL} x {scale:.3f}")
         check(same, f"step {model} {quant}: prefill argmax differs")
+        t0 = time.monotonic()
+        emb_cpu = _embed_vectors(fam, params_cpu, cfg,
+                                 (EMBED_SHORT, EMBED_QUAD), "cpu")
+        cpu_s = time.monotonic() - t0
+        check(bool(torch.isfinite(emb_gpu).all()), f"step {model}: "
+              "non-finite card embeddings")
+        cos = _cosines(emb_gpu, emb_cpu)
+        print(f"embed: {model} dims, 2 layers, {quant} weights: "
+              f"{len(cos)} texts (R=2 at S=256, R=4 at S=128; launches "
+              f"{moved}) card vs CPU plain: cosine min "
+              f"{cos.min().item():.6f} (tol {1 - EMBED_TOL}), max_abs_err "
+              f"{(emb_gpu - emb_cpu).abs().max().item():.5f}; CPU embed "
+              f"{cpu_s:.1f} s")
+        check(bool((cos >= 1 - EMBED_TOL).all()), f"step {model} {quant}: "
+              f"embed cosines {cos.tolist()} < {1 - EMBED_TOL}")
 
 
 # -- optional phase: where one full-depth decode step spends its time ---------
@@ -1869,6 +1985,405 @@ def _wrappers() -> dict:
     return {**ops.wrappers(), "w8a8_matmul": w8a8_matmul}
 
 
+def _get(url: str, timeout: float = 60.0):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.read().decode()
+
+
+def _metrics(url: str) -> dict:
+    text = _get(url + "/metrics")[1]
+    return dict(line.rsplit(None, 1) for line in text.splitlines()
+                if line.strip() and not line.startswith("#"))
+
+
+def _on_loop(sched, fn):
+    """Run ``fn`` on the scheduler thread between loop iterations (a
+    warmup job: only that thread touches the decode state) and return
+    its result."""
+    from p2p_llm_chat_tpu_torch.serve.scheduler import _WarmupJob
+    out = {}
+    job = _WarmupJob(lambda: out.setdefault("v", fn()))
+    sched._admit_q.put(job)
+    job.done.wait()
+    if job.err is not None:
+        raise job.err
+    return out["v"]
+
+
+def _quiesce(sched) -> None:
+    """Return once the loop has read back the pipelined tick a finished
+    request leaves behind: a job runs at the start of a loop iteration,
+    before that iteration's idle read-back, so the second of two jobs
+    runs after it."""
+    for _ in range(2):
+        _on_loop(sched, lambda: None)
+
+
+def _parked_replays(sched, body):
+    """Run ``body(prog)`` on the scheduler thread, ``prog`` the graph
+    ``decode_device_ms`` is probed on (K = 1 at the smallest window),
+    with every row parked and the keys and mask restored afterwards, as
+    the probe does; returns its result."""
+    def run():
+        prog = sched._decode_for(min(128, sched.max_seq))
+        keys = sched._keys_dev.clone()
+        act = sched._active_dev.clone()
+        sched._active_dev.zero_()
+        try:
+            prog()
+            return body(prog)
+        finally:
+            sched._keys_dev.copy_(keys)
+            sched._active_dev.copy_(act)
+
+    return _on_loop(sched, run)
+
+
+def _probe_graph_ms(sched, n: int = 20) -> float:
+    """CUDA-event ms per replay of the probed graph, ``n`` replays back
+    to back."""
+    import torch
+
+    def body(prog) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            prog()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    return _parked_replays(sched, body)
+
+
+def _wall_samples(sched) -> list:
+    """The decode-wall histogram's samples so far (per step, ms)."""
+    h = sched._wall_hist
+    with h._mu:
+        return list(h._samples)
+
+
+def _p50(xs) -> float:
+    return sorted(xs)[len(xs) // 2] if xs else float("nan")
+
+
+def _burst(url: str, reqs) -> tuple[list, float]:
+    """``reqs`` fired at once, one thread each: (answers, wall s)."""
+    answers: list = [None] * len(reqs)
+
+    def run(i: int) -> None:
+        try:
+            answers[i] = _post(url + reqs[i][0], reqs[i][1])
+        except Exception as e:   # noqa: BLE001 — checked by the caller
+            answers[i] = e
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return answers, time.monotonic() - t0
+
+
+# The server phase's embed calls: (label, path, body).
+EMBED_CALLS = (("R=2 S=256", "/api/embed", {"input": EMBED_SHORT}),
+               ("R=8 S=2048", "/api/embed", {"input": EMBED_LONG}),
+               ("R=16 S=256", "/api/embed", {"input": EMBED_WIDE}),
+               ("legacy", "/api/embeddings", {"prompt": EMBED_SHORT[0]}))
+
+
+def _embed_calls(url: str) -> tuple[list, list]:
+    """The phase's embed calls (EMBED_CALLS): (vectors per call, wall ms
+    per call)."""
+    vecs, walls = [], []
+    for _, path, body in EMBED_CALLS:
+        t0 = time.monotonic()
+        status, text = _post(url + path, body)
+        walls.append((time.monotonic() - t0) * 1e3)
+        check(status == 200, f"embed {path}: status {status}")
+        rec = json.loads(text)
+        vecs.append(rec["embeddings"] if path == "/api/embed"
+                    else [rec["embedding"]])
+    return vecs, walls
+
+
+def _switch_loop_stream(sched, new):
+    """Move the scheduler loop onto CUDA stream ``new``, ordered after
+    the work of its current stream; returns that stream."""
+    import torch
+
+    def run():
+        cur = torch.cuda.current_stream(sched.device)
+        new.wait_stream(cur)
+        torch.cuda.set_stream(new)
+        return cur
+
+    return _on_loop(sched, run)
+
+
+def _burst_with_embeds(label: str, url: str, sched, reqs, idle) -> tuple:
+    """The burst again while a second thread runs the embed calls: every
+    request answered, the embeds at cosine >= 0.9999 to ``idle``.
+    Returns (embed walls ms, burst s, decode p50 ms a step, min cosine)."""
+    import torch
+    base = len(_wall_samples(sched))
+    during: dict = {}
+
+    def fire() -> None:
+        try:
+            during["v"] = _embed_calls(url)
+        except Exception as e:   # noqa: BLE001 — checked below
+            during["v"] = e
+
+    t = threading.Thread(target=fire)
+    t.start()
+    answers, burst_s = _burst(url, reqs)
+    t.join()
+    for (path, _), ans in zip(reqs, answers):
+        check(not isinstance(ans, Exception) and ans[0] == 200,
+              f"server {label}: {path} during the embeds: {ans!r}")
+    check(not isinstance(during["v"], Exception),
+          f"server {label}: concurrent embeds: {during['v']!r}")
+    conc, conc_ms = during["v"]
+    cos = min(_cosines(torch.tensor(a), torch.tensor(b)).min().item()
+              for a, b in zip(idle, conc))
+    check(cos >= 0.9999, f"server {label}: concurrent embeds at cosine "
+          f"{cos:.6f} to the idle ones")
+    return conc_ms, burst_s, _p50(_wall_samples(sched)[base:]), cos
+
+
+def _replay_during_embed(label: str, url: str, sched) -> tuple:
+    """CUDA-event ms of the probed graph's replays, each timed alone,
+    while a second thread's R = 8, S = 2048 embed is in flight: they
+    start 0.1 s after the embed call and go on until it has returned;
+    at least two must run. Returns (mean ms, replays)."""
+    import torch
+    res: dict = {}
+    ended = threading.Event()
+
+    def fire() -> None:
+        try:
+            res["status"] = _post(url + "/api/embed",
+                                  {"input": EMBED_LONG})[0]
+        except Exception as e:   # noqa: BLE001 — checked below
+            res["status"] = e
+        ended.set()
+
+    def body(prog) -> list:
+        times = []
+        while not ended.is_set():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            prog()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return times
+
+    t = threading.Thread(target=fire)
+    t.start()
+    time.sleep(0.1)
+    times = _parked_replays(sched, body)
+    t.join()
+    check(res["status"] == 200, f"server {label}: the embed beside the "
+          f"replays: {res['status']!r}")
+    check(len(times) >= 2, f"server {label}: {len(times)} replays inside "
+          "the embed")
+    return sum(times) / len(times), len(times)
+
+
+def _greedy_during_embed(label: str, url: str, req, want: list) -> str:
+    """Greedy reruns of ``req``, one after another, while a second thread's
+    R = 8, S = 2048 embed is in flight: each must return ``want`` (the
+    context of the idle reruns), and at least one must spend half its
+    wall or more inside the embed call. Returns a summary."""
+    path, body = req
+    embed: dict = {}
+    started = threading.Event()
+
+    def fire() -> None:
+        t0 = time.monotonic()
+        started.set()
+        try:
+            embed["status"] = _post(url + "/api/embed",
+                                    {"input": EMBED_LONG})[0]
+        except Exception as e:   # noqa: BLE001 — checked below
+            embed["status"] = e
+        embed["span"] = (t0, time.monotonic())
+
+    t = threading.Thread(target=fire)
+    t.start()
+    started.wait()
+    runs = []
+    while t.is_alive():
+        t0 = time.monotonic()
+        ctx = json.loads(_post(url + path, body)[1])["context"]
+        runs.append((t0, time.monotonic(), ctx))
+    t.join()
+    check(embed["status"] == 200, f"server {label}: the embed beside the "
+          f"greedy reruns: {embed['status']!r}")
+    e0, e1 = embed["span"]
+    inside = [max(0.0, min(b, e1) - max(a, e0)) / (b - a)
+              for a, b, _ in runs]
+    check(bool(runs) and max(inside) >= 0.5, f"server {label}: no greedy "
+          f"rerun ran inside the embed (shares {inside})")
+    for i, (_, _, ctx) in enumerate(runs):
+        check(ctx == want, f"server {label}: greedy rerun {i} during an "
+              "embed differs from the idle reruns")
+    return (f"{len(runs)} greedy reruns during an R=8 S=2048 embed of "
+            f"{(e1 - e0) * 1e3:.0f} ms (shares of each rerun's wall inside "
+            f"it: {', '.join(f'{x:.2f}' for x in inside)}) equal to the idle "
+            "reruns")
+
+
+def _server_embed(results: dict, label: str, url: str, engine, reqs,
+                  expect: tuple[str, ...], greedy_ctx: list) -> dict:
+    """Embeds on the served model: idle (launch counters zeroed before
+    and read after; the R = 2 call on kernel A or C, every chunk on
+    kernel D), then greedy reruns during an embed (equal to
+    ``greedy_ctx``), then, with the loop on its own stream and on one of
+    the other end of the priority range: the probe's graph replayed
+    during an embed (A B B A), and the same calls from a second thread
+    during a rerun of the burst (A B). Vectors of the hidden size, unit
+    norm within 1e-3, the concurrent ones at cosine >= 0.9999 to the
+    idle ones, the greedy rerun after the bursts equal to
+    ``greedy_ctx``; prints the embed walls and replay times, and returns
+    the bursts' decode p50 by the loop stream's priority."""
+    import torch
+    sched = engine.scheduler
+    H = engine.config.hidden_size
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    idle, idle_ms = _embed_calls(url)
+    launches = {n: f.launches for n, f in wrappers.items() if f.launches}
+    for name in expect:
+        if name not in ("paged_attention_append", "paged_attention"):
+            check(launches.get(name, 0) > 0, f"server {label}: the idle "
+                  f"embeds never launched {name} ({launches})")
+    chunks = len(EMBED_CALLS)            # one chunk a call
+    check(launches.get("prefill_attention")
+          == chunks * engine.config.num_layers,
+          f"server {label}: the embeds launched kernel D "
+          f"{launches.get('prefill_attention')} times")
+    for name, n in launches.items():
+        rec = results[name]
+        rec.setdefault("launches_by_path", {})[f"{label} embed"] = n
+        rec["launches"] = rec.get("launches", 0) + n
+    for call in idle:
+        for v in call:
+            norm = math.sqrt(sum(x * x for x in v))
+            check(len(v) == H and abs(norm - 1.0) <= 1e-3,
+                  f"server {label}: embedding of dim {len(v)} (want {H}), "
+                  f"norm {norm:.6f}")
+    during = _greedy_during_embed(label, url, reqs[0], greedy_ctx)
+    # The loop on its own stream (A) and on one of the other end of the
+    # priority range (B): the probed graph replayed during an embed in the
+    # order A B B A, the burst with embeds under A then B.
+    own = _on_loop(sched, lambda: torch.cuda.current_stream(sched.device))
+    alt = torch.cuda.Stream(sched.device,
+                            priority=-100 if own.priority == 0 else 0)
+    replays: dict = {}
+    bursts: dict = {}
+    try:
+        for i, stream in enumerate((own, alt, alt, own)):
+            _switch_loop_stream(sched, stream)
+            replays.setdefault(stream.priority, []).append(
+                _replay_during_embed(label, url, sched))
+            if i < 2:
+                bursts[stream.priority] = _burst_with_embeds(
+                    label, url, sched, reqs, idle)
+    finally:
+        _switch_loop_stream(sched, own)
+    stall = _metrics(url)["decode_stall_ms"]
+    ctx = json.loads(_post(url + reqs[0][0], reqs[0][1])[1])["context"]
+    check(ctx == greedy_ctx, f"server {label}: the greedy rerun after the "
+          "concurrent embeds differs")
+    print(f"server {label}: {during}", flush=True)
+    print(f"server {label}: embed walls ms idle: " + ", ".join(
+        f"{name} {ms:.1f}" for (name, _, _), ms in zip(EMBED_CALLS, idle_ms))
+        + f"; dim {H}; decode_stall_ms (the server's max) {stall}; embed "
+        f"launches {launches}", flush=True)
+    for prio, rs in replays.items():
+        walls, burst_s, p50, cos = bursts[prio]
+        print(f"server {label}: loop stream at priority {prio} (the port's "
+              f"{'own' if prio == own.priority else 'alternative'}): the "
+              "probed K=1 graph during an R=8 S=2048 embed "
+              + " / ".join(f"{ms:.3f} ms (mean of {n})" for ms, n in rs)
+              + f" a replay; burst with embeds {burst_s:.2f} s, decode p50 "
+              f"{p50:.3f} ms a step, embed walls ms during it: "
+              + ", ".join(f"{name} {ms:.1f}" for (name, _, _), ms in
+                          zip(EMBED_CALLS, walls))
+              + f"; concurrent vs idle cosine min {cos:.7f}", flush=True)
+    return {prio: b[2] for prio, b in bursts.items()}
+
+
+def _server_recovery(label: str, url: str, sched, req) -> None:
+    """For ``serve.scheduler.dispatch`` and then ``serve.engine.readback``
+    armed ``raise*1``: a streamed request ends in a well-formed error
+    record, /metrics counts one hit of the site, and the greedy rerun
+    after it equals ``req``'s greedy context from before. Each site is
+    armed on a quiet loop, so it fires on the streamed request's ticks,
+    not on the last tick of the request before."""
+    from p2p_llm_chat_tpu_torch.utils import failpoints as fp
+    path, body = req
+    want = json.loads(_post(url + path, body)[1])["context"]
+    for site in ("serve.scheduler.dispatch", "serve.engine.readback"):
+        _quiesce(sched)
+        fp.reset_hits()
+        fp.arm(site, "raise*1")
+        try:
+            status, text = _post(url + "/api/generate", {
+                "prompt": "fault me", "stream": True,
+                "options": {"num_predict": 16}})
+        finally:
+            fp.disarm(site)
+        lines = [json.loads(x) for x in text.splitlines() if x.strip()]
+        last = lines[-1] if lines else {}
+        check(status == 200 and last.get("done") is True
+              and "error" in last, f"server {label}: {site}: stream ended "
+              f"with {last}")
+        hits = _metrics(url).get(f'failpoint_hits_total{{site="{site}"}}')
+        check(hits == "1", f"server {label}: {site}: failpoint_hits_total "
+              f"{hits}")
+        got = json.loads(_post(url + path, body)[1])["context"]
+        check(got == want, f"server {label}: the greedy rerun after the "
+              f"{site} fault differs")
+        print(f"server {label}: {site}=raise*1: stream ended with "
+              f"{last['error']!r}, failpoint_hits_total {hits}, greedy "
+              "rerun identical", flush=True)
+
+
+def _server_trace(label: str, url: str) -> None:
+    """A request pinned to a trace id is held by /admin/trace with the
+    front's and the scheduler's spans; /admin/trace/dump writes a file."""
+    tid = os.urandom(16).hex()
+    req = urllib.request.Request(
+        url + "/api/generate", data=json.dumps({
+            "prompt": "trace me", "stream": False,
+            "options": {"num_predict": 8}}).encode(),
+        headers={"Content-Type": "application/json",
+                 "X-Graft-Trace": f"{tid};s=1"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        check(r.status == 200, f"server {label}: traced request {r.status}")
+    spans = json.loads(_get(f"{url}/admin/trace?id={tid}")[1])["spans"]
+    names = {sp["name"] for sp in spans}
+    want = {"api.request", "sched.queue_wait", "sched.prefill",
+            "sched.decode"}
+    check(want <= names, f"server {label}: trace holds {sorted(names)}")
+    status, text = _post(url + "/admin/trace/dump", {})
+    path = json.loads(text)["path"]
+    check(status == 200 and os.path.exists(path), f"server {label}: "
+          f"/admin/trace/dump answered {status} {text}")
+    print(f"server {label}: trace {tid} holds "
+          + ", ".join(f"{sp['name']} {sp['dur_ms']:.1f} ms" for sp in spans)
+          + f"; flight dump at {path}", flush=True)
+
+
 def phase_server(results: dict, model: str, quant: str,
                  expect: tuple[str, ...], prefill_chunk: int = 256,
                  impl: str = "gather") -> None:
@@ -1918,6 +2433,20 @@ def phase_server(results: dict, model: str, quant: str,
               f"{time.monotonic() - t0:.1f} s; "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
         url = server.url
+        sched = engine.scheduler
+        m = _metrics(url)
+        probe = float(m["decode_device_ms"])
+        event_ms = _probe_graph_ms(sched)
+        print(f"server {label}: decode_device_ms {probe:.4f} (warmup probe, "
+              f"K=1 graph at W={min(128, sched.max_seq)}, every row parked) "
+              f"vs {event_ms:.4f} ms a replay by CUDA events over 20 "
+              f"replays ({probe / event_ms - 1:+.1%}); after warmup "
+              f"loop_stall_ms {m['loop_stall_ms']}, loop_stall_last_ms "
+              f"{m['loop_stall_last_ms']}, serve_flight_dumps_total "
+              f"{m['serve_flight_dumps_total']}", flush=True)
+        check(probe > 0 and abs(probe - event_ms) <= 0.15 * event_ms,
+              f"server {label}: decode_device_ms {probe} vs {event_ms:.4f} "
+              "ms by events")
         long_prompt = ("The co-pilot reads the whole conversation before it "
                        "drafts a reply. " * 40)[:1500]
         reqs = [
@@ -1943,24 +2472,11 @@ def phase_server(results: dict, model: str, quant: str,
                                "options": {"num_predict": 24}}),
         ]
         wrappers = _wrappers()
+        base = len(_wall_samples(sched))
         for fn in wrappers.values():
             fn.launches = 0
-        answers: list = [None] * len(reqs)
-
-        def run(i: int) -> None:
-            try:
-                answers[i] = _post(url + reqs[i][0], reqs[i][1])
-            except Exception as e:   # noqa: BLE001 — checked below
-                answers[i] = e
-
-        t_burst = time.monotonic()
-        threads = [threading.Thread(target=run, args=(i,))
-                   for i in range(len(reqs))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        burst_s = time.monotonic() - t_burst
+        answers, burst_s = _burst(url, reqs)
+        burst_p50 = _p50(_wall_samples(sched)[base:])
         finals = []
         for (path, body), ans in zip(reqs, answers):
             check(not isinstance(ans, Exception), f"server {path}: {ans!r}")
@@ -2023,10 +2539,7 @@ def phase_server(results: dict, model: str, quant: str,
         toks = sum(r["eval_count"] for r in finals)
         per_req = [r["eval_count"] / (r["eval_duration"] / 1e9)
                    for r in finals if r["eval_duration"] > 0]
-        with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
-            metrics = dict(line.rsplit(None, 1) for line in
-                           r.read().decode().splitlines()
-                           if line.strip() and not line.startswith("#"))
+        metrics = _metrics(url)
         fused = {k: float(metrics.get(k, 0)) for k in (
             "decode_fused_ticks_total", "decode_fused_steps_total",
             "decode_fused_mean_k", "decode_wall_ms", "decode_stall_ms",
@@ -2046,6 +2559,15 @@ def phase_server(results: dict, model: str, quant: str,
               f"{fused['decode_fused_mean_k']:.3f}, decode_stall_ms "
               f"{fused['decode_stall_ms']:.3f}; "
               f"{len(engine.scheduler._programs)} decode graphs")
+        conc = _server_embed(results, label, url, engine, reqs, expect,
+                             ctx[0])
+        print(f"server {label}: the burst's decode p50 {burst_p50:.3f} ms a "
+              "step without embeds; with concurrent embeds, by the loop "
+              "stream's priority: " + ", ".join(
+                  f"{prio} {p50:.3f} ({p50 / burst_p50 - 1:+.1%})"
+                  for prio, p50 in conc.items()), flush=True)
+        _server_recovery(label, url, sched, reqs[0])
+        _server_trace(label, url)
     finally:
         server.stop()
         engine.stop()

@@ -10,7 +10,8 @@ def family_for(config: ModelConfig):
     expose the same surface the serving stack calls —
     ``init_params_quantized``, ``fuse_params``, ``prefill``,
     ``prefill_chunk``, ``new_carry``, ``decode_step_paged``,
-    ``decode_fused`` — so it dispatches on ``config.is_moe`` alone."""
+    ``decode_fused``, ``embed_pooled`` — so it dispatches on
+    ``config.is_moe`` alone."""
     if config.is_moe:
         from . import mixtral
         return mixtral

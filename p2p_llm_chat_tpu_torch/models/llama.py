@@ -1,7 +1,9 @@
 """llama-family decoder (3.x dense models), the port of
 p2p_llm_chat_tpu/models/llama.py for the paged decode path: random int8 /
 int4 init, fused projections, whole-prompt and continuation (chunk /
-prefix-suffix) prefill, the paged decode step in both of the
+prefix-suffix) prefill, the pooled sequence embedding of /api/embed
+(:func:`embed_pooled` over the :func:`hidden_states` trunk), the paged
+decode step in both of the
 reference's orderings (attend-then-write, write-then-attend) and its
 fused K-step form (:func:`decode_fused`), with the
 reference's ``mlp_fn`` hook through which the mixtral family
@@ -151,7 +153,13 @@ def fuse_params(params: dict) -> dict:
 
 @functools.lru_cache(maxsize=16)
 def _inv_freq(config: ModelConfig, device: str) -> torch.Tensor:
-    return rope_frequencies(config, device)
+    """The cached rope frequencies. On the card the table is complete
+    before it is returned: the serving loop and an embed call on its own
+    stream (serve/engine.TorchEngine.embed) both read it."""
+    t = rope_frequencies(config, device)
+    if t.is_cuda and not torch.cuda.is_current_stream_capturing():
+        torch.cuda.current_stream(t.device).synchronize()
+    return t
 
 
 def _rope(config: ModelConfig, positions: torch.Tensor):
@@ -192,22 +200,31 @@ def _post_attn(h: torch.Tensor, attn: torch.Tensor, layers: dict, li: int,
     return h + mm(g, layers["w_down"], li)
 
 
-def _logits(params: dict, config: ModelConfig, h: torch.Tensor
-            ) -> torch.Tensor:
-    h = rms_norm(h, params["final_norm"], config.rms_norm_eps)
+def _lm_head(params: dict, config: ModelConfig, h: torch.Tensor
+             ) -> torch.Tensor:
+    """f32 logits of final-norm hidden states."""
     lm_head = (params["embed"].T if config.tie_embeddings
                else params["lm_head"])
     return mm(h, lm_head).float()
 
 
-def _stack(params: dict, config: ModelConfig, tokens: torch.Tensor,
-           positions: torch.Tensor, store, q_offset: int, mlp_fn,
-           last_idx: Optional[torch.Tensor]) -> torch.Tensor:
-    """The decoder stack over ``tokens`` [R, S] at ``positions``: each
+def _logits(params: dict, config: ModelConfig, h: torch.Tensor
+            ) -> torch.Tensor:
+    h = rms_norm(h, params["final_norm"], config.rms_norm_eps)
+    return _lm_head(params, config, h)
+
+
+def hidden_states(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                  positions: torch.Tensor, store, q_offset: int,
+                  mlp_fn=None, last_idx: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """The decoder trunk over ``tokens`` [R, S] at ``positions`` (the
+    reference's ``hidden_states``): embed, every layer, final norm. Each
     layer's k/v go to ``store(li, k, v)``, which returns the k/v its
     queries attend over (query i at absolute position ``q_offset + i``,
-    causally; kernel D on the card). Returns the logits at chunk-local
-    ``last_idx`` ([R, 1, V] f32), or at every position ([R, S, V])."""
+    causally; kernel D on the card). Returns the final-norm hidden states
+    [R, S, H], or [R, 1, H] at chunk-local ``last_idx`` (gathered before
+    the norm, which is per position)."""
     layers = params["layers"]
     rope = _rope(config, positions)
     h = params["embed"][tokens]
@@ -220,7 +237,43 @@ def _stack(params: dict, config: ModelConfig, tokens: torch.Tensor,
         R = tokens.shape[0]
         idx = last_idx.to(h.device).long()
         h = h[torch.arange(R, device=h.device), idx][:, None]
-    return _logits(params, config, h)
+    return rms_norm(h, params["final_norm"], config.rms_norm_eps)
+
+
+def _stack(params: dict, config: ModelConfig, tokens: torch.Tensor,
+           positions: torch.Tensor, store, q_offset: int, mlp_fn,
+           last_idx: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`hidden_states` then the lm_head: the logits at chunk-local
+    ``last_idx`` ([R, 1, V] f32), or at every position ([R, S, V])."""
+    return _lm_head(params, config, hidden_states(
+        params, config, tokens, positions, store, q_offset, mlp_fn,
+        last_idx))
+
+
+def embed_pooled(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                 lens: torch.Tensor, *, mlp_fn=None) -> torch.Tensor:
+    """Sequence embeddings (the reference's ``embed_pooled``, the backend
+    of ``POST /api/embed``): the length-masked mean of the final-norm
+    hidden states in f32, divided by ``max(len, 1)``, L2-normalised with
+    a 1e-9 floor.
+
+    tokens: [R, S] right-padded; lens: [R]. Causal attention from
+    position 0 over the bucket (kernel D at offset 0 on the card) with a
+    no-op KV store; pads sit after each text, so no real position sees
+    them, and they are masked out of the mean. Returns [R, H] f32 unit
+    vectors. ``mlp_fn``: see :func:`_post_attn`."""
+    R, S = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(S, device=dev)[None, :].expand(R, S)
+    h = hidden_states(params, config, tokens, positions,
+                      lambda li, k, v: (k, v), 0, mlp_fn).float()
+    lens = lens.to(dev)
+    valid = (torch.arange(S, device=dev)[None, :]
+             < lens[:, None]).float()
+    pooled = (h * valid[:, :, None]).sum(dim=1) / lens[:, None].float(
+        ).clamp(min=1.0)
+    norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+    return pooled / norm.clamp(min=1e-9)
 
 
 def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,

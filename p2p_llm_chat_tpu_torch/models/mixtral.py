@@ -176,6 +176,18 @@ def prefill_chunk(params: dict, config: ModelConfig, tokens: torch.Tensor,
                                offset, last_idx, mlp_fn=_mlp_fn(config, cap))
 
 
+def embed_pooled(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                 lens: torch.Tensor, capacity=_AUTO) -> torch.Tensor:
+    """llama.embed_pooled with the MoE MLP (the /api/embed backend; same
+    contract). The capacity is reckoned from the padded bucket's R*S
+    tokens, as the reference's (mixtral.py:442-451), so pad positions use
+    up expert capacity exactly as they do there."""
+    cap = _capacity_for(config, int(tokens.shape[0] * tokens.shape[1]),
+                        capacity)
+    return llama.embed_pooled(params, config, tokens, lens,
+                              mlp_fn=_mlp_fn(config, cap))
+
+
 def decode_step_paged(params: dict, config: ModelConfig,
                       tokens: torch.Tensor, cache, active=None, *,
                       pages: int, impl: Optional[str] = None):

@@ -74,6 +74,11 @@ class GenerateRequest:
     # prepended to this prompt (the final response record returns the
     # updated ids). Tuple of ints; empty = fresh conversation.
     context: tuple = ()
+    # grafttrace (obs/trace.py): the propagated or minted trace id; the
+    # scheduler records its queue-wait, prefill and decode spans only
+    # when ``trace_sampled`` is set.
+    trace_id: str = ""
+    trace_sampled: bool = False
     request_id: str = field(default_factory=lambda: uuid.uuid4().hex)
     arrival_time: float = field(default_factory=time.monotonic)
 
@@ -214,3 +219,18 @@ class FakeLLM:
 
     def models(self) -> list[str]:
         return [self.name]
+
+    def embed(self, texts: list[str]) -> tuple[list[list[float]], int]:
+        """Deterministic unit vectors from a content hash — the /api/embed
+        contract without a model, mirroring FakeLLM's role for /api/generate.
+        Equal texts embed equal; different texts (almost surely) differ."""
+        import hashlib
+        import math
+
+        out = []
+        for t in texts:
+            h = hashlib.sha256(t.encode()).digest()
+            raw = [(b - 127.5) / 127.5 for b in (h * 2)]     # 64 dims
+            norm = math.sqrt(sum(x * x for x in raw)) or 1.0
+            out.append([x / norm for x in raw])
+        return out, sum(len(t.split()) for t in texts)

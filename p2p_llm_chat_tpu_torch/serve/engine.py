@@ -27,7 +27,13 @@ branch: ``gather`` attends then writes (kernel B's append mode),
 reference). Decode runs fused K-step ticks as the reference does
 (``SERVE_FUSE``, default 4, 1 disables): CUDA graphs per (attention
 window, K) on the card, captured by the warmup, and the same functions
-run eagerly on the CPU.
+run eagerly on the CPU. ``SERVE_LOOP_BUDGET_MS`` (default 5000, 0
+disables) is the scheduler loop watchdog's budget.
+
+:meth:`TorchEngine.embed` serves ``/api/embed``: the family's
+``embed_pooled`` over bucketed batches (kernels A or C and D on the
+card), outside the scheduler loop, on its own CUDA stream and under the
+scheduler's capture lock (see the method).
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from ..utils.device import resolve_device
 from ..utils.env import env_bool, env_float, env_int, env_or
 from ..utils.log import get_logger
 from .backend import Backend, GenerateRequest, RequestStats
-from .scheduler import BatchScheduler
+from .scheduler import BatchScheduler, _bucket
 
 log = get_logger("serve.torch_engine")
 
@@ -67,6 +73,25 @@ def default_chat_prompt(messages: list[dict]) -> str:
     return "\n".join(parts)
 
 
+def embed_batches(ids: list[list[int]], max_seq: int
+                  ) -> Iterator[tuple[int, torch.Tensor, torch.Tensor]]:
+    """The embed path's bucketing (the reference's ``TPUEngine.embed``):
+    chunks of at most 16 token lists, each as (texts in it, tokens
+    [R, S] right-padded, lens [R] >= 1) on the host, with R = max(2, the
+    next power of two) rows and S the scheduler's bucket of the longest.
+    Pad rows and positions are part of the MoE capacity, as there."""
+    for start in range(0, len(ids), 16):
+        chunk = ids[start:start + 16]
+        R = max(2, 1 << (len(chunk) - 1).bit_length())
+        S = _bucket(max(len(i) for i in chunk), max_seq)
+        toks = torch.zeros((R, S), dtype=torch.long)
+        lens = torch.ones((R,), dtype=torch.long)
+        for r, seq in enumerate(chunk):
+            toks[r, :len(seq)] = torch.tensor(seq, dtype=torch.long)
+            lens[r] = max(1, len(seq))
+        yield len(chunk), toks, lens
+
+
 class TorchEngine:
     """Backend over the continuous-batching scheduler, on ``device``
     (the card unless the CPU is asked for; see utils/device.py)."""
@@ -82,6 +107,7 @@ class TorchEngine:
                  attn_impl: Optional[str] = None,
                  admit_chunk: Optional[int] = None,
                  decode_fuse_max: int = 4,
+                 loop_budget_ms: float = 5000.0,
                  name: Optional[str] = None,
                  device: Optional[torch.device | str] = None) -> None:
         self.name = name or config.name
@@ -94,7 +120,9 @@ class TorchEngine:
             kv_quant=kv_quant, prefix_cache=prefix_cache,
             prefill_chunk=prefill_chunk, attn_impl=attn_impl,
             admit_chunk=admit_chunk, decode_fuse_max=decode_fuse_max,
-            device=device)
+            loop_budget_ms=loop_budget_ms, device=device)
+        self._embed_lock = threading.Lock()
+        self._embed_stream = None
 
     def generate_stream(self, req: GenerateRequest,
                         stats: Optional[RequestStats] = None) -> Iterator[str]:
@@ -102,6 +130,54 @@ class TorchEngine:
 
     def render_chat(self, messages: list[dict]) -> str:
         return default_chat_prompt(messages)
+
+    def embed(self, texts: list[str]) -> tuple[list[list[float]], int]:
+        """Sequence embeddings for ``/api/embed[dings]`` (the reference's
+        ``TPUEngine.embed``): each text encoded with BOS and cut to
+        max_seq, bucketed by :func:`embed_batches`, through the family's
+        ``embed_pooled`` (unit vectors of the length-masked mean of the
+        final-norm hidden states). Returns (vectors, total tokens).
+
+        It runs on the calling thread, outside the scheduler loop, as the
+        reference's does: it reads only the params, so it cannot race the
+        loop's state, and ``_embed_lock`` runs one embed at a time. On
+        the card each chunk runs on the engine's own CUDA stream, so it
+        overlaps the loop's decode ticks instead of queueing between them
+        (the ticks' results do not depend on it), and under the
+        scheduler's ``capture_lock``, so none of its CUDA calls can land
+        inside a decode-graph capture (a capture waits for the chunk in
+        flight; the warmup captures every graph before traffic)."""
+        sched = self.scheduler
+        ids = [sched.tokenizer.encode(t, add_bos=True)[:sched.max_seq]
+               for t in texts]
+        n_tokens = sum(len(i) for i in ids)
+        out: list[list[float]] = []
+        with self._embed_lock:
+            for n, toks, lens in embed_batches(ids, sched.max_seq):
+                vecs = self._embed_chunk(toks, lens)
+                out.extend(vecs[r].tolist() for r in range(n))
+        return out, n_tokens
+
+    def _embed_chunk(self, toks: torch.Tensor, lens: torch.Tensor
+                     ) -> torch.Tensor:
+        """One bucketed chunk's [R, H] vectors, on the host."""
+        sched = self.scheduler
+        dev = sched.device
+
+        def run() -> torch.Tensor:
+            return sched._family.embed_pooled(
+                sched._params, self.config, toks.to(dev), lens.to(dev)).cpu()
+
+        if dev.type != "cuda":
+            return run()
+        if self._embed_stream is None:
+            self._embed_stream = torch.cuda.Stream(dev)
+        with sched.capture_lock:
+            # After everything already queued on the serving stream (the
+            # weights' build included); the readback syncs this stream only.
+            self._embed_stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(self._embed_stream):
+                return run()
 
     def warmup(self, buckets: tuple[int, ...] = (128, 256)) -> None:
         """Run the serving path once before traffic, on a background
@@ -131,6 +207,20 @@ class TorchEngine:
 
     def metrics_snapshot(self) -> dict[str, float]:
         return self.scheduler.metrics_snapshot()
+
+    # -- grafttrace (obs/) ----------------------------------------------------
+
+    def set_trace_store(self, store) -> None:
+        """The front injects its span store, so the scheduler's
+        queue-wait / prefill / decode spans land beside the front's
+        ``api.request`` span under one trace id."""
+        self.scheduler.set_trace_store(store)
+
+    def flight_snapshot(self) -> list:
+        return self.scheduler.flight_snapshot()
+
+    def flight_dump(self, reason: str = "on_demand") -> str:
+        return self.scheduler.flight_dump(reason)
 
     def drain(self) -> None:
         self.scheduler.drain()
@@ -222,6 +312,7 @@ def build_engine_from_env(device: Optional[str | torch.device] = None
         attn_impl=attn_impl,
         admit_chunk=env_int("SERVE_ADMIT_CHUNK", 0) or None,
         decode_fuse_max=decode_fuse_max,
+        loop_budget_ms=env_float("SERVE_LOOP_BUDGET_MS", 5000.0),
         name=env_or("LLM_MODEL", config.name), device=dev)
     warm = env_or("SERVE_WARMUP", "128,256")
     if warm and warm != "0":

@@ -47,9 +47,20 @@ queues only:
   may be the start of a stop string.
 
 Every prefill attention (whole prompt, chunk, prefix suffix) runs kernel
-D on the card. Not in this slice (later ones): prefix export/import,
-speculation, KV tiering, tensor parallelism. None of them changes greedy
-output in the reference.
+D on the card.
+
+The robustness plane is the reference's: the failpoint sites
+``serve.scheduler.admit`` (both admission legs), ``.dispatch``,
+``.promote`` and ``serve.engine.readback`` (utils/failpoints.py), a
+loop watchdog (``loop_budget_ms``), an always-on flight recorder of
+loop events dumped on a stall, a reset or on demand (obs/flight.py), the
+``sched.queue_wait`` / ``sched.prefill`` / ``sched.decode`` spans of
+sampled requests (obs/trace.py), and the warmup's device-step probe
+behind ``decode_device_ms``.
+
+Not in this slice (later ones): prefix export/import, speculation, KV
+tiering, tensor parallelism. None of them changes greedy output in the
+reference.
 """
 
 from __future__ import annotations
@@ -67,12 +78,14 @@ from ..models import family_for
 from ..models.configs import ModelConfig
 from ..models.quant import param_bytes, quant_mode
 from ..models.sampling import sample_step_batched
+from ..obs.flight import FlightRecorder
 from ..ops import paged_attention as pa
 from ..ops.paged_kv import (PageAllocator, PagedKVCache,
                             write_prefill_batch, write_prefill_chunk)
 from ..tokenizer import Tokenizer
 from ..utils.device import resolve_device
 from ..utils.env import env_float
+from ..utils.failpoints import failpoint
 from ..utils.log import get_logger
 from ..utils.metrics import Histogram
 from .backend import (GenerateRequest, OverloadError, RequestStats,
@@ -149,6 +162,7 @@ class _Slot:
     cancelled: threading.Event = field(default_factory=threading.Event)
     error: Optional[str] = None
     last_emit_t: float = 0.0
+    admit_t: float = 0.0                               # admission dispatch
     on_depart: Optional[object] = None
     departed: bool = False
     done: bool = False
@@ -260,8 +274,15 @@ class BatchScheduler:
                  attn_impl: Optional[str] = None,
                  admit_chunk: Optional[int] = None,
                  decode_fuse_max: int = 4,
+                 loop_budget_ms: float = 5000.0,
                  device: Optional[torch.device | str] = None) -> None:
-        """``decode_fuse_max``: fused multi-step decode (the reference's
+        """``loop_budget_ms``: the loop watchdog's budget (the
+        reference's ``SERVE_LOOP_BUDGET_MS``, which build_engine_from_env
+        reads; 0 disables). A loop iteration past it raises the
+        ``loop_stall_ms`` / ``loop_stall_last_ms`` gauges, logs once per
+        stall episode and dumps the flight recorder (obs/flight.py).
+
+        ``decode_fuse_max``: fused multi-step decode (the reference's
         ``SERVE_FUSE``) — one tick runs up to this many decode steps
         (adaptive: :meth:`_choose_fuse_k`), each exactly the plain step,
         so the output does not change. 1 disables.
@@ -336,6 +357,27 @@ class BatchScheduler:
         self._queued_requests = 0     # guarded-by: _depth_mu
         self._n_shed = 0              # guarded-by: _depth_mu
         self._draining = threading.Event()
+        self.loop_budget_ms = loop_budget_ms
+        self._loop_stall_ms = 0.0       # owned-by: _loop (high-water max)
+        self._loop_stalled = False      # owned-by: _loop
+        self._loop_stall_last_ms = 0.0  # owned-by: _loop (last episode)
+        # Start of the current loop iteration, read by metrics_snapshot
+        # so an iteration that is still stalling shows on /metrics.
+        self._loop_beat: Optional[float] = None
+        # Flight recorder: loop-iteration counter for its events, the
+        # always-on event ring, and the span store set_trace_store
+        # installs (None = tracing off).
+        self._loop_iter = 0
+        self._last_fuse_k = 0
+        self._flight = FlightRecorder()
+        self._trace = None
+        # Device time of one K = 1 decode step at the smallest window,
+        # measured once at warmup's tail (_probe_device_step).
+        self._decode_device_ms = 0.0
+        # Held while a decode graph is captured. Work launched on the
+        # card from another thread (TorchEngine.embed) holds it too, so
+        # no CUDA call of that thread can land inside a capture.
+        self.capture_lock = threading.Lock()
         self._warmup_started = False
         self._warmup_done_at: Optional[float] = 0.0
         # Set when warmup raised: the engine then never turns ready, and
@@ -546,9 +588,10 @@ class BatchScheduler:
         serving shapes (a prefill per bucket, the registration of each
         prefix template), then, per window of the ladder, one plain
         decode step with every row parked and the capture of the
-        window's decode graphs (:meth:`_warm_window`). A capture that
-        fails fails the warmup. Blocks until the scheduler thread has run
-        it."""
+        window's decode graphs (:meth:`_warm_window`), and last the
+        device-step probe behind ``decode_device_ms``
+        (:meth:`_probe_device_step`). A capture that fails fails the
+        warmup. Blocks until the scheduler thread has run it."""
         self.note_warmup_pending()
 
         def run() -> None:
@@ -564,6 +607,7 @@ class BatchScheduler:
                 self.register_prefix(text)
             for w in self._window_ladder():
                 self._warm_window(w)
+            self._probe_device_step()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
@@ -705,8 +749,9 @@ class BatchScheduler:
             before = {n: w.launches for n, w in wrappers.items()}
             graph = torch.cuda.CUDAGraph()
             try:
-                with torch.cuda.graph(graph, pool=self._graph_pool,
-                                      stream=self._capture_stream):
+                with self.capture_lock, torch.cuda.graph(
+                        graph, pool=self._graph_pool,
+                        stream=self._capture_stream):
                     fn()
             finally:
                 launches = []
@@ -745,6 +790,43 @@ class BatchScheduler:
         self._keys_dev.copy_(keys)
         for K in (1,) + self._fuse_ladder:
             self._decode_fused_for(w, K)
+
+    def _probe_device_step(self) -> None:
+        """Measure the device's decode step once, at warmup's tail (the
+        reference's ``_probe_device_step``): the K = 1 program of the
+        smallest window with every row parked, run once to warm the path,
+        then ``n1 = 4`` and ``n2 = 12`` times, each run ended by one
+        readback of the tokens. wall(n) = n * step + the readback's
+        constant, so ``(n2*w2 - n1*w1) / (n2 - n1)`` cancels the constant
+        (``w2`` itself when the solve falls under 5% of it); published as
+        ``decode_device_ms``. Parked rows keep their lengths, feed and
+        rings, and write only past their trusted length or into the
+        garbage page; their keys advance, so the keys and the live-row
+        mask are restored in place afterwards — the graphs stay valid and
+        seeded streams do not move. On the CPU the program runs
+        eagerly."""
+        prog = self._decode_for(min(128, self.max_seq))
+        keys = self._keys_dev.clone()
+        active = self._active_dev.clone()
+        self._active_dev.zero_()
+
+        def loop(n: int) -> float:
+            t = time.monotonic()
+            for _ in range(n):
+                prog()
+            self._toks_out[1].tolist()       # the readback ends the run
+            return (time.monotonic() - t) / n
+
+        try:
+            loop(1)
+            n1, n2 = 4, 12
+            w1, w2 = loop(n1), loop(n2)
+        finally:
+            self._keys_dev.copy_(keys)
+            self._active_dev.copy_(active)
+        d = (n2 * w2 - n1 * w1) / (n2 - n1)
+        self._decode_device_ms = round(
+            (d if d > 0.05 * w2 else w2) * 1e3, 4)
 
     # -- shared-prefix KV cache (scheduler thread) --------------------------
 
@@ -794,9 +876,31 @@ class BatchScheduler:
 
     def _build_promotion(self) -> None:
         """Build one queued auto-promoted head (a prefill of P tokens)
-        between decode ticks."""
+        between decode ticks. A failed build is dropped (promotion is an
+        optimization): serving is untouched."""
         self._last_promote_tick = self._n_decode_ticks
-        self._install_prefix(self._promote_q.pop(0))
+        head = self._promote_q.pop(0)
+        try:
+            failpoint("serve.scheduler.promote")
+            self._install_prefix(head)
+        except Exception:   # noqa: BLE001 — promotion is optional
+            log.exception("prefix promotion build failed")
+
+    # -- grafttrace (obs/): span store wiring + the flight surface ----------
+
+    def set_trace_store(self, store) -> None:
+        """Install the front's span store (obs/trace.py) once, before
+        traffic; the loop reads the reference per use (None = off)."""
+        self._trace = store
+
+    def flight_snapshot(self) -> list:
+        """The flight recorder's event ring, oldest first."""
+        return self._flight.snapshot()
+
+    def flight_dump(self, reason: str = "on_demand") -> str:
+        """Write the ring to its JSON file and return the path (the
+        ``POST /admin/trace/dump`` surface)."""
+        return self._flight.dump(reason)
 
     def stop(self) -> None:
         self._closed.set()
@@ -838,6 +942,12 @@ class BatchScheduler:
             "serve_queue_expired_total": self._n_expired,
             "requests_shed_total": shed,
             "serve_draining": int(self._draining.is_set()),
+            # Loop watchdog: the longest over-budget iteration (the one
+            # in progress included), the last stall episode's, and the
+            # flight-recorder dumps written.
+            "loop_stall_ms": round(self._live_loop_stall_ms(), 3),
+            "loop_stall_last_ms": round(self._loop_stall_last_ms, 3),
+            "serve_flight_dumps_total": self._flight.dumps_total(),
             # Fused multi-step decode: ticks that fused K > 1 steps, their
             # steps, and the mean K over every decode tick.
             "decode_fused_ticks_total": self._n_fused_ticks,
@@ -848,6 +958,8 @@ class BatchScheduler:
             # step; and the longest dispatch gap across admission work.
             "decode_wall_ms": round(self._wall_hist.percentile(50) or 0.0,
                                     4),
+            # The warmup probe's device step (_probe_device_step).
+            "decode_device_ms": self._decode_device_ms,
             "decode_stall_ms": round(self._decode_stall_ms, 3),
             "inter_token_p50_ms": round(
                 self._tbt_hist.percentile(50) or 0.0, 4),
@@ -856,6 +968,11 @@ class BatchScheduler:
             "serve_kv_free_pages": self._alloc.free_pages,
             "serve_kv_total_pages": self.num_pages - 1,
             "prefill_chunks_total": self._n_prefill_chunks,
+            # The reference's flash-append boundary as one number: 1 =
+            # every window (the gather branch: kernel B's append mode, a
+            # split-and-combine walk, serves every window), 0 = never
+            # (the write-then-attend branch runs kernel B's pool mode).
+            "paged_flash_min_w": int(self.attn_impl == "gather"),
         }
         if self._prefix is not None:
             out["serve_prefix_entries"] = len(self._prefix)
@@ -879,6 +996,9 @@ class BatchScheduler:
         writes land past its trusted length or in the garbage page."""
         pending: Optional[tuple] = None   # (toks, event, snapshot, K)
         while not self._closed.is_set():
+            it_start = time.monotonic()
+            self._loop_beat = it_start
+            self._loop_iter += 1
             try:
                 self._admit_pending(block=not self._any_active()
                                     and pending is None
@@ -911,6 +1031,57 @@ class BatchScheduler:
                               "requests")
                 pending = None
                 self._fail_all_and_reset()
+            finally:
+                self._watchdog(it_start)
+
+    def _watchdog(self, it_start: float) -> None:
+        """Loop-iteration watchdog (the reference's): an iteration past
+        ``loop_budget_ms`` (a lazy graph capture, a wedged device call, a
+        host stall) raises the ``loop_stall_ms`` high-water gauge and
+        re-stamps ``loop_stall_last_ms``, and logs ONE line per stall
+        episode on entry and one on recovery. At episode entry the flight
+        recorder notes ``stall_enter`` under the stalling iteration's
+        number and dumps its ring, whose last events name what that
+        iteration did. Blocked-idle iterations end at the admission
+        poll's 0.2 s, so idleness never reads as a stall."""
+        budget = self.loop_budget_ms
+        if not budget:
+            return
+        dur_ms = (time.monotonic() - it_start) * 1e3
+        if dur_ms > budget:
+            self._loop_stall_ms = max(self._loop_stall_ms, dur_ms)
+            self._loop_stall_last_ms = dur_ms
+            if not self._loop_stalled:
+                self._loop_stalled = True
+                log.warning("scheduler loop iteration took %.0f ms "
+                            "(budget %.0f ms)", dur_ms, budget)
+                self._flight.note("stall_enter", self._loop_iter,
+                                  over_ms=round(dur_ms, 1),
+                                  budget_ms=budget)
+                try:
+                    path = self._flight.dump("watchdog_stall")
+                    log.warning("flight recorder dumped to %s", path)
+                except OSError as e:
+                    log.warning("flight-recorder dump failed: %s", e)
+        elif self._loop_stalled:
+            self._loop_stalled = False
+            self._flight.note("stall_recover", self._loop_iter,
+                              last_ms=round(dur_ms, 1))
+            log.info("scheduler loop recovered (last iteration %.0f ms)",
+                     dur_ms)
+
+    def _live_loop_stall_ms(self) -> float:
+        """The completed iterations' max folded with the age of the
+        iteration in progress when that is over budget, so a wedged
+        iteration shows on /metrics while it is wedged (readable from
+        any thread; a torn float read is harmless for a gauge)."""
+        stall = self._loop_stall_ms
+        beat, budget = self._loop_beat, self.loop_budget_ms
+        if beat is not None and budget and not self._closed.is_set():
+            cur = (time.monotonic() - beat) * 1e3
+            if cur > budget:
+                stall = max(stall, cur)
+        return stall
 
     def _any_active(self) -> bool:
         return any(s is not None for s in self._slots)
@@ -1121,6 +1292,13 @@ class BatchScheduler:
         row's first token. A prefix-matched chunk prefills only its
         suffixes, at positions P.. over the prefix broadcast into a
         P + S carry, and splices prefix + suffix into each row's pages."""
+        # Failpoint: an injected admission fault fails this round's
+        # requests through _admit_pending's recovery envelope and leaves
+        # the loop serving.
+        failpoint("serve.scheduler.admit")
+        t_admit = time.monotonic()
+        for s in chunk:
+            s.admit_t = t_admit
         dev = self.device
         prefix = chunk[0].prefix
         tokens, suf, total, tables = self._host_arrays(chunk, S)
@@ -1150,6 +1328,9 @@ class BatchScheduler:
         """Begin a chunked admission: the host arrays are built once here,
         the chunks run in :meth:`_prefill_step`, one per loop
         iteration."""
+        t_admit = time.monotonic()
+        for s in chunk:
+            s.admit_t = t_admit
         tokens, suf, total, tables = self._host_arrays(chunk, S)
         self._prefill_carry = _PrefillCarry(
             chunk=chunk, rows=rows, S=S, C=C, off=0, prefix=chunk[0].prefix,
@@ -1162,9 +1343,12 @@ class BatchScheduler:
         the carried logits, and its KV spliced into the rows' pages. The
         final chunk installs the rows' tables and lengths and samples
         their first tokens (TTFT lands there)."""
+        failpoint("serve.scheduler.admit")   # the chunked leg of the site
         pc = self._prefill_carry
         dev = self.device
         C, off = pc.C, pc.off
+        self._flight.note("prefill_chunk", self._loop_iter, off=off, C=C,
+                          S=pc.S, n=len(pc.chunk))
         P0 = pc.prefix.length if pc.prefix is not None else 0
         base = P0 + off
         R = len(pc.chunk)
@@ -1241,10 +1425,22 @@ class BatchScheduler:
         first = toks.tolist()
         now = time.monotonic()
         self._n_admitted += R
+        self._flight.note("admit", self._loop_iter, n=R)
+        tr = self._trace
         for slot, row, tok in zip(chunk, rows, first):
             slot.depart()
             if slot.stats is not None:
                 slot.stats.ttft_s = now - slot.req.arrival_time
+            if tr is not None and slot.req.trace_sampled:
+                # The wall before the first token, split at the admission
+                # dispatch: queue wait, then the prefill (every chunk of
+                # a chunked admission and the first sample included).
+                t_admit = slot.admit_t or now
+                tr.add(slot.req.trace_id, "sched.queue_wait",
+                       slot.req.arrival_time,
+                       t_admit - slot.req.arrival_time)
+                tr.add(slot.req.trace_id, "sched.prefill", t_admit,
+                       now - t_admit, tokens=len(slot.prompt_ids), row=row)
             slot.ctx_len = len(slot.prompt_ids)
             self._slots[row] = slot
             if not self._append_token(slot, row, tok):
@@ -1271,7 +1467,19 @@ class BatchScheduler:
         of its token block into a host buffer behind an event. Returns
         (toks [K, B] host, event or None, the rows it decoded for, K)
         for :meth:`_process_tick`, one tick later."""
+        # Flight event BEFORE the failpoint and the launch: if this
+        # dispatch wedges, the ring's last event names it under the
+        # iteration the watchdog's stall marker carries.
+        self._flight.note("dispatch", self._loop_iter, inflight=inflight)
+        # Failpoint: an injected dispatch fault takes the loop's recovery
+        # envelope (_fail_all_and_reset): in-flight requests fail with a
+        # well-formed error and the next request serves as before.
+        failpoint("serve.scheduler.dispatch")
         K = self._choose_fuse_k(inflight)
+        if K != self._last_fuse_k:
+            # Only the flips: a steady K would evict everything else.
+            self._flight.note("fuse_k", self._loop_iter, k=K)
+            self._last_fuse_k = K
         self._n_decode_ticks += 1
         self._n_decode_steps += K
         if K > 1:
@@ -1310,6 +1518,9 @@ class BatchScheduler:
         row's burst in order, up to its first finisher (EOS parked the
         row on the device at exactly that point). Rows released or
         re-admitted since dispatch are skipped by identity."""
+        # Failpoint: the token readback (device -> host); a fault here
+        # takes the same recovery envelope as a dispatch fault.
+        failpoint("serve.engine.readback")
         if event is not None:
             event.synchronize()
         block = toks.tolist()
@@ -1385,6 +1596,14 @@ class BatchScheduler:
         in the garbage page) BEFORE its pages return to the allocator."""
         slot = self._slots[row]
         self._slots[row] = None
+        if (slot is not None and self._trace is not None
+                and slot.req.trace_sampled and slot.stats is not None
+                and slot.stats.ttft_s is not None):
+            # The decode phase: first token -> release.
+            t_first = slot.req.arrival_time + slot.stats.ttft_s
+            self._trace.add(slot.req.trace_id, "sched.decode", t_first,
+                            time.monotonic() - t_first,
+                            tokens=len(slot.ids), row=row)
         if slot is not None and slot.pages:
             # Fills on the stream, after every tick already queued: a
             # tick in flight still writes this row's own pages.
@@ -1394,6 +1613,18 @@ class BatchScheduler:
             slot.pages = None
 
     def _fail_all_and_reset(self) -> None:
+        """Error-path recovery: note and dump the flight recorder, fail
+        every in-flight and queued-for-a-row request, and reset the device
+        state in place. The reset's fills queue on the serving stream
+        behind any tick still in flight, so that tick cannot write over
+        the cleared state."""
+        self._flight.note("reset", self._loop_iter,
+                          failed=sum(s is not None for s in self._slots))
+        try:
+            path = self._flight.dump("fail_all_and_reset")
+            log.warning("flight recorder dumped to %s", path)
+        except OSError as e:
+            log.warning("flight-recorder dump failed: %s", e)
         for i, s in enumerate(self._slots):
             if s is not None:
                 s.fail("internal error: serving state was reset")

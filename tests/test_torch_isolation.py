@@ -80,7 +80,13 @@ def test_every_module_imports_without_jax_or_nvcc():
                 "p2p_llm_chat_tpu_torch.serve.prefix",
                 "p2p_llm_chat_tpu_torch.serve.scheduler",
                 "p2p_llm_chat_tpu_torch.tools",
-                "p2p_llm_chat_tpu_torch.tools.mm_micro"}
+                "p2p_llm_chat_tpu_torch.tools.mm_micro",
+                # The torch-free robustness plane: the port's own copies.
+                "p2p_llm_chat_tpu_torch.obs",
+                "p2p_llm_chat_tpu_torch.obs.trace",
+                "p2p_llm_chat_tpu_torch.obs.flight",
+                "p2p_llm_chat_tpu_torch.utils.failpoints",
+                "p2p_llm_chat_tpu_torch.utils.backoff"}
     assert expected <= set(got["modules"])
 
 
