@@ -19,7 +19,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    geometries (rep 1-8, D 32-128, page sizes 16, 48 and 64, windows up
    to 4096, NaN in every dead slot), each case bitwise against a rerun,
    its rows' B = 1 calls and a window twice as wide, timed per
-   llama3.1-8b step as timed and on the device (CUDA graphs), kernel C (w4a16 on tensor cores) exact on all 256 byte values,
+   llama3.1-8b step as timed and on the device (CUDA graphs), kernel B's
+   verify mode (speculative verify: S positions per row over the pool
+   plus their own k/v under a chain or tree mask) on the same ragged
+   geometries with S 2, 5, 8, 16 and 64 and the same bitwise checks, timed
+   per llama3.1-8b verify at S = 8 beside its bound and SDPA over the
+   pre-gathered window plus the block, kernel C (w4a16 on tensor cores)
+   exact on all 256 byte values,
    on ragged shapes that run every row tile and both of its routes, at
    the mixtral-8x7b and llama3.1-8b int4 shapes with bitwise reruns and
    rows independent of M, timed per decode step and per 256-row chunk,
@@ -48,6 +54,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    K = 1 replay bitwise equal to the eager step with the same launch
    counts, the K = 4 replay bitwise equal to four K = 1 replays and to
    eager ``decode_fused`` (greedy and sampled rows, one EOS mid-burst);
+   each step also runs the speculative verify forwards
+   (``verify_step_paged`` on its branch, ``verify_tree_paged`` on the
+   gather branch) against the CPU's plain path (logits within STEP_TOL,
+   the written block within it, the rest of the pool bitwise unchanged)
+   and, on 2-layer quote weights in the scheduler's state, a greedy
+   verify against K + 1 sequential steps, a tree tick whose sibling is
+   used and moved (copy_slot) bitwise onto the accepted slot, and the
+   window's spec graph bitwise against the eager spec tick;
 4. server — the port's engine behind its Ollama front on localhost
    answers 7 concurrent requests (one 1500-token prompt, one co-pilot
    request) and two greedy reruns, five times: llama3.1-8b int8 with the
@@ -79,7 +93,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``raise*1`` (a streamed request ends in an error record, one
    ``failpoint_hits_total``, greedy rerun unchanged); and holds a pinned
    ``X-Graft-Trace`` request's ``api.request`` and ``sched.*`` spans on
-   ``/admin/trace``, with ``/admin/trace/dump`` writing its file.
+   ``/admin/trace``, with ``/admin/trace/dump`` writing its file;
+5. server_spec — four SERVE_SPEC=4 servers on full-width quote weights
+   (models/synth.quote_params): llama3.1-8b int8 with the tree default
+   (8 nodes) and linear over an int8 pool, linear over a bf16 pool with
+   PAGED_ATTN_IMPL=kernel (the write-then-attend verify through kernel
+   B's pool mode), and mixtral-8x7b int4 with the tree default: each
+   answers a 7-request burst with acceptance (``serve_spec_accepted_total``
+   > 0, ``serve_spec_accepted_per_dispatch`` > 1) and the verify mode's
+   launches counted (the pool mode's on write-then-attend), its greedy
+   answers equal to the same server's with speculation off (the burst
+   rerun for readings: served tok/s, per-request rate, accepted drafts
+   per verify dispatch), and a ``serve.scheduler.dispatch`` fault inside
+   a spec tick recovered with the greedy rerun unchanged.
 
 Optional (``--only build,profile``): ``profile`` — one 32-layer decode
 step at B=8, W=1020 of llama3.1-8b int8 (int8 pool, and bf16 pool through
@@ -94,7 +120,8 @@ Prints the card's name and power limit early, a ``{"kernels": [...]}``
 JSON line before the last, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 ``--only build,kernel`` runs a subset (``--only
-build,kernel_d,profile_prefill`` iterates on one kernel).
+build,kernel_d,profile_prefill`` iterates on one kernel; ``--only
+build,kernel_b_verify,step,server_spec`` on speculation).
 Exits non-zero, printing no result, where no CUDA device is available.
 """
 
@@ -709,6 +736,171 @@ def phase_kernel_b_pool(results: dict) -> None:
               "device_ms replays them from a CUDA graph; library_ms is "
               "SDPA over an already-gathered window, excluding the gather",
         **t)
+
+
+def _verify_inputs(B, S, Hq, Hkv, D, seed, tree):
+    """bf16 q_blk [B, S, Hq, D], k_blk / v_blk [B, S, Hkv, D] and, for a
+    tree, a bool block mask [B, S, S] of random per-row trees (node i's
+    parent a random earlier node, self included)."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16)
+    mask = None
+    if tree:
+        cpu = torch.Generator().manual_seed(seed)
+        mask = torch.zeros((B, S, S), dtype=torch.bool)
+        for b in range(B):
+            for i in range(S):
+                mask[b, i, i] = True
+                if i:
+                    parent = int(torch.randint(0, i, (1,), generator=cpu))
+                    mask[b, i] |= mask[b, parent]
+        mask = mask.to(dev)
+    return rand(B, S, Hq, D), rand(B, S, Hkv, D), rand(B, S, Hkv, D), mask
+
+
+def _v_call(cache, q, kb, vb, mask, pages, layer=1):
+    from p2p_llm_chat_tpu_torch.ops.paged_attention import \
+        paged_attention_verify_append
+    return paged_attention_verify_append(q, kb, vb, cache, cache.lengths,
+                                         layer, pages=pages, block_mask=mask)
+
+
+def _v_case(label, cache, q, kb, vb, mask, pages) -> float:
+    """One verify-mode case: within B_TOL of the plain version, a rerun
+    bitwise equal, each row bitwise equal to its own B = 1 call and to
+    the call over a window of 2 ``pages`` (the extra entries point at the
+    NaN garbage page 0). Returns the absolute error."""
+    import dataclasses
+    import torch
+    from p2p_llm_chat_tpu_torch.ops.paged_attention import \
+        paged_attention_verify_append_reference
+    out = _v_call(cache, q, kb, vb, mask, pages)
+    err = _rel_err(label, out, paged_attention_verify_append_reference(
+        q, kb, vb, cache, cache.lengths, 1, pages=pages, block_mask=mask),
+        B_TOL)
+    check(torch.equal(_v_call(cache, q, kb, vb, mask, pages), out),
+          f"{label}: a rerun differs from the first run")
+    pt = cache.page_table[:, :pages]
+    wide = dataclasses.replace(cache, page_table=torch.cat(
+        [pt, torch.zeros_like(pt)], 1))
+    check(torch.equal(_v_call(wide, q, kb, vb, mask, 2 * pages), out),
+          f"{label}: rows differ at a window of {2 * pages} pages")
+    for b in range(q.shape[0]):
+        one = dataclasses.replace(
+            cache, page_table=cache.page_table[b:b + 1].contiguous(),
+            lengths=cache.lengths[b:b + 1].contiguous())
+        row = lambda t: None if t is None else t[b:b + 1].contiguous()
+        check(torch.equal(_v_call(one, row(q), row(kb), row(vb), row(mask),
+                                  pages), out[b:b + 1]),
+              f"{label}: row {b} differs between B = 1 and B = "
+              f"{q.shape[0]}")
+    return err
+
+
+def phase_kernel_b_verify(results: dict) -> None:
+    """Kernel B's verify mode (speculative verify: S candidate positions
+    per row over the pool window plus their own k/v under a chain or tree
+    mask; the reference's XLA ``paged_attention_verify_append``) against
+    its plain version: int8 and bf16 pools, chain and tree masks (random
+    per-row ancestry), S 2, 5, 8, 16 and 64 (the largest block, wider
+    than D = 32), rep 1-8, D 32-128, page sizes
+    16, 48 and 64, windows up to 4096, NaN in every dead slot; each case
+    also bitwise against a rerun, its rows' B = 1 calls and a window twice
+    as wide. Timed per 32-layer llama3.1-8b verify at B = 8, S = 8,
+    W = 1024 on an int8 pool (events and CUDA graph) beside its bound and
+    SDPA over a pre-gathered, dequantized window plus the block under an
+    explicit mask."""
+    import torch
+    import torch.nn.functional as F
+    from p2p_llm_chat_tpu_torch.ops.paged_attention import \
+        paged_attention_verify_append_reference
+    worst = 0.0
+    cases = (  # (int8, Hq, Hkv, D, ps, W, S, tree, lengths)
+        (True, 32, 8, 128, 64, 1024, 8, False, [1024, 1000, 64, 1]),
+        (True, 32, 8, 128, 64, 1024, 8, True, [1024, 517, 300, 1]),
+        (False, 32, 8, 128, 64, 1024, 5, False, [1024, 1000, 64, 1]),
+        (False, 64, 8, 128, 64, 4096, 16, True, [4096, 2100, 513, 1]),
+        (True, 64, 8, 128, 16, 1000, 16, False, [1000, 300, 17, 1]),
+        (True, 4, 4, 64, 48, 1000, 2, True, [1000, 300, 17, 1]),
+        (False, 12, 4, 32, 48, 300, 5, False, [1, 128, 257, 64]),
+        (True, 8, 8, 32, 16, 64, 16, True, [64, 40, 17, 1]),
+        (False, 56, 8, 64, 64, 4096, 8, True, [4096, 4000, 33, 2]),
+        (True, 4, 2, 32, 64, 1024, 64, True, [1024, 700, 65, 1]),
+    )
+    for i, (qz, Hq, Hkv, D, ps, W, S, tree, lengths) in enumerate(cases):
+        cache, _, _, _, pages = _paged_case(qz, Hq, Hkv, D, W, lengths,
+                                            ps=ps, seed=40 + i)
+        _poison_dead(cache, lengths)
+        q, kb, vb, mask = _verify_inputs(len(lengths), S, Hq, Hkv, D, 60 + i,
+                                         tree)
+        worst = max(worst, _v_case(
+            f"kernel B verify {'int8' if qz else 'bf16'} Hq={Hq} Hkv={Hkv} "
+            f"D={D} ps={ps} W={pages * ps} S={S} "
+            f"{'tree' if tree else 'chain'} lengths={lengths}", cache, q,
+            kb, vb, mask, pages))
+        del cache
+    # One llama3.1-8b verify at B = 8, S = 8, W = 1024 (a spec tick of the
+    # tree default), int8 pool of L layers rotated so reads stay cold.
+    B, S, W, Hq, Hkv, D, L = 8, 8, 1024, 32, 8, 128, 8
+    cache, _, _, _, pages = _paged_case(True, Hq, Hkv, D, W, [W] * B, L=L,
+                                        seed=97, nan_page0=False)
+    q, kb, vb, _ = _verify_inputs(B, S, Hq, Hkv, D, 96, False)
+    call = lambda i: _v_call(cache, q, kb, vb, None, pages, i % L)
+    ms = time_ms(call, 96, warmup=L)
+    dev = graph_ms(call, n=2 * L)
+    plain = time_ms(lambda i: paged_attention_verify_append_reference(
+        q, kb, vb, cache, cache.lengths, i % L, pages=pages), 8, warmup=1)
+    ps = cache.page_size
+    idx = cache.page_table[:, :pages].long()
+    kw, vw = [], []
+    for layer in range(L):
+        kl = cache.k[layer][idx].reshape(B, W, Hkv, D).float()
+        vl = cache.v[layer][idx].reshape(B, W, Hkv, D).float()
+        sk = cache.k_scale[layer][idx][..., :ps].transpose(1, 2)
+        sv = cache.v_scale[layer][idx][..., :ps].transpose(1, 2)
+        kl = kl * sk.reshape(B, Hkv, W).transpose(1, 2)[..., None]
+        vl = vl * sv.reshape(B, Hkv, W).transpose(1, 2)[..., None]
+        kl = torch.cat([kl, kb.float()], 1).to(torch.bfloat16)
+        vl = torch.cat([vl, vb.float()], 1).to(torch.bfloat16)
+        kw.append(kl.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, 1))
+        vw.append(vl.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, 1))
+    amask = torch.cat([torch.ones((S, W), dtype=torch.bool, device="cuda"),
+                       torch.ones((S, S), dtype=torch.bool,
+                                  device="cuda").tril()], 1)
+    q4 = q.permute(0, 2, 1, 3)
+    sdpa = lambda i: F.scaled_dot_product_attention(q4, kw[i % L], vw[i % L],
+                                                    attn_mask=amask)
+    lib = time_ms(sdpa, 96, warmup=L)
+    lib_dev = graph_ms(sdpa, n=2 * L)
+    del kw, vw
+    nbytes = (2 * B * W * Hkv * D + 2 * B * W * Hkv * 4 + 2 * q.numel() * 2
+              + 2 * kb.numel() * 2 + 4 * B * (1 + pages))
+    b_ms, kind = bound_ms(nbytes, 4.0 * B * S * Hq * D * (W + S))
+    print(f"  kernel B verify int8 B={B} S={S} W={W} (8B geometry), per "
+          f"layer: {ms * 1e3:.1f} us as timed, {dev * 1e3:.1f} us on the "
+          f"device (bound {b_ms * 1e3:.1f} us, {kind}; {b_ms / dev:.0%} of "
+          f"bound); plain {plain * 1e3:.1f} us; SDPA on a pre-gathered "
+          f"window + block, explicit mask (gather excluded) "
+          f"{lib * 1e3:.1f} us as timed, {lib_dev * 1e3:.1f} us on the "
+          "device", flush=True)
+    results["paged_attention_verify_append"] = dict(
+        name="paged_attention_verify_append", route="cuda",
+        source="p2p_llm_chat_tpu_torch/csrc/paged_attention.cu",
+        replaces="p2p_llm_chat_tpu/ops/paged_attention.py:635",
+        max_abs_err=worst, ms=round(32 * ms, 4),
+        device_ms=round(32 * dev, 4), plain_ms=round(32 * plain, 4),
+        bound_ms=round(32 * b_ms, 4), bound_by=kind,
+        library_ms=round(32 * lib, 4),
+        library_device_ms=round(32 * lib_dev, 4),
+        scope="kernel B verify mode (an XLA function in the reference, no "
+              "pl.pallas_call), one llama3.1-8b spec verify at B=8, S=8, "
+              "W=1024, int8 pool: 32 launches; device_ms replays them from "
+              "a CUDA graph; library_ms is SDPA over an already-gathered "
+              "dequantized window plus the block, explicit boolean mask, "
+              "excluding the gather")
 
 
 def phase_kernel_e(results: dict) -> None:
@@ -1507,6 +1699,331 @@ def _graph_checks(label: str, cfg, params, impl: str,
           f"{fused['toks'][:, :].tolist()}", flush=True)
 
 
+def _clone_cache(cache, device=None):
+    from p2p_llm_chat_tpu_torch.ops.paged_kv import PagedKVCache
+    return PagedKVCache(*(None if t is None else t.clone().to(
+        device or t.device) for t in (cache.k, cache.v, cache.page_table,
+                                      cache.lengths, cache.k_scale,
+                                      cache.v_scale)))
+
+
+class _Routes:
+    """Records, while active, each MoE layer's expert choice per token
+    (the sorted top-k of models/mixtral.moe_mlp's router, [B, S, k]) by
+    wrapping the module's ``moe_mlp``: a position whose choice differs
+    between the card and the CPU (a near-tie of router scores that bf16
+    rounding tips) takes another expert's MLP, and its logits are not
+    comparable."""
+
+    def __enter__(self):
+        from p2p_llm_chat_tpu_torch.models import mixtral
+        self.calls, self._orig = [], mixtral.moe_mlp
+
+        def moe(x, router, *args, **kw):
+            r = router if kw.get("layer") is None else router[kw["layer"]]
+            probs = (x.float() @ r.float()).softmax(-1)
+            k = args[3] if len(args) > 3 else kw["num_experts_per_tok"]
+            top = mixtral._top_k(probs, k)[1].sort(-1).values
+            self.calls.append(top.cpu())
+            return self._orig(x, router, *args, **kw)
+
+        mixtral.moe_mlp = moe
+        return self
+
+    def __exit__(self, *exc):
+        from p2p_llm_chat_tpu_torch.models import mixtral
+        mixtral.moe_mlp = self._orig
+
+    def flips(self, other: "_Routes"):
+        """[B, S] bool: positions whose expert choice differs in any
+        layer."""
+        out = None
+        for a, b in zip(self.calls, other.calls):
+            d = (a != b).any(-1)
+            out = d if out is None else out | d
+        return out
+
+
+def _verify_runs(fam, params, cfg, cache, impl: str, S: int = 5,
+                 N: int = 8) -> list:
+    """The speculative verify forwards on the card from the step phase's
+    pool (row 0 live, row 1 parked at length 0): ``verify_step_paged``
+    on ``impl``'s branch (S positions), and on the gather branch
+    ``verify_tree_paged`` (N nodes of a random tree), each on a copy of
+    the pool. Checks each launched its kernel on every layer (kernel B's
+    verify mode on the gather branch, its pool mode S times a layer on
+    write-then-attend) and nothing else of kernel B. Returns, per run,
+    what the CPU replays: (name, call, card logits, card pool after,
+    pool before), on the host."""
+    import torch
+    dev = cache.k.device
+    gen = torch.Generator().manual_seed(21)
+    B, L = cache.lengths.shape[0], cfg.num_layers
+    n = int(cache.lengths.max())
+    vt = torch.randint(33, 126, (B, max(S, N)), generator=gen)
+    anc = torch.zeros((B, N, N), dtype=torch.bool)
+    depths = torch.zeros((B, N), dtype=torch.long)
+    for b in range(B):
+        for i in range(N):
+            anc[b, i, i] = True
+            if i:
+                par = int(torch.randint(0, i, (1,), generator=gen))
+                anc[b, i] |= anc[b, par]
+                depths[b, i] = depths[b, par] + 1
+    pages = -(-(n + max(S, N)) // cache.page_size)
+    runs = [("verify_step_paged", lambda p, c, d: fam.verify_step_paged(
+        p, cfg, vt[:, :S].to(d), c, pages=pages, impl=impl)[0])]
+    if impl == "gather":
+        runs.append(("verify_tree_paged", lambda p, c, d:
+                     fam.verify_tree_paged(p, cfg, vt[:, :N].to(d),
+                                           depths.to(d), anc.to(d), c,
+                                           pages=pages)[0]))
+    out = []
+    for name, call in runs:
+        c = _clone_cache(cache)
+        before = _clone_cache(cache, "cpu")
+        c0 = _launch_counts()
+        with _Routes() as routes:
+            logits = call(params, c, dev).float().cpu()
+        moved = {k: v - c0[k] for k, v in _launch_counts().items()
+                 if v != c0[k]}
+        want = ({"paged_attention_verify_append": L} if impl == "gather"
+                else {"paged_attention": S * L})
+        got = {k: v for k, v in moved.items() if k.startswith("paged")}
+        check(got == want, f"{name} impl={impl}: kernel B launches {got}, "
+              f"want {want}")
+        out.append((name, call, logits, _clone_cache(c, "cpu"), before,
+                    routes))
+    return out
+
+
+def _verify_vs_cpu(label: str, params_cpu, runs) -> None:
+    """Each card verify of :func:`_verify_runs` against the CPU's plain
+    path from the same pool and weights: logits within STEP_TOL of
+    max|logits|; the card's pool slots that the verify wrote (row 0's
+    block; the parked row's land in the garbage page 0, not compared)
+    within STEP_TOL of the CPU's (bf16 activations through kernels on
+    one side, f32 plain math on the other, so k/v differ by rounding),
+    and every other slot of the card's pool bitwise unchanged. On MoE
+    models a position whose expert choice the two sides make differently
+    (:class:`_Routes`; at most one a run) is left out of the logits and
+    named."""
+    import torch
+    for name, call, g, card_after, before, routes in runs:
+        c = _clone_cache(before)
+        with _Routes() as cpu_routes:
+            cpu = call(params_cpu, c, torch.device("cpu")).float()
+        check(bool(torch.isfinite(g).all()), f"{label} {name}: non-finite "
+              "card logits")
+        keep = torch.ones(g.shape[:2], dtype=torch.bool)
+        flips = routes.flips(cpu_routes)
+        if flips is not None:
+            check(int(flips.sum()) <= 1, f"{label} {name}: expert choice "
+                  f"differs at {flips.nonzero().tolist()}")
+            keep &= ~flips
+        err = (g - cpu)[keep].abs().max().item()
+        scale = cpu.abs().max().item()
+        check(err <= STEP_TOL * scale, f"{label} {name}: logits err "
+              f"{err:.4f} > {STEP_TOL} x {scale:.3f}")
+        n = int(before.lengths[0])
+        S = g.shape[1]
+        ps = before.page_size
+        written = torch.zeros(before.k.shape[1:3], dtype=torch.bool)
+        for j in range(n, n + S):
+            written[int(before.page_table[0, j // ps]), j % ps] = True
+        written[0] = True               # the garbage page
+        for f in ("k", "v"):
+            a, b0 = getattr(card_after, f), getattr(before, f)
+            check(torch.equal(a[:, ~written], b0[:, ~written]),
+                  f"{label} {name}: pool {f} changed outside the block")
+            ga = a.float()[:, 1:][:, written[1:]]
+            ca = getattr(c, f).float()[:, 1:][:, written[1:]]
+            e = (ga - ca).abs().max().item()
+            check(e <= STEP_TOL * ca.abs().max().item(),
+                  f"{label} {name}: written pool {f} err {e:.4f}")
+        check(torch.equal(card_after.lengths, c.lengths), f"{label} {name}: "
+              "lengths moved")
+        flipped = ("" if flips is None or not flips.any() else
+                   f" (position {flips.nonzero().tolist()} left out: its "
+                   "expert choice differs between card and CPU)")
+        print(f"step: {label}: {name} (S={S}) card vs CPU plain logits "
+              f"max_abs_err {err:.4f}, max|logits| {scale:.3f} (tol "
+              f"{STEP_TOL:.0e} of max){flipped}; the written block within "
+              "tol, the rest of the card's pool bitwise unchanged",
+              flush=True)
+
+
+def _spec_persistent(sched) -> dict:
+    out = _persistent(sched)
+    out["spec_out"] = sched._spec_out
+    return out
+
+
+def _spec_host(sched, rows) -> None:
+    """Fill the spec input block: per row ``(tokens, drafts, max_acc,
+    siblings)`` with siblings [(position, token, node)], the tree's base
+    topology elsewhere; copied to the device."""
+    host = sched._fill_spec_base()
+    cols = sched._spec_cols
+    for b, (toks, drafts, max_acc, sibs) in enumerate(rows):
+        t0 = cols["tokens"].start
+        host[b, t0:t0 + len(toks)] = toks
+        d0 = cols["drafts"].start
+        host[b, d0:d0 + len(drafts)] = drafts
+        host[b, cols["max_acc"].start] = max_acc
+        for j, tok, node in sibs:
+            N = sched.spec_tree_nodes
+            host[b, t0 + node] = tok
+            host[b, cols["depths"].start + node] = j + 1
+            a0 = cols["anc"].start + node * N
+            host[b, a0:a0 + j + 1] = 1
+            host[b, cols["sib_tok"].start + j] = tok
+            host[b, cols["sib_node"].start + j] = node
+    sched._spec_in.copy_(sched._spec_host)
+
+
+def _spec_sched_checks(label: str, model: str, quant: str,
+                       impl: str) -> None:
+    """Spec ticks in the scheduler's state at full width, 2 layers, on
+    quote weights (models/synth.quote_params: greedy output follows a
+    fixed successor map by a wide margin, so drafts land): B = 8 rows
+    63-480 tokens long over a random pool, the window's programs captured
+    as the warmup does (the spec program verifies a tree of 8 nodes on
+    the gather branch, a chain of K + 1 on write-then-attend). (1) Greedy
+    verify equals K + 1 sequential decode steps: drafts = the first K
+    of the sequential tokens, every row accepts K, the correction is the
+    (K+1)-th token, and lengths, feed and rings equal the sequential
+    steps' bitwise (keys advance by the verify's draws). (2) On the gather
+    branch, a tree tick whose main chain is wrong at position 1 with the
+    right token as a sibling leaf (node K + 1): every row uses the
+    sibling (used_sib = 1, accepted 2, the correction the sequential
+    third token), and copy_slot lands the sibling node's k/v (and int8
+    scales) bitwise on the accepted slot, every layer. (3) The window's
+    captured spec graph (tree on the gather branch, linear on
+    write-then-attend) replayed from one state with greedy and sampled
+    rows and mixed drafts: bitwise equal to the eager spec tick (pool,
+    lengths, feed, keys, rings, outputs) with the same launch counts."""
+    import torch
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    from p2p_llm_chat_tpu_torch.models.synth import quote_params
+    from p2p_llm_chat_tpu_torch.serve.scheduler import BatchScheduler
+    from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
+    cfg = get_config(model).with_(num_layers=2)
+    params = quote_params(cfg, seed=7, quant=quant, device="cuda")
+    wta = impl != "gather"
+    B, w, K = 8, 512, 4
+    sched = BatchScheduler(params, cfg, ByteTokenizer(cfg.vocab_size),
+                           num_slots=B, max_seq=1024, page_size=64,
+                           kv_quant=not wta, attn_impl=impl,
+                           decode_fuse_max=4, spec_k=K,
+                           spec_tree_nodes=0 if wta else 8, device="cuda")
+    sched.stop()
+    del params
+    tree = bool(sched.spec_tree_nodes)
+    sched._warm_window(w)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    _fill_decode_state(sched, [(w - 32) * (b + 1) // B for b in range(B)],
+                       gen)
+    sched._next.random_(33, 126, generator=gen)
+    temps = sched._temps_dev.clone()
+    sched._temps_dev.zero_()
+    s0 = _spec_snapshot(sched)
+    chain = []
+    for _ in range(K + 1):
+        sched._step_fn(w, 1)()
+        chain.append(sched._toks_out[1][0].clone())
+    seq = _snapshot(sched)
+    chain = torch.stack(chain, 1).cpu()                    # [B, K + 1]
+    nxt = s0["next"][:, 0].cpu()
+    pad = [0] * ((sched.spec_tree_nodes or K + 1) - K - 1)
+    _restore(sched, s0)
+    _spec_host(sched, [([int(nxt[b])] + chain[b, :K].tolist() + pad,
+                        chain[b, :K].tolist(), K, []) for b in range(B)])
+    sched._spec_fn(w)()
+    acc, corr, used = sched._spec_out.cpu()
+    check(acc.tolist() == [K] * B and torch.equal(corr, chain[:, K]),
+          f"step {label}: greedy verify accepted {acc.tolist()}, "
+          f"correction {corr.tolist()}; sequential {chain.tolist()}")
+    got = _snapshot(sched)
+    if tree:     # the tree draws one more uniform (the sibling's)
+        seq["keys"] = s0["keys"] + torch.tensor([0, K + 2],
+                                                device=s0["keys"].device)
+    for name in ("lengths", "next", "keys", "ring"):
+        check(torch.equal(got[name], seq[name]), f"step {label}: greedy "
+              f"verify's {name} differs from {K + 1} sequential steps")
+    msg = (f"greedy verify of {K} drafts equals {K + 1} sequential steps "
+           "(tokens, lengths, feed, rings; keys advanced by the draws)")
+    if tree:
+        _restore(sched, s0)
+        wrong = [(int(t) - 32 + 7) % 95 + 32 for t in chain[:, 1]]
+        _spec_host(sched, [
+            ([int(nxt[b]), int(chain[b, 0]), wrong[b], int(chain[b, 2]),
+              int(chain[b, 3])],
+             [int(chain[b, 0]), wrong[b], int(chain[b, 2]),
+              int(chain[b, 3])], K, [(1, int(chain[b, 1]), K + 1)])
+            for b in range(B)])
+        pre = sched._cache.lengths.clone().long()
+        sched._spec_fn(w)()
+        acc, corr, used = sched._spec_out.cpu()
+        check(used.tolist() == [1] * B and acc.tolist() == [2] * B
+              and torch.equal(corr, chain[:, 2]), f"step {label}: sibling "
+              f"tick used {used.tolist()}, accepted {acc.tolist()}, "
+              f"correction {corr.tolist()} (want {chain[:, 2].tolist()})")
+        c, ps = sched._cache, sched.page_size
+        for b in range(B):
+            slots = []
+            for pos in (int(pre[b]) + 2, int(pre[b]) + K + 1):
+                slots.append((int(c.page_table[b, pos // ps]), pos % ps))
+            (pd, sd), (pn, sn) = slots
+            for f in ("k", "v"):
+                t = getattr(c, f)
+                check(torch.equal(t[:, pd, sd], t[:, pn, sn]),
+                      f"step {label}: row {b}: sibling {f} not moved")
+            if c.k_scale is not None:
+                for f in ("k_scale", "v_scale"):
+                    t = getattr(c, f)
+                    check(torch.equal(t[:, pd, :, sd], t[:, pn, :, sn]),
+                          f"step {label}: row {b}: sibling {f} not moved")
+        msg += ("; tree tick with a sibling at position 1: used on every "
+                "row, its k/v moved bitwise onto the accepted slot")
+    _restore(sched, s0)
+    sched._temps_dev.copy_(temps)
+    rows = []
+    for b in range(B):
+        d = (chain[b, :K].tolist() if b % 2 == 0 else
+             torch.randint(33, 126, (K,)).tolist())
+        rows.append(([int(nxt[b])] + d + pad, d, b % (K + 1), []))
+    s1 = _spec_snapshot(sched)
+    _spec_host(sched, rows)
+    c0 = _launch_counts()
+    sched._spec_fn(w)()
+    eager_n = {n: v - c0[n] for n, v in _launch_counts().items()
+               if v != c0[n]}
+    eager = _spec_snapshot(sched)
+    _restore(sched, s1)
+    sched._spec_out.copy_(s1["spec_out"])
+    prog = sched._spec_for(w)
+    check(prog.graph is not None, f"step {label}: no spec graph captured")
+    c0 = _launch_counts()
+    prog()
+    replay_n = {n: v - c0[n] for n, v in _launch_counts().items()
+                if v != c0[n]}
+    _bitwise(f"step {label}: spec graph replay vs eager spec tick", eager,
+             _spec_snapshot(sched))
+    check(replay_n == eager_n, f"step {label}: a spec replay counts "
+          f"{replay_n}, the eager tick launched {eager_n}")
+    torch.cuda.synchronize()
+    print(f"step: {label} spec (2 layers, quote weights, B={B}, W={w}, "
+          f"K={K}, {'tree N=8' if tree else 'linear'}): {msg}; the spec "
+          f"graph's replay bitwise equal to the eager tick (accepted "
+          f"{eager['spec_out'][0].tolist()}), launches per replay "
+          f"{replay_n}", flush=True)
+
+
+def _spec_snapshot(sched) -> dict:
+    return {n: t.clone() for n, t in _spec_persistent(sched).items()}
+
+
 # Texts of the embed legs (a text of n bytes is n + 1 tokens with BOS,
 # and S is the power of two above the longest): two, the longer of 128-254
 # bytes (R = 2, S = 256: the dense projections at 512 rows go to kernel A
@@ -1625,6 +2142,7 @@ def phase_step(model: str, quant: str, prefill_check: bool,
     tokens = torch.cat([tok, torch.zeros_like(tok)])     # row 1 parked
     active = torch.tensor([True, False])
     pages = -(-(n + wta) // ps)
+    verify = _verify_runs(fam, params, cfg, cache, impl)
     launched = {k: f.launches for k, f in _wrappers().items()}
     out_gpu, _ = fam.decode_step_paged(params, cfg, tokens, cache,
                                        active.to(dev), pages=pages,
@@ -1704,6 +2222,7 @@ def phase_step(model: str, quant: str, prefill_check: bool,
         check(same, f"step {model} {quant} impl={impl}: argmax differs")
     check(torch.equal(cache.lengths.cpu(), cpu_cache.lengths),
           f"step {model}: lengths differ")
+    _verify_vs_cpu(f"{model} {quant} impl={impl}", params_cpu, verify)
     if wta:    # both pools hold the step's k/v, one bf16 rounding apart
         live = cache.page_table[0, :pages].long().cpu()
         for name in ("k", "v"):
@@ -1745,6 +2264,8 @@ def phase_step(model: str, quant: str, prefill_check: bool,
               f"{cpu_s:.1f} s")
         check(bool((cos >= 1 - EMBED_TOL).all()), f"step {model} {quant}: "
               f"embed cosines {cos.tolist()} < {1 - EMBED_TOL}")
+    del params_cpu
+    _spec_sched_checks(f"{model} {quant} impl={impl}", model, quant, impl)
 
 
 # -- optional phase: where one full-depth decode step spends its time ---------
@@ -2055,6 +2576,35 @@ def _probe_graph_ms(sched, n: int = 20) -> float:
         return start.elapsed_time(end) / n
 
     return _parked_replays(sched, body)
+
+
+def _graph_replay_ms(sched, key: tuple, n: int = 20) -> float:
+    """CUDA-event ms per replay of the captured program under ``key``
+    (``(window, K)`` or ``("spec", window)``), ``n`` replays
+    back to back on the scheduler thread with every row parked (the
+    probe's conditions; keys and mask restored)."""
+    import torch
+
+    def run() -> float:
+        prog = sched._programs[key]
+        keys = sched._keys_dev.clone()
+        act = sched._active_dev.clone()
+        sched._active_dev.zero_()
+        try:
+            prog()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                prog()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / n
+        finally:
+            sched._keys_dev.copy_(keys)
+            sched._active_dev.copy_(act)
+
+    return _on_loop(sched, run)
 
 
 def _wall_samples(sched) -> list:
@@ -2573,13 +3123,237 @@ def phase_server(results: dict, model: str, quant: str,
         engine.stop()
 
 
+# The spec servers' burst: the chat burst's shapes with longer answers
+# (the quote weights' output repeats a 16-token phrase, so n-gram drafts
+# land from the second lap on); every request but the sampled one is
+# greedy.
+SPEC_CYCLE = "0123456789:;<=>?"
+
+
+def _spec_reqs():
+    from p2p_llm_chat_tpu_torch.serve.engine import SUGGEST_PREFIX
+    long_prompt = ("The co-pilot reads the whole conversation before it "
+                   "drafts a reply. " * 40)[:1500]
+    gen = lambda p, n, **o: ("/api/generate", {
+        "prompt": p, "stream": bool(o.pop("stream", False)),
+        "options": dict(num_predict=n, **o)})
+    return [
+        gen("Draft a reply to: see you at noon?", 64),
+        gen("hello there", 48, stream=True, temperature=0.8, seed=11,
+            top_k=40, top_p=0.9),
+        ("/api/chat", {"messages": [{"role": "user",
+                                     "content": "how are you?"}],
+                       "stream": False, "options": {"num_predict": 48}}),
+        gen(long_prompt, 48),
+        gen(SPEC_CYCLE * 2 + SPEC_CYCLE[:12], 64, stream=True),
+        gen("penalised", 48, repeat_penalty=1.1),
+        gen(SUGGEST_PREFIX + "are we still on for lunch tomorrow?", 64),
+    ]
+
+
+def _check_answers(label: str, reqs, answers) -> list:
+    finals = []
+    for (path, body), ans in zip(reqs, answers):
+        check(not isinstance(ans, Exception), f"{label} {path}: {ans!r}")
+        status, text = ans
+        lines = [json.loads(x) for x in text.splitlines() if x.strip()]
+        rec = lines[-1] if lines else {}
+        check(status == 200 and rec.get("done") is True
+              and "error" not in rec, f"{label} {path}: {status} {rec}")
+        n_pred = body["options"]["num_predict"]
+        check(0 < rec["eval_count"] <= n_pred, f"{label} {path}: "
+              f"eval_count {rec['eval_count']}")
+        finals.append(rec)
+    return finals
+
+
+def _spec_burst(label: str, url: str, reqs) -> dict:
+    """The burst once: answers checked; readings from the answers and
+    the /metrics deltas (per-request decode rate from eval_count /
+    eval_duration)."""
+    m0 = _metrics(url)
+    answers, wall = _burst(url, reqs)
+    finals = _check_answers(label, reqs, answers)
+    m1 = _metrics(url)
+    d = lambda k: float(m1.get(k, 0)) - float(m0.get(k, 0))
+    toks = sum(r["eval_count"] for r in finals)
+    rates = sorted(r["eval_count"] / (r["eval_duration"] / 1e9)
+                   for r in finals if r["eval_duration"] > 0)
+    return dict(wall=wall, toks=toks, tok_s=toks / wall,
+                p50_rate=rates[len(rates) // 2],
+                accepted=d("serve_spec_accepted_total"),
+                ticks=d("serve_decode_ticks_total"),
+                per_dispatch=float(m1.get("serve_spec_accepted_per_dispatch",
+                                          0)))
+
+
+def _greedy_contexts(url: str, reqs) -> list:
+    out = []
+    for path, body in reqs:
+        if body["options"].get("temperature", 0) > 0:
+            continue
+        body = dict(body, stream=False)
+        rec = json.loads(_post(url + path, body)[1])
+        out.append(rec.get("context") or rec["message"]["content"])
+    return out
+
+
+def phase_server_spec(results: dict, model: str, quant: str,
+                      impl: str = "gather", nodes: int = 8) -> None:
+    """The engine (32 layers, 8 slots, max_seq 4096, chunked admission
+    and the prefix cache on) on full-width quote weights
+    (models/synth.quote_params) with ``SERVE_SPEC=4`` and
+    ``SERVE_SPEC_TREE_NODES=nodes`` (8 is the reference's default; 0
+    linear), over an int8 pool (or a bf16 one under a write-then-attend
+    ``impl``), behind the Ollama front. The spec burst with every
+    counter zeroed: answers well formed, ``serve_spec_accepted_total`` >
+    0 and ``serve_spec_accepted_per_dispatch`` > 1, kernel B's verify
+    mode launched (on write-then-attend its pool mode, and the verify
+    mode never). The greedy answers, rerun alone, equal the same
+    server's with speculation off (``spec_k`` set to 0 between loop
+    iterations, the burst rerun for readings). Then
+    ``serve.scheduler.dispatch`` armed ``raise*1`` fires in a spec tick
+    (the flight recorder's last ``spec`` event is the reset's
+    iteration): the stream ends in an error record and the greedy rerun
+    is unchanged. Prints served tok/s, per-request rate and inter-token
+    p50, and accepted tokens per verify dispatch, spec on and off."""
+    import torch
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    from p2p_llm_chat_tpu_torch.models.synth import quote_params
+    from p2p_llm_chat_tpu_torch.serve.api import OllamaServer
+    from p2p_llm_chat_tpu_torch.serve.engine import build_engine_from_env
+    from p2p_llm_chat_tpu_torch.utils import failpoints as fp
+
+    wta = impl != "gather"
+    label = (f"{model} {quant} spec K=4 "
+             + (f"tree N={nodes}" if nodes else "linear")
+             + (" bf16 KV impl=kernel" if wta else ""))
+    os.environ.update(SERVE_BACKEND="torch", MODEL_CONFIG=model,
+                      SERVE_KV="paged", SERVE_QUANT=quant,
+                      SERVE_KV_QUANT="" if wta else "int8", SERVE_SLOTS="8",
+                      SERVE_MAX_SEQ="4096", SERVE_DEVICE="cuda",
+                      SERVE_PREFILL_CHUNK="256", SERVE_PREFIX="1",
+                      PAGED_ATTN_IMPL=impl, SERVE_SPEC="4",
+                      SERVE_SPEC_TREE_NODES=str(nodes))
+    t0 = time.monotonic()
+    engine = build_engine_from_env(params=quote_params(
+        get_config(model), seed=0, quant=quant, device="cuda"))
+    server = OllamaServer(engine, addr="127.0.0.1:0").start()
+    try:
+        deadline = time.monotonic() + 600
+        while not engine.ready():
+            err = engine.warmup_error
+            check(err is None, f"server {label}: warmup failed: {err!r}")
+            check(time.monotonic() < deadline, f"server {label}: never "
+                  "became ready")
+            time.sleep(0.1)
+        sched, url = engine.scheduler, server.url
+        check(sched.spec_k == 4 and sched.spec_tree_nodes == nodes,
+              f"server {label}: spec_k {sched.spec_k}, tree nodes "
+              f"{sched.spec_tree_nodes}")
+        spec_graphs = sum(1 for k in sched._programs if k[0] == "spec")
+        print(f"server {label}: ready in {time.monotonic() - t0:.1f} s "
+              f"(quote weights built included); "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; "
+              f"{len(sched._programs)} graphs, {spec_graphs} of them spec "
+              "programs", flush=True)
+        reqs = _spec_reqs()
+        wrappers = _wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        on = _spec_burst(label, url, reqs)
+        ctx_on = _greedy_contexts(url, reqs)
+        launches = {n: f.launches for n, f in wrappers.items() if f.launches}
+        m = _metrics(url)
+        acc = float(m["serve_spec_accepted_total"])
+        per = float(m["serve_spec_accepted_per_dispatch"])
+        check(acc > 0 and per > 1, f"server {label}: "
+              f"serve_spec_accepted_total {acc}, per dispatch {per}")
+        verify = launches.get("paged_attention_verify_append", 0)
+        if wta:
+            check(verify == 0 and launches.get("paged_attention", 0) > 0,
+                  f"server {label}: kernel B launches {launches}")
+        else:
+            check(verify > 0, f"server {label}: the verify mode was never "
+                  f"launched ({launches})")
+        for name, n in launches.items():
+            rec = results.get(name)
+            if rec is not None:
+                rec.setdefault("launches_by_path", {})[label] = n
+                rec["launches"] = rec.get("launches", 0) + n
+        _on_loop(sched, lambda: setattr(sched, "spec_k", 0))
+        try:
+            off = _spec_burst(label + " spec off", url, reqs)
+            ctx_off = _greedy_contexts(url, reqs)
+        finally:
+            _on_loop(sched, lambda: setattr(sched, "spec_k", 4))
+        check(ctx_on == ctx_off, f"server {label}: greedy answers differ "
+              "with speculation on and off")
+        W = min(128, sched.max_seq)
+        step_ms = _graph_replay_ms(sched, (W, 1))
+        spec_ms = _graph_replay_ms(sched, ("spec", W))
+        S = nodes or 5
+        print(f"server {label}: one verify tick (S={S} positions, B=8, "
+              f"graph replay, W={W}, rows parked) {spec_ms:.3f} ms against "
+              f"a K=1 decode step {step_ms:.3f} ms: {spec_ms / step_ms:.2f} "
+              "steps, so a tick gains where a drafted row accepts more "
+              f"than {spec_ms / step_ms - 1:.2f} tokens", flush=True)
+        print(f"server {label}: {len(ctx_on)} greedy answers equal with "
+              f"speculation on and off; launches {launches}; "
+              f"serve_spec_accepted_total {acc:.0f}, "
+              f"serve_spec_accepted_per_dispatch {per}, "
+              f"serve_spec_accept_ema {m['serve_spec_accept_ema']}"
+              + (f", serve_spec_tree_accepted_path_len "
+                 f"{m['serve_spec_tree_accepted_path_len']}" if nodes
+                 else ""), flush=True)
+        for name, r in (("on", on), ("off", off)):
+            print(f"server {label}: spec {name}: {r['toks']} tokens in "
+                  f"{r['wall']:.2f} s = {r['tok_s']:.1f} tok/s served, "
+                  f"decode {r['p50_rate']:.1f} tok/s per request (p50), "
+                  "decode ticks "
+                  f"{r['ticks']:.0f}, accepted drafts {r['accepted']:.0f}"
+                  + (f", accepted per verify dispatch {r['per_dispatch']}"
+                     if name == "on" else ""), flush=True)
+        # A fault in a spec tick: the first tick of a prompt that already
+        # holds its continuation's bigram drafts at once.
+        _quiesce(sched)
+        fp.reset_hits()
+        fp.arm("serve.scheduler.dispatch", "raise*1")
+        try:
+            status, text = _post(url + "/api/generate", {
+                "prompt": SPEC_CYCLE * 2 + SPEC_CYCLE[:5], "stream": True,
+                "options": {"num_predict": 16}})
+        finally:
+            fp.disarm("serve.scheduler.dispatch")
+        lines = [json.loads(x) for x in text.splitlines() if x.strip()]
+        last = lines[-1] if lines else {}
+        check(status == 200 and last.get("done") is True and "error" in last,
+              f"server {label}: dispatch fault: stream ended with {last}")
+        events = sched.flight_snapshot()
+        resets = [e["it"] for e in events if e["kind"] == "reset"]
+        specs = [e["it"] for e in events if e["kind"] == "spec"]
+        check(resets and specs and specs[-1] == resets[-1],
+              f"server {label}: the dispatch fault was not in a spec tick "
+              f"(spec its {specs[-3:]}, resets {resets[-3:]})")
+        again = _greedy_contexts(url, reqs[:1])
+        check(again == ctx_on[:1], f"server {label}: the greedy rerun after "
+              "the fault differs")
+        print(f"server {label}: serve.scheduler.dispatch=raise*1 in a spec "
+              f"tick: stream ended with {last['error']!r}; greedy rerun "
+              "identical", flush=True)
+    finally:
+        server.stop()
+        engine.stop()
+
+
 # Phase names for --only; a family name runs all of its members.
 PHASES = {
     "build": ("build",),
-    "kernel": ("kernel_a", "kernel_b", "kernel_b_pool", "kernel_c",
-               "kernel_experts", "kernel_d", "kernel_e"),
+    "kernel": ("kernel_a", "kernel_b", "kernel_b_pool", "kernel_b_verify",
+               "kernel_c", "kernel_experts", "kernel_d", "kernel_e"),
     "step": ("step_llama", "step_llama_wta", "step_mixtral"),
-    "server": ("server_llama", "server_llama_wta", "server_mixtral"),
+    "server": ("server_llama", "server_llama_wta", "server_mixtral",
+               "server_spec"),
     "profile": ("profile_llama", "profile_llama_wta", "profile_mixtral",
                 "profile_prefill"),
 }
@@ -2636,6 +3410,7 @@ def main() -> int:
         ("kernel_a", lambda: phase_kernel_a(results)),
         ("kernel_b", lambda: phase_kernel_b(results)),
         ("kernel_b_pool", lambda: phase_kernel_b_pool(results)),
+        ("kernel_b_verify", lambda: phase_kernel_b_verify(results)),
         ("kernel_c", lambda: phase_kernel_c(results)),
         ("kernel_experts", lambda: phase_kernel_experts(results)),
         ("kernel_d", lambda: phase_kernel_d(results)),
@@ -2664,6 +3439,14 @@ def main() -> int:
             results, "mixtral-8x7b", "int4",
             ("quant_matmul4", "quant_matmul_experts_stacked4",
              "paged_attention_append", "prefill_attention"))),
+        ("server_spec", lambda: phase_server_spec(
+            results, "llama3.1-8b", "int8")),
+        ("server_spec", lambda: phase_server_spec(
+            results, "llama3.1-8b", "int8", nodes=0)),
+        ("server_spec", lambda: phase_server_spec(
+            results, "llama3.1-8b", "int8", impl="kernel", nodes=0)),
+        ("server_spec", lambda: phase_server_spec(
+            results, "mixtral-8x7b", "int4")),
         ("profile_llama", lambda: phase_profile("llama3.1-8b", "int8")),
         ("profile_llama_wta", lambda: phase_profile("llama3.1-8b", "int8",
                                                     impl="kernel")),
@@ -2673,7 +3456,7 @@ def main() -> int:
                                                           "int8")),
     ]
     try:
-        if phases & set(PHASES["server"]):
+        if phases & (set(PHASES["server"]) - {"server_spec"}):
             check(set(PHASES["kernel"]) <= phases, "the server phases "
                   "report into the kernel phases' results; run all of them")
         for name, run in runs:

@@ -1,5 +1,6 @@
 // Kernel B: paged decode attention for Hopper (sm_90a), plain C
-// interface for ctypes. Two modes over one split kernel and one combine.
+// interface for ctypes. Three modes over one split kernel and two
+// combines.
 //
 // Append mode (paged_append_launch) replaces
 // p2p_llm_chat_tpu/ops/paged_attention.py _paged_attention_flash_append
@@ -24,7 +25,23 @@
 //   out = sum_t e^{s_t-m} sv_t v_t / sum_t e^{s_t-m}   for t < lengths[b]
 // with no current-token term (sk = sv = 1 on bf16 pools).
 //
-// In both modes positions >= lengths[b] are never loaded and never
+// Verify mode (paged_verify_launch) computes what the reference's
+// paged_attention_verify_append (ops/paged_attention.py:635-690, XLA, no
+// Pallas) computes for speculative decoding: S candidate positions per row
+// attend the pool window (the same positions t < lengths[b] for every j)
+// plus the block's own k/v, which is not in the pool, at full precision:
+//   s_t = (q_j . k_t) / sqrt(D) * sk_t                  for t < lengths[b]
+//   s_i = (q_j . kb_i) / sqrt(D)     where mask[b, j, i] (default i <= j)
+//   out_j = (sum_t e^{s_t-m} sv_t v_t + sum_i e^{s_i-m} vb_i)
+//         / (sum_t e^{s_t-m} + sum_i e^{s_i-m})
+// It runs the same split kernel over the pool with the S x rep query rows
+// of a kv group packed into full 16-row A tiles (one block per 16 rows,
+// ROWS = 16; the decode modes keep 8-row tiles with rows 8..15 zero), and
+// its own combine, which seeds each row with the block's S masked scores.
+// The pool window is read once per 16 query rows (twice at S = 8, rep =
+// 4: the second read mostly from L2).
+//
+// In every mode positions >= lengths[b] are never loaded and never
 // multiplied by 0: a garbage page may hold NaN or Inf.
 //
 // Bound on an H100 SXM: the pool read. At B = 8, W = 1024, Hkv = 8,
@@ -88,7 +105,10 @@
 // 32-layer llama3.1-8b step at B = 8, W = 1024 replayed from a CUDA
 // graph; NVIDIA H100 80GB HBM3, 700 W): append mode on an int8 pool
 // 0.47-0.49 ms (bound 0.167), pool mode on a bf16 pool 0.55-0.58 ms
-// (bound 0.322), against 1.5-1.7 ms for SDPA over a pre-gathered window.
+// (bound 0.322), against 1.5-1.7 ms for SDPA over a pre-gathered window;
+// verify mode, one llama3.1-8b spec verify at B = 8, S = 8, W = 1024 on
+// an int8 pool, 1.11 ms (bound 0.178) against 2.2 ms for SDPA over the
+// pre-gathered window plus the block (chip_smoke.py's kernel_b_verify).
 // Timed cut-downs of this source (PERF.md, kernel B) put an int8 layer at
 // 4.4 us for the launches, the prologue and the combine alone; 10.8 us
 // with the reads but not the walk's arithmetic (the 17.3 MB in ~6.4 us,
@@ -110,6 +130,7 @@ constexpr int SLICE = 256;       // tokens per block (paged_slice_tokens)
 constexpr int NW = 4;            // warps per block
 constexpr int THREADS = 32 * NW;
 constexpr int MAX_REP = 8;
+constexpr int MAX_S = 64;           // verify mode's block positions per row
 constexpr int MAX_DEVICES = 64;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -195,6 +216,32 @@ __device__ __forceinline__ void mma_top(float& c0, float& c1, uint32_t a0,
         : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1), "f"(0.f));
 }
 
+// c (rows gid, gid + 8) += A . B over one m16n8k16 step, every row live:
+// c[0..1] row gid, c[2..3] row gid + 8; a[0], a[1] row gid (k 2tig.., k
+// 2tig + 8..), a[2], a[3] row gid + 8.
+__device__ __forceinline__ void mma_full(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1)
+{
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[2]), "r"(a[1]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The walk's product for RH row halves a lane holds (RH = 1: rows 0..7
+// of the A tile, rows 8..15 zero; RH = 2: all 16 rows).
+template <int RH>
+__device__ __forceinline__ void mma_rows(float (&c)[2 * RH],
+                                         const uint32_t (&a)[2 * RH],
+                                         uint32_t b0, uint32_t b1)
+{
+    if constexpr (RH == 1) {
+        mma_top(c[0], c[1], a[0], a[1], b0, b1);
+    } else {
+        mma_full(c, a, b0, b1);
+    }
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi)
 {
     __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);   // .x = lo (low bits)
@@ -244,7 +291,7 @@ __device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo,
 //   int8 pools: k-step ks's k indices (2tig, 2tig+1, 2tig+8, 2tig+9) are
 //     d = 16 ks + 4tig + (0, 1, 2, 3); output n-tiles 2j and 2j+1,
 //     column c, are d = 16 j + 2c and 16 j + 2c + 1.
-template <typename T, int D>
+template <typename T, int D, int ROWS>
 __global__ void __launch_bounds__(THREADS)
 paged_split_kernel(const __nv_bfloat16* __restrict__ q,
                    const T* __restrict__ kp, const T* __restrict__ vp,
@@ -253,7 +300,7 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
                    const int* __restrict__ lengths,
                    float* __restrict__ ws_acc, float* __restrict__ ws_ml,
                    int layer, int N, int ps, int ps_pad, int Hkv, int rep,
-                   int pages, float scale_log2)
+                   int S, int pages, float scale_log2)
 {
     using R = Ring<T, D>;
     constexpr int CHUNK = R::CHUNK;
@@ -265,16 +312,27 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
     constexpr int ND = D / 8;                      // output n-tiles
     constexpr int NT = CHUNK / 8;                  // score n-tiles
     constexpr int KS = CHUNK / 16;                 // k-steps of p . v
+    constexpr int RH = ROWS / 8;                   // row halves a lane holds
     extern __shared__ __align__(16) unsigned char smem[];
 
     const int sp = blockIdx.x;
-    const int g = blockIdx.y;
+    const int groups = gridDim.y / Hkv;            // row groups of ROWS
+    const int g = blockIdx.y / groups;
+    const int rg = blockIdx.y % groups;
     const int b = blockIdx.z;
     const int splits = gridDim.x;
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
     const int gid = lane >> 2, tig = lane & 3;
     const int Hq = Hkv * rep;
+    // Tile row r is query row ROWS rg + r of the group's S x rep rows
+    // (position j = row / rep, head g rep + row % rep); rows past S rep
+    // are zero and never stored.
+    const int rows = min(ROWS, S * rep - ROWS * rg);
+    auto q_index = [&](int r) {                    // [B, S, Hq] index
+        const int row = ROWS * rg + r;
+        return ((size_t)b * S + row / rep) * Hq + (size_t)g * rep + row % rep;
+    };
 
     // The slice's page table entries, once, read beside the row's length
     // (one round trip, not two).
@@ -346,20 +404,21 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
     };
 
 #pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
-        if (s < nchunks) issue(s);
+    for (int st = 0; st < STAGES; ++st) {
+        if (st < nchunks) issue(st);
         cp_async_commit();           // one group per chunk, empty or not
     }
     // The combine may launch now; it waits for this grid to complete.
     asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
-    // q's A fragments (rows gid < rep; rows >= rep zero), in registers
-    // for the whole walk.
-    uint32_t qa[KD][2];
-    {
-        const bool row_ok = gid < rep;
-        const __nv_bfloat16* qr = q + ((size_t)b * Hq + g * rep
-                                       + (row_ok ? gid : 0)) * D;
+    // q's A fragments (row gid + 8 h in slots 2 h, 2 h + 1; rows past
+    // `rows` zero), in registers for the whole walk.
+    uint32_t qa[KD][2 * RH];
+#pragma unroll
+    for (int h = 0; h < RH; ++h) {
+        const int r = gid + 8 * h;
+        const bool row_ok = r < rows;
+        const __nv_bfloat16* qr = q + q_index(row_ok ? r : 0) * D;
 #pragma unroll
         for (int kk = 0; kk < KD; ++kk) {
             uint32_t a0 = 0, a2 = 0;
@@ -376,15 +435,24 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
                         qr + 16 * kk + 2 * tig + 8);
                 }
             }
-            qa[kk][0] = a0;
-            qa[kk][1] = a2;
+            qa[kk][2 * h] = a0;
+            qa[kk][2 * h + 1] = a2;
         }
     }
 
-    float m = -INFINITY, l = 0.f;    // row gid's running max (log2), sum
-    float o[ND][2];
+    // Row gid + 8 h's running max (log2) and sum; o[n][2 h + c] its
+    // output column c of n-tile n.
+    float m[RH], l[RH];
+    float o[ND][2 * RH];
 #pragma unroll
-    for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = 0.f;
+    for (int h = 0; h < RH; ++h) {
+        m[h] = -INFINITY;
+        l[h] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int c = 0; c < 2 * RH; ++c) o[n][c] = 0.f;
 
     // A lane's ldmatrix row address within a slot (bytes), for n-tiles /
     // k-steps (0, 1) of a 16-token group:
@@ -404,9 +472,11 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
 
         // s = q . k over the chunk's tokens (NT n-tiles of 8); the
         // n-tiles' accumulations interleave, each in k-step order.
-        float s[NT][2];
+        float s[NT][2 * RH];
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = 0.f;
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int c = 0; c < 2 * RH; ++c) s[nt][c] = 0.f;
         if (I8) {
 #pragma unroll
             for (int kp2 = 0; kp2 < KD / 2; ++kp2) {
@@ -420,8 +490,7 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
                         i8x4_to_bf16x4(f[j], b0, b1);
                         const int kk = 2 * kp2 + (j >> 1);
                         const int nt = 2 * np + (j & 1);
-                        mma_top(s[nt][0], s[nt][1], qa[kk][0], qa[kk][1], b0,
-                                b1);
+                        mma_rows<RH>(s[nt], qa[kk], b0, b1);
                     }
                 }
             }
@@ -432,10 +501,8 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
                 for (int np = 0; np < NT / 2; ++np) {
                     uint32_t f[4];
                     ldmatrix_x4(f, slot + k_lane + np * 16 * RSB + 32 * kk);
-                    mma_top(s[2 * np][0], s[2 * np][1], qa[kk][0], qa[kk][1],
-                            f[0], f[1]);
-                    mma_top(s[2 * np + 1][0], s[2 * np + 1][1], qa[kk][0],
-                            qa[kk][1], f[2], f[3]);
+                    mma_rows<RH>(s[2 * np], qa[kk], f[0], f[1]);
+                    mma_rows<RH>(s[2 * np + 1], qa[kk], f[2], f[3]);
                 }
             }
         }
@@ -443,47 +510,55 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
         // Scale (k scales on int8 pools), mask past the length, softmax.
         const float* sc = reinterpret_cast<const float*>(
             slot + 2 * CHUNK * RSB);
-        float mx = -INFINITY;
+        uint32_t pa[NT][RH];             // p . v's A: row half h, n-tile nt
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
+        for (int h = 0; h < RH; ++h) {
+            float mx = -INFINITY;
 #pragma unroll
-            for (int c = 0; c < 2; ++c) {
-                const int t = 8 * nt + 2 * tig + c;
-                const float sk = I8 ? sc[t] : 1.f;
-                s[nt][c] = pos0 + t < len ? s[nt][c] * sk * scale_log2
-                                          : -INFINITY;
-                mx = fmaxf(mx, s[nt][c]);
+            for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    const int t = 8 * nt + 2 * tig + c;
+                    const float sk = I8 ? sc[t] : 1.f;
+                    float& x = s[nt][2 * h + c];
+                    x = pos0 + t < len ? x * sk * scale_log2 : -INFINITY;
+                    mx = fmaxf(mx, x);
+                }
             }
-        }
-        mx = quad_max(mx);
-        const float mn = fmaxf(m, mx);          // finite: token pos0 is live
-        const float al = m == -INFINITY ? 0.f : exp2f(m - mn);
-        float sum = 0.f;
-        uint32_t pa[NT];                 // p . v's A: (a0, a2) per k-step
+            mx = quad_max(mx);
+            const float mn = fmaxf(m[h], mx);   // finite: token pos0 is live
+            const float al = m[h] == -INFINITY ? 0.f : exp2f(m[h] - mn);
+            float sum = 0.f;
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-            float p[2];
+            for (int nt = 0; nt < NT; ++nt) {
+                float p[2];
 #pragma unroll
-            for (int c = 0; c < 2; ++c) {
-                p[c] = exp2f(s[nt][c] - mn);
-                sum += p[c];
-                if (I8) p[c] *= sc[CHUNK + 8 * nt + 2 * tig + c];
+                for (int c = 0; c < 2; ++c) {
+                    p[c] = exp2f(s[nt][2 * h + c] - mn);
+                    sum += p[c];
+                    if (I8) p[c] *= sc[CHUNK + 8 * nt + 2 * tig + c];
+                }
+                pa[nt][h] = pack_bf16(p[0], p[1]);
             }
-            pa[nt] = pack_bf16(p[0], p[1]);
-        }
-        l = l * al + quad_sum(sum);
-        m = mn;
+            l[h] = l[h] * al + quad_sum(sum);
+            m[h] = mn;
 #pragma unroll
-        for (int n = 0; n < ND; ++n) {
-            o[n][0] *= al;
-            o[n][1] *= al;
+            for (int n = 0; n < ND; ++n) {
+                o[n][2 * h] *= al;
+                o[n][2 * h + 1] *= al;
+            }
         }
 
         // o += p . v, KS k-steps of 16 tokens; an ldmatrix.x4.trans covers
         // 32 d of int8 rows, 16 d of bf16 rows.
 #pragma unroll
         for (int kt = 0; kt < KS; ++kt) {
-            const uint32_t a0 = pa[2 * kt], a2 = pa[2 * kt + 1];
+            uint32_t a[2 * RH];
+#pragma unroll
+            for (int h = 0; h < RH; ++h) {
+                a[2 * h] = pa[2 * kt][h];
+                a[2 * h + 1] = pa[2 * kt + 1][h];
+            }
 #pragma unroll
             for (int jp = 0; jp < (I8 ? D / 32 : D / 16); ++jp) {
                 uint32_t f[4];
@@ -493,22 +568,20 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
                     // f[3] of block 2 jp + 1. byte_perm pairs two tokens
                     // of one d: (even d, odd d) -> n-tiles (2j, 2j + 1).
 #pragma unroll
-                    for (int h = 0; h < 2; ++h) {
+                    for (int hh = 0; hh < 2; ++hh) {
                         uint32_t e0, o0, e1, o1;
-                        i8x4_to_bf16x4(__byte_perm(f[2 * h], 0, 0x3120), e0,
+                        i8x4_to_bf16x4(__byte_perm(f[2 * hh], 0, 0x3120), e0,
                                        o0);
-                        i8x4_to_bf16x4(__byte_perm(f[2 * h + 1], 0, 0x3120),
+                        i8x4_to_bf16x4(__byte_perm(f[2 * hh + 1], 0, 0x3120),
                                        e1, o1);
-                        const int j = 2 * jp + h;
-                        mma_top(o[2 * j][0], o[2 * j][1], a0, a2, e0, e1);
-                        mma_top(o[2 * j + 1][0], o[2 * j + 1][1], a0, a2, o0,
-                                o1);
+                        const int j = 2 * jp + hh;
+                        mma_rows<RH>(o[2 * j], a, e0, e1);
+                        mma_rows<RH>(o[2 * j + 1], a, o0, o1);
                     }
                 } else {
                     // d 16 jp.. -> n-tile 2 jp, d 16 jp + 8.. -> 2 jp + 1.
-                    mma_top(o[2 * jp][0], o[2 * jp][1], a0, a2, f[0], f[1]);
-                    mma_top(o[2 * jp + 1][0], o[2 * jp + 1][1], a0, a2, f[2],
-                            f[3]);
+                    mma_rows<RH>(o[2 * jp], a, f[0], f[1]);
+                    mma_rows<RH>(o[2 * jp + 1], a, f[2], f[3]);
                 }
             }
         }
@@ -521,43 +594,45 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
     // free once every warp is past its walk).
     cp_async_wait<0>();
     __syncthreads();
-    float* const ml_s = reinterpret_cast<float*>(smem);       // [NW][8][2]
-    float* const acc_s = ml_s + NW * MAX_REP * 2;             // [NW][8][D]
-    if (gid < rep) {
+    float* const ml_s = reinterpret_cast<float*>(smem);       // [NW][ROWS][2]
+    float* const acc_s = ml_s + NW * ROWS * 2;                // [NW][ROWS][D]
+#pragma unroll
+    for (int h = 0; h < RH; ++h) {
+        const int r = gid + 8 * h;
+        if (r >= rows) continue;
         if (tig == 0) {
-            ml_s[(warp * MAX_REP + gid) * 2] = m;
-            ml_s[(warp * MAX_REP + gid) * 2 + 1] = l;
+            ml_s[(warp * ROWS + r) * 2] = m[h];
+            ml_s[(warp * ROWS + r) * 2 + 1] = l[h];
         }
-        float* a = acc_s + (warp * MAX_REP + gid) * D;
+        float* acc = acc_s + (warp * ROWS + r) * D;
 #pragma unroll
         for (int n = 0; n < ND; ++n) {
             if (I8) {
                 const int d = 16 * (n >> 1) + 4 * tig + (n & 1);
-                a[d] = o[n][0];
-                a[d + 2] = o[n][1];
+                acc[d] = o[n][2 * h];
+                acc[d + 2] = o[n][2 * h + 1];
             } else {
                 const int d = 8 * n + 2 * tig;
-                a[d] = o[n][0];
-                a[d + 1] = o[n][1];
+                acc[d] = o[n][2 * h];
+                acc[d + 1] = o[n][2 * h + 1];
             }
         }
     }
     __syncthreads();
-    const size_t hbase = (size_t)b * Hq + (size_t)g * rep;
-    for (int e = tid; e < rep * D; e += THREADS) {
+    for (int e = tid; e < rows * D; e += THREADS) {
         const int r = e / D, d = e % D;
         float mb = -INFINITY;
 #pragma unroll
         for (int w = 0; w < NW; ++w)
-            mb = fmaxf(mb, ml_s[(w * MAX_REP + r) * 2]);
+            mb = fmaxf(mb, ml_s[(w * ROWS + r) * 2]);
         float acc = 0.f, lb = 0.f;
 #pragma unroll
         for (int w = 0; w < NW; ++w) {
-            const float f = exp2f(ml_s[(w * MAX_REP + r) * 2] - mb);
-            acc += acc_s[(w * MAX_REP + r) * D + d] * f;
-            lb += ml_s[(w * MAX_REP + r) * 2 + 1] * f;
+            const float f = exp2f(ml_s[(w * ROWS + r) * 2] - mb);
+            acc += acc_s[(w * ROWS + r) * D + d] * f;
+            lb += ml_s[(w * ROWS + r) * 2 + 1] * f;
         }
-        const size_t wi = (hbase + r) * splits + sp;
+        const size_t wi = q_index(r) * splits + sp;
         ws_acc[wi * D + d] = acc;
         if (d == 0) {
             ws_ml[wi * 2] = mb;
@@ -625,13 +700,77 @@ __global__ void paged_combine_kernel(const __nv_bfloat16* __restrict__ q,
     out[qi + d] = __float2bfloat16(den > 0.f ? num / den : 0.f);
 }
 
-template <typename T, int D>
+// Verify mode's combine: the live slices of each query row merged in
+// slice order after the in-register block, then normalised. Grid (B S,
+// Hq), one thread per element of D. The block's S scores of query
+// position j are computed here at full precision (f32 dot products of the
+// bf16 q and k_blk, reduced over the block's warps in a fixed order); a
+// block position i enters where mask[b, j, i] != 0 (mask null: i <= j).
+__global__ void paged_verify_combine_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kb,
+    const __nv_bfloat16* __restrict__ vb, const unsigned char* __restrict__ mask,
+    const int* __restrict__ lengths, const float* __restrict__ ws_acc,
+    const float* __restrict__ ws_ml, __nv_bfloat16* __restrict__ out, int S,
+    int Hq, int Hkv, int D, int splits, int window, float scale_log2)
+{
+    __shared__ float part[4][MAX_S];
+    __shared__ float sb[MAX_S];
+    const int b = blockIdx.x / S;
+    const int j = blockIdx.x % S;
+    const int h = blockIdx.y;
+    const int d = threadIdx.x;
+    const int g = h / (Hq / Hkv);
+    const size_t qi = ((size_t)blockIdx.x * Hq + h) * D;
+    const size_t wb = ((size_t)blockIdx.x * Hq + h) * splits;
+    const float qd = __bfloat162float(q[qi + d]);
+    for (int i = 0; i < S; ++i) {
+        float x = qd * __bfloat162float(
+            kb[(((size_t)b * S + i) * Hkv + g) * D + d]);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+            x += __shfl_xor_sync(0xffffffffu, x, o);
+        if ((d & 31) == 0) part[d >> 5][i] = x;
+    }
+    __syncthreads();
+    for (int i = d; i < S; i += D) {
+        float x = part[0][i];
+        for (int w = 1; w < D / 32; ++w) x += part[w][i];
+        const bool on = mask != nullptr
+            ? mask[((size_t)b * S + j) * S + i] != 0 : i <= j;
+        sb[i] = on ? x * scale_log2 : -INFINITY;
+    }
+    __syncthreads();
+    float m = -INFINITY;
+    for (int i = 0; i < S; ++i) m = fmaxf(m, sb[i]);
+    // The split grid's workspace is complete and visible past this point.
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    const int live = (min(lengths[b], window) + SLICE - 1) / SLICE;
+#pragma unroll 4
+    for (int sp = 0; sp < live; ++sp) m = fmaxf(m, ws_ml[(wb + sp) * 2]);
+    float den = 0.f, num = 0.f;
+    for (int i = 0; i < S; ++i) {
+        if (sb[i] == -INFINITY) continue;
+        const float p = exp2f(sb[i] - m);
+        den += p;
+        num += p * __bfloat162float(vb[(((size_t)b * S + i) * Hkv + g) * D
+                                       + d]);
+    }
+#pragma unroll 4
+    for (int sp = 0; sp < live; ++sp) {
+        const float f = exp2f(ws_ml[(wb + sp) * 2] - m);
+        den += ws_ml[(wb + sp) * 2 + 1] * f;
+        num += ws_acc[(wb + sp) * D + d] * f;
+    }
+    out[qi + d] = __float2bfloat16(num / den);
+}
+
+template <typename T, int D, int ROWS>
 cudaError_t launch_split(dim3 grid, cudaStream_t st, const void* q,
                          const void* kp, const void* vp, const void* ks,
                          const void* vs, const void* pt, int pt_stride,
                          const void* lengths, void* ws_acc, void* ws_ml,
                          int layer, int N, int ps, int ps_pad, int Hkv,
-                         int rep, int pages, float scale_log2)
+                         int rep, int S, int pages, float scale_log2)
 {
     // Above 48 KB a launch needs the opt-in, once per device.
     static bool opted_in[MAX_DEVICES] = {};
@@ -640,24 +779,81 @@ cudaError_t launch_split(dim3 grid, cudaStream_t st, const void* q,
     if (err != cudaSuccess) return err;
     if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
     if (!opted_in[dev]) {
-        err = cudaFuncSetAttribute(paged_split_kernel<T, D>,
+        err = cudaFuncSetAttribute(paged_split_kernel<T, D, ROWS>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    Ring<T, D>::SMEM);
         if (err != cudaSuccess) return err;
         opted_in[dev] = true;
     }
-    paged_split_kernel<T, D><<<grid, THREADS, Ring<T, D>::SMEM, st>>>(
+    paged_split_kernel<T, D, ROWS><<<grid, THREADS, Ring<T, D>::SMEM, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kp),
         static_cast<const T*>(vp), static_cast<const float*>(ks),
         static_cast<const float*>(vs), static_cast<const int*>(pt), pt_stride,
         static_cast<const int*>(lengths), static_cast<float*>(ws_acc),
-        static_cast<float*>(ws_ml), layer, N, ps, ps_pad, Hkv, rep, pages,
+        static_cast<float*>(ws_ml), layer, N, ps, ps_pad, Hkv, rep, S, pages,
         scale_log2);
     return cudaGetLastError();
 }
 
-// Both modes: the split kernel over the pool, then the combine (kc/vc
-// null in pool mode).
+// The split kernel over the pool for S query positions per row: rows of
+// ROWS (8: decode modes, S = 1; 16: verify mode) per block.
+template <int ROWS>
+cudaError_t launch_pool_walk(const void* q, const void* kp, const void* vp,
+                             const void* ks, const void* vs, const void* pt,
+                             int pt_stride, const void* lengths, void* ws_acc,
+                             void* ws_ml, int B, int S, int Hkv, int rep,
+                             int D, int N, int ps, int ps_pad, int layer,
+                             int pages, int splits, int quantized,
+                             cudaStream_t st, float scale_log2)
+{
+    const int groups = (S * rep + ROWS - 1) / ROWS;
+    const dim3 grid(splits, Hkv * groups, B);
+#define PA_ARGS grid, st, q, kp, vp, ks, vs, pt, pt_stride, lengths, ws_acc, \
+    ws_ml, layer, N, ps, ps_pad, Hkv, rep, S, pages, scale_log2
+    if (quantized) {
+        if (D == 32) return launch_split<int8_t, 32, ROWS>(PA_ARGS);
+        if (D == 64) return launch_split<int8_t, 64, ROWS>(PA_ARGS);
+        return launch_split<int8_t, 128, ROWS>(PA_ARGS);
+    }
+    if (D == 32) return launch_split<__nv_bfloat16, 32, ROWS>(PA_ARGS);
+    if (D == 64) return launch_split<__nv_bfloat16, 64, ROWS>(PA_ARGS);
+    return launch_split<__nv_bfloat16, 128, ROWS>(PA_ARGS);
+#undef PA_ARGS
+}
+
+bool bad_geometry(int B, int Hq, int Hkv, int D, int ps, int pages,
+                  int splits, int quantized, const void* ks, const void* vs)
+{
+    const int rep = Hkv > 0 ? Hq / Hkv : 0;
+    return rep < 1 || rep > MAX_REP || rep * Hkv != Hq || B < 1 || ps < 1
+        || pages < 1 || (long long)splits * SLICE < (long long)pages * ps
+        || (D != 32 && D != 64 && D != 128)
+        || (quantized && (ks == nullptr || vs == nullptr));
+}
+
+// A programmatic dependent of the split kernel: the combine's blocks
+// start while the split's last blocks run and wait (griddepcontrol.wait)
+// for the split grid's completion and its writes.
+template <typename... Params, typename... Args>
+cudaError_t launch_combine(void (*kernel)(Params...), dim3 grid, int D,
+                           cudaStream_t st, Args... args)
+{
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(D);
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+}
+
+// Append and pool modes: the split kernel over the pool, then the combine
+// (kc/vc null in pool mode).
 int launch(const void* q, const void* kc, const void* vc, const void* kp,
            const void* vp, const void* ks, const void* vs, const void* pt,
            int pt_stride, const void* lengths, void* ws_acc, void* ws_ml,
@@ -666,50 +862,23 @@ int launch(const void* q, const void* kc, const void* vc, const void* kp,
            void* stream)
 {
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-    const int rep = Hkv > 0 ? Hq / Hkv : 0;
-    if (rep < 1 || rep > MAX_REP || rep * Hkv != Hq || B < 1 || ps < 1
-            || pages < 1 || (long long)splits * SLICE < (long long)pages * ps
-            || (D != 32 && D != 64 && D != 128)
-            || (quantized && (ks == nullptr || vs == nullptr)))
+    if (bad_geometry(B, Hq, Hkv, D, ps, pages, splits, quantized, ks, vs))
         return (int)cudaErrorInvalidValue;
     const float scale_log2 = LOG2E / sqrtf((float)D);
-    const dim3 grid(splits, Hkv, B);
-    cudaError_t err;
-#define PA_ARGS grid, st, q, kp, vp, ks, vs, pt, pt_stride, lengths, ws_acc, \
-    ws_ml, layer, N, ps, ps_pad, Hkv, rep, pages, scale_log2
-    if (quantized) {
-        if (D == 32) err = launch_split<int8_t, 32>(PA_ARGS);
-        else if (D == 64) err = launch_split<int8_t, 64>(PA_ARGS);
-        else err = launch_split<int8_t, 128>(PA_ARGS);
-    } else {
-        if (D == 32) err = launch_split<__nv_bfloat16, 32>(PA_ARGS);
-        else if (D == 64) err = launch_split<__nv_bfloat16, 64>(PA_ARGS);
-        else err = launch_split<__nv_bfloat16, 128>(PA_ARGS);
-    }
-#undef PA_ARGS
+    cudaError_t err = launch_pool_walk<8>(
+        q, kp, vp, ks, vs, pt, pt_stride, lengths, ws_acc, ws_ml, B, 1, Hkv,
+        Hq / Hkv, D, N, ps, ps_pad, layer, pages, splits, quantized, st,
+        scale_log2);
     if (err != cudaSuccess) return (int)err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(B, Hq);
-    cfg.blockDim = dim3(D);
-    cfg.stream = st;
-    // A programmatic dependent of the split kernel: the combine's blocks
-    // start while the split's last blocks run and wait (griddepcontrol.wait)
-    // for the split grid's completion and its writes.
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(
-        &cfg, paged_combine_kernel, static_cast<const __nv_bfloat16*>(q),
+    return (int)launch_combine(
+        paged_combine_kernel, dim3(B, Hq), D, st,
+        static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(kc),
         static_cast<const __nv_bfloat16*>(vc),
         static_cast<const int*>(lengths),
         static_cast<const float*>(ws_acc), static_cast<const float*>(ws_ml),
         static_cast<__nv_bfloat16*>(out), Hq, Hkv, D, splits, pages * ps,
         scale_log2);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -749,6 +918,46 @@ int paged_pool_launch(const void* q, const void* kp, const void* vp,
                   lengths, ws_acc, ws_ml, out, B, Hq, Hkv, D, N, ps, ps_pad,
                   layer, pages, splits, quantized, stream);
 }
+
+// Verify mode. q [B,S,Hq,D] bf16 (S query positions per row); kb/vb
+// [B,S,Hkv,D] bf16 (the block's own k/v, not in the pool); mask [B,S,S]
+// uint8 (nonzero = position j attends block position i) or null for the
+// chain i <= j; the pool operands as in append mode, lengths [B] tokens
+// in the pool (the block not counted); ws_acc [B,S,Hq,splits,D] f32;
+// ws_ml [B,S,Hq,splits,2] f32; out [B,S,Hq,D] bf16. 1 <= S <= MAX_S.
+int paged_verify_launch(const void* q, const void* kb, const void* vb,
+                        const void* mask, const void* kp, const void* vp,
+                        const void* ks, const void* vs, const void* pt,
+                        int pt_stride, const void* lengths, void* ws_acc,
+                        void* ws_ml, void* out, int B, int S, int Hq, int Hkv,
+                        int D, int N, int ps, int ps_pad, int layer,
+                        int pages, int splits, int quantized, void* stream)
+{
+    cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    if (kb == nullptr || vb == nullptr || S < 1 || S > MAX_S
+            || bad_geometry(B, Hq, Hkv, D, ps, pages, splits, quantized, ks,
+                            vs))
+        return (int)cudaErrorInvalidValue;
+    const float scale_log2 = LOG2E / sqrtf((float)D);
+    cudaError_t err = launch_pool_walk<16>(
+        q, kp, vp, ks, vs, pt, pt_stride, lengths, ws_acc, ws_ml, B, S, Hkv,
+        Hq / Hkv, D, N, ps, ps_pad, layer, pages, splits, quantized, st,
+        scale_log2);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_combine(
+        paged_verify_combine_kernel, dim3(B * S, Hq), D, st,
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(kb),
+        static_cast<const __nv_bfloat16*>(vb),
+        static_cast<const unsigned char*>(mask),
+        static_cast<const int*>(lengths),
+        static_cast<const float*>(ws_acc), static_cast<const float*>(ws_ml),
+        static_cast<__nv_bfloat16*>(out), S, Hq, Hkv, D, splits, pages * ps,
+        scale_log2);
+}
+
+// The largest block verify mode takes (positions per row).
+int paged_verify_max_s() { return MAX_S; }
 
 // Tokens per slice: the workspace holds ceil(pages * ps / SLICE) slices
 // per (row, query head).

@@ -5,7 +5,9 @@ prefix-suffix) prefill, the pooled sequence embedding of /api/embed
 (:func:`embed_pooled` over the :func:`hidden_states` trunk), the paged
 decode step in both of the
 reference's orderings (attend-then-write, write-then-attend) and its
-fused K-step form (:func:`decode_fused`), with the
+fused K-step form (:func:`decode_fused`), the speculative verify forwards
+over the pool (:func:`verify_step_paged` for a draft chain,
+:func:`verify_tree_paged` for a node tree), with the
 reference's ``mlp_fn`` hook through which the mixtral family
 (models/mixtral.py) plugs its sparse-MoE MLP in.
 
@@ -27,8 +29,11 @@ import torch
 
 from ..ops import paged_attention as pa
 from ..ops.paged_attention import (check_impl, paged_attention,
-                                   paged_attention_append)
-from ..ops.paged_kv import PagedKVCache, write_decode, write_decode_burst
+                                   paged_attention_append,
+                                   paged_attention_verify_append)
+from ..ops.paged_kv import (PagedKVCache, write_decode, write_decode_burst,
+                            write_decode_multi,
+                            write_decode_multi_all_layers)
 from ..utils.device import resolve_device
 from .configs import ModelConfig
 from .layers import (apply_rope_tables, attend_gqa_auto, rms_norm,
@@ -469,3 +474,108 @@ def decode_fused(params: dict, config: ModelConfig, tokens: torch.Tensor,
             act = act & (toks[:, None] != stop_ids[None, :]).all(dim=1)
     return (torch.stack(toks_all), torch.stack(emitted), tokens, cache, act,
             sample_state)
+
+
+def tree_attention_mask(lengths: torch.Tensor, anc: torch.Tensor,
+                        window: int) -> torch.Tensor:
+    """Tree-topology attention mask over a contiguous window (the
+    reference's ``tree_attention_mask``): lengths [B] committed context
+    lengths; anc [B, N, N] bool, anc[b, i, j] iff node j is on node i's
+    root path (itself included). Node i sits at slot ``lengths[b] + i``
+    and sees every committed slot plus the node slots of its own root
+    path. Returns [B, 1, N, W] bool (True = attend)."""
+    B, N = anc.shape[:2]
+    cols = torch.arange(window, device=anc.device)[None, :]
+    lengths = lengths.to(anc.device).long()
+    committed = cols < lengths[:, None]                         # [B, W]
+    jr = cols - lengths[:, None]
+    node_col = (jr >= 0) & (jr < N)
+    anc_w = anc.gather(2, jr.clamp(0, N - 1)[:, None, :].expand(B, N,
+                                                                window))
+    mask = committed[:, None, :] | (node_col[:, None, :] & anc_w)
+    return mask[:, None]
+
+
+def _verify_gather(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                   positions: torch.Tensor, cache: PagedKVCache, pages: int,
+                   mlp_fn, block_mask: Optional[torch.Tensor]):
+    """The attend-then-write verify forward: each layer attends the pool
+    window plus the block's own k/v under ``block_mask`` (kernel B's
+    verify mode on the card), and ONE write_decode_multi_all_layers lands
+    every layer's block at ``lengths + i`` after the loop."""
+    layers = params["layers"]
+    rope = _rope(config, positions)
+    h = params["embed"][tokens]
+    k_all, v_all = [], []
+    for li in range(config.num_layers):
+        q, k, v = _attn_qkv(h, layers, li, config, rope)
+        k = k.contiguous()
+        attn = paged_attention_verify_append(
+            q.contiguous(), k, v, cache, cache.lengths, li, pages=pages,
+            block_mask=block_mask)
+        h = _post_attn(h, attn, layers, li, config, mlp_fn)
+        k_all.append(k)
+        v_all.append(v)
+    logits = _logits(params, config, h)
+    write_decode_multi_all_layers(cache, torch.stack(k_all),
+                                  torch.stack(v_all))
+    return logits, cache
+
+
+def verify_step_paged(params: dict, config: ModelConfig,
+                      tokens: torch.Tensor, cache: PagedKVCache, *,
+                      pages: int, mlp_fn=None, impl: Optional[str] = None):
+    """Speculative verify over the paged pool (the reference's
+    ``verify_step_paged``): S candidate positions per row — tokens [B, S]
+    = the pending token then the drafts — at positions ``lengths + j``,
+    in one forward. Lengths do not move; the caller accepts a prefix
+    (models/sampling.spec_verify_batched) and advances by accepted + 1;
+    rejected drafts' slots stay stale past the length.
+
+    ``impl`` picks the branch as :func:`decode_step_paged` does:
+    ``gather`` (attend-then-write, int8 or bf16 pools) runs kernel B's
+    verify mode per layer with ``pages`` covering ``lengths``;
+    ``kernel``/``flash`` (write-then-attend, bf16 pools) writes each
+    layer's block (write_decode_multi), then runs kernel B's pool mode
+    once per position j over ``lengths + j + 1`` slots, with ``pages``
+    covering ``lengths + S``. Returns (logits [B, S, V] f32, cache)."""
+    impl = check_impl(pa._DEFAULT_IMPL if impl is None else impl)
+    B, S = tokens.shape
+    dev = tokens.device
+    positions = (cache.lengths[:, None].long()
+                 + torch.arange(S, device=dev)[None, :])
+    if impl == "gather":
+        return _verify_gather(params, config, tokens, positions, cache,
+                              pages, mlp_fn, None)
+    layers = params["layers"]
+    rope = _rope(config, positions)
+    h = params["embed"][tokens]
+    for li in range(config.num_layers):
+        q, k, v = _attn_qkv(h, layers, li, config, rope)
+        write_decode_multi(cache, li, k, v)
+        attn = torch.stack([paged_attention(
+            q[:, j].contiguous(), cache.k, cache.v, cache.page_table,
+            cache.lengths + (j + 1), li, pages=pages, impl=impl,
+            k_scale=cache.k_scale, v_scale=cache.v_scale)
+            for j in range(S)], dim=1)
+        h = _post_attn(h, attn, layers, li, config, mlp_fn)
+    return _logits(params, config, h), cache
+
+
+def verify_tree_paged(params: dict, config: ModelConfig,
+                      tokens: torch.Tensor, depths: torch.Tensor,
+                      anc: torch.Tensor, cache: PagedKVCache, *, pages: int,
+                      mlp_fn=None):
+    """Tree-speculation verify over the paged pool (the reference's
+    ``verify_tree_paged``): N tree nodes per row — tokens [B, N], node 0
+    the pending token, nodes 1..K the main chain, the rest sibling leaves
+    — scored in one forward. Node i's RoPE position is ``lengths +
+    depths[i]`` and its slot ``lengths + i``; it attends the committed
+    window plus the nodes of its own root path (``anc`` [B, N, N] bool,
+    :func:`tree_attention_mask`'s ancestor matrix). Always the
+    attend-then-write branch (kernel B's verify mode under ``anc``),
+    whatever the decode impl. Lengths do not move. Returns (logits
+    [B, N, V] f32, cache)."""
+    positions = cache.lengths[:, None].long() + depths.long()
+    return _verify_gather(params, config, tokens, positions, cache, pages,
+                          mlp_fn, anc)

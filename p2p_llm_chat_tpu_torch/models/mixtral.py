@@ -213,3 +213,24 @@ def decode_fused(params: dict, config: ModelConfig, tokens: torch.Tensor,
                               sample_state=sample_state, stop_ids=stop_ids,
                               pages=pages, impl=impl,
                               step_fn=decode_step_paged)
+
+
+def verify_step_paged(params: dict, config: ModelConfig,
+                      tokens: torch.Tensor, cache, *, pages: int,
+                      impl: Optional[str] = None):
+    """llama.verify_step_paged with the MoE MLP (the reference's
+    mixtral.py:420-429): the expert grid sees the verify's B*S tokens,
+    dropless (capacity None)."""
+    return llama.verify_step_paged(params, config, tokens, cache,
+                                   pages=pages, mlp_fn=_mlp_fn(config, None),
+                                   impl=impl)
+
+
+def verify_tree_paged(params: dict, config: ModelConfig,
+                      tokens: torch.Tensor, depths: torch.Tensor,
+                      anc: torch.Tensor, cache, *, pages: int):
+    """llama.verify_tree_paged with the MoE MLP, dropless (the
+    reference's mixtral.py:432-439)."""
+    return llama.verify_tree_paged(params, config, tokens, depths, anc,
+                                   cache, pages=pages,
+                                   mlp_fn=_mlp_fn(config, None))

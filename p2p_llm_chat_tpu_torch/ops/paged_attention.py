@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -220,24 +221,20 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.paged_split_smem.argtypes = [i, i]
     lib.paged_slice_tokens.restype = i
     lib.paged_slice_tokens.argtypes = []
+    lib.paged_verify_launch.restype = i
+    lib.paged_verify_launch.argtypes = (
+        [p] * 9 + [i, p, p, p, p] + [i] * 12 + [p])
+    lib.paged_verify_max_s.restype = i
+    lib.paged_verify_max_s.argtypes = []
 
 
-def _launch(what: str, q, k_cur, v_cur, k_pages, v_pages, k_scale, v_scale,
-            page_table, lengths, layer: int, pages: int) -> torch.Tensor:
-    """Check the operands and launch kernel B: append mode with
-    ``k_cur``/``v_cur``, pool mode without."""
-    B, Hq, D = q.shape
-    L, N, ps, Hkv, Dp = k_pages.shape
-    cur = () if k_cur is None else (("k_cur", k_cur), ("v_cur", v_cur))
-    for name, t in (("q", q),) + cur:
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
-                or t.device != q.device:
-            raise ValueError(f"{what}: {name} must be a contiguous bf16 "
-                             "tensor on q's device")
-    if (any(t.shape != (B, Hkv, D) for _, t in cur) or Dp != D
-            or Hq % Hkv or D not in (32, 64, 128) or Hq // Hkv > 8):
-        raise ValueError(f"{what}: unsupported geometry q {tuple(q.shape)} "
-                         f"pool {tuple(k_pages.shape)}")
+def _pool_operands(what: str, q, Hkv: int, D: int, k_pages, v_pages,
+                   k_scale, v_scale, page_table, lengths, layer: int,
+                   pages: int) -> tuple:
+    """Check the pool, table, lengths and scales kernel B reads for ``q``
+    (whose dim 0 is B) and return (scale pointers, ps_pad, quantized)."""
+    B = q.shape[0]
+    L, N, ps, _, _ = k_pages.shape
     quantized = k_scale is not None
     want = torch.int8 if quantized else torch.bfloat16
     if (k_pages.dtype != want or v_pages.dtype != want
@@ -255,26 +252,56 @@ def _launch(what: str, q, k_cur, v_cur, k_pages, v_pages, k_scale, v_scale,
         raise ValueError(f"{what}: page_table [B, P] and lengths [B] must "
                          "be contiguous int32 on q's device, with "
                          "1 <= pages <= P and 0 <= layer < L")
-    if quantized:
-        ks, vs = k_scale, v_scale
-        if (ks.dtype != torch.float32 or vs.dtype != torch.float32
-                or not ks.is_contiguous() or not vs.is_contiguous()
-                or ks.shape != vs.shape or ks.shape[:3] != (L, N, Hkv)
-                or ks.shape[3] < ps or ks.device != q.device
-                or vs.device != q.device):
-            raise ValueError(f"{what}: scales must be contiguous f32 "
-                             "[L, N, Hkv, ps_pad] on q's device")
-        ks_ptr, vs_ptr, ps_pad = ks.data_ptr(), vs.data_ptr(), ks.shape[-1]
-    else:
-        ks_ptr, vs_ptr, ps_pad = None, None, ps
+    if not quantized:
+        return (None, None), ps, False
+    ks, vs = k_scale, v_scale
+    if (ks.dtype != torch.float32 or vs.dtype != torch.float32
+            or not ks.is_contiguous() or not vs.is_contiguous()
+            or ks.shape != vs.shape or ks.shape[:3] != (L, N, Hkv)
+            or ks.shape[3] < ps or ks.device != q.device
+            or vs.device != q.device):
+        raise ValueError(f"{what}: scales must be contiguous f32 "
+                         "[L, N, Hkv, ps_pad] on q's device")
+    return (ks.data_ptr(), vs.data_ptr()), ks.shape[-1], True
+
+
+def _check_bf16(what: str, q, named) -> None:
+    for name, t in named:
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"{what}: {name} must be a contiguous bf16 "
+                             "tensor on q's device")
+
+
+def _workspace(lib, rows: int, D: int, window: int, device):
+    """(splits, f32 workspace) for ``rows`` query rows: one block per
+    (row, kv head, slice of the source's SLICE tokens at fixed absolute
+    positions), so the slice count follows the window alone; the slices'
+    accumulators [rows, splits, D], then their (m, l) [rows, splits, 2]."""
+    splits = max(1, -(-window // lib.paged_slice_tokens()))
+    ws = torch.empty(rows * splits * (D + 2), dtype=torch.float32,
+                     device=device)
+    return splits, ws
+
+
+def _launch(what: str, q, k_cur, v_cur, k_pages, v_pages, k_scale, v_scale,
+            page_table, lengths, layer: int, pages: int) -> torch.Tensor:
+    """Check the operands and launch kernel B: append mode with
+    ``k_cur``/``v_cur``, pool mode without."""
+    B, Hq, D = q.shape
+    L, N, ps, Hkv, Dp = k_pages.shape
+    cur = () if k_cur is None else (("k_cur", k_cur), ("v_cur", v_cur))
+    _check_bf16(what, q, (("q", q),) + cur)
+    if (any(t.shape != (B, Hkv, D) for _, t in cur) or Dp != D
+            or Hq % Hkv or D not in (32, 64, 128) or Hq // Hkv > 8):
+        raise ValueError(f"{what}: unsupported geometry q {tuple(q.shape)} "
+                         f"pool {tuple(k_pages.shape)}")
+    (ks_ptr, vs_ptr), ps_pad, quantized = _pool_operands(
+        what, q, Hkv, D, k_pages, v_pages, k_scale, v_scale, page_table,
+        lengths, layer, pages)
+    pt, ln = page_table, lengths
     lib = _build.load("paged_attention", _bind)
-    # One block per (row, kv head, slice of the source's SLICE tokens at
-    # fixed absolute positions): the slice count follows the window alone.
-    # One f32 workspace: the slices' accumulators [B, Hq, splits, D], then
-    # their (m, l) [B, Hq, splits, 2].
-    splits = max(1, -(-(pages * ps) // lib.paged_slice_tokens()))
-    ws = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32,
-                     device=q.device)
+    splits, ws = _workspace(lib, B * Hq, D, pages * ps, q.device)
     out = torch.empty_like(q)
     acc_ptr = ws.data_ptr()
     tail = (pt.data_ptr(), pt.shape[1], ln.data_ptr(), acc_ptr,
@@ -379,5 +406,113 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
+def paged_attention_verify_append_reference(
+        q_blk: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
+        cache: PagedKVCache, lengths: torch.Tensor, layer: int, *,
+        pages: int, block_mask: Optional[torch.Tensor] = None
+        ) -> torch.Tensor:
+    """Plain PyTorch version of the verify function (the reference's
+    ``paged_attention_verify_append`` math, :635-690): position j of each
+    row attends its pool window (positions < ``lengths``, the same mask
+    for every j) plus the block positions i where ``block_mask[b, j, i]``
+    (default i <= j) from the in-register k/v at full precision, under one
+    softmax over both; on int8 pools the k scales fold into the window's
+    scores and the v scales into its probabilities. The window's p.v runs
+    in q's dtype, the block's in f32.
+
+    q_blk [B, S, Hq, D]; k_blk/v_blk [B, S, Hkv, D]; block_mask [B, S, S]
+    bool or None. Returns [B, S, Hq, D] in q_blk.dtype."""
+    B, S, Hq, D = q_blk.shape
+    Hkv = k_blk.shape[2]
+    rep = Hq // Hkv
+    scores_w, v_w, sv, mask = _gather_window_scores(
+        q_blk, cache.k, cache.v, cache.k_scale, cache.v_scale,
+        cache.page_table, lengths, layer, pages)         # [B,G,rep,S,W]
+    qg = q_blk.reshape(B, S, Hkv, rep, D)
+    scores_b = torch.einsum("bsgrd,btgd->bgrst", qg.float(),
+                            k_blk.float()) / math.sqrt(D)
+    if block_mask is None:
+        block_mask = torch.ones((S, S), dtype=torch.bool,
+                                device=q_blk.device).tril()[None]
+    scores_b = torch.where(block_mask[:, None, None], scores_b,
+                           torch.tensor(NEG_INF, device=q_blk.device))
+    W = scores_w.shape[-1]
+    probs = torch.softmax(torch.cat([scores_w, scores_b], dim=-1), dim=-1)
+    p_w, p_b = probs[..., :W], probs[..., W:]
+    v_w, sv = _live(v_w, sv, mask)
+    if sv is not None:
+        p_w = p_w * sv[:, :, None, None, :]
+    out = (torch.einsum("bgrst,btgd->bgrsd", p_w.to(q_blk.dtype),
+                        v_w.to(q_blk.dtype)).float()
+           + torch.einsum("bgrst,btgd->bgrsd", p_b, v_blk.float()))
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q_blk.dtype)
+
+
+def paged_attention_verify_append(q_blk: torch.Tensor, k_blk: torch.Tensor,
+                                  v_blk: torch.Tensor, cache: PagedKVCache,
+                                  lengths: torch.Tensor, layer: int, *,
+                                  pages: int,
+                                  block_mask: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """Speculative-verify attention for one layer (the reference's
+    ``paged_attention_verify_append``, an XLA path there): S candidate
+    positions per row attend the pool window below ``lengths`` plus the
+    block's own k/v, which is not in the pool yet (the model lands the
+    whole block after the layer loop), under ``block_mask`` ([B, S, S]
+    bool, True = attend, the diagonal included; None = the chain i <= j;
+    tree verify passes its ancestor matrix).
+
+    q_blk [B, S, Hq, D]; k_blk/v_blk [B, S, Hkv, D] (bf16 on the card);
+    lengths [B] int32 pool positions (the block not counted). On the card
+    it launches kernel B's verify mode; on the CPU
+    :func:`paged_attention_verify_append_reference` runs. Returns
+    [B, S, Hq, D] in q_blk.dtype."""
+    if q_blk.device.type == "cpu":
+        return paged_attention_verify_append_reference(
+            q_blk, k_blk, v_blk, cache, lengths, layer, pages=pages,
+            block_mask=block_mask)
+    if q_blk.device.type != "cuda":
+        raise ValueError(f"paged_attention_verify_append: unsupported "
+                         f"device {q_blk.device}")
+    what = "paged_attention_verify_append"
+    B, S, Hq, D = q_blk.shape
+    L, N, ps, Hkv, Dp = cache.k.shape
+    _check_bf16(what, q_blk, (("q_blk", q_blk), ("k_blk", k_blk),
+                              ("v_blk", v_blk)))
+    lib = _build.load("paged_attention", _bind)
+    if (k_blk.shape != (B, S, Hkv, D) or v_blk.shape != k_blk.shape
+            or Dp != D or Hq % Hkv or D not in (32, 64, 128)
+            or Hq // Hkv > 8 or not 1 <= S <= lib.paged_verify_max_s()):
+        raise ValueError(f"{what}: unsupported geometry q_blk "
+                         f"{tuple(q_blk.shape)} pool {tuple(cache.k.shape)}")
+    mask_ptr = None
+    if block_mask is not None:
+        if (block_mask.shape != (B, S, S) or block_mask.dtype != torch.bool
+                or block_mask.device != q_blk.device):
+            raise ValueError(f"{what}: block_mask must be [B, S, S] bool "
+                             "on q_blk's device")
+        block_mask = block_mask.contiguous()
+        mask_ptr = block_mask.data_ptr()
+    (ks_ptr, vs_ptr), ps_pad, quantized = _pool_operands(
+        what, q_blk, Hkv, D, cache.k, cache.v, cache.k_scale, cache.v_scale,
+        cache.page_table, lengths, layer, pages)
+    rows = B * S * Hq
+    splits, ws = _workspace(lib, rows, D, pages * ps, q_blk.device)
+    out = torch.empty_like(q_blk)
+    acc_ptr = ws.data_ptr()
+    pt = cache.page_table
+    rc = lib.paged_verify_launch(
+        q_blk.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), mask_ptr,
+        cache.k.data_ptr(), cache.v.data_ptr(), ks_ptr, vs_ptr,
+        pt.data_ptr(), pt.shape[1], lengths.data_ptr(), acc_ptr,
+        acc_ptr + rows * splits * D * 4, out.data_ptr(), B, S, Hq, Hkv, D, N,
+        ps, ps_pad, layer, pages, splits, int(quantized),
+        _build.stream_ptr(q_blk.device))
+    _build.check(rc, lib, "paged_append_error_string", what)
+    paged_attention_verify_append.launches += 1
+    return out
+
+
 paged_attention_append.launches = 0
 paged_attention.launches = 0
+paged_attention_verify_append.launches = 0

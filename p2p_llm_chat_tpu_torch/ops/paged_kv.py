@@ -254,18 +254,29 @@ def write_prefill_chunk(cache: PagedKVCache, chunk_k: torch.Tensor,
     return cache
 
 
+def _pos_slots(cache: PagedKVCache, pos: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(physical page, slot) of absolute positions ``pos`` (any shape,
+    row-major over the batch: ``pos[b, ...]`` indexes row b's table).
+    A position past the row's table goes to the garbage page 0: clamping
+    it onto the last real page would wrap its slot into trusted kv."""
+    ps = cache.page_size
+    mppr = cache.max_pages_per_row
+    pos = pos.long()
+    logical = pos // ps
+    flat = logical.reshape(pos.shape[0], -1)
+    phys = cache.page_table.gather(1, flat.clamp(max=mppr - 1)).long()
+    phys = torch.where(flat < mppr, phys, 0).reshape(pos.shape)
+    return phys, pos % ps
+
+
 def _decode_slots(cache: PagedKVCache) -> tuple[torch.Tensor, torch.Tensor]:
     """(physical page, slot) [B] of each row's next write, at position
     ``lengths[b]``. A position past the row's page table (a finished row
     that a pipelined tick ran one step further) lands in the garbage
     page."""
-    ps = cache.page_size
-    lengths = cache.lengths.long()
-    logical = lengths // ps
-    mppr = cache.max_pages_per_row
-    phys = cache.page_table.gather(1, logical.clamp(max=mppr - 1)[:, None])
-    phys = torch.where(logical < mppr, phys[:, 0].long(), 0)
-    return phys, lengths % ps
+    phys, slot = _pos_slots(cache, cache.lengths[:, None])
+    return phys[:, 0], slot[:, 0]
 
 
 def write_decode(cache: PagedKVCache, layer: int, k: torch.Tensor,
@@ -309,4 +320,72 @@ def write_decode_burst(cache: PagedKVCache, k_all: torch.Tensor,
 
     _scatter_kv(cache, k_all, v_all, scatter, sscatter)
     cache.lengths += inc.to(cache.lengths.dtype)
+    return cache
+
+
+def _multi_write_indices(cache: PagedKVCache, S: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(phys, slot) [B, S] for S consecutive candidate positions per row
+    from ``lengths`` on (the reference's ``_multi_write_indices``): the
+    one containment rule every multi-position write shares."""
+    pos = cache.lengths.long()[:, None] + torch.arange(
+        S, device=cache.lengths.device)[None, :]
+    return _pos_slots(cache, pos)
+
+
+def write_decode_multi_all_layers(cache: PagedKVCache, k_all: torch.Tensor,
+                                  v_all: torch.Tensor) -> PagedKVCache:
+    """Write S candidate slots per row for EVERY layer in one scatter
+    (speculative verify's landing after the layer loop): row b's
+    position j goes to ``lengths[b] + j``; k_all/v_all [L, B, S, Hkv, D].
+    Lengths do not move; positions past a row's table land in page 0."""
+    phys, slot = _multi_write_indices(cache, k_all.shape[2])
+
+    def scatter(arr, upd):
+        arr[:, phys, slot] = upd
+
+    def sscatter(arr, upd):
+        # non-adjacent advanced indices move to the front: [B, S, L, Hkv]
+        arr[:, phys, :, slot] = upd.permute(1, 2, 0, 3)
+
+    _scatter_kv(cache, k_all, v_all, scatter, sscatter)
+    return cache
+
+
+def write_decode_multi(cache: PagedKVCache, layer: int, k: torch.Tensor,
+                       v: torch.Tensor) -> PagedKVCache:
+    """Write S consecutive candidate slots per row for ONE layer (the
+    write-then-attend verify): k/v [B, S, Hkv, D], row b's position j at
+    ``lengths[b] + j``; lengths do not move; positions past a row's
+    table land in page 0."""
+    phys, slot = _multi_write_indices(cache, k.shape[1])
+
+    def scatter(arr, upd):
+        arr[layer, phys, slot] = upd
+
+    def sscatter(arr, upd):
+        # layer-sliced target [N, Hkv, ps]; advanced dims 0, 2 -> [B, S, Hkv]
+        arr[layer, phys, :, slot] = upd
+
+    _scatter_kv(cache, k, v, scatter, sscatter)
+    return cache
+
+
+def copy_slot(cache: PagedKVCache, src_pos: torch.Tensor,
+              dst_pos: torch.Tensor) -> PagedKVCache:
+    """Move ONE kv slot per row, every layer, from absolute position
+    ``src_pos[b]`` to ``dst_pos[b]`` (tree speculation's sibling
+    compaction: an accepted sibling's kv, written at its node slot, is
+    copied onto the accepted path before lengths advance over it). Raw
+    pool words move — int8 values with their head-major scales, never a
+    requantize. ``src == dst`` copies onto itself; a position past a
+    row's table is page 0 in either direction."""
+    sp, so = _pos_slots(cache, src_pos[:, None])
+    dp, do = _pos_slots(cache, dst_pos[:, None])
+    sp, so, dp, do = sp[:, 0], so[:, 0], dp[:, 0], do[:, 0]
+    cache.k[:, dp, do] = cache.k[:, sp, so]
+    cache.v[:, dp, do] = cache.v[:, sp, so]
+    if cache.quantized:
+        cache.k_scale[:, dp, :, do] = cache.k_scale[:, sp, :, so]
+        cache.v_scale[:, dp, :, do] = cache.v_scale[:, sp, :, so]
     return cache

@@ -10,7 +10,7 @@ It serves one model on one card from a paged KV pool (bf16 or int8):
 a dense llama config or a mixtral (MoE) config, with bf16, int8 or int4
 weights, built through ``models.family_for(config)``. Features of the
 reference that later slices port fail loudly when asked for explicitly
-(``SERVE_SPEC>0``, ``SERVE_KV_HOST_GB>0``, ``SERVE_TP>1``,
+(``SERVE_DRAFT`` with ``SERVE_SPEC>0``, ``SERVE_KV_HOST_GB>0``, ``SERVE_TP>1``,
 ``SERVE_MODELS``, ``CKPT_DIR``, ``SERVE_KV=dense``,
 ``SERVE_PROFILE_PORT>0``, multi-host). ``SERVE_ADMIT_CHUNK`` caps the rows
 of each admission prefill, and ``SERVE_WARMUP`` (default ``128,256``)
@@ -28,7 +28,12 @@ reference). Decode runs fused K-step ticks as the reference does
 (``SERVE_FUSE``, default 4, 1 disables): CUDA graphs per (attention
 window, K) on the card, captured by the warmup, and the same functions
 run eagerly on the CPU. ``SERVE_LOOP_BUDGET_MS`` (default 5000, 0
-disables) is the scheduler loop watchdog's budget.
+disables) is the scheduler loop watchdog's budget. Speculative
+decoding with the n-gram source runs as in the reference
+(``SERVE_SPEC`` = K draft tokens, default 0 = off;
+``SERVE_SPEC_TREE_NODES``, default 8 when ``SERVE_SPEC`` > 0, tree verify
+over that many nodes, 0 = linear; ``SERVE_SPEC_TREE_GAP``, default 4.0),
+its spec programs CUDA graphs per window beside the decode graphs.
 
 :meth:`TorchEngine.embed` serves ``/api/embed``: the family's
 ``embed_pooled`` over bucketed batches (kernels A or C and D on the
@@ -108,6 +113,8 @@ class TorchEngine:
                  admit_chunk: Optional[int] = None,
                  decode_fuse_max: int = 4,
                  loop_budget_ms: float = 5000.0,
+                 spec_k: int = 0, spec_tree_nodes: int = 0,
+                 spec_tree_gap: float = 4.0,
                  name: Optional[str] = None,
                  device: Optional[torch.device | str] = None) -> None:
         self.name = name or config.name
@@ -120,7 +127,9 @@ class TorchEngine:
             kv_quant=kv_quant, prefix_cache=prefix_cache,
             prefill_chunk=prefill_chunk, attn_impl=attn_impl,
             admit_chunk=admit_chunk, decode_fuse_max=decode_fuse_max,
-            loop_budget_ms=loop_budget_ms, device=device)
+            loop_budget_ms=loop_budget_ms, spec_k=spec_k,
+            spec_tree_nodes=spec_tree_nodes, spec_tree_gap=spec_tree_gap,
+            device=device)
         self._embed_lock = threading.Lock()
         self._embed_stream = None
 
@@ -242,16 +251,32 @@ def _not_in_slice(what: str) -> SystemExit:
                       "version)")
 
 
-def build_engine_from_env(device: Optional[str | torch.device] = None
-                          ) -> Backend:
+def build_engine_from_env(device: Optional[str | torch.device] = None,
+                          params: Optional[dict] = None) -> Backend:
     """Engine from env vars: random-init ``MODEL_CONFIG`` (default
     ``tiny``) weights and the byte tokenizer, on ``device`` — by default
     the card (``SERVE_DEVICE`` or the argument may ask for ``cpu``; with
-    neither and no card this raises)."""
+    neither and no card this raises). ``params``: weights of
+    ``MODEL_CONFIG`` to serve instead of the random init, already on the
+    device (e.g. models/synth.quote_params, whose output n-gram drafts
+    match)."""
     if env_or("SERVE_COORDINATOR", "") or env_or("JAX_COORDINATOR", ""):
         raise _not_in_slice("multi-host serving")
-    if env_int("SERVE_SPEC", 0) > 0:
-        raise _not_in_slice("speculative decoding (SERVE_SPEC>0)")
+    # Speculative decoding (the reference's engine.py:399-418): K n-gram
+    # draft tokens per spec tick; tree verify over SERVE_SPEC_TREE_NODES
+    # nodes (default 8 with speculation on; the scheduler snaps it).
+    spec_k = max(0, env_int("SERVE_SPEC", 0))
+    draft_ref = env_or("SERVE_DRAFT", "")
+    if draft_ref and spec_k:
+        raise _not_in_slice(
+            "draft-model speculation (SERVE_DRAFT with SERVE_SPEC>0; it "
+            "waits for the dense KV path, SERVE_KV=dense)")
+    if draft_ref:
+        log.warning("SERVE_DRAFT set but SERVE_SPEC=0 — no speculative "
+                    "ticks will run; set SERVE_SPEC (e.g. 4) to enable "
+                    "the drafter")
+    spec_tree_nodes = env_int("SERVE_SPEC_TREE_NODES", 8) if spec_k else 0
+    spec_tree_gap = env_float("SERVE_SPEC_TREE_GAP", 4.0)
     if env_float("SERVE_KV_HOST_GB", 0.0) > 0:
         raise _not_in_slice("KV tiering (SERVE_KV_HOST_GB>0)")
     if env_int("SERVE_TP", 1) > 1:
@@ -290,15 +315,19 @@ def build_engine_from_env(device: Optional[str | torch.device] = None
     dev = resolve_device(device)
     qt = env_float("SERVE_QUEUE_TIMEOUT", 60.0)
     qm = env_int("SERVE_QUEUE_MAX", -1)
-    log.info("serving random-init %s (%s weights, %s KV) on %s; paged "
+    log.info("serving %s %s (%s weights, %s KV) on %s; paged "
              "attention impl %s (%s); prefill chunk %d, prefix cache %s, "
-             "fused decode up to %d steps a tick",
-             config.name, quant or "bf16", kv_quant or "bf16", dev,
+             "fused decode up to %d steps a tick; speculation K=%d, tree "
+             "nodes %d",
+             "random-init" if params is None else "given", config.name,
+             quant or "bf16", kv_quant or "bf16", dev,
              attn_impl, "attend-then-write" if attn_impl == "gather"
              else "write-then-attend", prefill_chunk,
-             "on" if prefix_cache else "off", decode_fuse_max)
-    params = family_for(config).init_params_quantized(
-        config, seed=0, quant=quant, device=dev)
+             "on" if prefix_cache else "off", decode_fuse_max, spec_k,
+             spec_tree_nodes)
+    if params is None:
+        params = family_for(config).init_params_quantized(
+            config, seed=0, quant=quant, device=dev)
     engine = TorchEngine(
         params, config, ByteTokenizer(vocab_size=config.vocab_size),
         num_slots=env_int("SERVE_SLOTS", 8),
@@ -313,7 +342,9 @@ def build_engine_from_env(device: Optional[str | torch.device] = None
         admit_chunk=env_int("SERVE_ADMIT_CHUNK", 0) or None,
         decode_fuse_max=decode_fuse_max,
         loop_budget_ms=env_float("SERVE_LOOP_BUDGET_MS", 5000.0),
-        name=env_or("LLM_MODEL", config.name), device=dev)
+        spec_k=spec_k, spec_tree_nodes=spec_tree_nodes,
+        spec_tree_gap=spec_tree_gap, name=env_or("LLM_MODEL", config.name),
+        device=dev)
     warm = env_or("SERVE_WARMUP", "128,256")
     if warm and warm != "0":
         engine.warmup(tuple(int(b) for b in warm.split(",") if b.strip()))

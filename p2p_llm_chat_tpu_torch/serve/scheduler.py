@@ -44,7 +44,19 @@ queues only:
 - a request stops on EOS, ``num_predict``, a ``stop`` string or its
   context budget; its row's page table is zeroed and its pages freed;
 - detokenization is incremental and UTF-8 safe, and holds back text that
-  may be the start of a stop string.
+  may be the start of a stop string;
+- speculative decoding (the reference's ``SERVE_SPEC``): with ``spec_k``
+  > 0 the n-gram source (utils/draft.py) proposes up to K tokens per row
+  from the row's own context, and a spec tick verifies [pending token,
+  drafts] in ONE forward (the family's ``verify_step_paged``, or
+  ``verify_tree_paged`` over ``spec_tree_nodes`` node positions), accepts
+  an exactly distributed prefix on the device
+  (models/sampling.spec_verify_batched / spec_verify_tree), advances the
+  lengths by accepted + 1 and reads back (accepted, correction, used
+  sibling) per row. Each source is throttled on its own acceptance EMA
+  (the reference's constants). On the card each spec program is a CUDA
+  graph per window, captured at warmup beside the decode graphs, fed
+  from static device buffers that one pinned host copy fills per tick.
 
 Every prefill attention (whole prompt, chunk, prefix suffix) runs kernel
 D on the card.
@@ -58,32 +70,36 @@ loop events dumped on a stall, a reset or on demand (obs/flight.py), the
 sampled requests (obs/trace.py), and the warmup's device-step probe
 behind ``decode_device_ms``.
 
-Not in this slice (later ones): prefix export/import, speculation, KV
-tiering, tensor parallelism. None of them changes greedy output in the
-reference.
+Not in this slice (later ones): prefix export/import, the resident draft
+model (it keeps a dense KV cache), KV tiering, tensor parallelism. None
+of them changes greedy output in the reference.
 """
 
 from __future__ import annotations
 
+import gc
 import queue
 import threading
 import time
 from dataclasses import dataclass, field
 from typing import Iterator, Optional
 
+import numpy as np
 import torch
 
 from .. import ops
 from ..models import family_for
 from ..models.configs import ModelConfig
 from ..models.quant import param_bytes, quant_mode
-from ..models.sampling import sample_step_batched
+from ..models.sampling import (sample_step_batched, spec_verify_batched,
+                               spec_verify_tree)
 from ..obs.flight import FlightRecorder
 from ..ops import paged_attention as pa
-from ..ops.paged_kv import (PageAllocator, PagedKVCache,
+from ..ops.paged_kv import (PageAllocator, PagedKVCache, copy_slot,
                             write_prefill_batch, write_prefill_chunk)
 from ..tokenizer import Tokenizer
 from ..utils.device import resolve_device
+from ..utils.draft import NGramSource
 from ..utils.env import env_float
 from ..utils.failpoints import failpoint
 from ..utils.log import get_logger
@@ -106,14 +122,23 @@ _MIN_REGISTER_PREFIX = 8
 # Under sustained load (never idle), build a queued prefix promotion at
 # most once per this many decode ticks.
 _PROMOTE_EVERY_TICKS = 256
+# Adaptive speculation (the reference's constants): below this EMA of
+# accepted drafts per spec tick a source's verify costs more than it
+# saves, and it only probes every _SPEC_PROBE_EVERY ticks. Each source
+# seeds at twice the floor; zero-acceptance ticks decay it faster.
+_SPEC_EMA_FLOOR = 0.5
+_SPEC_EMA_ALPHA = 0.1
+_SPEC_EMA_SEED = 2 * _SPEC_EMA_FLOOR
+_SPEC_EMA_ZERO_ALPHA = 0.3
+_SPEC_PROBE_EVERY = 8
 
 
 class _DecodeProgram:
-    """K decode steps at one attention window. On the card, a CUDA graph
-    captured over the step function: a call replays it and adds to each
-    kernel wrapper's launch counter what the capture recorded, so the
-    counters go on counting what ran. On the CPU, the step function
-    itself."""
+    """K decode steps, or a spec tick, at one attention window. On the
+    card, a CUDA graph captured over the step function: a call replays
+    it and adds to each kernel wrapper's launch counter what the capture
+    recorded, so the counters go on counting what ran. On the CPU, the
+    step function itself."""
 
     __slots__ = ("fn", "graph", "launches")
 
@@ -275,8 +300,19 @@ class BatchScheduler:
                  admit_chunk: Optional[int] = None,
                  decode_fuse_max: int = 4,
                  loop_budget_ms: float = 5000.0,
+                 spec_k: int = 0, spec_tree_nodes: int = 0,
+                 spec_tree_gap: float = 4.0,
                  device: Optional[torch.device | str] = None) -> None:
-        """``loop_budget_ms``: the loop watchdog's budget (the
+        """``spec_k``: speculative decoding with up to this many n-gram
+        draft tokens per row and spec tick (0 = off; the reference's
+        ``SERVE_SPEC``). ``spec_tree_nodes``: tree verify over this many
+        node positions, snapped up to a power of two and dropped to 0
+        (linear verify) below ``spec_k + 2``, as in the reference;
+        ``spec_tree_gap``: a source's top-1/top-2 score gap below which a
+        main-chain position gets a sibling (the n-gram source proposes
+        none). Greedy output is the same with speculation on or off.
+
+        ``loop_budget_ms``: the loop watchdog's budget (the
         reference's ``SERVE_LOOP_BUDGET_MS``, which build_engine_from_env
         reads; 0 disables). A loop iteration past it raises the
         ``loop_stall_ms`` / ``loop_stall_last_ms`` gauges, logs once per
@@ -320,8 +356,43 @@ class BatchScheduler:
         if decode_fuse_max < 1:
             raise ValueError(
                 f"decode_fuse_max must be >= 1, got {decode_fuse_max}")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         self.decode_fuse_max = decode_fuse_max
         self._fuse_ramp = 1
+        self.spec_k = spec_k
+        nodes = int(spec_tree_nodes or 0)
+        if nodes > 0 and spec_k > 0:
+            snapped = 1 << max(0, nodes - 1).bit_length()
+            if snapped != nodes:
+                log.info("spec_tree_nodes %d snapped to %d", nodes, snapped)
+            nodes = snapped
+            if nodes < spec_k + 2:
+                log.info("spec_tree_nodes %d < spec_k+2 (%d): no sibling "
+                         "budget — tree speculation off (linear spec)",
+                         nodes, spec_k + 2)
+                nodes = 0
+        else:
+            nodes = 0
+        self.spec_tree_nodes = nodes
+        self.spec_tree_gap = float(spec_tree_gap)
+        # Draft sources in priority order, each with its own acceptance
+        # EMA, probe counter and proposed / accepted / dispatch counters
+        # (owned by the loop; /metrics reads them).
+        self._sources: list = []
+        self._spec_ema: dict[str, float] = {}
+        self._spec_cooldown: dict[str, int] = {}
+        self._n_spec_proposed_src: dict[str, int] = {}
+        self._n_spec_accepted_src: dict[str, int] = {}
+        self._n_spec_dispatch_src: dict[str, int] = {}
+        self._n_spec_ticks = 0
+        self._n_spec_accepted = 0
+        self._n_spec_tree_nodes = 0
+        self._n_spec_tree_rows = 0
+        self._n_spec_tree_accepted = 0
+        self._tree_base_np: Optional[tuple] = None
+        if spec_k:
+            self._add_source(NGramSource(spec_k))
         self.admit_chunk = admit_chunk
         self.attn_impl = pa.check_impl(
             pa._DEFAULT_IMPL if attn_impl is None else attn_impl)
@@ -465,7 +536,22 @@ class BatchScheduler:
                                        dtype=torch.long, pin_memory=cuda)
                            for _ in range(2)]
         self._flip = 0
-        self._programs: dict[tuple[int, int], _DecodeProgram] = {}
+        self._programs: dict[tuple, _DecodeProgram] = {}
+        # Spec ticks: one int64 input block [B, columns] (tokens, drafts,
+        # max_acc; tree verify adds depths, sibling tokens and nodes and
+        # the flattened ancestor matrix) on the device, filled from a
+        # pinned host twin by one copy per tick; and the outputs [3, B]
+        # (accepted, correction, used sibling) with their pinned twin.
+        self._spec_cols = self._spec_layout() if self.spec_k else {}
+        width = max((c.stop for c in self._spec_cols.values()), default=0)
+        self._spec_host = torch.zeros((B, width), dtype=torch.long,
+                                      pin_memory=cuda)
+        if self.spec_k:
+            self._fill_spec_base()
+        self._spec_in = self._spec_host.to(dev, copy=True)
+        self._spec_out = torch.zeros((3, B), dtype=torch.long, device=dev)
+        self._spec_out_host = torch.zeros((3, B), dtype=torch.long,
+                                          pin_memory=cuda)
         # The graphs share one memory pool: every result a graph leaves
         # behind is copied into the tensors above, and all replays run
         # on one stream, so no graph's scratch outlives its replay.
@@ -732,28 +818,40 @@ class BatchScheduler:
         return run
 
     def _decode_fused_for(self, window: int, K: int) -> _DecodeProgram:
-        """The program of K steps at ``window``: on the card a CUDA graph,
-        captured on first use (warmup captures the whole ladder) on the
-        scheduler's capture stream into the shared pool — capture only,
-        nothing runs on live rows. The wrappers' launch counts that the
-        capture recorded are taken back and re-added at each replay."""
-        key = (window, K)
+        """The program of K steps at ``window`` (:meth:`_program`)."""
+        return self._program((window, K), lambda: self._step_fn(window, K))
+
+    def _program(self, key: tuple, make) -> _DecodeProgram:
+        """The program under ``key``, built from ``make()``'s function:
+        on the card a CUDA graph, captured on first use (warmup captures
+        every window's) on the scheduler's capture stream into the shared
+        pool — capture only, nothing runs on live rows. The wrappers'
+        launch counts that the capture recorded are taken back and
+        re-added at each replay."""
         prog = self._programs.get(key)
         if prog is not None:
             return prog
-        fn = self._step_fn(window, K)
+        fn = make()
         if self.device.type != "cuda":
             prog = _DecodeProgram(fn)
         else:
             wrappers = ops.wrappers()
             before = {n: w.launches for n, w in wrappers.items()}
             graph = torch.cuda.CUDAGraph()
+            # No garbage collection inside the capture: collecting a dead
+            # object that owns a CUDA graph or event (a stopped engine's,
+            # say) destroys it, an operation a capturing process may not
+            # make, and the capture is lost.
+            gc_on = gc.isenabled()
+            gc.disable()
             try:
                 with self.capture_lock, torch.cuda.graph(
                         graph, pool=self._graph_pool,
                         stream=self._capture_stream):
                     fn()
             finally:
+                if gc_on:
+                    gc.enable()
                 launches = []
                 for name, w in wrappers.items():
                     if w.launches != before[name]:
@@ -768,28 +866,191 @@ class BatchScheduler:
         return self._decode_fused_for(window, 1)
 
     def _warm_window(self, w: int) -> None:
-        """One plain step at window ``w`` with every row parked, then the
-        capture of the window's programs for K in {1} and the fuse
-        ladder. Parked rows write only to the garbage page or past their
-        trusted length, and keep their lengths, feed and rings; their
-        keys advance, so the keys are saved and restored around the step
+        """One plain step (and, with speculation on, one spec tick) at
+        window ``w`` with every row parked, then the capture of the
+        window's programs for K in {1} and the fuse ladder, and of its
+        spec program (the reference's warmup, scheduler.py:2219-2250, so
+        no capture ever runs over live rows). Parked rows write only to
+        the garbage page or past their trusted length, and keep their
+        lengths, feed and rings; their keys advance, so the keys are
+        saved and restored around the step
         (a warmup between live ticks must not move seeded streams). On
         the card the step runs on the capture stream, so the lazy state
         of every library call it makes exists before the capture."""
+        fns = [self._step_fn(w, 1)]
+        if self.spec_k:
+            fns.append(self._spec_fn(w))
         keys = self._keys_dev.clone()
-        fn = self._step_fn(w, 1)
         parked = torch.zeros_like(self._active_dev)
         if self.device.type == "cuda":
             cur = torch.cuda.current_stream(self.device)
             self._capture_stream.wait_stream(cur)
             with torch.cuda.stream(self._capture_stream):
-                fn(parked)
+                for fn in fns:
+                    fn(parked)
             cur.wait_stream(self._capture_stream)
         else:
-            fn(parked)
+            for fn in fns:
+                fn(parked)
         self._keys_dev.copy_(keys)
         for K in (1,) + self._fuse_ladder:
             self._decode_fused_for(w, K)
+        if self.spec_k:
+            self._spec_for(w)
+
+    # -- speculative decoding (scheduler thread) ----------------------------
+
+    def _spec_layout(self) -> dict[str, slice]:
+        """Columns of a spec tick's input block: tokens [S] (S = K + 1,
+        or N tree nodes), drafts [K], max_acc [1]; tree verify adds
+        depths [N], sib_tok [K], sib_node [K] and the ancestor matrix
+        [N * N]."""
+        K, N = self.spec_k, self.spec_tree_nodes
+        widths = [("tokens", N or K + 1), ("drafts", K), ("max_acc", 1)]
+        if N:
+            widths += [("depths", N), ("sib_tok", K), ("sib_node", K),
+                       ("anc", N * N)]
+        out, at = {}, 0
+        for name, n in widths:
+            out[name] = slice(at, at + n)
+            at += n
+        return out
+
+    def _tree_base(self) -> tuple[np.ndarray, np.ndarray]:
+        """The node tree's per-(N, K) base (the reference's
+        ``_tree_base``): depths and ancestor sets of the main chain (node
+        0 the pending token, nodes 1..K the draft), sibling slots at depth
+        0 and self-only until a tick budgets them."""
+        if self._tree_base_np is None:
+            N, K = self.spec_tree_nodes, self.spec_k
+            depths = np.zeros((N,), np.int64)
+            depths[: K + 1] = np.arange(K + 1)
+            anc = np.zeros((N, N), bool)
+            for i in range(K + 1):
+                anc[i, : i + 1] = True
+            for j in range(K + 1, N):
+                anc[j, j] = True
+            self._tree_base_np = (depths, anc)
+        return self._tree_base_np
+
+    def _fill_spec_base(self) -> np.ndarray:
+        """Reset the pinned input block to an empty tick (no drafts, the
+        tree's base topology) and return its numpy view."""
+        host = self._spec_host.numpy()
+        cols = self._spec_cols
+        host[:] = 0
+        if self.spec_tree_nodes:
+            depths, anc = self._tree_base()
+            host[:, cols["depths"]] = depths
+            host[:, cols["anc"]] = anc.reshape(-1)
+            host[:, cols["sib_tok"]] = -1
+            host[:, cols["sib_node"]] = -1
+        return host
+
+    def _add_source(self, src) -> None:
+        """Append a draft source after its throttle and counter state
+        (the reference's ``_ensure_sources``; the port has the n-gram
+        source), so /metrics never sees a source without its state."""
+        self._spec_ema[src.name] = _SPEC_EMA_SEED
+        self._spec_cooldown[src.name] = 0
+        self._n_spec_proposed_src[src.name] = 0
+        self._n_spec_accepted_src[src.name] = 0
+        self._n_spec_dispatch_src[src.name] = 0
+        self._sources.append(src)
+
+    def _spec_sources_allowed(self) -> dict[str, bool]:
+        """Per-source acceptance throttle (the reference's): a source
+        whose EMA is below the floor proposes only every
+        ``_SPEC_PROBE_EVERY``-th call; the others always may. Called once
+        per loop iteration, before the pipeline flush."""
+        out: dict[str, bool] = {}
+        for src in self._sources:
+            if self._spec_ema[src.name] >= _SPEC_EMA_FLOOR:
+                out[src.name] = True
+            else:
+                self._spec_cooldown[src.name] += 1
+                out[src.name] = not (self._spec_cooldown[src.name]
+                                     % _SPEC_PROBE_EVERY)
+        return out
+
+    def _spec_fn(self, window: int):
+        """The function of one spec tick at ``window`` (the reference's
+        ``_make_spec`` / ``_make_spec_tree``), on the persistent state:
+        the verify forward over the input block (pages covering the window
+        plus the block), exact acceptance with the rows' options, keys and
+        rings, for the tree the sibling's kv moved onto the accepted path
+        (copy_slot; rows without one copy a slot onto itself), lengths
+        advanced by accepted + 1 on live rows, the emitted tokens written
+        into the rings at their context positions, the keys advanced, the
+        feed set to the correction (parked rows keep theirs), and
+        (accepted, correction, used sibling) in ``_spec_out``."""
+        K, B, N = self.spec_k, self.num_slots, self.spec_tree_nodes
+        S = N or K + 1
+        pages = min(-(-(window + S) // self.page_size),
+                    self._cache.max_pages_per_row)
+        cols, buf = self._spec_cols, self._spec_in
+        fam, cache = self._family, self._cache
+
+        def run(active: Optional[torch.Tensor] = None) -> None:
+            act = self._active_dev if active is None else active
+            tokens, drafts = buf[:, cols["tokens"]], buf[:, cols["drafts"]]
+            max_acc = buf[:, cols["max_acc"]][:, 0]
+            pre = cache.lengths.long()
+            opts = (self._keys_dev, self._temps_dev, self._top_ks_dev,
+                    self._top_ps_dev, max_acc)
+            ring = dict(ring=self._ring_dev, rp=self._rps_dev, ctx_len=pre)
+            if N:
+                anc = buf[:, cols["anc"]].reshape(B, N, N) != 0
+                sib_tok = buf[:, cols["sib_tok"]]
+                sib_node = buf[:, cols["sib_node"]]
+                logits, _ = fam.verify_tree_paged(
+                    self._params, self.config, tokens,
+                    buf[:, cols["depths"]], anc, cache, pages=pages)
+                accepted, used, corr, keys = spec_verify_tree(
+                    logits, drafts, sib_tok, sib_node, *opts, **ring)
+                sel = (accepted - 1).clamp(0, K - 1)[:, None]
+                sib = sib_tok.gather(1, sel)[:, 0]
+                dst = pre + accepted
+                src = torch.where(act & (used > 0),
+                                  pre + sib_node.gather(1, sel)[:, 0], dst)
+                copy_slot(cache, src, dst)
+            else:
+                logits, _ = fam.verify_step_paged(
+                    self._params, self.config, tokens, cache, pages=pages,
+                    impl=self.attn_impl)
+                accepted, corr, keys = spec_verify_batched(logits, drafts,
+                                                           *opts, **ring)
+                used = torch.zeros_like(accepted)
+            cache.lengths += torch.where(act, accepted + 1, 0).to(
+                cache.lengths.dtype)
+            # Emitted token i (after input i) sits at context position
+            # pre + i + 1; rows' writes past `accepted` or parked drop.
+            ar = torch.arange(K + 1, device=pre.device)[None, :]
+            ok = (ar <= accepted[:, None]) & act[:, None]
+            idx = torch.where(ok, (pre[:, None] + 1 + ar) % _RING, _RING)
+            emitted = torch.where(
+                ar < accepted[:, None],
+                torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1),
+                corr[:, None])
+            if N:
+                emitted = torch.where(
+                    (used > 0)[:, None] & (ar == (accepted - 1)[:, None]),
+                    sib[:, None], emitted)
+            ext = torch.cat([self._ring_dev,
+                             self._ring_dev.new_zeros((B, 1))], dim=1)
+            ext.scatter_(1, idx, emitted)
+            self._ring_dev.copy_(ext[:, :_RING])
+            self._keys_dev.copy_(keys)
+            self._next.copy_(torch.where(act[:, None], corr[:, None],
+                                         self._next))
+            self._spec_out.copy_(torch.stack([accepted, corr, used]))
+
+        return run
+
+    def _spec_for(self, window: int) -> _DecodeProgram:
+        """The spec program at ``window`` (:meth:`_program`)."""
+        return self._program(("spec", window),
+                             lambda: self._spec_fn(window))
 
     def _probe_device_step(self) -> None:
         """Measure the device's decode step once, at warmup's tail (the
@@ -952,8 +1213,10 @@ class BatchScheduler:
             # steps, and the mean K over every decode tick.
             "decode_fused_ticks_total": self._n_fused_ticks,
             "decode_fused_steps_total": self._n_fused_steps,
+            # Over non-speculative ticks: a spec tick has no fused K.
             "decode_fused_mean_k": round(
-                self._n_decode_steps / max(1, self._n_decode_ticks), 3),
+                self._n_decode_steps
+                / max(1, self._n_decode_ticks - self._n_spec_ticks), 3),
             # p50 of the steady-state interval between dispatches, per
             # step; and the longest dispatch gap across admission work.
             "decode_wall_ms": round(self._wall_hist.percentile(50) or 0.0,
@@ -974,6 +1237,8 @@ class BatchScheduler:
             # (the write-then-attend branch runs kernel B's pool mode).
             "paged_flash_min_w": int(self.attn_impl == "gather"),
         }
+        if self.spec_k:
+            out.update(self._spec_metrics())
         if self._prefix is not None:
             out["serve_prefix_entries"] = len(self._prefix)
             out["serve_prefix_admits_total"] = self._n_prefix_admits
@@ -982,6 +1247,39 @@ class BatchScheduler:
             out["prefix_misses_total"] = self._prefix.misses_total
             out["prefix_evictions_total"] = self._prefix.evictions_total
             out["prefix_bytes"] = self._prefix.nbytes
+        return out
+
+    def _spec_metrics(self) -> dict[str, float]:
+        """The reference's ``serve_spec_*`` series (scheduler.py:3165-3204):
+        accepted drafts, the most optimistic source's EMA, per source its
+        proposed / accepted tokens, acceptance rate, EMA and accepted
+        tokens per verify dispatch it drafted into, the aggregate per
+        dispatch, and for tree ticks the nodes verified and the mean
+        accepted path length (root included)."""
+        out: dict[str, float] = {
+            "serve_spec_accepted_total": self._n_spec_accepted,
+            "serve_spec_accept_ema": round(
+                max(self._spec_ema.values(), default=0.0), 4)}
+        for src in self._sources:
+            n = src.name
+            prop = self._n_spec_proposed_src[n]
+            acc = self._n_spec_accepted_src[n]
+            disp = self._n_spec_dispatch_src[n]
+            out[f'serve_spec_proposed_total{{source="{n}"}}'] = prop
+            out[f'serve_spec_accepted_total{{source="{n}"}}'] = acc
+            out[f'serve_spec_accept_rate{{source="{n}"}}'] = (
+                round(acc / prop, 4) if prop else 0.0)
+            out[f'serve_spec_accept_ema{{source="{n}"}}'] = round(
+                self._spec_ema[n], 4)
+            out[f'serve_spec_accepted_per_dispatch{{source="{n}"}}'] = (
+                round(acc / disp, 3) if disp else 0.0)
+        out["serve_spec_accepted_per_dispatch"] = round(
+            self._n_spec_accepted / max(1, self._n_spec_ticks), 3)
+        if self.spec_tree_nodes:
+            out["serve_spec_tree_nodes_total"] = self._n_spec_tree_nodes
+            out["serve_spec_tree_accepted_path_len"] = round(
+                1 + self._n_spec_tree_accepted
+                / max(1, self._n_spec_tree_rows), 3)
         return out
 
     # -- scheduler thread --------------------------------------------------
@@ -1018,7 +1316,25 @@ class BatchScheduler:
                     elif self._promote_q and self._prefill_carry is None:
                         self._build_promotion()     # idle: nobody to stall
                     continue
+                # A spec tick needs the rows' current ids, so the pending
+                # tick is flushed first — only on iterations where some
+                # source may propose (the throttle keeps pipelining while
+                # every source backs off); such iterations' plain ticks
+                # run unfused (K = 1: a fused tick would emit K tokens
+                # with no draft chance).
+                spec_allowed = (self._spec_sources_allowed()
+                                if self.spec_k else {})
+                spec_now = any(spec_allowed.values())
+                if spec_now:
+                    if pending is not None:
+                        self._process_tick(*pending)
+                        pending = None
+                    if not self._any_active():
+                        continue
+                    if self._spec_tick(spec_allowed):
+                        continue
                 new = self._dispatch_tick(
+                    allow_fuse=not spec_now,
                     inflight=pending[3] if pending is not None else 0)
                 if pending is not None:
                     self._process_tick(*pending)
@@ -1423,6 +1739,11 @@ class BatchScheduler:
         self._ring_dev[idx] = ring
         self._next[idx, 0] = toks
         first = toks.tolist()
+        # Draft sources index each row's prompt before its first token is
+        # appended (release never precedes admit).
+        for src in self._sources:
+            for slot, row in zip(chunk, rows):
+                src.admit(row, slot.prompt_ids)
         now = time.monotonic()
         self._n_admitted += R
         self._flight.note("admit", self._loop_iter, n=R)
@@ -1456,14 +1777,16 @@ class BatchScheduler:
         self._last_decode_t = now
         self._admit_since_tick = False
 
-    def _dispatch_tick(self, inflight: int = 0) -> tuple:
+    def _dispatch_tick(self, allow_fuse: bool = True,
+                       inflight: int = 0) -> tuple:
         """Launch one decode tick without reading anything back (the
         reference's ``_dispatch_tick``, scheduler.py:3904-3966): K from
         :meth:`_choose_fuse_k`, the window covering every live row's
         deepest attended position (``ctx_len + inflight + K - 1``:
         under pipelining the device runs up to ``inflight`` slots ahead
-        of the host's ctx_len), the live-row mask re-uploaded only when
-        the set of live rows changed, then one program call and the copy
+        of the host's ctx_len; K = 1 unless ``allow_fuse``), the live-row
+        mask re-uploaded only when the set of live rows changed, then one
+        program call and the copy
         of its token block into a host buffer behind an event. Returns
         (toks [K, B] host, event or None, the rows it decoded for, K)
         for :meth:`_process_tick`, one tick later."""
@@ -1475,7 +1798,7 @@ class BatchScheduler:
         # envelope (_fail_all_and_reset): in-flight requests fail with a
         # well-formed error and the next request serves as before.
         failpoint("serve.scheduler.dispatch")
-        K = self._choose_fuse_k(inflight)
+        K = self._choose_fuse_k(inflight) if allow_fuse else 1
         if K != self._last_fuse_k:
             # Only the flips: a steady K would evict everything else.
             self._flight.note("fuse_k", self._loop_iter, k=K)
@@ -1493,13 +1816,7 @@ class BatchScheduler:
             self._wall_hist.observe(
                 (now - self._last_dispatch[0]) * 1e3 / self._last_dispatch[1])
         self._last_dispatch = (now, K)
-        active = tuple(s is not None for s in self._slots)
-        if active != self._active_host:
-            self._active_host = active
-            mask = torch.tensor(active, dtype=torch.bool)
-            if self.device.type == "cuda":
-                mask = mask.pin_memory()
-            self._active_dev.copy_(mask, non_blocking=True)
+        self._sync_active()
         window = self._window(extra=max(1, inflight + K - 1))
         self._decode_fused_for(window, K)()
         toks = self._host_toks[self._flip][:K]
@@ -1510,6 +1827,171 @@ class BatchScheduler:
             event = torch.cuda.Event()
             event.record()
         return toks, event, list(self._slots), K
+
+    def _sync_active(self) -> None:
+        """Upload the live-row mask when the set of live rows changed."""
+        active = tuple(s is not None for s in self._slots)
+        if active != self._active_host:
+            self._active_host = active
+            mask = torch.tensor(active, dtype=torch.bool)
+            if self.device.type == "cuda":
+                mask = mask.pin_memory()
+            self._active_dev.copy_(mask, non_blocking=True)
+
+    def _spec_tick(self, allowed: dict[str, bool]) -> bool:
+        """One speculative tick (the reference's ``_spec_tick``, with the
+        n-gram source). False (the caller runs a plain tick) when no live
+        row got a draft: the verify computes every row's S positions, so
+        it pays only when something is drafted.
+
+        Drafts: each allowed source in priority order proposes for the
+        rows still without one (rows with no budget left are skipped);
+        a consulted source that proposed nothing decays its EMA as a
+        zero-acceptance tick would. Rows' cap: ``max_acc = min(len(draft),
+        ctx_budget - 2 - ctx_len)``. Tree ticks place a source's second
+        choices as sibling leaves where its score gap is below
+        ``spec_tree_gap`` (the n-gram source has none, so its tree is the
+        main chain in an N-node program); a row too close to its budget
+        for N node slots keeps a plain chain.
+
+        Verify: the input block goes to the device in one pinned copy,
+        the window's spec program runs (a CUDA graph replay on the card),
+        and one event-synced readback brings (accepted, correction, used
+        sibling). The tick is a dispatch: the ``serve.scheduler.dispatch``
+        failpoint fires here too. Then each source's EMA and counters,
+        and every row's emitted tokens (accepted drafts, a used sibling,
+        the correction) stream as a plain tick's would."""
+        K = self.spec_k
+        N = self.spec_tree_nodes
+        tree = bool(N)
+        host = self._fill_spec_base()
+        cols = self._spec_cols
+        tokens = host[:, cols["tokens"]]
+        drafts = host[:, cols["drafts"]]
+        max_acc = host[:, cols["max_acc"]]
+        budgets: dict[int, int] = {}
+        ctxs: dict[int, tuple] = {}
+        remaining: list[int] = []
+        for row, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            tokens[row, 0] = slot.ids[-1]
+            budget = slot.ctx_budget - 2 - slot.ctx_len
+            if budget < 1:
+                continue
+            budgets[row] = budget
+            ctxs[row] = (slot.prompt_ids, slot.ids)
+            remaining.append(row)
+        proposals: dict[int, tuple] = {}
+        consulted: list[str] = []
+        for src in self._sources:
+            if not remaining or not allowed.get(src.name):
+                continue
+            consulted.append(src.name)
+            if tree:
+                got = src.draft_tree_batch(remaining, ctxs)
+                for row in remaining:
+                    t = got.get(row)
+                    if t and t[0]:
+                        d, sec, gap = t
+                        proposals[row] = (src.name, list(d[:K]),
+                                          list(sec[:K]), list(gap[:K]))
+            else:
+                got = src.draft_batch(remaining, ctxs)
+                for row in remaining:
+                    d = got.get(row)
+                    if d:
+                        proposals[row] = (src.name, list(d[:K]), [], [])
+            remaining = [r for r in remaining if r not in proposals]
+        for name in consulted:
+            if not any(src == name for src, *_ in proposals.values()):
+                self._spec_ema[name] *= (1 - _SPEC_EMA_ZERO_ALPHA)
+        if not proposals:
+            return False
+        src_rows: dict[str, list[int]] = {s.name: [] for s in self._sources}
+        for row, (src, d, sec, gap) in proposals.items():
+            src_rows[src].append(row)
+            self._n_spec_proposed_src[src] += len(d)
+            drafts[row, :len(d)] = d
+            tokens[row, 1:1 + len(d)] = d
+            max_acc[row, 0] = min(len(d), budgets[row])
+            if tree:
+                n_sib = 0
+                # Node slots past the row's budget would be written to the
+                # garbage page, and a sibling copied from there is stale.
+                if self._slots[row].ctx_len + N + 2 <= self._slots[
+                        row].ctx_budget:
+                    sites = [j for j in range(min(len(d), len(sec), len(gap)))
+                             if gap[j] < self.spec_tree_gap
+                             and sec[j] != d[j]]
+                    for j in sites[:N - K - 1]:
+                        node = K + 1 + n_sib
+                        tokens[row, node] = sec[j]
+                        host[row, cols["depths"].start + node] = j + 1
+                        base = cols["anc"].start + node * N
+                        host[row, base:base + j + 1] = 1
+                        host[row, cols["sib_tok"].start + j] = sec[j]
+                        host[row, cols["sib_node"].start + j] = node
+                        n_sib += 1
+                self._n_spec_tree_rows += 1
+                self._n_spec_tree_nodes += 1 + len(d) + n_sib
+        self._flight.note("spec", self._loop_iter, rows=len(proposals))
+        failpoint("serve.scheduler.dispatch")
+        self._n_decode_ticks += 1
+        self._n_spec_ticks += 1
+        self._last_dispatch = None    # a spec wall is not a decode step's
+        self._note_admission_gap(time.monotonic())
+        self._sync_active()
+        for name, rows_d in src_rows.items():
+            if rows_d:
+                self._n_spec_dispatch_src[name] += 1
+        window = self._window(extra=N - 1 if tree else K)
+        self._spec_in.copy_(self._spec_host, non_blocking=True)
+        self._spec_for(window)()
+        self._spec_out_host.copy_(self._spec_out, non_blocking=True)
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+            event.synchronize()
+        acc, corr, used = self._spec_out_host.tolist()
+        for src in self._sources:
+            rows_s = src_rows.get(src.name) or []
+            if not rows_s:
+                continue
+            n_acc = sum(acc[r] for r in rows_s)
+            self._n_spec_accepted_src[src.name] += n_acc
+            tick_acc = n_acc / len(rows_s)
+            alpha = _SPEC_EMA_ZERO_ALPHA if n_acc == 0 else _SPEC_EMA_ALPHA
+            ema = (1 - alpha) * self._spec_ema[src.name] + alpha * tick_acc
+            if tick_acc >= _SPEC_EMA_FLOOR:
+                # One probe that clears the floor re-enables the source.
+                ema = max(ema, _SPEC_EMA_SEED)
+            self._spec_ema[src.name] = ema
+            for r in rows_s:
+                src.observe(r, acc[r] - used[r])
+        for row, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            if slot.cancelled.is_set():
+                self._release(row)
+                continue
+            a = acc[row]
+            self._n_spec_accepted += a
+            if tree and row in proposals:
+                self._n_spec_tree_accepted += a
+            if used[row]:
+                # Position a - 1 took the sibling, not the main draft.
+                emitted = ([int(t) for t in drafts[row, :a - 1]]
+                           + [int(host[row, cols["sib_tok"].start + a - 1]),
+                              corr[row]])
+            else:
+                emitted = [int(t) for t in drafts[row, :a]] + [corr[row]]
+            for t in emitted:
+                slot.ctx_len += 1
+                if not self._append_token(slot, row, t):
+                    self._release(row)
+                    break
+        return True
 
     def _process_tick(self, toks: torch.Tensor, event, snapshot: list,
                       K: int) -> None:
@@ -1549,6 +2031,8 @@ class BatchScheduler:
             slot.finish()
             return False
         slot.ids.append(tok)
+        for src in self._sources:
+            src.append(row, tok)
         if slot.stats is not None:
             slot.stats.completion_tokens = len(slot.ids)
         if self._flush_text(slot):
@@ -1596,6 +2080,8 @@ class BatchScheduler:
         in the garbage page) BEFORE its pages return to the allocator."""
         slot = self._slots[row]
         self._slots[row] = None
+        for src in self._sources:
+            src.release(row)
         if (slot is not None and self._trace is not None
                 and slot.req.trace_sampled and slot.stats is not None
                 and slot.stats.ttft_s is not None):
@@ -1634,4 +2120,6 @@ class BatchScheduler:
             s.pages = None
             s.fail("internal error: serving state was reset")
         self._admit_carry, self._waiting = [], []
+        for src in self._sources:
+            src.reset()
         self._reset_device_state()

@@ -11,7 +11,9 @@
   503 of the embed routes, which moves no shed counter (``count=False``).
 - On the ``tiny`` engines of both packages, after warmup and one
   request, the port's ``/metrics`` series are a superset of the
-  reference's, minus a named speculation / KV-tier set.
+  reference's, minus a named speculation / KV-tier set; with speculation
+  on (``spec_k`` 4, tree verify), the two fronts' ``serve_spec_*``
+  series are the same names with the same labels.
 """
 
 import json
@@ -79,8 +81,9 @@ ROUTES = {
     ("POST", "/admin/trace/dump"): {},
 }
 
-# Reference series of features the port does not serve yet: speculation
-# and the KV tier (none is exported by a default engine).
+# Reference series that a default engine does not export: speculation's
+# (held by test_spec_series_equal_the_references below) and the KV
+# tier's (not ported yet).
 SPEC_TIER_PREFIXES = ("serve_spec_", "spec_", "kv_")
 
 
@@ -243,6 +246,43 @@ def test_engine_metrics_are_a_superset_of_the_reference():
                 "serve_flight_dumps_total", "retry_attempts_total",
                 'serve_replica_class{class="mixed"}',
                 "serve_trace_spans_total"} <= names[1]
+    finally:
+        for srv in servers:
+            srv.stop()
+        ref_engine.stop()
+        engine.stop()
+
+
+def test_spec_series_equal_the_references():
+    """With speculation on, /metrics of both fronts carry the same
+    ``serve_spec_*`` names and labels (per-source and aggregate series,
+    the tree series)."""
+    cfg = ref_config("tiny")
+    params = ref_llama.init_params_quantized(cfg, jax.random.PRNGKey(0),
+                                             dtype=jnp.float32)
+    ref_engine = TPUEngine(params, cfg, RefByteTokenizer(cfg.vocab_size),
+                           num_slots=2, max_seq=128, kv_mode="paged",
+                           page_size=16, kv_quant=True, spec_k=4,
+                           spec_tree_nodes=8)
+    engine = TorchEngine(
+        params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"),
+        get_config("tiny"), ByteTokenizer(cfg.vocab_size), num_slots=2,
+        max_seq=128, page_size=16, kv_quant=True, spec_k=4,
+        spec_tree_nodes=8, device="cpu")
+    servers = []
+    try:
+        names = []
+        for eng, make in ((ref_engine, RefServer), (engine, OllamaServer)):
+            srv = make(eng, addr="127.0.0.1:0").start()
+            servers.append(srv)
+            assert _call("POST", srv.url + "/api/generate",
+                         ROUTES[("POST", "/api/generate")])[0] == 200
+            text = _call("GET", srv.url + "/metrics")[2].decode()
+            names.append({line.split()[0] for line in text.splitlines()
+                          if line.startswith("serve_spec_")})
+        assert names[0] == names[1]
+        assert {'serve_spec_accept_rate{source="ngram"}',
+                "serve_spec_tree_accepted_path_len"} <= names[1]
     finally:
         for srv in servers:
             srv.stop()

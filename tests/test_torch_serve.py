@@ -206,7 +206,8 @@ def test_gpu_default_entry_point_raises_without_a_card(monkeypatch):
 
 # Features of the reference that the port now serves; the others still
 # exit with "not ported".
-_PORTED = ({"SERVE_QUANT": "int4"}, {"MODEL_CONFIG": "tiny-moe"})
+_PORTED = ({"SERVE_SPEC": "2"}, {"SERVE_QUANT": "int4"},
+           {"MODEL_CONFIG": "tiny-moe"})
 
 
 @pytest.mark.parametrize("env", [{"SERVE_SPEC": "2"},
@@ -217,7 +218,8 @@ _PORTED = ({"SERVE_QUANT": "int4"}, {"MODEL_CONFIG": "tiny-moe"})
                                  {"SERVE_PROFILE_PORT": "9999"},
                                  {"SERVE_QUANT": "int4"},
                                  {"SERVE_KV": "dense"},
-                                 {"MODEL_CONFIG": "tiny-moe"}])
+                                 {"MODEL_CONFIG": "tiny-moe"},
+                                 {"SERVE_SPEC": "2", "SERVE_DRAFT": "tiny"}])
 def test_features_of_later_slices_fail_loudly(env, monkeypatch):
     monkeypatch.setenv("SERVE_DEVICE", "cpu")
     monkeypatch.setenv("SERVE_WARMUP", "0")
