@@ -27,7 +27,8 @@
 //
 // Verify mode (paged_verify_launch) computes what the reference's
 // paged_attention_verify_append (ops/paged_attention.py:635-690, XLA, no
-// Pallas) computes for speculative decoding: S candidate positions per row
+// Pallas) computes for speculative decoding and for a session wake's
+// suffix forward (S up to 256): S candidate positions per row
 // attend the pool window (the same positions t < lengths[b] for every j)
 // plus the block's own k/v, which is not in the pool, at full precision:
 //   s_t = (q_j . k_t) / sqrt(D) * sk_t                  for t < lengths[b]
@@ -108,7 +109,10 @@
 // (bound 0.322), against 1.5-1.7 ms for SDPA over a pre-gathered window;
 // verify mode, one llama3.1-8b spec verify at B = 8, S = 8, W = 1024 on
 // an int8 pool, 1.11 ms (bound 0.178) against 2.2 ms for SDPA over the
-// pre-gathered window plus the block (chip_smoke.py's kernel_b_verify).
+// pre-gathered window plus the block (chip_smoke.py's kernel_b_verify);
+// a session wake at R = 1, S = 256, W = 2048, 15.5 ms per 32 layers on
+// the device (bound 0.30, operations) against 2.2 ms for SDPA: the window
+// is read once per 16 query rows, 64 times a kv group at S = 256.
 // Timed cut-downs of this source (PERF.md, kernel B) put an int8 layer at
 // 4.4 us for the launches, the prologue and the combine alone; 10.8 us
 // with the reads but not the walk's arithmetic (the 17.3 MB in ~6.4 us,
@@ -130,7 +134,9 @@ constexpr int SLICE = 256;       // tokens per block (paged_slice_tokens)
 constexpr int NW = 4;            // warps per block
 constexpr int THREADS = 32 * NW;
 constexpr int MAX_REP = 8;
-constexpr int MAX_S = 64;           // verify mode's block positions per row
+// Verify mode's block positions per row: a speculative block (<= 64) or
+// a session wake's suffix bucket (<= 256, the scheduler's widest wake).
+constexpr int MAX_S = 256;
 constexpr int MAX_DEVICES = 64;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -723,7 +729,9 @@ __global__ void paged_verify_combine_kernel(
     const size_t qi = ((size_t)blockIdx.x * Hq + h) * D;
     const size_t wb = ((size_t)blockIdx.x * Hq + h) * splits;
     const float qd = __bfloat162float(q[qi + d]);
-    for (int i = 0; i < S; ++i) {
+    // Under the chain mask only positions i <= j enter.
+    const int ni = mask != nullptr ? S : j + 1;
+    for (int i = 0; i < ni; ++i) {
         float x = qd * __bfloat162float(
             kb[(((size_t)b * S + i) * Hkv + g) * D + d]);
 #pragma unroll
@@ -733,22 +741,26 @@ __global__ void paged_verify_combine_kernel(
     }
     __syncthreads();
     for (int i = d; i < S; i += D) {
+        if (i >= ni) {
+            sb[i] = -INFINITY;
+            continue;
+        }
         float x = part[0][i];
         for (int w = 1; w < D / 32; ++w) x += part[w][i];
-        const bool on = mask != nullptr
-            ? mask[((size_t)b * S + j) * S + i] != 0 : i <= j;
+        const bool on = mask == nullptr
+            || mask[((size_t)b * S + j) * S + i] != 0;
         sb[i] = on ? x * scale_log2 : -INFINITY;
     }
     __syncthreads();
     float m = -INFINITY;
-    for (int i = 0; i < S; ++i) m = fmaxf(m, sb[i]);
+    for (int i = 0; i < ni; ++i) m = fmaxf(m, sb[i]);
     // The split grid's workspace is complete and visible past this point.
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
     const int live = (min(lengths[b], window) + SLICE - 1) / SLICE;
 #pragma unroll 4
     for (int sp = 0; sp < live; ++sp) m = fmaxf(m, ws_ml[(wb + sp) * 2]);
     float den = 0.f, num = 0.f;
-    for (int i = 0; i < S; ++i) {
+    for (int i = 0; i < ni; ++i) {
         if (sb[i] == -INFINITY) continue;
         const float p = exp2f(sb[i] - m);
         den += p;

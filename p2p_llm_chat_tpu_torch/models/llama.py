@@ -7,7 +7,8 @@ decode step in both of the
 reference's orderings (attend-then-write, write-then-attend) and its
 fused K-step form (:func:`decode_fused`), the speculative verify forwards
 over the pool (:func:`verify_step_paged` for a draft chain,
-:func:`verify_tree_paged` for a node tree), with the
+:func:`verify_tree_paged` for a node tree; the first, at one position
+per row, is also the session wake's forward), with the
 reference's ``mlp_fn`` hook through which the mixtral family
 (models/mixtral.py) plugs its sparse-MoE MLP in.
 
@@ -213,9 +214,22 @@ def _lm_head(params: dict, config: ModelConfig, h: torch.Tensor
     return mm(h, lm_head).float()
 
 
-def _logits(params: dict, config: ModelConfig, h: torch.Tensor
-            ) -> torch.Tensor:
-    h = rms_norm(h, params["final_norm"], config.rms_norm_eps)
+def _take_last(h: torch.Tensor, last_idx: Optional[torch.Tensor]
+               ) -> torch.Tensor:
+    """h [R, S, H] at each row's position ``last_idx`` [R] -> [R, 1, H]
+    (``h`` itself when None). Taken before the final norm, which is per
+    position."""
+    if last_idx is None:
+        return h
+    R = h.shape[0]
+    idx = last_idx.to(h.device).long()
+    return h[torch.arange(R, device=h.device), idx][:, None]
+
+
+def _logits(params: dict, config: ModelConfig, h: torch.Tensor,
+            last_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    h = rms_norm(_take_last(h, last_idx), params["final_norm"],
+                 config.rms_norm_eps)
     return _lm_head(params, config, h)
 
 
@@ -238,11 +252,8 @@ def hidden_states(params: dict, config: ModelConfig, tokens: torch.Tensor,
         k, v = store(li, k, v)
         h = _post_attn(h, attend_gqa_auto(q, k, v, q_offset), layers, li,
                        config, mlp_fn)
-    if last_idx is not None:
-        R = tokens.shape[0]
-        idx = last_idx.to(h.device).long()
-        h = h[torch.arange(R, device=h.device), idx][:, None]
-    return rms_norm(h, params["final_norm"], config.rms_norm_eps)
+    return rms_norm(_take_last(h, last_idx), params["final_norm"],
+                    config.rms_norm_eps)
 
 
 def _stack(params: dict, config: ModelConfig, tokens: torch.Tensor,
@@ -498,11 +509,13 @@ def tree_attention_mask(lengths: torch.Tensor, anc: torch.Tensor,
 
 def _verify_gather(params: dict, config: ModelConfig, tokens: torch.Tensor,
                    positions: torch.Tensor, cache: PagedKVCache, pages: int,
-                   mlp_fn, block_mask: Optional[torch.Tensor]):
+                   mlp_fn, block_mask: Optional[torch.Tensor],
+                   last_idx: Optional[torch.Tensor] = None):
     """The attend-then-write verify forward: each layer attends the pool
     window plus the block's own k/v under ``block_mask`` (kernel B's
     verify mode on the card), and ONE write_decode_multi_all_layers lands
-    every layer's block at ``lengths + i`` after the loop."""
+    every layer's block at ``lengths + i`` after the loop. Logits at every
+    position, or at ``last_idx`` only."""
     layers = params["layers"]
     rope = _rope(config, positions)
     h = params["embed"][tokens]
@@ -516,7 +529,7 @@ def _verify_gather(params: dict, config: ModelConfig, tokens: torch.Tensor,
         h = _post_attn(h, attn, layers, li, config, mlp_fn)
         k_all.append(k)
         v_all.append(v)
-    logits = _logits(params, config, h)
+    logits = _logits(params, config, h, last_idx)
     write_decode_multi_all_layers(cache, torch.stack(k_all),
                                   torch.stack(v_all))
     return logits, cache
@@ -524,7 +537,8 @@ def _verify_gather(params: dict, config: ModelConfig, tokens: torch.Tensor,
 
 def verify_step_paged(params: dict, config: ModelConfig,
                       tokens: torch.Tensor, cache: PagedKVCache, *,
-                      pages: int, mlp_fn=None, impl: Optional[str] = None):
+                      pages: int, mlp_fn=None, impl: Optional[str] = None,
+                      last_idx: Optional[torch.Tensor] = None):
     """Speculative verify over the paged pool (the reference's
     ``verify_step_paged``): S candidate positions per row — tokens [B, S]
     = the pending token then the drafts — at positions ``lengths + j``,
@@ -538,7 +552,12 @@ def verify_step_paged(params: dict, config: ModelConfig,
     ``kernel``/``flash`` (write-then-attend, bf16 pools) writes each
     layer's block (write_decode_multi), then runs kernel B's pool mode
     once per position j over ``lengths + j + 1`` slots, with ``pages``
-    covering ``lengths + S``. Returns (logits [B, S, V] f32, cache)."""
+    covering ``lengths + S``. Returns (logits [B, S, V] f32, cache).
+
+    ``last_idx`` ([B] int, block-local): the logits of that position only,
+    [B, 1, V] — a session wake's shape (serve/scheduler.py), where S is
+    the new turn's suffix bucket (up to 256) and every position's logits
+    would be a [B*S, V] f32 temporary."""
     impl = check_impl(pa._DEFAULT_IMPL if impl is None else impl)
     B, S = tokens.shape
     dev = tokens.device
@@ -546,7 +565,7 @@ def verify_step_paged(params: dict, config: ModelConfig,
                  + torch.arange(S, device=dev)[None, :])
     if impl == "gather":
         return _verify_gather(params, config, tokens, positions, cache,
-                              pages, mlp_fn, None)
+                              pages, mlp_fn, None, last_idx)
     layers = params["layers"]
     rope = _rope(config, positions)
     h = params["embed"][tokens]
@@ -559,7 +578,7 @@ def verify_step_paged(params: dict, config: ModelConfig,
             k_scale=cache.k_scale, v_scale=cache.v_scale)
             for j in range(S)], dim=1)
         h = _post_attn(h, attn, layers, li, config, mlp_fn)
-    return _logits(params, config, h), cache
+    return _logits(params, config, h, last_idx), cache
 
 
 def verify_tree_paged(params: dict, config: ModelConfig,

@@ -217,13 +217,15 @@ def decode_fused(params: dict, config: ModelConfig, tokens: torch.Tensor,
 
 def verify_step_paged(params: dict, config: ModelConfig,
                       tokens: torch.Tensor, cache, *, pages: int,
-                      impl: Optional[str] = None):
+                      impl: Optional[str] = None,
+                      last_idx: Optional[torch.Tensor] = None):
     """llama.verify_step_paged with the MoE MLP (the reference's
-    mixtral.py:420-429): the expert grid sees the verify's B*S tokens,
-    dropless (capacity None)."""
+    mixtral.py:420-429; ``last_idx`` passes through for the session
+    wake): the expert grid sees the verify's B*S tokens, dropless
+    (capacity None)."""
     return llama.verify_step_paged(params, config, tokens, cache,
                                    pages=pages, mlp_fn=_mlp_fn(config, None),
-                                   impl=impl)
+                                   impl=impl, last_idx=last_idx)
 
 
 def verify_tree_paged(params: dict, config: ModelConfig,

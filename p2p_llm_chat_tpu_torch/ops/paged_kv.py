@@ -389,3 +389,60 @@ def copy_slot(cache: PagedKVCache, src_pos: torch.Tensor,
         cache.k_scale[:, dp, :, do] = cache.k_scale[:, sp, :, so]
         cache.v_scale[:, dp, :, do] = cache.v_scale[:, sp, :, so]
     return cache
+
+
+# -- page-set extract / inject (the KV tier, serve/kv_tier.py) ---------------
+
+def gather_pages(cache: PagedKVCache, pages: torch.Tensor) -> tuple:
+    """A page set's raw pool words in one gather per array — the device
+    half of parking a session (the caller reads the result back and frees
+    the pages). ``pages`` [P] physical ids, padded with page 0 to a
+    power-of-two bucket by the caller, so the payload shapes are the
+    reference's. Returns (k, v [L, P, ps, Hkv, D], k_scale, v_scale [L, P,
+    Hkv, ps_pad] head-major, or None on bf16 pools): the pool's words, not
+    a dequant, so a woken session attends exactly what it parked."""
+    pages = pages.to(device=cache.k.device, dtype=torch.long)
+    k = cache.k.index_select(1, pages)
+    v = cache.v.index_select(1, pages)
+    if not cache.quantized:
+        return k, v, None, None
+    return (k, v, cache.k_scale.index_select(1, pages),
+            cache.v_scale.index_select(1, pages))
+
+
+def scatter_pages(cache: PagedKVCache, pages: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None) -> PagedKVCache:
+    """Land a parked page set back into the pool, the inverse of
+    :func:`gather_pages`, IN PLACE (``index_copy_`` into the existing
+    pool tensors, whose addresses the captured decode and spec graphs
+    hold). ``pages`` [P] freshly allocated ids padded with page 0 to the
+    payload's bucket; the duplicate 0 entries land garbage in the garbage
+    page. Touches pool content only: the caller installs the waking row's
+    table and length."""
+    pages = pages.to(device=cache.k.device, dtype=torch.long)
+    cache.k.index_copy_(1, pages, k.to(cache.k.device))
+    cache.v.index_copy_(1, pages, v.to(cache.v.device))
+    if k_scale is not None:
+        cache.k_scale.index_copy_(1, pages, k_scale.to(cache.k.device))
+        cache.v_scale.index_copy_(1, pages, v_scale.to(cache.k.device))
+    return cache
+
+
+def set_row_table(cache: PagedKVCache, row: int,
+                  pages: torch.Tensor) -> PagedKVCache:
+    """Install a row's page map (physical ids, zero past its allocation,
+    ``max_pages_per_row`` wide) and reset its length to 0, in place."""
+    cache.page_table[row] = pages.to(device=cache.page_table.device,
+                                     dtype=torch.int32)
+    cache.lengths[row] = 0
+    return cache
+
+
+def zero_row(cache: PagedKVCache, row: int) -> PagedKVCache:
+    """Release a row on the device, in place: its table to the garbage
+    page and its length to 0 (queued after any tick in flight, so that
+    tick's writes still land in the row's own pages)."""
+    cache.page_table[row].zero_()
+    cache.lengths[row].zero_()
+    return cache

@@ -8,9 +8,16 @@ and the legacy ``POST /api/embeddings``, ``GET /api/tags``, ``POST
 /``; 501 for the model-management routes (``POST /api/pull|push|create|
 copy``, ``DELETE /api/delete``); ``GET /healthz``, ``GET /readyz``, ``GET
 /metrics``; ``POST /admin/drain`` / ``/admin/undrain``; ``GET
-/admin/trace`` and ``POST /admin/trace/dump``. The reference's prefix,
-session and disaggregated-prefill admin routes belong to features the
-port does not serve yet.
+/admin/trace`` and ``POST /admin/trace/dump``; the shared prefix tier
+(``GET /admin/prefix``, ``GET /admin/prefix/export``, ``POST
+/admin/prefix/import``), session migration (``GET /admin/session``,
+``GET /admin/session/export``, ``POST /admin/session/import``, ``/forget``
+and ``/park_all``) and disaggregated prefill (``POST
+/admin/disagg/prefill``), each with the reference's status codes (501
+when the backend has no prefix store or KV tier). Generate and chat read
+the conversation's ``session`` from the body or ``X-Session-Id``. The
+replica's class (``SERVE_REPLICA_CLASS``, serve/disagg.py) shows on
+``/readyz`` and as ``serve_replica_class``.
 
 The robustness plane is the reference's: ``FAIL_POINTS`` is parsed at
 construction (a malformed spec fails at boot), the ``serve.api.parse``
@@ -50,12 +57,10 @@ from ..utils.log import get_logger
 from ..utils.metrics import Registry
 from .backend import (Backend, GenerateOptions, GenerateRequest,
                       OverloadError, RequestStats)
+from .disagg import REPLICA_CLASSES, replica_class_from_env
 from .engine import default_chat_prompt
 
 log = get_logger("serve.torch_api")
-
-# This replica takes any work (the reference's default replica class).
-REPLICA_CLASS = "mixed"
 
 
 def now_rfc3339() -> str:
@@ -72,8 +77,17 @@ def render_chat_prompt(messages: list[dict], backend: Backend) -> str:
 
 class OllamaServer:
     def __init__(self, backend: Backend, addr: Optional[str] = None,
-                 registry: Optional[Registry] = None) -> None:
+                 registry: Optional[Registry] = None,
+                 replica_class: Optional[str] = None) -> None:
         self.backend = backend
+        # prefill | decode | mixed (serve/disagg.py), from the env unless
+        # given.
+        self.replica_class = (replica_class if replica_class is not None
+                              else replica_class_from_env())
+        if self.replica_class not in REPLICA_CLASSES:
+            raise ValueError(f"replica_class must be one of "
+                             f"{REPLICA_CLASSES}, got "
+                             f"{self.replica_class!r}")
         # Eager FAIL_POINTS parse: a malformed spec fails here, at boot.
         _failpoints.load_env()
         self.addr_cfg = (addr if addr is not None
@@ -116,6 +130,21 @@ class OllamaServer:
         self._draining = threading.Event()
         self.router.add("POST", "/admin/drain", self._drain)
         self.router.add("POST", "/admin/undrain", self._undrain)
+        # The shared prefix tier and session migration: control JSON
+        # through a router, KV bytes replica to replica (the import's pull
+        # form); disaggregated prefill parks a new conversation's prompt
+        # as a session a decode replica pulls.
+        self.router.add("GET", "/admin/prefix", self._prefix_list)
+        self.router.add("GET", "/admin/prefix/export", self._prefix_export)
+        self.router.add("POST", "/admin/prefix/import", self._prefix_import)
+        self.router.add("GET", "/admin/session", self._session_list)
+        self.router.add("GET", "/admin/session/export", self._session_export)
+        self.router.add("POST", "/admin/session/import", self._session_import)
+        self.router.add("POST", "/admin/session/forget", self._session_forget)
+        self.router.add("POST", "/admin/session/park_all",
+                        self._session_park_all)
+        self.router.add("POST", "/admin/disagg/prefill",
+                        self._disagg_prefill)
         # The bounded span store; bind_registry registers the
         # serve_trace_* series, and the backend's scheduler records its
         # spans into the same store.
@@ -131,8 +160,9 @@ class OllamaServer:
     # -- helpers -------------------------------------------------------------
 
     def _readyz(self, req: Request) -> Response:
+        cls = self.replica_class
         if self._draining.is_set():
-            return Response(503, {"status": "draining", "class": REPLICA_CLASS},
+            return Response(503, {"status": "draining", "class": cls},
                             headers={"Retry-After": "5"})
         fn = getattr(self.backend, "ready", None)
         try:
@@ -141,8 +171,8 @@ class OllamaServer:
             log.exception("readiness probe failed")
             ok = False
         if ok:
-            return Response(200, {"status": "ready", "class": REPLICA_CLASS})
-        return Response(503, {"status": "warming", "class": REPLICA_CLASS},
+            return Response(200, {"status": "ready", "class": cls})
+        return Response(503, {"status": "warming", "class": cls},
                         headers={"Retry-After": "2"})
 
     def _drain(self, req: Request) -> Response:
@@ -201,7 +231,7 @@ class OllamaServer:
         text += ("# TYPE retry_attempts_total counter\n"
                  f"retry_attempts_total {_backoff.retries_total()}\n")
         text += ("# TYPE serve_replica_class gauge\n"
-                 f'serve_replica_class{{class="{REPLICA_CLASS}"}} 1\n')
+                 f'serve_replica_class{{class="{self.replica_class}"}} 1\n')
         return Response(200, text, content_type="text/plain; version=0.0.4")
 
     def _finalize_record(self, model: str, stats: RequestStats,
@@ -255,13 +285,17 @@ class OllamaServer:
                 return Response(400, {"error": "context must be a list of "
                                                "non-negative token ids"})
             context = tuple(raw_ctx)
+        session = str(req_body.get("session") or "")
+        if not session and headers is not None:
+            session = str(headers.get("x-session-id") or "")
         # Adopt the propagated trace context, or mint one here (this
         # front is then the trace's origin).
         tctx = _trace.parse_header((headers or {}).get(_trace.HEADER_LC))
         if tctx is None:
             tctx = _trace.mint()
         greq = GenerateRequest(prompt=prompt, model=model, options=opts,
-                               context=context, trace_id=tctx.trace_id,
+                               context=context, session=session,
+                               trace_id=tctx.trace_id,
                                trace_sampled=tctx.sampled)
         stats = RequestStats()
         self._m_requests.inc()
@@ -465,6 +499,257 @@ class OllamaServer:
             log.exception("embed failed")
             return Response(500, {"error": str(e)})
         return Response(200, {"embedding": vecs[0]})
+
+    # -- the shared prefix tier (serve/prefix.py) ----------------------------
+
+    def _pull(self, req: Request, src: str, path: str, query: dict,
+              extra: dict) -> bytes:
+        """GET ``src`` + ``path`` from a peer replica (an import's pull
+        form), forwarding the caller's trace header; raises on failure."""
+        import urllib.parse
+        import urllib.request
+        hdrs = dict(extra)
+        raw_tid = req.headers.get(_trace.HEADER_LC)
+        if raw_tid:
+            hdrs[_trace.HEADER] = raw_tid
+        url = (f"{src.rstrip('/')}{path}?"
+               f"{urllib.parse.urlencode(query)}")
+        with urllib.request.urlopen(urllib.request.Request(
+                url, headers=hdrs), timeout=30.0) as r:
+            return r.read()
+
+    def _prefix_list(self, req: Request) -> Response:
+        """``GET /admin/prefix``: {token_hash: {len, hits}} of the cached
+        prefixes; 501 without a prefix store (FakeLLM, prefix cache
+        off)."""
+        fn = getattr(self.backend, "prefix_hashes", None)
+        got = fn() if fn is not None else None
+        if got is None:
+            return Response(501, {"error": "no prefix store"})
+        return Response(200, {"prefixes": got})
+
+    def _prefix_export(self, req: Request) -> Response:
+        """``GET /admin/prefix/export?h=<token_hash>``: one entry's wire
+        payload for a peer replica."""
+        fn = getattr(self.backend, "prefix_export", None)
+        if fn is None:
+            return Response(501, {"error": "no prefix store"})
+        h = str(req.query.get("h") or "")
+        if not h:
+            return Response(400, {"error": "missing h=<token_hash>"})
+        data = fn(h)
+        if data is None:
+            return Response(404, {"error": f"prefix {h} not cached"})
+        return Response(200, data, content_type="application/octet-stream")
+
+    def _prefix_import(self, req: Request) -> Response:
+        """``POST /admin/prefix/import``: install a peer's entry. The body
+        is the raw payload, or JSON ``{"from": <peer url>, "h": <hash>}``
+        (the pull form: the bytes move replica to replica)."""
+        fn = getattr(self.backend, "prefix_import", None)
+        if fn is None:
+            return Response(501, {"error": "no prefix store"})
+        data = req.body or b""
+        if data[:1] == b"{":
+            try:
+                spec = req.json() or {}
+            except ValueError:
+                return Response(400, {"error": "invalid json"})
+            src = str(spec.get("from") or "")
+            h = str(spec.get("h") or "")
+            if not src or not h:
+                return Response(400, {"error": "need from + h"})
+            sid = req.headers.get("x-session-id")
+            try:
+                data = self._pull(req, src, "/admin/prefix/export",
+                                  {"h": h},
+                                  {"X-Session-Id": sid} if sid else {})
+            except Exception as e:   # noqa: BLE001 — peer may be gone
+                return Response(502, {"error": f"pull from {src} "
+                                               f"failed: {e}"})
+        entry = fn(data)
+        if entry is None:
+            return Response(400, {"error": "malformed or incompatible "
+                                           "prefix payload"})
+        return Response(200, {"status": "ok", "len": entry.length,
+                              "hash": entry.token_hash})
+
+    # -- session migration (serve/kv_tier.py) ---------------------------------
+
+    def _session_backend(self):
+        """The backend when it has a KV tier, else None (every
+        /admin/session route then answers 501)."""
+        fn = getattr(self.backend, "session_list", None)
+        if fn is None or fn() is None:
+            return None
+        return self.backend
+
+    def _session_list(self, req: Request) -> Response:
+        """``GET /admin/session``: {key: {len, nbytes, parked, idle_s}}."""
+        be = self._session_backend()
+        if be is None:
+            return Response(501, {"error": "no session tier"})
+        return Response(200, {"sessions": be.session_list() or {}})
+
+    def _session_export(self, req: Request) -> Response:
+        """``GET /admin/session/export?key=<key>``: the parked payload (a
+        resident session parks first). The session is retained until the
+        destination's ack (forget)."""
+        be = self._session_backend()
+        if be is None:
+            return Response(501, {"error": "no session tier"})
+        key = str(req.query.get("key") or "")
+        if not key:
+            return Response(400, {"error": "missing key=<session key>"})
+        data = be.session_export(key)
+        if data is None:
+            return Response(404, {"error": f"session {key!r} not open"})
+        return Response(200, data, content_type="application/octet-stream")
+
+    def _session_import(self, req: Request) -> Response:
+        """``POST /admin/session/import``: install a peer's session. The
+        body is the raw payload, or the pull form ``{"from": <peer url>,
+        "key": <key>}``. A traced import records ``disagg.import``."""
+        be = self._session_backend()
+        if be is None:
+            return Response(501, {"error": "no session tier"})
+        tctx = _trace.parse_header(req.headers.get(_trace.HEADER_LC))
+        t_imp = time.monotonic()
+        data = req.body or b""
+        if data[:1] == b"{":
+            try:
+                spec = req.json() or {}
+            except ValueError:
+                return Response(400, {"error": "invalid json"})
+            src = str(spec.get("from") or "")
+            key = str(spec.get("key") or "")
+            if not src or not key:
+                return Response(400, {"error": "need from + key"})
+            try:
+                data = self._pull(req, src, "/admin/session/export",
+                                  {"key": key}, {"X-Session-Id": key})
+            except Exception as e:   # noqa: BLE001 — peer may be gone
+                return Response(502, {"error": f"pull from {src} "
+                                               f"failed: {e}"})
+        sess = be.session_import(data)
+        if sess is None:
+            return Response(400, {"error": "malformed or incompatible "
+                                           "session payload"})
+        if tctx is not None and tctx.sampled:
+            self.trace.add(tctx.trace_id, "disagg.import", t_imp,
+                           time.monotonic() - t_imp,
+                           key=sess.key, tokens=sess.length)
+        return Response(200, {"status": "ok", "key": sess.key,
+                              "len": sess.length})
+
+    def _session_forget(self, req: Request) -> Response:
+        """``POST /admin/session/forget {"key"}``: the migration ack (drop
+        the parked source copy; not an eviction)."""
+        be = self._session_backend()
+        if be is None:
+            return Response(501, {"error": "no session tier"})
+        try:
+            body = req.json() or {}
+        except ValueError:
+            return Response(400, {"error": "invalid json"})
+        key = str(body.get("key") or "")
+        if not key:
+            return Response(400, {"error": "missing key"})
+        if not be.session_forget(key):
+            return Response(404, {"error": f"session {key!r} not parked "
+                                           "here"})
+        return Response(200, {"status": "forgotten", "key": key})
+
+    def _session_park_all(self, req: Request) -> Response:
+        """``POST /admin/session/park_all``: park every resident session
+        (the drain-as-migration first step)."""
+        be = self._session_backend()
+        if be is None:
+            return Response(501, {"error": "no session tier"})
+        be.session_park_all()
+        return Response(200, {"status": "parked",
+                              "sessions": be.session_list() or {}})
+
+    # -- disaggregated prefill (serve/disagg.py) ------------------------------
+
+    def _disagg_prefill(self, req: Request) -> Response:
+        """``POST /admin/disagg/prefill {"path", "body"}``: prefill the
+        wrapped generate or chat request (its prompt rendered exactly as
+        that route would) minus its last token and retain it as a session
+        a decode replica pulls. 200 ``{"status": "parked", "key", "len",
+        "parked"}``; 422 when this request cannot ride the handoff; 501
+        without the surface or a KV tier; 503 when draining or shedding."""
+        fn = getattr(self.backend, "prefill_park", None)
+        if fn is None:
+            return Response(501, {"error": "no disagg prefill surface"})
+        shed = self._shed_if_draining(count=False)
+        if shed is not None:
+            return shed
+        try:
+            outer = req.json() or {}
+        except ValueError:
+            return Response(400, {"error": "invalid json"})
+        if not isinstance(outer, dict):
+            return Response(400, {"error": "request body must be an "
+                                           "object"})
+        path = str(outer.get("path") or "/api/generate")
+        body = outer.get("body")
+        if not isinstance(body, dict):
+            return Response(400, {"error": "need a body object"})
+        model = str(body.get("model") or self.backend.name)
+        context: tuple = ()
+        if path == "/api/chat":
+            messages = body.get("messages") or []
+            if not isinstance(messages, list):
+                return Response(400, {"error": "messages must be a list"})
+            prompt = render_chat_prompt(messages, self.backend)
+        else:
+            prompt = str(body.get("prompt") or "")
+            raw_ctx = body.get("context") or ()
+            if not (isinstance(raw_ctx, (list, tuple))
+                    and all(type(t) is int and 0 <= t < 2 ** 31
+                            for t in raw_ctx)):
+                return Response(400, {"error": "context must be a list "
+                                               "of non-negative token "
+                                               "ids"})
+            context = tuple(raw_ctx)
+        session = str(body.get("session") or "")
+        if not session:
+            session = str(req.headers.get("x-session-id") or "")
+        # Traced only when the caller forwarded the request's header (an
+        # internal hop never mints).
+        tctx = _trace.parse_header(req.headers.get(_trace.HEADER_LC))
+        greq = GenerateRequest(
+            prompt=prompt, model=model,
+            options=GenerateOptions.from_ollama(body.get("options")),
+            context=context, session=session,
+            trace_id=tctx.trace_id if tctx else "",
+            trace_sampled=bool(tctx and tctx.sampled))
+        t_park = time.monotonic()
+        sl = getattr(self.backend, "session_list", None)
+        if sl is None or sl() is None:
+            return Response(501, {"error": "no disagg prefill surface"})
+        try:
+            meta = fn(greq)
+        except OverloadError as e:
+            return Response(
+                503, {"error": str(e)},
+                headers={"Retry-After": str(max(1,
+                                                round(e.retry_after_s)))})
+        except Exception as e:  # noqa: BLE001 — a failed prefill is a 500
+            self._m_errors.inc()
+            log.exception("disagg prefill failed")
+            return Response(500, {"error": str(e)})
+        if meta is None:
+            return Response(422, {"error": "request cannot ride the "
+                                           "handoff (unindexable or "
+                                           "prefill not retained)"})
+        if tctx is not None and tctx.sampled:
+            self.trace.add(tctx.trace_id, "disagg.prefill_park", t_park,
+                           time.monotonic() - t_park,
+                           key=str(meta.get("key") or ""),
+                           tokens=int(meta.get("len") or 0))
+        return Response(200, {"status": "parked", **meta})
 
     def _trace_list(self, req: Request) -> Response:
         """``GET /admin/trace``: the trace ids held and the store's stats;

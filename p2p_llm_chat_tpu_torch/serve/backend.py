@@ -74,6 +74,11 @@ class GenerateRequest:
     # prepended to this prompt (the final response record returns the
     # updated ids). Tuple of ints; empty = fresh conversation.
     context: tuple = ()
+    # Conversation id (the ``session`` body field or ``X-Session-Id``
+    # header): with the KV tier on, the finished request's KV stays open
+    # under it and the next turn wakes it (serve/kv_tier.py). Empty = the
+    # tier keys the conversation by its prompt head, when long enough.
+    session: str = ""
     # grafttrace (obs/trace.py): the propagated or minted trace id; the
     # scheduler records its queue-wait, prefill and decode spans only
     # when ``trace_sampled`` is set.

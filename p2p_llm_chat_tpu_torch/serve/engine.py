@@ -10,7 +10,7 @@ It serves one model on one card from a paged KV pool (bf16 or int8):
 a dense llama config or a mixtral (MoE) config, with bf16, int8 or int4
 weights, built through ``models.family_for(config)``. Features of the
 reference that later slices port fail loudly when asked for explicitly
-(``SERVE_DRAFT`` with ``SERVE_SPEC>0``, ``SERVE_KV_HOST_GB>0``, ``SERVE_TP>1``,
+(``SERVE_DRAFT`` with ``SERVE_SPEC>0``, ``SERVE_TP>1``,
 ``SERVE_MODELS``, ``CKPT_DIR``, ``SERVE_KV=dense``,
 ``SERVE_PROFILE_PORT>0``, multi-host). ``SERVE_ADMIT_CHUNK`` caps the rows
 of each admission prefill, and ``SERVE_WARMUP`` (default ``128,256``)
@@ -33,7 +33,13 @@ decoding with the n-gram source runs as in the reference
 (``SERVE_SPEC`` = K draft tokens, default 0 = off;
 ``SERVE_SPEC_TREE_NODES``, default 8 when ``SERVE_SPEC`` > 0, tree verify
 over that many nodes, 0 = linear; ``SERVE_SPEC_TREE_GAP``, default 4.0),
-its spec programs CUDA graphs per window beside the decode graphs.
+its spec programs CUDA graphs per window beside the decode graphs. The
+KV tier runs as in the reference (``SERVE_KV_HOST_GB`` > 0 keeps
+finished conversations open as sessions, parked to host memory after
+``SERVE_KV_IDLE_S``, default 30, or under pool pressure; a follow-up turn
+wakes them), with the session and prefix export/import surface the front
+serves under ``/admin/session*`` and ``/admin/prefix*``, and
+:meth:`TorchEngine.prefill_park` for disaggregated prefill.
 
 :meth:`TorchEngine.embed` serves ``/api/embed``: the family's
 ``embed_pooled`` over bucketed batches (kernels A or C and D on the
@@ -115,6 +121,7 @@ class TorchEngine:
                  loop_budget_ms: float = 5000.0,
                  spec_k: int = 0, spec_tree_nodes: int = 0,
                  spec_tree_gap: float = 4.0,
+                 kv_host_gb: float = 0.0, kv_idle_s: float = 30.0,
                  name: Optional[str] = None,
                  device: Optional[torch.device | str] = None) -> None:
         self.name = name or config.name
@@ -129,7 +136,7 @@ class TorchEngine:
             admit_chunk=admit_chunk, decode_fuse_max=decode_fuse_max,
             loop_budget_ms=loop_budget_ms, spec_k=spec_k,
             spec_tree_nodes=spec_tree_nodes, spec_tree_gap=spec_tree_gap,
-            device=device)
+            kv_host_gb=kv_host_gb, kv_idle_s=kv_idle_s, device=device)
         self._embed_lock = threading.Lock()
         self._embed_stream = None
 
@@ -231,6 +238,62 @@ class TorchEngine:
     def flight_dump(self, reason: str = "on_demand") -> str:
         return self.scheduler.flight_dump(reason)
 
+    # -- the shared prefix tier (serve/prefix.py) ----------------------------
+
+    def prefix_hashes(self) -> Optional[dict]:
+        """{token_hash: {len, hits}} of cached prefixes, or None with the
+        prefix cache off (the front answers 501)."""
+        store = self.scheduler._prefix
+        return None if store is None else store.hashes()
+
+    def prefix_export(self, h: str) -> Optional[bytes]:
+        """One entry's wire payload. Its k/v copy off the card on this
+        (HTTP) thread, under the scheduler's capture lock, as an embed's
+        work does, so no copy lands inside a decode-graph capture."""
+        sched = self.scheduler
+        if sched._prefix is None:
+            return None
+        with sched.capture_lock:
+            return sched._prefix.export_payload(h)
+
+    def prefix_import(self, data: bytes):
+        """Install a peer's exported prefix entry on this engine's device
+        (the store locks; the loop reads entries between admissions; the
+        copy onto the card holds the capture lock, as in
+        :meth:`prefix_export`). None on a malformed payload or one of
+        another geometry."""
+        sched = self.scheduler
+        if sched._prefix is None:
+            return None
+        cfg = self.config
+        with sched.capture_lock:
+            return sched._prefix.import_payload(
+                data, device=sched.device,
+                geometry=(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim))
+
+    # -- sessions: migration and disaggregated prefill (serve/kv_tier.py) ---
+
+    def session_list(self) -> Optional[dict]:
+        return self.scheduler.session_list()
+
+    def session_export(self, key: str) -> Optional[bytes]:
+        return self.scheduler.session_export(key)
+
+    def session_import(self, data: bytes):
+        return self.scheduler.session_import(data)
+
+    def session_forget(self, key: str) -> Optional[bool]:
+        return self.scheduler.session_forget(key)
+
+    def session_park_all(self) -> None:
+        self.scheduler.park_all()
+
+    def prefill_park(self, req: GenerateRequest) -> Optional[dict]:
+        """The prefill side of a disaggregated handoff: prefill the prompt
+        minus its last token and retain it as an exportable session
+        (scheduler.prefill_park). None = the request cannot ride it."""
+        return self.scheduler.prefill_park(req)
+
     def drain(self) -> None:
         self.scheduler.drain()
 
@@ -277,8 +340,6 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
                     "the drafter")
     spec_tree_nodes = env_int("SERVE_SPEC_TREE_NODES", 8) if spec_k else 0
     spec_tree_gap = env_float("SERVE_SPEC_TREE_GAP", 4.0)
-    if env_float("SERVE_KV_HOST_GB", 0.0) > 0:
-        raise _not_in_slice("KV tiering (SERVE_KV_HOST_GB>0)")
     if env_int("SERVE_TP", 1) > 1:
         raise _not_in_slice("tensor parallelism (SERVE_TP>1)")
     if env_or("SERVE_MODELS", ""):
@@ -309,6 +370,10 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
     # it and refuses an int8 pool under a non-gather impl.
     attn_impl = env_or("PAGED_ATTN_IMPL", "gather")
     prefill_chunk = max(0, env_int("SERVE_PREFILL_CHUNK", 256))
+    # The KV tier (serve/kv_tier.py): > 0 GB of host memory keeps
+    # finished conversations open as sessions.
+    kv_host_gb = env_float("SERVE_KV_HOST_GB", 0.0)
+    kv_idle_s = env_float("SERVE_KV_IDLE_S", 30.0)
     prefix_cache = env_bool("SERVE_PREFIX", True)
     prefix_texts = (SUGGEST_PREFIX,) + tuple(
         t for t in env_or("SERVE_PREFIX_TEXTS", "").split("||") if t)
@@ -318,13 +383,13 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
     log.info("serving %s %s (%s weights, %s KV) on %s; paged "
              "attention impl %s (%s); prefill chunk %d, prefix cache %s, "
              "fused decode up to %d steps a tick; speculation K=%d, tree "
-             "nodes %d",
+             "nodes %d; KV tier %.1f GB of host memory",
              "random-init" if params is None else "given", config.name,
              quant or "bf16", kv_quant or "bf16", dev,
              attn_impl, "attend-then-write" if attn_impl == "gather"
              else "write-then-attend", prefill_chunk,
              "on" if prefix_cache else "off", decode_fuse_max, spec_k,
-             spec_tree_nodes)
+             spec_tree_nodes, kv_host_gb)
     if params is None:
         params = family_for(config).init_params_quantized(
             config, seed=0, quant=quant, device=dev)
@@ -343,7 +408,8 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
         decode_fuse_max=decode_fuse_max,
         loop_budget_ms=env_float("SERVE_LOOP_BUDGET_MS", 5000.0),
         spec_k=spec_k, spec_tree_nodes=spec_tree_nodes,
-        spec_tree_gap=spec_tree_gap, name=env_or("LLM_MODEL", config.name),
+        spec_tree_gap=spec_tree_gap, kv_host_gb=kv_host_gb,
+        kv_idle_s=kv_idle_s, name=env_or("LLM_MODEL", config.name),
         device=dev)
     warm = env_or("SERVE_WARMUP", "128,256")
     if warm and warm != "0":

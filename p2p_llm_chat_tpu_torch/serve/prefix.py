@@ -16,26 +16,38 @@ Two ways an entry is born:
   at the power-of-two grain ladder; a head seen ``promote_after`` times is
   built between decode ticks.
 
-Eviction: ``max_bytes`` > 0 switches the store to the cost policy
-(bytes x recency, :func:`cost_evict`); ``max_entries`` is a hard cap
-either way. ``hits/misses/evictions`` feed /metrics.
+A third, **imported**: a replica router lists each replica's entries by
+token hash (:meth:`PrefixStore.hashes`, ``GET /admin/prefix``) and tells
+a replica missing a hot prefix to pull it from one that built it
+(:meth:`PrefixStore.export_payload` / :meth:`PrefixStore.import_payload`
+over ``/admin/prefix/export`` and ``/admin/prefix/import``). The wire is
+the reference's npz: the ids, k/v as float32 (bf16 -> f32 is lossless)
+and the entry's dtype name (``"bfloat16"``, ``"float32"``), so entries
+move between this port and a JAX replica both ways.
 
-Not ported yet: ``export_payload``/``import_payload`` and the
-``/admin/prefix*`` endpoints (they come with the session wire).
+Eviction: ``max_bytes`` > 0 switches the store to the cost policy
+(bytes x recency, serve/kv_tier.cost_evict); ``max_entries`` is a hard
+cap either way. ``hits/misses/evictions`` feed /metrics.
 """
 
 from __future__ import annotations
 
 import hashlib
+import io
 import struct
 import threading
 import time
 from dataclasses import dataclass, field
 from typing import Optional
 
+import numpy as np
 import torch
 
+from .kv_tier import _WIRE_DTYPES, _WIRE_NAMES, cost_evict
+
 DEFAULT_GRAIN_LADDER = (64, 128, 256, 512)
+# Wire-format version of export_payload / import_payload.
+_WIRE_VERSION = 1
 
 
 def token_hash(ids) -> str:
@@ -44,26 +56,6 @@ def token_hash(ids) -> str:
     prefix alike)."""
     ids = list(ids)
     return hashlib.sha256(struct.pack(f"<{len(ids)}q", *ids)).hexdigest()
-
-
-def cost_evict(items: list[tuple], over_bytes: float,
-               now: Optional[float] = None) -> list:
-    """Victims until at least ``over_bytes`` bytes are freed. ``items``:
-    (key, nbytes, last_used) triples, chosen by descending cost = nbytes x
-    idle seconds (floor 1 ms). Returns the victim keys (a copy of the
-    reference's serve/kv_tier.cost_evict)."""
-    if over_bytes <= 0:
-        return []
-    t = time.monotonic() if now is None else now
-    scored = sorted(items, key=lambda it: it[1] * max(1e-3, t - it[2]),
-                    reverse=True)
-    victims, freed = [], 0.0
-    for key, nbytes, _ in scored:
-        if freed >= over_bytes:
-            break
-        victims.append(key)
-        freed += nbytes
-    return victims
 
 
 @dataclass
@@ -197,3 +189,60 @@ class PrefixStore:
     def snapshot(self) -> list[PrefixEntry]:
         with self._lock:
             return list(self._entries.values())
+
+    # -- cross-replica shared tier -----------------------------------------
+
+    def hashes(self) -> dict[str, dict]:
+        """{token_hash: {"len": P, "hits": n}} for every cached entry (GET
+        /admin/prefix: no KV bytes)."""
+        with self._lock:
+            return {e.token_hash: {"len": e.length, "hits": e.hits}
+                    for e in self._entries.values()}
+
+    def export_payload(self, h: str) -> Optional[bytes]:
+        """One entry (by token hash) for a peer replica: ids and k/v as
+        float32 with the entry's dtype name, in an npz. None = not
+        cached."""
+        with self._lock:
+            entry = next((e for e in self._entries.values()
+                          if e.token_hash == h), None)
+        if entry is None:
+            return None
+        buf = io.BytesIO()
+        np.savez_compressed(
+            buf, version=np.int64(_WIRE_VERSION),
+            ids=np.asarray(entry.ids, np.int64),
+            dtype=np.bytes_(_WIRE_NAMES[entry.k.dtype].encode()),
+            k=entry.k.detach().float().cpu().numpy(),
+            v=entry.v.detach().float().cpu().numpy())
+        return buf.getvalue()
+
+    def import_payload(self, data: bytes,
+                       device: Optional[torch.device | str] = None,
+                       geometry: Optional[tuple[int, int, int]] = None
+                       ) -> Optional[PrefixEntry]:
+        """Install a peer's exported entry on ``device`` in the payload's
+        dtype (idempotent: a cached head is replaced by the same KV).
+        Returns the entry, or None on a malformed or other-version
+        payload, or one whose k/v are not ``geometry`` = (layers, kv
+        heads, head dim) when given."""
+        try:
+            with np.load(io.BytesIO(data)) as z:
+                if int(z["version"]) != _WIRE_VERSION:
+                    return None
+                ids = tuple(int(t) for t in z["ids"])
+                dtype = _WIRE_DTYPES[z["dtype"].tobytes().decode()]
+                k = torch.from_numpy(np.array(z["k"], np.float32))
+                v = torch.from_numpy(np.array(z["v"], np.float32))
+        except Exception:   # noqa: BLE001 — peer payloads are untrusted
+            return None
+        if not ids or k.ndim != 4 or k.shape != v.shape \
+                or k.shape[1] != len(ids):
+            return None
+        if geometry is not None and (k.shape[0], *k.shape[2:]) != tuple(
+                geometry):
+            return None
+        entry = PrefixEntry(ids=ids, k=k.to(device=device, dtype=dtype),
+                            v=v.to(device=device, dtype=dtype))
+        self.put(entry)
+        return entry

@@ -58,6 +58,22 @@ queues only:
   graph per window, captured at warmup beside the decode graphs, fed
   from static device buffers that one pinned host copy fills per tick.
 
+- the KV tier (serve/kv_tier.py, the reference's ``SERVE_KV_HOST_GB``):
+  a finished request's KV stays open as a session keyed by its
+  ``session`` id (or its prompt head) — resident pages, or parked to host
+  tensors (one gather of the raw pool words, one readback) on idle
+  timeout, page-pool pressure or :meth:`BatchScheduler.park_all`. A
+  follow-up whose prompt extends a session's tokens WAKES: the parked
+  payload uploads (from match time on) and scatters into new pages, or
+  the resident pages re-enter a row's table, and only the suffix runs
+  ONE verify-shaped forward at the session's length (the family's
+  ``verify_step_paged`` with ``last_idx``: kernel B's verify mode on the
+  card, S up to ``_WAKE_MAX_SUFFIX``), then the first token samples as in
+  a cold admission. The wake forward runs over the waking rows only (a
+  row's output depends on no other row), eagerly, as admission does.
+  Sessions export and import in the reference's wire format (migration,
+  disaggregated prefill: :meth:`BatchScheduler.prefill_park`).
+
 Every prefill attention (whole prompt, chunk, prefix suffix) runs kernel
 D on the card.
 
@@ -70,9 +86,9 @@ loop events dumped on a stall, a reset or on demand (obs/flight.py), the
 sampled requests (obs/trace.py), and the warmup's device-step probe
 behind ``decode_device_ms``.
 
-Not in this slice (later ones): prefix export/import, the resident draft
-model (it keeps a dense KV cache), KV tiering, tensor parallelism. None
-of them changes greedy output in the reference.
+Not in this slice (later ones): the resident draft model and dense-row
+session parking (both keep a dense KV cache), tensor parallelism. None of
+them changes greedy output in the reference.
 """
 
 from __future__ import annotations
@@ -96,7 +112,8 @@ from ..models.sampling import (sample_step_batched, spec_verify_batched,
 from ..obs.flight import FlightRecorder
 from ..ops import paged_attention as pa
 from ..ops.paged_kv import (PageAllocator, PagedKVCache, copy_slot,
-                            write_prefill_batch, write_prefill_chunk)
+                            gather_pages, scatter_pages, write_prefill_batch,
+                            write_prefill_chunk, zero_row)
 from ..tokenizer import Tokenizer
 from ..utils.device import resolve_device
 from ..utils.draft import NGramSource
@@ -104,8 +121,10 @@ from ..utils.env import env_float
 from ..utils.failpoints import failpoint
 from ..utils.log import get_logger
 from ..utils.metrics import Histogram
-from .backend import (GenerateRequest, OverloadError, RequestStats,
-                      normalize_request)
+from .backend import (GenerateOptions, GenerateRequest, OverloadError,
+                      RequestStats, normalize_request)
+from .kv_tier import (HEAD_GRAIN, KVTier, SessionKV, deserialize_session,
+                      head_key, tensor_nbytes)
 from .prefix import DEFAULT_GRAIN_LADDER, PrefixEntry, PrefixStore
 
 log = get_logger("serve.torch_scheduler")
@@ -131,6 +150,10 @@ _SPEC_EMA_ALPHA = 0.1
 _SPEC_EMA_SEED = 2 * _SPEC_EMA_FLOOR
 _SPEC_EMA_ZERO_ALPHA = 0.3
 _SPEC_PROBE_EVERY = 8
+# Widest suffix bucket a session wake admits (one verify-shaped forward,
+# kernel B's verify mode on the card); longer new turns admit cold,
+# through the chunked path.
+_WAKE_MAX_SUFFIX = 256
 
 
 class _DecodeProgram:
@@ -184,6 +207,11 @@ class _Slot:
     pages: Optional[list[int]] = None
     prefix: Optional[PrefixEntry] = None               # matched cached prefix
     prefix_checked: bool = False                       # match() ran
+    # Session wake (the KV tier): the matched open session's key, and for
+    # a parked one (session, payload on the device) — the upload started
+    # at match time.
+    wake_key: Optional[str] = None
+    wake_dev: Optional[tuple] = None
     cancelled: threading.Event = field(default_factory=threading.Event)
     error: Optional[str] = None
     last_emit_t: float = 0.0
@@ -302,8 +330,16 @@ class BatchScheduler:
                  loop_budget_ms: float = 5000.0,
                  spec_k: int = 0, spec_tree_nodes: int = 0,
                  spec_tree_gap: float = 4.0,
+                 kv_host_gb: float = 0.0, kv_idle_s: float = 30.0,
                  device: Optional[torch.device | str] = None) -> None:
-        """``spec_k``: speculative decoding with up to this many n-gram
+        """``kv_host_gb``: the KV tier (serve/kv_tier.py, the reference's
+        ``SERVE_KV_HOST_GB``); > 0 keeps finished conversations' KV open
+        as sessions — resident pages, parked to host tensors after
+        ``kv_idle_s`` idle seconds or under page-pool pressure, and
+        dropped past this many GB of host memory — so a follow-up turn
+        wakes instead of re-prefilling. 0 = off.
+
+        ``spec_k``: speculative decoding with up to this many n-gram
         draft tokens per row and spec tick (0 = off; the reference's
         ``SERVE_SPEC``). ``spec_tree_nodes``: tree verify over this many
         node positions, snapped up to a power of two and dropped to 0
@@ -490,6 +526,26 @@ class BatchScheduler:
         self._n_prefix_tokens = 0
         self._promote_q: list[tuple[int, ...]] = []
         self._last_promote_tick = 0
+        # The KV tier: the session index (its transitions run on the loop,
+        # which owns the buffers they copy), the wake-latency histogram,
+        # the (window, suffix bucket) wakes run so far (a shape not run
+        # yet admits cold under live traffic, as in the reference), the
+        # warmed prompt buckets a wake's suffix rounds up to, and the
+        # park_all handshake.
+        self._tier: Optional[KVTier] = None
+        if kv_host_gb and kv_host_gb > 0:
+            self._tier = KVTier(kv_host_gb * 1e9, idle_s=kv_idle_s)
+            self._tier.observer = self._tier_event
+            log.info("KV tier on: %.1f GB of host memory, idle park after "
+                     "%.1f s", kv_host_gb, kv_idle_s)
+        self._wake_hist = Histogram("kv_wake_ms")
+        self._last_tier_sweep = 0.0
+        self._wake_shapes_run: set[tuple[int, int]] = set()
+        self._warmed_buckets: tuple[int, ...] = ()
+        self._wake_rr_cold = False
+        self._park_all_req = threading.Event()
+        self._park_all_ack = threading.Event()
+        self._park_all_key: Optional[str] = None
         self._alloc_device_state()
         self._admit_q: "queue.Queue[Optional[object]]" = queue.Queue()
         self._closed = threading.Event()
@@ -674,15 +730,18 @@ class BatchScheduler:
         serving shapes (a prefill per bucket, the registration of each
         prefix template), then, per window of the ladder, one plain
         decode step with every row parked and the capture of the
-        window's decode graphs (:meth:`_warm_window`), and last the
-        device-step probe behind ``decode_device_ms``
-        (:meth:`_probe_device_step`). A capture that fails fails the
-        warmup. Blocks until the scheduler thread has run it."""
+        window's decode graphs (:meth:`_warm_window`), with the KV tier
+        on a wake forward per (window, bucket <= ``_WAKE_MAX_SUFFIX``)
+        (:meth:`_warm_wake`), and last the device-step probe behind
+        ``decode_device_ms`` (:meth:`_probe_device_step`). A capture that
+        fails fails the warmup. Blocks until the scheduler thread has run
+        it."""
         self.note_warmup_pending()
+        buckets = tuple(sorted({_bucket(b, self.max_seq)
+                                for b in prompt_buckets}))
 
         def run() -> None:
-            for S in prompt_buckets:
-                S = _bucket(S, self.max_seq)
+            for S in buckets:
                 toks = torch.zeros((1, S), dtype=torch.long,
                                    device=self.device)
                 lens = torch.full((1,), S, dtype=torch.long,
@@ -693,9 +752,17 @@ class BatchScheduler:
                 self.register_prefix(text)
             for w in self._window_ladder():
                 self._warm_window(w)
+            if self._tier is not None:
+                for S in buckets:
+                    if S <= _WAKE_MAX_SUFFIX:
+                        for w in self._window_ladder():
+                            self._warm_wake(w, S)
             self._probe_device_step()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+            # A wake's suffix rounds up to the smallest warmed bucket
+            # (the reference's _serving_bucket) from here on.
+            self._warmed_buckets = buckets
 
         job = _WarmupJob(run)
         self._admit_q.put(job)
@@ -1147,6 +1214,185 @@ class BatchScheduler:
         except Exception:   # noqa: BLE001 — promotion is optional
             log.exception("prefix promotion build failed")
 
+    # -- the KV tier: park_all, migration, disaggregated prefill -----------
+
+    def park_all(self, timeout_s: float = 30.0,
+                 key: Optional[str] = None) -> None:
+        """Park RESIDENT sessions to host memory (HTTP threads; a parked
+        payload is the only exportable form). ``key`` parks that one
+        session only (the per-key export); None parks every one (the
+        drain path). The loop owns the pages, so this is an event
+        handshake it services at the top of every iteration; returns once
+        it has. No-op without a tier."""
+        if self._tier is None:
+            return
+        if self._closed.is_set():
+            raise RuntimeError("scheduler is stopped")
+        self._park_all_key = key
+        self._park_all_ack.clear()
+        self._park_all_req.set()
+        if not self._park_all_ack.wait(timeout=timeout_s):
+            raise TimeoutError("park_all: scheduler loop did not service "
+                               "the park request")
+
+    def _drain_park_all(self) -> None:
+        """Service a pending park_all (scheduler thread); the ack is set
+        in a finally, so a park that fails (the loop's recovery envelope)
+        never strands the caller."""
+        if not self._park_all_req.is_set():
+            return
+        self._park_all_req.clear()
+        key = self._park_all_key
+        try:
+            if self._tier is not None:
+                for sess in self._tier.park_candidates(force=True):
+                    if key is None or sess.key == key:
+                        self._park_session(sess)
+        finally:
+            self._park_all_ack.set()
+
+    def session_list(self) -> Optional[dict]:
+        """{key: meta} of open sessions, or None with the tier off (the
+        front then answers 501)."""
+        if self._tier is None:
+            return None
+        return self._tier.sessions_meta()
+
+    def session_export(self, key: str) -> Optional[bytes]:
+        """The session's wire payload for a peer, or None when unknown. A
+        resident session parks first (only this one); the session is
+        retained either way — the peer's ack forgets it."""
+        if self._tier is None:
+            return None
+        meta = self._tier.sessions_meta().get(key)
+        if meta is None:
+            return None
+        if not meta["parked"]:
+            self.park_all(key=key)
+        return self._tier.export_payload(key)
+
+    def session_import(self, data: bytes) -> Optional[SessionKV]:
+        """Install a peer's exported session (parked). None on a malformed
+        payload, one this pool cannot hold, or a fresher resident local
+        copy. The next prompt extending its tokens wakes it."""
+        if self._tier is None:
+            return None
+        failpoint("serve.kv_tier.import")
+        sess = deserialize_session(data)
+        if sess is None or not self._session_payload_compatible(sess):
+            return None
+        if not self._tier.adopt(sess):
+            log.info("session %s import skipped: a resident local copy "
+                     "is fresher", sess.key)
+            return None
+        return sess
+
+    def session_forget(self, key: str) -> Optional[bool]:
+        """The migration ack: drop the parked source copy. None = no tier;
+        False = unknown key or still resident."""
+        if self._tier is None:
+            return None
+        return self._tier.forget(key)
+
+    def prefill_park(self, req: GenerateRequest,
+                     timeout_s: float = 10.0) -> Optional[dict]:
+        """The prefill side of a prefill->decode handoff: prefill this
+        request's prompt minus its last token and retain it as a session,
+        without sampling its first real token (the reference's
+        ``prefill_park``). The prompt normalizes exactly as a real
+        admission's; a one-token throwaway generation over ``ids[:-1]``
+        retains exactly ``ids[:-1]``, so the decode replica's wake
+        forwards the last prompt token and samples the first token there,
+        as a cold admission would. Returns ``{"key", "len", "parked"}``,
+        or None when the request cannot ride the handoff (no tier, too
+        short, anonymous below HEAD_GRAIN, or the prefill failed).
+        OverloadError propagates."""
+        if self._tier is None:
+            return None
+        try:
+            ids, _, _ = normalize_request(
+                self.tokenizer, self.config.vocab_size, self.max_seq,
+                req, min_bucket=_MIN_BUCKET)
+        except ValueError:
+            return None
+        if len(ids) < 2:
+            return None
+        if req.session:
+            key = f"sid:{req.session}"
+        elif len(ids) - 1 >= HEAD_GRAIN:
+            key = head_key(ids)
+        else:
+            return None
+        throwaway = GenerateRequest(
+            prompt="", model=req.model,
+            options=GenerateOptions(max_tokens=1, temperature=0.0,
+                                    seed=1, num_ctx=req.options.num_ctx),
+            context=tuple(ids[:-1]), session=req.session)
+        try:
+            for _ in self.submit(throwaway):
+                pass
+        except OverloadError:
+            raise
+        except RuntimeError as e:
+            log.warning("disagg prefill failed (%s); the request runs "
+                        "un-disaggregated", e)
+            return None
+        # Retention runs on the loop as the slot finishes, after the
+        # stream closes: wait for THIS prefill's session (length exactly
+        # len(ids) - 1), not an older one under the same key.
+        want_len = len(ids) - 1
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            meta = self._tier.sessions_meta().get(key)
+            if meta is not None and meta["len"] == want_len:
+                return {"key": key, "len": meta["len"],
+                        "parked": meta["parked"]}
+            time.sleep(0.01)
+        log.warning("disagg prefill for %s finished but the fresh "
+                    "session (len %d) never appeared in the tier index",
+                    key, want_len)
+        return None
+
+    def _session_payload_compatible(self, sess: SessionKV) -> bool:
+        """May this imported payload scatter into this pool? Kind, dtype
+        and geometry against the live pool, token ids against the vocab,
+        the span against the row's page budget."""
+        try:
+            arrays, span = sess.host
+            if len(arrays) != 4 or sess.length > self.max_seq:
+                return False
+            if any(t < 0 or t >= self.config.vocab_size
+                   for t in sess.tokens):
+                return False
+            k, v, ks, vs = arrays
+            ck = self._cache.k
+            if (k.dim() != 5 or k.shape[0] != ck.shape[0]
+                    or tuple(k.shape[2:]) != tuple(ck.shape[2:])
+                    or k.dtype != ck.dtype or v is None
+                    or v.shape != k.shape or v.dtype != k.dtype):
+                return False
+            if (ks is not None) != bool(self.kv_quant):
+                return False
+            if ks is not None:
+                cs = self._cache.k_scale
+                want = (ck.shape[0], k.shape[1], *cs.shape[2:])
+                if (vs is None or tuple(ks.shape) != want
+                        or tuple(vs.shape) != want
+                        or ks.dtype != cs.dtype or vs.dtype != cs.dtype):
+                    return False
+            if span > k.shape[1] or span > self._cache.max_pages_per_row:
+                return False
+            if -(-sess.length // self.page_size) > span:
+                return False
+            return True
+        except Exception:   # noqa: BLE001 — incompatible payloads reject
+            return False
+
+    def _tier_event(self, kind: str, **meta) -> None:
+        """KVTier observer -> the flight ring (park / wake / adopt /
+        forget / evict; adopt and forget arrive from HTTP threads)."""
+        self._flight.note(f"tier_{kind}", self._loop_iter, **meta)
+
     # -- grafttrace (obs/): span store wiring + the flight surface ----------
 
     def set_trace_store(self, store) -> None:
@@ -1247,6 +1493,25 @@ class BatchScheduler:
             out["prefix_misses_total"] = self._prefix.misses_total
             out["prefix_evictions_total"] = self._prefix.evictions_total
             out["prefix_bytes"] = self._prefix.nbytes
+        if self._tier is not None:
+            # Open sessions = resident (pages in the pool) + parked (host
+            # copies); the counters are one locked snapshot.
+            res, parked = self._tier.counts()
+            out["kv_resident_sessions"] = res
+            out["kv_parked_sessions"] = parked
+            out["kv_open_sessions"] = res + parked
+            st = self._tier.stats()
+            out["kv_host_bytes"] = st["host_bytes"]
+            out["kv_parked_total"] = st["parked_total"]
+            out["kv_waked_total"] = st["waked_total"]
+            out["kv_wake_cold_total"] = st["wake_cold_total"]
+            out["kv_wake_tokens_saved_total"] = st["wake_tokens_total"]
+            out["kv_evicted_total"] = st["evicted_total"]
+            out["kv_pages_freed_total"] = st["pages_freed_total"]
+            out["kv_wake_p50_ms"] = round(
+                self._wake_hist.percentile(50) or 0.0, 3)
+            out["kv_wake_p95_ms"] = round(
+                self._wake_hist.percentile(95) or 0.0, 3)
         return out
 
     def _spec_metrics(self) -> dict[str, float]:
@@ -1298,11 +1563,13 @@ class BatchScheduler:
             self._loop_beat = it_start
             self._loop_iter += 1
             try:
+                self._drain_park_all()
                 self._admit_pending(block=not self._any_active()
                                     and pending is None
                                     and self._prefill_carry is None)
                 if self._closed.is_set():
                     return
+                self._tier_sweep()
                 if self._prefill_carry is not None:
                     # ONE continuation chunk per iteration: live streams
                     # stall at most one chunk's compute.
@@ -1471,6 +1738,11 @@ class BatchScheduler:
         need = self._alloc.pages_for(len(slot.prompt_ids) + slot.max_new + 1)
         need = min(need, self._cache.max_pages_per_row)
         pages = self._alloc.alloc(need)
+        if pages is None and self._tier is not None:
+            # Pool pressure: resident sessions are the reclaimable tier —
+            # park them before making the request wait.
+            self._reclaim_pages(need)
+            pages = self._alloc.alloc(need)
         if pages is None:
             return False
         slot.pages = pages
@@ -1486,12 +1758,15 @@ class BatchScheduler:
             self._waiting.append(slot)
 
     def _admit_pending(self, block: bool) -> None:
-        """Admit pending requests into free rows, one prefill per
-        (prefix, bucket, chunk). With live streams, at most one chunk per
-        call (the rest carries), so a burst cannot stall decoding for
-        long. A chunked admission in progress owns its rows (they are not
-        in ``_slots`` until its final chunk) and everything else waits
-        behind it."""
+        """Admit pending requests into free rows: session wakes first (one
+        verify-shaped forward per suffix bucket, :meth:`_admit_wake`),
+        then one prefill per (prefix, bucket, chunk). With live streams,
+        at most one wake or one chunk per call (the rest carries), so a
+        burst cannot stall decoding for long, and a round whose wake made
+        cold requests wait puts the cold ones first next time (the
+        reference's ``_wake_rr_cold``). A chunked admission in progress
+        owns its rows (they are not in ``_slots`` until its final chunk)
+        and everything else waits behind it."""
         if self._prefill_carry is not None:
             return
         free = self._free_rows()
@@ -1499,14 +1774,38 @@ class BatchScheduler:
             return
         had_active = len(free) < self.num_slots
         pending: list[_Slot] = []
+        # Session wakes by suffix bucket, classified wherever a slot holds
+        # no page reservation yet (fresh arrivals, carried wakes).
+        wakes: dict[int, list[_Slot]] = {}
+
+        def classify(s: _Slot) -> bool:
+            if self._tier is None or s.pages is not None or self._waiting:
+                return False
+            S = self._wake_candidate(s)
+            if S is None:
+                return False
+            wakes.setdefault(S, []).append(s)
+            return True
+
         for s in self._admit_carry:
             if s.cancelled.is_set() or s.done or self._expired(s):
                 s.depart()
+                s.wake_dev = None
                 if s.pages:
                     self._alloc.free(s.pages)
                     s.pages = None
                 continue
-            pending.append(s)
+            if classify(s):
+                continue
+            if s.pages is None:
+                # A carried wake whose session vanished: a cold
+                # reservation, behind any waiter.
+                if self._waiting or not self._try_reserve(s):
+                    self._wait_or_fail(s)
+                else:
+                    pending.append(s)
+            else:
+                pending.append(s)
         self._admit_carry = []
         still: list[_Slot] = []
         for s in self._waiting:
@@ -1522,16 +1821,30 @@ class BatchScheduler:
             else:
                 still.append(s)
         self._waiting = still
-        room = len(free) - len(pending)
+        room = len(free) - len(pending) - sum(len(g) for g in wakes.values())
         if room > 0:
             for s in self._collect_pending(
-                    room, block and not pending and not self._waiting):
+                    room, block and not pending and not wakes
+                    and not self._waiting):
+                if classify(s):
+                    continue
                 if self._waiting or not self._try_reserve(s):
                     self._wait_or_fail(s)
                 else:
                     pending.append(s)
-        if not pending:
+        if not pending and not wakes:
             return
+        if wakes and pending and had_active and self._wake_rr_cold:
+            # The last contended round put a wake ahead of cold work:
+            # this round the cold requests go first, the wakes carry.
+            self._wake_rr_cold = False
+            self._admit_carry = [x for S in sorted(wakes) for x in wakes[S]]
+            wakes = {}
+        if wakes:
+            if not self._dispatch_wakes(wakes, free, pending, had_active):
+                return
+            if not pending:
+                return
         # Group by (cached prefix, bucket): a chunk's rows share one prefix
         # entry, and the bucket covers only the suffix of a matched slot.
         groups: dict[tuple, list[_Slot]] = {}
@@ -1563,8 +1876,11 @@ class BatchScheduler:
                         # Chunked admission: the loop runs one chunk per
                         # iteration; everything else queues behind it.
                         self._start_prefill_carry(chunk, rows, S, C)
+                        # Appended: wakes the rotation deferred may sit
+                        # in the carry already.
                         self._admit_carry = group + [
-                            x for _, _, g in order[gi + 1:] for x in g]
+                            x for _, _, g in order[gi + 1:] for x in g
+                        ] + self._admit_carry
                         return
                     self._admit_chunk(chunk, rows, S)
                 except Exception:   # noqa: BLE001
@@ -1577,8 +1893,57 @@ class BatchScheduler:
                     return
                 if had_active and (group or gi + 1 < len(order)):
                     self._admit_carry = group + [
-                        x for _, _, g in order[gi + 1:] for x in g]
+                        x for _, _, g in order[gi + 1:] for x in g
+                    ] + self._admit_carry
                     return
+
+    def _dispatch_wakes(self, wakes: dict[int, list[_Slot]], free: list[int],
+                        pending: list[_Slot], had_active: bool) -> bool:
+        """Run the session wakes of an admission round, one
+        :meth:`_admit_wake` per suffix bucket (with live streams, one
+        bucket a round; the rest carries). Rows a wake did not use return
+        to ``free``; demoted slots (the session vanished, or its pages
+        could not be reserved) take a cold reservation into ``pending``.
+        False = the round is over (work carried, or a failed wake reset
+        the state); True = go on to the cold admissions."""
+        one_wake = False
+        carry_tail: list[_Slot] = []
+        keys = sorted(wakes)
+        for wi, S in enumerate(keys):
+            group = wakes[S]
+            if (had_active and one_wake) or not free:
+                carry_tail.extend(group)
+                continue
+            batch = group[:len(free)]
+            carry_tail.extend(group[len(batch):])
+            rows = [free.pop(0) for _ in batch]
+            try:
+                demoted, unused = self._admit_wake(batch, rows, S)
+            except Exception:   # noqa: BLE001
+                log.exception("wake admission failed for %d request(s)",
+                              len(batch))
+                # Tables and pages may be half-installed: fail the round
+                # and reset, as a failed prefill does.
+                for s in (batch + carry_tail + pending
+                          + [x for S2 in keys[wi + 1:] for x in wakes[S2]]):
+                    s.fail("internal error: admission failed")
+                self._fail_all_and_reset()
+                return False
+            one_wake = True
+            free.extend(unused)
+            for s in demoted:
+                if self._waiting or not self._try_reserve(s):
+                    self._wait_or_fail(s)
+                else:
+                    pending.append(s)
+        if carry_tail or (had_active and one_wake):
+            rest = carry_tail + pending
+            if rest:
+                self._admit_carry = rest + self._admit_carry
+            if one_wake and pending:
+                self._wake_rr_cold = True
+            return False
+        return True
 
     def _host_arrays(self, chunk: list[_Slot], S: int) -> tuple:
         """(tokens [R, S] right-padded suffixes, suffix lens [R], total
@@ -1700,12 +2065,17 @@ class BatchScheduler:
         self._install_admitted(pc.chunk, pc.rows, pc.logits)
 
     def _install_admitted(self, chunk: list[_Slot], rows: list[int],
-                          logits: torch.Tensor) -> None:
-        """Admission epilogue shared by the one-piece and the chunked
-        paths: write the rows' options, keys (``[seed, 0]``) and rings
-        into the persistent device state in place, sample each row's
+                          logits: torch.Tensor,
+                          wake: Optional[tuple[float, list[int]]] = None
+                          ) -> None:
+        """Admission epilogue shared by the one-piece, the chunked and the
+        wake paths: write the rows' options, keys (``[seed, 0]``) and
+        rings into the persistent device state in place, sample each row's
         first token from ``logits`` ([R, V]) with the device sampler,
-        install the slots and stream."""
+        install the slots and stream. ``wake``: (the wake's start, each
+        row's session length) — the first token of a woken session is
+        sampled exactly as a cold admission's; the wake is counted, timed
+        (``kv_wake_ms``) and traced (``sched.wake``) instead."""
         R = len(chunk)
         dev = self.device
         idx = torch.tensor(rows, dtype=torch.long, device=dev)
@@ -1746,13 +2116,25 @@ class BatchScheduler:
                 src.admit(row, slot.prompt_ids)
         now = time.monotonic()
         self._n_admitted += R
-        self._flight.note("admit", self._loop_iter, n=R)
+        if wake is None:
+            self._flight.note("admit", self._loop_iter, n=R)
+        else:
+            t0, saved = wake
+            # Prompt tokens whose prefill the wake skipped.
+            self._tier.note_waked(R, tokens_saved=sum(saved))
         tr = self._trace
-        for slot, row, tok in zip(chunk, rows, first):
+        for i, (slot, row, tok) in enumerate(zip(chunk, rows, first)):
             slot.depart()
             if slot.stats is not None:
                 slot.stats.ttft_s = now - slot.req.arrival_time
-            if tr is not None and slot.req.trace_sampled:
+            if wake is not None:
+                self._wake_hist.observe((now - t0) * 1e3)
+                if tr is not None and slot.req.trace_sampled:
+                    tr.add(slot.req.trace_id, "sched.queue_wait",
+                           slot.req.arrival_time, t0 - slot.req.arrival_time)
+                    tr.add(slot.req.trace_id, "sched.wake", t0, now - t0,
+                           tokens_saved=saved[i], row=row)
+            elif tr is not None and slot.req.trace_sampled:
                 # The wall before the first token, split at the admission
                 # dispatch: queue wait, then the prefill (every chunk of
                 # a chunked admission and the first sample included).
@@ -2090,11 +2472,13 @@ class BatchScheduler:
             self._trace.add(slot.req.trace_id, "sched.decode", t_first,
                             time.monotonic() - t_first,
                             tokens=len(slot.ids), row=row)
+        if (slot is not None and self._tier is not None
+                and self._retain_session(slot, row)):
+            return
         if slot is not None and slot.pages:
             # Fills on the stream, after every tick already queued: a
             # tick in flight still writes this row's own pages.
-            self._cache.page_table[row].zero_()
-            self._cache.lengths[row].zero_()
+            zero_row(self._cache, row)
             self._alloc.free(slot.pages)
             slot.pages = None
 
@@ -2122,4 +2506,339 @@ class BatchScheduler:
         self._admit_carry, self._waiting = [], []
         for src in self._sources:
             src.reset()
+        if self._tier is not None:
+            # Resident sessions' page ids point into the allocator being
+            # rebuilt; parked payloads live on the host and survive.
+            self._tier.reset_resident()
         self._reset_device_state()
+
+    # -- the KV tier: retain, park, wake (scheduler thread) -----------------
+
+    def _session_key(self, slot: _Slot) -> Optional[str]:
+        """The conversation's key: the client's session id, else the hash
+        of the prompt's first HEAD_GRAIN ids (a follow-up's prompt head is
+        the earlier turn's verbatim); None = anonymous and too short to
+        index, not worth retaining."""
+        if slot.req.session:
+            return f"sid:{slot.req.session}"
+        return head_key(slot.prompt_ids)
+
+    def _retain_session(self, slot: _Slot, row: int) -> bool:
+        """Keep a finished request's KV open as a resident session instead
+        of freeing it; True when the row's cleanup (table zeroed, pages
+        owned) was done here. The trusted content is the first ``ctx_len``
+        tokens (prompt + all generated but the last), on
+        ceil(ctx_len / page_size) pages; growth pages past them return to
+        the allocator. A tick still in flight writes past ctx_len only:
+        into the kept tail page's slack, a trimmed page any re-user
+        overwrites after it (one stream), or the garbage page."""
+        key = self._session_key(slot)
+        if key is None or slot.ctx_len <= 0 or not slot.pages:
+            return False
+        toks = (list(slot.prompt_ids) + list(slot.ids))[: slot.ctx_len]
+        if len(toks) < slot.ctx_len:
+            return False
+        keep = min(len(slot.pages), self._alloc.pages_for(slot.ctx_len))
+        kept, extra = slot.pages[:keep], slot.pages[keep:]
+        zero_row(self._cache, row)
+        if extra:
+            self._alloc.free(extra)
+        slot.pages = None
+        old = self._tier.take(key)
+        if old is not None:
+            self._recycle_session(old)
+        self._tier.insert(SessionKV(key=key, tokens=tuple(toks),
+                                    length=slot.ctx_len, pages=kept))
+        self._tier_enforce()
+        return True
+
+    def _recycle_session(self, sess: SessionKV) -> None:
+        """Return a replaced session's resident pages to the allocator."""
+        if sess.pages:
+            self._alloc.free(sess.pages)
+            sess.pages = None
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """One parked array on the host, read back synchronously into
+        pinned memory on the card's machine: on the H100 both the readback
+        and the wake's upload ran faster than through pageable memory,
+        and the upload is then asynchronous (chip_smoke's server_tier
+        prints both ways)."""
+        if t.device.type != "cuda":
+            return t
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.copy_(t)
+        return out
+
+    def _upload(self, arrays: tuple) -> tuple:
+        """A parked payload onto the device, queued on the serving
+        stream."""
+        return tuple(None if a is None
+                     else a.to(self.device, non_blocking=True)
+                     for a in arrays)
+
+    def _park_session(self, sess: SessionKV) -> None:
+        """Demote a resident session to host tensors: ONE gather of the
+        raw pool words (int8 values and head-major scales included, never
+        a requantize) over its pages padded with page 0 to a power-of-two
+        count, one synchronous readback, the pages back to the
+        allocator."""
+        sess = self._tier.take(sess.key)
+        if sess is None or not sess.pages:
+            return
+        pages, n = sess.pages, len(sess.pages)
+        P2 = 1 << max(0, n - 1).bit_length()
+        padded = torch.tensor(pages + [0] * (P2 - n), dtype=torch.long)
+        payload = tuple(None if a is None else self._to_host(a)
+                        for a in gather_pages(self._cache, padded))
+        self._alloc.free(pages)
+        self._tier.insert(SessionKV(
+            key=sess.key, tokens=sess.tokens, length=sess.length,
+            host=(payload, n), nbytes=sum(tensor_nbytes(a) for a in payload),
+            last_used=sess.last_used))
+        self._tier.note_parked(pages_freed=n)
+        self._tier_enforce()
+
+    def _reclaim_pages(self, need: int) -> None:
+        """Pool pressure: park resident sessions, least recently used
+        first, until ``need`` pages are free or none is left."""
+        for sess in self._tier.park_candidates(force=True):
+            if self._alloc.free_pages >= need:
+                return
+            self._park_session(sess)
+
+    def _tier_enforce(self) -> None:
+        """The tier's policies after an insert: the host byte budget over
+        parked sessions (cost eviction), then the session cap (LRU;
+        resident victims' pages return to the allocator)."""
+        for sess in self._tier.host_victims():
+            self._tier.drop(sess)
+        for sess in self._tier.overflow_victims():
+            pages = self._tier.drop(sess)
+            if pages:
+                self._alloc.free(pages)
+
+    def _tier_sweep(self) -> None:
+        """Idle parking: at most one park per 250 ms of loop time (each is
+        a gather and a readback, a bounded stall)."""
+        if self._tier is None:
+            return
+        now = time.monotonic()
+        if now - self._last_tier_sweep < 0.25:
+            return
+        self._last_tier_sweep = now
+        cands = self._tier.park_candidates(now=now)
+        if cands:
+            self._park_session(cands[0])
+
+    def _serving_bucket(self, n: int) -> int:
+        """A wake's suffix bucket: the power-of-two bucket of ``n``,
+        rounded up to the smallest warmed prompt bucket that holds it (the
+        reference's ``_serving_bucket``; past every warmed bucket it keeps
+        its own)."""
+        b = _bucket(n, self.max_seq)
+        for w in self._warmed_buckets:
+            if w >= b:
+                return w
+        return b
+
+    def _wake_window(self, S: int, start: int) -> int:
+        """The wake's attention window: every live row's context plus one
+        slot, and the deepest waking session's ``start + S`` (the
+        reference's ladder)."""
+        deepest = max((s.ctx_len for s in self._slots if s is not None),
+                      default=0)
+        need = max(deepest + 1, start + S)
+        w = min(128, self.max_seq)
+        while w < need:
+            w *= 2
+        return min(w, self.max_seq)
+
+    def _wake_candidate(self, slot: _Slot) -> Optional[int]:
+        """The suffix bucket S when ``slot`` can wake an open session,
+        else None (cold admission). Peeks only (:meth:`_admit_wake`
+        claims); a parked session's upload starts here, so it overlaps
+        whatever admission work runs first. Under live traffic a (window,
+        S) no wake has run yet admits cold, as in the reference."""
+        sess = self._tier.lookup(self._session_key(slot) or "",
+                                 slot.prompt_ids)
+        if sess is None:
+            return None
+        S = self._serving_bucket(len(slot.prompt_ids) - sess.length)
+        if sess.length + S > self.max_seq or S > _WAKE_MAX_SUFFIX:
+            return None
+        if self._any_active():
+            if (self._wake_window(S, sess.length), S) \
+                    not in self._wake_shapes_run:
+                return None
+        slot.wake_key = sess.key
+        if sess.parked:
+            if slot.wake_dev is None or slot.wake_dev[0] is not sess:
+                slot.wake_dev = (sess, self._upload(sess.host[0]))
+        else:
+            slot.wake_dev = None
+        return S
+
+    def _wake_install_kv(self, slot: _Slot, sess: SessionKV,
+                         table: torch.Tensor) -> bool:
+        """Place a waking session's KV: reserve the row's whole page
+        budget, scatter a parked payload into its first pages (in place),
+        or take the resident pages plus growth pages, and write the page
+        map into ``table`` [max_pages_per_row]. False = no pages even
+        after parking others: the session goes back untouched and the
+        request admits cold."""
+        need = self._alloc.pages_for(len(slot.prompt_ids) + slot.max_new + 1)
+        need = min(need, self._cache.max_pages_per_row)
+        if sess.parked:
+            arrays, n = sess.host
+            need = max(need, n)
+            pages = self._alloc.alloc(need)
+            if pages is None:
+                self._reclaim_pages(need)
+                pages = self._alloc.alloc(need)
+            if pages is None:
+                self._tier.insert(sess)
+                slot.wake_dev = None
+                return False
+            dev = None
+            if slot.wake_dev is not None and slot.wake_dev[0] is sess:
+                dev = slot.wake_dev[1]
+            slot.wake_dev = None
+            if dev is None:
+                dev = self._upload(arrays)
+            P2 = arrays[0].shape[1]
+            padded = torch.tensor(pages[:n] + [0] * (P2 - n),
+                                  dtype=torch.long)
+            scatter_pages(self._cache, padded, *dev)
+        else:
+            extra = need - len(sess.pages)
+            if extra > 0:
+                more = self._alloc.alloc(extra)
+                if more is None:
+                    self._reclaim_pages(extra)
+                    more = self._alloc.alloc(extra)
+                if more is None:
+                    self._tier.insert(sess)
+                    slot.wake_dev = None
+                    return False
+                pages = sess.pages + more
+            else:
+                pages = sess.pages
+            sess.pages = None
+        slot.pages = pages
+        slot.ctx_budget = min(len(pages) * self.page_size, self.max_seq)
+        table[:len(pages)] = torch.tensor(pages, dtype=torch.int32)
+        return True
+
+    def _wake_forward(self, tokens: torch.Tensor, tables: torch.Tensor,
+                      starts: torch.Tensor, last: torch.Tensor,
+                      window: int) -> torch.Tensor:
+        """The wake's forward over R waking rows (host tensors: suffix
+        tokens [R, S] right-padded, page maps [R, max_pages_per_row],
+        session lengths [R], each row's last suffix position [R]): the
+        family's ``verify_step_paged`` on a view of the pool with these
+        rows' tables and lengths — each layer attends the session's pool
+        KV plus the suffix block (kernel B's verify mode on the card), and
+        the block lands at ``start ..`` after the layer loop. Returns the
+        logits at ``last`` [R, V]. The pool is written in place; the live
+        rows' tables are not touched."""
+        dev = self.device
+        S = tokens.shape[1]
+        cache = self._cache
+        view = PagedKVCache(
+            k=cache.k, v=cache.v, page_table=tables.to(dev),
+            lengths=starts.to(device=dev, dtype=torch.int32),
+            k_scale=cache.k_scale, v_scale=cache.v_scale)
+        pages = min(-(-(window + S) // self.page_size),
+                    cache.max_pages_per_row)
+        logits, _ = self._family.verify_step_paged(
+            self._params, self.config, tokens.to(dev), view, pages=pages,
+            impl=self.attn_impl, last_idx=last.to(dev))
+        return logits[:, 0, :]
+
+    def _warm_wake(self, w: int, S: int) -> None:
+        """Run one wake forward at (window ``w``, suffix bucket ``S``) on
+        a dummy row whose table is all garbage page 0 (its writes land
+        there), and record the shape as run. A dispatch never picks
+        w < S."""
+        if w < S:
+            return
+        mppr = self._cache.max_pages_per_row
+        zeros = torch.zeros((1,), dtype=torch.long)
+        self._wake_forward(torch.zeros((1, S), dtype=torch.long),
+                           torch.zeros((1, mppr), dtype=torch.int32), zeros,
+                           zeros, w)
+        self._wake_shapes_run.add((w, S))
+
+    def _admit_wake(self, chunk: list[_Slot], rows: list[int],
+                    S: int) -> tuple[list[_Slot], list[int]]:
+        """Wake up to len(chunk) sessions sharing suffix bucket ``S``:
+        claim each session, place its KV (:meth:`_wake_install_kv`), run
+        the suffixes through ONE :meth:`_wake_forward`, install the rows'
+        tables and lengths, and sample each first token
+        (:meth:`_install_admitted`). Returns (demoted slots, unused rows):
+        a session that vanished since matching or whose pages could not be
+        reserved sends its request to a cold admission this same round.
+        No fallback: a failing forward raises into the admission
+        envelope."""
+        failpoint("serve.scheduler.admit")
+        t0 = time.monotonic()
+        demoted: list[_Slot] = []
+        unused: list[int] = []
+        claimed: list[tuple[_Slot, int, SessionKV]] = []
+        for slot, row in zip(chunk, rows):
+            sess = self._tier.claim(slot.wake_key or "", slot.prompt_ids)
+            slot.wake_key = None
+            if sess is None:
+                slot.wake_dev = None
+                demoted.append(slot)
+                unused.append(row)
+                continue
+            claimed.append((slot, row, sess))
+        if not claimed:
+            return demoted, unused
+        w = self._wake_window(S, max(s.length for _, _, s in claimed))
+        if self._any_active() and (w, S) not in self._wake_shapes_run:
+            # Another waking session is deeper than this slot's estimate:
+            # the window has not run under live traffic — admit cold.
+            for slot, row, sess in claimed:
+                self._tier.insert(sess)
+                slot.wake_dev = None
+                demoted.append(slot)
+                unused.append(row)
+            return demoted, unused
+        tables = torch.zeros((len(claimed), self._cache.max_pages_per_row),
+                             dtype=torch.int32)
+        live: list[tuple[_Slot, int, int]] = []
+        for slot, row, sess in claimed:
+            if not self._wake_install_kv(slot, sess, tables[len(live)]):
+                demoted.append(slot)
+                unused.append(row)
+                continue
+            live.append((slot, row, sess.length))
+        if not live:
+            return demoted, unused
+        R = len(live)
+        tables = tables[:R]
+        tokens = torch.zeros((R, S), dtype=torch.long)
+        starts = torch.tensor([n for _, _, n in live], dtype=torch.long)
+        sufs = torch.zeros((R,), dtype=torch.long)
+        for i, (slot, _, n) in enumerate(live):
+            suffix = slot.prompt_ids[n:]
+            tokens[i, :len(suffix)] = torch.tensor(suffix, dtype=torch.long)
+            sufs[i] = len(suffix)
+            slot.admit_t = t0
+        self._flight.note("wake", self._loop_iter, n=R, S=S, w=w)
+        logits = self._wake_forward(tokens, tables, starts, sufs - 1, w)
+        dev = self.device
+        idx = torch.tensor([row for _, row, _ in live], dtype=torch.long,
+                           device=dev)
+        self._cache.page_table[idx] = tables.to(dev)
+        self._cache.lengths[idx] = (starts + sufs).to(device=dev,
+                                                      dtype=torch.int32)
+        self._wake_shapes_run.add((w, S))
+        self._admit_since_tick = True
+        self._install_admitted([s for s, _, _ in live],
+                               [r for _, r, _ in live], logits,
+                               wake=(t0, starts.tolist()))
+        return demoted, unused

@@ -2,18 +2,21 @@
 
 - Both fronts over FakeLLM: every ``(method, path)`` the reference's
   router registers answers on the port with the reference's status code
-  and the same JSON shape (key sets, nested), except an explicit set of
-  routes of features the port does not serve yet (the prefix, session
-  and disaggregated-prefill admin routes). The test asserts that set
-  exactly, so it cannot grow silently.
+  and the same JSON shape (key sets, nested). The set of reference routes
+  the port does not serve is asserted empty, so it cannot grow silently.
 - The error and shed paths: ``/api/ps``, ``/api/version``, ``GET`` and
   ``HEAD /``, the model-management 501s, the embed 400s, and the drain
   503 of the embed routes, which moves no shed counter (``count=False``).
 - On the ``tiny`` engines of both packages, after warmup and one
   request, the port's ``/metrics`` series are a superset of the
-  reference's, minus a named speculation / KV-tier set; with speculation
+  reference's, minus a named speculation / KV-tier set; with the KV tier
+  on, a superset including the ``kv_*`` series; with speculation
   on (``spec_k`` 4, tree verify), the two fronts' ``serve_spec_*``
   series are the same names with the same labels.
+- On those engines with the KV tier on, every answer of the prefix,
+  session and disaggregated-prefill admin routes — success, 400, 404,
+  422 and a pull from a dead peer's 502 — has the reference's status,
+  content type and JSON shape.
 """
 
 import json
@@ -44,15 +47,8 @@ from p2p_llm_chat_tpu_torch.utils import failpoints as fp
 
 torch.set_num_threads(2)
 
-# Routes of features the port does not serve yet (ROADMAP Queue A: the
-# prefix export/import tier, session migration, disaggregated prefill).
-EXCLUDED = {
-    ("GET", "/admin/prefix"), ("GET", "/admin/prefix/export"),
-    ("POST", "/admin/prefix/import"), ("GET", "/admin/session"),
-    ("GET", "/admin/session/export"), ("POST", "/admin/session/import"),
-    ("POST", "/admin/session/forget"), ("POST", "/admin/session/park_all"),
-    ("POST", "/admin/disagg/prefill"),
-}
+# Reference routes the port does not serve: none.
+EXCLUDED: set = set()
 
 # Each route the port shares with the reference, with the body it is
 # called with.
@@ -79,6 +75,18 @@ ROUTES = {
     ("POST", "/admin/undrain"): {},
     ("GET", "/admin/trace"): None,
     ("POST", "/admin/trace/dump"): {},
+    ("GET", "/admin/prefix"): None,
+    ("GET", "/admin/prefix/export"): None,
+    ("POST", "/admin/prefix/import"): {"from": "http://127.0.0.1:9",
+                                       "h": "x"},
+    ("GET", "/admin/session"): None,
+    ("GET", "/admin/session/export"): None,
+    ("POST", "/admin/session/import"): {"from": "http://127.0.0.1:9",
+                                        "key": "k"},
+    ("POST", "/admin/session/forget"): {"key": "k"},
+    ("POST", "/admin/session/park_all"): {},
+    ("POST", "/admin/disagg/prefill"): {"path": "/api/generate",
+                                        "body": {"prompt": "hi"}},
 }
 
 # Reference series that a default engine does not export: speculation's
@@ -288,3 +296,102 @@ def test_spec_series_equal_the_references():
             srv.stop()
         ref_engine.stop()
         engine.stop()
+
+
+# -- the KV tier's admin routes on engines -------------------------------------
+
+DEAD = "http://127.0.0.1:9"
+ADMIN_CASES = [   # (method, path, json body or raw bytes)
+    ("GET", "/admin/prefix", None),
+    ("GET", "/admin/prefix/export", None),
+    ("GET", "/admin/prefix/export?h=nope", None),
+    ("GET", "/admin/prefix/export?h={template}", None),
+    ("POST", "/admin/prefix/import", b"not an npz"),
+    ("POST", "/admin/prefix/import", b"{not json"),
+    ("POST", "/admin/prefix/import", {"from": ""}),
+    ("POST", "/admin/prefix/import", {"from": DEAD, "h": "x"}),
+    ("GET", "/admin/session", None),
+    ("GET", "/admin/session/export", None),
+    ("GET", "/admin/session/export?key=nope", None),
+    ("POST", "/admin/session/import", b"not an npz"),
+    ("POST", "/admin/session/import", {"key": "k"}),
+    ("POST", "/admin/session/import", {"from": DEAD, "key": "k"}),
+    ("POST", "/admin/session/forget", {}),
+    ("POST", "/admin/session/forget", {"key": "nope"}),
+    ("POST", "/admin/session/park_all", {}),
+    ("GET", "/admin/session/export?key=sid:p", None),
+    ("POST", "/admin/disagg/prefill", b"{not json"),
+    ("POST", "/admin/disagg/prefill", {"body": "x"}),
+    ("POST", "/admin/disagg/prefill", {"path": "/api/generate",
+                                       "body": {"prompt": "x"}}),
+]
+
+
+@pytest.fixture(scope="module")
+def tier_fronts():
+    """The reference's and the port's tiny engines (int8 pool, prefix
+    cache with the co-pilot template, KV tier on) behind their fronts,
+    each holding one session ``sid:p`` and a co-pilot prefix entry."""
+    cfg = ref_config("tiny")
+    params = ref_llama.init_params_quantized(cfg, jax.random.PRNGKey(0),
+                                             dtype=jnp.float32)
+    kw = dict(num_slots=2, max_seq=128, page_size=16, kv_quant=True,
+              kv_host_gb=1.0, kv_idle_s=1e9)
+    ref_engine = TPUEngine(params, cfg, RefByteTokenizer(cfg.vocab_size),
+                           kv_mode="paged", **kw)
+    engine = TorchEngine(
+        params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"),
+        get_config("tiny"), ByteTokenizer(cfg.vocab_size), device="cpu",
+        **kw)
+    servers = []
+    try:
+        for eng, make in ((ref_engine, RefServer), (engine, OllamaServer)):
+            eng.warmup((16,))
+            srv = make(eng, addr="127.0.0.1:0").start()
+            servers.append(srv)
+            deadline = time.monotonic() + 120
+            while not eng.ready() and time.monotonic() < deadline:
+                time.sleep(0.02)
+            assert eng.ready()
+            body = dict(ROUTES[("POST", "/api/generate")], session="p",
+                        prompt="a conversation that outlives its request")
+            assert _call("POST", srv.url + "/api/generate", body)[0] == 200
+            while "sid:p" not in (eng.session_list() or {}):
+                assert time.monotonic() < deadline
+                time.sleep(0.02)
+        yield servers
+    finally:
+        for srv in servers:
+            srv.stop()
+        ref_engine.stop()
+        engine.stop()
+
+
+@pytest.mark.parametrize("case", ADMIN_CASES,
+                         ids=[f"{m} {p} {i}" for i, (m, p, _)
+                              in enumerate(ADMIN_CASES)])
+def test_admin_routes_answer_as_the_reference(tier_fronts, case):
+    ref, port = tier_fronts
+    method, path, body = case
+    if "{template}" in path:
+        got = json.loads(_call("GET", ref.url + "/admin/prefix")[2])
+        path = path.format(template=next(iter(got["prefixes"])))
+    raw = body if isinstance(body, bytes) else None
+    body = None if raw is not None else body
+    want = _call(method, ref.url + path, body, raw)
+    got = _call(method, port.url + path, body, raw)
+    assert got[0] == want[0], (case, got[2][:200], want[2][:200])
+    assert got[1].split(";")[0] == want[1].split(";")[0]
+    if "json" in want[1]:
+        assert _shape(json.loads(got[2])) == _shape(json.loads(want[2]))
+
+
+def test_tier_metrics_are_a_superset_of_the_reference(tier_fronts):
+    names = []
+    for srv in tier_fronts:
+        text = _call("GET", srv.url + "/metrics")[2].decode()
+        names.append({line.split()[0] for line in text.splitlines()
+                      if line.strip() and not line.startswith("#")})
+    assert names[0] - names[1] == set()
+    assert {"kv_open_sessions", "kv_waked_total", "kv_wake_p50_ms",
+            "kv_host_bytes"} <= names[1]

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of p2p_llm_chat_tpu_torch
-loads neither ``jax`` nor the reference package, needs no ``nvcc``, and
+loads neither ``jax``, ``ml_dtypes`` nor the reference package, needs no
+``nvcc``, and
 builds no kernel; on CPU tensors the kernel wrappers take their plain
 versions and launch nothing; chip_smoke.py imports nothing of JAX and
 refuses to run without a card.
@@ -43,7 +44,8 @@ for n in names:
     importlib.import_module(n)
 from p2p_llm_chat_tpu_torch.ops import _build
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             if m in ("jax", "ml_dtypes")
+             or m.startswith(("jax.", "jaxlib", "ml_dtypes."))
              or m == "p2p_llm_chat_tpu" or m.startswith("p2p_llm_chat_tpu."))
 print(json.dumps({"modules": names, "bad": bad,
                   "nvcc": shutil.which("nvcc"),
@@ -79,6 +81,8 @@ def test_every_module_imports_without_jax_or_nvcc():
                 "p2p_llm_chat_tpu_torch.serve.api",
                 "p2p_llm_chat_tpu_torch.serve.prefix",
                 "p2p_llm_chat_tpu_torch.serve.scheduler",
+                "p2p_llm_chat_tpu_torch.serve.kv_tier",
+                "p2p_llm_chat_tpu_torch.serve.disagg",
                 "p2p_llm_chat_tpu_torch.tools",
                 "p2p_llm_chat_tpu_torch.tools.mm_micro",
                 # The torch-free robustness plane: the port's own copies.
@@ -108,7 +112,8 @@ def test_no_source_of_the_port_or_chip_smoke_imports_jax():
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "p2p_llm_chat_tpu"), (f, name)
+            assert top not in ("jax", "jaxlib", "ml_dtypes",
+                               "p2p_llm_chat_tpu"), (f, name)
 
 
 def test_kernel_sources_exist_for_every_kernel():

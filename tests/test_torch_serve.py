@@ -207,7 +207,7 @@ def test_gpu_default_entry_point_raises_without_a_card(monkeypatch):
 # Features of the reference that the port now serves; the others still
 # exit with "not ported".
 _PORTED = ({"SERVE_SPEC": "2"}, {"SERVE_QUANT": "int4"},
-           {"MODEL_CONFIG": "tiny-moe"})
+           {"MODEL_CONFIG": "tiny-moe"}, {"SERVE_KV_HOST_GB": "1"})
 
 
 @pytest.mark.parametrize("env", [{"SERVE_SPEC": "2"},
