@@ -116,7 +116,31 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    before), the same turn admitted cold, the park copy's and the wake
    forward's times, prefix export/import, migration (park_all, export,
    pull-import, forget), a disaggregated handoff by its three HTTP calls,
-   the ``serve.kv_tier.*`` failpoints and pool pressure.
+   the ``serve.kv_tier.*`` failpoints and pool pressure;
+7. server_ckpt — a checkpoint directory written here into a temporary
+   directory (removed at exit): llama3.1-8b at full width and depth,
+   bf16 shards of at most 5 GB and their index, each tensor drawn on the
+   card from its own seeded generator, and a llama3-shaped BPE tokenizer
+   (1024 merges trained in pure Python on this docstring and the burst's
+   texts, llama3's specials at 128000-128255). ``CKPT_DIR`` at
+   ``SERVE_QUANT=int8``: the served tree bitwise equal to the port's
+   quantize + fuse of the same weights drawn again on the card and to
+   the reference's numpy arithmetic (layers 0 and 31, the head); the
+   burst (its chat request a co-pilot message in the llama3 template,
+   whose header and eot ids must reach the context) and greedy reruns
+   through kernels A, B and D; the prefix path taken exactly when the
+   ids extend the template's; the native BPE path against the Python
+   one. Then ``SERVE_QUANT=""`` (the shards' bits, one request through B
+   and D), and a 2-layer mixtral-8x7b directory loaded at int4 (expert
+   stacks and router bitwise against quantize4 + fuse on the card);
+8. server_multi — that directory at int4 as ``llama3.1`` beside a
+   random llama3.2-1b (``small``, head_dim 64) behind one front:
+   ``/readyz`` 503 until both engines have warmed, the tags on
+   ``/api/tags``, ``/api/ps``, ``/api/show`` and ``/metrics``, each tag's
+   burst alone (kernel C; B and D at head_dim 64) and both at once with
+   equal greedy answers, an embed to ``small`` during a ``llama3.1``
+   rerun. Both print the checkpoint write, load and boot walls, the
+   per-layer quantize ms and the serving readings.
 
 Optional (``--only build,profile``): ``profile`` — one 32-layer decode
 step at B=8, W=1020 of llama3.1-8b int8 (int8 pool, and bf16 pool through
@@ -133,7 +157,8 @@ JSON line before the last, and as the last line
 ``--only build,kernel`` runs a subset (``--only
 build,kernel_d,profile_prefill`` iterates on one kernel; ``--only
 build,kernel_b_verify,step,server_spec`` on speculation; ``--only
-build,kernel_b_verify,server_tier`` on the KV tier).
+build,kernel_b_verify,server_tier`` on the KV tier; ``--only
+build,server_ckpt,server_multi`` on checkpoints and the multi front).
 Exits non-zero, printing no result, where no CUDA device is available.
 """
 
@@ -3039,6 +3064,65 @@ def _server_trace(label: str, url: str) -> None:
           + f"; flight dump at {path}", flush=True)
 
 
+# The server phases' burst: 7 requests at once, one of them 1,500 bytes
+# long and one the co-pilot's (the prefix path); ``chat`` is the chat
+# request's user message.
+LONG_PROMPT = ("The co-pilot reads the whole conversation before it drafts "
+               "a reply. " * 40)[:1500]
+
+
+def _server_reqs(chat: str = "how are you?") -> list:
+    from p2p_llm_chat_tpu_torch.serve.engine import SUGGEST_PREFIX
+    return [
+        ("/api/generate", {"prompt": "Draft a reply to: see you at noon?",
+                           "stream": False, "options": {"num_predict": 24}}),
+        ("/api/generate", {"prompt": "hello there", "stream": True,
+                           "options": {"num_predict": 24, "temperature": 0.8,
+                                       "seed": 11, "top_k": 40,
+                                       "top_p": 0.9}}),
+        ("/api/chat", {"messages": [{"role": "user", "content": chat}],
+                       "stream": False, "options": {"num_predict": 16}}),
+        ("/api/generate", {"prompt": LONG_PROMPT, "stream": False,
+                           "options": {"num_predict": 16}}),
+        ("/api/generate", {"prompt": "stream me", "stream": True,
+                           "options": {"num_predict": 32}}),
+        ("/api/generate", {"prompt": "penalised", "stream": False,
+                           "options": {"num_predict": 20,
+                                       "repeat_penalty": 1.1}}),
+        ("/api/generate", {"prompt": SUGGEST_PREFIX + "are we still on for "
+                           "lunch tomorrow?", "stream": False,
+                           "options": {"num_predict": 24}}),
+    ]
+
+
+def _check_burst(label: str, reqs, answers) -> list:
+    """Every answer of a burst 200 with a well-formed final record (a
+    well-formed stream, 0 < eval_count <= num_predict, a generate's
+    context as long as its prompt and answer); the final records."""
+    finals = []
+    for (path, body), ans in zip(reqs, answers):
+        check(not isinstance(ans, Exception), f"{label} {path}: {ans!r}")
+        status, text = ans
+        check(status == 200, f"{label} {path}: status {status}")
+        lines = [json.loads(x) for x in text.splitlines() if x.strip()]
+        check(len(lines) >= 1, f"{label} {path}: empty body")
+        rec = lines[-1]
+        check(rec.get("done") is True and "error" not in rec,
+              f"{label} {path}: bad final record {rec}")
+        if body.get("stream"):
+            check(all(x.get("done") is False for x in lines[:-1]),
+                  f"{label} {path}: malformed stream")
+        n_pred = body["options"]["num_predict"]
+        check(0 < rec["eval_count"] <= n_pred,
+              f"{label} {path}: eval_count {rec['eval_count']} not in "
+              f"(0, {n_pred}]")
+        if path == "/api/generate":
+            check(len(rec["context"]) == rec["prompt_eval_count"]
+                  + rec["eval_count"], f"{label} {path}: context length")
+        finals.append(rec)
+    return finals
+
+
 def phase_server(results: dict, model: str, quant: str,
                  expect: tuple[str, ...], prefill_chunk: int = 256,
                  impl: str = "gather") -> None:
@@ -3055,8 +3139,7 @@ def phase_server(results: dict, model: str, quant: str,
     admit in chunks."""
     import torch
     from p2p_llm_chat_tpu_torch.serve.api import OllamaServer
-    from p2p_llm_chat_tpu_torch.serve.engine import (SUGGEST_PREFIX,
-                                                     build_engine_from_env)
+    from p2p_llm_chat_tpu_torch.serve.engine import build_engine_from_env
 
     wta = impl != "gather"
     kv = "bf16" if wta else "int8"
@@ -3102,57 +3185,14 @@ def phase_server(results: dict, model: str, quant: str,
         check(probe > 0 and abs(probe - event_ms) <= 0.15 * event_ms,
               f"server {label}: decode_device_ms {probe} vs {event_ms:.4f} "
               "ms by events")
-        long_prompt = ("The co-pilot reads the whole conversation before it "
-                       "drafts a reply. " * 40)[:1500]
-        reqs = [
-            ("/api/generate", {"prompt": "Draft a reply to: see you at "
-                               "noon?", "stream": False,
-                               "options": {"num_predict": 24}}),
-            ("/api/generate", {"prompt": "hello there", "stream": True,
-                               "options": {"num_predict": 24,
-                                           "temperature": 0.8, "seed": 11,
-                                           "top_k": 40, "top_p": 0.9}}),
-            ("/api/chat", {"messages": [{"role": "user",
-                                         "content": "how are you?"}],
-                           "stream": False, "options": {"num_predict": 16}}),
-            ("/api/generate", {"prompt": long_prompt, "stream": False,
-                               "options": {"num_predict": 16}}),
-            ("/api/generate", {"prompt": "stream me", "stream": True,
-                               "options": {"num_predict": 32}}),
-            ("/api/generate", {"prompt": "penalised", "stream": False,
-                               "options": {"num_predict": 20,
-                                           "repeat_penalty": 1.1}}),
-            ("/api/generate", {"prompt": SUGGEST_PREFIX + "are we still on "
-                               "for lunch tomorrow?", "stream": False,
-                               "options": {"num_predict": 24}}),
-        ]
+        reqs = _server_reqs()
         wrappers = _wrappers()
         base = len(_wall_samples(sched))
         for fn in wrappers.values():
             fn.launches = 0
         answers, burst_s = _burst(url, reqs)
         burst_p50 = _p50(_wall_samples(sched)[base:])
-        finals = []
-        for (path, body), ans in zip(reqs, answers):
-            check(not isinstance(ans, Exception), f"server {path}: {ans!r}")
-            status, text = ans
-            check(status == 200, f"server {path}: status {status}")
-            lines = [json.loads(x) for x in text.splitlines() if x.strip()]
-            check(len(lines) >= 1, f"server {path}: empty body")
-            rec = lines[-1]
-            check(rec.get("done") is True and "error" not in rec,
-                  f"server {path}: bad final record {rec}")
-            if body.get("stream"):
-                check(all(x.get("done") is False for x in lines[:-1]),
-                      f"server {path}: malformed stream")
-            n_pred = body["options"]["num_predict"]
-            check(0 < rec["eval_count"] <= n_pred,
-                  f"server {path}: eval_count {rec['eval_count']} not in "
-                  f"(0, {n_pred}]")
-            if path == "/api/generate":
-                check(len(rec["context"]) == rec["prompt_eval_count"]
-                      + rec["eval_count"], f"server {path}: context length")
-            finals.append(rec)
+        finals = _check_burst(f"server {label}", reqs, answers)
         # Determinism: the same greedy request twice, alone, gives the
         # same context ids.
         ctx = [json.loads(_post(url + reqs[0][0], reqs[0][1])[1])["context"]
@@ -3237,8 +3277,7 @@ SPEC_CYCLE = "0123456789:;<=>?"
 
 def _spec_reqs():
     from p2p_llm_chat_tpu_torch.serve.engine import SUGGEST_PREFIX
-    long_prompt = ("The co-pilot reads the whole conversation before it "
-                   "drafts a reply. " * 40)[:1500]
+    long_prompt = LONG_PROMPT
     gen = lambda p, n, **o: ("/api/generate", {
         "prompt": p, "stream": bool(o.pop("stream", False)),
         "options": dict(num_predict=n, **o)})
@@ -3646,8 +3685,7 @@ def phase_server_tier(results: dict) -> None:
         sa, sb = A.scheduler, B.scheduler
         check(f'serve_replica_class{{class="decode"}} 1' in
               _get(ub + "/metrics")[1], f"{label}: B's class on /metrics")
-        long_prompt = ("The co-pilot reads the whole conversation before it "
-                       "drafts a reply. " * 40)[:1500]
+        long_prompt = LONG_PROMPT
 
         # 1. Two sessions, identical first turns, retained on A.
         reqs = [("/api/generate", {"prompt": long_prompt, "stream": False,
@@ -3902,6 +3940,858 @@ def phase_server_tier(results: dict) -> None:
             os.environ.pop(k, None)
 
 
+# -- checkpoints written here (server_ckpt, server_multi) ------------------
+
+# llama3's specials at llama3's ids; the other ids up to 128255 are its
+# reserved tokens.
+LLAMA3_SPECIALS = {"<|begin_of_text|>": 128000, "<|end_of_text|>": 128001,
+                   "<|start_header_id|>": 128006,
+                   "<|end_header_id|>": 128007, "<|eot_id|>": 128009}
+BPE_MERGES = 1024
+CKPT_SEED = 14
+SHARD_BYTES = 5_000_000_000
+
+
+def _bpe_merges(text: str, n: int) -> list:
+    """Byte-level BPE training in pure Python: the pretokens of ``text``
+    (the port's llama3 regex, GPT-2's byte symbols), then ``n`` times the
+    most frequent adjacent pair (ties to the smaller pair) merged."""
+    import collections
+    from p2p_llm_chat_tpu_torch.tokenizer import (_PRETOKEN_RE,
+                                                  _byte_to_unicode)
+    b2u = _byte_to_unicode()
+    words = collections.Counter(
+        tuple(b2u[b] for b in piece.encode("utf-8"))
+        for piece in _PRETOKEN_RE.findall(text))
+    words = {w: c for w, c in words.items() if len(w) > 1}
+    merges: list = []
+    while len(merges) < n:
+        pairs: collections.Counter = collections.Counter()
+        for w, c in words.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += c
+        check(bool(pairs), f"BPE training: the text holds {len(merges)} "
+              f"merges, fewer than {n}")
+        best = min(pairs, key=lambda p: (-pairs[p], p))
+        merges.append(best)
+        merged: dict = {}
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            if len(out) > 1:
+                merged[tuple(out)] = merged.get(tuple(out), 0) + c
+        words = merged
+    return merges
+
+
+def _write_tokenizer(path: str) -> int:
+    """A llama3-shaped tokenizer.json: the 256 byte symbols, BPE_MERGES
+    merges trained on this file's docstring and the burst's texts, and
+    llama3's 256 specials at 128000-128255 (vocab 128256). Returns the
+    merge count."""
+    from p2p_llm_chat_tpu_torch.serve.engine import SUGGEST_PREFIX
+    from p2p_llm_chat_tpu_torch.tokenizer import _byte_to_unicode
+    b2u = _byte_to_unicode()
+    vocab = {b2u[b]: b for b in range(256)}
+    merges = _bpe_merges(__doc__ + SUGGEST_PREFIX + LONG_PROMPT, BPE_MERGES)
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    names = {i: t for t, i in LLAMA3_SPECIALS.items()}
+    reserved = iter(range(256))
+    added = []
+    for i in range(128000, 128256):
+        content = names.get(i) or f"<|reserved_special_token_{next(reserved)}|>"
+        added.append({"id": i, "content": content, "special": True,
+                      "single_word": False, "lstrip": False,
+                      "rstrip": False, "normalized": False})
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump({"version": "1.0", "added_tokens": added,
+                   "model": {"type": "BPE", "vocab": vocab,
+                             "merges": [f"{a} {b}" for a, b in merges]}},
+                  f, ensure_ascii=False)
+    return len(merges)
+
+
+def _hf_config(cfg) -> dict:
+    """The HF config.json of a port config (llama or Mixtral)."""
+    out = {"architectures": ["MixtralForCausalLM" if cfg.is_moe
+                             else "LlamaForCausalLM"],
+           "_name_or_path": cfg.name, "vocab_size": cfg.vocab_size,
+           "hidden_size": cfg.hidden_size,
+           "intermediate_size": cfg.intermediate_size,
+           "num_hidden_layers": cfg.num_layers,
+           "num_attention_heads": cfg.num_heads,
+           "num_key_value_heads": cfg.num_kv_heads,
+           "head_dim": cfg.head_dim,
+           "max_position_embeddings": cfg.max_seq_len,
+           "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+           "tie_word_embeddings": cfg.tie_embeddings,
+           "bos_token_id": cfg.bos_token_id,
+           "eos_token_id": list(cfg.eos_token_ids),
+           "torch_dtype": "bfloat16"}
+    rs = cfg.rope_scaling
+    if rs is not None:
+        out["rope_scaling"] = {
+            "rope_type": "llama3", "factor": rs.factor,
+            "low_freq_factor": rs.low_freq_factor,
+            "high_freq_factor": rs.high_freq_factor,
+            "original_max_position_embeddings": rs.original_max_position}
+    if cfg.is_moe:
+        out.update(num_local_experts=cfg.num_experts,
+                   num_experts_per_tok=cfg.num_experts_per_tok)
+    return out
+
+
+def _hf_specs(cfg) -> list:
+    """(HF name, shape, std) of every tensor of ``cfg`` in the order they
+    are written; std 0 marks a norm (ones), as the reference's init."""
+    H, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    std = H ** -0.5
+    out = [("model.embed_tokens.weight", (V, H), 1.0)]
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}"
+        out += [(f"{p}.input_layernorm.weight", (H,), 0.0),
+                (f"{p}.self_attn.q_proj.weight", (cfg.q_dim, H), std),
+                (f"{p}.self_attn.k_proj.weight", (cfg.kv_dim, H), std),
+                (f"{p}.self_attn.v_proj.weight", (cfg.kv_dim, H), std),
+                (f"{p}.self_attn.o_proj.weight", (H, cfg.q_dim), std),
+                (f"{p}.post_attention_layernorm.weight", (H,), 0.0)]
+        if cfg.is_moe:
+            m = f"{p}.block_sparse_moe"
+            out.append((f"{m}.gate.weight", (cfg.num_experts, H), std))
+            for e in range(cfg.num_experts):
+                out += [(f"{m}.experts.{e}.w1.weight", (F, H), std),
+                        (f"{m}.experts.{e}.w3.weight", (F, H), std),
+                        (f"{m}.experts.{e}.w2.weight", (H, F), std)]
+        else:
+            out += [(f"{p}.mlp.gate_proj.weight", (F, H), std),
+                    (f"{p}.mlp.up_proj.weight", (F, H), std),
+                    (f"{p}.mlp.down_proj.weight", (H, F), std)]
+    out.append(("model.norm.weight", (H,), 0.0))
+    if not cfg.tie_embeddings:
+        out.append(("lm_head.weight", (V, H), std))
+    return out
+
+
+class _Ckpt:
+    """A checkpoint directory written here: ``cfg``'s tensors as bf16,
+    each drawn on the card from its own seeded generator, so any of them
+    can be drawn again for the checks (:meth:`tensor`)."""
+
+    def __init__(self, d: str, cfg) -> None:
+        self.dir, self.cfg = d, cfg
+        self.specs = _hf_specs(cfg)
+        self.index = {name: i for i, (name, _, _) in enumerate(self.specs)}
+
+    def tensor(self, name: str):
+        """The bf16 ``[out, in]`` tensor ``name`` on the card."""
+        import torch
+        i = self.index[name]
+        _, shape, std = self.specs[i]
+        if std == 0.0:
+            return torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(CKPT_SEED * 1_000_003
+                                                       + i)
+        return (torch.randn(shape, generator=g, device="cuda")
+                * std).to(torch.bfloat16)
+
+    def write(self, tokenizer: bool = True) -> dict:
+        """config.json, the shards (at most SHARD_BYTES each, in the specs'
+        order) and their index, and the tokenizer; returns the walls."""
+        import struct
+        import torch
+        os.makedirs(self.dir, exist_ok=True)
+        with open(os.path.join(self.dir, "config.json"), "w") as f:
+            json.dump(_hf_config(self.cfg), f)
+        shards, cur, size = [], [], 0
+        for name, shape, _ in self.specs:
+            n = 2 * math.prod(shape)
+            if cur and size + n > SHARD_BYTES:
+                shards.append(cur)
+                cur, size = [], 0
+            cur.append(name)
+            size += n
+        shards.append(cur)
+        weight_map, total, gen_s, write_s = {}, 0, 0.0, 0.0
+        for k, names in enumerate(shards):
+            fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+            t0 = time.monotonic()
+            host = [(n, self.tensor(n).cpu()) for n in names]
+            t1 = time.monotonic()
+            header, off = {}, 0
+            for n, t in host:
+                nb = 2 * t.numel()
+                header[n] = {"dtype": "BF16", "shape": list(t.shape),
+                             "data_offsets": [off, off + nb]}
+                off += nb
+            raw = json.dumps(header).encode()
+            raw += b" " * (-len(raw) % 8)
+            with open(os.path.join(self.dir, fname), "wb") as f:
+                f.write(struct.pack("<Q", len(raw)))
+                f.write(raw)
+                for _, t in host:
+                    f.write(t.view(torch.int16).numpy().reshape(-1))
+                f.flush()
+                os.fsync(f.fileno())
+            del host
+            gen_s += t1 - t0
+            write_s += time.monotonic() - t1
+            total += off
+            weight_map.update({n: fname for n in names})
+        with open(os.path.join(self.dir, "model.safetensors.index.json"),
+                  "w") as f:
+            json.dump({"metadata": {"total_size": total},
+                       "weight_map": weight_map}, f)
+        merges = None
+        t0 = time.monotonic()
+        if tokenizer:
+            merges = _write_tokenizer(os.path.join(self.dir,
+                                                   "tokenizer.json"))
+        return {"bytes": total, "shards": len(shards), "gen_s": gen_s,
+                "write_s": write_s, "merges": merges,
+                "train_s": time.monotonic() - t0}
+
+
+# One temporary root for the phases' checkpoints; main removes it.
+_CKPT_ROOT: dict = {}
+
+
+def _ckpt_root() -> str:
+    import tempfile
+    if "dir" not in _CKPT_ROOT:
+        _CKPT_ROOT["dir"] = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    return _CKPT_ROOT["dir"]
+
+
+def _drop_ckpts() -> None:
+    import shutil
+    d = _CKPT_ROOT.pop("dir", None)
+    if d is not None:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _llama_ckpt() -> _Ckpt:
+    """The llama3.1-8b directory at full width and depth (the depth is cut
+    only when the temporary directory cannot hold it), written once for
+    server_ckpt and server_multi."""
+    import shutil
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    if "llama" in _CKPT_ROOT:
+        return _CKPT_ROOT["llama"]
+    root = _ckpt_root()
+    cfg = get_config("llama3.1-8b")
+    cfg = cfg.with_(name="llama3.1-8b-seeded",
+                    eos_token_ids=(128001, 128009))
+    free = shutil.disk_usage(root).free
+    need = 2 * sum(math.prod(s) for _, s, _ in _hf_specs(cfg))
+    print(f"checkpoint: {free / 1e9:.1f} GB free in {root}; llama3.1-8b "
+          f"needs {need / 1e9:.2f} GB", flush=True)
+    if free < need + 8e9:
+        per_layer = 2 * sum(math.prod(s) for n, s, _ in _hf_specs(cfg)
+                            if n.startswith("model.layers.0."))
+        L = max(2, int((free - 8e9 - (need - cfg.num_layers * per_layer))
+                       // per_layer))
+        print(f"checkpoint: DEPTH CUT to {L} of {cfg.num_layers} layers "
+              "(disk)", flush=True)
+        cfg = cfg.with_(num_layers=L)
+    ck = _Ckpt(os.path.join(root, "llama3.1-8b"), cfg)
+    w = ck.write()
+    print(f"checkpoint llama3.1-8b: {w['bytes'] / 1e9:.3f} GB in "
+          f"{w['shards']} shards: drawn on the card and read back "
+          f"{w['gen_s']:.2f} s, written (fsync) {w['write_s']:.2f} s = "
+          f"{w['bytes'] / 1e9 / w['write_s']:.2f} GB/s; BPE tokenizer "
+          f"{w['merges']} merges trained in {w['train_s']:.2f} s",
+          flush=True)
+    _CKPT_ROOT["llama"] = ck
+    return ck
+
+
+def _record(results: dict, label: str, launches: dict) -> None:
+    for name, n in launches.items():
+        rec = results.get(name)
+        if n and rec is not None:
+            rec.setdefault("launches_by_path", {})[label] = n
+            rec["launches"] = rec.get("launches", 0) + n
+
+
+def _bits(t):
+    import torch
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _same_bits(label: str, got, want) -> None:
+    import torch
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{label}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
+          f"{want.dtype}")
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    ok = torch.equal(_bits(got), _bits(want))
+    check(ok, f"{label}: not bitwise equal")
+
+
+def _fused_layer(ck: _Ckpt, li: int) -> dict:
+    """Layer ``li``'s fused ``[in, out]`` bf16 weights drawn again on the
+    card (llama: wqkv, wo, wgu, w_down)."""
+    import torch
+    p = f"model.layers.{li}"
+    t = lambda n: ck.tensor(f"{p}.{n}.weight").T  # noqa: E731
+    return {"wqkv": torch.cat([t("self_attn.q_proj"), t("self_attn.k_proj"),
+                               t("self_attn.v_proj")], dim=1),
+            "wo": t("self_attn.o_proj").contiguous(),
+            "wgu": torch.cat([t("mlp.gate_proj"), t("mlp.up_proj")], dim=1),
+            "w_down": t("mlp.down_proj").contiguous()}
+
+
+def _check_tree_on_card(label: str, ck: _Ckpt, params, quant: str) -> None:
+    """Every layer and the head of a served quantized tree bitwise equal
+    to the port's quantize (int8) or quantize4 (int4) of the same bf16
+    weights drawn again on the card, fused; the embedding and the norms
+    equal to the shards' bits."""
+    from p2p_llm_chat_tpu_torch.models.quant import _quantize_leaf
+    layers = params["layers"]
+    for li in range(ck.cfg.num_layers):
+        for name, w in _fused_layer(ck, li).items():
+            qt = _quantize_leaf(w, quant)
+            _same_bits(f"{label} layer {li} {name}.q", layers[name].q[li],
+                       qt.q)
+            _same_bits(f"{label} layer {li} {name}.s", layers[name].s[li],
+                       qt.s)
+        for key, n in (("attn_norm", "input_layernorm"),
+                       ("mlp_norm", "post_attention_layernorm")):
+            _same_bits(f"{label} layer {li} {key}", layers[key][li],
+                       ck.tensor(f"model.layers.{li}.{n}.weight"))
+    head = _quantize_leaf(ck.tensor("lm_head.weight").T.contiguous(), quant)
+    _same_bits(f"{label} lm_head.q", params["lm_head"].q, head.q)
+    _same_bits(f"{label} lm_head.s", params["lm_head"].s, head.s)
+    _same_bits(f"{label} embed", params["embed"],
+               ck.tensor("model.embed_tokens.weight"))
+
+
+def _numpy_int8(w):
+    """The reference's host int8 quantizer restated in numpy (its
+    models/weights.py _host_quant8 after _bf16_round; the weight is bf16
+    already): IEEE f32 abs-max over the contraction axis / 127,
+    round-half-even, clip."""
+    import numpy as np
+    amax = np.abs(w).max(axis=-2, keepdims=True)
+    s = np.where(amax > 0, amax / np.float32(127.0),
+                 np.float32(1.0)).astype(np.float32)
+    q = np.clip(np.round(w / s), -127, 127).astype(np.int8)
+    return q, s
+
+
+def _check_tree_numpy(label: str, ck: _Ckpt, params) -> float:
+    """Layers 0 and L - 1 and the lm_head of the served int8 tree bitwise
+    equal to the reference's host-numpy arithmetic; returns its wall."""
+    import numpy as np
+    t0 = time.monotonic()
+    L = ck.cfg.num_layers
+    for li in sorted({0, L - 1}):
+        for name, w in _fused_layer(ck, li).items():
+            q, s = _numpy_int8(w.float().cpu().numpy())
+            leaf = params["layers"][name]
+            check(np.array_equal(leaf.q[li].cpu().numpy(), q)
+                  and np.array_equal(leaf.s[li].cpu().numpy().view(np.int32),
+                                     s.view(np.int32)),
+                  f"{label}: layer {li} {name} differs from the numpy "
+                  "quantizer")
+    q, s = _numpy_int8(ck.tensor("lm_head.weight").float().cpu().numpy().T)
+    check(np.array_equal(params["lm_head"].q.cpu().numpy(), q)
+          and np.array_equal(params["lm_head"].s.cpu().numpy().view(np.int32),
+                             s.view(np.int32)),
+          f"{label}: lm_head differs from the numpy quantizer")
+    return time.monotonic() - t0
+
+
+def _load_line(label: str, st: dict, nbytes: int) -> str:
+    layers = st["layers_s"]
+    read = sum(r for r, _ in layers)
+    quant = [q * 1e3 for _, q in layers]
+    return (f"{label}: load {st['total_s']:.2f} s for {nbytes / 1e9:.2f} GB "
+            f"= {nbytes / 1e9 / st['total_s']:.2f} GB/s; per layer read + "
+            f"upload + transpose {read / len(layers) * 1e3:.1f} ms "
+            f"({nbytes / 1e9 / max(read + st['top_s'], 1e-9):.2f} GB/s with "
+            f"the top tensors), quantize p50 {_p50(quant):.2f} ms (max "
+            f"{max(quant):.2f}); embedding + head {st['top_s'] * 1e3:.0f} ms")
+
+
+def _wait_ready(label: str, backend, timeout: float = 900.0) -> float:
+    t0 = time.monotonic()
+    while not backend.ready():
+        err = backend.warmup_error
+        check(err is None, f"{label}: warmup failed: {err!r}")
+        check(time.monotonic() - t0 < timeout, f"{label}: never ready")
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def _burst_readings(label: str, finals: list, burst_s: float,
+                    snap: dict) -> None:
+    ttfts = [r["prompt_eval_duration"] / 1e6 for r in finals]
+    toks = sum(r["eval_count"] for r in finals)
+    per_req = [r["eval_count"] / (r["eval_duration"] / 1e9)
+               for r in finals if r["eval_duration"] > 0]
+    print(f"{label}: TTFT ms by request "
+          f"{', '.join(f'{t:.1f}' for t in ttfts)} (prompt tokens "
+          f"{', '.join(str(r['prompt_eval_count']) for r in finals)}); "
+          f"p50 {_p50(ttfts):.1f}, max {max(ttfts):.1f}; decode {toks} "
+          f"tokens in {burst_s:.2f} s = {toks / burst_s:.1f} tok/s "
+          f"aggregate, {_p50(per_req):.1f} tok/s per request (p50); "
+          f"decode_wall_ms {snap['decode_wall_ms']:.3f}, mean K "
+          f"{snap['decode_fused_mean_k']:.3f}", flush=True)
+
+
+def _prefix_exact(label: str, url: str, sched, tok) -> None:
+    """Prefix admission follows the tokenizer's ids: the co-pilot
+    template is cached at its ids minus the last, and each prompt below is
+    admitted on the prefix path exactly when its ids start with that key
+    (a message after the template's blank line, one that adds a newline,
+    which merges across the boundary under ``\\s*[\\r\\n]+``, and one
+    that cuts into the template's last word)."""
+    from p2p_llm_chat_tpu_torch.serve.engine import SUGGEST_PREFIX
+    key = tuple(tok.encode(SUGGEST_PREFIX, add_bos=True)[:-1])
+    check(key in sched._prefix._entries, f"{label}: no prefix entry of the "
+          f"template's {len(key)} ids")
+    seen = set()
+    for prompt in (SUGGEST_PREFIX + "Shall we meet at the café at 10?",
+                   SUGGEST_PREFIX + "\nShall we meet?",
+                   SUGGEST_PREFIX[:-3] + "x, shall we meet?"):
+        ids = tok.encode(prompt, add_bos=True)
+        want = int(tuple(ids[:len(key)]) == key and len(ids) > len(key))
+        admits0 = sched.metrics_snapshot()["serve_prefix_admits_total"]
+        rec = json.loads(_post(url + "/api/generate", {
+            "prompt": prompt, "stream": False,
+            "options": {"num_predict": 4}})[1])
+        check(rec["context"][:len(ids)] == ids, f"{label}: served ids")
+        got = sched.metrics_snapshot()["serve_prefix_admits_total"] - admits0
+        check(got == want, f"{label}: prefix admits {got} for "
+              f"{prompt[-24:]!r}; the ids say {want}")
+        seen.add(want)
+        print(f"{label}: ...{prompt[-24:]!r}: ids start with the "
+              f"template's {len(key)}-id key: {bool(want)}; prefix "
+              f"admitted: {bool(got)}", flush=True)
+    check(seen == {0, 1}, f"{label}: the prompts did not give both a hit "
+          "and a miss")
+
+
+def phase_server_ckpt(results: dict) -> None:
+    """A checkpoint directory served: llama3.1-8b (full width and depth,
+    bf16 shards of at most 5 GB with their index, llama3 rope scaling,
+    a llama3-shaped BPE tokenizer) written here, then ``CKPT_DIR`` at
+    ``SERVE_QUANT=int8``: the tree bitwise equal to the port's quantize +
+    fuse of the same bf16 weights on the card (every layer, the head) and
+    to the reference's numpy arithmetic (layers 0 and 31, the head); the
+    usual burst (the chat request a co-pilot message in the llama3
+    template) and two greedy reruns, kernels A, B (append mode) and D
+    launched and B's pool mode not; the prefix entry hit exactly when the
+    ids say so; the tokenizer on its native path, timed against the
+    Python path. Then ``SERVE_QUANT=""`` from the same directory: the
+    embedding and layer 0 equal to the shards' bits, one greedy request
+    (kernels B and D). Then a 2-layer mixtral-8x7b directory loaded at
+    int4: expert stacks and router bitwise equal to the port's quantize4
+    + fuse on the card."""
+    import torch
+    from p2p_llm_chat_tpu_torch.serve.api import OllamaServer
+    from p2p_llm_chat_tpu_torch.serve.engine import build_engine_from_env
+    from p2p_llm_chat_tpu_torch.tokenizer import BPETokenizer, ByteTokenizer
+
+    ck = _llama_ckpt()
+    L = ck.cfg.num_layers
+    label = f"server ckpt llama3.1-8b int8 ({L} layers)"
+    os.environ.update(SERVE_BACKEND="torch", CKPT_DIR=ck.dir,
+                      LLM_MODEL="llama3.1", SERVE_KV="paged",
+                      SERVE_QUANT="int8", SERVE_KV_QUANT="int8",
+                      SERVE_SLOTS="8", SERVE_MAX_SEQ="4096",
+                      SERVE_DEVICE="cuda", SERVE_PREFILL_CHUNK="256",
+                      SERVE_PREFIX="1", PAGED_ATTN_IMPL="gather",
+                      SERVE_SPEC="0", SERVE_KV_HOST_GB="0")
+    t0 = time.monotonic()
+    engine = build_engine_from_env()
+    server = OllamaServer(engine, addr="127.0.0.1:0").start()
+    try:
+        build_s = time.monotonic() - t0
+        warm_s = _wait_ready(label, engine)
+        print(f"{label}: CKPT_DIR boot to ready {build_s + warm_s:.1f} s "
+              f"(load + engine {build_s:.1f} s, warmup {warm_s:.1f} s); "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+              flush=True)
+        print(_load_line(label, engine.load_stats, 2 * sum(
+            math.prod(s) for _, s, _ in ck.specs)), flush=True)
+        sched = engine.scheduler
+        check(sched.config.rope_scaling is not None
+              and sched.config.vocab_size == 128256, f"{label}: config "
+              f"{sched.config}")
+        t1 = time.monotonic()
+        _check_tree_on_card(label, ck, sched._params, "int8")
+        card_s = time.monotonic() - t1
+        np_s = _check_tree_numpy(label, ck, sched._params)
+        print(f"{label}: tree bitwise equal to quantize + fuse on the card "
+              f"({L} layers, head, embedding, norms; {card_s:.1f} s) and to "
+              f"the numpy quantizer (layers 0 and {L - 1}, head; "
+              f"{np_s:.1f} s)", flush=True)
+
+        tok = sched.tokenizer
+        check(isinstance(tok, BPETokenizer) and tok.native,
+              f"{label}: the tokenizer is not the native BPE ({tok!r})")
+        slow = BPETokenizer.from_file(os.path.join(ck.dir, "tokenizer.json"),
+                                      use_native=False)
+        texts = {"long prompt": LONG_PROMPT, "docstring": __doc__}
+        for name, text in texts.items():
+            ids = tok.encode(text, add_bos=True)
+            check(slow.encode(text, add_bos=True) == ids
+                  and tok.decode(ids[1:]) == text,
+                  f"{label}: native and Python BPE disagree on the {name}")
+            ms = {}
+            for path, t in (("native", tok), ("python", slow)):
+                t.encode(text)
+                t2 = time.perf_counter()
+                for _ in range(5):
+                    t.encode(text)
+                ms[path] = (time.perf_counter() - t2) / 5 * 1e3
+            print(f"{label}: BPE encode of the {name} ({len(text)} chars): "
+                  f"{len(ids)} ids against {len(text.encode()) + 1} byte "
+                  f"ids; native {ms['native']:.3f} ms, Python "
+                  f"{ms['python']:.3f} ms", flush=True)
+
+        from p2p_llm_chat_tpu_torch.serve.engine import SUGGEST_PREFIX
+        copilot = [{"role": "user", "content": SUGGEST_PREFIX
+                    + "are we still on for lunch tomorrow?"}]
+        reqs = _server_reqs(chat=copilot[0]["content"])
+        wrappers = _wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        answers, burst_s = _burst(server.url, reqs)
+        finals = _check_burst(label, reqs, answers)
+        ctx = [json.loads(_post(server.url + reqs[0][0],
+                                reqs[0][1])[1])["context"]
+               for _ in range(2)]
+        check(ctx[0] == ctx[1] == finals[0]["context"],
+              f"{label}: greedy reruns differ from the burst's answer")
+        launches = {n: f.launches for n, f in wrappers.items()}
+        print(f"{label}: {len(reqs)} concurrent requests and 2 greedy "
+              f"reruns; kernel launches: {launches}", flush=True)
+        for name in ("quant_matmul", "paged_attention_append",
+                     "prefill_attention"):
+            check(launches[name] > 0, f"{label}: {name} never launched")
+        check(launches["paged_attention"]
+              == launches["paged_attention_verify_append"] == 0,
+              f"{label}: kernel B's pool or verify mode launched on the "
+              "gather branch with speculation off")
+        _record(results, label, launches)
+        _burst_readings(label, finals, burst_s, engine.metrics_snapshot())
+
+        chat = engine.render_chat(copilot)
+        ids = tok.encode(chat, add_bos=True)
+        check(finals[2]["prompt_eval_count"] == len(ids), f"{label}: the "
+              f"chat request admitted {finals[2]['prompt_eval_count']} ids, "
+              f"its template {len(ids)}")
+        rec = json.loads(_post(server.url + "/api/generate", {
+            "prompt": chat, "stream": False,
+            "options": {"num_predict": 8}})[1])
+        for special in ("<|start_header_id|>", "<|end_header_id|>",
+                        "<|eot_id|>"):
+            check(LLAMA3_SPECIALS[special] in rec["context"],
+                  f"{label}: {special} not in the chat template's context")
+        print(f"{label}: the co-pilot chat in the llama3 template: "
+              f"{len(ids)} prompt ids, header and eot ids in its context",
+              flush=True)
+        _prefix_exact(label, server.url, sched, tok)
+        byte_ids = len(ByteTokenizer(512).encode(LONG_PROMPT, add_bos=True))
+        print(f"{label}: the long prompt is {finals[3]['prompt_eval_count']} "
+              f"BPE ids ({byte_ids} with the byte tokenizer)", flush=True)
+    finally:
+        server.stop()
+        engine.stop()
+        del engine
+        _free()
+
+    label = f"server ckpt llama3.1-8b bf16 ({L} layers)"
+    os.environ.update(SERVE_QUANT="", SERVE_MAX_SEQ="1024")
+    t0 = time.monotonic()
+    engine = build_engine_from_env()
+    server = OllamaServer(engine, addr="127.0.0.1:0").start()
+    try:
+        build_s = time.monotonic() - t0
+        warm_s = _wait_ready(label, engine)
+        print(f"{label}: CKPT_DIR boot to ready {build_s + warm_s:.1f} s "
+              f"(load + fuse + engine {build_s:.1f} s, warmup "
+              f"{warm_s:.1f} s)", flush=True)
+        params = engine.scheduler._params
+        _same_bits(f"{label} embed", params["embed"],
+                   ck.tensor("model.embed_tokens.weight"))
+        for name, w in _fused_layer(ck, 0).items():
+            _same_bits(f"{label} layer 0 {name}", params["layers"][name][0],
+                       w.contiguous())
+        _same_bits(f"{label} lm_head", params["lm_head"],
+                   ck.tensor("lm_head.weight").T.contiguous())
+        wrappers = _wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        rec = json.loads(_post(server.url + "/api/generate", {
+            "prompt": "Draft a reply to: see you at noon?", "stream": False,
+            "options": {"num_predict": 16}})[1])
+        launches = {n: f.launches for n, f in wrappers.items()}
+        check(rec.get("done") is True and rec["eval_count"] > 0,
+              f"{label}: {rec}")
+        for name in ("paged_attention_append", "prefill_attention"):
+            check(launches[name] > 0, f"{label}: {name} never launched")
+        check(launches["quant_matmul"] == launches["quant_matmul4"] == 0,
+              f"{label}: a quantized matmul ran on bf16 weights")
+        _record(results, label, launches)
+        print(f"{label}: embedding, layer 0 and head equal to the shards' "
+              f"bits; one greedy request, {rec['eval_count']} tokens, "
+              f"TTFT {rec['prompt_eval_duration'] / 1e6:.1f} ms; launches "
+              f"{launches}", flush=True)
+    finally:
+        server.stop()
+        engine.stop()
+        del engine
+        _free()
+        for k in ("CKPT_DIR", "LLM_MODEL"):
+            os.environ.pop(k, None)
+    _moe_ckpt_check()
+
+
+def _moe_ckpt_check() -> None:
+    """A 2-layer mixtral-8x7b directory (full width) written here and
+    loaded at int4: every expert's fused gate|up and down, the router,
+    the attention and the head bitwise equal to the port's quantize4 (or
+    its int8 fallback) + fuse on the card; then the directory is
+    removed."""
+    import shutil
+    import torch
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    from p2p_llm_chat_tpu_torch.models.quant import _quantize_leaf
+    from p2p_llm_chat_tpu_torch.models.weights import (
+        load_checkpoint_quantized)
+    label = "checkpoint mixtral-8x7b int4 (2 layers)"
+    cfg = get_config("mixtral-8x7b").with_(num_layers=2,
+                                           name="mixtral-8x7b-2l")
+    ck = _Ckpt(os.path.join(_ckpt_root(), "mixtral"), cfg)
+    try:
+        w = ck.write(tokenizer=False)
+        print(f"{label}: {w['bytes'] / 1e9:.3f} GB in {w['shards']} shards "
+              f"written in {w['write_s']:.2f} s = "
+              f"{w['bytes'] / 1e9 / w['write_s']:.2f} GB/s", flush=True)
+        stats: dict = {}
+        params, _ = load_checkpoint_quantized(ck.dir, quant="int4",
+                                              device="cuda", stats=stats)
+        print(_load_line(label, stats, w["bytes"]), flush=True)
+        layers = params["layers"]
+        for li in range(2):
+            p = f"model.layers.{li}"
+            for e in range(cfg.num_experts):
+                m = f"{p}.block_sparse_moe.experts.{e}"
+                gu = torch.cat([ck.tensor(f"{m}.w1.weight").T,
+                                ck.tensor(f"{m}.w3.weight").T], dim=1)
+                for name, wt in (("wgu_e", gu), ("w_down", ck.tensor(
+                        f"{m}.w2.weight").T.contiguous())):
+                    qt = _quantize_leaf(wt, "int4", expert=True)
+                    _same_bits(f"{label} layer {li} expert {e} {name}.q",
+                               layers[name].q[li, e], qt.q)
+                    _same_bits(f"{label} layer {li} expert {e} {name}.s",
+                               layers[name].s[li, e], qt.s)
+            _same_bits(f"{label} layer {li} router", layers["router"][li],
+                       ck.tensor(f"{p}.block_sparse_moe.gate.weight").T
+                       .contiguous())
+            qkv = torch.cat([ck.tensor(f"{p}.self_attn.{n}_proj.weight").T
+                             for n in "qkv"], dim=1)
+            qt = _quantize_leaf(qkv, "int4")
+            _same_bits(f"{label} layer {li} wqkv.q", layers["wqkv"].q[li],
+                       qt.q)
+        head = _quantize_leaf(ck.tensor("lm_head.weight").T.contiguous(),
+                              "int4")
+        _same_bits(f"{label} lm_head.q", params["lm_head"].q, head.q)
+        print(f"{label}: expert stacks wgu_e {tuple(layers['wgu_e'].q.shape)}"
+              f" and w_down {tuple(layers['w_down'].q.shape)}, router, wqkv "
+              "and head bitwise equal to quantize4 + fuse on the card",
+              flush=True)
+        del params, layers
+    finally:
+        shutil.rmtree(ck.dir, ignore_errors=True)
+        _free()
+
+
+def phase_server_multi(results: dict) -> None:
+    """Two models behind one front: ``CKPT_DIR`` (the llama3.1-8b
+    directory, tag ``llama3.1``) and ``SERVE_MODELS=small=llama3.2-1b``
+    (random init, seed 1, byte tokenizer), both at ``SERVE_QUANT=int4``,
+    int8 pools. /readyz stays 503 until both engines have warmed (one
+    after the other); /api/tags and /api/ps list both; /api/show gives 32
+    and 16 blocks (an unknown tag the default's); /metrics carries both
+    tags' series. A burst to each tag alone (launch counters zeroed:
+    kernel C on the 8B, kernels B and D at head_dim 64 on the 1B), then
+    both bursts at once from two threads: every greedy answer equal to
+    its tag's alone. An /api/embed to ``small`` during a greedy rerun on
+    ``llama3.1`` leaves the rerun unchanged."""
+    import torch
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    from p2p_llm_chat_tpu_torch.serve.api import OllamaServer
+    from p2p_llm_chat_tpu_torch.serve.engine import build_engine_from_env
+    from p2p_llm_chat_tpu_torch.serve.multi import MultiBackend
+
+    ck = _llama_ckpt()
+    label = "server multi"
+    os.environ.update(SERVE_BACKEND="torch", CKPT_DIR=ck.dir,
+                      LLM_MODEL="llama3.1", SERVE_MODELS="small=llama3.2-1b",
+                      SERVE_KV="paged", SERVE_QUANT="int4",
+                      SERVE_KV_QUANT="int8", SERVE_SLOTS="8",
+                      SERVE_MAX_SEQ="4096", SERVE_DEVICE="cuda",
+                      SERVE_PREFILL_CHUNK="256", SERVE_PREFIX="1",
+                      PAGED_ATTN_IMPL="gather", SERVE_SPEC="0",
+                      SERVE_KV_HOST_GB="0")
+    t0 = time.monotonic()
+    multi = build_engine_from_env()
+    server = OllamaServer(multi, addr="127.0.0.1:0").start()
+    try:
+        check(isinstance(multi, MultiBackend)
+              and multi.models() == ["llama3.1", "small"],
+              f"{label}: models {multi.models()}")
+        build_s = time.monotonic() - t0
+        big, small = multi.backends["llama3.1"], multi.backends["small"]
+        states = set()
+        while True:
+            check(multi.warmup_error is None,
+                  f"{label}: warmup failed: {multi.warmup_error!r}")
+            check(time.monotonic() - t0 < 900, f"{label}: never ready")
+            before = (big.ready(), small.ready())
+            code = _status("GET", server.url + "/readyz")[0]
+            after = (big.ready(), small.ready())
+            states.add((before, code))
+            check(code != 200 or all(before), f"{label}: /readyz 200 with "
+                  f"engines ready {before}")
+            if code == 200 and all(after):
+                break
+            time.sleep(0.05)
+        ready_s = time.monotonic() - t0
+        check(any(code == 503 and any(b) for b, code in states),
+              f"{label}: never saw one engine warm and /readyz 503 "
+              f"({states})")
+        print(f"{label}: boot to ready {ready_s:.1f} s (loads and init "
+              f"{build_s:.1f} s); /readyz 503 while one engine was warm; "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+              flush=True)
+        print(_load_line(f"{label} llama3.1 int4", big.load_stats, 2 * sum(
+            math.prod(s) for _, s, _ in ck.specs)), flush=True)
+
+        url = server.url
+        tags = [m["name"] for m in json.loads(
+            _get(url + "/api/tags")[1])["models"]]
+        ps = [m["name"] for m in json.loads(_get(url + "/api/ps")[1])["models"]]
+        blocks = {t: json.loads(_post(url + "/api/show", {"model": t})[1])
+                  ["model_info"]["llama.block_count"]
+                  for t in ("llama3.1", "small", "no-such-tag")}
+        check(tags == ps == ["llama3.1", "small"], f"{label}: tags {tags}, "
+              f"ps {ps}")
+        check(blocks == {"llama3.1": ck.cfg.num_layers,
+                         "small": get_config("llama3.2-1b").num_layers,
+                         "no-such-tag": ck.cfg.num_layers},
+              f"{label}: /api/show blocks {blocks}")
+        metrics = _get(url + "/metrics")[1]
+        for tag in ("llama3.1", "small"):
+            check(f'serve_kv_free_pages{{model="{tag}"}}' in metrics,
+                  f"{label}: no {tag} series on /metrics")
+
+        def reqs_for(tag: str) -> list:
+            return [("/api/generate", {"model": tag, "prompt": p,
+                                       "stream": s, "options": {
+                                           "num_predict": n}})
+                    for p, s, n in (("Draft a reply to: see you at noon?",
+                                     False, 24),
+                                    ("hello there", True, 24),
+                                    (LONG_PROMPT, False, 16),
+                                    ("stream me", True, 32))]
+
+        wrappers = _wrappers()
+        alone, want = {}, {}
+        for tag, need in (("llama3.1", ("quant_matmul4",
+                                        "paged_attention_append",
+                                        "prefill_attention")),
+                          ("small", ("quant_matmul4",
+                                     "paged_attention_append",
+                                     "prefill_attention"))):
+            for fn in wrappers.values():
+                fn.launches = 0
+            reqs = reqs_for(tag)
+            answers, burst_s = _burst(url, reqs)
+            finals = _check_burst(f"{label} {tag}", reqs, answers)
+            launches = {n: f.launches for n, f in wrappers.items()}
+            for name in need:
+                check(launches[name] > 0, f"{label} {tag}: {name} never "
+                      f"launched ({launches})")
+            check(launches["quant_matmul"] == launches["paged_attention"]
+                  == launches["paged_attention_verify_append"] == 0,
+                  f"{label} {tag}: {launches}")
+            _record(results, f"{label} {tag} "
+                    f"(head_dim {multi.backends[tag].config.head_dim})",
+                    launches)
+            want[tag] = [r["context"] for r in finals]
+            alone[tag] = burst_s
+            _burst_readings(f"{label} {tag} alone", finals, burst_s,
+                            multi.backends[tag].metrics_snapshot())
+            print(f"{label} {tag}: launches {launches}", flush=True)
+        got: dict = {}
+
+        def run(tag: str) -> None:
+            got[tag] = _burst(url, reqs_for(tag))
+
+        t1 = time.monotonic()
+        threads = [threading.Thread(target=run, args=(t,))
+                   for t in ("llama3.1", "small")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        both_s = time.monotonic() - t1
+        for tag in ("llama3.1", "small"):
+            finals = _check_burst(f"{label} {tag} interleaved",
+                                  reqs_for(tag), got[tag][0])
+            ctxs = [r["context"] for r in finals]
+            for i, (g, w) in enumerate(zip(ctxs, want[tag])):
+                check(g == w, f"{label} {tag}: request {i}'s greedy answer "
+                      "changed when both tags were served at once")
+        print(f"{label}: both bursts at once in {both_s:.2f} s (alone: "
+              f"llama3.1 {alone['llama3.1']:.2f} s, small "
+              f"{alone['small']:.2f} s); every greedy answer equal to its "
+              "tag's alone", flush=True)
+
+        emb: dict = {}
+
+        def embed() -> None:
+            emb["v"] = _post(url + "/api/embed", {"model": "small",
+                                                  "input": EMBED_LONG})
+
+        th = threading.Thread(target=embed)
+        th.start()
+        rerun = json.loads(_post(url + "/api/generate", reqs_for(
+            "llama3.1")[0][1])[1])["context"]
+        th.join()
+        check(emb["v"][0] == 200, f"{label}: embed {emb['v'][0]}")
+        vecs = json.loads(emb["v"][1])["embeddings"]
+        H = small.config.hidden_size
+        check(len(vecs) == len(EMBED_LONG)
+              and all(len(v) == H for v in vecs),
+              f"{label}: embed to small: {len(vecs)} vectors")
+        check(rerun == want["llama3.1"][0], f"{label}: an embed to small "
+              "changed llama3.1's greedy rerun")
+        print(f"{label}: /api/embed to small ({len(vecs)} x {H}) during a "
+              "llama3.1 greedy rerun: the rerun unchanged", flush=True)
+    finally:
+        server.stop()
+        multi.stop()
+        del multi
+        for k in ("CKPT_DIR", "LLM_MODEL", "SERVE_MODELS"):
+            os.environ.pop(k, None)
+        _free()
+
+
 # Phase names for --only; a family name runs all of its members.
 PHASES = {
     "build": ("build",),
@@ -3909,7 +4799,7 @@ PHASES = {
                "kernel_c", "kernel_experts", "kernel_d", "kernel_e"),
     "step": ("step_llama", "step_llama_wta", "step_mixtral"),
     "server": ("server_llama", "server_llama_wta", "server_mixtral",
-               "server_spec", "server_tier"),
+               "server_spec", "server_tier", "server_ckpt", "server_multi"),
     "profile": ("profile_llama", "profile_llama_wta", "profile_mixtral",
                 "profile_prefill"),
 }
@@ -4004,6 +4894,8 @@ def main() -> int:
         ("server_spec", lambda: phase_server_spec(
             results, "mixtral-8x7b", "int4")),
         ("server_tier", lambda: phase_server_tier(results)),
+        ("server_ckpt", lambda: phase_server_ckpt(results)),
+        ("server_multi", lambda: phase_server_multi(results)),
         ("profile_llama", lambda: phase_profile("llama3.1-8b", "int8")),
         ("profile_llama_wta", lambda: phase_profile("llama3.1-8b", "int8",
                                                     impl="kernel")),
@@ -4013,7 +4905,9 @@ def main() -> int:
                                                           "int8")),
     ]
     try:
-        if phases & (set(PHASES["server"]) - {"server_spec", "server_tier"}):
+        if phases & (set(PHASES["server"]) - {"server_spec", "server_tier",
+                                              "server_ckpt",
+                                              "server_multi"}):
             check(set(PHASES["kernel"]) <= phases, "the server phases "
                   "report into the kernel phases' results; run all of them")
         for name, run in runs:
@@ -4024,6 +4918,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
+    finally:
+        _drop_ckpts()
     print(f"chip_smoke: every phase passed in {time.monotonic() - t0:.0f} s",
           flush=True)
     print(f"card: {card_line()}", flush=True)

@@ -31,7 +31,7 @@ from ..ops.quant_mm import (dequant4_f32, quant_matmul, quant_matmul4,
 
 __all__ = ["QTensor", "QTensor4", "quantize", "dequantize", "pack4",
            "unpack4", "quantize4", "dequantize4", "mm", "q_einsum",
-           "param_bytes", "quant_mode"]
+           "param_bytes", "quant_mode", "quantize_params"]
 
 # Row threshold for the kernels: decode ticks and short-prompt prefill sit
 # at or below it; longer prefill dequantizes once and runs a plain matmul.
@@ -64,13 +64,21 @@ class QTensor4(NamedTuple):
         return 2 * self.q.shape[-2] // self.s.shape[-2]
 
 
+def _div(a: torch.Tensor, d: float) -> torch.Tensor:
+    """``a / d``, correctly rounded on every device: PyTorch's CUDA
+    division by a Python scalar multiplies by its reciprocal (one ulp off
+    the IEEE quotient at times), so the divisor is a 0-d tensor here."""
+    return a / torch.full((), d, dtype=a.dtype, device=a.device)
+
+
 def quantize(w: torch.Tensor, axis: int = -2) -> QTensor:
     """Symmetric int8 quantization with per-channel scales over ``axis``
-    (the matmul contraction axis). The f32 op order of the reference, so
-    bytes and scales match it exactly."""
+    (the matmul contraction axis). The reference's IEEE f32 ops (abs-max
+    / 127, round-half-even, clip), so bytes and scales match it exactly
+    on the CPU and the card."""
     wf = w.float()
     amax = wf.abs().amax(dim=axis, keepdim=True)
-    s = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    s = torch.where(amax > 0, _div(amax, 127.0), torch.ones_like(amax))
     q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
     return QTensor(q=q, s=s)
 
@@ -95,8 +103,8 @@ def pack4(v: torch.Tensor) -> torch.Tensor:
 def quantize4(w: torch.Tensor, group: Optional[int] = None) -> QTensor4:
     """Symmetric int4 quantization with group-wise scales over the -2
     (contraction) axis: scale = group-abs-max / 7, values clipped to
-    [-7, 7]. ``group`` defaults to 128 with a 64 fallback. The f32 op
-    order of the reference, so bytes and scales match it exactly."""
+    [-7, 7]. ``group`` defaults to 128 with a 64 fallback. The
+    reference's IEEE f32 ops, so bytes and scales match it exactly."""
     wf = w.float()
     K, O = wf.shape[-2], wf.shape[-1]
     if group is None:
@@ -105,7 +113,7 @@ def quantize4(w: torch.Tensor, group: Optional[int] = None) -> QTensor4:
         raise ValueError(f"group {group} must divide even K={K}")
     g = wf.reshape(*wf.shape[:-2], K // group, group, O)
     amax = g.abs().amax(dim=-2, keepdim=True)
-    s = torch.where(amax > 0, amax / 7.0, torch.ones_like(amax))
+    s = torch.where(amax > 0, _div(amax, 7.0), torch.ones_like(amax))
     qv = torch.clamp(torch.round(g / s), -7, 7).to(torch.int32)
     return QTensor4(q=pack4(qv.reshape(*wf.shape[:-2], K, O)),
                     s=s.squeeze(-2))
@@ -209,6 +217,27 @@ def _quantize_leaf(v: torch.Tensor, mode: str,
         if group is not None:
             return quantize4(v, group=group)
     return quantize(v)
+
+
+# The matmul weight leaves of a param tree (the reference's
+# _QUANT_LEAVES): embeddings, norms and the router stay as they are.
+_QUANT_LEAVES = frozenset({"wq", "wk", "wv", "wo", "wqkv", "wgu", "wgu_e",
+                           "w_gate", "w_up", "w_down", "lm_head"})
+
+
+def quantize_params(params: dict, mode: str = "int8") -> dict:
+    """Every matmul weight leaf of a layer-stacked tree at ``mode`` (the
+    reference's ``quantize_params``): stacked dense leaves are 3-D,
+    expert stacks 4-D."""
+    if mode not in ("int8", "int4"):
+        raise ValueError(f"mode must be int8|int4, got {mode!r}")
+
+    def walk(d: dict) -> dict:
+        return {k: (walk(v) if isinstance(v, dict)
+                    else _quantize_leaf(v, mode, expert=v.ndim >= 4)
+                    if k in _QUANT_LEAVES else v)
+                for k, v in d.items()}
+    return walk(params)
 
 
 def stream_bufs(L: int, shape: tuple, mode: str, device: torch.device):

@@ -1,6 +1,11 @@
 """Ollama-compatible HTTP front for the port: the reference's
-``OllamaServer`` (p2p_llm_chat_tpu/serve/api.py) for a single-model
-replica.
+``OllamaServer`` (p2p_llm_chat_tpu/serve/api.py), for one engine or for
+several behind one front (serve/multi.py): generate, chat (the resolved
+engine's chat template), show and the embed routes resolve the backend
+by the request's ``model`` tag (an unknown tag serves the default),
+``/api/tags`` and ``/api/ps`` list every tag, ``/readyz`` waits for
+every engine, and the session routes answer 501 on a multi front, as in
+the reference.
 
 Routes: ``POST /api/generate``, ``POST /api/chat``, ``POST /api/embed``
 and the legacy ``POST /api/embeddings``, ``GET /api/tags``, ``POST
@@ -206,6 +211,13 @@ class OllamaServer:
                                        "elsewhere"},
                         headers={"Retry-After": "5"})
 
+    def _resolve(self, model: str):
+        """The backend of a request's model tag: a multi-model front
+        (serve/multi.py) routes by tag; a single backend serves every
+        name."""
+        fn = getattr(self.backend, "for_model", None)
+        return fn(model) if fn is not None else self.backend
+
     def _metrics(self, req: Request) -> Response:
         text = self.metrics.render()
         snap = getattr(self.backend, "metrics_snapshot", None)
@@ -308,7 +320,7 @@ class OllamaServer:
             self._m_inflight.add(-1)
             return shed
         try:
-            deltas = self.backend.generate_stream(greq, stats)
+            deltas = self._resolve(model).generate_stream(greq, stats)
         except OverloadError as e:
             self._m_inflight.add(-1)
             self._m_shed.inc()
@@ -395,7 +407,9 @@ class OllamaServer:
         messages = body.get("messages") or []
         if not isinstance(messages, list):
             return Response(400, {"error": "messages must be a list"})
-        prompt = render_chat_prompt(messages, self.backend)
+        resolved = self._resolve(str(body.get("model")
+                                     or self.backend.name))
+        prompt = render_chat_prompt(messages, resolved)
         return self._run(body, prompt, "message",
                          lambda t: {"role": "assistant", "content": t},
                          headers=req.headers)
@@ -413,9 +427,13 @@ class OllamaServer:
         except ValueError:
             return Response(400, {"error": "invalid json"})
         name = str(body.get("model") or body.get("name") or "")
-        if name and name not in self.backend.models():
+        if (name and name not in self.backend.models()
+                and not hasattr(self.backend, "for_model")):
+            # A single-model front keeps the strict 404; a multi-model
+            # front answers for the default tag, as generate and chat do.
             return Response(404, {"error": f"model {name!r} not found"})
-        cfg = getattr(self.backend, "config", None)
+        cfg = getattr(self._resolve(name or self.backend.name), "config",
+                      None)
         details = {"family": "p2p-llm-chat-tpu", "format": "torch",
                    "parameter_size": "", "quantization_level": ""}
         info = {}
@@ -446,7 +464,7 @@ class OllamaServer:
         if shed is not None:
             return shed
         model = str(body.get("model") or self.backend.name)
-        fn = getattr(self.backend, "embed", None)
+        fn = getattr(self._resolve(model), "embed", None)
         if fn is None:
             return Response(400, {"error": "this model does not support "
                                            "embeddings"})
@@ -485,7 +503,9 @@ class OllamaServer:
         shed = self._shed_if_draining(count=False)
         if shed is not None:
             return shed
-        fn = getattr(self.backend, "embed", None)
+        fn = getattr(self._resolve(str(body.get("model")
+                                       or self.backend.name)),
+                     "embed", None)
         if fn is None:
             return Response(400, {"error": "this model does not support "
                                            "embeddings"})
@@ -577,8 +597,9 @@ class OllamaServer:
     # -- session migration (serve/kv_tier.py) ---------------------------------
 
     def _session_backend(self):
-        """The backend when it has a KV tier, else None (every
-        /admin/session route then answers 501)."""
+        """The backend when it has a KV tier, else None (no tier, or a
+        multi-model front: every /admin/session route then answers
+        501)."""
         fn = getattr(self.backend, "session_list", None)
         if fn is None or fn() is None:
             return None
@@ -702,7 +723,7 @@ class OllamaServer:
             messages = body.get("messages") or []
             if not isinstance(messages, list):
                 return Response(400, {"error": "messages must be a list"})
-            prompt = render_chat_prompt(messages, self.backend)
+            prompt = render_chat_prompt(messages, self._resolve(model))
         else:
             prompt = str(body.get("prompt") or "")
             raw_ctx = body.get("context") or ()
@@ -783,7 +804,8 @@ class OllamaServer:
     def _unsupported(self, req: Request) -> Response:
         return Response(501, {
             "error": "model management is not supported: models are "
-                     "provisioned at startup (MODEL_CONFIG; see README)"})
+                     "provisioned at startup (CKPT_DIR, SERVE_MODELS or "
+                     "MODEL_CONFIG; see README)"})
 
     def _ps(self, req: Request) -> Response:
         """Ollama ``GET /api/ps``: the loaded models (all resident)."""

@@ -3,16 +3,30 @@
 :class:`TorchEngine` implements the serve ``Backend`` protocol over the
 continuous-batching :class:`~.scheduler.BatchScheduler`, like the
 reference's ``TPUEngine`` (p2p_llm_chat_tpu/serve/engine.py).
-:func:`build_engine_from_env` reads the same ``SERVE_*`` env surface and
-serves random-init weights of ``MODEL_CONFIG`` with the byte tokenizer.
+:func:`build_engine_from_env` reads the same ``SERVE_*`` env surface.
+Two provisioning paths, as in the reference:
 
-It serves one model on one card from a paged KV pool (bf16 or int8):
-a dense llama config or a mixtral (MoE) config, with bf16, int8 or int4
-weights, built through ``models.family_for(config)``. Features of the
-reference that later slices port fail loudly when asked for explicitly
-(``SERVE_DRAFT`` with ``SERVE_SPEC>0``, ``SERVE_TP>1``,
-``SERVE_MODELS``, ``CKPT_DIR``, ``SERVE_KV=dense``,
-``SERVE_PROFILE_PORT>0``, multi-host). ``SERVE_ADMIT_CHUNK`` caps the rows
+- ``CKPT_DIR``: an HF-layout safetensors directory and its
+  ``tokenizer.json`` (models/weights.py, tokenizer.py): streamed onto the
+  card into the fused int8 / int4 tree (``SERVE_QUANT``) or loaded as the
+  bf16 tree (``SERVE_QUANT=""``), served with its BPE tokenizer, whose
+  llama3 specials switch ``/api/chat`` to the llama3 chat template;
+- no checkpoint: random-init weights of ``MODEL_CONFIG`` (default
+  ``tiny``) with the byte tokenizer.
+
+``SERVE_MODELS`` (``tag=ref,...``, a ref being a config name or a
+checkpoint directory) builds one independent engine per tag behind one
+front (serve/multi.py); ``CKPT_DIR`` beside it becomes the first, default
+entry under ``LLM_MODEL``'s tag. The whole spec is checked before any
+engine is built, and the engines warm one after another.
+
+Each engine serves one model on one card from a paged KV pool (bf16 or
+int8): a dense llama config or a mixtral (MoE) config, with bf16, int8 or
+int4 weights, built through ``models.family_for(config)``. Features of
+the reference that later slices port fail loudly when asked for
+explicitly (``SERVE_DRAFT`` with ``SERVE_SPEC>0``, ``SERVE_TP>1``,
+``SERVE_KV=dense``, ``SERVE_PROFILE_PORT>0``, multi-host; a native
+Orbax ``CKPT_DIR``). ``SERVE_ADMIT_CHUNK`` caps the rows
 of each admission prefill, and ``SERVE_WARMUP`` (default ``128,256``)
 names the warmup buckets, as in the reference. Prompt
 admission runs the reference's defaults: chunked prefill
@@ -49,14 +63,15 @@ scheduler's capture lock (see the method).
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Iterator, Optional
 
 import torch
 
 from ..models import family_for
-from ..models.configs import get_config
-from ..tokenizer import ByteTokenizer
+from ..models.configs import CONFIGS, get_config
+from ..tokenizer import ByteTokenizer, load_tokenizer
 from ..utils.device import resolve_device
 from ..utils.env import env_bool, env_float, env_int, env_or
 from ..utils.log import get_logger
@@ -139,13 +154,36 @@ class TorchEngine:
             kv_host_gb=kv_host_gb, kv_idle_s=kv_idle_s, device=device)
         self._embed_lock = threading.Lock()
         self._embed_stream = None
+        # The checkpoint load's walls (models/weights.py stats) when the
+        # engine was built from one, else None.
+        self.load_stats: Optional[dict] = None
 
     def generate_stream(self, req: GenerateRequest,
                         stats: Optional[RequestStats] = None) -> Iterator[str]:
         return self.scheduler.submit(req, stats)
 
     def render_chat(self, messages: list[dict]) -> str:
-        return default_chat_prompt(messages)
+        """/api/chat prompt rendering (the reference's): with a tokenizer
+        that has llama3's header and eot specials (an instruct
+        checkpoint's), the llama3 chat template; BOS is added at encode
+        time, so it is not part of the template. Other tokenizers (bytes)
+        get the model-agnostic role flattening."""
+        tok = self.scheduler.tokenizer
+        has = getattr(tok, "has_special", None)
+        if not (callable(has) and has("<|start_header_id|>")
+                and has("<|eot_id|>")):
+            return default_chat_prompt(messages)
+        # Roles and contents are untrusted: encode() maps special strings
+        # anywhere in text to control ids, so a message could forge turn
+        # structure. Strip them; only the template's own specials stay.
+        clean = tok.strip_specials
+        parts = []
+        for m in messages:
+            role = clean(str(m.get("role", "user")))
+            parts.append(f"<|start_header_id|>{role}<|end_header_id|>\n\n"
+                         f"{clean(str(m.get('content', '')))}<|eot_id|>")
+        parts.append("<|start_header_id|>assistant<|end_header_id|>\n\n")
+        return "".join(parts)
 
     def embed(self, texts: list[str]) -> tuple[list[list[float]], int]:
         """Sequence embeddings for ``/api/embed[dings]`` (the reference's
@@ -195,13 +233,19 @@ class TorchEngine:
             with torch.cuda.stream(self._embed_stream):
                 return run()
 
-    def warmup(self, buckets: tuple[int, ...] = (128, 256)) -> None:
-        """Run the serving path once before traffic, on a background
-        thread (on the card this builds and loads the CUDA kernels and
-        captures the decode graphs of every window and K), and register
-        the prefix templates; /readyz stays not-ready until it is
-        done, and for good if it fails (the error is kept in
-        :attr:`warmup_error`)."""
+    def warmup(self, buckets: tuple[int, ...] = (128, 256),
+               background: bool = True) -> None:
+        """Run the serving path once before traffic (on the card this
+        builds and loads the CUDA kernels and captures the decode graphs
+        of every window and K) and register the prefix templates; /readyz
+        stays not-ready until it is done, and for good if it fails (the
+        error is kept in :attr:`warmup_error`). ``background``: on a
+        thread of its own, else on the caller's, raising what the warmup
+        raised (serve/multi.py walks its engines so)."""
+        if not background:
+            self.scheduler.warmup(buckets, self.prefix_texts)
+            return
+
         def run() -> None:
             try:
                 self.scheduler.warmup(buckets, self.prefix_texts)
@@ -210,6 +254,10 @@ class TorchEngine:
 
         self.scheduler.note_warmup_pending()
         threading.Thread(target=run, daemon=True, name="warmup").start()
+
+    def note_warmup_pending(self) -> None:
+        """Report not-ready until a warmup to come has run."""
+        self.scheduler.note_warmup_pending()
 
     def models(self) -> list[str]:
         return [self.name]
@@ -309,20 +357,68 @@ class TorchEngine:
 
 def _not_in_slice(what: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to the PyTorch engine yet "
-                      "(p2p_llm_chat_tpu_torch serves one llama or mixtral "
-                      "model from a paged KV pool on one card in this "
+                      "(p2p_llm_chat_tpu_torch serves llama and mixtral "
+                      "models from paged KV pools on one card in this "
                       "version)")
+
+
+def is_ckpt_ref(ref: str) -> bool:
+    """A ``SERVE_MODELS`` ref is a checkpoint directory only when it looks
+    like a path (holds a separator) or is not a registered config name: a
+    config name that happens to name a directory in the working directory
+    still serves the config (the reference's rule)."""
+    if os.sep in ref:
+        return True
+    if ref in CONFIGS:
+        return False
+    return os.path.isdir(ref)
+
+
+def parse_serve_models(spec: str, ckpt_dir: str = "",
+                       default_tag: str = "default") -> list[tuple[str, str]]:
+    """``SERVE_MODELS`` as ``[(tag, ref), ...]``, ``ckpt_dir`` (when set)
+    first under ``default_tag``; the whole spec is checked here, before
+    any engine starts (an engine runs a live scheduler thread, so a bad
+    later entry must not leak earlier ones): an empty or duplicate tag,
+    an unknown config or a missing directory exits."""
+    specs: list[tuple[str, str]] = []
+    if ckpt_dir:
+        specs.append((default_tag, ckpt_dir))
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        tag, _, ref = part.partition("=")
+        if not tag:
+            raise SystemExit(f"SERVE_MODELS entry {part!r} has an empty "
+                             "tag")
+        if any(t == tag for t, _ in specs):
+            raise SystemExit(f"SERVE_MODELS has duplicate tag {tag!r}")
+        specs.append((tag, ref or tag))
+    for tag, ref in specs:
+        if is_ckpt_ref(ref):
+            if not os.path.isdir(ref):
+                raise SystemExit(f"SERVE_MODELS entry {tag}={ref}: no such "
+                                 "checkpoint directory")
+        else:
+            try:
+                get_config(ref)
+            except KeyError as e:
+                raise SystemExit(f"SERVE_MODELS entry {tag}={ref}: "
+                                 f"{e}") from None
+    return specs
 
 
 def build_engine_from_env(device: Optional[str | torch.device] = None,
                           params: Optional[dict] = None) -> Backend:
-    """Engine from env vars: random-init ``MODEL_CONFIG`` (default
-    ``tiny``) weights and the byte tokenizer, on ``device`` — by default
-    the card (``SERVE_DEVICE`` or the argument may ask for ``cpu``; with
-    neither and no card this raises). ``params``: weights of
-    ``MODEL_CONFIG`` to serve instead of the random init, already on the
-    device (e.g. models/synth.quote_params, whose output n-gram drafts
-    match)."""
+    """Engine (or a multi-model front) from env vars, on ``device`` — by
+    default the card (``SERVE_DEVICE`` or the argument may ask for
+    ``cpu``; with neither and no card this raises). ``CKPT_DIR`` serves a
+    checkpoint directory; without it, random-init ``MODEL_CONFIG``
+    (default ``tiny``) weights and the byte tokenizer. ``params``:
+    weights of ``MODEL_CONFIG`` to serve instead of the random init,
+    already on the device (e.g. models/synth.quote_params, whose output
+    n-gram drafts match)."""
     if env_or("SERVE_COORDINATOR", "") or env_or("JAX_COORDINATOR", ""):
         raise _not_in_slice("multi-host serving")
     # Speculative decoding (the reference's engine.py:399-418): K n-gram
@@ -342,10 +438,6 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
     spec_tree_gap = env_float("SERVE_SPEC_TREE_GAP", 4.0)
     if env_int("SERVE_TP", 1) > 1:
         raise _not_in_slice("tensor parallelism (SERVE_TP>1)")
-    if env_or("SERVE_MODELS", ""):
-        raise _not_in_slice("multi-model serving (SERVE_MODELS)")
-    if env_or("CKPT_DIR", ""):
-        raise _not_in_slice("checkpoint loading (CKPT_DIR)")
     if env_int("SERVE_PROFILE_PORT", 0) > 0:
         raise _not_in_slice("the live profiler server (SERVE_PROFILE_PORT)")
     quant = env_or("SERVE_QUANT", "")
@@ -361,7 +453,11 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
     if kv_quant not in ("", "int8"):
         raise SystemExit(
             f"SERVE_KV_QUANT must be int8 or empty, got {kv_quant!r}")
-    config = get_config(env_or("MODEL_CONFIG", "tiny"))
+    ckpt_dir = env_or("CKPT_DIR", "")
+    models_spec = env_or("SERVE_MODELS", "")
+    specs = (parse_serve_models(models_spec, ckpt_dir,
+                                env_or("LLM_MODEL", "default"))
+             if models_spec else [])
     # Fused multi-step decode: up to this many decode steps per tick
     # (adaptive, scheduler._choose_fuse_k). 1 disables.
     decode_fuse_max = max(1, env_int("SERVE_FUSE", 4))
@@ -380,37 +476,100 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
     dev = resolve_device(device)
     qt = env_float("SERVE_QUEUE_TIMEOUT", 60.0)
     qm = env_int("SERVE_QUEUE_MAX", -1)
-    log.info("serving %s %s (%s weights, %s KV) on %s; paged "
-             "attention impl %s (%s); prefill chunk %d, prefix cache %s, "
-             "fused decode up to %d steps a tick; speculation K=%d, tree "
-             "nodes %d; KV tier %.1f GB of host memory",
-             "random-init" if params is None else "given", config.name,
-             quant or "bf16", kv_quant or "bf16", dev,
-             attn_impl, "attend-then-write" if attn_impl == "gather"
+    log.info("serving %s weights, %s KV on %s; paged attention impl %s "
+             "(%s); prefill chunk %d, prefix cache %s, fused decode up to "
+             "%d steps a tick; speculation K=%d, tree nodes %d; KV tier "
+             "%.1f GB of host memory", quant or "bf16", kv_quant or "bf16",
+             dev, attn_impl, "attend-then-write" if attn_impl == "gather"
              else "write-then-attend", prefill_chunk,
              "on" if prefix_cache else "off", decode_fuse_max, spec_k,
              spec_tree_nodes, kv_host_gb)
-    if params is None:
-        params = family_for(config).init_params_quantized(
-            config, seed=0, quant=quant, device=dev)
-    engine = TorchEngine(
-        params, config, ByteTokenizer(vocab_size=config.vocab_size),
-        num_slots=env_int("SERVE_SLOTS", 8),
-        max_seq=env_int("SERVE_MAX_SEQ", 1024),
-        page_size=env_int("SERVE_PAGE_SIZE", 64),
-        num_pages=env_int("SERVE_PAGES", 0) or None,
-        queue_timeout_s=qt if qt > 0 else None,
-        queue_max=None if qm < 0 else qm,
-        kv_quant=bool(kv_quant), prefix_cache=prefix_cache,
-        prefix_texts=prefix_texts, prefill_chunk=prefill_chunk,
-        attn_impl=attn_impl,
-        admit_chunk=env_int("SERVE_ADMIT_CHUNK", 0) or None,
-        decode_fuse_max=decode_fuse_max,
-        loop_budget_ms=env_float("SERVE_LOOP_BUDGET_MS", 5000.0),
-        spec_k=spec_k, spec_tree_nodes=spec_tree_nodes,
-        spec_tree_gap=spec_tree_gap, kv_host_gb=kv_host_gb,
-        kv_idle_s=kv_idle_s, name=env_or("LLM_MODEL", config.name),
-        device=dev)
+
+    def make_engine(params, config, tokenizer, name: str) -> TorchEngine:
+        return TorchEngine(
+            params, config, tokenizer,
+            num_slots=env_int("SERVE_SLOTS", 8),
+            max_seq=env_int("SERVE_MAX_SEQ", 1024),
+            page_size=env_int("SERVE_PAGE_SIZE", 64),
+            num_pages=env_int("SERVE_PAGES", 0) or None,
+            queue_timeout_s=qt if qt > 0 else None,
+            queue_max=None if qm < 0 else qm,
+            kv_quant=bool(kv_quant), prefix_cache=prefix_cache,
+            prefix_texts=prefix_texts, prefill_chunk=prefill_chunk,
+            attn_impl=attn_impl,
+            admit_chunk=env_int("SERVE_ADMIT_CHUNK", 0) or None,
+            decode_fuse_max=decode_fuse_max,
+            loop_budget_ms=env_float("SERVE_LOOP_BUDGET_MS", 5000.0),
+            spec_k=spec_k, spec_tree_nodes=spec_tree_nodes,
+            spec_tree_gap=spec_tree_gap, kv_host_gb=kv_host_gb,
+            kv_idle_s=kv_idle_s, name=name, device=dev)
+
+    def random_engine(config, seed: int, name: str) -> TorchEngine:
+        log.info("%s: random-init %s (seed %d) with the byte tokenizer",
+                 name, config.name, seed)
+        return make_engine(
+            family_for(config).init_params_quantized(
+                config, seed=seed, quant=quant, device=dev),
+            config, ByteTokenizer(vocab_size=config.vocab_size), name)
+
+    def load_ckpt_engine(tag: Optional[str], path: str) -> TorchEngine:
+        """One fully independent engine from a checkpoint directory: its
+        own params, tokenizer, scheduler and KV pool. The single-model
+        CKPT_DIR path uses it too (``tag`` None names the engine
+        LLM_MODEL or the config's name)."""
+        from ..models.quant import quantize_params
+        from ..models.weights import (UnsupportedForQuantizedLoad,
+                                      load_checkpoint,
+                                      load_checkpoint_quantized)
+        stats: dict = {}
+        params = None
+        if quant:
+            # Stream straight into the fused quantized tree: the bf16
+            # model never exists on the card.
+            try:
+                params, config = load_checkpoint_quantized(
+                    path, quant=quant, device=dev, stats=stats)
+            except UnsupportedForQuantizedLoad:
+                # Family out of scope: the standard path below. Real load
+                # errors (corrupt shards) propagate.
+                params = None
+        if params is None:
+            params, config = load_checkpoint(path, device=dev)
+            if quant:
+                params = family_for(config).fuse_params(
+                    quantize_params(params, mode=quant))
+                log.info("weights quantized to %s after a bf16 load", quant)
+        tokenizer = load_tokenizer(path, vocab_size=config.vocab_size)
+        engine = make_engine(params, config, tokenizer,
+                             name=tag or env_or("LLM_MODEL", config.name))
+        engine.load_stats = stats or None
+        return engine
+
+    if specs:
+        from .multi import MultiBackend
+        backends: dict = {}
+        try:
+            for i, (tag, ref) in enumerate(specs):
+                backends[tag] = (load_ckpt_engine(tag, ref)
+                                 if is_ckpt_ref(ref) else
+                                 random_engine(get_config(ref), i, tag))
+        except BaseException:
+            for b in backends.values():
+                b.stop()
+            raise
+        engine: Backend = MultiBackend(backends, default=specs[0][0])
+        log.info("multi-model serving: %s", ", ".join(engine.models()))
+    elif ckpt_dir:
+        engine = load_ckpt_engine(None, ckpt_dir)
+    else:
+        config = get_config(env_or("MODEL_CONFIG", "tiny"))
+        name = env_or("LLM_MODEL", config.name)
+        if params is None:
+            engine = random_engine(config, 0, name)
+        else:
+            engine = make_engine(
+                params, config, ByteTokenizer(vocab_size=config.vocab_size),
+                name)
     warm = env_or("SERVE_WARMUP", "128,256")
     if warm and warm != "0":
         engine.warmup(tuple(int(b) for b in warm.split(",") if b.strip()))

@@ -293,6 +293,23 @@ class _SlotStream:
             pass
 
 
+_capture_locks: dict[str, threading.Lock] = {}
+_capture_locks_mu = threading.Lock()
+
+
+def capture_lock_for(device: torch.device) -> threading.Lock:
+    """The capture lock of ``device``: one per device in the process,
+    shared by every scheduler on it, so a CUDA-graph capture of one engine
+    never overlaps device work another thread launches under the lock
+    (an embed, a prefix copy) for any engine on that card."""
+    index = device.index
+    if index is None and device.type == "cuda":
+        index = torch.cuda.current_device()
+    with _capture_locks_mu:
+        return _capture_locks.setdefault(f"{device.type}:{index}",
+                                         threading.Lock())
+
+
 class _WarmupJob:
     """A closure run ON the scheduler thread (only it may touch the
     device state)."""
@@ -483,8 +500,10 @@ class BatchScheduler:
         self._decode_device_ms = 0.0
         # Held while a decode graph is captured. Work launched on the
         # card from another thread (TorchEngine.embed) holds it too, so
-        # no CUDA call of that thread can land inside a capture.
-        self.capture_lock = threading.Lock()
+        # no CUDA call of that thread can land inside a capture. One lock
+        # per device, shared by every scheduler on it (several engines
+        # behind one front, serve/multi.py).
+        self.capture_lock = capture_lock_for(self.device)
         self._warmup_started = False
         self._warmup_done_at: Optional[float] = 0.0
         # Set when warmup raised: the engine then never turns ready, and

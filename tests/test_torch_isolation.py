@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of p2p_llm_chat_tpu_torch
-loads neither ``jax``, ``ml_dtypes`` nor the reference package, needs no
-``nvcc``, and
+loads neither ``jax``, ``ml_dtypes`` nor the reference package, nor the
+host packages the port does without (``safetensors``,
+``transformers``, ``tokenizers``), needs no ``nvcc``, and
 builds no kernel; on CPU tensors the kernel wrappers take their plain
 versions and launch nothing; chip_smoke.py imports nothing of JAX and
 refuses to run without a card.
@@ -44,8 +45,11 @@ for n in names:
     importlib.import_module(n)
 from p2p_llm_chat_tpu_torch.ops import _build
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "ml_dtypes")
-             or m.startswith(("jax.", "jaxlib", "ml_dtypes."))
+             if m in ("jax", "ml_dtypes", "safetensors", "transformers",
+                      "tokenizers")
+             or m.startswith(("jax.", "jaxlib", "ml_dtypes.",
+                              "safetensors.", "transformers.",
+                              "tokenizers."))
              or m == "p2p_llm_chat_tpu" or m.startswith("p2p_llm_chat_tpu."))
 print(json.dumps({"modules": names, "bad": bad,
                   "nvcc": shutil.which("nvcc"),
@@ -83,6 +87,11 @@ def test_every_module_imports_without_jax_or_nvcc():
                 "p2p_llm_chat_tpu_torch.serve.scheduler",
                 "p2p_llm_chat_tpu_torch.serve.kv_tier",
                 "p2p_llm_chat_tpu_torch.serve.disagg",
+                "p2p_llm_chat_tpu_torch.serve.multi",
+                "p2p_llm_chat_tpu_torch.models.weights",
+                "p2p_llm_chat_tpu_torch.models.safetensors_io",
+                "p2p_llm_chat_tpu_torch.tokenizer",
+                "p2p_llm_chat_tpu_torch.utils.native",
                 "p2p_llm_chat_tpu_torch.tools",
                 "p2p_llm_chat_tpu_torch.tools.mm_micro",
                 # The torch-free robustness plane: the port's own copies.
@@ -113,7 +122,8 @@ def test_no_source_of_the_port_or_chip_smoke_imports_jax():
         for name in _imports(f):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "ml_dtypes",
-                               "p2p_llm_chat_tpu"), (f, name)
+                               "p2p_llm_chat_tpu", "safetensors",
+                               "transformers", "tokenizers"), (f, name)
 
 
 def test_kernel_sources_exist_for_every_kernel():

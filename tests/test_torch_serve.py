@@ -204,10 +204,12 @@ def test_gpu_default_entry_point_raises_without_a_card(monkeypatch):
             make()
 
 
-# Features of the reference that the port now serves; the others still
-# exit with "not ported".
+# Features of the reference that the port now serves; a missing
+# checkpoint directory raises the reference's FileNotFoundError; the
+# others still exit with "not ported".
 _PORTED = ({"SERVE_SPEC": "2"}, {"SERVE_QUANT": "int4"},
-           {"MODEL_CONFIG": "tiny-moe"}, {"SERVE_KV_HOST_GB": "1"})
+           {"MODEL_CONFIG": "tiny-moe"}, {"SERVE_KV_HOST_GB": "1"},
+           {"SERVE_MODELS": "a=tiny"})
 
 
 @pytest.mark.parametrize("env", [{"SERVE_SPEC": "2"},
@@ -228,6 +230,10 @@ def test_features_of_later_slices_fail_loudly(env, monkeypatch):
     if env in _PORTED:
         engine = build_engine_from_env()
         engine.stop()
+        return
+    if "CKPT_DIR" in env:
+        with pytest.raises(FileNotFoundError):
+            build_engine_from_env()
         return
     with pytest.raises(SystemExit, match="not ported"):
         build_engine_from_env()
