@@ -40,7 +40,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    beside SDPA and the bound, and kernel E (w8a8 on int8 tensor cores, bitwise against its
    plain version at the mm_micro and llama3.1-8b shapes and ragged ones),
    after which the mm_micro twin (p2p_llm_chat_tpu_torch/tools/mm_micro)
-   runs once and prints its table;
+   runs once and prints its table; and A8, the dense KV path's attention
+   (kernel B's pool and verify modes over a zero-copy identity pool view
+   of the dense cache), at rep 1-8, D 64 and 128, max_seq 1024, 4096,
+   1000 and 1100, ragged lengths with NaN past each row's, S = 5 chains
+   and 8-node trees, chains of S = 16, 64 and 256 at the drafter's feeds
+   (B = 8, Hq 8 / Hkv 4, W = 1024 and 4096), each case bitwise against a rerun, its rows' B = 1
+   calls and the whole cache as the window, timed per llama3.1-8b step
+   at W = 1024 and 4096 (and verify at S = 5) beside the bound and SDPA;
 3. step   — one full-width decode step (depth cut to 2 layers) through the
    kernels on the card, against the same step through the plain path on
    the CPU (same weights, same pool): llama3.1-8b int8 over an int8 pool
@@ -64,7 +71,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    used and moved (copy_slot) bitwise onto the accepted slot, and the
    window's spec graph bitwise against the eager spec tick; on llama int8
    and mixtral int4 also a session wake's forward (R = 1, S = 256,
-   ``verify_step_paged(last_idx=...)``) against the CPU;
+   ``verify_step_paged(last_idx=...)``) against the CPU; then the dense
+   path (``step_dense``, llama int8 and mixtral int4 over a bf16 dense
+   cache): ``decode_step``, ``verify_step`` (llama) and ``verify_tree``
+   against the CPU's plain path, ``decode_fused`` at K = 4 bitwise equal
+   to 4 steps, and the scheduler's dense decode graphs (K = 1 replay
+   bitwise equal to the eager step, K = 4 to four K = 1 replays); and
+   the int8 pool's writes, card against CPU, bitwise;
 4. server — the port's engine behind its Ollama front on localhost
    answers 7 concurrent requests (one 1500-token prompt, one co-pilot
    request) and two greedy reruns, five times: llama3.1-8b int8 with the
@@ -140,7 +153,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    burst alone (kernel C; B and D at head_dim 64) and both at once with
    equal greedy answers, an embed to ``small`` during a ``llama3.1``
    rerun. Both print the checkpoint write, load and boot walls, the
-   per-layer quantize ms and the serving readings.
+   per-layer quantize ms and the serving readings;
+9. server_dense — ``SERVE_KV=dense`` (the reference's default):
+   llama3.1-8b int8 over a bf16 dense cache of 8 x 4096, the burst and
+   greedy reruns with counters zeroed (kernels A, D and A8's decode mode
+   launched, kernel B's paged modes never; fused ticks), then the same
+   weights over a bf16 page pool under ``PAGED_ATTN_IMPL=kernel``: the
+   greedy answers equal;
+10. server_draft — the resident draft model (``SERVE_KV=dense
+   SERVE_SPEC=4``, tree of 8): the 8B drafting for itself on quote
+   weights (model-source acceptance, A8's verify mode, greedy answers
+   equal with speculation off), then ``SERVE_DRAFT=draft-400m``; each
+   prints the drafter's KV GB, its ms per draft dispatch and its
+   acceptance.
 
 Optional (``--only build,profile``): ``profile`` — one 32-layer decode
 step at B=8, W=1020 of llama3.1-8b int8 (int8 pool, and bf16 pool through
@@ -158,7 +183,9 @@ JSON line before the last, and as the last line
 build,kernel_d,profile_prefill`` iterates on one kernel; ``--only
 build,kernel_b_verify,step,server_spec`` on speculation; ``--only
 build,kernel_b_verify,server_tier`` on the KV tier; ``--only
-build,server_ckpt,server_multi`` on checkpoints and the multi front).
+build,server_ckpt,server_multi`` on checkpoints and the multi front;
+``--only build,kernel_dense,step_dense,server_dense,server_draft`` on
+the dense path and the drafter).
 Exits non-zero, printing no result, where no CUDA device is available.
 """
 
@@ -966,6 +993,242 @@ def phase_kernel_b_verify(results: dict) -> None:
               "(a session wake's forward)")
 
 
+def _dense_case(Hq, Hkv, D, T, lengths, L=2, seed=0):
+    """A dense cache of max_seq T ([L, B, T rounded up to a page, Hkv, D],
+    as KVCache.create allocates it) of bf16 normals with NaN in every slot
+    at or past each row's length (never attended), and bf16 q."""
+    import torch
+    from p2p_llm_chat_tpu_torch.models.llama import KVCache
+    from p2p_llm_chat_tpu_torch.ops.dense_attention import cache_slots
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lengths)
+    shape = (L, B, cache_slots(T), Hkv, D)
+    k = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    for b, n in enumerate(lengths):
+        k[:, b, n:] = float("nan")
+        v[:, b, n:] = float("nan")
+    cache = KVCache(k, v, torch.tensor(lengths, dtype=torch.int32,
+                                       device=dev), T)
+    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+    return cache, q
+
+
+def _dense_call(cache, q, lengths, W, layer=1, blk=None):
+    """A8 through its wrapper: decode mode, or verify mode with ``blk`` =
+    (k_blk, v_blk, block_mask or None) and q [B, S, Hq, D]."""
+    from p2p_llm_chat_tpu_torch.ops import dense_attention as da
+    if blk is None:
+        return da.dense_attention(q, cache, lengths, layer, window=W)
+    kb, vb, mask = blk
+    return da.dense_attention_verify(q, kb, vb, cache, lengths, layer,
+                                     window=W, block_mask=mask)
+
+
+def _dense_plain(cache, q, lengths, W, layer=1, blk=None):
+    from p2p_llm_chat_tpu_torch.ops import dense_attention as da
+    if blk is None:
+        return da.dense_attention_plain(q, cache.k, cache.v, lengths, layer,
+                                        window=W)
+    kb, vb, mask = blk
+    return da.dense_attention_verify_plain(q, kb, vb, cache.k, cache.v,
+                                           lengths, layer, window=W,
+                                           block_mask=mask)
+
+
+def _dense_case_checks(label, cache, q, lengths, W, blk=None) -> float:
+    """One A8 case: within B_TOL of the plain version, a rerun bitwise
+    equal, each row bitwise equal to its own B = 1 call (a one-row cache)
+    and to the call over the whole cache as the window, and the pool view
+    zero-copy. Returns the absolute error."""
+    import torch
+    from p2p_llm_chat_tpu_torch.models.llama import KVCache
+    from p2p_llm_chat_tpu_torch.ops import dense_attention as da
+    kp, vp, table, ps = da.pool_view(cache.k, cache.v)
+    check(kp.data_ptr() == cache.k.data_ptr()
+          and vp.data_ptr() == cache.v.data_ptr()
+          and cache.k.shape[2] % ps == 0 and ps == da.VIEW_PAGE,
+          f"{label}: the pool view is not the cache's storage")
+    out = _dense_call(cache, q, lengths, W, blk=blk)
+    err = _rel_err(label, out, _dense_plain(cache, q, lengths, W, blk=blk),
+                   B_TOL)
+    check(torch.equal(_dense_call(cache, q, lengths, W, blk=blk), out),
+          f"{label}: a rerun differs from the first run")
+    T = cache.max_seq
+    check(torch.equal(_dense_call(cache, q, lengths, T, blk=blk), out),
+          f"{label}: rows differ at the window {T}")
+    for b in range(q.shape[0]):
+        one = KVCache(cache.k[:, b:b + 1].contiguous(),
+                      cache.v[:, b:b + 1].contiguous(), cache.lengths[b:b + 1],
+                      T)
+        row = lambda t: None if t is None else t[b:b + 1].contiguous()
+        rb = None if blk is None else tuple(row(t) for t in blk)
+        check(torch.equal(_dense_call(one, row(q), row(lengths), W, blk=rb),
+                          out[b:b + 1]),
+              f"{label}: row {b} differs between B = 1 and B = "
+              f"{q.shape[0]}")
+    return err
+
+
+def _dense_timing(B: int, W: int, L: int = 8, S: int = 0) -> dict:
+    """One 32-layer llama3.1-8b step of A8 (decode mode, or verify mode
+    at S chain positions) at B rows over a full window of W on a bf16
+    dense cache of max_seq 4096 (L layers rotated so the reads stay cold
+    in L2): CUDA events back to back (``ms``) and device time replayed
+    from a CUDA graph (``device_ms``), beside the plain version, SDPA over
+    the window (heads expanded beforehand, not timed; verify: window plus
+    block under an explicit mask) and the bound (bytes: the window's k/v,
+    q, the block and out once; operations: q.k and p.v)."""
+    import torch
+    import torch.nn.functional as F
+    Hq, Hkv, D, T = 32, 8, 128, 4096
+    n = W - S if S else W
+    cache, q = _dense_case(Hq, Hkv, D, T, [n] * B, L=L, seed=W + S)
+    lengths = cache.lengths if S else cache.lengths
+    blk = None
+    if S:
+        q, kb, vb, _ = _verify_inputs(B, S, Hq, Hkv, D, W + 1, False)
+        blk = (kb, vb, None)
+    call = lambda i: _dense_call(cache, q, lengths, W, i % L, blk)
+    ms = time_ms(call, 96, warmup=L)
+    dev = graph_ms(call, n=2 * L)
+    plain = time_ms(lambda i: _dense_plain(cache, q, lengths, W, i % L, blk),
+                    8, warmup=1)
+    rep = Hq // Hkv
+    kw = [cache.k[l, :, :n].permute(0, 2, 1, 3).repeat_interleave(rep, 1)
+          for l in range(L)]
+    vw = [cache.v[l, :, :n].permute(0, 2, 1, 3).repeat_interleave(rep, 1)
+          for l in range(L)]
+    if S:
+        kbp = kb.permute(0, 2, 1, 3).repeat_interleave(rep, 1)
+        vbp = vb.permute(0, 2, 1, 3).repeat_interleave(rep, 1)
+        kw = [torch.cat([x, kbp], 2) for x in kw]
+        vw = [torch.cat([x, vbp], 2) for x in vw]
+        amask = torch.cat([torch.ones((S, n), dtype=torch.bool,
+                                      device="cuda"),
+                           torch.ones((S, S), dtype=torch.bool,
+                                      device="cuda").tril()], 1)
+        q4 = q.permute(0, 2, 1, 3)
+        sdpa = lambda i: F.scaled_dot_product_attention(
+            q4, kw[i % L], vw[i % L], attn_mask=amask)
+    else:
+        q4 = q[:, :, None, :]
+        sdpa = lambda i: F.scaled_dot_product_attention(q4, kw[i % L],
+                                                        vw[i % L])
+    lib = time_ms(sdpa, 96, warmup=L)
+    lib_dev = graph_ms(sdpa, n=2 * L)
+    del kw, vw
+    rows = B * max(S, 1)
+    nbytes = (2 * B * n * Hkv * D * 2 + 2 * rows * Hq * D * 2 + 4 * B
+              + (2 * B * S * Hkv * D * 2 if S else 0))
+    flops = 4.0 * B * Hq * D * (max(S, 1) * n + S * (S + 1) / 2)
+    b_ms, kind = bound_ms(nbytes, flops)
+    mode = f"verify S={S}" if S else "decode"
+    print(f"  A8 {mode} bf16 dense B={B} W={W} (8B geometry), per layer: "
+          f"{ms * 1e3:.1f} us as timed, {dev * 1e3:.1f} us on the device "
+          f"(bound {b_ms * 1e3:.1f} us, {kind}; {b_ms / dev:.0%} of bound; "
+          f"host gap {(ms - dev) * 1e3:.1f} us); plain {plain * 1e3:.1f} us; "
+          f"SDPA over the window {lib * 1e3:.1f} us as timed, "
+          f"{lib_dev * 1e3:.1f} us on the device", flush=True)
+    return dict(ms=round(32 * ms, 4), device_ms=round(32 * dev, 4),
+                plain_ms=round(32 * plain, 4), bound_ms=round(32 * b_ms, 4),
+                bound_by=kind, library_ms=round(32 * lib, 4),
+                library_device_ms=round(32 * lib_dev, 4))
+
+
+def phase_kernel_dense(results: dict) -> None:
+    """A8, the dense KV path's attention (the reference's XLA
+    ``attend_gqa`` over ``cache.k/v[l, :, :window]`` in ``decode_step``,
+    ``verify_step`` and ``verify_tree``), served by kernel B over a
+    zero-copy pool view of the dense cache (ops/dense_attention.py),
+    against its plain version: decode mode at rep 1-8, D 64 and 128,
+    max_seq 1024, 4096 and 1000 / 1100 (64 divides neither: the cache is
+    allocated rounded up to a page), windows below and at max_seq, ragged
+    lengths, NaN in every slot past a row's length; verify mode at S = 5
+    (chain) and an 8-node tree, and at the resident drafter's catch-up
+    feeds (serve/draft_model.py: B = 8 rows of draft-400m's Hq 8 / Hkv 4 /
+    D 128, chains of S = 16, 64 and 256 over max_seq 4096 at W = 1024 and
+    4096, ragged committed lengths, one row's block ending at the
+    window). Each case also bitwise against a rerun, its rows' B = 1 calls
+    and the whole cache as the window, with the view's storage the
+    cache's. Timed per 32-layer llama3.1-8b step at B = 8, W = 1024 and
+    4096 (decode) and W = 1024, S = 5 (verify) beside the bound, the plain
+    version and SDPA over the window."""
+    import torch
+    worst = {"dense_attention": 0.0, "dense_attention_verify": 0.0}
+    dec = (  # (Hq, Hkv, D, max_seq, window, lengths incl. the written slot)
+        (8, 8, 64, 1024, 1024, [1024, 1, 513, 64]),
+        (32, 8, 128, 4096, 4096, [4096, 2100, 1, 777]),
+        (64, 8, 128, 1000, 1000, [1000, 999, 50, 1]),
+        (24, 8, 64, 1100, 512, [512, 300, 17, 2]),
+        (16, 8, 128, 4096, 256, [256, 129, 128, 3]),
+        (40, 8, 128, 1024, 768, [700, 768, 1, 65]),
+    )
+    for i, (Hq, Hkv, D, T, W, lengths) in enumerate(dec):
+        cache, q = _dense_case(Hq, Hkv, D, T, lengths, seed=70 + i)
+        worst["dense_attention"] = max(
+            worst["dense_attention"], _dense_case_checks(
+                f"A8 decode Hq={Hq} Hkv={Hkv} D={D} max_seq={T} W={W} "
+                f"lengths={lengths}", cache, q, cache.lengths, W))
+        del cache
+    ver = (  # (Hq, Hkv, D, max_seq, window, committed lengths, S, tree)
+        (32, 8, 128, 4096, 1024, [1019, 500, 1, 0], 5, False),
+        (32, 8, 128, 1000, 1000, [992, 400, 3, 0], 8, True),
+        (8, 8, 64, 1100, 512, [504, 17, 256, 9], 5, False),
+        (64, 8, 128, 1024, 1024, [1016, 1000, 64, 1], 8, True),
+        # The drafter's feeds (ModelDrafter._feed: M = 4..256 at B = 8).
+        (8, 4, 128, 4096, 1024, [1008, 700, 1, 0, 333, 64, 999, 512], 16,
+         False),
+        (8, 4, 128, 4096, 4096, [4032, 2049, 0, 17, 1000, 3000, 63, 1],
+         64, False),
+        (8, 4, 128, 4096, 1024, [768, 511, 1, 0, 600, 64, 300, 129], 256,
+         False),
+        (8, 4, 128, 4096, 4096, [3840, 2000, 0, 255, 1, 3000, 1024, 700],
+         256, False),
+        (8, 4, 128, 4096, 1024, [960, 20, 513, 0, 1, 900, 64, 128], 64,
+         False),
+        (8, 4, 128, 4096, 4096, [4080, 100, 0, 4000, 2048, 7, 64, 1], 16,
+         False),
+    )
+    for i, (Hq, Hkv, D, T, W, lengths, S, tree) in enumerate(ver):
+        cache, _ = _dense_case(Hq, Hkv, D, T, lengths, seed=80 + i)
+        q, kb, vb, mask = _verify_inputs(len(lengths), S, Hq, Hkv, D, 90 + i,
+                                         tree)
+        worst["dense_attention_verify"] = max(
+            worst["dense_attention_verify"], _dense_case_checks(
+                f"A8 verify Hq={Hq} Hkv={Hkv} D={D} max_seq={T} W={W} "
+                f"S={S} {'tree' if tree else 'chain'} lengths={lengths}",
+                cache, q, cache.lengths, W, blk=(kb, vb, mask)))
+        del cache
+    torch.cuda.empty_cache()
+    t1024 = _dense_timing(8, 1024)
+    t4096 = _dense_timing(8, 4096)
+    tver = _dense_timing(8, 1024, S=5)
+    src = "p2p_llm_chat_tpu_torch/csrc/paged_attention.cu"
+    results["dense_attention"] = dict(
+        name="dense_attention", route="cuda", source=src,
+        wrapper="p2p_llm_chat_tpu_torch/ops/dense_attention.py",
+        replaces="p2p_llm_chat_tpu/models/layers.py:102",
+        max_abs_err=worst["dense_attention"], **t1024, w4096=t4096,
+        scope="A8 decode mode: kernel B's pool mode over the dense cache's "
+              "identity pool view (the reference computes it in XLA, no "
+              "pl.pallas_call), one llama3.1-8b decode step at B=8, "
+              "W=1024, bf16 cache of max_seq 4096: 32 launches; device_ms "
+              "replays them from a CUDA graph; library_ms is SDPA over the "
+              "window with the heads expanded beforehand; w4096: the same "
+              "at W=4096")
+    results["dense_attention_verify"] = dict(
+        name="dense_attention_verify", route="cuda", source=src,
+        wrapper="p2p_llm_chat_tpu_torch/ops/dense_attention.py",
+        replaces="p2p_llm_chat_tpu/models/layers.py:102",
+        max_abs_err=worst["dense_attention_verify"], **tver,
+        scope="A8 verify mode: kernel B's verify mode over the dense "
+              "cache's identity pool view, one llama3.1-8b chain verify "
+              "at B=8, S=5, W=1024: 32 launches; library_ms is SDPA over "
+              "the window plus the block under an explicit mask")
+
+
 def phase_kernel_e(results: dict) -> None:
     """Kernel E (w8a8, int8 tensor cores) against its plain version,
     bitwise or within 1 bf16 ulp (the count of differing elements is
@@ -1600,12 +1863,13 @@ def _persistent(sched) -> dict:
     """The scheduler's persistent decode state by name: what a decode
     program reads and writes in place."""
     c = sched._cache
-    out = {"k": c.k, "v": c.v, "page_table": c.page_table,
-           "lengths": c.lengths, "next": sched._next,
+    out = {"k": c.k, "v": c.v, "lengths": c.lengths, "next": sched._next,
            "keys": sched._keys_dev, "ring": sched._ring_dev,
            "active": sched._active_dev}
-    if c.k_scale is not None:
-        out.update(k_scale=c.k_scale, v_scale=c.v_scale)
+    if sched.kv_mode == "paged":
+        out["page_table"] = c.page_table
+        if c.k_scale is not None:
+            out.update(k_scale=c.k_scale, v_scale=c.v_scale)
     return out
 
 
@@ -1639,8 +1903,8 @@ def _fill_decode_state(sched, lengths, gen) -> None:
     keys [100 + b, 0], a ring holding a few ids, every row live."""
     import torch
     c = sched._cache
-    B, mppr, dev = sched.num_slots, c.max_pages_per_row, c.k.device
-    if c.k_scale is not None:
+    B, dev = sched.num_slots, c.k.device
+    if getattr(c, "k_scale", None) is not None:
         c.k.random_(-127, 128, generator=gen)
         c.v.random_(-127, 128, generator=gen)
         c.k_scale.uniform_(0.0, 1.0 / 64, generator=gen)
@@ -1648,8 +1912,10 @@ def _fill_decode_state(sched, lengths, gen) -> None:
     else:
         c.k.normal_(generator=gen)
         c.v.normal_(generator=gen)
-    c.page_table.copy_(1 + torch.arange(B * mppr, dtype=torch.int32,
-                                        device=dev).reshape(B, mppr))
+    if sched.kv_mode == "paged":
+        mppr = c.max_pages_per_row
+        c.page_table.copy_(1 + torch.arange(B * mppr, dtype=torch.int32,
+                                            device=dev).reshape(B, mppr))
     c.lengths.copy_(torch.tensor(lengths, dtype=torch.int32, device=dev))
     V = sched.config.vocab_size
     sched._next.random_(0, V, generator=gen)
@@ -1667,7 +1933,7 @@ def _fill_decode_state(sched, lengths, gen) -> None:
 
 
 def _graph_checks(label: str, cfg, params, impl: str,
-                  quantized: bool) -> None:
+                  quantized: bool, kv_mode: str = "paged") -> None:
     """The scheduler's decode programs on the card at full width (B = 8
     rows of the phase's model): the window ladder captured as warmup
     does it (graphs, their capture time and the memory reserved meanwhile
@@ -1685,7 +1951,8 @@ def _graph_checks(label: str, cfg, params, impl: str,
     sched = BatchScheduler(params, cfg, ByteTokenizer(cfg.vocab_size),
                            num_slots=B, max_seq=1024, page_size=64,
                            kv_quant=quantized, attn_impl=impl,
-                           decode_fuse_max=4, device="cuda")
+                           decode_fuse_max=4, kv_mode=kv_mode,
+                           device="cuda")
     sched.stop()          # the test drives the programs from this thread
     torch.cuda.synchronize()
     # Unused cached blocks are returned before and after, so what stays
@@ -2042,7 +2309,8 @@ def _spec_sched_checks(label: str, model: str, quant: str,
                            num_slots=B, max_seq=1024, page_size=64,
                            kv_quant=not wta, attn_impl=impl,
                            decode_fuse_max=4, spec_k=K,
-                           spec_tree_nodes=0 if wta else 8, device="cuda")
+                           spec_tree_nodes=0 if wta else 8, kv_mode="paged",
+                           device="cuda")
     sched.stop()
     del params
     tree = bool(sched.spec_tree_nodes)
@@ -2398,6 +2666,205 @@ def phase_step(model: str, quant: str, prefill_check: bool,
     _spec_sched_checks(f"{model} {quant} impl={impl}", model, quant, impl)
 
 
+def _int8_kv_writes() -> None:
+    """The int8 pool's writes on the card against the CPU's, bitwise: the
+    same k/v (head rows of amax 10^-3 to 10^3) through write_prefill_batch
+    then write_decode into a card pool and a CPU pool, int8 bytes and f32
+    scales compared; and how many of those rows' scales the reciprocal
+    form ``amax / 127.0`` (a Python scalar, which CUDA multiplies by its
+    reciprocal) would have put one ulp off the IEEE quotient."""
+    import torch
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    from p2p_llm_chat_tpu_torch.ops.paged_kv import (PagedKVCache,
+                                                     write_decode,
+                                                     write_prefill_batch)
+    cfg = get_config("llama3.1-8b").with_(num_layers=2)
+    gen = torch.Generator().manual_seed(21)
+    L, R, S, Hkv, D = 2, 2, 128, cfg.num_kv_heads, cfg.head_dim
+    mag = 10.0 ** torch.randint(-3, 4, (L, R, S, Hkv, 1), generator=gen)
+    k = (torch.randn((L, R, S, Hkv, D), generator=gen) * mag).to(
+        torch.bfloat16)
+    v = (torch.randn((L, R, S, Hkv, D), generator=gen) * mag).to(
+        torch.bfloat16)
+    kd = (torch.randn((R, Hkv, D), generator=gen) * 37.0).to(torch.bfloat16)
+    pools = []
+    for dev in ("cuda", "cpu"):
+        c = PagedKVCache.create(cfg, R, 1 + 2 * R + 1, 64,
+                                max_pages_per_row=3, quantized=True,
+                                device=dev)
+        write_prefill_batch(c, k.to(dev), v.to(dev), torch.arange(R),
+                            torch.tensor([S, S - 9]),
+                            torch.tensor([[1, 2, 0], [3, 4, 5]]))
+        write_decode(c, 1, kd.to(dev), (kd * 0.5).to(dev))
+        pools.append(c)
+    g, c = pools
+    for name in ("k", "v", "k_scale", "v_scale"):
+        check(torch.equal(getattr(g, name).cpu(), getattr(c, name)),
+              f"int8 KV writes: {name} differs between the card and the CPU")
+    amax = k.float().abs().amax(-1).flatten().cuda()
+    recip = amax / 127.0
+    quot = amax / torch.full((), 127.0, device="cuda")
+    n_off = int((recip != quot).sum())
+    print(f"step: int8 pool writes (write_prefill_batch + write_decode, "
+          f"{amax.numel()} head rows of amax 1e-3..1e3): bytes and scales "
+          f"bitwise equal on the card and the CPU; the reciprocal form "
+          f"amax / 127.0 on the card is off the IEEE quotient on {n_off} "
+          f"of them", flush=True)
+
+
+def _dense_clone(cache, device=None):
+    from p2p_llm_chat_tpu_torch.models.llama import KVCache
+    return KVCache(*(t.clone().to(device or t.device)
+                     for t in (cache.k, cache.v, cache.lengths)),
+                   cache.max_seq)
+
+
+def phase_step_dense(model: str, quant: str) -> None:
+    """The dense KV path's forwards of ``model`` at full width, depth cut
+    to 2 layers, ``quant`` weights, bf16 dense cache (B = 2, max_seq
+    1024): two prompts prefilled into the cache (kernel D), then on the
+    card and from the same cache on the CPU's plain path: ``decode_step``
+    (row 1 parked), ``verify_step`` at S = 5 (llama; mixtral's CPU expert
+    path costs 15 s a call, and its chain runs the tree's code) and
+    ``verify_tree`` over 8 nodes (a chain of 5 and 3 siblings), each
+    within STEP_TOL of the
+    logit scale with the cache's written slots within STEP_TOL and the
+    rest bitwise unchanged, A8 launched on every layer; on the card,
+    ``decode_fused`` at K = 4 bitwise equal to 4 ``decode_step`` calls.
+    Then the scheduler's dense decode programs at B = 8 (the graph checks
+    of the paged phases: the K = 1 replay bitwise against the eager step,
+    the K = 4 replay against four K = 1 replays and eager
+    ``decode_fused``). On llama also the int8 pool's writes against the
+    CPU's, bitwise."""
+    import torch
+    from p2p_llm_chat_tpu_torch.models import family_for
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    from p2p_llm_chat_tpu_torch.models.llama import KVCache
+    from p2p_llm_chat_tpu_torch.models.quant import QTensor, QTensor4
+    if not get_config(model).is_moe:
+        _int8_kv_writes()
+    cfg = get_config(model).with_(num_layers=2)
+    fam = family_for(cfg)
+    dev = torch.device("cuda")
+    params = fam.init_params_quantized(cfg, seed=7, quant=quant, device=dev)
+
+    def to_cpu(t):
+        if isinstance(t, dict):
+            return {k: to_cpu(v) for k, v in t.items()}
+        if isinstance(t, (QTensor, QTensor4)):
+            return type(t)(t.q.cpu(), t.s.cpu())
+        return t.cpu()
+
+    gen = torch.Generator().manual_seed(5)
+    B, T, S0, W = 2, 1024, 128, 256
+    lens = torch.tensor([100, 37])
+    toks = torch.zeros((B, S0), dtype=torch.long)
+    for b in range(B):
+        toks[b, :lens[b]] = torch.randint(0, cfg.vocab_size, (int(lens[b]),),
+                                          generator=gen)
+    cache = KVCache.create(cfg, B, T, device=dev)
+    c0 = _launch_counts()
+    logits, _ = fam.prefill(params, cfg, toks.to(dev), lens.to(dev),
+                            last_only=True, cache=cache)
+    check(_launch_counts()["prefill_attention"] - c0["prefill_attention"]
+          == cfg.num_layers, f"step dense {model}: the prefill did not run "
+          "kernel D on every layer")
+    tok = logits[:, 0].argmax(-1)[:, None]
+    runs = []                   # (name, card cache before, fn, logits, after)
+
+    def run(name, fn, attn, n_launch):
+        before = _dense_clone(cache, "cpu")
+        c0 = _launch_counts()
+        out = fn(params, cache)
+        got = _launch_counts()[attn] - c0[attn]
+        check(got == n_launch, f"step dense {model}: {name} launched {attn} "
+              f"{got} times, want {n_launch}")
+        runs.append((name, before, fn, out.float().cpu(),
+                     _dense_clone(cache, "cpu")))
+
+    active = torch.tensor([True, False], device=dev)
+    run("decode_step", lambda p, c: fam.decode_step(
+        p, cfg, tok.to(c.k.device), c, active.to(c.k.device),
+        kv_window=W)[0], "dense_attention", cfg.num_layers)
+    vt = torch.randint(0, cfg.vocab_size, (B, 5), generator=gen)
+    if not cfg.is_moe:     # mixtral's chain verify: the tree's code path
+        run("verify_step S=5", lambda p, c: fam.verify_step(
+            p, cfg, vt.to(c.k.device), c, kv_window=W)[0],
+            "dense_attention_verify", cfg.num_layers)
+    N = 8
+    depths = torch.tensor([0, 1, 2, 3, 4, 1, 2, 3]).repeat(B, 1)
+    parent = [-1, 0, 1, 2, 3, 0, 1, 2]
+    anc = torch.zeros((N, N), dtype=torch.bool)
+    for i in range(N):
+        j = i
+        while j >= 0:
+            anc[i, j] = True
+            j = parent[j]
+    anc = anc.repeat(B, 1, 1)
+    nt = torch.randint(0, cfg.vocab_size, (B, N), generator=gen)
+    run("verify_tree N=8", lambda p, c: fam.verify_tree(
+        p, cfg, nt.to(c.k.device), depths.to(c.k.device),
+        anc.to(c.k.device), c, kv_window=W)[0],
+        "dense_attention_verify", cfg.num_layers)
+    # decode_fused K = 4 (argmax) against four decode_step calls, on the
+    # card, bitwise.
+    start = _dense_clone(cache)
+
+    def argmax_fn(lg, state, emit_pos, act):
+        return lg.argmax(-1), state
+
+    seq_cache, t, seq = _dense_clone(start), tok, []
+    for _ in range(4):
+        lg, _ = fam.decode_step(params, cfg, t, seq_cache, kv_window=W)
+        t = lg[:, 0].argmax(-1)[:, None]
+        seq.append(t[:, 0])
+    fused_cache = _dense_clone(start)
+    ftoks, *_ = fam.decode_fused(
+        params, cfg, tok, fused_cache, None, num_steps=4,
+        sample_fn=argmax_fn, sample_state=None,
+        stop_ids=torch.zeros((0,), dtype=torch.long, device=dev),
+        kv_window=W)
+    check(torch.equal(ftoks, torch.stack(seq))
+          and torch.equal(fused_cache.k, seq_cache.k)
+          and torch.equal(fused_cache.lengths, seq_cache.lengths),
+          f"step dense {model}: decode_fused K=4 differs from 4 steps")
+    print(f"step dense: {model} dims, 2 layers, {quant} weights: "
+          f"decode_fused K=4 bitwise equal to 4 decode_step calls; tokens "
+          f"{torch.stack(seq).tolist()}", flush=True)
+    _graph_checks(f"{model} {quant} dense", cfg, params, "gather",
+                  quantized=False, kv_mode="dense")
+    torch.cuda.synchronize()
+    params_cpu = to_cpu(params)
+    del params, start, seq_cache, fused_cache
+    torch.cuda.empty_cache()
+    for name, before, fn, got, after in runs:
+        t0 = time.monotonic()
+        c = _dense_clone(before)
+        want = fn(params_cpu, c).float()
+        cpu_s = time.monotonic() - t0
+        check(bool(torch.isfinite(got).all()), f"step dense {model} {name}: "
+              "non-finite card logits")
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        same = bool((got.argmax(-1) == want.argmax(-1)).float().mean() >= 0.5)
+        changed = (c.k != before.k).any(dim=(0, 3, 4))
+        k_err = (after.k.float() - c.k.float())[:, changed].abs().max().item()
+        print(f"step dense: {model} dims, 2 layers, {quant} weights, "
+              f"{name}: card vs CPU plain logits max_abs_err {err:.4f}, "
+              f"max|logits| {scale:.3f} (tol {STEP_TOL:.0e} of max), argmax "
+              f"{'mostly equal' if same else 'differs'}; written slots "
+              f"{int(changed.sum())}, k max_abs_err {k_err:.4f}; CPU "
+              f"{cpu_s:.1f} s", flush=True)
+        check(err <= STEP_TOL * scale, f"step dense {model} {name}: logits "
+              f"err {err:.4f} > {STEP_TOL} x {scale:.3f}")
+        check(k_err <= STEP_TOL * c.k.float().abs().max().item(),
+              f"step dense {model} {name}: written k err {k_err:.4f}")
+        check(torch.equal(after.k[:, ~changed], before.k[:, ~changed])
+              and torch.equal(after.lengths, c.lengths),
+              f"step dense {model} {name}: the card wrote outside the "
+              "CPU's slots, or lengths differ")
+
+
 # -- optional phase: where one full-depth decode step spends its time ---------
 
 def _kernel_group(name: str) -> str:
@@ -2469,7 +2936,7 @@ def phase_profile(model: str, quant: str, B: int = 8, W: int = 1020,
     sched = BatchScheduler(params, cfg, ByteTokenizer(cfg.vocab_size),
                            num_slots=B, max_seq=2 * window, page_size=64,
                            kv_quant=not wta, attn_impl=impl,
-                           decode_fuse_max=4, device="cuda")
+                           decode_fuse_max=4, kv_mode="paged", device="cuda")
     sched.stop()
     t0 = time.monotonic()
     sched._warm_window(window)
@@ -3490,6 +3957,261 @@ def phase_server_spec(results: dict, model: str, quant: str,
         engine.stop()
 
 
+def _record_launches(results: dict, label: str, launches: dict) -> None:
+    for name, n in launches.items():
+        rec = results.get(name)
+        if rec is not None and n:
+            rec.setdefault("launches_by_path", {})[label] = n
+            rec["launches"] = rec.get("launches", 0) + n
+
+
+def _serve_env(**kw) -> None:
+    """The server phases' engine env (a later phase's settings never
+    leak into the next one's build)."""
+    for k in ("SERVE_SPEC", "SERVE_SPEC_TREE_NODES", "SERVE_DRAFT",
+              "SERVE_KV_HOST_GB", "CKPT_DIR", "SERVE_MODELS"):
+        os.environ.pop(k, None)
+    os.environ.update(SERVE_BACKEND="torch", SERVE_SLOTS="8",
+                      SERVE_MAX_SEQ="4096", SERVE_DEVICE="cuda",
+                      SERVE_PREFILL_CHUNK="256", SERVE_PREFIX="1",
+                      SERVE_KV_QUANT="", **kw)
+
+
+def phase_server_dense(results: dict) -> None:
+    """The dense KV path served (``SERVE_KV=dense``, the reference's
+    default): llama3.1-8b int8 weights (32 layers, random, seed 0), a bf16
+    dense cache of 8 rows x 4096, chunked admission at 256 and the prefix
+    cache, behind the Ollama front. Counters zeroed before the 7-request
+    burst and its greedy reruns: kernels A, D and A8's decode mode must
+    launch, kernel B's append and verify modes (and its pool mode under
+    its own name) must not; decode fuses (``decode_fused_mean_k`` > 1).
+    Then the same weights served from a bf16 page pool under
+    ``PAGED_ATTN_IMPL=kernel`` (kernel B's pool mode over the same
+    values), the same burst: the greedy answers must be equal. Prints,
+    for both in one call, the KV size, TTFT by request, decode p50 a
+    step, the K = 1 graph's replay time and the warmup probe."""
+    import torch
+    from p2p_llm_chat_tpu_torch.models import family_for
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    from p2p_llm_chat_tpu_torch.serve.api import OllamaServer
+    from p2p_llm_chat_tpu_torch.serve.engine import build_engine_from_env
+    model, quant = "llama3.1-8b", "int8"
+    cfg = get_config(model)
+    params = family_for(cfg).init_params_quantized(cfg, seed=0, quant=quant,
+                                                   device="cuda")
+    reqs = _server_reqs()
+    greedy: dict = {}
+    for kv in ("dense", "paged"):
+        label = f"{model} {quant} {kv} KV" + ("" if kv == "dense"
+                                              else " impl=kernel")
+        _serve_env(MODEL_CONFIG=model, SERVE_KV=kv, SERVE_QUANT=quant,
+                   PAGED_ATTN_IMPL="kernel")
+        t0 = time.monotonic()
+        engine = build_engine_from_env(params=params)
+        server = OllamaServer(engine, addr="127.0.0.1:0").start()
+        try:
+            ready_s = _wait_ready(f"server {label}", engine)
+            sched, url = engine.scheduler, server.url
+            check(sched.kv_mode == kv, f"server {label}: kv_mode "
+                  f"{sched.kv_mode}")
+            cache_gb = (sched._cache.nbytes() if kv == "dense" else
+                        sched._cache.k.nbytes + sched._cache.v.nbytes) / 1e9
+            print(f"server {label}: {cfg.num_layers} layers, bf16 {kv} "
+                  f"KV {cache_gb:.3f} GB (8 x 4096), ready in "
+                  f"{time.monotonic() - t0:.1f} s ({ready_s:.1f} s warmup); "
+                  f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; "
+                  f"{len(sched._programs)} decode graphs", flush=True)
+            wrappers = _wrappers()
+            base = len(_wall_samples(sched))
+            for fn in wrappers.values():
+                fn.launches = 0
+            answers, burst_s = _burst(url, reqs)
+            p50 = _p50(_wall_samples(sched)[base:])
+            finals = _check_burst(f"server {label}", reqs, answers)
+            greedy[kv] = _greedy_contexts(url, reqs)
+            launches = {n: f.launches for n, f in wrappers.items()}
+            print(f"server {label}: {len(reqs)} concurrent requests in "
+                  f"{burst_s:.2f} s; launches {launches}", flush=True)
+            if kv == "dense":
+                for name in ("quant_matmul", "prefill_attention",
+                             "dense_attention"):
+                    check(launches[name] > 0, f"server {label}: {name} was "
+                          "never launched")
+                for name in ("paged_attention_append",
+                             "paged_attention_verify_append",
+                             "paged_attention", "dense_attention_verify"):
+                    check(launches[name] == 0, f"server {label}: {name} was "
+                          f"launched {launches[name]} times")
+                _record_launches(results, "server_dense", launches)
+            m = _metrics(url)
+            mean_k = float(m["decode_fused_mean_k"])
+            check(mean_k > 1, f"server {label}: decode_fused_mean_k "
+                  f"{mean_k}")
+            check(any(k.startswith("serve_kv_") for k in m) == (kv == "paged"),
+                  f"server {label}: page-pool series on /metrics")
+            W = min(128, sched.max_seq)
+            k1 = _graph_replay_ms(sched, (W, 1))
+            k1_1024 = _graph_replay_ms(sched, (1024, 1))
+            by_req = [r["prompt_eval_duration"] / 1e6 for r in finals]
+            print(f"server {label}: TTFT ms by request: long prompt "
+                  f"({finals[3]['prompt_eval_count']} tokens) "
+                  f"{by_req[3]:.1f}, co-pilot "
+                  f"({finals[6]['prompt_eval_count']} tokens) "
+                  f"{by_req[6]:.1f}, others " + ", ".join(
+                      f"{t:.1f}" for i, t in enumerate(by_req)
+                      if i not in (3, 6)), flush=True)
+            ttft = sorted(by_req)
+            toks = sum(r["eval_count"] for r in finals)
+            print(f"server {label}: TTFT p50 {ttft[len(ttft) // 2]:.1f} ms "
+                  f"(max {ttft[-1]:.1f}); decode {toks} tokens in "
+                  f"{burst_s:.2f} s = {toks / burst_s:.1f} tok/s; decode p50 "
+                  f"{p50:.3f} ms a step in the burst (decode_wall_ms "
+                  f"{m['decode_wall_ms']}); decode_fused_mean_k {mean_k}; "
+                  f"K=1 graph replay (rows parked) {k1:.3f} ms at W={W}, "
+                  f"{k1_1024:.3f} ms at W=1024; decode_device_ms "
+                  f"{m['decode_device_ms']}", flush=True)
+            results.setdefault("_server_dense", {})[kv] = dict(
+                cache_gb=round(cache_gb, 4), decode_p50_ms=round(p50, 4),
+                decode_wall_ms=float(m["decode_wall_ms"]),
+                long_prompt_ttft_ms=round(by_req[3], 2),
+                ttft_p50_ms=round(ttft[len(ttft) // 2], 2),
+                mean_k=mean_k, k1_graph_ms_w128=round(k1, 4),
+                k1_graph_ms_w1024=round(k1_1024, 4))
+        finally:
+            server.stop()
+            engine.stop()
+            _free()
+    check(greedy["dense"] == greedy["paged"], "server_dense: greedy answers "
+          "differ between the dense cache and the bf16 pool (impl=kernel)")
+    print(f"server_dense: {len(greedy['dense'])} greedy answers equal on the "
+          "dense cache and the bf16 page pool (PAGED_ATTN_IMPL=kernel)",
+          flush=True)
+
+
+def phase_server_draft(results: dict) -> None:
+    """The resident draft model on the dense path (``SERVE_KV=dense
+    SERVE_SPEC=4``, tree default of 8 nodes): (a) llama3.1-8b int8 on
+    full-width quote weights (models/synth.quote_params) with the drafter
+    given the same weights in-process (``draft=(params, config)``): the
+    spec burst with counters zeroed must accept from source ``model``
+    (``serve_spec_accepted_per_dispatch{source="model"}`` > 1) through
+    A8's verify mode, and the greedy answers equal the same server's with
+    speculation off; (b) ``SERVE_DRAFT=draft-400m`` (random, seed 101) on
+    the same target: its KV GB, ms per draft dispatch and acceptance
+    printed."""
+    import torch
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    from p2p_llm_chat_tpu_torch.models.synth import quote_params
+    from p2p_llm_chat_tpu_torch.serve.api import OllamaServer
+    from p2p_llm_chat_tpu_torch.serve.engine import (TorchEngine,
+                                                     build_engine_from_env)
+    from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
+    model, quant = "llama3.1-8b", "int8"
+    cfg = get_config(model)
+    params = quote_params(cfg, seed=0, quant=quant, device="cuda")
+    reqs = _spec_reqs()
+    for case in ("self", "draft-400m"):
+        label = f"{model} {quant} dense spec K=4 tree N=8 draft={case}"
+        _serve_env(MODEL_CONFIG=model, SERVE_KV="dense", SERVE_QUANT=quant,
+                   SERVE_SPEC="4", SERVE_SPEC_TREE_NODES="8")
+        t0 = time.monotonic()
+        if case == "self":
+            engine = TorchEngine(
+                params, cfg, ByteTokenizer(cfg.vocab_size), num_slots=8,
+                max_seq=4096, kv_mode="dense", spec_k=4, spec_tree_nodes=8,
+                prefill_chunk=256, draft=(params, cfg), device="cuda")
+            engine.warmup((128, 256))
+        else:
+            os.environ["SERVE_DRAFT"] = case
+            engine = build_engine_from_env(params=params)
+        server = OllamaServer(engine, addr="127.0.0.1:0").start()
+        try:
+            ready_s = _wait_ready(f"server {label}", engine)
+            sched, url = engine.scheduler, server.url
+            d = engine.drafter
+            check(d is not None and [x.name for x in sched._sources]
+                  == ["ngram", "model"], f"server {label}: no drafter")
+            n_graphs = sum(1 for k in sched._programs if k[0] == "draft")
+            check(n_graphs > 0, f"server {label}: no drafter graph")
+            print(f"server {label}: ready in {time.monotonic() - t0:.1f} s "
+                  f"({ready_s:.1f} s warmup, {n_graphs} drafter graphs "
+                  "captured); drafter KV "
+                  f"{d.kv_bytes() / 1e9:.3f} GB, params "
+                  f"{d.param_bytes() / 1e9:.3f} GB; "
+                  f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+                  flush=True)
+            wrappers = _wrappers()
+            for fn in wrappers.values():
+                fn.launches = 0
+            n0, s0 = d.n_draft_dispatches, d.draft_s
+            on = _spec_burst(label, url, reqs)
+            ctx_on = _greedy_contexts(url, reqs)
+            launches = {n: f.launches for n, f in wrappers.items()
+                        if f.launches}
+            m = _metrics(url)
+            nd = d.n_draft_dispatches - n0
+            ms_tick = (d.draft_s - s0) * 1e3 / max(1, nd)
+            src = {k: m.get(f'{k}{{source="model"}}') for k in (
+                "serve_spec_proposed_total", "serve_spec_accepted_total",
+                "serve_spec_accept_rate",
+                "serve_spec_accepted_per_dispatch")}
+            ng = {k: m.get(f'{k}{{source="ngram"}}') for k in (
+                "serve_spec_proposed_total", "serve_spec_accepted_total",
+                "serve_spec_accepted_per_dispatch")}
+            print(f"server {label}: burst {on['toks']} tokens in "
+                  f"{on['wall']:.2f} s = {on['tok_s']:.1f} tok/s served, "
+                  f"{on['p50_rate']:.1f} tok/s per request (p50); drafter "
+                  f"{nd} draft dispatches, {ms_tick:.2f} ms each (graph "
+                  f"replays up to 16 pending tokens, readback included); "
+                  f"source model {src}; source ngram "
+                  f"{ng}; serve_spec_accepted_per_dispatch "
+                  f"{m['serve_spec_accepted_per_dispatch']}, tree path len "
+                  f"{m.get('serve_spec_tree_accepted_path_len')}; launches "
+                  f"{launches}", flush=True)
+            check(launches.get("dense_attention_verify", 0) > 0,
+                  f"server {label}: A8's verify mode was never launched")
+            check(not launches.get("paged_attention_verify_append")
+                  and not launches.get("paged_attention_append"),
+                  f"server {label}: kernel B's paged modes launched")
+            _record_launches(results, f"server_draft {case}", launches)
+            # One draft program replayed alone (the steady-state bucket of
+            # 4 pending tokens at W = 128, the last dispatch's inputs
+            # again: its writes repeat the same values) against the
+            # dispatch wall above.
+            replay_ms = _graph_replay_ms(sched, ("draft", 4, 128))
+            lazy = sum(1 for k in sched._programs if k[0] == "draft")
+            print(f"server {label}: a draft program's graph replay (M=4, "
+                  f"W=128) {replay_ms:.3f} ms; {lazy - n_graphs} more "
+                  "drafter graphs captured during the burst", flush=True)
+            results.setdefault("_server_draft", {})[case] = dict(
+                drafter_kv_gb=round(d.kv_bytes() / 1e9, 4),
+                draft_ms_per_dispatch=round(ms_tick, 3),
+                draft_graph_replay_ms=round(replay_ms, 4),
+                model=src, ngram=ng, tok_s=round(on["tok_s"], 2),
+                per_dispatch=m["serve_spec_accepted_per_dispatch"])
+            if case != "self":
+                continue
+            check(float(src["serve_spec_accepted_per_dispatch"] or 0) > 1,
+                  f"server {label}: model-source acceptance {src}")
+            _on_loop(sched, lambda: setattr(sched, "spec_k", 0))
+            try:
+                off = _spec_burst(label + " spec off", url, reqs)
+                ctx_off = _greedy_contexts(url, reqs)
+            finally:
+                _on_loop(sched, lambda: setattr(sched, "spec_k", 4))
+            check(ctx_on == ctx_off, f"server {label}: greedy answers "
+                  "differ with speculation on and off")
+            print(f"server {label}: {len(ctx_on)} greedy answers equal with "
+                  f"speculation on and off; spec off {off['toks']} tokens "
+                  f"in {off['wall']:.2f} s = {off['tok_s']:.1f} tok/s "
+                  f"served, {off['p50_rate']:.1f} tok/s per request (p50)",
+                  flush=True)
+        finally:
+            server.stop()
+            engine.stop()
+            _free()
+
+
 # The tier phase's conversation: a 1500-token first turn (the server
 # phases' long prompt), then two short follow-up turns.
 TIER_TURN2 = " And what would you add to that, in one short line?"
@@ -3779,8 +4501,10 @@ def phase_server_tier(results: dict) -> None:
             check(h is not None or time.monotonic() < deadline,
                   f"{label}: A promoted no 512-token prefix: {got}")
             time.sleep(0.1)
+        t0 = time.monotonic()
         status, body = _status("POST", ub + "/admin/prefix/import",
                                {"from": ua, "h": h})
+        pull_ms = (time.monotonic() - t0) * 1e3
         check(status == 200 and json.loads(body)["len"] == 512,
               f"{label}: prefix import {status} {body[:200]!r}")
         m0 = _metrics(ub)
@@ -3792,7 +4516,8 @@ def phase_server_tier(results: dict) -> None:
               > float(m0["serve_prefix_admits_total"]),
               f"{label}: B's admission did not use the imported prefix")
         print(f"server {label}: prefix {h[:12]}.. (512 tokens) exported "
-              "from A, pulled into B, used by B's next admission "
+              f"from A, pulled into B ({pull_ms:.1f} ms: A's export, the "
+              "transfer and B's import), used by B's next admission "
               f"(prefix_hits_total {m0['prefix_hits_total']} -> "
               f"{m1['prefix_hits_total']})", flush=True)
 
@@ -4353,8 +5078,11 @@ def _prefix_exact(label: str, url: str, sched, tok) -> None:
     template is cached at its ids minus the last, and each prompt below is
     admitted on the prefix path exactly when its ids start with that key
     (a message after the template's blank line, one that adds a newline,
-    which merges across the boundary under ``\\s*[\\r\\n]+``, and one
-    that cuts into the template's last word)."""
+    which merges across the boundary under ``\\s*[\\r\\n]+``, one
+    that cuts into the template's last word, whose ids may or may not
+    keep the key depending on the merges the tokenizer learned from this
+    file's docstring, and one that cuts the template's last two words,
+    whose ids cannot)."""
     from p2p_llm_chat_tpu_torch.serve.engine import SUGGEST_PREFIX
     key = tuple(tok.encode(SUGGEST_PREFIX, add_bos=True)[:-1])
     check(key in sched._prefix._entries, f"{label}: no prefix entry of the "
@@ -4362,7 +5090,8 @@ def _prefix_exact(label: str, url: str, sched, tok) -> None:
     seen = set()
     for prompt in (SUGGEST_PREFIX + "Shall we meet at the café at 10?",
                    SUGGEST_PREFIX + "\nShall we meet?",
-                   SUGGEST_PREFIX[:-3] + "x, shall we meet?"):
+                   SUGGEST_PREFIX[:-3] + "x, shall we meet?",
+                   SUGGEST_PREFIX[:-22] + "Q: shall we meet?"):
         ids = tok.encode(prompt, add_bos=True)
         want = int(tuple(ids[:len(key)]) == key and len(ids) > len(key))
         admits0 = sched.metrics_snapshot()["serve_prefix_admits_total"]
@@ -4796,10 +5525,12 @@ def phase_server_multi(results: dict) -> None:
 PHASES = {
     "build": ("build",),
     "kernel": ("kernel_a", "kernel_b", "kernel_b_pool", "kernel_b_verify",
-               "kernel_c", "kernel_experts", "kernel_d", "kernel_e"),
-    "step": ("step_llama", "step_llama_wta", "step_mixtral"),
+               "kernel_c", "kernel_experts", "kernel_d", "kernel_e",
+               "kernel_dense"),
+    "step": ("step_llama", "step_llama_wta", "step_mixtral", "step_dense"),
     "server": ("server_llama", "server_llama_wta", "server_mixtral",
-               "server_spec", "server_tier", "server_ckpt", "server_multi"),
+               "server_spec", "server_tier", "server_ckpt", "server_multi",
+               "server_dense", "server_draft"),
     "profile": ("profile_llama", "profile_llama_wta", "profile_mixtral",
                 "profile_prefill"),
 }
@@ -4861,11 +5592,14 @@ def main() -> int:
         ("kernel_experts", lambda: phase_kernel_experts(results)),
         ("kernel_d", lambda: phase_kernel_d(results)),
         ("kernel_e", lambda: phase_kernel_e(results)),
+        ("kernel_dense", lambda: phase_kernel_dense(results)),
         ("step_llama", lambda: phase_step("llama3.1-8b", "int8", True)),
         ("step_llama_wta", lambda: phase_step("llama3.1-8b", "int8", False,
                                               impl="kernel")),
         ("step_mixtral", lambda: phase_step("mixtral-8x7b", "int8", True)),
         ("step_mixtral", lambda: phase_step("mixtral-8x7b", "int4", False)),
+        ("step_dense", lambda: phase_step_dense("llama3.1-8b", "int8")),
+        ("step_dense", lambda: phase_step_dense("mixtral-8x7b", "int4")),
         ("server_llama", lambda: phase_server(
             results, "llama3.1-8b", "int8",
             ("quant_matmul", "paged_attention_append", "prefill_attention"))),
@@ -4896,6 +5630,8 @@ def main() -> int:
         ("server_tier", lambda: phase_server_tier(results)),
         ("server_ckpt", lambda: phase_server_ckpt(results)),
         ("server_multi", lambda: phase_server_multi(results)),
+        ("server_dense", lambda: phase_server_dense(results)),
+        ("server_draft", lambda: phase_server_draft(results)),
         ("profile_llama", lambda: phase_profile("llama3.1-8b", "int8")),
         ("profile_llama_wta", lambda: phase_profile("llama3.1-8b", "int8",
                                                     impl="kernel")),
@@ -4906,8 +5642,9 @@ def main() -> int:
     ]
     try:
         if phases & (set(PHASES["server"]) - {"server_spec", "server_tier",
-                                              "server_ckpt",
-                                              "server_multi"}):
+                                              "server_ckpt", "server_multi",
+                                              "server_dense",
+                                              "server_draft"}):
             check(set(PHASES["kernel"]) <= phases, "the server phases "
                   "report into the kernel phases' results; run all of them")
         for name, run in runs:
@@ -4923,6 +5660,10 @@ def main() -> int:
     print(f"chip_smoke: every phase passed in {time.monotonic() - t0:.0f} s",
           flush=True)
     print(f"card: {card_line()}", flush=True)
+    readings = {k: results.pop(k) for k in list(results)
+                if k.startswith("_")}
+    if readings:
+        print(json.dumps({"readings": readings}), flush=True)
     if results:
         print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,13 @@
 """llama-family decoder (3.x dense models), the port of
-p2p_llm_chat_tpu/models/llama.py for the paged decode path: random int8 /
-int4 init, fused projections, whole-prompt and continuation (chunk /
-prefix-suffix) prefill, the pooled sequence embedding of /api/embed
+p2p_llm_chat_tpu/models/llama.py: random bf16 / int8 / int4 init, fused
+projections, whole-prompt and continuation (chunk / prefix-suffix)
+prefill, the dense KV cache's forms (:class:`KVCache`, :func:`forward`,
+:func:`prefill` into a cache, :func:`prefill_chunk_dense`,
+:func:`decode_step`, :func:`decode_fused` without pages,
+:func:`verify_step`, :func:`verify_tree`: the reference's default
+``SERVE_KV=dense`` path, whose attention is kernel B over a pool view of
+the cache, ops/dense_attention.py), the pooled sequence embedding of
+/api/embed
 (:func:`embed_pooled` over the :func:`hidden_states` trunk), the paged
 decode step in both of the
 reference's orderings (attend-then-write, write-then-attend) and its
@@ -24,11 +30,14 @@ never a slice copy).
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from ..ops import paged_attention as pa
+from ..ops.dense_attention import (cache_slots, dense_attention,
+                                   dense_attention_verify)
 from ..ops.paged_attention import (check_impl, paged_attention,
                                    paged_attention_append,
                                    paged_attention_verify_append)
@@ -37,8 +46,8 @@ from ..ops.paged_kv import (PagedKVCache, write_decode, write_decode_burst,
                             write_decode_multi_all_layers)
 from ..utils.device import resolve_device
 from .configs import ModelConfig
-from .layers import (apply_rope_tables, attend_gqa_auto, rms_norm,
-                     rope_frequencies, rope_tables)
+from .layers import (apply_rope_tables, attend_gqa, attend_gqa_auto,
+                     rms_norm, rope_frequencies, rope_tables)
 from .quant import QTensor, QTensor4, _quantize_leaf, mm, stream_bufs
 
 
@@ -66,6 +75,53 @@ def init_params_quantized(config: ModelConfig, seed: int = 0,
         "w_down": (E, config.hidden_size),
     }
     return random_tree(config, dims, {}, seed, dtype, quant, device)
+
+
+@dataclass
+class KVCache:
+    """The dense KV cache (the reference's ``KVCache``): k/v
+    ``[L, B, T, Hkv, D]``, lengths [B] int32 valid slots per row.
+    ``max_seq`` is the reference's slot count; :meth:`create` rounds ``T``
+    up to a multiple of 64 (ops/dense_attention.cache_slots), so that the
+    cache is kernel B's pool under an identity table. Slots at or past
+    ``max_seq`` are never written (:func:`write_dense` drops there) nor
+    attended. Updated IN PLACE by the dense forms below (a functional copy
+    per step would double gigabytes), which return the same object."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    lengths: torch.Tensor
+    max_seq: Optional[int] = None      # None: every slot of k
+
+    def __post_init__(self) -> None:
+        if self.max_seq is None:
+            self.max_seq = self.k.shape[2]
+
+    @classmethod
+    def create(cls, config: ModelConfig, batch: int, max_seq: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: Optional[torch.device | str] = None) -> "KVCache":
+        """A zeroed cache on ``device`` (the card unless the CPU is asked
+        for; see utils/device.py)."""
+        device = resolve_device(device)
+        shape = (config.num_layers, batch, cache_slots(max_seq),
+                 config.num_kv_heads, config.head_dim)
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   lengths=torch.zeros((batch,), dtype=torch.int32,
+                                       device=device), max_seq=max_seq)
+
+    def nbytes(self) -> int:
+        return (self.k.numel() * self.k.element_size()
+                + self.v.numel() * self.v.element_size())
+
+
+def init_params(config: ModelConfig, seed: int = 0,
+                dtype: torch.dtype = torch.bfloat16,
+                device: Optional[torch.device | str] = None) -> dict:
+    """The bf16 random tree (the reference's ``init_params``: scaled
+    normal, embeddings N(0, 1)), built fused by :func:`random_tree`."""
+    return init_params_quantized(config, seed, dtype, "", device)
 
 
 def random_tree(config: ModelConfig, dims: dict, plain_dims: dict,
@@ -294,18 +350,34 @@ def embed_pooled(params: dict, config: ModelConfig, tokens: torch.Tensor,
 
 def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,
             prompt_lens: torch.Tensor, last_only: bool = False, *,
-            mlp_fn=None):
-    """Right-padded prompts from position 0 through a dense per-request
-    cache (causal from position 0 over the bucket; pads sit after each
-    prompt, so no real query sees them).
+            mlp_fn=None, cache: Optional[KVCache] = None):
+    """Right-padded prompts from position 0 (causal from position 0 over
+    the bucket, kernel D on the card; pads sit after each prompt, so no
+    real query sees them).
 
-    tokens: [R, S]; prompt_lens: [R]. Returns (logits — [R, 1, V] f32 at
-    each row's last prompt position with ``last_only``, else [R, S, V] —
-    and the chunk's k/v, each [L, R, S, Hkv, D], for
-    ops/paged_kv.write_prefill_batch). ``mlp_fn``: see :func:`_post_attn`."""
+    tokens: [R, S]; prompt_lens: [R]. Without ``cache`` (the paged
+    admission's form) returns (logits — [R, 1, V] f32 at each row's last
+    prompt position with ``last_only``, else [R, S, V] — and the chunk's
+    k/v, each [L, R, S, Hkv, D], for ops/paged_kv.write_prefill_batch).
+    With a dense :class:`KVCache` of R rows (the reference's form) the k/v
+    land in its slots 0..S of every row, its lengths become
+    ``prompt_lens``, and it returns (logits, cache). ``mlp_fn``: see
+    :func:`_post_attn`."""
     R, S = tokens.shape
     dev = tokens.device
     positions = torch.arange(S, device=dev)[None, :].expand(R, S)
+    last = ((prompt_lens.to(dev).long() - 1).clamp(min=0) if last_only
+            else None)
+    if cache is not None:
+        def store_cache(li, k, v):
+            cache.k[li, :, :S] = k
+            cache.v[li, :, :S] = v
+            return k, v
+
+        logits = _stack(params, config, tokens, positions, store_cache, 0,
+                        mlp_fn, last)
+        cache.lengths.copy_(prompt_lens.to(dev))
+        return logits, cache
     shape = (config.num_layers, R, S, config.num_kv_heads, config.head_dim)
     dtype = params["embed"].dtype
     k_all = torch.empty(shape, dtype=dtype, device=dev)
@@ -316,8 +388,6 @@ def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,
         v_all[li] = v
         return k, v
 
-    last = ((prompt_lens.to(dev).long() - 1).clamp(min=0) if last_only
-            else None)
     logits = _stack(params, config, tokens, positions, store, 0, mlp_fn,
                     last)
     return logits, k_all, v_all
@@ -370,6 +440,188 @@ def prefill_chunk(params: dict, config: ModelConfig, tokens: torch.Tensor,
 
     return _stack(params, config, tokens, positions, store, offset, mlp_fn,
                   last_idx)
+
+
+def prefill_chunk_dense(params: dict, config: ModelConfig,
+                        tokens: torch.Tensor, cache: KVCache, offset: int,
+                        last_idx: Optional[torch.Tensor] = None, *,
+                        mlp_fn=None):
+    """The reference's ``prefill_chunk`` over a dense :class:`KVCache`:
+    :func:`prefill_chunk` with the cache as the carry (C tokens per row
+    written at slots ``offset .. offset+C``, attending the cache causally
+    through kernel D). Lengths do not move: the caller installs them with
+    the final chunk. Returns (logits, cache)."""
+    return prefill_chunk(params, config, tokens, cache.k, cache.v, offset,
+                         last_idx, mlp_fn=mlp_fn), cache
+
+
+def write_dense(cache: KVCache, layer: int, k: torch.Tensor,
+                v: torch.Tensor, pos: torch.Tensor) -> None:
+    """Write k/v [B, S, Hkv, D] into slots ``pos`` [B, S] of ``layer``
+    (consecutive per row, ``pos[b, 0] + i``), in place, with the
+    reference's ``mode="drop"``: a slot at or past max_seq is written
+    nowhere. Static shapes (the step is captured in CUDA graphs): such a
+    position is aimed at slot max_seq - 1 carrying the value of the block
+    position that owns that slot (``max_seq - 1 - pos[b, 0]``), so the
+    duplicate writes agree and no trusted slot, nor another row, changes.
+    A row with every position past the end (a parked row the scheduler
+    holds at ``lengths = max_seq``) writes its first position into slot
+    max_seq - 1, which no row trusts: a row stops before its context
+    reaches the last slot (``ctx_len + 1 < max_seq``)."""
+    T = cache.max_seq
+    B, S = pos.shape
+    pos = pos.long()
+    dst = pos.clamp(max=T - 1)
+    own = (dst - pos[:, :1]).clamp(0, S - 1)
+    rows = torch.arange(B, device=pos.device)[:, None].expand(B, S)
+    idx = own[:, :, None, None].expand(-1, -1, *k.shape[2:])
+    cache.k[layer, rows, dst] = k.gather(1, idx).to(cache.k.dtype)
+    cache.v[layer, rows, dst] = v.gather(1, idx).to(cache.v.dtype)
+
+
+def _dense_layers(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                  positions: torch.Tensor, cache: KVCache,
+                  write_pos: torch.Tensor, attend, mlp_fn,
+                  last_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's ``hidden_states`` + lm_head over the dense cache:
+    each layer writes its k/v at ``write_pos`` (:func:`write_dense`),
+    then ``attend(li, q, k, v)`` -> [B, S, Hq, D]. Returns the logits at
+    every position, or at ``last_idx``."""
+    layers = params["layers"]
+    rope = _rope(config, positions)
+    h = params["embed"][tokens]
+    for li in range(config.num_layers):
+        q, k, v = _attn_qkv(h, layers, li, config, rope)
+        write_dense(cache, li, k, v, write_pos)
+        h = _post_attn(h, attend(li, q, k, v), layers, li, config, mlp_fn)
+    return _logits(params, config, h, last_idx)
+
+
+def forward(params: dict, config: ModelConfig, tokens: torch.Tensor,
+            positions: torch.Tensor, cache: KVCache, mask: torch.Tensor, *,
+            kv_window: Optional[int] = None, mlp_fn=None,
+            last_idx: Optional[torch.Tensor] = None,
+            write_pos: Optional[torch.Tensor] = None):
+    """The reference's general dense forward: k/v written at
+    ``write_pos`` (default ``positions``), then ``attend_gqa`` over the
+    first ``kv_window`` slots (max_seq when None) under ``mask``
+    ([B|1, 1, S, W], True = attend). An arbitrary mask has no kernel, so
+    this form runs on the CPU only; the serving forms
+    (:func:`decode_step`, :func:`verify_step`, :func:`verify_tree`,
+    :func:`prefill`) reach kernels B and D on the card. Returns (logits,
+    cache), the cache updated in place."""
+    if tokens.device.type != "cpu":
+        raise ValueError("llama.forward takes an arbitrary mask, which no "
+                         "kernel serves: use decode_step, verify_step, "
+                         "verify_tree or prefill on the card")
+    W = cache.max_seq if kv_window is None else kv_window
+
+    def attend(li, q, k, v):
+        return attend_gqa(q, cache.k[li, :, :W], cache.v[li, :, :W], mask)
+
+    wp = positions if write_pos is None else write_pos
+    return _dense_layers(params, config, tokens, positions, cache, wp,
+                         attend, mlp_fn, last_idx), cache
+
+
+def decode_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                cache: KVCache, active: Optional[torch.Tensor] = None, *,
+                kv_window: Optional[int] = None, mlp_fn=None):
+    """One autoregressive step over the dense cache (the reference's
+    ``decode_step``): tokens [B, 1] at position ``lengths[b]``; each layer
+    writes slot ``lengths[b]`` and attends slots ``[0, lengths[b]]`` of
+    the first ``kv_window`` (max_seq when None; it must cover every
+    row's lengths + 1) through :func:`~..ops.dense_attention.
+    dense_attention` (kernel B's pool mode on the card).
+
+    ``active`` ([B] bool) parks rows: a parked row still writes slot
+    ``lengths[b]`` (garbage past its trusted length, overwritten before
+    anything attends it) and does not advance. Returns (logits [B, 1, V]
+    f32, cache), lengths advanced where active, in place."""
+    B = tokens.shape[0]
+    dev = tokens.device
+    W = cache.max_seq if kv_window is None else kv_window
+    attend_len = cache.lengths + 1
+
+    def attend(li, q, k, v):
+        return dense_attention(q[:, 0].contiguous(), cache, attend_len, li,
+                               window=W)[:, None]
+
+    logits = _dense_layers(params, config, tokens, cache.lengths[:, None],
+                           cache, cache.lengths[:, None], attend, mlp_fn)
+    inc = (torch.ones(B, dtype=torch.int32, device=dev) if active is None
+           else active.to(torch.int32))
+    cache.lengths += inc
+    return logits, cache
+
+
+def verify_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                cache: KVCache, *, kv_window: Optional[int] = None,
+                mlp_fn=None, last_idx: Optional[torch.Tensor] = None):
+    """Speculative verify over the dense cache (the reference's
+    ``verify_step``): tokens [B, S] = [pending token, drafts...]; position
+    j of row b writes slot ``lengths[b] + j`` (dropped at or past
+    max_seq) and attends slots ``[0, lengths[b] + j]`` through
+    :func:`~..ops.dense_attention.dense_attention_verify` (kernel B's
+    verify mode on the card: the committed slots from the cache, the
+    block's own k/v under the chain mask). ``kv_window`` must cover
+    ``lengths + S``. Lengths do not move. Returns (logits [B, S, V] f32,
+    or [B, 1, V] at block-local ``last_idx``; cache)."""
+    B, S = tokens.shape
+    dev = tokens.device
+    W = cache.max_seq if kv_window is None else kv_window
+    pos = cache.lengths[:, None].long() + torch.arange(S, device=dev)[None]
+    lengths = cache.lengths
+
+    def attend(li, q, k, v):
+        return dense_attention_verify(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), cache, lengths, li,
+                                      window=W)
+
+    return _dense_layers(params, config, tokens, pos, cache, pos, attend,
+                         mlp_fn, last_idx), cache
+
+
+def verify_tree(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                depths: torch.Tensor, anc: torch.Tensor, cache: KVCache, *,
+                kv_window: Optional[int] = None, mlp_fn=None):
+    """Tree-speculation verify over the dense cache (the reference's
+    ``verify_tree``): N nodes per row (tokens [B, N], node 0 the pending
+    token); node i writes slot ``lengths + i`` at RoPE position
+    ``lengths + depths[i]`` and attends the committed slots plus the
+    nodes of its own root path (``anc`` [B, N, N] bool, the block mask of
+    kernel B's verify mode; :func:`tree_attention_mask` over the window).
+    ``kv_window`` must cover ``lengths + N``. Lengths do not move.
+    Returns (logits [B, N, V] f32, cache)."""
+    B, N = tokens.shape
+    dev = tokens.device
+    W = cache.max_seq if kv_window is None else kv_window
+    base = cache.lengths[:, None].long()
+    wp = base + torch.arange(N, device=dev)[None]
+    lengths = cache.lengths
+
+    def attend(li, q, k, v):
+        return dense_attention_verify(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), cache, lengths, li,
+                                      window=W, block_mask=anc)
+
+    return _dense_layers(params, config, tokens, base + depths.long(),
+                         cache, wp, attend, mlp_fn), cache
+
+
+def copy_slot_dense(cache: KVCache, src_pos: torch.Tensor,
+                    dst_pos: torch.Tensor) -> KVCache:
+    """Move ONE slot per row, every layer, from ``src_pos[b]`` to
+    ``dst_pos[b]`` (tree speculation's sibling compaction, the
+    reference's dense move: scheduler.py's ``k.at[:, b, dst].set(k[:, b,
+    src])``). ``src == dst`` copies onto itself; positions clamp to the
+    row (the caller keeps node slots inside max_seq)."""
+    T = cache.max_seq
+    b = torch.arange(cache.k.shape[1], device=cache.k.device)
+    s, d = src_pos.long().clamp(0, T - 1), dst_pos.long().clamp(0, T - 1)
+    cache.k[:, b, d] = cache.k[:, b, s]
+    cache.v[:, b, d] = cache.v[:, b, s]
+    return cache
 
 
 def decode_step_paged(params: dict, config: ModelConfig,
@@ -439,14 +691,17 @@ def decode_step_paged(params: dict, config: ModelConfig,
 def decode_fused(params: dict, config: ModelConfig, tokens: torch.Tensor,
                  cache: PagedKVCache, active: Optional[torch.Tensor] = None,
                  *, num_steps: int, sample_fn, sample_state, stop_ids,
-                 pages: int, impl: Optional[str] = None, step_fn=None):
+                 pages: Optional[int] = None, impl: Optional[str] = None,
+                 kv_window: Optional[int] = None, step_fn=None):
     """``num_steps`` autoregressive steps in one call (the reference's
     ``decode_fused``, llama.py:677-744, with a Python loop in place of
     ``lax.scan``), so the serving loop captures K steps in one CUDA graph
     and pays the host one launch for them.
 
     Each iteration IS the plain step: ``step_fn`` (default
-    :func:`decode_step_paged`, either branch by ``impl``) at ``pages``,
+    :func:`decode_step_paged` at ``pages``, either branch by ``impl``; with
+    ``pages`` None, the dense :func:`decode_step` at ``kv_window``, as the
+    reference's :713-721),
     then ``sample_fn(logits [B, V], state, emit_pos [B], active [B]) ->
     (tokens [B], state)`` (the scheduler passes
     models/sampling.sample_step_batched), then the next-token feed — so
@@ -464,16 +719,21 @@ def decode_fused(params: dict, config: ModelConfig, tokens: torch.Tensor,
     Returns (tokens [K, B], emitted [K, B] bool — whether the row was
     live when that step sampled, next_tokens [B, 1], cache, active [B],
     sample_state). The cache is updated in place."""
+    dense = pages is None
     if step_fn is None:
-        step_fn = decode_step_paged
+        step_fn = decode_step if dense else decode_step_paged
     B = tokens.shape[0]
     act = (torch.ones((B,), dtype=torch.bool, device=tokens.device)
            if active is None else active)
     toks_all, emitted = [], []
     for _ in range(num_steps):
         emit_pos = cache.lengths + 1       # emitted token's context slot
-        logits, cache = step_fn(params, config, tokens, cache, act,
-                                pages=pages, impl=impl)
+        if dense:
+            logits, cache = step_fn(params, config, tokens, cache, act,
+                                    kv_window=kv_window)
+        else:
+            logits, cache = step_fn(params, config, tokens, cache, act,
+                                    pages=pages, impl=impl)
         toks, sample_state = sample_fn(logits[:, 0, :], sample_state,
                                        emit_pos, act)
         # Parked rows keep their previous input token (the plain step's

@@ -2,10 +2,12 @@
 p2p_llm_chat_tpu/models/mixtral.py for the paged serving path.
 
 The attention, cache and layer-loop mechanics are llama's: :func:`prefill`,
-:func:`prefill_chunk` and :func:`decode_step_paged` pass the sparse-MoE
-MLP into models/llama.py through its ``mlp_fn`` hook (and
-:func:`decode_fused` runs llama's loop over this module's step), so only
-the expert MLP lives here.
+:func:`prefill_chunk`, :func:`decode_step_paged` and the dense forms
+(:func:`forward`, :func:`prefill_chunk_dense`, :func:`decode_step`,
+:func:`verify_step`, :func:`verify_tree`) pass the sparse-MoE MLP into
+models/llama.py through its ``mlp_fn`` hook (and :func:`decode_fused`
+runs llama's loop over this module's step, dense or paged), so only the
+expert MLP lives here.
 
 - **Scatter/gather dispatch** with static capacity buckets: each token's
   top-k expert assignments are scattered into an ``[NE*C, H]`` bucket
@@ -31,7 +33,8 @@ import torch.nn.functional as F
 
 from . import llama
 from .configs import ModelConfig
-from .llama import fuse_params, new_carry  # noqa: F401  (llama's layout)
+from .llama import (KVCache, copy_slot_dense, fuse_params,  # noqa: F401
+                    new_carry)                  # (llama's layout)
 from .quant import q_einsum
 
 # Sentinel: "derive capacity from config.moe_capacity_factor".
@@ -61,6 +64,13 @@ def init_params_quantized(config: ModelConfig, seed: int = 0,
     }
     return llama.random_tree(config, dims, {"router": (H, NE)}, seed, dtype,
                              quant, device)
+
+
+def init_params(config: ModelConfig, seed: int = 0,
+                dtype: torch.dtype = torch.bfloat16,
+                device: Optional[torch.device | str] = None) -> dict:
+    """The bf16 random tree (the reference's ``init_params``), fused."""
+    return init_params_quantized(config, seed, dtype, "", device)
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -151,13 +161,14 @@ def _mlp_fn(config: ModelConfig, capacity: Optional[int]):
 
 def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,
             prompt_lens: torch.Tensor, last_only: bool = False,
-            capacity=_AUTO):
-    """llama.prefill with the MoE MLP (same contract). The capacity is
-    reckoned from the padded bucket's R*S tokens, as the reference's."""
+            capacity=_AUTO, *, cache=None):
+    """llama.prefill with the MoE MLP (same contract, both forms: the
+    chunk's k/v, or into a dense ``cache``). The capacity is reckoned
+    from the padded bucket's R*S tokens, as the reference's."""
     cap = _capacity_for(config, int(tokens.shape[0] * tokens.shape[1]),
                         capacity)
     return llama.prefill(params, config, tokens, prompt_lens, last_only,
-                         mlp_fn=_mlp_fn(config, cap))
+                         mlp_fn=_mlp_fn(config, cap), cache=cache)
 
 
 def prefill_chunk(params: dict, config: ModelConfig, tokens: torch.Tensor,
@@ -174,6 +185,60 @@ def prefill_chunk(params: dict, config: ModelConfig, tokens: torch.Tensor,
                         capacity)
     return llama.prefill_chunk(params, config, tokens, carry_k, carry_v,
                                offset, last_idx, mlp_fn=_mlp_fn(config, cap))
+
+
+def prefill_chunk_dense(params: dict, config: ModelConfig,
+                        tokens: torch.Tensor, cache, offset: int,
+                        last_idx: Optional[torch.Tensor] = None,
+                        capacity=_AUTO):
+    """llama.prefill_chunk_dense with the MoE MLP; the capacity is the
+    chunk's, as in :func:`prefill_chunk`."""
+    cap = _capacity_for(config, int(tokens.shape[0] * tokens.shape[1]),
+                        capacity)
+    return llama.prefill_chunk_dense(params, config, tokens, cache, offset,
+                                     last_idx, mlp_fn=_mlp_fn(config, cap))
+
+
+def forward(params: dict, config: ModelConfig, tokens: torch.Tensor,
+            positions: torch.Tensor, cache, mask: torch.Tensor, *,
+            kv_window: Optional[int] = None, capacity=_AUTO,
+            last_idx: Optional[torch.Tensor] = None,
+            write_pos: Optional[torch.Tensor] = None):
+    """llama.forward with the MoE MLP (the reference's mixtral.forward;
+    the general mask form, CPU only)."""
+    cap = _capacity_for(config, int(tokens.shape[0] * tokens.shape[1]),
+                        capacity)
+    return llama.forward(params, config, tokens, positions, cache, mask,
+                         kv_window=kv_window, mlp_fn=_mlp_fn(config, cap),
+                         last_idx=last_idx, write_pos=write_pos)
+
+
+def decode_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                cache, active=None, *, kv_window: Optional[int] = None):
+    """llama.decode_step (dense) with the MoE MLP, dropless (C = the
+    batch), including the parked-row invariant."""
+    return llama.decode_step(params, config, tokens, cache, active,
+                             kv_window=kv_window,
+                             mlp_fn=_mlp_fn(config, None))
+
+
+def verify_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                cache, *, kv_window: Optional[int] = None,
+                last_idx: Optional[torch.Tensor] = None):
+    """llama.verify_step (dense) with the MoE MLP, dropless (the
+    reference's mixtral.verify_step)."""
+    return llama.verify_step(params, config, tokens, cache,
+                             kv_window=kv_window,
+                             mlp_fn=_mlp_fn(config, None), last_idx=last_idx)
+
+
+def verify_tree(params: dict, config: ModelConfig, tokens: torch.Tensor,
+                depths: torch.Tensor, anc: torch.Tensor, cache, *,
+                kv_window: Optional[int] = None):
+    """llama.verify_tree (dense) with the MoE MLP, dropless."""
+    return llama.verify_tree(params, config, tokens, depths, anc, cache,
+                             kv_window=kv_window,
+                             mlp_fn=_mlp_fn(config, None))
 
 
 def embed_pooled(params: dict, config: ModelConfig, tokens: torch.Tensor,
@@ -202,17 +267,20 @@ def decode_step_paged(params: dict, config: ModelConfig,
 
 def decode_fused(params: dict, config: ModelConfig, tokens: torch.Tensor,
                  cache, active=None, *, num_steps: int, sample_fn,
-                 sample_state, stop_ids, pages: int,
-                 impl: Optional[str] = None):
+                 sample_state, stop_ids, pages: Optional[int] = None,
+                 impl: Optional[str] = None,
+                 kv_window: Optional[int] = None):
     """llama.decode_fused over the MoE step (the reference's
     mixtral.py:355-372; same contract: K steps in one call, EOS parks
-    inside the loop, bitwise K sequential plain steps). Decode is
+    inside the loop, bitwise K sequential plain steps), paged at
+    ``pages`` or dense at ``kv_window`` when ``pages`` is None. Decode is
     dropless: C = the batch."""
     return llama.decode_fused(params, config, tokens, cache, active,
                               num_steps=num_steps, sample_fn=sample_fn,
                               sample_state=sample_state, stop_ids=stop_ids,
-                              pages=pages, impl=impl,
-                              step_fn=decode_step_paged)
+                              pages=pages, impl=impl, kv_window=kv_window,
+                              step_fn=(decode_step if pages is None
+                                       else decode_step_paged))
 
 
 def verify_step_paged(params: dict, config: ModelConfig,

@@ -1,5 +1,9 @@
 """Token sampling: greedy, temperature, top-k, top-p, repeat penalty —
-the port of the batched samplers of p2p_llm_chat_tpu/models/sampling.py.
+the port of p2p_llm_chat_tpu/models/sampling.py: the batched samplers of
+the serving loop, :func:`sample` (one option set for the batch, on an
+explicit ``torch.Generator``; the generation loops of models/generate.py)
+and :func:`sample_np` (the host-side numpy oracle, a copy of the
+reference's).
 
 Per-row options and per-row keys live on the device, as the reference's
 do, so a decode step samples without a host sync (a CUDA graph captures
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .layers import NEG_INF
@@ -34,6 +39,107 @@ _GOLDEN = 0x1E3779B9
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
     return logits.argmax(dim=-1)
+
+
+def _apply_top_k(logits: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Logits below the k-th largest set to NEG_INF (ties at the k-th
+    value survive, as the reference's threshold compare)."""
+    if top_k <= 0:
+        return logits
+    k = min(top_k, logits.shape[-1])
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits < kth, torch.full_like(logits, NEG_INF),
+                       logits)
+
+
+def _apply_top_p(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Keep the smallest probability-sorted prefix whose cumulative mass
+    reaches ``top_p`` (always at least one token)."""
+    if top_p >= 1.0:
+        return logits
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = cum - probs < top_p
+    keep[..., 0] = True
+    threshold = torch.where(keep, sorted_logits,
+                            torch.full_like(sorted_logits, float("inf"))
+                            ).amin(dim=-1, keepdim=True)
+    return torch.where(logits < threshold, torch.full_like(logits, NEG_INF),
+                       logits)
+
+
+def warp(logits: torch.Tensor, temperature: float = 0.0, top_k: int = 0,
+         top_p: float = 1.0) -> torch.Tensor:
+    """The logits :func:`sample` draws from: temperature, then top-k,
+    then top-p (the reference's order)."""
+    logits = logits / temperature
+    return _apply_top_p(_apply_top_k(logits, top_k), top_p)
+
+
+def sample(logits: torch.Tensor, generator: torch.Generator,
+           temperature: float = 0.0, top_k: int = 0,
+           top_p: float = 1.0) -> torch.Tensor:
+    """Next tokens [B] of logits [B, V] f32 under one option set (the
+    reference's ``sample``): temperature <= 0 is greedy; otherwise one
+    categorical draw per row from :func:`warp`'s logits, on
+    ``generator`` (its stream is torch's, not threefry: sampled tokens
+    match the reference's in distribution, not one by one)."""
+    if temperature <= 0.0:
+        return greedy(logits)
+    probs = torch.softmax(warp(logits.float(), temperature, top_k, top_p),
+                          dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def sample_np(logits: np.ndarray, rng: np.random.Generator,
+              temperature: float = 0.0, top_k: int = 0,
+              top_p: float = 1.0, recent=None,
+              repeat_penalty: float = 1.0) -> int:
+    """Numpy twin of :func:`sample` for one row of logits [vocab] (a copy
+    of the reference's ``sample_np``, the host-side oracle).
+
+    Same filtering semantics: temperature<=0 is greedy; top-k keeps the k
+    highest logits (ties at the k-th value survive); top-p keeps the
+    smallest probability-sorted prefix whose cumulative mass reaches
+    top_p (always at least one token). ``recent``/``repeat_penalty``
+    mirror :func:`apply_repeat_penalty`.
+    """
+    # float64 throughout: Generator.choice checks sum(p)==1 to float64
+    # tolerance, which float32 softmax fails at real vocab sizes (~128k).
+    logits = np.asarray(logits, np.float64)
+    if recent is not None and repeat_penalty != 1.0:
+        for t in set(int(x) for x in recent):
+            if 0 <= t < logits.shape[-1]:
+                logits[t] = (logits[t] / repeat_penalty if logits[t] > 0
+                             else logits[t] * repeat_penalty)
+    if temperature <= 0.0:
+        return int(np.argmax(logits))
+    logits = logits / max(temperature, 1e-6)
+    if top_k > 0:
+        k = min(top_k, logits.shape[-1])
+        kth = np.sort(logits)[-k]
+        logits = np.where(logits < kth, NEG_INF, logits)
+    if top_p < 1.0:
+        order = np.argsort(logits)[::-1]
+        sorted_logits = logits[order]
+        probs = _softmax_np(sorted_logits)
+        cum = np.cumsum(probs)
+        keep = (cum - probs) < top_p
+        # top_p <= 0 keeps nothing under the strict compare; degrade to
+        # top-1 (threshold = the max keeps only it).
+        threshold = (sorted_logits[keep].min() if keep.any()
+                     else sorted_logits[0])
+        logits = np.where(logits < threshold, NEG_INF, logits)
+    probs = _softmax_np(logits)
+    return int(rng.choice(logits.shape[-1], p=probs))
+
+
+def _softmax_np(x: np.ndarray) -> np.ndarray:
+    e = np.exp(x - x.max())
+    p = e / e.sum()
+    # Renormalise exactly — np.random choice requires sum(p) == 1.
+    return p / p.sum()
 
 
 def apply_repeat_penalty(logits: torch.Tensor, ring: torch.Tensor,

@@ -448,6 +448,50 @@ def paged_attention_verify_append_reference(
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q_blk.dtype)
 
 
+def verify_launch(what: str, q_blk, k_blk, v_blk, k_pages, v_pages,
+                  k_scale, v_scale, page_table, lengths, layer: int,
+                  pages: int, block_mask) -> torch.Tensor:
+    """Check the operands and launch kernel B's verify mode (q_blk
+    [B, S, Hq, D] over the pool window below ``lengths`` plus k_blk/v_blk
+    under ``block_mask`` [B, S, S] bool or None = the chain). The caller
+    counts the launch under its own wrapper."""
+    B, S, Hq, D = q_blk.shape
+    L, N, ps, Hkv, Dp = k_pages.shape
+    _check_bf16(what, q_blk, (("q_blk", q_blk), ("k_blk", k_blk),
+                              ("v_blk", v_blk)))
+    lib = _build.load("paged_attention", _bind)
+    if (k_blk.shape != (B, S, Hkv, D) or v_blk.shape != k_blk.shape
+            or Dp != D or Hq % Hkv or D not in (32, 64, 128)
+            or Hq // Hkv > 8 or not 1 <= S <= lib.paged_verify_max_s()):
+        raise ValueError(f"{what}: unsupported geometry q_blk "
+                         f"{tuple(q_blk.shape)} pool {tuple(k_pages.shape)}")
+    mask_ptr = None
+    if block_mask is not None:
+        if (block_mask.shape != (B, S, S) or block_mask.dtype != torch.bool
+                or block_mask.device != q_blk.device):
+            raise ValueError(f"{what}: block_mask must be [B, S, S] bool "
+                             "on q_blk's device")
+        block_mask = block_mask.contiguous()
+        mask_ptr = block_mask.data_ptr()
+    (ks_ptr, vs_ptr), ps_pad, quantized = _pool_operands(
+        what, q_blk, Hkv, D, k_pages, v_pages, k_scale, v_scale, page_table,
+        lengths, layer, pages)
+    rows = B * S * Hq
+    splits, ws = _workspace(lib, rows, D, pages * ps, q_blk.device)
+    out = torch.empty_like(q_blk)
+    acc_ptr = ws.data_ptr()
+    pt = page_table
+    rc = lib.paged_verify_launch(
+        q_blk.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), mask_ptr,
+        k_pages.data_ptr(), v_pages.data_ptr(), ks_ptr, vs_ptr,
+        pt.data_ptr(), pt.shape[1], lengths.data_ptr(), acc_ptr,
+        acc_ptr + rows * splits * D * 4, out.data_ptr(), B, S, Hq, Hkv, D, N,
+        ps, ps_pad, layer, pages, splits, int(quantized),
+        _build.stream_ptr(q_blk.device))
+    _build.check(rc, lib, "paged_append_error_string", what)
+    return out
+
+
 def paged_attention_verify_append(q_blk: torch.Tensor, k_blk: torch.Tensor,
                                   v_blk: torch.Tensor, cache: PagedKVCache,
                                   lengths: torch.Tensor, layer: int, *,
@@ -474,41 +518,10 @@ def paged_attention_verify_append(q_blk: torch.Tensor, k_blk: torch.Tensor,
     if q_blk.device.type != "cuda":
         raise ValueError(f"paged_attention_verify_append: unsupported "
                          f"device {q_blk.device}")
-    what = "paged_attention_verify_append"
-    B, S, Hq, D = q_blk.shape
-    L, N, ps, Hkv, Dp = cache.k.shape
-    _check_bf16(what, q_blk, (("q_blk", q_blk), ("k_blk", k_blk),
-                              ("v_blk", v_blk)))
-    lib = _build.load("paged_attention", _bind)
-    if (k_blk.shape != (B, S, Hkv, D) or v_blk.shape != k_blk.shape
-            or Dp != D or Hq % Hkv or D not in (32, 64, 128)
-            or Hq // Hkv > 8 or not 1 <= S <= lib.paged_verify_max_s()):
-        raise ValueError(f"{what}: unsupported geometry q_blk "
-                         f"{tuple(q_blk.shape)} pool {tuple(cache.k.shape)}")
-    mask_ptr = None
-    if block_mask is not None:
-        if (block_mask.shape != (B, S, S) or block_mask.dtype != torch.bool
-                or block_mask.device != q_blk.device):
-            raise ValueError(f"{what}: block_mask must be [B, S, S] bool "
-                             "on q_blk's device")
-        block_mask = block_mask.contiguous()
-        mask_ptr = block_mask.data_ptr()
-    (ks_ptr, vs_ptr), ps_pad, quantized = _pool_operands(
-        what, q_blk, Hkv, D, cache.k, cache.v, cache.k_scale, cache.v_scale,
-        cache.page_table, lengths, layer, pages)
-    rows = B * S * Hq
-    splits, ws = _workspace(lib, rows, D, pages * ps, q_blk.device)
-    out = torch.empty_like(q_blk)
-    acc_ptr = ws.data_ptr()
-    pt = cache.page_table
-    rc = lib.paged_verify_launch(
-        q_blk.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), mask_ptr,
-        cache.k.data_ptr(), cache.v.data_ptr(), ks_ptr, vs_ptr,
-        pt.data_ptr(), pt.shape[1], lengths.data_ptr(), acc_ptr,
-        acc_ptr + rows * splits * D * 4, out.data_ptr(), B, S, Hq, Hkv, D, N,
-        ps, ps_pad, layer, pages, splits, int(quantized),
-        _build.stream_ptr(q_blk.device))
-    _build.check(rc, lib, "paged_append_error_string", what)
+    out = verify_launch("paged_attention_verify_append", q_blk, k_blk,
+                        v_blk, cache.k, cache.v, cache.k_scale,
+                        cache.v_scale, cache.page_table, lengths, layer,
+                        pages, block_mask)
     paged_attention_verify_append.launches += 1
     return out
 

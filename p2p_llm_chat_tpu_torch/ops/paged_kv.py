@@ -91,10 +91,14 @@ def quant_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 over the trailing head_dim axis: x [..., Hkv, D] ->
     (int8 [..., Hkv, D], f32 scale [..., Hkv]). The f32 op order of the
     reference (amax / 127, then x / s, round half to even) so the bytes
-    and scales match it exactly."""
+    and scales match it exactly, on the card too: the divisor is a 0-d
+    tensor, since PyTorch's CUDA division by a Python scalar multiplies
+    by its reciprocal (one ulp off the IEEE quotient at times; the
+    session wire carries these bytes between the packages)."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1)
-    s = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    s = torch.where(amax > 0, amax / torch.full((), 127.0, device=x.device),
+                    torch.ones_like(amax))
     q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
     return q, s
 

@@ -20,13 +20,21 @@ front (serve/multi.py); ``CKPT_DIR`` beside it becomes the first, default
 entry under ``LLM_MODEL``'s tag. The whole spec is checked before any
 engine is built, and the engines warm one after another.
 
-Each engine serves one model on one card from a paged KV pool (bf16 or
-int8): a dense llama config or a mixtral (MoE) config, with bf16, int8 or
-int4 weights, built through ``models.family_for(config)``. Features of
-the reference that later slices port fail loudly when asked for
-explicitly (``SERVE_DRAFT`` with ``SERVE_SPEC>0``, ``SERVE_TP>1``,
-``SERVE_KV=dense``, ``SERVE_PROFILE_PORT>0``, multi-host; a native
-Orbax ``CKPT_DIR``). ``SERVE_ADMIT_CHUNK`` caps the rows
+Each engine serves one model on one card from a dense KV cache
+(``SERVE_KV=dense``, the reference's default: one bf16 ``[L, B,
+max_seq, Hkv, D]`` cache, decode and verify through kernel B over a pool
+view of it) or a paged KV pool (``SERVE_KV=paged``, bf16 or int8): a
+dense llama config or a mixtral (MoE) config, with bf16, int8 or int4
+weights, built through ``models.family_for(config)``. ``SERVE_DRAFT``
+(with ``SERVE_SPEC>0``) makes a draft model resident beside the target
+(serve/draft_model.py): a config name random-inits at seed 101 with the
+target's vocabulary, a checkpoint directory loads through
+models/weights.py at ``SERVE_QUANT``; a draft that fails to load, or does
+not fit the target, leaves n-gram-only speculation, as in the reference.
+Features of the reference that later slices port fail loudly when asked
+for explicitly (``SERVE_TP>1``, ``SERVE_PROFILE_PORT>0``, multi-host; a
+native Orbax ``CKPT_DIR``; the KV tier or a prefill replica class over
+the dense cache). ``SERVE_ADMIT_CHUNK`` caps the rows
 of each admission prefill, and ``SERVE_WARMUP`` (default ``128,256``)
 names the warmup buckets, as in the reference. Prompt
 admission runs the reference's defaults: chunked prefill
@@ -76,6 +84,7 @@ from ..utils.device import resolve_device
 from ..utils.env import env_bool, env_float, env_int, env_or
 from ..utils.log import get_logger
 from .backend import Backend, GenerateRequest, RequestStats
+from .disagg import replica_class_from_env
 from .scheduler import BatchScheduler, _bucket
 
 log = get_logger("serve.torch_engine")
@@ -137,11 +146,45 @@ class TorchEngine:
                  spec_k: int = 0, spec_tree_nodes: int = 0,
                  spec_tree_gap: float = 4.0,
                  kv_host_gb: float = 0.0, kv_idle_s: float = 30.0,
+                 kv_mode: str = "dense", draft: Optional[tuple] = None,
                  name: Optional[str] = None,
                  device: Optional[torch.device | str] = None) -> None:
+        """``kv_mode``: ``dense`` (the default, as the reference's) or
+        ``paged`` (serve/scheduler.py).""
+        ``draft``: ``(params, config)`` of a small draft model made
+        resident beside the target (needs ``spec_k`` > 0, the target's
+        vocabulary and a max_seq covering the target's; a pairing that
+        does not fit logs a warning and serves n-gram-only, as the
+        reference's)."""
         self.name = name or config.name
         self.config = config
         self.prefix_texts = tuple(prefix_texts) if prefix_cache else ()
+        drafter = None
+        if draft is not None and spec_k:
+            dparams, dconfig = draft
+            serve_seq = min(max_seq, config.max_seq_len)
+            if dconfig.vocab_size != config.vocab_size:
+                log.warning(
+                    "SERVE_DRAFT model %s (vocab %d) cannot draft for %s "
+                    "(vocab %d); falling back to n-gram-only speculation",
+                    dconfig.name, dconfig.vocab_size, config.name,
+                    config.vocab_size)
+            elif min(max_seq, dconfig.max_seq_len) < serve_seq:
+                log.warning(
+                    "SERVE_DRAFT model %s (max_seq_len %d) cannot cover the "
+                    "serving budget %d; falling back to n-gram-only "
+                    "speculation", dconfig.name, dconfig.max_seq_len,
+                    serve_seq)
+            else:
+                from .draft_model import ModelDrafter
+                drafter = ModelDrafter(dparams, dconfig, num_slots=num_slots,
+                                       max_seq=max_seq, k=spec_k)
+                log.info("draft model resident: %s (%.2f GB params, %.2f GB "
+                         "KV at %d slots x %d) drafting k=%d for %s",
+                         dconfig.name, drafter.param_bytes() / 1e9,
+                         drafter.kv_bytes() / 1e9, num_slots,
+                         drafter.max_seq, spec_k, config.name)
+        self.drafter = drafter
         self.scheduler = BatchScheduler(
             params, config, tokenizer, num_slots=num_slots, max_seq=max_seq,
             page_size=page_size, num_pages=num_pages,
@@ -151,7 +194,8 @@ class TorchEngine:
             admit_chunk=admit_chunk, decode_fuse_max=decode_fuse_max,
             loop_budget_ms=loop_budget_ms, spec_k=spec_k,
             spec_tree_nodes=spec_tree_nodes, spec_tree_gap=spec_tree_gap,
-            kv_host_gb=kv_host_gb, kv_idle_s=kv_idle_s, device=device)
+            kv_host_gb=kv_host_gb, kv_idle_s=kv_idle_s, kv_mode=kv_mode,
+            drafter=drafter, device=device)
         self._embed_lock = threading.Lock()
         self._embed_stream = None
         # The checkpoint load's walls (models/weights.py stats) when the
@@ -358,8 +402,8 @@ class TorchEngine:
 def _not_in_slice(what: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to the PyTorch engine yet "
                       "(p2p_llm_chat_tpu_torch serves llama and mixtral "
-                      "models from paged KV pools on one card in this "
-                      "version)")
+                      "models from a dense KV cache or a paged KV pool on "
+                      "one card in this version)")
 
 
 def is_ckpt_ref(ref: str) -> bool:
@@ -425,12 +469,10 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
     # draft tokens per spec tick; tree verify over SERVE_SPEC_TREE_NODES
     # nodes (default 8 with speculation on; the scheduler snaps it).
     spec_k = max(0, env_int("SERVE_SPEC", 0))
+    # Draft-model speculation (serve/draft_model.py): a config name or a
+    # checkpoint directory of a small model resident beside the target.
     draft_ref = env_or("SERVE_DRAFT", "")
-    if draft_ref and spec_k:
-        raise _not_in_slice(
-            "draft-model speculation (SERVE_DRAFT with SERVE_SPEC>0; it "
-            "waits for the dense KV path, SERVE_KV=dense)")
-    if draft_ref:
+    if draft_ref and not spec_k:
         log.warning("SERVE_DRAFT set but SERVE_SPEC=0 — no speculative "
                     "ticks will run; set SERVE_SPEC (e.g. 4) to enable "
                     "the drafter")
@@ -444,15 +486,15 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
     if quant not in ("", "int8", "int4"):
         raise SystemExit(f"SERVE_QUANT must be one of '', 'int8', 'int4'; "
                          f"got {quant!r}")
-    kv_mode = env_or("SERVE_KV", "paged")
-    if kv_mode == "dense":
-        raise _not_in_slice("the dense KV cache (SERVE_KV=dense)")
-    if kv_mode != "paged":
+    kv_mode = env_or("SERVE_KV", "dense")
+    if kv_mode not in ("dense", "paged"):
         raise SystemExit(f"SERVE_KV must be dense|paged, got {kv_mode!r}")
     kv_quant = env_or("SERVE_KV_QUANT", "")
     if kv_quant not in ("", "int8"):
         raise SystemExit(
             f"SERVE_KV_QUANT must be int8 or empty, got {kv_quant!r}")
+    if kv_quant and kv_mode != "paged":
+        raise SystemExit("SERVE_KV_QUANT=int8 requires SERVE_KV=paged")
     ckpt_dir = env_or("CKPT_DIR", "")
     models_spec = env_or("SERVE_MODELS", "")
     specs = (parse_serve_models(models_spec, ckpt_dir,
@@ -470,20 +512,64 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
     # finished conversations open as sessions.
     kv_host_gb = env_float("SERVE_KV_HOST_GB", 0.0)
     kv_idle_s = env_float("SERVE_KV_IDLE_S", 30.0)
+    if kv_mode == "dense" and kv_host_gb > 0:
+        raise _not_in_slice("the KV tier over the dense cache "
+                            "(SERVE_KV_HOST_GB>0 with SERVE_KV=dense; "
+                            "SERVE_KV=paged serves it)")
+    if kv_mode == "dense" and replica_class_from_env() == "prefill":
+        raise _not_in_slice("the disaggregated prefill class over the "
+                            "dense cache (SERVE_REPLICA_CLASS=prefill with "
+                            "SERVE_KV=dense; SERVE_KV=paged serves it)")
     prefix_cache = env_bool("SERVE_PREFIX", True)
     prefix_texts = (SUGGEST_PREFIX,) + tuple(
         t for t in env_or("SERVE_PREFIX_TEXTS", "").split("||") if t)
     dev = resolve_device(device)
     qt = env_float("SERVE_QUEUE_TIMEOUT", 60.0)
     qm = env_int("SERVE_QUEUE_MAX", -1)
-    log.info("serving %s weights, %s KV on %s; paged attention impl %s "
+    log.info("serving %s weights, %s %s KV on %s; paged attention impl %s "
              "(%s); prefill chunk %d, prefix cache %s, fused decode up to "
              "%d steps a tick; speculation K=%d, tree nodes %d; KV tier "
              "%.1f GB of host memory", quant or "bf16", kv_quant or "bf16",
-             dev, attn_impl, "attend-then-write" if attn_impl == "gather"
-             else "write-then-attend", prefill_chunk,
+             kv_mode, dev, attn_impl, "attend-then-write"
+             if attn_impl == "gather" else "write-then-attend", prefill_chunk,
              "on" if prefix_cache else "off", decode_fuse_max, spec_k,
              spec_tree_nodes, kv_host_gb)
+
+    def load_draft_for(config) -> Optional[tuple]:
+        """(params, config) for SERVE_DRAFT against this target, or None
+        (the reference's ``load_draft_for``). A directory loads through
+        models/weights.py, then quantizes at SERVE_QUANT; a config name
+        random-inits at seed 101 with the TARGET's vocabulary. Only a
+        failed LOAD degrades to n-gram-only (the drafter is an optimizer
+        and must not take serving down); kernel builds and launches are
+        never caught here."""
+        if not draft_ref or not spec_k:
+            return None
+        if os.sep in draft_ref or os.path.isdir(draft_ref):
+            from ..models.quant import quantize_params
+            from ..models.weights import load_checkpoint
+            try:
+                dparams, dconfig = load_checkpoint(draft_ref, device=dev)
+            except Exception:   # noqa: BLE001 — degrade, don't fail boot
+                log.exception("SERVE_DRAFT checkpoint %r failed to load; "
+                              "falling back to n-gram-only speculation",
+                              draft_ref)
+                return None
+            if quant:
+                dparams = family_for(dconfig).fuse_params(
+                    quantize_params(dparams, mode=quant))
+            return dparams, dconfig
+        try:
+            dconfig = get_config(draft_ref)
+        except KeyError:
+            log.warning("SERVE_DRAFT %r is neither a checkpoint dir nor a "
+                        "registered config; falling back to n-gram-only "
+                        "speculation", draft_ref)
+            return None
+        if dconfig.vocab_size != config.vocab_size:
+            dconfig = dconfig.with_(vocab_size=config.vocab_size)
+        return (family_for(dconfig).init_params_quantized(
+            dconfig, seed=101, quant=quant, device=dev), dconfig)
 
     def make_engine(params, config, tokenizer, name: str) -> TorchEngine:
         return TorchEngine(
@@ -502,7 +588,8 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
             loop_budget_ms=env_float("SERVE_LOOP_BUDGET_MS", 5000.0),
             spec_k=spec_k, spec_tree_nodes=spec_tree_nodes,
             spec_tree_gap=spec_tree_gap, kv_host_gb=kv_host_gb,
-            kv_idle_s=kv_idle_s, name=name, device=dev)
+            kv_idle_s=kv_idle_s, kv_mode=kv_mode,
+            draft=load_draft_for(config), name=name, device=dev)
 
     def random_engine(config, seed: int, name: str) -> TorchEngine:
         log.info("%s: random-init %s (seed %d) with the byte tokenizer",

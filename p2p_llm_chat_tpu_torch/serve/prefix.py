@@ -202,14 +202,17 @@ class PrefixStore:
     def export_payload(self, h: str) -> Optional[bytes]:
         """One entry (by token hash) for a peer replica: ids and k/v as
         float32 with the entry's dtype name, in an npz. None = not
-        cached."""
+        cached. The members are stored, not deflated: deflating a
+        512-token llama3.1-8b entry (134 MB of f32) takes 30 s or more of
+        host CPU, past the 30 s a peer's pull waits; ``np.load`` reads
+        either form, the reference's importer included."""
         with self._lock:
             entry = next((e for e in self._entries.values()
                           if e.token_hash == h), None)
         if entry is None:
             return None
         buf = io.BytesIO()
-        np.savez_compressed(
+        np.savez(
             buf, version=np.int64(_WIRE_VERSION),
             ids=np.asarray(entry.ids, np.int64),
             dtype=np.bytes_(_WIRE_NAMES[entry.k.dtype].encode()),

@@ -1,5 +1,17 @@
-"""Continuous-batching scheduler over the paged KV pool — a lean port of
-p2p_llm_chat_tpu/serve/scheduler.py's core.
+"""Continuous-batching scheduler over the dense KV cache or the paged KV
+pool — a lean port of p2p_llm_chat_tpu/serve/scheduler.py's core.
+
+``kv_mode`` picks the KV layout as the reference's does: ``dense`` (the
+default here and in ``build_engine_from_env``, as in the reference) keeps
+one ``[L, B, max_seq, Hkv, D]`` cache whose row b is batch row b
+(models/llama.KVCache): admission copies the prefill's KV into the
+rows' first slots, decode is the family's dense ``decode_step`` (kernel
+B's pool mode over an identity pool view of the cache,
+ops/dense_attention.py) and speculation its ``verify_step`` /
+``verify_tree`` (kernel B's verify mode over the same view), with the
+resident draft model (serve/draft_model.py) as a second draft source.
+``paged`` (the port's earlier path, described below) keeps a page pool
+with per-row page tables.
 
 One background thread owns the device state (params, pool, per-row
 sampling state) and runs the loop; HTTP threads talk to it through
@@ -86,9 +98,10 @@ loop events dumped on a stall, a reset or on demand (obs/flight.py), the
 sampled requests (obs/trace.py), and the warmup's device-step probe
 behind ``decode_device_ms``.
 
-Not in this slice (later ones): the resident draft model and dense-row
-session parking (both keep a dense KV cache), tensor parallelism. None of
-them changes greedy output in the reference.
+Not in this slice (later ones): the KV tier over a dense cache
+(dense-row parking, wake and migration) and the disaggregated classes
+on it, tensor parallelism. None of them changes greedy output in the
+reference.
 """
 
 from __future__ import annotations
@@ -106,6 +119,7 @@ import torch
 from .. import ops
 from ..models import family_for
 from ..models.configs import ModelConfig
+from ..models.llama import KVCache
 from ..models.quant import param_bytes, quant_mode
 from ..models.sampling import (sample_step_batched, spec_verify_batched,
                                spec_verify_tree)
@@ -348,8 +362,19 @@ class BatchScheduler:
                  spec_k: int = 0, spec_tree_nodes: int = 0,
                  spec_tree_gap: float = 4.0,
                  kv_host_gb: float = 0.0, kv_idle_s: float = 30.0,
+                 kv_mode: str = "dense", drafter=None,
                  device: Optional[torch.device | str] = None) -> None:
-        """``kv_host_gb``: the KV tier (serve/kv_tier.py, the reference's
+        """``kv_mode``: ``dense`` (one ``[L, B, max_seq, Hkv, D]`` cache,
+        the reference's default layout; bf16 only, no KV tier in this
+        version) or ``paged`` (the page pool, bf16 or int8).
+
+        ``drafter``: a resident draft model (serve/draft_model.
+        ModelDrafter) proposing after the n-gram source on rows it misses
+        (with ``spec_k`` > 0; it must share the target's vocabulary and
+        cover its rows and max_seq, with ``k == spec_k``, as the
+        reference checks).
+
+        ``kv_host_gb``: the KV tier (serve/kv_tier.py, the reference's
         ``SERVE_KV_HOST_GB``); > 0 keeps finished conversations' KV open
         as sessions — resident pages, parked to host tensors after
         ``kv_idle_s`` idle seconds or under page-pool pressure, and
@@ -411,6 +436,15 @@ class BatchScheduler:
                 f"decode_fuse_max must be >= 1, got {decode_fuse_max}")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if kv_mode not in ("dense", "paged"):
+            raise ValueError(f"kv_mode must be dense|paged, got {kv_mode!r}")
+        if kv_quant and kv_mode != "paged":
+            raise ValueError("kv_quant=True needs kv_mode='paged' (the "
+                             "dense cache is bf16)")
+        if kv_mode == "dense" and kv_host_gb and kv_host_gb > 0:
+            raise ValueError("the KV tier (kv_host_gb > 0) needs "
+                             "kv_mode='paged' in this version")
+        self.kv_mode = kv_mode
         self.decode_fuse_max = decode_fuse_max
         self._fuse_ramp = 1
         self.spec_k = spec_k
@@ -446,6 +480,25 @@ class BatchScheduler:
         self._tree_base_np: Optional[tuple] = None
         if spec_k:
             self._add_source(NGramSource(spec_k))
+        self._draft_model = drafter if spec_k else None
+        if self._draft_model is not None:
+            d = self._draft_model
+            if d.config.vocab_size != config.vocab_size:
+                raise ValueError(
+                    f"drafter vocab {d.config.vocab_size} != target "
+                    f"vocab {config.vocab_size}: a draft model must "
+                    "share its target's vocabulary")
+            if (d.num_slots != num_slots
+                    or d.max_seq < min(max_seq, config.max_seq_len)):
+                raise ValueError(
+                    f"drafter geometry (slots={d.num_slots}, "
+                    f"max_seq={d.max_seq}) does not cover the target's "
+                    f"(slots={num_slots}, max_seq="
+                    f"{min(max_seq, config.max_seq_len)})")
+            if d.k != spec_k:
+                raise ValueError(f"drafter k={d.k} != spec_k={spec_k}")
+            d.program = self._drafter_program
+            self._add_source(d)
         self.admit_chunk = admit_chunk
         self.attn_impl = pa.check_impl(
             pa._DEFAULT_IMPL if attn_impl is None else attn_impl)
@@ -581,10 +634,14 @@ class BatchScheduler:
         (admission and release index-write them between ticks, and
         :meth:`_reset_device_state` clears them in place)."""
         B, dev = self.num_slots, self.device
-        self._cache = PagedKVCache.create(
-            self.config, B, self.num_pages, self.page_size,
-            max_pages_per_row=-(-self.max_seq // self.page_size),
-            dtype=self._dtype, quantized=self.kv_quant, device=dev)
+        if self.kv_mode == "dense":
+            self._cache = KVCache.create(self.config, B, self.max_seq,
+                                         dtype=self._dtype, device=dev)
+        else:
+            self._cache = PagedKVCache.create(
+                self.config, B, self.num_pages, self.page_size,
+                max_pages_per_row=-(-self.max_seq // self.page_size),
+                dtype=self._dtype, quantized=self.kv_quant, device=dev)
         self._next = torch.zeros((B, 1), dtype=torch.long, device=dev)
         # Per-row sampling options, keys ([seed, counter]) and penalty
         # ring (the token at context position p sits at p % _RING; ids >=
@@ -632,15 +689,17 @@ class BatchScheduler:
         # on one stream, so no graph's scratch outlives its replay.
         self._graph_pool = torch.cuda.graph_pool_handle() if cuda else None
         self._capture_stream = torch.cuda.Stream(dev) if cuda else None
-        self._alloc = PageAllocator(self.num_pages, self.page_size)
+        self._alloc = (PageAllocator(self.num_pages, self.page_size)
+                       if self.kv_mode == "paged" else None)
 
     def _reset_device_state(self) -> None:
         """Back to no live row, in place (the captured graphs stay
-        valid): tables and lengths zeroed — pool contents past a zero
-        length are never read —, options, keys, rings, feed and mask
-        cleared, and a fresh page allocator."""
-        self._alloc = PageAllocator(self.num_pages, self.page_size)
-        self._cache.page_table.zero_()
+        valid): lengths (and the pool's tables) zeroed — cache contents
+        past a zero length are never read —, options, keys, rings, feed
+        and mask cleared, and a fresh page allocator."""
+        if self.kv_mode == "paged":
+            self._alloc = PageAllocator(self.num_pages, self.page_size)
+            self._cache.page_table.zero_()
         self._cache.lengths.zero_()
         self._next.zero_()
         self._temps_dev.zero_()
@@ -771,6 +830,8 @@ class BatchScheduler:
                 self.register_prefix(text)
             for w in self._window_ladder():
                 self._warm_window(w)
+            if self._draft_model is not None:
+                self._draft_model.warm(buckets, self._window_ladder())
             if self._tier is not None:
                 for S in buckets:
                     if S <= _WAKE_MAX_SUFFIX:
@@ -878,8 +939,11 @@ class BatchScheduler:
         ``_active_dev`` unless ``active`` is given), each step sampling
         with the rows' options, keys and rings on the device; the token
         block lands in ``_toks_out[K]`` and the feed, keys and ring are
-        written back in place. K = 1 is the plain step."""
-        pages = -(-window // self.page_size)
+        written back in place. K = 1 is the plain step. The dense cache
+        runs the family's dense ``decode_step`` at ``window``, the pool
+        ``decode_step_paged`` over the window's pages."""
+        kv = (dict(kv_window=window) if self.kv_mode == "dense" else
+              dict(pages=-(-window // self.page_size), impl=self.attn_impl))
 
         def sample_fn(logits, state, emit_pos, act):
             keys, ring = state
@@ -895,7 +959,7 @@ class BatchScheduler:
                 self._active_dev if active is None else active,
                 num_steps=K, sample_fn=sample_fn,
                 sample_state=(self._keys_dev, self._ring_dev),
-                stop_ids=self._stop_dev, pages=pages, impl=self.attn_impl)
+                stop_ids=self._stop_dev, **kv)
             self._toks_out[K].copy_(toks)
             self._next.copy_(nxt)
             self._keys_dev.copy_(keys)
@@ -946,6 +1010,26 @@ class BatchScheduler:
             prog = _DecodeProgram(fn, graph, tuple(launches))
         self._programs[key] = prog
         return prog
+
+    def _drafter_program(self, key: tuple, make) -> _DecodeProgram:
+        """The resident drafter's program under ``("draft",) + key``
+        (serve/draft_model.py's ``program`` hook): on the card its
+        function runs once on the capture stream (so every lazily built
+        state exists), then :meth:`_program` captures it; the function
+        sets its own inputs from static buffers, so that first run is a
+        real dispatch the replay repeats. On the CPU, the function."""
+        full = ("draft",) + key
+        prog = self._programs.get(full)
+        if prog is not None:
+            return prog
+        fn = make()
+        if self.device.type == "cuda":
+            cur = torch.cuda.current_stream(self.device)
+            self._capture_stream.wait_stream(cur)
+            with torch.cuda.stream(self._capture_stream):
+                fn()
+            cur.wait_stream(self._capture_stream)
+        return self._program(full, lambda: fn)
 
     def _decode_for(self, window: int) -> _DecodeProgram:
         """The plain (K = 1) program at ``window``."""
@@ -1072,8 +1156,10 @@ class BatchScheduler:
         (accepted, correction, used sibling) in ``_spec_out``."""
         K, B, N = self.spec_k, self.num_slots, self.spec_tree_nodes
         S = N or K + 1
-        pages = min(-(-(window + S) // self.page_size),
-                    self._cache.max_pages_per_row)
+        dense = self.kv_mode == "dense"
+        pages = (0 if dense else
+                 min(-(-(window + S) // self.page_size),
+                     self._cache.max_pages_per_row))
         cols, buf = self._spec_cols, self._spec_in
         fam, cache = self._family, self._cache
 
@@ -1089,9 +1175,15 @@ class BatchScheduler:
                 anc = buf[:, cols["anc"]].reshape(B, N, N) != 0
                 sib_tok = buf[:, cols["sib_tok"]]
                 sib_node = buf[:, cols["sib_node"]]
-                logits, _ = fam.verify_tree_paged(
-                    self._params, self.config, tokens,
-                    buf[:, cols["depths"]], anc, cache, pages=pages)
+                if dense:
+                    logits, _ = fam.verify_tree(
+                        self._params, self.config, tokens,
+                        buf[:, cols["depths"]], anc, cache,
+                        kv_window=window)
+                else:
+                    logits, _ = fam.verify_tree_paged(
+                        self._params, self.config, tokens,
+                        buf[:, cols["depths"]], anc, cache, pages=pages)
                 accepted, used, corr, keys = spec_verify_tree(
                     logits, drafts, sib_tok, sib_node, *opts, **ring)
                 sel = (accepted - 1).clamp(0, K - 1)[:, None]
@@ -1099,11 +1191,14 @@ class BatchScheduler:
                 dst = pre + accepted
                 src = torch.where(act & (used > 0),
                                   pre + sib_node.gather(1, sel)[:, 0], dst)
-                copy_slot(cache, src, dst)
+                (fam.copy_slot_dense if dense else copy_slot)(cache, src,
+                                                              dst)
             else:
-                logits, _ = fam.verify_step_paged(
+                logits, _ = (fam.verify_step(
+                    self._params, self.config, tokens, cache,
+                    kv_window=window) if dense else fam.verify_step_paged(
                     self._params, self.config, tokens, cache, pages=pages,
-                    impl=self.attn_impl)
+                    impl=self.attn_impl))
                 accepted, corr, keys = spec_verify_batched(logits, drafts,
                                                            *opts, **ring)
                 used = torch.zeros_like(accepted)
@@ -1493,15 +1588,16 @@ class BatchScheduler:
                 self._tbt_hist.percentile(50) or 0.0, 4),
             "inter_token_p95_ms": round(
                 self._tbt_hist.percentile(95) or 0.0, 4),
-            "serve_kv_free_pages": self._alloc.free_pages,
-            "serve_kv_total_pages": self.num_pages - 1,
             "prefill_chunks_total": self._n_prefill_chunks,
+        }
+        if self.kv_mode == "paged":
+            out["serve_kv_free_pages"] = self._alloc.free_pages
+            out["serve_kv_total_pages"] = self.num_pages - 1
             # The reference's flash-append boundary as one number: 1 =
             # every window (the gather branch: kernel B's append mode, a
             # split-and-combine walk, serves every window), 0 = never
             # (the write-then-attend branch runs kernel B's pool mode).
-            "paged_flash_min_w": int(self.attn_impl == "gather"),
-        }
+            out["paged_flash_min_w"] = int(self.attn_impl == "gather")
         if self.spec_k:
             out.update(self._spec_metrics())
         if self._prefix is not None:
@@ -1753,7 +1849,12 @@ class BatchScheduler:
 
     def _try_reserve(self, slot: _Slot) -> bool:
         """Claim the slot's page budget (prompt + generation room + the
-        next-write slot), all or nothing."""
+        next-write slot), all or nothing. A dense row owns its max_seq
+        slots: nothing to claim (the budget stays the request's context
+        limit)."""
+        if self.kv_mode == "dense":
+            slot.pages = []
+            return True
         need = self._alloc.pages_for(len(slot.prompt_ids) + slot.max_new + 1)
         need = min(need, self._cache.max_pages_per_row)
         pages = self._alloc.alloc(need)
@@ -1974,7 +2075,8 @@ class BatchScheduler:
         tokens = torch.zeros((R, S), dtype=torch.long)
         suf = torch.zeros((R,), dtype=torch.long)
         total = torch.zeros((R,), dtype=torch.long)
-        tables = torch.zeros((R, self._cache.max_pages_per_row),
+        tables = torch.zeros((R, self._cache.max_pages_per_row
+                              if self.kv_mode == "paged" else 1),
                              dtype=torch.int32)
         for i, slot in enumerate(chunk):
             ids = slot.prompt_ids[P:]
@@ -2016,12 +2118,27 @@ class BatchScheduler:
                 (suf - 1).to(dev))
             self._n_prefix_admits += len(chunk)
             self._n_prefix_tokens += P * len(chunk)
-        write_prefill_batch(self._cache, k_all, v_all,
-                            torch.tensor(rows, dtype=torch.long), total,
-                            tables)
+        if self.kv_mode == "dense":
+            self._write_rows(rows, k_all, v_all, 0)
+            self._cache.lengths[torch.tensor(rows, device=dev)] = total.to(
+                device=dev, dtype=torch.int32)
+        else:
+            write_prefill_batch(self._cache, k_all, v_all,
+                                torch.tensor(rows, dtype=torch.long), total,
+                                tables)
         del k_all, v_all
         self._admit_since_tick = True
         self._install_admitted(chunk, rows, logits[:, 0, :])
+
+    def _write_rows(self, rows: list[int], k: torch.Tensor, v: torch.Tensor,
+                    start: int) -> None:
+        """Copy a prefill's k/v [L, R, C, Hkv, D] into slots ``start ..
+        start + C`` of the dense cache's ``rows`` (the reference's
+        ``cache.k.at[:, rows, :S].set``)."""
+        idx = torch.tensor(rows, dtype=torch.long, device=self.device)
+        C = k.shape[2]
+        self._cache.k[:, idx, start:start + C] = k
+        self._cache.v[:, idx, start:start + C] = v
 
     def _start_prefill_carry(self, chunk: list[_Slot], rows: list[int],
                              S: int, C: int) -> None:
@@ -2066,8 +2183,18 @@ class BatchScheduler:
         keep = (local_last >= 0) & (local_last < C)
         pc.logits = torch.where(keep[:, None], logits[:, 0, :], pc.logits)
         lo = 0 if off == 0 else base       # the first chunk carries the prefix
-        write_prefill_chunk(self._cache, pc.k[:, :, lo:base + C],
-                            pc.v[:, :, lo:base + C], pc.tables, lo)
+        if self.kv_mode == "dense":
+            if off == 0:
+                # The rows are parked while their chunks land, and a
+                # parked row writes slot lengths[b] each tick: at max_seq
+                # that write drops (the reference's move).
+                self._cache.lengths[torch.tensor(pc.rows, device=dev)] = \
+                    self.max_seq
+            self._write_rows(pc.rows, pc.k[:, :, lo:base + C],
+                             pc.v[:, :, lo:base + C], lo)
+        else:
+            write_prefill_chunk(self._cache, pc.k[:, :, lo:base + C],
+                                pc.v[:, :, lo:base + C], pc.tables, lo)
         self._n_prefill_chunks += 1
         self._admit_since_tick = True
         pc.off = off + C
@@ -2075,7 +2202,8 @@ class BatchScheduler:
             return
         self._prefill_carry = None
         rows = torch.tensor(pc.rows, dtype=torch.long, device=dev)
-        self._cache.page_table[rows] = pc.tables.to(dev)
+        if self.kv_mode == "paged":
+            self._cache.page_table[rows] = pc.tables.to(dev)
         self._cache.lengths[rows] = pc.total_lens.to(
             device=dev, dtype=torch.int32)
         if pc.prefix is not None:
@@ -2129,8 +2257,16 @@ class BatchScheduler:
         self._next[idx, 0] = toks
         first = toks.tolist()
         # Draft sources index each row's prompt before its first token is
-        # appended (release never precedes admit).
-        for src in self._sources:
+        # appended (release never precedes admit); the model drafter
+        # prefills every admitted row's prompt in one batched call. With
+        # speculation toggled off nothing drafts: sources late-bind (the
+        # drafter's catch-up feeds) when it is back on.
+        for src in (self._sources if self.spec_k else ()):
+            prefill = getattr(src, "prefill", None)
+            if prefill is not None:
+                prefill(list(rows), {row: slot.prompt_ids
+                                     for slot, row in zip(chunk, rows)})
+                continue
             for slot, row in zip(chunk, rows):
                 src.admit(row, slot.prompt_ids)
         now = time.monotonic()

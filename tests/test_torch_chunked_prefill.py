@@ -189,6 +189,7 @@ def test_scheduler_chunked_single_shot_and_reference_agree():
                            decode_fuse_max=1, prefill_chunk=0, **common)
     engines = {C: TorchEngine(tparams, cfg, ByteTokenizer(cfg.vocab_size),
                               prefix_cache=False, prefill_chunk=C,
+                              kv_mode="paged",
                               device="cpu", **common) for C in (16, 0)}
     try:
         want = _contexts(ref_engine, PROMPTS, ref=True)
@@ -217,7 +218,8 @@ def test_non_multiple_top_bucket_admits_in_one_piece():
     engines = [TorchEngine(params, cfg, ByteTokenizer(cfg.vocab_size),
                            num_slots=2, max_seq=80, page_size=16,
                            kv_quant=True, prefix_cache=False,
-                           prefill_chunk=C, device="cpu") for C in (32, 0)]
+                           prefill_chunk=C, kv_mode="paged",
+                           device="cpu") for C in (32, 0)]
     try:
         got = [_contexts(e, (prompt,), ref=False) for e in engines]
         assert got[0] == got[1]

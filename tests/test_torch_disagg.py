@@ -127,7 +127,8 @@ def params():
 def make_engine(params, host_gb=1.0):
     eng = TorchEngine(params, CFG, TOK, num_slots=2, max_seq=256,
                       page_size=64, kv_quant=True, prefix_cache=False,
-                      kv_host_gb=host_gb, kv_idle_s=1e9, device="cpu")
+                      kv_host_gb=host_gb, kv_idle_s=1e9, kv_mode="paged",
+                      device="cpu")
     eng.scheduler.warmup((64, 128))
     return eng
 

@@ -112,7 +112,8 @@ def test_engine_embed_matches_the_jax_engine(config):
                            prefix_cache=False)
     engine = TorchEngine(_port_params(params), get_config(config).with_(
         **over), ByteTokenizer(cfg_ref.vocab_size), num_slots=2,
-        max_seq=128, page_size=16, prefix_cache=False, device="cpu")
+        max_seq=128, page_size=16, prefix_cache=False, kv_mode="paged",
+        device="cpu")
     try:
         want, want_n = ref_engine.embed(TEXTS)
         got, got_n = engine.embed(TEXTS)
@@ -143,7 +144,8 @@ def test_concurrent_embeds_change_no_stream_and_no_vector():
     engine = TorchEngine(init_params_quantized(cfg, quant="int8",
                                                device="cpu"), cfg,
                          ByteTokenizer(cfg.vocab_size), num_slots=2,
-                         max_seq=128, page_size=16, device="cpu")
+                         max_seq=128, page_size=16, kv_mode="paged",
+                         device="cpu")
     req = GenerateRequest(prompt="the quick brown fox",
                           options=GenerateOptions(max_tokens=32))
     texts = TEXTS[:6]

@@ -77,7 +77,7 @@ def test_front_drain_reaches_the_engine_and_reverses():
     engine = TorchEngine(init_params_quantized(cfg, device="cpu"), cfg,
                          ByteTokenizer(cfg.vocab_size), num_slots=1,
                          max_seq=64, page_size=16, prefix_cache=False,
-                         device="cpu")
+                         kv_mode="paged", device="cpu")
     srv = OllamaServer(engine, addr="127.0.0.1:0").start()
     try:
         assert _call("POST", srv.url + "/admin/drain", {})[0] == 200
@@ -121,6 +121,7 @@ def _admission_prefills(engine, prompts) -> list[int]:
                                         ("", [4])])
 def test_serve_admit_chunk_caps_admission_rows(admit, want, monkeypatch):
     for k, v in dict(SERVE_DEVICE="cpu", MODEL_CONFIG="tiny",
+                     SERVE_KV="paged",
                      SERVE_SLOTS="4", SERVE_MAX_SEQ="64", SERVE_WARMUP="0",
                      SERVE_PREFIX="0", SERVE_ADMIT_CHUNK=admit).items():
         monkeypatch.setenv(k, v)

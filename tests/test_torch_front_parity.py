@@ -230,7 +230,8 @@ def test_engine_metrics_are_a_superset_of_the_reference():
     engine = TorchEngine(
         params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"),
         get_config("tiny"), ByteTokenizer(cfg.vocab_size), num_slots=2,
-        max_seq=128, page_size=16, kv_quant=True, device="cpu")
+        max_seq=128, page_size=16, kv_quant=True, kv_mode="paged",
+        device="cpu")
     servers = []
     try:
         names = []
@@ -276,7 +277,7 @@ def test_spec_series_equal_the_references():
         params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"),
         get_config("tiny"), ByteTokenizer(cfg.vocab_size), num_slots=2,
         max_seq=128, page_size=16, kv_quant=True, spec_k=4,
-        spec_tree_nodes=8, device="cpu")
+        spec_tree_nodes=8, kv_mode="paged", device="cpu")
     servers = []
     try:
         names = []
@@ -342,7 +343,7 @@ def tier_fronts():
     engine = TorchEngine(
         params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"),
         get_config("tiny"), ByteTokenizer(cfg.vocab_size), device="cpu",
-        **kw)
+        kv_mode="paged", **kw)
     servers = []
     try:
         for eng, make in ((ref_engine, RefServer), (engine, OllamaServer)):

@@ -293,7 +293,8 @@ def _policy_probe(params, prefill_chunk, max_seq=MAX_SEQ):
     cfg = get_config("tiny")
     sched = BatchScheduler(params, cfg, ByteTokenizer(cfg.vocab_size),
                            num_slots=2, max_seq=max_seq, decode_fuse_max=4,
-                           prefill_chunk=prefill_chunk, device="cpu")
+                           prefill_chunk=prefill_chunk, kv_mode="paged",
+                           device="cpu")
     sched.stop()
     return sched
 
@@ -378,7 +379,7 @@ def quote():
 def _engine(params, fuse: int, **kw) -> TorchEngine:
     cfg = get_config("tiny")
     args = dict(num_slots=2, max_seq=128, page_size=16, kv_quant=True,
-                decode_fuse_max=fuse, device="cpu")
+                decode_fuse_max=fuse, kv_mode="paged", device="cpu")
     args.update(kw)
     return TorchEngine(params, cfg, ByteTokenizer(cfg.vocab_size), **args)
 

@@ -79,6 +79,9 @@ def test_every_module_imports_without_jax_or_nvcc():
     assert files == set(got["modules"])
     expected = {"p2p_llm_chat_tpu_torch.models.llama",
                 "p2p_llm_chat_tpu_torch.models.mixtral",
+                "p2p_llm_chat_tpu_torch.models.generate",
+                "p2p_llm_chat_tpu_torch.ops.dense_attention",
+                "p2p_llm_chat_tpu_torch.serve.draft_model",
                 "p2p_llm_chat_tpu_torch.ops.quant_mm",
                 "p2p_llm_chat_tpu_torch.ops.paged_attention",
                 "p2p_llm_chat_tpu_torch.ops.prefill_attention",
@@ -200,6 +203,48 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
                quant_mm.quant_matmul_experts_stacked,
                quant_mm.quant_matmul_experts_stacked4):
         assert fn.launches == 0, fn.__name__
+
+
+def test_dense_wrappers_take_plain_path_on_cpu_and_count_nothing():
+    """The dense path's wrappers (ops/dense_attention.py) run their plain
+    versions on CPU tensors, launch nothing, are listed among the
+    serving path's wrappers, and refuse a device that is neither."""
+    from p2p_llm_chat_tpu_torch import ops
+    from p2p_llm_chat_tpu_torch.models.llama import KVCache
+    from p2p_llm_chat_tpu_torch.ops import dense_attention as da
+    rng = np.random.default_rng(1)
+    cfg = get_config("tiny")
+    cache = KVCache.create(cfg, 2, 40, dtype=torch.float32, device="cpu")
+    cache.k.copy_(torch.from_numpy(rng.normal(size=cache.k.shape)))
+    cache.v.copy_(torch.from_numpy(rng.normal(size=cache.v.shape)))
+    lens = torch.tensor([7, 33], dtype=torch.int32)
+    q = torch.from_numpy(rng.normal(size=(2, 4, 32)).astype(np.float32))
+    qb = torch.from_numpy(rng.normal(size=(2, 3, 4, 32)).astype(np.float32))
+    kb = torch.from_numpy(rng.normal(size=(2, 3, 2, 32)).astype(np.float32))
+    da.dense_attention.launches = 0
+    da.dense_attention_verify.launches = 0
+    assert torch.equal(
+        da.dense_attention(q, cache, lens, 1, window=40),
+        da.dense_attention_plain(q, cache.k, cache.v, lens, 1, window=40))
+    assert torch.equal(
+        da.dense_attention_verify(qb, kb, kb, cache, lens, 1, window=40),
+        da.dense_attention_verify_plain(qb, kb, kb, cache.k, cache.v, lens,
+                                        1, window=40))
+    assert da.dense_attention.launches == 0
+    assert da.dense_attention_verify.launches == 0
+    names = ops.wrappers()
+    assert names["dense_attention"] is da.dense_attention
+    assert names["dense_attention_verify"] is da.dense_attention_verify
+    meta = q.to("meta")
+    for call in (lambda: da.dense_attention(meta, cache, lens, 1, window=40),
+                 lambda: da.dense_attention_verify(
+                     qb.to("meta"), kb, kb, cache, lens, 1, window=40)):
+        try:
+            call()
+        except ValueError as e:
+            assert "unsupported device" in str(e)
+        else:
+            raise AssertionError("a meta tensor was served")
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -92,7 +92,7 @@ def make_engine(params, kv_quant=True, prefix=False, pages=None,
                       num_slots=slots, max_seq=256, page_size=64,
                       num_pages=pages, prefix_cache=prefix,
                       kv_quant=kv_quant, kv_host_gb=host_gb,
-                      kv_idle_s=idle_s, device="cpu")
+                      kv_idle_s=idle_s, kv_mode="paged", device="cpu")
     eng.scheduler.warmup((64, 128), eng.prefix_texts)
     return eng
 
@@ -372,7 +372,8 @@ def test_park_wake_bit_identity_paged_int8(params):
     series move as the reference's."""
     cold = TorchEngine(params, CFG, ByteTokenizer(CFG.vocab_size),
                        num_slots=2, max_seq=256, page_size=64,
-                       prefix_cache=False, kv_quant=True, device="cpu")
+                       prefix_cache=False, kv_quant=True, kv_mode="paged",
+                       device="cpu")
     try:
         c1, cs = run(cold, PROMPT1, "sess")
         c2, _ = run(cold, PROMPT2, "sess", ctx=cs.context)
@@ -439,7 +440,7 @@ def test_woken_stream_equals_the_jax_engine(quote):
     ref = TPUEngine(rparams, RCFG, RefByteTokenizer(RCFG.vocab_size),
                     kv_mode="paged", **kw)
     port = TorchEngine(tparams, CFG, ByteTokenizer(CFG.vocab_size),
-                       device="cpu", **kw)
+                       kv_mode="paged", device="cpu", **kw)
     try:
         for eng in (ref, port):
             eng.warmup(buckets=(64, 128))

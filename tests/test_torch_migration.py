@@ -287,6 +287,22 @@ def test_prefix_wire_both_ways(dtype):
     assert other.import_payload(wire, geometry=(2, 2, 8)) is not None
 
 
+def test_prefix_export_is_stored_not_deflated():
+    """The port's prefix payload is an npz whose members are stored: the
+    deflate of a llama3.1-8b-sized entry outlasts a peer's 30 s pull;
+    the reference reads the stored form."""
+    import zipfile
+    _, port_e, (k, _) = _entry_pair("bfloat16")
+    store = prefix.PrefixStore()
+    store.put(port_e)
+    data = store.export_payload(port_e.token_hash)
+    with zipfile.ZipFile(io.BytesIO(data)) as z:
+        assert {i.compress_type for i in z.infolist()} == {
+            zipfile.ZIP_STORED}
+    got = ref_prefix.PrefixStore().import_payload(data)
+    np.testing.assert_array_equal(_np_bits(got.k), _np_bits(k))
+
+
 # -- engines -----------------------------------------------------------------------
 
 def run(engine, prompt, session="", max_tokens=8, ctx=()):
@@ -311,7 +327,8 @@ ENGINE_KW = dict(num_slots=2, max_seq=256, page_size=64, kv_quant=True,
 
 def make_engine(params):
     eng = TorchEngine(params, CFG, ByteTokenizer(CFG.vocab_size),
-                      prefix_cache=False, device="cpu", **ENGINE_KW)
+                      prefix_cache=False, kv_mode="paged",
+                      device="cpu", **ENGINE_KW)
     eng.scheduler.warmup((64, 128))
     return eng
 
@@ -416,7 +433,8 @@ def test_cross_stack_migration_byte_identity():
     ref = TPUEngine(rparams, RCFG, RefByteTokenizer(RCFG.vocab_size),
                     kv_mode="paged", prefix_cache=False, **ENGINE_KW)
     port = TorchEngine(tparams, CFG, ByteTokenizer(CFG.vocab_size),
-                       prefix_cache=False, device="cpu", **ENGINE_KW)
+                       prefix_cache=False, kv_mode="paged",
+                       device="cpu", **ENGINE_KW)
     try:
         for eng in (ref, port):
             eng.warmup(buckets=(64, 128))

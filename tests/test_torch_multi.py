@@ -165,6 +165,7 @@ def test_parse_serve_models_and_ckpt_refs(tmp_path, monkeypatch):
 def multi_front():
     mp = pytest.MonkeyPatch()
     for k, v in dict(SERVE_DEVICE="cpu", SERVE_MODELS="a=tiny,b=tiny-moe",
+                     SERVE_KV="paged",
                      SERVE_QUANT="int8", SERVE_KV_QUANT="int8",
                      SERVE_SLOTS="2", SERVE_MAX_SEQ="128",
                      SERVE_WARMUP="16", SERVE_PREFILL_CHUNK="0").items():
@@ -203,7 +204,8 @@ def test_each_tag_serves_its_own_engine_as_a_single_engine_would(
             family_for(cfg).init_params_quantized(cfg, seed=i, quant="int8",
                                                   device="cpu"),
             cfg, ByteTokenizer(cfg.vocab_size), num_slots=2, max_seq=128,
-            kv_quant=True, prefill_chunk=0, name=tag, device="cpu")
+            kv_quant=True, prefill_chunk=0, name=tag, kv_mode="paged",
+            device="cpu")
         try:
             for prompt in ("hello there", "the quick brown fox"):
                 want = _greedy(single, prompt)

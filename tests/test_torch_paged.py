@@ -90,6 +90,29 @@ def test_quant_kv_bitwise():
         np.testing.assert_array_equal(s.numpy(), np.asarray(rs))
 
 
+def test_quant_kv_scale_is_the_ieee_quotient():
+    """The int8 pool's scale is amax / 127 rounded once (IEEE f32
+    division, the reference's), not amax times a rounded 1/127: on
+    head rows whose amax makes the two differ, the port's scales and
+    bytes equal numpy's f32 quotient and the reference's quant_kv
+    bitwise (the card computes the same, chip_smoke.py's step check)."""
+    rng = np.random.default_rng(7)
+    amax = (rng.random(4096) * 10.0 ** rng.integers(-3, 4, 4096)
+            ).astype(np.float32)
+    recip = amax * np.float32(1.0 / 127.0)
+    quot = amax / np.float32(127.0)
+    hard = amax[recip != quot]
+    assert hard.size > 50          # rows where a reciprocal would be off
+    x = rng.standard_normal((hard.size, 2, 16)).astype(np.float32)
+    x[:, 0, 3] = hard * np.sign(x[:, 0, 3] + 0.5)       # the row's amax
+    x[:, 0] = np.clip(x[:, 0], -hard[:, None], hard[:, None])
+    q, sc = paged_kv.quant_kv(torch.from_numpy(x))
+    np.testing.assert_array_equal(sc[:, 0].numpy(), hard / np.float32(127))
+    rq, rs = ref_kv.quant_kv(jnp.asarray(x))
+    np.testing.assert_array_equal(sc.numpy(), np.asarray(rs))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+
+
 @pytest.mark.parametrize("quantized,S", [(True, 13), (True, 5),
                                          (False, 13), (False, 16)])
 def test_pool_writes_bitwise(quantized, S):

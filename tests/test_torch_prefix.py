@@ -164,7 +164,8 @@ def test_prefix_admission_matches_reference_engine():
                            kv_mode="paged", prefix_cache=True,
                            decode_fuse_max=1, prefill_chunk=0, **common)
     engines = {C: TorchEngine(tparams, cfg, ByteTokenizer(cfg.vocab_size),
-                              prefill_chunk=C, device="cpu", **common)
+                              prefill_chunk=C, kv_mode="paged",
+                              device="cpu", **common)
                for C in (0, 16)}
     server = OllamaServer(engines[0], addr="127.0.0.1:0").start()
     try:

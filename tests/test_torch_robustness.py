@@ -215,7 +215,7 @@ def _engine(**kw) -> TorchEngine:
     params = init_params_quantized(CFG, seed=0, quant="int8", device="cpu")
     return TorchEngine(params, CFG, ByteTokenizer(CFG.vocab_size),
                        num_slots=3, max_seq=128, page_size=16, kv_quant=True,
-                       device="cpu", **kw)
+                       kv_mode="paged", device="cpu", **kw)
 
 
 @pytest.fixture(scope="module")

@@ -42,7 +42,7 @@ def params():
 def _engine(params, **kw) -> TorchEngine:
     cfg = get_config("tiny")
     args = dict(num_slots=2, max_seq=64, page_size=16, kv_quant=True,
-                device="cpu")
+                kv_mode="paged", device="cpu")
     args.update(kw)
     return TorchEngine(params, cfg, ByteTokenizer(cfg.vocab_size), **args)
 

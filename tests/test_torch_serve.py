@@ -147,7 +147,7 @@ def _greedy_contexts_agree(prompts, config="tiny", quant="int8",
                                            device="cpu"),
                          get_config(config), ByteTokenizer(cfg.vocab_size),
                          num_slots=2, max_seq=128, page_size=16,
-                         kv_quant=True, device="cpu")
+                         kv_quant=True, kv_mode="paged", device="cpu")
     try:
         for prompt in prompts:
             ref_stats, stats = RefStats(), RequestStats()
@@ -206,10 +206,12 @@ def test_gpu_default_entry_point_raises_without_a_card(monkeypatch):
 
 # Features of the reference that the port now serves; a missing
 # checkpoint directory raises the reference's FileNotFoundError; the
-# others still exit with "not ported".
+# others still exit with "not ported". The KV layout is pinned to
+# SERVE_KV=paged (the KV tier needs it) unless the case names it.
 _PORTED = ({"SERVE_SPEC": "2"}, {"SERVE_QUANT": "int4"},
            {"MODEL_CONFIG": "tiny-moe"}, {"SERVE_KV_HOST_GB": "1"},
-           {"SERVE_MODELS": "a=tiny"})
+           {"SERVE_MODELS": "a=tiny"}, {"SERVE_KV": "dense"},
+           {"SERVE_SPEC": "2", "SERVE_DRAFT": "tiny"})
 
 
 @pytest.mark.parametrize("env", [{"SERVE_SPEC": "2"},
@@ -225,8 +227,13 @@ _PORTED = ({"SERVE_SPEC": "2"}, {"SERVE_QUANT": "int4"},
 def test_features_of_later_slices_fail_loudly(env, monkeypatch):
     monkeypatch.setenv("SERVE_DEVICE", "cpu")
     monkeypatch.setenv("SERVE_WARMUP", "0")
+    monkeypatch.setenv("SERVE_KV", "paged")
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if env.get("SERVE_KV") == "dense":
+        # The module's server fixture sets an int8 pool, which a dense
+        # cache refuses.
+        monkeypatch.delenv("SERVE_KV_QUANT", raising=False)
     if env in _PORTED:
         engine = build_engine_from_env()
         engine.stop()

@@ -412,7 +412,7 @@ def _engine(params, spec_k=4, nodes=8, kv_quant=True, **kw):
     cfg = get_config("tiny")
     args = dict(num_slots=2, max_seq=128, page_size=16, kv_quant=kv_quant,
                 spec_k=spec_k, spec_tree_nodes=nodes, prefix_cache=False,
-                prefill_chunk=0, device="cpu")
+                prefill_chunk=0, kv_mode="paged", device="cpu")
     args.update(kw)
     return TorchEngine(params, cfg, ByteTokenizer(cfg.vocab_size), **args)
 
@@ -540,11 +540,21 @@ def test_env_settings(monkeypatch):
         assert engine.scheduler.spec_tree_nodes == 0
     finally:
         engine.stop()
+    # SERVE_DRAFT with speculation makes the draft model resident as the
+    # second source (serve/draft_model.py); without speculation it is
+    # ignored with a warning, as in the reference.
     monkeypatch.setenv("SERVE_DRAFT", "tiny")
-    with pytest.raises(SystemExit, match="SERVE_KV=dense"):
-        build_engine_from_env()
+    engine = build_engine_from_env()
+    try:
+        assert engine.drafter is not None
+        assert [s.name for s in engine.scheduler._sources] == ["ngram",
+                                                               "model"]
+    finally:
+        engine.stop()
     monkeypatch.setenv("SERVE_SPEC", "0")
-    build_engine_from_env().stop()
+    engine = build_engine_from_env()
+    assert engine.drafter is None
+    engine.stop()
 
 
 def test_spec_metrics_key_set_equals_the_reference(quote):

@@ -347,7 +347,8 @@ def _engine(params, spec_k=4, kv_quant=True):
     return TorchEngine(params, cfg, ByteTokenizer(cfg.vocab_size),
                        num_slots=2, max_seq=128, page_size=16,
                        kv_quant=kv_quant, spec_k=spec_k, spec_tree_nodes=8,
-                       prefix_cache=False, prefill_chunk=0, device="cpu")
+                       prefix_cache=False, prefill_chunk=0, kv_mode="paged",
+                       device="cpu")
 
 
 def _stub(engine, succ) -> _SiblingSource:

@@ -80,12 +80,14 @@ def test_int8_pool_with_a_non_gather_impl_is_refused(impl, tiny_params,
     msg = "kv_quant=True requires the gather attention impl"
     with pytest.raises(ValueError, match=msg):
         BatchScheduler(tiny_params, cfg, tok, kv_quant=True, attn_impl=impl,
-                       device="cpu")
+                       kv_mode="paged", device="cpu")
     monkeypatch.setattr(pa, "_DEFAULT_IMPL", impl)
     with pytest.raises(ValueError, match=msg):
-        BatchScheduler(tiny_params, cfg, tok, kv_quant=True, device="cpu")
+        BatchScheduler(tiny_params, cfg, tok, kv_quant=True, kv_mode="paged",
+        device="cpu")
     monkeypatch.setattr(pa, "_DEFAULT_IMPL", "gather")
     for k, v in dict(SERVE_DEVICE="cpu", MODEL_CONFIG="tiny",
+                     SERVE_KV="paged",
                      SERVE_QUANT="int8", SERVE_KV_QUANT="int8",
                      SERVE_WARMUP="0", PAGED_ATTN_IMPL=impl).items():
         monkeypatch.setenv(k, v)
@@ -250,7 +252,8 @@ def test_scheduler_window_holds_the_written_slot(monkeypatch):
                          get_config("tiny"), ByteTokenizer(cfg.vocab_size),
                          num_slots=2, max_seq=128, page_size=16,
                          kv_quant=False, prefix_cache=False,
-                         attn_impl="kernel", device="cpu")
+                         attn_impl="kernel", kv_mode="paged",
+                         device="cpu")
     try:
         for prompt in ("the quick brown", "a" * 31):
             assert len(prompt) + 1 in (16, 32)          # + BOS: whole pages
