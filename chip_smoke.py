@@ -46,8 +46,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    1000 and 1100, ragged lengths with NaN past each row's, S = 5 chains
    and 8-node trees, chains of S = 16, 64 and 256 at the drafter's feeds
    (B = 8, Hq 8 / Hkv 4, W = 1024 and 4096), each case bitwise against a rerun, its rows' B = 1
-   calls and the whole cache as the window, timed per llama3.1-8b step
-   at W = 1024 and 4096 (and verify at S = 5) beside the bound and SDPA;
+   calls and the whole cache as the window, and a session wake's
+   attention (kernel B's verify mode on the waking rows {5} or {6, 1} of
+   a llama3.1-8b cache of 8 x 4096, S = 64 and 256, W = 2048 and 4096,
+   NaN past each row's length and in every row not waking) against the
+   reference's attend_gqa over those rows, timed per llama3.1-8b step
+   at W = 1024 and 4096 (and verify at S = 5, the wake at R = 1, S = 256,
+   W = 2048) beside the bound and SDPA;
 3. step   — one full-width decode step (depth cut to 2 layers) through the
    kernels on the card, against the same step through the plain path on
    the CPU (same weights, same pool): llama3.1-8b int8 over an int8 pool
@@ -84,7 +89,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    reference's admission defaults (chunked prefill at 256, the prefix
    cache) and with SERVE_PREFILL_CHUNK=0, llama3.1-8b int8 over a bf16
    pool with PAGED_ATTN_IMPL=kernel (kernel B's pool mode only), then
-   mixtral-8x7b int8 and int4 (32 layers each, int8 paged KV). Before each
+   mixtral-8x7b int8 (32 layers, int8 paged KV) and int4 (32 layers, the
+   bf16 dense cache: A8's decode mode, kernel B's paged modes never).
+   Before each
    burst every kernel's launch counter is zeroed; after it, the kernels of
    that path must have grown, the other decode branch's attention kernel
    must not have, the co-pilot request must have taken the prefix path,
@@ -129,7 +136,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    before), the same turn admitted cold, the park copy's and the wake
    forward's times, prefix export/import, migration (park_all, export,
    pull-import, forget), a disaggregated handoff by its three HTTP calls,
-   the ``serve.kv_tier.*`` failpoints and pool pressure;
+   the ``serve.kv_tier.*`` failpoints and pool pressure; then the same
+   over the dense cache (``SERVE_KV=dense``, one set of weights for all
+   four engines): sessions parked at finish, two woken turns equal to
+   each other and to the same turn admitted cold, through kernel B's
+   verify mode on the waking rows of the cache's identity view, kernel A
+   and A8's decode mode, migration, the handoff equal to a cold run, the
+   failpoints; with each park's stall in the serving loop, the park copy
+   and the wake's upload + install, and the wake forward at S = 64 and
+   256;
 7. server_ckpt — a checkpoint directory written here into a temporary
    directory (removed at exit): llama3.1-8b at full width and depth,
    bf16 shards of at most 5 GB and their index, each tensor drawn on the
@@ -185,7 +200,8 @@ build,kernel_b_verify,step,server_spec`` on speculation; ``--only
 build,kernel_b_verify,server_tier`` on the KV tier; ``--only
 build,server_ckpt,server_multi`` on checkpoints and the multi front;
 ``--only build,kernel_dense,step_dense,server_dense,server_draft`` on
-the dense path and the drafter).
+the dense path and the drafter; ``--only
+build,kernel_dense,server_tier`` on the KV tier over both layouts).
 Exits non-zero, printing no result, where no CUDA device is available.
 """
 
@@ -1137,6 +1153,107 @@ def _dense_timing(B: int, W: int, L: int = 8, S: int = 0) -> dict:
                 library_device_ms=round(32 * lib_dev, 4))
 
 
+def _wake_call(cache, rows, starts, q, kb, vb, pages, layer=1):
+    """The dense wake's attention as the scheduler runs it: kernel B's
+    verify mode (``paged_attention_verify_append``, chain mask) over the
+    waking ``rows`` of the cache's identity view at committed lengths
+    ``starts`` (ops/dense_attention.rows_view)."""
+    from p2p_llm_chat_tpu_torch.ops import dense_attention as da
+    from p2p_llm_chat_tpu_torch.ops.paged_attention import \
+        paged_attention_verify_append
+    view = da.rows_view(cache, rows, starts)
+    return paged_attention_verify_append(q, kb, vb, view, view.lengths,
+                                         layer, pages=pages)
+
+
+def _wake_case(label, cache, rows, starts, S, W, seed) -> float:
+    """One dense wake case: R = len(rows) suffix blocks of S positions at
+    ``starts`` over a window W (pages covering W + S, as the scheduler
+    asks), within B_TOL of the plain version (the reference's
+    ``attend_gqa`` over ``cache.k/v[l, rows, :W]`` under the chain mask:
+    ``dense_attention_verify_plain`` on those rows), a rerun bitwise, each
+    row bitwise equal to its own R = 1 call and to the call over the
+    whole cache's pages. Returns the absolute error."""
+    import torch
+    from p2p_llm_chat_tpu_torch.ops import dense_attention as da
+    Hq, Hkv, D = 32, cache.k.shape[3], cache.k.shape[4]
+    R = len(rows)
+    q, kb, vb, _ = _verify_inputs(R, S, Hq, Hkv, D, seed, False)
+    idx = torch.tensor(rows, dtype=torch.long, device="cuda")
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    P = cache.k.shape[2] // da.VIEW_PAGE
+    pages = min(-(-(W + S) // da.VIEW_PAGE), P)
+    out = _wake_call(cache, idx, st, q, kb, vb, pages)
+    err = _rel_err(label, out, da.dense_attention_verify_plain(
+        q, kb, vb, cache.k[:, idx], cache.v[:, idx], st, 1, window=W), B_TOL)
+    check(torch.equal(_wake_call(cache, idx, st, q, kb, vb, pages), out),
+          f"{label}: a rerun differs from the first run")
+    check(torch.equal(_wake_call(cache, idx, st, q, kb, vb, P), out),
+          f"{label}: rows differ over the whole cache's {P} pages")
+    for i in range(R):
+        one = lambda t: t[i:i + 1].contiguous()
+        check(torch.equal(_wake_call(cache, one(idx), one(st), one(q),
+                                     one(kb), one(vb), pages), out[i:i + 1]),
+              f"{label}: row {rows[i]} differs between R = 1 and R = {R}")
+    return err
+
+
+def _wake_timing(S: int = 256, W: int = 2048, L: int = 8) -> dict:
+    """One 32-layer llama3.1-8b dense wake's attention at R = 1 (row 5 of
+    a bf16 cache of 8 x 4096), S suffix positions over W committed slots
+    (A4's wake case on the int8 pool: ``kernel_b_verify``), L layers
+    rotated: ms as timed and on the device (CUDA graph), the plain
+    version, SDPA over the row's window plus the block under an explicit
+    mask (heads expanded beforehand) and the bound (bytes: the window's
+    k/v, q, the block and out once; operations: q.k and p.v over the
+    window and the chain's lower triangle)."""
+    import torch
+    import torch.nn.functional as F
+    from p2p_llm_chat_tpu_torch.ops import dense_attention as da
+    Hq, Hkv, D, T = 32, 8, 128, 4096
+    lengths = [W] * 8
+    cache, _ = _dense_case(Hq, Hkv, D, T, lengths, L=L, seed=W + S + 1)
+    q, kb, vb, _ = _verify_inputs(1, S, Hq, Hkv, D, W + 2, False)
+    idx = torch.tensor([5], dtype=torch.long, device="cuda")
+    st = torch.tensor([W], dtype=torch.int32, device="cuda")
+    pages = W // da.VIEW_PAGE
+    call = lambda i: _wake_call(cache, idx, st, q, kb, vb, pages, i % L)
+    ms = time_ms(call, 32, warmup=L)
+    dev = graph_ms(call, n=2 * L)
+    plain = time_ms(lambda i: da.dense_attention_verify_plain(
+        q, kb, vb, cache.k[:, idx], cache.v[:, idx], st, i % L,
+        window=W + S), 4, warmup=1)
+    rep = Hq // Hkv
+    kw = [torch.cat([cache.k[l, 5:6, :W], kb], 1).permute(0, 2, 1, 3)
+          .repeat_interleave(rep, 1) for l in range(L)]
+    vw = [torch.cat([cache.v[l, 5:6, :W], vb], 1).permute(0, 2, 1, 3)
+          .repeat_interleave(rep, 1) for l in range(L)]
+    amask = torch.cat([torch.ones((S, W), dtype=torch.bool, device="cuda"),
+                       torch.ones((S, S), dtype=torch.bool,
+                                  device="cuda").tril()], 1)
+    q4 = q.permute(0, 2, 1, 3)
+    sdpa = lambda i: F.scaled_dot_product_attention(q4, kw[i % L], vw[i % L],
+                                                    attn_mask=amask)
+    lib = time_ms(sdpa, 32, warmup=L)
+    lib_dev = graph_ms(sdpa, n=2 * L)
+    del kw, vw, cache
+    nbytes = (2 * W * Hkv * D * 2 + 2 * q.numel() * 2 + 2 * kb.numel() * 2
+              + 4 * (1 + pages))
+    flops = 4.0 * Hq * D * (S * W + S * (S + 1) / 2)
+    b_ms, kind = bound_ms(nbytes, flops)
+    print(f"  dense wake (kernel B verify mode on the identity view) R=1 "
+          f"S={S} W={W} (8B geometry), per layer: {ms * 1e3:.1f} us as "
+          f"timed, {dev * 1e3:.1f} us on the device (bound "
+          f"{b_ms * 1e3:.1f} us, {kind}; {b_ms / dev:.0%} of bound); plain "
+          f"{plain * 1e3:.1f} us; SDPA over the window + block, explicit "
+          f"mask {lib * 1e3:.1f} us as timed, {lib_dev * 1e3:.1f} us on the "
+          f"device; 32 layers on the device {32 * dev:.3f} ms", flush=True)
+    return dict(ms=round(32 * ms, 4), device_ms=round(32 * dev, 4),
+                plain_ms=round(32 * plain, 4), bound_ms=round(32 * b_ms, 4),
+                bound_by=kind, library_ms=round(32 * lib, 4),
+                library_device_ms=round(32 * lib_dev, 4))
+
+
 def phase_kernel_dense(results: dict) -> None:
     """A8, the dense KV path's attention (the reference's XLA
     ``attend_gqa`` over ``cache.k/v[l, :, :window]`` in ``decode_step``,
@@ -1152,9 +1269,12 @@ def phase_kernel_dense(results: dict) -> None:
     4096, ragged committed lengths, one row's block ending at the
     window). Each case also bitwise against a rerun, its rows' B = 1 calls
     and the whole cache as the window, with the view's storage the
-    cache's. Timed per 32-layer llama3.1-8b step at B = 8, W = 1024 and
-    4096 (decode) and W = 1024, S = 5 (verify) beside the bound, the plain
-    version and SDPA over the window."""
+    cache's. Then a session wake's attention over the dense cache (the
+    scheduler's ``_wake_forward``: kernel B's verify mode on
+    ``rows_view``, the waking rows only; :func:`_wake_case`). Timed per
+    32-layer llama3.1-8b step at B = 8, W = 1024 and 4096 (decode) and
+    W = 1024, S = 5 (verify), and per wake at R = 1, S = 256, W = 2048,
+    beside the bound, the plain version and SDPA over the window."""
     import torch
     worst = {"dense_attention": 0.0, "dense_attention_verify": 0.0}
     dec = (  # (Hq, Hkv, D, max_seq, window, lengths incl. the written slot)
@@ -1201,10 +1321,32 @@ def phase_kernel_dense(results: dict) -> None:
                 f"S={S} {'tree' if tree else 'chain'} lengths={lengths}",
                 cache, q, cache.lengths, W, blk=(kb, vb, mask)))
         del cache
+    # A session wake over the dense cache (serve/scheduler.py): rows {5}
+    # and {6, 1} of a llama3.1-8b-geometry cache of 8 x 4096, ragged
+    # session lengths, NaN past each row's length and in every row not
+    # waking (no read may leave the waking rows).
+    wake_err = 0.0
+    wakes = (  # (rows, starts, S, W)
+        ([5], [1900], 64, 2048),
+        ([6, 1], [1500, 17], 256, 2048),
+        ([5], [3840], 256, 4096),
+        ([6, 1], [3000, 2049], 64, 4096),
+        ([6, 1], [1792, 0], 256, 2048),
+    )
+    for i, (rows, starts, S, W) in enumerate(wakes):
+        lengths = [0] * 8
+        for r, n in zip(rows, starts):
+            lengths[r] = n
+        cache, _ = _dense_case(32, 8, 128, 4096, lengths, seed=100 + i)
+        wake_err = max(wake_err, _wake_case(
+            f"A8 dense wake rows={rows} starts={starts} S={S} W={W}", cache,
+            rows, starts, S, W, 110 + i))
+        del cache
     torch.cuda.empty_cache()
     t1024 = _dense_timing(8, 1024)
     t4096 = _dense_timing(8, 4096)
     tver = _dense_timing(8, 1024, S=5)
+    twake = _wake_timing()
     src = "p2p_llm_chat_tpu_torch/csrc/paged_attention.cu"
     results["dense_attention"] = dict(
         name="dense_attention", route="cuda", source=src,
@@ -1223,10 +1365,13 @@ def phase_kernel_dense(results: dict) -> None:
         wrapper="p2p_llm_chat_tpu_torch/ops/dense_attention.py",
         replaces="p2p_llm_chat_tpu/models/layers.py:102",
         max_abs_err=worst["dense_attention_verify"], **tver,
+        wake=dict(max_abs_err=wake_err, **twake),
         scope="A8 verify mode: kernel B's verify mode over the dense "
               "cache's identity pool view, one llama3.1-8b chain verify "
               "at B=8, S=5, W=1024: 32 launches; library_ms is SDPA over "
-              "the window plus the block under an explicit mask")
+              "the window plus the block under an explicit mask; wake: a "
+              "session wake's attention (paged_attention_verify_append on "
+              "the waking rows of the view) at R=1, S=256, W=2048")
 
 
 def phase_kernel_e(results: dict) -> None:
@@ -3409,7 +3554,8 @@ def _server_embed(results: dict, label: str, url: str, engine, reqs,
     idle, idle_ms = _embed_calls(url)
     launches = {n: f.launches for n, f in wrappers.items() if f.launches}
     for name in expect:
-        if name not in ("paged_attention_append", "paged_attention"):
+        if name not in ("paged_attention_append", "paged_attention",
+                        "dense_attention"):
             check(launches.get(name, 0) > 0, f"server {label}: the idle "
                   f"embeds never launched {name} ({launches})")
     chunks = len(EMBED_CALLS)            # one chunk a call
@@ -3592,16 +3738,19 @@ def _check_burst(label: str, reqs, answers) -> list:
 
 def phase_server(results: dict, model: str, quant: str,
                  expect: tuple[str, ...], prefill_chunk: int = 256,
-                 impl: str = "gather") -> None:
+                 impl: str = "gather", kv: str = "paged") -> None:
     """The engine for ``model`` at ``quant`` weights (32 layers, paged KV
     — int8 under the default attend-then-write ``impl``, bf16 under a
-    write-then-attend one — 8 slots, max_seq 4096, the prefix cache on
+    write-then-attend one — or, with ``kv="dense"``, the bf16 dense cache
+    (A8's decode mode, no page tables), 8 slots, max_seq 4096, the prefix
+    cache on
     with the co-pilot template registered, chunked prefill at
     ``prefill_chunk``; 0 admits every prompt in one piece) behind the
     Ollama front answers the 7-request burst and two greedy reruns; every
     kernel's launch counter is zeroed just before the burst and read just
     after the reruns, each kernel in ``expect`` must have been launched
-    and the other branch's attention kernel never. The co-pilot request
+    and the other branch's attention kernel never (on the dense cache,
+    neither of kernel B's paged decode modes). The co-pilot request
     must take the prefix path, and with chunking on the long prompt must
     admit in chunks."""
     import torch
@@ -3609,12 +3758,15 @@ def phase_server(results: dict, model: str, quant: str,
     from p2p_llm_chat_tpu_torch.serve.engine import build_engine_from_env
 
     wta = impl != "gather"
-    kv = "bf16" if wta else "int8"
+    dense = kv == "dense"
+    kv_dtype = "bf16" if wta or dense else "int8"
     label = (f"{model} {quant}" + ("" if prefill_chunk else " chunk=0")
-             + (f" {kv} KV impl={impl}" if wta else ""))
+             + (f" {kv_dtype} KV impl={impl}" if wta else "")
+             + (" dense KV" if dense else ""))
     os.environ.update(SERVE_BACKEND="torch", MODEL_CONFIG=model,
-                      SERVE_KV="paged", SERVE_QUANT=quant,
-                      SERVE_KV_QUANT="" if wta else "int8", SERVE_SLOTS="8",
+                      SERVE_KV=kv, SERVE_QUANT=quant,
+                      SERVE_KV_QUANT="" if wta or dense else "int8",
+                      SERVE_SLOTS="8",
                       SERVE_MAX_SEQ="4096", SERVE_DEVICE="cuda",
                       SERVE_PREFILL_CHUNK=str(prefill_chunk),
                       SERVE_PREFIX="1", PAGED_ATTN_IMPL=impl)
@@ -3632,8 +3784,8 @@ def phase_server(results: dict, model: str, quant: str,
             time.sleep(0.1)
         check(engine.scheduler.attn_impl == impl, f"server {label}: the "
               f"engine serves impl {engine.scheduler.attn_impl!r}")
-        print(f"server {label}: {engine.config.num_layers} layers, {kv} "
-              f"paged KV, 8 slots, "
+        print(f"server {label}: {engine.config.num_layers} layers, "
+              f"{kv_dtype} {kv} KV, 8 slots, "
               f"max_seq 4096, ready in "
               f"{time.monotonic() - t0:.1f} s; "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
@@ -3672,9 +3824,13 @@ def phase_server(results: dict, model: str, quant: str,
         for name in expect:
             check(launches[name] > 0, f"server {label}: kernel {name} was "
                   "never launched")
-        other = "paged_attention_append" if wta else "paged_attention"
-        check(launches[other] == 0, f"server {label}: {other} was launched "
-              f"{launches[other]} times on the {impl} branch")
+        others = (("paged_attention_append", "paged_attention") if dense
+                  else ("paged_attention_append",) if wta
+                  else ("paged_attention",))
+        for other in others:
+            check(launches[other] == 0, f"server {label}: {other} was "
+                  f"launched {launches[other]} times on the "
+                  f"{kv if dense else impl} branch")
         snap = engine.metrics_snapshot()
         print(f"server {label}: prefill_chunks_total "
               f"{snap['prefill_chunks_total']}, serve_prefix_admits_total "
@@ -4367,13 +4523,20 @@ def phase_server_tier(results: dict) -> None:
     parks resident sessions for new admissions. Prints the wake TTFT
     beside the cold admission's, the park copy's gather + readback and
     the wake's upload + scatter (ms, MB), the wake forward at S = 64 and
-    256, and the export's host ms."""
+    256, and the export's host ms. The weights are built once, for both
+    engines and for the dense leg that follows (:func:`_tier_dense_leg`:
+    the same checks over the dense cache, but pool pressure)."""
     import torch
+    from p2p_llm_chat_tpu_torch.models import family_for
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
     from p2p_llm_chat_tpu_torch.serve.api import OllamaServer
     from p2p_llm_chat_tpu_torch.serve.engine import build_engine_from_env
     from p2p_llm_chat_tpu_torch.utils import failpoints
 
     label = "llama3.1-8b int8 tier"
+    cfg = get_config("llama3.1-8b")
+    params = family_for(cfg).init_params_quantized(cfg, seed=0, quant="int8",
+                                                   device="cuda")
     env = dict(SERVE_BACKEND="torch", MODEL_CONFIG="llama3.1-8b",
                SERVE_KV="paged", SERVE_QUANT="int8", SERVE_KV_QUANT="int8",
                SERVE_SLOTS="8", SERVE_MAX_SEQ="4096", SERVE_DEVICE="cuda",
@@ -4386,7 +4549,7 @@ def phase_server_tier(results: dict) -> None:
             os.environ.update(env, SERVE_REPLICA_CLASS=cls,
                               SERVE_PAGES=pages)
             t0 = time.monotonic()
-            eng = build_engine_from_env()
+            eng = build_engine_from_env(params=params)
             engines.append(eng)
             servers.append(OllamaServer(eng, addr="127.0.0.1:0").start())
             deadline = time.monotonic() + 600
@@ -4662,6 +4825,355 @@ def phase_server_tier(results: dict) -> None:
             eng.stop()
         for k in ("SERVE_KV_HOST_GB", "SERVE_KV_IDLE_S",
                   "SERVE_REPLICA_CLASS", "SERVE_PAGES"):
+            os.environ.pop(k, None)
+        _free()
+    _tier_dense_leg(results, params)
+
+
+def _tier_dense_copies(sched, key: str) -> dict:
+    """On the scheduler thread, for the parked dense session ``key``: the
+    wake's upload of its payload as a wake does it (host clock to the end
+    of the copy) and its install into a free row (CUDA events; the row is
+    free, so no live slot changes), and the park's copy out of that row
+    timed apart: the slice copy (events) and the readback into pinned
+    host memory (host clock)."""
+    import torch
+
+    def run():
+        sess = sched._tier._sessions[key]
+        (k, v), W = sess.host
+        row = sched._free_rows()[0]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        dev = sched._upload((k, v))
+        torch.cuda.synchronize()
+        upload = (time.monotonic() - t0) * 1e3
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        sched._cache.k[:, row, :W].copy_(dev[0])
+        sched._cache.v[:, row, :W].copy_(dev[1])
+        ev[1].record()
+        out = [a[:, row, :W].clone() for a in (sched._cache.k,
+                                               sched._cache.v)]
+        ev[2].record()
+        ev[2].synchronize()
+        t0 = time.monotonic()
+        host = [sched._to_host(a) for a in out]
+        readback = (time.monotonic() - t0) * 1e3
+        check(all(torch.equal(h, a) for h, a in zip(host, (k, v))),
+              "server_tier dense: the row read back differs from its "
+              "payload")
+        return dict(W=W, mb=sum(a.numel() * a.element_size()
+                                for a in host) / 1e6,
+                    upload_ms=upload, install_ms=ev[0].elapsed_time(ev[1]),
+                    slice_ms=ev[1].elapsed_time(ev[2]),
+                    readback_ms=readback)
+
+    return _on_loop(sched, run)
+
+
+def _tier_dense_wake_ms(sched, start: int, S: int, reps: int = 5) -> float:
+    """CUDA-event ms of one dense wake forward (R = 1, ``S`` suffix
+    positions at session length ``start``) into a free row, on the
+    scheduler thread (its writes land in slots no slot trusts)."""
+    import torch
+
+    def run():
+        row = torch.tensor(sched._free_rows()[:1], dtype=torch.long)
+        tokens = torch.full((1, S), 65, dtype=torch.long)
+        starts = torch.tensor([start])
+        last = torch.tensor([S - 1])
+        w = sched._wake_window(S, start)
+        sched._wake_forward(tokens, row, starts, last, w)
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        begin.record()
+        for _ in range(reps):
+            sched._wake_forward(tokens, row, starts, last, w)
+        end.record()
+        end.synchronize()
+        return begin.elapsed_time(end) / reps
+
+    return _on_loop(sched, run)
+
+
+def _against_cold(label: str, sched, what: str, woken: list,
+                  cold: list, n_prompt: int) -> str:
+    """A woken stream against the same request admitted cold: equal, or
+    their first difference is a near tie. The wake and the cold prefill
+    reach a position's logits through different kernels (kernel B's
+    verify mode against kernel D and the prefill matmuls), so bf16
+    roundings differ; where the streams part, a third forward (the
+    family's ``prefill`` of the cold context up to that position, on the
+    scheduler thread) must put the two chosen tokens' logits within
+    STEP_TOL of its largest |logit| (the step phases' tolerance between
+    two paths that round in another order). Returns the line to
+    print."""
+    import torch
+    from p2p_llm_chat_tpu_torch.serve.scheduler import _bucket
+    diff = _first_diff(cold, woken)
+    if diff < 0:
+        return f"{what} = the cold run"
+    check(n_prompt <= diff < min(len(cold), len(woken)),
+          f"{label}: {what} parts from the cold run at context position "
+          f"{diff}, inside the prompt or past a stream's end")
+
+    def run():
+        ids = cold[:diff]
+        S = _bucket(len(ids), sched.max_seq)
+        toks = torch.zeros((1, S), dtype=torch.long, device=sched.device)
+        toks[0, :len(ids)] = torch.tensor(ids, device=sched.device)
+        lens = torch.tensor([len(ids)], device=sched.device)
+        logits = sched._family.prefill(sched._params, sched.config, toks,
+                                       lens, last_only=True)[0][0, 0]
+        return (float(logits[cold[diff]] - logits[woken[diff]]),
+                float(logits.abs().max()))
+
+    gap, scale = _on_loop(sched, run)
+    check(abs(gap) <= STEP_TOL * scale, f"{label}: {what} parts from the "
+          f"cold run at generated token {diff - n_prompt}, and it is no near "
+          f"tie: logit gap {gap:.4f} of max|logit| {scale:.3f}")
+    return (f"{what} parts from the cold run at generated token "
+            f"{diff - n_prompt}, a near tie (the two tokens' logits "
+            f"{abs(gap):.4f} apart, max|logit| {scale:.3f})")
+
+
+def _tier_dense_leg(results: dict, params) -> None:
+    """The KV tier over the dense cache (the reference's default layout):
+    engines A' (prefill class) and B' (decode class), llama3.1-8b int8 on
+    ``params`` over bf16 dense caches of 8 x 4096, SERVE_KV_HOST_GB=8,
+    behind their fronts. Checks: two identical 1500-token first turns
+    park at finish (no resident phase: counts (0, 2)); turn 2 of both
+    wakes on A' (counters zeroed before: kernel B's verify mode on the
+    cache's identity view, kernel A and A8's decode mode; kernel B's
+    paged decode modes never), the two streams bitwise equal and equal to
+    the same turn admitted cold on B'; export, pull-import on B' and
+    forget on A', then turn 3 woken on B' equals turn 3 of the other
+    session on A'; the three calls of a disaggregated handoff, the
+    request woken on B' equal to a cold run; the export and import
+    failpoints lose no session. Prints each park's stall in the serving
+    loop (ms, W, MB), the woken TTFT against the cold one, the park copy
+    and the wake's upload + install timed apart, and the wake forward at
+    S = 64 and 256."""
+    import torch
+    from p2p_llm_chat_tpu_torch.serve.api import OllamaServer
+    from p2p_llm_chat_tpu_torch.serve.engine import build_engine_from_env
+    from p2p_llm_chat_tpu_torch.utils import failpoints
+
+    label = "llama3.1-8b int8 tier dense"
+    engines, servers = [], []
+    parks: list = []
+    try:
+        for cls in ("prefill", "decode"):
+            _serve_env(MODEL_CONFIG="llama3.1-8b", SERVE_KV="dense",
+                       SERVE_QUANT="int8", PAGED_ATTN_IMPL="gather",
+                       SERVE_KV_HOST_GB="8", SERVE_KV_IDLE_S="1000000",
+                       SERVE_REPLICA_CLASS=cls)
+            t0 = time.monotonic()
+            eng = build_engine_from_env(params=params)
+            engines.append(eng)
+            servers.append(OllamaServer(eng, addr="127.0.0.1:0").start())
+            ready_s = _wait_ready(f"server {label}", eng)
+            check(eng.scheduler.kv_mode == "dense", f"{label}: kv_mode "
+                  f"{eng.scheduler.kv_mode}")
+            ready = json.loads(_get(servers[-1].url + "/readyz")[1])
+            check(ready.get("class") == cls, f"{label}: /readyz {ready}")
+            print(f"server {label}: engine {cls} ready in "
+                  f"{time.monotonic() - t0:.1f} s ({ready_s:.1f} s warmup, "
+                  f"{len(eng.scheduler._wake_shapes_run)} wake shapes "
+                  f"warmed); bf16 dense KV "
+                  f"{eng.scheduler._cache.nbytes() / 1e9:.3f} GB; "
+                  f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+                  flush=True)
+        A, B = engines
+        ua, ub = (srv.url for srv in servers)
+        sa, sb = A.scheduler, B.scheduler
+        inner = sa._park_row
+
+        def timed_park(key, tokens, row):
+            t0 = time.monotonic()
+            inner(key, tokens, row)
+            sess = sa._tier._sessions.get(key)
+            parks.append(((time.monotonic() - t0) * 1e3,
+                          sess.host[1] if sess else 0,
+                          sess.nbytes / 1e6 if sess else 0.0))
+
+        sa._park_row = timed_park
+
+        # 1. Two sessions, identical first turns, parked at finish on A'.
+        reqs = [("/api/generate", {"prompt": LONG_PROMPT, "stream": False,
+                                   "session": s, "options":
+                                   {"num_predict": 24}})
+                for s in ("s1", "s2")]
+        answers, _ = _burst(ua, reqs)
+        t1 = []
+        for ans in answers:
+            check(not isinstance(ans, Exception) and ans[0] == 200,
+                  f"{label}: turn 1 {ans!r}")
+            t1.append(json.loads(ans[1]))
+        check(t1[0]["context"] == t1[1]["context"], f"{label}: identical "
+              "first turns differ")
+        _quiesce(sa)
+        check(sa._tier.counts() == (0, 2), f"{label}: tier counts "
+              f"{sa._tier.counts()} after two finished first turns (want "
+              "(0, 2): parked at finish)")
+        m = _metrics(ua)
+        check(float(m["kv_parked_total"]) == 2, f"{label}: kv_parked_total "
+              f"{m['kv_parked_total']}")
+        copy = _tier_dense_copies(sa, "sid:s1")
+        n_tok = len(t1[0]["context"]) - 1
+        wake_fwd = {S: _tier_dense_wake_ms(sa, n_tok, S) for S in (64, 256)}
+        print(f"server {label}: session of {n_tok} tokens parked at finish "
+              f"(W = {copy['W']}, {copy['mb']:.1f} MB): the park's stall in "
+              "the loop " + ", ".join(f"{ms:.1f} ms (W {W}, {mb:.1f} MB)"
+                                      for ms, W, mb in parks)
+              + f"; timed apart: slice {copy['slice_ms']:.3f} ms + pinned "
+              f"readback {copy['readback_ms']:.3f} ms; the wake's upload "
+              f"{copy['upload_ms']:.3f} ms + install "
+              f"{copy['install_ms']:.3f} ms; wake forward (R=1, 32 layers) "
+              f"S=64 {wake_fwd[64]:.3f} ms, S=256 {wake_fwd[256]:.3f} ms",
+              flush=True)
+
+        # 2. Turn 2 of both: two parked wakes on A', then cold on B'.
+        wrappers = _wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t2 = [_tier_gen(label, ua, TIER_TURN2, s, t1[i]["context"])
+              for i, s in enumerate(("s1", "s2"))]
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        check(t2[0]["context"] == t2[1]["context"], f"{label}: the two "
+              "woken turn-2 streams differ")
+        check(float(_metrics(ua)["kv_waked_total"]) == 2, f"{label}: "
+              "kv_waked_total after turn 2")
+        for name in ("paged_attention_verify_append", "quant_matmul",
+                     "dense_attention"):
+            check(launches[name] > 0, f"{label}: {name} was never launched "
+                  f"by the wakes: {launches}")
+        for name in ("paged_attention_append", "paged_attention"):
+            check(launches[name] == 0, f"{label}: {name} was launched "
+                  f"{launches[name]} times over the dense cache")
+        _record_launches(results, "server_tier dense", launches)
+        cold = _tier_gen(label, ub, TIER_TURN2, "cold-t2", t1[0]["context"])
+        check(float(_metrics(ub)["kv_waked_total"]) == 0, f"{label}: the "
+              "cold turn woke a session on B'")
+        n_prompt = t2[0]["prompt_eval_count"]
+        vs_cold = _against_cold(label, sb, "the woken turn 2",
+                                t2[0]["context"], cold["context"], n_prompt)
+        ttft = [r["prompt_eval_duration"] / 1e6 for r in t2]
+        cold_ms = cold["prompt_eval_duration"] / 1e6
+        print(f"server {label}: turn 2 ({n_prompt} prompt tokens, "
+              f"{n_prompt - len(t1[0]['context'])} new) TTFT: woken "
+              f"{ttft[0]:.1f} / {ttft[1]:.1f} ms, admitted cold on B' "
+              f"{cold_ms:.1f} ms; greedy: woken streams equal, {vs_cold}; "
+              f"kernel launches {launches}", flush=True)
+
+        # 3. Migration: export s1 (already parked), pull-import on B',
+        # forget on A'; turn 3 on B' equals turn 3 of s2 on A'.
+        _quiesce(sa)
+        t0 = time.monotonic()
+        payload = A.session_export("sid:s1")
+        export_ms = (time.monotonic() - t0) * 1e3
+        check(payload is not None, f"{label}: no export of sid:s1")
+        status, body = _status("POST", ub + "/admin/session/import",
+                               {"from": ua, "key": "sid:s1"})
+        check(status == 200, f"{label}: import {status} {body[:200]!r}")
+        status, _ = _status("POST", ua + "/admin/session/forget",
+                            {"key": "sid:s1"})
+        check(status == 200 and "sid:s1" not in A.session_list(),
+              f"{label}: forget {status}")
+        wb = float(_metrics(ub)["kv_waked_total"])
+        t3b = _tier_gen(label, ub, TIER_TURN3, "s1", t2[0]["context"])
+        t3a = _tier_gen(label, ua, TIER_TURN3, "s2", t2[1]["context"])
+        check(t3b["context"] == t3a["context"], f"{label}: turn 3 on B' "
+              "(migrated) differs from turn 3 on A'")
+        check(float(_metrics(ub)["kv_waked_total"]) == wb + 1,
+              f"{label}: the migrated session did not wake on B'")
+        print(f"server {label}: export ({len(payload) / 1e6:.1f} MB npz, "
+              f"{export_ms:.1f} ms host) -> pull-import on B' -> forget on "
+              "A'; turn 3 woken on B' = turn 3 on A' (TTFT "
+              f"{t3b['prompt_eval_duration'] / 1e6:.1f} / "
+              f"{t3a['prompt_eval_duration'] / 1e6:.1f} ms)", flush=True)
+
+        # 4. The disaggregated handoff's three calls.
+        d_prompt = ("A new conversation opens with a long question about "
+                    "the weekend plans. " * 8)
+        body_d = {"prompt": d_prompt, "stream": False, "session": "d1",
+                  "options": {"num_predict": 24}}
+        status, body = _status("POST", ua + "/admin/disagg/prefill",
+                               {"path": "/api/generate", "body": body_d})
+        meta = json.loads(body)
+        check(status == 200 and meta.get("key") == "sid:d1"
+              and meta.get("parked") is True,
+              f"{label}: disagg prefill {status} {meta}")
+        status, snap = _status("GET", ua + "/admin/session/export?key=sid:d1")
+        check(status == 200, f"{label}: export of sid:d1 {status}")
+        status, body = _status("POST", ub + "/admin/session/import",
+                               {"from": ua, "key": "sid:d1"})
+        check(status == 200, f"{label}: handoff import {status}")
+        status, _ = _status("POST", ua + "/admin/session/forget",
+                            {"key": "sid:d1"})
+        check(status == 200, f"{label}: handoff forget {status}")
+        wb = float(_metrics(ub)["kv_waked_total"])
+        on_b = _tier_gen(label, ub, d_prompt, "d1")
+        check(float(_metrics(ub)["kv_waked_total"]) == wb + 1,
+              f"{label}: the handed-off request did not wake on B'")
+        status, _ = _status("POST", ua + "/admin/session/import", raw=snap)
+        check(status == 200, f"{label}: re-import on A' {status}")
+        on_a = _tier_gen(label, ua, d_prompt, "d1")
+        check(on_b["context"] == on_a["context"], f"{label}: the handoff "
+              "woken on B' differs from the wake of the same payload on A'")
+        cold_d = _tier_gen(label, ub, d_prompt, "d-cold")
+        vs_cold = _against_cold(label, sb, "the handoff woken on B'",
+                                on_b["context"], cold_d["context"],
+                                on_b["prompt_eval_count"])
+        print(f"server {label}: disaggregated handoff of {meta['len']} "
+              f"tokens: woken on B' = the wake of the same payload on A'; "
+              f"{vs_cold}; TTFT woken "
+              f"{on_b['prompt_eval_duration'] / 1e6:.1f} ms, cold "
+              f"{cold_d['prompt_eval_duration'] / 1e6:.1f} ms", flush=True)
+
+        # 5. The export and import failpoints: routes fail, nothing lost.
+        try:
+            failpoints.arm("serve.kv_tier.export", "raise")
+            status, _ = _status("GET",
+                                ua + "/admin/session/export?key=sid:s2")
+            check(status == 500, f"{label}: armed export answered {status}")
+            check("sid:s2" in A.session_list(), f"{label}: the export "
+                  "fault lost the session")
+            failpoints.disarm_all()
+            before = set(B.session_list())
+            failpoints.arm("serve.kv_tier.import", "raise")
+            status, _ = _status("POST", ub + "/admin/session/import",
+                                {"from": ua, "key": "sid:s2"})
+            check(status == 500, f"{label}: armed import answered {status}")
+            check(set(B.session_list()) == before
+                  and "sid:s2" in A.session_list(), f"{label}: the import "
+                  "fault changed a tier")
+        finally:
+            failpoints.disarm_all()
+        print(f"server {label}: serve.kv_tier.export / .import armed: "
+              "both routes answered 500, no session lost", flush=True)
+        results["_server_tier_dense"] = dict(
+            park_stall_ms=[round(ms, 3) for ms, _, _ in parks],
+            park_W=copy["W"], park_mb=round(copy["mb"], 3),
+            slice_ms=round(copy["slice_ms"], 4),
+            readback_ms=round(copy["readback_ms"], 4),
+            upload_ms=round(copy["upload_ms"], 4),
+            install_ms=round(copy["install_ms"], 4),
+            wake_forward_ms={str(k): round(v, 4)
+                             for k, v in wake_fwd.items()},
+            wake_ttft_ms=[round(t, 3) for t in ttft],
+            cold_ttft_ms=round(cold_ms, 3), export_ms=round(export_ms, 3),
+            export_mb=round(len(payload) / 1e6, 3),
+            wake_launches=launches.get("paged_attention_verify_append", 0))
+    finally:
+        for srv in servers:
+            srv.stop()
+        for eng in engines:
+            eng.stop()
+        for k in ("SERVE_KV_HOST_GB", "SERVE_KV_IDLE_S",
+                  "SERVE_REPLICA_CLASS"):
             os.environ.pop(k, None)
 
 
@@ -5618,7 +6130,7 @@ def main() -> int:
         ("server_mixtral", lambda: phase_server(
             results, "mixtral-8x7b", "int4",
             ("quant_matmul4", "quant_matmul_experts_stacked4",
-             "paged_attention_append", "prefill_attention"))),
+             "dense_attention", "prefill_attention"), kv="dense")),
         ("server_spec", lambda: phase_server_spec(
             results, "llama3.1-8b", "int8")),
         ("server_spec", lambda: phase_server_spec(

@@ -16,7 +16,10 @@ attended), so ``[L, B, T, Hkv, D]`` is, bit for bit, the pool
   mode on a zero-copy view of the cache;
 - :func:`dense_attention_verify` (speculative verify, chain or tree) is
   kernel B's verify mode on the same view, with the block's own k/v and
-  its mask passed in, as ``verify_step_paged`` passes them.
+  its mask passed in, as ``verify_step_paged`` passes them;
+- :func:`rows_view` is some rows of that view as a paged cache: a
+  session wake runs ``verify_step_paged`` on it (kernel B's verify mode
+  through ``paged_attention_verify_append``) over the waking rows only.
 
 The identity table is built once per (rows, pages per row, device) and
 kept, so the serving loop's CUDA graphs capture it as a constant. Each
@@ -33,6 +36,7 @@ import torch
 
 from ..models.layers import attend_gqa
 from . import paged_attention as pa
+from .paged_kv import PagedKVCache
 
 # The identity view's page: the paged pool's default, so kernel B reads
 # its table and carries pages as often as on the paged path.
@@ -79,6 +83,20 @@ def pool_view(k: torch.Tensor, v: torch.Tensor):
     shape = (L, B * (T // ps), ps, Hkv, D)
     return (k.view(shape), v.view(shape),
             identity_table(B, T // ps, k.device), ps)
+
+
+def rows_view(cache, rows: torch.Tensor, lengths: torch.Tensor
+              ) -> PagedKVCache:
+    """Rows ``rows`` ([R] long) of the dense cache as a paged cache over
+    :func:`pool_view`: the identity table's rows ``rows`` and ``lengths``
+    ([R] int32, committed slots per row), no scales. A session wake runs
+    the family's ``verify_step_paged`` (kernel B's verify mode) on it over
+    the waking rows only: every read and the block's write stay inside
+    those rows, at slots below ``T``. Zero-copy k/v; the table is a
+    gathered copy (eager callers only)."""
+    kp, vp, table, _ = pool_view(cache.k, cache.v)
+    return PagedKVCache(k=kp, v=vp, page_table=table[rows.long()],
+                        lengths=lengths)
 
 
 def _live_window(cache_k, cache_v, layer: int, window: int,

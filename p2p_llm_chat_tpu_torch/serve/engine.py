@@ -33,8 +33,7 @@ models/weights.py at ``SERVE_QUANT``; a draft that fails to load, or does
 not fit the target, leaves n-gram-only speculation, as in the reference.
 Features of the reference that later slices port fail loudly when asked
 for explicitly (``SERVE_TP>1``, ``SERVE_PROFILE_PORT>0``, multi-host; a
-native Orbax ``CKPT_DIR``; the KV tier or a prefill replica class over
-the dense cache). ``SERVE_ADMIT_CHUNK`` caps the rows
+native Orbax ``CKPT_DIR``). ``SERVE_ADMIT_CHUNK`` caps the rows
 of each admission prefill, and ``SERVE_WARMUP`` (default ``128,256``)
 names the warmup buckets, as in the reference. Prompt
 admission runs the reference's defaults: chunked prefill
@@ -58,8 +57,9 @@ over that many nodes, 0 = linear; ``SERVE_SPEC_TREE_GAP``, default 4.0),
 its spec programs CUDA graphs per window beside the decode graphs. The
 KV tier runs as in the reference (``SERVE_KV_HOST_GB`` > 0 keeps
 finished conversations open as sessions, parked to host memory after
-``SERVE_KV_IDLE_S``, default 30, or under pool pressure; a follow-up turn
-wakes them), with the session and prefix export/import surface the front
+``SERVE_KV_IDLE_S``, default 30, or under pool pressure; over the dense
+cache at finish; a follow-up turn wakes them), with the session and
+prefix export/import surface the front
 serves under ``/admin/session*`` and ``/admin/prefix*``, and
 :meth:`TorchEngine.prefill_park` for disaggregated prefill.
 
@@ -84,7 +84,6 @@ from ..utils.device import resolve_device
 from ..utils.env import env_bool, env_float, env_int, env_or
 from ..utils.log import get_logger
 from .backend import Backend, GenerateRequest, RequestStats
-from .disagg import replica_class_from_env
 from .scheduler import BatchScheduler, _bucket
 
 log = get_logger("serve.torch_engine")
@@ -512,14 +511,6 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
     # finished conversations open as sessions.
     kv_host_gb = env_float("SERVE_KV_HOST_GB", 0.0)
     kv_idle_s = env_float("SERVE_KV_IDLE_S", 30.0)
-    if kv_mode == "dense" and kv_host_gb > 0:
-        raise _not_in_slice("the KV tier over the dense cache "
-                            "(SERVE_KV_HOST_GB>0 with SERVE_KV=dense; "
-                            "SERVE_KV=paged serves it)")
-    if kv_mode == "dense" and replica_class_from_env() == "prefill":
-        raise _not_in_slice("the disaggregated prefill class over the "
-                            "dense cache (SERVE_REPLICA_CLASS=prefill with "
-                            "SERVE_KV=dense; SERVE_KV=paged serves it)")
     prefix_cache = env_bool("SERVE_PREFIX", True)
     prefix_texts = (SUGGEST_PREFIX,) + tuple(
         t for t in env_or("SERVE_PREFIX_TEXTS", "").split("||") if t)

@@ -20,6 +20,10 @@ open as a session instead (serve/scheduler.py):
   one device operation and copied to host tensors; the pages go back to
   the allocator. A wake uploads the payload (the copy starts when the
   request is matched) and scatters it into new pages.
+- over the dense cache (the reference's default layout) a session has
+  no resident phase: the finished row's first slots (a power-of-two
+  bucket of its length) are copied to host tensors at once, and a wake
+  copies them back into a free row.
 - **evicted**: the host pool is budgeted; the cost policy below drops
   the worst parked sessions entirely, and their follow-up admits cold.
 
@@ -28,11 +32,13 @@ budget). Park/wake moves the exact pool words, so a resumed greedy
 stream equals one whose session never left the card.
 
 Host payloads are CPU tensors, so every pool dtype — bf16 included — is
-held without ``ml_dtypes``. The wire format is the reference's, byte for
-byte: raw bytes plus dtype-name and shape sidecars in a
-``savez_compressed`` npz, bf16 moving as its raw 2-byte words under the
-name ``"bfloat16"``. A payload written here imports into a JAX replica
-and the reverse.
+held without ``ml_dtypes``. The wire format is the reference's, member
+for member: raw bytes plus dtype-name and shape sidecars in an npz, bf16
+moving as its raw 2-byte words under the name ``"bfloat16"``. The port
+stores the members where the reference deflates them (``np.load`` reads
+either): deflating a dense llama3.1-8b session of 268 MB outlasts the
+30 s a peer's pull waits. A payload written here imports into a JAX
+replica and the reverse.
 
 Threading: the scheduler thread performs every state transition; the
 /metrics and /admin/session readers take the index lock.
@@ -119,7 +125,8 @@ class SessionKV:
     (resident: physical page ids) and ``host`` (parked) is set; ``host``
     is ((k, v, k_scale, v_scale), n_pages) for a paged pool — CPU tensors,
     the scale pair None on bf16 pools — or ((k, v), width) for a dense row
-    (a kind only a JAX replica writes; this port's scheduler rejects it)."""
+    (``[L, width, Hkv, D]`` each; a dense session is parked from its
+    start)."""
 
     key: str
     tokens: tuple
@@ -150,7 +157,8 @@ def serialize_session(sess: SessionKV) -> bytes:
     """One PARKED session -> bytes for a peer replica: the raw pool words
     and scales exactly as parked, the token ids and the index key.
     ``kind`` names the pool family ("paged": span = page count; "dense":
-    span = the row's bucket width)."""
+    span = the row's bucket width). The npz members are stored, not
+    deflated (the module's note)."""
     assert sess.parked, "only parked sessions serialize (park first)"
     arrays, span = sess.host
     kind = "paged" if len(arrays) == 4 else "dense"
@@ -164,7 +172,7 @@ def serialize_session(sess: SessionKV) -> bytes:
         payload[f"a{i}_dtype"] = np.bytes_(name.encode())
         payload[f"a{i}_shape"] = np.asarray(tuple(a.shape), np.int64)
     buf = io.BytesIO()
-    np.savez_compressed(
+    np.savez(
         buf, version=np.int64(_WIRE_VERSION),
         key=np.bytes_(sess.key.encode()),
         kind=np.bytes_(kind.encode()),

@@ -85,6 +85,12 @@ queues only:
   row's output depends on no other row), eagerly, as admission does.
   Sessions export and import in the reference's wire format (migration,
   disaggregated prefill: :meth:`BatchScheduler.prefill_park`).
+  Over the dense cache, as in the reference, a session has no resident
+  phase: a finished row's first ``W`` slots (W = the power-of-two bucket
+  of its trusted length) are copied to host tensors at finish, and a
+  wake copies them back into a free row in place and runs the same
+  verify-shaped forward on that row of the cache's identity pool view
+  (ops/dense_attention.rows_view).
 
 Every prefill attention (whole prompt, chunk, prefix suffix) runs kernel
 D on the card.
@@ -98,10 +104,8 @@ loop events dumped on a stall, a reset or on demand (obs/flight.py), the
 sampled requests (obs/trace.py), and the warmup's device-step probe
 behind ``decode_device_ms``.
 
-Not in this slice (later ones): the KV tier over a dense cache
-(dense-row parking, wake and migration) and the disaggregated classes
-on it, tensor parallelism. None of them changes greedy output in the
-reference.
+Not in this slice (later ones): tensor parallelism, which changes no
+greedy output in the reference.
 """
 
 from __future__ import annotations
@@ -125,6 +129,7 @@ from ..models.sampling import (sample_step_batched, spec_verify_batched,
                                spec_verify_tree)
 from ..obs.flight import FlightRecorder
 from ..ops import paged_attention as pa
+from ..ops.dense_attention import VIEW_PAGE, rows_view
 from ..ops.paged_kv import (PageAllocator, PagedKVCache, copy_slot,
                             gather_pages, scatter_pages, write_prefill_batch,
                             write_prefill_chunk, zero_row)
@@ -365,8 +370,8 @@ class BatchScheduler:
                  kv_mode: str = "dense", drafter=None,
                  device: Optional[torch.device | str] = None) -> None:
         """``kv_mode``: ``dense`` (one ``[L, B, max_seq, Hkv, D]`` cache,
-        the reference's default layout; bf16 only, no KV tier in this
-        version) or ``paged`` (the page pool, bf16 or int8).
+        the reference's default layout; bf16 only) or ``paged`` (the page
+        pool, bf16 or int8).
 
         ``drafter``: a resident draft model (serve/draft_model.
         ModelDrafter) proposing after the n-gram source on rows it misses
@@ -379,7 +384,9 @@ class BatchScheduler:
         as sessions — resident pages, parked to host tensors after
         ``kv_idle_s`` idle seconds or under page-pool pressure, and
         dropped past this many GB of host memory — so a follow-up turn
-        wakes instead of re-prefilling. 0 = off.
+        wakes instead of re-prefilling. Over the dense cache a session
+        parks to the host as its request finishes (no resident phase, as
+        in the reference). 0 = off.
 
         ``spec_k``: speculative decoding with up to this many n-gram
         draft tokens per row and spec tick (0 = off; the reference's
@@ -441,9 +448,6 @@ class BatchScheduler:
         if kv_quant and kv_mode != "paged":
             raise ValueError("kv_quant=True needs kv_mode='paged' (the "
                              "dense cache is bf16)")
-        if kv_mode == "dense" and kv_host_gb and kv_host_gb > 0:
-            raise ValueError("the KV tier (kv_host_gb > 0) needs "
-                             "kv_mode='paged' in this version")
         self.kv_mode = kv_mode
         self.decode_fuse_max = decode_fuse_max
         self._fuse_ramp = 1
@@ -1337,7 +1341,8 @@ class BatchScheduler:
         session only (the per-key export); None parks every one (the
         drain path). The loop owns the pages, so this is an event
         handshake it services at the top of every iteration; returns once
-        it has. No-op without a tier."""
+        it has. No-op without a tier; the handshake parks nothing over
+        the dense cache, whose sessions park at finish."""
         if self._tier is None:
             return
         if self._closed.is_set():
@@ -1358,7 +1363,7 @@ class BatchScheduler:
         self._park_all_req.clear()
         key = self._park_all_key
         try:
-            if self._tier is not None:
+            if self._tier is not None and self.kv_mode == "paged":
                 for sess in self._tier.park_candidates(force=True):
                     if key is None or sess.key == key:
                         self._park_session(sess)
@@ -1468,22 +1473,33 @@ class BatchScheduler:
         return None
 
     def _session_payload_compatible(self, sess: SessionKV) -> bool:
-        """May this imported payload scatter into this pool? Kind, dtype
-        and geometry against the live pool, token ids against the vocab,
-        the span against the row's page budget."""
+        """May this imported payload land in this cache? Its kind (four
+        arrays: a paged pool's pages; two: a dense row) against
+        ``kv_mode``, dtype and geometry against the live cache, token ids
+        against the vocab, the span against the row's page budget (paged)
+        or max_seq (dense), as the reference checks."""
         try:
             arrays, span = sess.host
-            if len(arrays) != 4 or sess.length > self.max_seq:
+            kind = "paged" if len(arrays) == 4 else "dense"
+            if kind != self.kv_mode or sess.length > self.max_seq:
                 return False
             if any(t < 0 or t >= self.config.vocab_size
                    for t in sess.tokens):
                 return False
-            k, v, ks, vs = arrays
+            k, v = arrays[0], arrays[1]
             ck = self._cache.k
-            if (k.dim() != 5 or k.shape[0] != ck.shape[0]
-                    or tuple(k.shape[2:]) != tuple(ck.shape[2:])
-                    or k.dtype != ck.dtype or v is None
-                    or v.shape != k.shape or v.dtype != k.dtype):
+            if (k is None or v is None or v.shape != k.shape
+                    or v.dtype != k.dtype or k.dtype != ck.dtype
+                    or k.dim() != ck.dim() - (kind == "dense")
+                    or k.shape[0] != ck.shape[0]):
+                return False
+            if kind == "dense":
+                # A row [L, W, Hkv, D] against the cache [L, B, T, Hkv, D].
+                return (k.shape[1] == span and span <= self.max_seq
+                        and tuple(k.shape[2:]) == tuple(ck.shape[3:])
+                        and sess.length <= span)
+            ks, vs = arrays[2], arrays[3]
+            if tuple(k.shape[2:]) != tuple(ck.shape[2:]):
                 return False
             if (ks is not None) != bool(self.kv_quant):
                 return False
@@ -2686,12 +2702,21 @@ class BatchScheduler:
         ceil(ctx_len / page_size) pages; growth pages past them return to
         the allocator. A tick still in flight writes past ctx_len only:
         into the kept tail page's slack, a trimmed page any re-user
-        overwrites after it (one stream), or the garbage page."""
+        overwrites after it (one stream), or the garbage page.
+
+        Over the dense cache the row parks at once (:meth:`_park_row`)
+        and this returns False, as the reference's does: the row has no
+        pages, and the ordinary release runs."""
         key = self._session_key(slot)
-        if key is None or slot.ctx_len <= 0 or not slot.pages:
+        if key is None or slot.ctx_len <= 0:
             return False
         toks = (list(slot.prompt_ids) + list(slot.ids))[: slot.ctx_len]
         if len(toks) < slot.ctx_len:
+            return False
+        if self.kv_mode == "dense":
+            self._park_row(key, tuple(toks), row)
+            return False
+        if not slot.pages:
             return False
         keep = min(len(slot.pages), self._alloc.pages_for(slot.ctx_len))
         kept, extra = slot.pages[:keep], slot.pages[keep:]
@@ -2706,6 +2731,28 @@ class BatchScheduler:
                                     length=slot.ctx_len, pages=kept))
         self._tier_enforce()
         return True
+
+    def _park_row(self, key: str, tokens: tuple, row: int) -> None:
+        """A finished dense row's session, parked to the host (the
+        reference's dense retention): its first W = the power-of-two
+        bucket of ``len(tokens)`` slots of every layer, copied out of the
+        cache (the reference's ``_extract_row_for``) and read back
+        synchronously. A tick still in flight writes this row only at
+        ``len(tokens)`` and beyond, queued before the copy: slots the
+        session does not trust."""
+        W = _bucket(len(tokens), self.max_seq)
+        payload = tuple(
+            self._to_host(a[:, row, :W].clone(
+                memory_format=torch.contiguous_format))
+            for a in (self._cache.k, self._cache.v))
+        old = self._tier.take(key)
+        if old is not None:
+            self._recycle_session(old)
+        self._tier.insert(SessionKV(
+            key=key, tokens=tokens, length=len(tokens), host=(payload, W),
+            nbytes=sum(tensor_nbytes(a) for a in payload)))
+        self._tier.note_parked()
+        self._tier_enforce()
 
     def _recycle_session(self, sess: SessionKV) -> None:
         """Return a replaced session's resident pages to the allocator."""
@@ -2775,8 +2822,9 @@ class BatchScheduler:
 
     def _tier_sweep(self) -> None:
         """Idle parking: at most one park per 250 ms of loop time (each is
-        a gather and a readback, a bounded stall)."""
-        if self._tier is None:
+        a gather and a readback, a bounded stall). Paged pools only: a
+        dense session is never resident."""
+        if self._tier is None or self.kv_mode != "paged":
             return
         now = time.monotonic()
         if now - self._last_tier_sweep < 0.25:
@@ -2885,51 +2933,89 @@ class BatchScheduler:
         table[:len(pages)] = torch.tensor(pages, dtype=torch.int32)
         return True
 
+    def _wake_install_row(self, slot: _Slot, row: int,
+                          sess: SessionKV) -> None:
+        """Place a parked dense session: its (k, v) ``[L, W, Hkv, D]``
+        copied into slots ``0 .. W`` of ``row`` IN PLACE (the reference's
+        ``_inject_row_for``; the decode graphs hold the cache's storage),
+        from the upload :meth:`_wake_candidate` began when it is this
+        session's."""
+        arrays, W = sess.host
+        dev = None
+        if slot.wake_dev is not None and slot.wake_dev[0] is sess:
+            dev = slot.wake_dev[1]
+        slot.wake_dev = None
+        if dev is None:
+            dev = self._upload(arrays)
+        self._cache.k[:, row, :W].copy_(dev[0])
+        self._cache.v[:, row, :W].copy_(dev[1])
+        slot.pages = []
+
     def _wake_forward(self, tokens: torch.Tensor, tables: torch.Tensor,
                       starts: torch.Tensor, last: torch.Tensor,
                       window: int) -> torch.Tensor:
         """The wake's forward over R waking rows (host tensors: suffix
-        tokens [R, S] right-padded, page maps [R, max_pages_per_row],
-        session lengths [R], each row's last suffix position [R]): the
-        family's ``verify_step_paged`` on a view of the pool with these
-        rows' tables and lengths — each layer attends the session's pool
-        KV plus the suffix block (kernel B's verify mode on the card), and
-        the block lands at ``start ..`` after the layer loop. Returns the
-        logits at ``last`` [R, V]. The pool is written in place; the live
-        rows' tables are not touched."""
+        tokens [R, S] right-padded, session lengths [R], each row's last
+        suffix position [R]; ``tables``: the rows' page maps [R,
+        max_pages_per_row] on a paged pool, their row indices [R] on the
+        dense cache): the family's ``verify_step_paged`` on a view of the
+        cache with these rows' tables and lengths — each layer attends the
+        session's KV plus the suffix block (kernel B's verify mode on the
+        card), and the block lands at ``start ..`` after the layer loop.
+        The dense cache's view is its identity pool view restricted to
+        the rows (ops/dense_attention.rows_view), always the
+        attend-then-write branch. Returns the logits at ``last`` [R, V].
+        The cache is written in place; the live rows' tables are not
+        touched."""
         dev = self.device
         S = tokens.shape[1]
-        cache = self._cache
-        view = PagedKVCache(
-            k=cache.k, v=cache.v, page_table=tables.to(dev),
-            lengths=starts.to(device=dev, dtype=torch.int32),
-            k_scale=cache.k_scale, v_scale=cache.v_scale)
-        pages = min(-(-(window + S) // self.page_size),
-                    cache.max_pages_per_row)
+        lengths = starts.to(device=dev, dtype=torch.int32)
+        if self.kv_mode == "dense":
+            view = rows_view(self._cache, tables.to(dev), lengths)
+            impl, ps = "gather", VIEW_PAGE
+        else:
+            cache = self._cache
+            view = PagedKVCache(
+                k=cache.k, v=cache.v, page_table=tables.to(dev),
+                lengths=lengths, k_scale=cache.k_scale,
+                v_scale=cache.v_scale)
+            impl, ps = self.attn_impl, self.page_size
+        pages = min(-(-(window + S) // ps), view.max_pages_per_row)
         logits, _ = self._family.verify_step_paged(
             self._params, self.config, tokens.to(dev), view, pages=pages,
-            impl=self.attn_impl, last_idx=last.to(dev))
+            impl=impl, last_idx=last.to(dev))
         return logits[:, 0, :]
 
     def _warm_wake(self, w: int, S: int) -> None:
         """Run one wake forward at (window ``w``, suffix bucket ``S``) on
-        a dummy row whose table is all garbage page 0 (its writes land
-        there), and record the shape as run. A dispatch never picks
-        w < S."""
+        a dummy row, and record the shape as run. On a paged pool the row's
+        table is all garbage page 0 (its writes land there); on the dense
+        cache it is a row no slot and no chunked admission holds, at
+        length 0 (its writes land in slots nobody trusts; a warmup job
+        only runs with a row free). A dispatch never picks w < S."""
         if w < S:
             return
-        mppr = self._cache.max_pages_per_row
         zeros = torch.zeros((1,), dtype=torch.long)
-        self._wake_forward(torch.zeros((1, S), dtype=torch.long),
-                           torch.zeros((1, mppr), dtype=torch.int32), zeros,
-                           zeros, w)
+        if self.kv_mode == "dense":
+            held = set(self._prefill_carry.rows
+                       if self._prefill_carry is not None else ())
+            free = [r for r in self._free_rows() if r not in held]
+            if not free:
+                return
+            table = torch.tensor(free[:1], dtype=torch.long)
+        else:
+            table = torch.zeros((1, self._cache.max_pages_per_row),
+                                dtype=torch.int32)
+        self._wake_forward(torch.zeros((1, S), dtype=torch.long), table,
+                           zeros, zeros, w)
         self._wake_shapes_run.add((w, S))
 
     def _admit_wake(self, chunk: list[_Slot], rows: list[int],
                     S: int) -> tuple[list[_Slot], list[int]]:
         """Wake up to len(chunk) sessions sharing suffix bucket ``S``:
-        claim each session, place its KV (:meth:`_wake_install_kv`), run
-        the suffixes through ONE :meth:`_wake_forward`, install the rows'
+        claim each session, place its KV (:meth:`_wake_install_kv` on a
+        paged pool, :meth:`_wake_install_row` on the dense cache), run the
+        suffixes through ONE :meth:`_wake_forward`, install the rows'
         tables and lengths, and sample each first token
         (:meth:`_install_admitted`). Returns (demoted slots, unused rows):
         a session that vanished since matching or whose pages could not be
@@ -2962,11 +3048,16 @@ class BatchScheduler:
                 demoted.append(slot)
                 unused.append(row)
             return demoted, unused
-        tables = torch.zeros((len(claimed), self._cache.max_pages_per_row),
+        dense = self.kv_mode == "dense"
+        tables = torch.zeros((len(claimed), 1 if dense else
+                              self._cache.max_pages_per_row),
                              dtype=torch.int32)
         live: list[tuple[_Slot, int, int]] = []
         for slot, row, sess in claimed:
-            if not self._wake_install_kv(slot, sess, tables[len(live)]):
+            if dense:
+                # Nothing to reserve: the row owns its max_seq slots.
+                self._wake_install_row(slot, row, sess)
+            elif not self._wake_install_kv(slot, sess, tables[len(live)]):
                 demoted.append(slot)
                 unused.append(row)
                 continue
@@ -2974,7 +3065,8 @@ class BatchScheduler:
         if not live:
             return demoted, unused
         R = len(live)
-        tables = tables[:R]
+        tables = (torch.tensor([row for _, row, _ in live], dtype=torch.long)
+                  if dense else tables[:R])
         tokens = torch.zeros((R, S), dtype=torch.long)
         starts = torch.tensor([n for _, _, n in live], dtype=torch.long)
         sufs = torch.zeros((R,), dtype=torch.long)
@@ -2988,7 +3080,8 @@ class BatchScheduler:
         dev = self.device
         idx = torch.tensor([row for _, row, _ in live], dtype=torch.long,
                            device=dev)
-        self._cache.page_table[idx] = tables.to(dev)
+        if not dense:
+            self._cache.page_table[idx] = tables.to(dev)
         self._cache.lengths[idx] = (starts + sufs).to(device=dev,
                                                       dtype=torch.int32)
         self._wake_shapes_run.add((w, S))

@@ -13,9 +13,11 @@ the quote head leaves no near-ties, so the contexts compare exactly).
   weights and equals the JAX engine's spec stream;
 - the dense gauges: no page-pool series on ``/metrics``;
 - the refusals: ``SERVE_KV_QUANT=int8`` with dense (the reference's
-  message), and the KV tier or a prefill replica class over the dense
-  cache (not in this version, by name).
+  message) and an unknown ``SERVE_KV``; the KV tier and a prefill replica
+  class over the dense cache build and serve a session.
 """
+
+import time
 
 import jax
 import numpy as np
@@ -30,6 +32,7 @@ from p2p_llm_chat_tpu.serve.backend import (GenerateOptions as RefOptions,
                                             collect as ref_collect)
 from p2p_llm_chat_tpu.serve.engine import TPUEngine
 from p2p_llm_chat_tpu.tokenizer import ByteTokenizer as RefByteTokenizer
+from p2p_llm_chat_tpu_torch.models import llama
 from p2p_llm_chat_tpu_torch.models.configs import get_config
 from p2p_llm_chat_tpu_torch.models.convert import params_from_numpy
 from p2p_llm_chat_tpu_torch.serve.backend import (GenerateOptions,
@@ -158,9 +161,13 @@ def test_dense_refusals(monkeypatch):
                        device="cpu")
     with pytest.raises(ValueError, match="kv_mode must be dense|paged"):
         BatchScheduler(params, cfg, tok, kv_mode="flat", device="cpu")
-    with pytest.raises(ValueError, match="KV tier"):
-        BatchScheduler(params, cfg, tok, kv_mode="dense", kv_host_gb=1.0,
-                       device="cpu")
+    sched = BatchScheduler(llama.init_params_quantized(cfg, device="cpu"),
+                           cfg, tok, kv_mode="dense", kv_host_gb=1.0,
+                           device="cpu")
+    try:
+        assert sched.session_list() == {}
+    finally:
+        sched.stop()
     for k, v in dict(SERVE_DEVICE="cpu", SERVE_WARMUP="0",
                      MODEL_CONFIG="tiny").items():
         monkeypatch.setenv(k, v)
@@ -170,13 +177,33 @@ def test_dense_refusals(monkeypatch):
                        match="SERVE_KV_QUANT=int8 requires SERVE_KV=paged"):
         build_engine_from_env()
     monkeypatch.delenv("SERVE_KV_QUANT")
+    # The KV tier over the dense cache: a finished session parks at once.
     monkeypatch.setenv("SERVE_KV_HOST_GB", "1")
-    with pytest.raises(SystemExit, match="KV tier over the dense cache"):
-        build_engine_from_env()
-    monkeypatch.delenv("SERVE_KV_HOST_GB")
+    engine = build_engine_from_env()
+    try:
+        assert engine.scheduler.kv_mode == "dense"
+        _context(engine, "hello there, an open conversation", max_tokens=4,
+                 temperature=0.0)
+        deadline = time.monotonic() + 10
+        while not engine.session_list() and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert [m["parked"] for m in engine.session_list().values()] == [
+            True]
+    finally:
+        engine.stop()
+    # A prefill-class dense replica: prefill_park retains the prompt
+    # minus its last token, parked.
     monkeypatch.setenv("SERVE_REPLICA_CLASS", "prefill")
-    with pytest.raises(SystemExit, match="prefill class over the dense"):
-        build_engine_from_env()
+    engine = build_engine_from_env()
+    try:
+        meta = engine.prefill_park(GenerateRequest(
+            prompt="a prompt for the decode replica", session="d",
+            options=GenerateOptions(max_tokens=4)))
+        assert meta is not None and meta["key"] == "sid:d"
+        assert meta["parked"] is True
+    finally:
+        engine.stop()
+    monkeypatch.delenv("SERVE_KV_HOST_GB")
     monkeypatch.setenv("SERVE_KV", "paged")
     build_engine_from_env().stop()
     monkeypatch.setenv("SERVE_KV", "flat")

@@ -5,6 +5,7 @@ reference, on the CPU.
 - ``replica_class_from_env`` equals the reference's on the same settings
   (the value, or both exit), and the front advertises the class on
   ``/readyz`` and ``/metrics``.
+- Both legs below run over the int8 pool and over the dense cache.
 - The engine-level leg of the reference's
   ``test_disagg_byte_identity_and_failure_degradation``: ``prefill_park``
   on engine A retains exactly ``ids[:-1]``; export -> import on B; the
@@ -124,18 +125,20 @@ def params():
                              device="cpu")
 
 
-def make_engine(params, host_gb=1.0):
+def make_engine(params, host_gb=1.0, kv_mode="paged"):
     eng = TorchEngine(params, CFG, TOK, num_slots=2, max_seq=256,
-                      page_size=64, kv_quant=True, prefix_cache=False,
-                      kv_host_gb=host_gb, kv_idle_s=1e9, kv_mode="paged",
-                      device="cpu")
+                      page_size=64, kv_quant=kv_mode == "paged",
+                      prefix_cache=False, kv_host_gb=host_gb, kv_idle_s=1e9,
+                      kv_mode=kv_mode, device="cpu")
     eng.scheduler.warmup((64, 128))
     return eng
 
 
 @pytest.mark.model
-def test_disagg_engine_leg_byte_identity(params):
-    a, b = make_engine(params), make_engine(params)   # prefill, decode
+@pytest.mark.parametrize("kv_mode", ["paged", "dense"])
+def test_disagg_engine_leg_byte_identity(params, kv_mode):
+    a, b = (make_engine(params, kv_mode=kv_mode),     # prefill, decode
+            make_engine(params, kv_mode=kv_mode))
     try:
         o1, os_ = run(b, PROMPT1, "oracle")
         o2, _ = run(b, PROMPT2, "oracle", ctx=os_.context)
@@ -144,6 +147,8 @@ def test_disagg_engine_leg_byte_identity(params):
             options=GenerateOptions(max_tokens=8, temperature=0.0, seed=1)))
         assert meta is not None and meta["key"] == "sid:m"
         assert meta["len"] == len(TOK.encode(PROMPT1, add_bos=True)) - 1
+        # A dense session parks as its throwaway generation finishes.
+        assert meta["parked"] is (kv_mode == "dense")
         payload = a.session_export("sid:m")
         assert payload is not None
         assert "sid:m" in a.scheduler._tier.sessions_meta()   # retained
@@ -168,9 +173,11 @@ def test_disagg_engine_leg_byte_identity(params):
 
 
 @pytest.mark.model
-def test_reference_drive_handoff_between_port_fronts(params):
-    a, b = make_engine(params), make_engine(params)
-    plain = make_engine(params, host_gb=0.0)
+@pytest.mark.parametrize("kv_mode", ["paged", "dense"])
+def test_reference_drive_handoff_between_port_fronts(params, kv_mode):
+    a, b = (make_engine(params, kv_mode=kv_mode),
+            make_engine(params, kv_mode=kv_mode))
+    plain = make_engine(params, host_gb=0.0, kv_mode=kv_mode)
     fronts = []
     try:
         fronts = [OllamaServer(a, addr="127.0.0.1:0",

@@ -19,10 +19,10 @@ against the reference, on the CPU.
   byte-identical to the conversation resumed on B having never moved,
   for an explicit session id and for the anonymous head index; a stale
   re-import over a resident copy and incompatible payloads reject.
-- Across the stacks on the quote weights (tiny, int8 pool, page size
-  64): a JAX engine's exported session wakes on the port with the JAX
-  engine's own wake stream, and a port export wakes on a JAX engine with
-  the port's.
+- Across the stacks on the quote weights (tiny; the int8 pool at page
+  size 64, and the dense cache): a JAX engine's exported session wakes on
+  the port with the JAX engine's own wake stream, and a port export wakes
+  on a JAX engine with the port's.
 """
 
 import io
@@ -150,6 +150,23 @@ def test_session_wire_reference_to_port(kind):
         if t is not None:
             assert b.dtype == t.dtype and b.shape == t.shape
             np.testing.assert_array_equal(_t_bits(b), _t_bits(t))
+
+
+def test_session_export_is_stored_not_deflated():
+    """The port's session payload is an npz whose members are stored: the
+    deflate of a dense llama3.1-8b session (268 MB) outlasts a peer's
+    30 s pull; the reference reads the stored form bitwise."""
+    import zipfile
+    arrays, twins, span = _payload("dense")
+    sess = kv_tier.SessionKV(key="sid:st", tokens=tuple(range(40)),
+                             length=40, host=(twins, span), nbytes=1)
+    data = kv_tier.serialize_session(sess)
+    with zipfile.ZipFile(io.BytesIO(data)) as z:
+        assert {i.compress_type for i in z.infolist()} == {
+            zipfile.ZIP_STORED}
+    got = ref_tier.deserialize_session(data)
+    for a, b in zip(arrays, got.host[0]):
+        np.testing.assert_array_equal(_np_bits(b), _np_bits(a))
 
 
 @pytest.mark.parametrize("data", [
@@ -422,19 +439,22 @@ def test_cross_engine_migration_byte_identity(params):
         b.stop()
 
 
-def test_cross_stack_migration_byte_identity():
+@pytest.mark.parametrize("kv_mode", ["paged", "dense"])
+def test_cross_stack_migration_byte_identity(kv_mode):
     """Quote weights: the JAX engine parks and exports turn 1; the port
     imports it and wakes turn 2 with the JAX engine's own turn-2 stream.
     Then the reverse: the port exports, the JAX engine wakes with the
-    port's stream."""
+    port's stream. Over the int8 pool (kind "paged") and over the dense
+    cache (kind "dense": a bf16 row, parked at finish)."""
     rparams = quote_params(RCFG, jax.random.PRNGKey(3), quantized=True)
     tparams = params_from_numpy(jax.tree.map(np.asarray, rparams),
                                 device="cpu")
+    kw = dict(ENGINE_KW, kv_quant=kv_mode == "paged")
     ref = TPUEngine(rparams, RCFG, RefByteTokenizer(RCFG.vocab_size),
-                    kv_mode="paged", prefix_cache=False, **ENGINE_KW)
+                    kv_mode=kv_mode, prefix_cache=False, **kw)
     port = TorchEngine(tparams, CFG, ByteTokenizer(CFG.vocab_size),
-                       prefix_cache=False, kv_mode="paged",
-                       device="cpu", **ENGINE_KW)
+                       prefix_cache=False, kv_mode=kv_mode,
+                       device="cpu", **kw)
     try:
         for eng in (ref, port):
             eng.warmup(buckets=(64, 128))
@@ -449,6 +469,9 @@ def test_cross_stack_migration_byte_identity():
                      msg="retention")
             payload = se.session_export(f"sid:{sid}")
             assert payload is not None
+            assert kv_tier.deserialize_session(payload).parked
+            with np.load(io.BytesIO(payload)) as z:
+                assert z["kind"].tobytes().decode() == kv_mode
             # The source's own wake of the same turn is the oracle.
             want, ws = srun(se, " and again", sid, ctx=s1.context,
                             max_tokens=12)
