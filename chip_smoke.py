@@ -22,10 +22,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    llama3.1-8b step as timed and on the device (CUDA graphs), kernel B's
    verify mode (speculative verify: S positions per row over the pool
    plus their own k/v under a chain or tree mask) on the same ragged
-   geometries with S 2, 5, 8, 16 and 64, and at a session wake's S = 128
-   and 256, with the same bitwise checks, timed per llama3.1-8b verify
-   at S = 8 and per wake at R = 1, S = 256 beside its bound and SDPA over
-   the pre-gathered window plus the block, kernel C (w4a16 on tensor cores)
+   geometries with S 2, 5, 8, 16 and 64, at a session wake's S = 128
+   and 256 and at a drafter feed's S = 512, with the same bitwise checks,
+   timed per llama3.1-8b verify at S = 8 and per wake at R = 1, S = 256
+   beside its bound and SDPA over the pre-gathered window plus the block,
+   with the split kernel and the merge apart under torch.profiler, kernel C (w4a16 on tensor cores)
    exact on all 256 byte values,
    on ragged shapes that run every row tile and both of its routes, at
    the mixtral-8x7b and llama3.1-8b int4 shapes with bitwise reruns and
@@ -44,8 +45,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (kernel B's pool and verify modes over a zero-copy identity pool view
    of the dense cache), at rep 1-8, D 64 and 128, max_seq 1024, 4096,
    1000 and 1100, ragged lengths with NaN past each row's, S = 5 chains
-   and 8-node trees, chains of S = 16, 64 and 256 at the drafter's feeds
-   (B = 8, Hq 8 / Hkv 4, W = 1024 and 4096), each case bitwise against a rerun, its rows' B = 1
+   and 8-node trees, chains of S = 16, 64, 256 and 512 at the drafter's
+   feeds (B = 8, Hq 8 / Hkv 4, W = 1024, 2048 and 4096), each case bitwise against a rerun, its rows' B = 1
    calls and the whole cache as the window, and a session wake's
    attention (kernel B's verify mode on the waking rows {5} or {6, 1} of
    a llama3.1-8b cache of 8 x 4096, S = 64 and 256, W = 2048 and 4096,
@@ -880,6 +881,42 @@ def _v_case(label, cache, q, kb, vb, mask, pages) -> float:
     return err
 
 
+def _verify_breakdown(call, L: int) -> dict:
+    """Device ms per 32 layers of the verify mode's two launches, by
+    torch.profiler over 2 L calls of ``call(i)``: the split kernel's span
+    (the window slices and, since the redesign, the block's own slice)
+    and the time the combine adds past the split's end. The combine is a
+    programmatic dependent launch: its blocks are resident, waiting,
+    while the split runs, so its own span would count the split again."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(L):
+        call(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(2 * L):
+            call(i)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and "paged_" in e.name)
+    split = tail = 0.0
+    split_end = -math.inf
+    for start, end, name in spans:
+        if "combine" in name or "merge" in name:
+            tail += max(0.0, end - max(start, split_end))
+        else:
+            split += end - start
+            split_end = end
+    scale = 32 / (2 * L) / 1e3
+    check(split > 0 and tail > 0, "verify breakdown: torch.profiler saw "
+          "no device time for the split kernel or the combine")
+    return dict(split_device_ms=round(split * scale, 4),
+                combine_device_ms=round(tail * scale, 4))
+
+
 def _v_timing(B: int, S: int, W: int, seed: int) -> dict:
     """One 32-layer llama3.1-8b verify-mode call sequence at B rows, S
     block positions and a full window of W on an int8 pool (8 layers
@@ -900,6 +937,7 @@ def _v_timing(B: int, S: int, W: int, seed: int) -> dict:
     call = lambda i: _v_call(cache, q, kb, vb, None, pages, i % L)
     ms = time_ms(call, 96 if S <= 64 else 32, warmup=L)
     dev = graph_ms(call, n=2 * L)
+    parts = _verify_breakdown(call, L)
     plain = time_ms(lambda i: paged_attention_verify_append_reference(
         q, kb, vb, cache, cache.lengths, i % L, pages=pages), 8, warmup=1)
     ps = cache.page_size
@@ -935,29 +973,45 @@ def _v_timing(B: int, S: int, W: int, seed: int) -> dict:
           f"bound); plain {plain * 1e3:.1f} us; SDPA on a pre-gathered "
           f"window + block, explicit mask (gather excluded) "
           f"{lib * 1e3:.1f} us as timed, {lib_dev * 1e3:.1f} us on the "
-          "device", flush=True)
+          f"device; 32 layers under torch.profiler: split kernel "
+          f"{parts['split_device_ms']:.3f} ms, combine past its end "
+          f"{parts['combine_device_ms']:.3f} ms", flush=True)
     return dict(ms=round(32 * ms, 4), device_ms=round(32 * dev, 4),
                 plain_ms=round(32 * plain, 4), bound_ms=round(32 * b_ms, 4),
                 bound_by=kind, library_ms=round(32 * lib, 4),
-                library_device_ms=round(32 * lib_dev, 4))
+                library_device_ms=round(32 * lib_dev, 4), **parts)
 
 
 def phase_kernel_b_verify(results: dict) -> None:
     """Kernel B's verify mode (speculative verify: S candidate positions
     per row over the pool window plus their own k/v under a chain or tree
-    mask; the reference's XLA ``paged_attention_verify_append``; and a
-    session wake's suffix forward, S up to 256) against its plain version:
-    int8 and bf16 pools, chain and tree masks (random per-row ancestry),
-    S 2, 5, 8, 16 and 64 (the largest speculative block, wider than
-    D = 32), then the wake's S = 128 and 256 under the chain mask at
-    R = 1 and 2 and windows of 128 and 2048, rep 1-8, D 32-128, page sizes
-    16, 48 and 64, windows up to 4096, NaN in every dead slot; each case
-    also bitwise against a rerun, its rows' B = 1 calls and a window twice
-    as wide. Timed per 32-layer llama3.1-8b verify at B = 8, S = 8,
-    W = 1024 and per 32-layer wake at R = 1, S = 256, W = 2048, both on an
-    int8 pool (events and CUDA graph) beside the bound and SDPA over a
-    pre-gathered, dequantized window plus the block under an explicit
-    mask."""
+    mask; the reference's XLA ``paged_attention_verify_append``; a
+    session wake's suffix forward, S up to 256; a drafter's catch-up
+    feed, S up to 512) against its plain version: int8 and bf16 pools,
+    chain and tree masks (random per-row ancestry), S 2, 5, 8, 16 and 64
+    (the largest speculative block, wider than D = 32), then the wake's
+    S = 128 and 256 under the chain mask at R = 1 and 2 and windows of 128
+    and 2048, and S = 512 chains at W = 2048 on both pools, rep 1-8,
+    D 32-128, page sizes 16, 48 and 64, windows up to 4096, NaN in every
+    dead slot; each case also bitwise against a rerun, its rows' B = 1
+    calls and a window twice as wide. Timed per 32-layer llama3.1-8b verify at
+    B = 8, S = 8, W = 1024 and per 32-layer wake at R = 1, S = 256,
+    W = 2048, both on an int8 pool (events and CUDA graph, and the split
+    kernel against the merge under torch.profiler) beside the bound and
+    SDPA over a pre-gathered, dequantized window plus the block under an
+    explicit mask."""
+    from p2p_llm_chat_tpu_torch.ops import _build
+    from p2p_llm_chat_tpu_torch.ops import paged_attention as pa
+    lib = _build.load("paged_attention", pa._bind)
+    check(lib.paged_verify_max_s() == 512, "kernel B verify: the widest "
+          f"block is {lib.paged_verify_max_s()}, not the drafter's 512")
+    print("  kernel B verify kernel, window slice tokens at S = 1, 64, 65, "
+          "512: " + ", ".join(str(lib.paged_verify_slice_tokens(S))
+                             for S in (1, 64, 65, 512))
+          + "; dynamic shared memory per block: "
+          + ", ".join(f"{'int8' if qz else 'bf16'} D={D} "
+                      f"{lib.paged_verify_smem(qz, D)} B"
+                      for qz in (1, 0) for D in (32, 64, 128)))
     worst = 0.0
     cases = (  # (int8, Hq, Hkv, D, ps, W, S, tree, lengths)
         (True, 32, 8, 128, 64, 1024, 8, False, [1024, 1000, 64, 1]),
@@ -978,6 +1032,9 @@ def phase_kernel_b_verify(results: dict) -> None:
         (False, 32, 8, 128, 64, 2048, 256, False, [2048, 1000]),
         (True, 32, 8, 128, 64, 2048, 128, False, [2048]),
         (False, 32, 8, 128, 64, 128, 128, False, [1, 127]),
+        # The widest block (a drafter's 512-position catch-up feed).
+        (True, 32, 8, 128, 64, 2048, 512, False, [2048, 700]),
+        (False, 32, 8, 128, 48, 2048, 512, False, [1500, 1]),
     )
     for i, (qz, Hq, Hkv, D, ps, W, S, tree, lengths) in enumerate(cases):
         cache, _, _, _, pages = _paged_case(qz, Hq, Hkv, D, W, lengths,
@@ -1109,6 +1166,7 @@ def _dense_timing(B: int, W: int, L: int = 8, S: int = 0) -> dict:
     call = lambda i: _dense_call(cache, q, lengths, W, i % L, blk)
     ms = time_ms(call, 96, warmup=L)
     dev = graph_ms(call, n=2 * L)
+    parts = _verify_breakdown(call, L) if S else {}
     plain = time_ms(lambda i: _dense_plain(cache, q, lengths, W, i % L, blk),
                     8, warmup=1)
     rep = Hq // Hkv
@@ -1146,11 +1204,15 @@ def _dense_timing(B: int, W: int, L: int = 8, S: int = 0) -> dict:
           f"(bound {b_ms * 1e3:.1f} us, {kind}; {b_ms / dev:.0%} of bound; "
           f"host gap {(ms - dev) * 1e3:.1f} us); plain {plain * 1e3:.1f} us; "
           f"SDPA over the window {lib * 1e3:.1f} us as timed, "
-          f"{lib_dev * 1e3:.1f} us on the device", flush=True)
+          f"{lib_dev * 1e3:.1f} us on the device"
+          + (f"; 32 layers under torch.profiler: split kernel "
+             f"{parts['split_device_ms']:.3f} ms, combine past its end "
+             f"{parts['combine_device_ms']:.3f} ms" if parts else ""),
+          flush=True)
     return dict(ms=round(32 * ms, 4), device_ms=round(32 * dev, 4),
                 plain_ms=round(32 * plain, 4), bound_ms=round(32 * b_ms, 4),
                 bound_by=kind, library_ms=round(32 * lib, 4),
-                library_device_ms=round(32 * lib_dev, 4))
+                library_device_ms=round(32 * lib_dev, 4), **parts)
 
 
 def _wake_call(cache, rows, starts, q, kb, vb, pages, layer=1):
@@ -1220,6 +1282,7 @@ def _wake_timing(S: int = 256, W: int = 2048, L: int = 8) -> dict:
     call = lambda i: _wake_call(cache, idx, st, q, kb, vb, pages, i % L)
     ms = time_ms(call, 32, warmup=L)
     dev = graph_ms(call, n=2 * L)
+    parts = _verify_breakdown(call, L)
     plain = time_ms(lambda i: da.dense_attention_verify_plain(
         q, kb, vb, cache.k[:, idx], cache.v[:, idx], st, i % L,
         window=W + S), 4, warmup=1)
@@ -1247,11 +1310,14 @@ def _wake_timing(S: int = 256, W: int = 2048, L: int = 8) -> dict:
           f"{b_ms * 1e3:.1f} us, {kind}; {b_ms / dev:.0%} of bound); plain "
           f"{plain * 1e3:.1f} us; SDPA over the window + block, explicit "
           f"mask {lib * 1e3:.1f} us as timed, {lib_dev * 1e3:.1f} us on the "
-          f"device; 32 layers on the device {32 * dev:.3f} ms", flush=True)
+          f"device; 32 layers on the device {32 * dev:.3f} ms (under "
+          f"torch.profiler: split kernel {parts['split_device_ms']:.3f} ms, "
+          f"combine past its end {parts['combine_device_ms']:.3f} ms)",
+          flush=True)
     return dict(ms=round(32 * ms, 4), device_ms=round(32 * dev, 4),
                 plain_ms=round(32 * plain, 4), bound_ms=round(32 * b_ms, 4),
                 bound_by=kind, library_ms=round(32 * lib, 4),
-                library_device_ms=round(32 * lib_dev, 4))
+                library_device_ms=round(32 * lib_dev, 4), **parts)
 
 
 def phase_kernel_dense(results: dict) -> None:
@@ -1265,9 +1331,9 @@ def phase_kernel_dense(results: dict) -> None:
     lengths, NaN in every slot past a row's length; verify mode at S = 5
     (chain) and an 8-node tree, and at the resident drafter's catch-up
     feeds (serve/draft_model.py: B = 8 rows of draft-400m's Hq 8 / Hkv 4 /
-    D 128, chains of S = 16, 64 and 256 over max_seq 4096 at W = 1024 and
-    4096, ragged committed lengths, one row's block ending at the
-    window). Each case also bitwise against a rerun, its rows' B = 1 calls
+    D 128, chains of S = 16, 64, 256 and 512 over max_seq 4096 at
+    W = 1024, 2048 and 4096, ragged committed lengths, one row's block
+    ending at the window). Each case also bitwise against a rerun, its rows' B = 1 calls
     and the whole cache as the window, with the view's storage the
     cache's. Then a session wake's attention over the dense cache (the
     scheduler's ``_wake_forward``: kernel B's verify mode on
@@ -1297,7 +1363,7 @@ def phase_kernel_dense(results: dict) -> None:
         (32, 8, 128, 1000, 1000, [992, 400, 3, 0], 8, True),
         (8, 8, 64, 1100, 512, [504, 17, 256, 9], 5, False),
         (64, 8, 128, 1024, 1024, [1016, 1000, 64, 1], 8, True),
-        # The drafter's feeds (ModelDrafter._feed: M = 4..256 at B = 8).
+        # The drafter's feeds (ModelDrafter._feed: M = 4..512 at B = 8).
         (8, 4, 128, 4096, 1024, [1008, 700, 1, 0, 333, 64, 999, 512], 16,
          False),
         (8, 4, 128, 4096, 4096, [4032, 2049, 0, 17, 1000, 3000, 63, 1],
@@ -1310,6 +1376,8 @@ def phase_kernel_dense(results: dict) -> None:
          False),
         (8, 4, 128, 4096, 4096, [4080, 100, 0, 4000, 2048, 7, 64, 1], 16,
          False),
+        (8, 4, 128, 4096, 2048, [1536, 700, 0, 1, 1000, 64, 1200, 511],
+         512, False),
     )
     for i, (Hq, Hkv, D, T, W, lengths, S, tree) in enumerate(ver):
         cache, _ = _dense_case(Hq, Hkv, D, T, lengths, seed=80 + i)
@@ -4244,6 +4312,29 @@ def phase_server_dense(results: dict) -> None:
           flush=True)
 
 
+def _time_wide_dispatches(drafter) -> dict:
+    """Wall ms of each of ``drafter``'s draft dispatches from now on (the
+    instance's ``_dispatch_draft`` wrapped; ``del`` the attribute to
+    unwrap), under "wide" where a row's pending block is wider than the
+    graphed 16 positions (an eager feed through kernel B's verify mode
+    at S > 16, catch-ups past 512 included), else "narrow"."""
+    from p2p_llm_chat_tpu_torch.serve import draft_model as dm
+    times = {"wide": [], "narrow": []}
+    inner = drafter._dispatch_draft
+
+    def timed(rows, ctxs):
+        pend = max((dm._ctx_len(ctxs[r]) - drafter._fed[r] for r in rows),
+                   default=0)
+        t0 = time.monotonic()
+        out = inner(rows, ctxs)
+        if out[0]:
+            times["wide" if pend > dm._GRAPH_MAX_FEED else "narrow"].append(
+                (time.monotonic() - t0) * 1e3)
+        return out
+    drafter._dispatch_draft = timed
+    return times
+
+
 def phase_server_draft(results: dict) -> None:
     """The resident draft model on the dense path (``SERVE_KV=dense
     SERVE_SPEC=4``, tree default of 8 nodes): (a) llama3.1-8b int8 on
@@ -4300,6 +4391,7 @@ def phase_server_draft(results: dict) -> None:
             for fn in wrappers.values():
                 fn.launches = 0
             n0, s0 = d.n_draft_dispatches, d.draft_s
+            wide = _time_wide_dispatches(d)
             on = _spec_burst(label, url, reqs)
             ctx_on = _greedy_contexts(url, reqs)
             launches = {n: f.launches for n, f in wrappers.items()
@@ -4314,11 +4406,18 @@ def phase_server_draft(results: dict) -> None:
             ng = {k: m.get(f'{k}{{source="ngram"}}') for k in (
                 "serve_spec_proposed_total", "serve_spec_accepted_total",
                 "serve_spec_accepted_per_dispatch")}
+            del d._dispatch_draft               # the class's method again
+            wide_ms = sum(wide["wide"])
+            all_ms = wide_ms + sum(wide["narrow"])
             print(f"server {label}: burst {on['toks']} tokens in "
                   f"{on['wall']:.2f} s = {on['tok_s']:.1f} tok/s served, "
                   f"{on['p50_rate']:.1f} tok/s per request (p50); drafter "
                   f"{nd} draft dispatches, {ms_tick:.2f} ms each (graph "
                   f"replays up to 16 pending tokens, readback included); "
+                  f"{len(wide['wide'])} of them with a pending block "
+                  f"wider than 16 (eager, kernel B's verify mode at "
+                  f"S > 16): {wide_ms:.1f} of {all_ms:.1f} ms "
+                  f"({wide_ms / max(all_ms, 1e-9):.0%}); "
                   f"source model {src}; source ngram "
                   f"{ng}; serve_spec_accepted_per_dispatch "
                   f"{m['serve_spec_accepted_per_dispatch']}, tree path len "
@@ -4342,6 +4441,9 @@ def phase_server_draft(results: dict) -> None:
             results.setdefault("_server_draft", {})[case] = dict(
                 drafter_kv_gb=round(d.kv_bytes() / 1e9, 4),
                 draft_ms_per_dispatch=round(ms_tick, 3),
+                wide_dispatches=len(wide["wide"]),
+                wide_dispatch_ms=round(wide_ms, 3),
+                dispatch_ms=round(all_ms, 3),
                 draft_graph_replay_ms=round(replay_ms, 4),
                 model=src, ngram=ng, tok_s=round(on["tok_s"], 2),
                 per_dispatch=m["serve_spec_accepted_per_dispatch"])

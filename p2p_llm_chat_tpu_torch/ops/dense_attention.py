@@ -205,7 +205,7 @@ def dense_attention_verify(q_blk: torch.Tensor, k_blk: torch.Tensor,
     ancestor matrix). ``window`` covers ``lengths + S``.
 
     On the card: kernel B's verify mode over :func:`pool_view` (bf16
-    caches), the block from registers at full precision. On the CPU:
+    caches), the block's own k/v at full precision. On the CPU:
     :func:`dense_attention_verify_plain`. Returns [B, S, Hq, D]."""
     if q_blk.device.type == "cpu":
         return dense_attention_verify_plain(

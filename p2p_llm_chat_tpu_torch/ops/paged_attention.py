@@ -1,5 +1,5 @@
-"""Decode attention over the paged KV pool: kernel B
-(csrc/paged_attention.cu) in its two modes, and the plain versions.
+"""Attention over the paged KV pool: kernel B (csrc/paged_attention.cu)
+in its decode modes and its verify mode, and the plain versions.
 
 - Append mode, :func:`paged_attention_append`: one query token per row
   attends its pool window (positions < ``lengths``, walked through the
@@ -10,6 +10,11 @@
   already written this step's k/v into the pool (ops/paged_kv.
   write_decode) and passes ``lengths`` counting it, so the window alone
   is attended (the branch ``PAGED_ATTN_IMPL=kernel|flash`` selects).
+- Verify mode, :func:`paged_attention_verify_append`: S <= 512 positions
+  per row attend the window plus the block's own k/v under a chain or
+  tree mask (speculative and tree verify, session wakes, the drafter's
+  catch-up feeds); its own kernel, its workspace sized by
+  :func:`verify_plan`.
 
 On int8 pools the k scales fold into the scores and the v scales into
 the probabilities of the numerator only.
@@ -226,6 +231,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         [p] * 9 + [i, p, p, p, p] + [i] * 12 + [p])
     lib.paged_verify_max_s.restype = i
     lib.paged_verify_max_s.argtypes = []
+    lib.paged_verify_slice_tokens.restype = i
+    lib.paged_verify_slice_tokens.argtypes = [i]
+    lib.paged_verify_smem.restype = i
+    lib.paged_verify_smem.argtypes = [i, i]
 
 
 def _pool_operands(what: str, q, Hkv: int, D: int, k_pages, v_pages,
@@ -282,6 +291,19 @@ def _workspace(lib, rows: int, D: int, window: int, device):
     ws = torch.empty(rows * splits * (D + 2), dtype=torch.float32,
                      device=device)
     return splits, ws
+
+
+def verify_plan(width: int, B: int, S: int, Hq: int, D: int,
+                window: int) -> tuple[int, int]:
+    """(window slices, workspace floats) of a verify-mode call whose
+    window slices are ``width`` tokens at fixed absolute positions (the
+    source's ``paged_verify_slice_tokens(S)``: fixed by S alone, never by
+    B or the window, so a row's answer is bitwise the same at any B and
+    window): one partial per (row, position, query head) for each slice
+    plus one for the block's own k/v, as accumulators
+    [B, S, Hq, slices + 1, D], then (m, l) [B, S, Hq, slices + 1, 2]."""
+    splits = max(1, -(-window // width))
+    return splits, B * S * Hq * (splits + 1) * (D + 2)
 
 
 def _launch(what: str, q, k_cur, v_cur, k_pages, v_pages, k_scale, v_scale,
@@ -476,8 +498,9 @@ def verify_launch(what: str, q_blk, k_blk, v_blk, k_pages, v_pages,
     (ks_ptr, vs_ptr), ps_pad, quantized = _pool_operands(
         what, q_blk, Hkv, D, k_pages, v_pages, k_scale, v_scale, page_table,
         lengths, layer, pages)
-    rows = B * S * Hq
-    splits, ws = _workspace(lib, rows, D, pages * ps, q_blk.device)
+    splits, floats = verify_plan(lib.paged_verify_slice_tokens(S), B, S, Hq,
+                                 D, pages * ps)
+    ws = torch.empty(floats, dtype=torch.float32, device=q_blk.device)
     out = torch.empty_like(q_blk)
     acc_ptr = ws.data_ptr()
     pt = page_table
@@ -485,8 +508,8 @@ def verify_launch(what: str, q_blk, k_blk, v_blk, k_pages, v_pages,
         q_blk.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), mask_ptr,
         k_pages.data_ptr(), v_pages.data_ptr(), ks_ptr, vs_ptr,
         pt.data_ptr(), pt.shape[1], lengths.data_ptr(), acc_ptr,
-        acc_ptr + rows * splits * D * 4, out.data_ptr(), B, S, Hq, Hkv, D, N,
-        ps, ps_pad, layer, pages, splits, int(quantized),
+        acc_ptr + B * S * Hq * (splits + 1) * D * 4, out.data_ptr(), B, S,
+        Hq, Hkv, D, N, ps, ps_pad, layer, pages, splits, int(quantized),
         _build.stream_ptr(q_blk.device))
     _build.check(rc, lib, "paged_append_error_string", what)
     return out

@@ -16,8 +16,9 @@ The device design is the reference's, on the port's dense model forms:
   seen (the last correction, anything emitted while another source
   drafted) are fed in ONE multi-position forward at the row's valid
   prefix, whose last pending position yields the first draft (kernel B's
-  verify mode on the card, at most ``_MAX_FEED`` = 256 positions, the
-  mode's widest block; a longer suffix feeds in 256-wide chunks first);
+  verify mode on the card, at most ``_MAX_FEED`` = 512 positions, the
+  reference's cap and the mode's widest block; a longer suffix feeds in
+  512-wide chunks first);
 - **drafting = decode_fused** with an argmax ``sample_fn`` over the
   dense ``decode_step`` (kernel B's pool mode on the card) for the
   remaining K - 1 tokens, each position's runner-up token and top-1/top-2
@@ -54,10 +55,10 @@ log = get_logger("serve.draft_model")
 
 # Catch-up feed buckets: pending suffixes bucket to the smallest power of
 # two >= len (floor _MIN_FEED); a longer suffix than _MAX_FEED feeds in
-# _MAX_FEED-wide chunks first (kernel B's verify mode takes up to 256
-# positions; the reference's cap is 512).
+# _MAX_FEED-wide chunks first (the reference's cap, and the widest block
+# kernel B's verify mode takes).
 _MIN_FEED = 4
-_MAX_FEED = 256
+_MAX_FEED = 512
 # Draft programs over pending blocks up to this wide are captured (B x
 # 16 rows stay on kernel A's path); wider ones, rare, run eagerly.
 _GRAPH_MAX_FEED = 16

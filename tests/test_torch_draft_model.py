@@ -95,7 +95,7 @@ def _same_tree(got, want, scale) -> None:
 
 
 def test_proposals_equal_the_reference_drafter(pair):
-    ours, ref = _drafters(pair)
+    ours, ref = _drafters(pair, max_seq=1024)
     tok = ByteTokenizer(pair["cfg"].vocab_size)
     prompts = {0: tok.encode(PROMPT, add_bos=True),
                2: tok.encode("a different opening, longer than the first "
@@ -120,17 +120,20 @@ def test_proposals_equal_the_reference_drafter(pair):
     assert ours.draft_batch(rows, ctxs) == {
         r: [int(t) for t in v] for r, v in ref.draft_batch(rows,
                                                            ctxs).items()}
-    # Row 1 admitted late with a context longer than one 256-wide feed:
+    # Row 1 admitted late with a context longer than one 512-wide feed:
     # the catch-up runs chunked feeds first.
-    long_ctx = (prompts[0] * 8)[:300]
+    long_ctx = (prompts[0] * 20)[:700]
+    assert len(long_ctx) - 10 > 512
     ours.prefill([1], {1: long_ctx[:10]})
     ref.prefill([1], {1: long_ctx[:10]})
     ctx1 = {1: (long_ctx[:10], long_ctx[10:])}
     got = ours.draft_tree_batch([1], ctx1)
     assert list(got) == [1]
     _same_tree(got, ref.draft_tree_batch([1], ctx1), 40.0)
-    # Feeds: the two admissions and one 256-wide catch-up.
-    assert ours.n_feed_dispatches == 3 and ours.n_draft_dispatches == 3
+    # Feeds: the two admissions and one 512-wide catch-up, as many as the
+    # reference drafter's.
+    assert ours.n_feed_dispatches == ref.n_feed_dispatches
+    assert ours.n_draft_dispatches == 3
 
 
 def test_observe_rollback_equals_a_fresh_drafter(pair):

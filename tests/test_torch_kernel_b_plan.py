@@ -26,6 +26,16 @@ row.
    5e-3 of max|ref|: the emulation rounds each probability (times its v
    scale) to bf16 for p.v, 2^-9 relative per term, where the references
    keep f32 (up to 1.7e-3 of max|ref| at these geometries).
+3. Verify mode's plan, as ``verify_launch`` hands it to
+   ``paged_verify_launch``: the stand-in library reports the source's
+   ``verify_slice`` rule (256 tokens at S <= 64, 1024 above, read from
+   the source) or another width through ``paged_verify_slice_tokens(S)``,
+   and the slice count is ``ceil(pages * ps / width)`` whatever B and
+   the rows' lengths; one workspace of ``[B, S, Hq, slices + 1, D]``
+   accumulators (the last partial is the block's own k/v), then
+   ``[.., 2]`` (m, l) — 340.8 MB at the widest llama3.1-8b call (B = 8,
+   S = 512, W = 4096), 85.2 MB at draft-400m's; and calls the kernel does
+   not take raise before any launch.
 """
 
 import importlib
@@ -68,15 +78,39 @@ def test_the_emulated_constants_are_the_kernels():
     assert "int paged_slice_tokens() { return SLICE; }" in src
 
 
+def _verify_rule() -> tuple[int, int, int, int]:
+    """The source's verify-mode plan: (MAX_S, S up to which slices are
+    short, the short width, the long width)."""
+    src = (_build.CSRC_DIR / "paged_attention.cu").read_text()
+    max_s = int(re.search(r"constexpr int MAX_S = (\d+);", src).group(1))
+    longest = int(re.search(r"constexpr int VSLICE_MAX = (\d+);",
+                            src).group(1))
+    short_s, short = map(int, re.search(
+        r"constexpr int verify_slice\(int S\) \{ return S <= (\d+) \? "
+        r"(\d+) : VSLICE_MAX; \}", src).groups())
+    return max_s, short_s, short, longest
+
+
 class _Lib:
-    """Records every entry-point call; reports ``slice_tokens``."""
+    """Records every entry-point call; reports ``slice_tokens`` and, for
+    verify mode, the source's plan (or ``verify_width`` when set)."""
 
     def __init__(self) -> None:
         self.calls: list[tuple[str, tuple]] = []
         self.slice_tokens = SLICE
+        self.max_s, self.short_s, self.short, self.long = _verify_rule()
+        self.verify_width = None
 
     def paged_slice_tokens(self) -> int:
         return self.slice_tokens
+
+    def paged_verify_max_s(self) -> int:
+        return self.max_s
+
+    def paged_verify_slice_tokens(self, S: int) -> int:
+        if self.verify_width is not None:
+            return self.verify_width
+        return self.short if S <= self.short_s else self.long
 
     def __getattr__(self, name):
         def fn(*args):
@@ -195,6 +229,110 @@ def test_unsupported_calls_raise_before_any_launch(lib, what):
     ln = torch.full((B,), 5, dtype=torch.int32)
     with pytest.raises(ValueError):
         pa._launch("append", q, kc, vc, k, v, ks, vs, pt, ln, layer, pages)
+    assert lib.calls == []
+
+
+def test_the_verify_plan_is_the_kernels():
+    """The widest block is the drafter's 512 (serve/draft_model.py), and
+    a slice is 256 tokens up to S = 64, 1024 above: the source's rule."""
+    from p2p_llm_chat_tpu_torch.serve import draft_model
+    assert _verify_rule() == (512, 64, 256, 1024)
+    assert draft_model._MAX_FEED == 512
+
+
+def _verify_args(lib, B, S, pages, ps, lengths, quantized, tree=False,
+                 Hq=8, Hkv=2, D=64):
+    """The splits verify_launch hands the stand-in library, after
+    checking its operands and its one workspace."""
+    k, v, ks, vs, pt, _, _, _ = _pool(B, pages, ps, Hq, Hkv, D, quantized)
+    gen = torch.Generator().manual_seed(S)
+    q = torch.randn((B, S, Hq, D), generator=gen).to(torch.bfloat16)
+    kb = torch.randn((B, S, Hkv, D), generator=gen).to(torch.bfloat16)
+    mask = (torch.ones((S, S), dtype=torch.bool).tril().expand(B, S, S)
+            .contiguous() if tree else None)
+    ln = torch.tensor(lengths, dtype=torch.int32)
+    lib.calls.clear()
+    lib.allocs.clear()
+    out = pa.verify_launch("verify", q, kb, kb.clone(), k, v, ks, vs, pt,
+                           ln, 1, pages, mask)
+    (name, args), = lib.calls
+    assert name == "paged_verify_launch"
+    assert args[0] == q.data_ptr() and args[4] == k.data_ptr()
+    assert (args[3] is None) == (not tree)
+    assert args[13] == out.data_ptr() and args[-1] == 0
+    (B_, S_, Hq_, Hkv_, D_, N, ps_, ps_pad, layer, pages_, splits,
+     quant) = args[14:26]
+    assert (B_, S_, Hq_, Hkv_, D_, ps_, layer, pages_, quant) == (
+        B, S, Hq, Hkv, D, ps, 1, pages, int(quantized))
+    # One f32 workspace: every slice's accumulators and the block's, then
+    # their (m, l).
+    P = splits + 1
+    assert lib.allocs == [(B * S * Hq * P * (D + 2),), (B, S, Hq, D)]
+    assert args[12] - args[11] == B * S * Hq * P * D * 4
+    assert pa.verify_plan(lib.paged_verify_slice_tokens(S), B, S, Hq, D,
+                          pages * ps) == (splits, B * S * Hq * P * (D + 2))
+    return splits
+
+
+@pytest.mark.parametrize("quantized", [True, False], ids=["int8", "bf16"])
+@pytest.mark.parametrize("width", [None, 128], ids=["source", "w128"])
+@pytest.mark.parametrize("S", [1, 8, 64, 65, 256, 512])
+def test_the_verify_slice_count_depends_on_S_and_the_window_only(
+        lib, quantized, width, S):
+    lib.verify_width = width
+    width = lib.paged_verify_slice_tokens(S)
+    for ps in (16, 64):
+        for pages in (1, 17, 64):
+            want = -(-pages * ps // width)
+            seen = set()
+            for B, lengths, tree in ((1, [1], False),
+                                     (1, [pages * ps], True),
+                                     (3, [pages * ps, 0, 33], False)):
+                lengths = [min(n, pages * ps) for n in lengths]
+                seen.add(_verify_args(lib, B, S, pages, ps, lengths,
+                                      quantized, tree))
+            assert seen == {want}, (ps, pages)
+
+
+def test_the_verify_workspace_at_the_widest_case():
+    """B = 8 rows of S = 512 over W = 4096: four 1024-token window slices
+    and the block's partial, for llama3.1-8b (Hq 32, D 128) and
+    draft-400m (Hq 8); the plan of one row is the same at any B."""
+    _, short_s, short, longest = _verify_rule()
+    width = lambda S: short if S <= short_s else longest
+    assert pa.verify_plan(width(512), 8, 512, 32, 128, 4096) == (
+        4, 8 * 512 * 32 * 5 * 130)
+    assert pa.verify_plan(width(512), 8, 512, 32, 128, 4096)[1] * 4 \
+        == 340_787_200
+    assert pa.verify_plan(width(512), 8, 512, 8, 128, 4096)[1] * 4 \
+        == 85_196_800
+    for S in (1, 8, 64, 65, 256, 512):
+        for W in (64, 1000, 4096):
+            one = pa.verify_plan(width(S), 1, S, 32, 128, W)
+            eight = pa.verify_plan(width(S), 8, S, 32, 128, W)
+            assert eight == (one[0], 8 * one[1])
+
+
+@pytest.mark.parametrize("what", ["s0", "s513", "kb_shape", "rep16",
+                                  "mask_shape", "mask_dtype"])
+def test_unsupported_verify_calls_raise_before_any_launch(lib, what):
+    B, S, pages, ps, Hq, Hkv, D = 2, 8, 3, 16, 8, 2, 64
+    k, v, ks, vs, pt, _, _, _ = _pool(B, pages, ps, Hq, Hkv, D, True)
+    S = {"s0": 0, "s513": 513}.get(what, S)
+    q = torch.zeros((B, S, 32 if what == "rep16" else Hq, D),
+                    dtype=torch.bfloat16)
+    kb = torch.zeros((B, S + (what == "kb_shape"), Hkv, D),
+                     dtype=torch.bfloat16)
+    vb = torch.zeros((B, S, Hkv, D), dtype=torch.bfloat16)
+    mask = None
+    if what == "mask_shape":
+        mask = torch.ones((B, S, S + 1), dtype=torch.bool)
+    elif what == "mask_dtype":
+        mask = torch.ones((B, S, S), dtype=torch.uint8)
+    ln = torch.full((B,), 5, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        pa.verify_launch("verify", q, kb, vb, k, v, ks, vs, pt, ln, 1,
+                         pages, mask)
     assert lib.calls == []
 
 

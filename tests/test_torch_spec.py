@@ -5,7 +5,8 @@ on the same numpy inputs, on the CPU.
   proposals on seeded contexts, in batch and incrementally.
 - ``paged_attention_verify_append``'s plain version against the
   reference's XLA function on int8 and bf16 pools, chain and tree masks,
-  ragged lengths: f32 within 1e-5 (f32 reduction order only).
+  ragged lengths, S = 5 and the widest block S = 512: f32 within 1e-5
+  (f32 reduction order only).
 - ``write_decode_multi[_all_layers]``: pools bitwise equal to the
   reference's, int8 bytes and scales included, with rows whose block runs
   past their table (those positions land in the garbage page 0, whose
@@ -161,11 +162,18 @@ def _random_anc(rng, B, S):
     return anc
 
 
-@pytest.mark.parametrize("tree", [False, True], ids=["chain", "tree"])
-@pytest.mark.parametrize("quantized", [True, False], ids=["int8", "bf16"])
-def test_verify_attention_plain_equals_the_reference(quantized, tree):
-    rng = np.random.default_rng(3 + quantized + 2 * tree)
-    B, S, Hq, Hkv, D = 3, 5, 4, 2, 16
+@pytest.mark.parametrize("quantized,tree,S", [
+    pytest.param(True, False, 5, id="int8-chain"),
+    pytest.param(True, True, 5, id="int8-tree"),
+    pytest.param(False, False, 5, id="bf16-chain"),
+    pytest.param(False, True, 5, id="bf16-tree"),
+    # The widest block (a drafter's 512-position catch-up feed).
+    pytest.param(True, False, 512, id="int8-chain-S512"),
+    pytest.param(False, False, 512, id="bf16-chain-S512"),
+])
+def test_verify_attention_plain_equals_the_reference(quantized, tree, S):
+    rng = np.random.default_rng(3 + quantized + 2 * tree + (S > 5) * 10)
+    B, Hq, Hkv, D = 3, 4, 2, 16
     ref, ours = _pool_pair(quantized, rng)
     q = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
     kb = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
