@@ -38,10 +38,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    S = 256 and 2048), the 256-wide chunks of a 2048 prompt (rows bitwise
    equal to the whole prompt's), a co-pilot-template suffix and ragged
    shapes that run every q tile its plan picks, timed whole and in chunks
-   beside SDPA and the bound, and kernel E (w8a8 on int8 tensor cores, bitwise against its
-   plain version at the mm_micro and llama3.1-8b shapes and ragged ones),
-   after which the mm_micro twin (p2p_llm_chat_tpu_torch/tools/mm_micro)
-   runs once and prints its table; and A8, the dense KV path's attention
+   beside SDPA and the bound, and kernel E (w8a8 on int8 tensor cores:
+   the TMA route and the ragged route, each bitwise against its plain
+   version, alone and chained after the row quantization kernel, at the
+   mm_micro and llama3.1-8b shapes, the TMA route's edges and the ragged
+   route's shapes, reruns bitwise; the row scale of hard rows equal to
+   numpy's f32 quotient), after which the mm_micro twin
+   (p2p_llm_chat_tpu_torch/tools/mm_micro) runs once and prints its
+   device and as-timed table; and A8, the dense KV path's attention
    (kernel B's pool and verify modes over a zero-copy identity pool view
    of the dense cache), at rep 1-8, D 64 and 128, max_seq 1024, 4096,
    1000 and 1100, ragged lengths with NaN past each row's, S = 5 chains
@@ -334,7 +338,8 @@ def phase_build() -> None:
         for line in log.splitlines():
             if ("registers" in line or "spill" in line
                     or (name in ("quant_mm", "quant_mm4",
-                                 "prefill_attention", "paged_attention")
+                                 "prefill_attention", "paged_attention",
+                                 "w8a8_mm")
                         and "entry function" in line)):
                 print(f"  ptxas {name}: {line.strip()}")
 
@@ -1442,92 +1447,251 @@ def phase_kernel_dense(results: dict) -> None:
               "the waking rows of the view) at R=1, S=256, W=2048")
 
 
+E_EDGES = [          # TMA-route edges: M = 1 and 37, H and O off the tile,
+    (1, 2048, 4096),     # a cluster of 16, a box past both extents
+    (37, 2048, 4096), (32, 2064, 4096), (32, 2048, 4112), (32, 8192, 256),
+    (3, 64, 16)]
+E_RAGGED = [(5, 100, 200), (37, 4100, 1000), (33, 2048, 136)]
+
+
+def _e_hard_rows(H: int = 256, n: int = 64):
+    """bf16 rows [n, H] whose amax makes ``amax * (1 / 127)`` differ from
+    the IEEE ``amax / 127`` (a reciprocal multiply would be one ulp off),
+    and numpy's f32 quotient of each row's amax."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(18)
+    cand = torch.from_numpy((rng.random(20000) * 10.0 ** rng.integers(
+        -3, 4, 20000)).astype(np.float32)).to(torch.bfloat16).float().numpy()
+    hard = cand[cand * np.float32(1.0 / 127.0) != cand / np.float32(127.0)]
+    check(hard.size >= n, f"only {hard.size} hard amax values")
+    hard = hard[:n]
+    x = rng.standard_normal((n, H)).astype(np.float32)
+    x = np.clip(x * hard[:, None], -hard[:, None], hard[:, None])
+    x[:, 3] = hard * np.where(np.arange(n) % 2, -1.0, 1.0)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    check(bool((xb.float().abs().amax(dim=1).numpy() == hard).all()),
+          "hard rows: amax not representable in bf16")
+    return xb, hard / np.float32(127.0)
+
+
 def phase_kernel_e(results: dict) -> None:
-    """Kernel E (w8a8, int8 tensor cores) against its plain version,
-    bitwise or within 1 bf16 ulp (the count of differing elements is
-    printed): the reference's five SHAPES and llama3.1-8b's five
-    projections at M = 32, plus ragged shapes (M, H, O off every tile
-    and vector width, split and unsplit). Then the mm_micro twin runs once
-    over both tables (its launches are this entry point's) and its times
-    fill the record: the w8a8 walk over the reference's SHAPES beside its
-    bound, the plain version and torch._int_mm."""
+    """Kernel E (w8a8, int8 tensor cores) and the row quantization kernel
+    against their plain versions, bitwise (0 ulp): the one-call function
+    (``w8a8_matmul``: ``w8a8_quant_rows`` then kernel E as its
+    programmatic dependent) and kernel E alone (``w8a8_quantized``) at the
+    reference's five SHAPES and llama3.1-8b's five projections at M = 32,
+    the TMA route's edges (E_EDGES) and the ragged route's shapes
+    (E_RAGGED), each rerun bitwise, rows of an M = 37 call equal to an
+    M = 1 call's; the quantization's scale on hard rows equal to numpy's
+    f32 quotient. Then the mm_micro twin runs once over both tables (its
+    launches are this entry point's) and its device and as-timed times
+    fill the records."""
+    import numpy as np
     import torch
     from p2p_llm_chat_tpu_torch.models.quant import quantize
+    from p2p_llm_chat_tpu_torch.ops import _build
+    from p2p_llm_chat_tpu_torch.ops.quant_mm import _sms
     from p2p_llm_chat_tpu_torch.tools import mm_micro
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(8)
-    worst_ulp, worst_abs = 0, 0.0
+    sms = _sms(dev)
+
+    xb, quot = _e_hard_rows()
+    xq_k, xs_k = mm_micro.quantize_rows_kernel(xb.to(dev))
+    xq_t, xs_t = mm_micro.quantize_rows(xb.to(dev))
+    xq_c, xs_c = mm_micro.quantize_rows(xb)
+    # The quantization kernel's worst error against the plain version:
+    # xq against the CPU's, xs against numpy's quotient.
+    quant_err = max(
+        float((xq_k.cpu().int() - xq_c.int()).abs().max()),
+        float(np.abs(xs_k[:, 0].cpu().numpy().astype(np.float64)
+                     - quot.astype(np.float64)).max()))
+    check(np.array_equal(xs_k[:, 0].cpu().numpy(), quot)
+          and np.array_equal(xs_t[:, 0].cpu().numpy(), quot),
+          "hard rows: a row scale differs from numpy's f32 amax / 127")
+    check(torch.equal(xq_k.cpu(), xq_c) and torch.equal(xq_t.cpu(), xq_c)
+          and torch.equal(xs_k.cpu(), xs_c), "hard rows: the card's xq "
+          "differs from the CPU's")
+    print(f"  row quantization: {len(quot)} hard rows (amax * (1/127) != "
+          "amax / 127): xs of w8a8_quant_rows and of quantize_rows on the "
+          "card equal numpy's f32 quotient, xq equal the CPU's")
+
+    mm_micro.w8a8_matmul.launches = 0
+    mm_micro.w8a8_matmul.launches_by_route = {"tma": 0, "ragged": 0}
+    worst_abs, worst_ulp, n_cases = 0.0, 0, 0
     plain_ms = 0.0
     shapes = [(32, H, O) for H, O in mm_micro.SHAPES + mm_micro.PROJ]
-    shapes += [(5, 100, 200), (37, 4100, 1000), (3, 64, 16), (33, 2048, 136)]
-    for M, H, O in shapes:
+    for M, H, O in shapes + E_EDGES + E_RAGGED:
         qt = quantize((torch.randn((H, O), generator=gen, device=dev)
                        * H ** -0.5).to(torch.bfloat16))
         x = torch.randn((M, H), generator=gen, device=dev).to(torch.bfloat16)
-        out = mm_micro.w8a8_matmul(x, qt.q, qt.s)
-        ref = mm_micro.w8a8_matmul_reference(x, qt.q, qt.s)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()), f"kernel E M={M} H={H} "
-              f"O={O}: non-finite output")
-        ulp = (out.view(torch.int16).int() - ref.view(torch.int16).int()
-               ).abs()
-        n_diff = int((ulp > 0).sum())
-        worst_ulp = max(worst_ulp, int(ulp.max()))
-        worst_abs = max(worst_abs, (out.float() - ref.float()).abs().max()
-                        .item())
-        print(f"  kernel E M={M} H={H} O={O}: {n_diff} of {out.numel()} "
-              f"elements differ from the plain version, max "
-              f"{int(ulp.max())} bf16 ulp (tol 1)")
-        check(int(ulp.max()) <= 1, f"kernel E M={M} H={H} O={O}: "
-              f"{int(ulp.max())} ulp > 1")
+        plan = mm_micro.w8a8_plan(M, H, O, sms)
+        want = "ragged" if (M, H, O) in E_RAGGED else "tma"
+        check(plan.route == want, f"kernel E M={M} H={H} O={O}: route "
+              f"{plan.route}, expected {want}")
+        xq, xs = mm_micro.quantize_rows(x)
+        outs = {
+            "function": (lambda: mm_micro.w8a8_matmul(x, qt.q, qt.s),
+                         mm_micro.w8a8_matmul_reference(x, qt.q, qt.s)),
+            "kernel": (lambda: mm_micro.w8a8_quantized(xq, xs, qt.q, qt.s),
+                       mm_micro._epilogue(xq.double() @ qt.q.double(), qt.s,
+                                          xs)),
+        }
+        for what, (call, ref) in outs.items():
+            out = call()
+            again = call()
+            torch.cuda.synchronize()
+            ulp = (out.view(torch.int16).int() - ref.view(torch.int16).int()
+                   ).abs()
+            n_diff = int((ulp > 0).sum())
+            worst_ulp = max(worst_ulp, int(ulp.max()))
+            check(bool(torch.isfinite(out).all()), f"kernel E {what} M={M} "
+                  f"H={H} O={O}: non-finite output")
+            check(n_diff == 0, f"kernel E {what} M={M} H={H} O={O}: {n_diff} "
+                  f"of {out.numel()} elements differ from the plain version")
+            check(torch.equal(out.view(torch.int16), again.view(torch.int16)),
+                  f"kernel E {what} M={M} H={H} O={O}: a rerun differs")
+            worst_abs = max(worst_abs, (out.float() - ref.float()).abs().max()
+                            .item())
+            n_cases += 1
+            if what == "function" and M == 37:
+                one = mm_micro.w8a8_matmul(x[:1].contiguous(), qt.q, qt.s)
+                check(torch.equal(one.view(torch.int16),
+                                  out[:1].view(torch.int16)),
+                      f"kernel E M={M} H={H} O={O}: row 0 differs from its "
+                      "M=1 call")
+        print(f"  kernel E M={M} H={H} O={O} [{plan.route}, {plan.splits} "
+              f"splits of {plan.per} k tiles, cluster {plan.cluster}, "
+              f"{plan.stages} stages]: function and kernel alone bitwise "
+              "equal to the plain version, reruns bitwise")
         if (H, O) in mm_micro.SHAPES and M == 32:
             plain_ms += time_ms(lambda i: mm_micro.w8a8_matmul_reference(
                 x, qt.q, qt.s), 3, warmup=1)
         del qt
         torch.cuda.empty_cache()
+    checked_routes = dict(mm_micro.w8a8_matmul.launches_by_route)
+    check(all(v > 0 for v in checked_routes.values()),
+          f"kernel E: a route never launched in the checks {checked_routes}")
+    print(f"  kernel E checks: {n_cases} cases, max {worst_ulp} bf16 ulp "
+          f"from the plain version, launches by route {checked_routes}")
+
+    ptxas = [ln.strip() for ln in _build.build_logs.get("w8a8_mm", "")
+             .splitlines() if "registers" in ln or "spill" in ln
+             or "Compiling entry function" in ln]
     mm_micro.w8a8_matmul.launches = 0
+    mm_micro.w8a8_matmul.launches_by_route = {"tma": 0, "ragged": 0}
+    mm_micro.w8a8_matmul.quant_launches = 0
     table = mm_micro.main(["--proj", "all"])
     launches = mm_micro.w8a8_matmul.launches
-    check(launches > 0, "the mm_micro twin never launched kernel E")
-    ref_rows = [table[hw] for hw in mm_micro.SHAPES]
-    llama_rows = [table[hw] for hw in mm_micro.PROJ]
-    tot = {k: sum(r[k] for r in ref_rows) for k in ref_rows[0]}
-    llama = {k: sum(r[k] for r in llama_rows) for k in llama_rows[0]}
+    by_route = dict(mm_micro.w8a8_matmul.launches_by_route)
+    quant_launches = mm_micro.w8a8_matmul.quant_launches
+    check(launches > 0 and by_route["tma"] > 0 and quant_launches > 0,
+          f"the mm_micro twin never launched kernel E's TMA route or the "
+          f"row quantization: {by_route}, {quant_launches}")
+
+    def walk(shapes_, col):
+        rows_ = [table[hw][col] for hw in shapes_]
+        return {k: sum(r[k] for r in rows_) for k in rows_[0]}
+    dev_ref, at_ref = walk(mm_micro.SHAPES, "device"), walk(mm_micro.SHAPES,
+                                                           "as_timed")
+    dev_ll, at_ll = walk(mm_micro.PROJ, "device"), walk(mm_micro.PROJ,
+                                                        "as_timed")
     ops = sum(2.0 * 32 * H * O for H, O in mm_micro.SHAPES)
     # Kernel E's own operands: the int8 weight and rows, both scales, the
     # bf16 output.
     nbytes = sum(H * O + 4 * O + 32 * H + 4 * 32 + 2 * 32 * O
                  for H, O in mm_micro.SHAPES)
     b_ms, kind = bound_ms(nbytes, ops, PEAK_INT8_OPS)
-    print(f"  kernel E over the reference's SHAPES at M=32: "
-          f"{tot['w8a8-kernel']:.4f} ms (bound {b_ms:.4f} ms, {kind}; "
-          f"{b_ms / tot['w8a8-kernel']:.0%} of bound); with the torch row "
-          f"quantization {tot['w8a8']:.4f} ms; plain {plain_ms:.4f} ms; "
-          f"torch._int_mm + epilogue {tot['int8-lib']:.4f} ms; kernel A "
-          f"(w8a16) {tot['w8a16']:.4f} ms; bf16 torch.matmul "
-          f"{tot['bf16']:.4f} ms. llama3.1-8b projections at M=32: kernel E "
-          f"{llama['w8a8-kernel']:.4f} ms, kernel A {llama['w8a16']:.4f} ms, "
-          f"torch._int_mm {llama['int8-lib']:.4f} ms, bf16 torch.matmul "
-          f"{llama['bf16']:.4f} ms")
+    ll_b_ms, _ = bound_ms(sum(H * O + 4 * O + 32 * H + 4 * 32 + 2 * 32 * O
+                              for H, O in mm_micro.PROJ),
+                          sum(2.0 * 32 * H * O for H, O in mm_micro.PROJ),
+                          PEAK_INT8_OPS)
+    e = "w8a8-kernel"
+    print(f"  kernel E over the reference's SHAPES at M=32: device "
+          f"{dev_ref[e]:.4f} ms, as timed {at_ref[e]:.4f} ms (bound "
+          f"{b_ms:.4f} ms, {kind}; {b_ms / dev_ref[e]:.0%} of bound on the "
+          f"device); with the row quantization kernel {dev_ref['w8a8']:.4f} "
+          f"/ {at_ref['w8a8']:.4f} ms; plain {plain_ms:.4f} ms; "
+          f"torch._int_mm + epilogue {dev_ref['int8-lib']:.4f} / "
+          f"{at_ref['int8-lib']:.4f} ms; kernel A (w8a16) "
+          f"{dev_ref['w8a16']:.4f} ms; bf16 torch.matmul {dev_ref['bf16']:.4f}"
+          f" ms. llama3.1-8b projections at M=32: kernel E device "
+          f"{dev_ll[e]:.4f} ms (bound {ll_b_ms:.4f} ms, "
+          f"{ll_b_ms / dev_ll[e]:.0%}), as timed {at_ll[e]:.4f}; kernel A "
+          f"{dev_ll['w8a16']:.4f}, torch._int_mm {dev_ll['int8-lib']:.4f}, "
+          f"bf16 torch.matmul {dev_ll['bf16']:.4f} ms (device)")
+    faster = [hw for hw in mm_micro.SHAPES + mm_micro.PROJ
+              if table[hw]["device"][e] < table[hw]["device"]["int8-lib"]]
+    print(f"  kernel E faster than torch._int_mm on the device at "
+          f"{len(faster)} of {len(mm_micro.SHAPES + mm_micro.PROJ)} shapes")
     results["w8a8_matmul"] = dict(
         name="w8a8_matmul", route="cuda",
         source="p2p_llm_chat_tpu_torch/csrc/w8a8_mm.cu",
         replaces="tools/mm_micro.py:53",
         launches=launches,
         launches_by_path={"mm_micro --proj all": launches},
+        launches_by_route=by_route, checked_launches_by_route=checked_routes,
         max_abs_err=worst_abs, max_ulp=worst_ulp, bound_by=kind,
         scope="kernel E alone on quantized rows, one walk over the "
-              "reference's five mm_micro SHAPES at M=32 (5 launches); "
-              "function_ms adds the torch row quantization (w8a8_matmul); "
-              "plain_ms is the plain w8a8_matmul_reference; library_ms is "
-              "torch._int_mm with the same epilogue",
-        ms=round(tot["w8a8-kernel"], 4), plain_ms=round(plain_ms, 4),
-        bound_ms=round(b_ms, 4), library_ms=round(tot["int8-lib"], 4),
-        function_ms=round(tot["w8a8"], 4),
-        kernel_a_ms=round(tot["w8a16"], 4),
-        llama_proj_ms=round(llama["w8a8-kernel"], 4),
-        llama_proj_kernel_a_ms=round(llama["w8a16"], 4),
-        llama_proj_library_ms=round(llama["int8-lib"], 4))
+              "reference's five mm_micro SHAPES at M=32 (5 launches); ms "
+              "as timed (CUDA events around eager calls), device_ms from "
+              "two CUDA-graph lengths (the reference's timeit); "
+              "function_*: w8a8_matmul, the row quantization kernel + "
+              "kernel E in one call; plain_ms is the plain "
+              "w8a8_matmul_reference; library_*: torch._int_mm with the "
+              "same epilogue; llama_proj_*: llama3.1-8b's five "
+              "projections",
+        ms=round(at_ref[e], 4), device_ms=round(dev_ref[e], 4),
+        plain_ms=round(plain_ms, 4), bound_ms=round(b_ms, 4),
+        library_ms=round(at_ref["int8-lib"], 4),
+        library_device_ms=round(dev_ref["int8-lib"], 4),
+        function_ms=round(at_ref["w8a8"], 4),
+        function_device_ms=round(dev_ref["w8a8"], 4),
+        kernel_a_ms=round(at_ref["w8a16"], 4),
+        kernel_a_device_ms=round(dev_ref["w8a16"], 4),
+        llama_proj_ms=round(at_ll[e], 4),
+        llama_proj_device_ms=round(dev_ll[e], 4),
+        llama_proj_bound_ms=round(ll_b_ms, 4),
+        llama_proj_kernel_a_ms=round(at_ll["w8a16"], 4),
+        llama_proj_library_ms=round(at_ll["int8-lib"], 4),
+        llama_proj_library_device_ms=round(dev_ll["int8-lib"], 4),
+        per_shape_device_ms={f"{H}x{O}": round(table[(H, O)]["device"][e], 4)
+                             for H, O in mm_micro.SHAPES + mm_micro.PROJ},
+        ptxas=ptxas)
+
+    # The row quantization kernel alone over the same walk (M = 32).
+    xs_ = [torch.randn((32, H), generator=gen, device=dev).to(torch.bfloat16)
+           for H, _ in mm_micro.SHAPES]
+    q_dev = sum(mm_micro.device_ms(lambda i, x=x: mm_micro.quantize_rows_kernel(
+        x), 8, 32) for x in xs_)
+    q_ms = sum(time_ms(lambda i, x=x: mm_micro.quantize_rows_kernel(x), 20)
+               for x in xs_)
+    q_plain = sum(time_ms(lambda i, x=x: mm_micro.quantize_rows(x), 20)
+                  for x in xs_)
+    q_plain_dev = sum(mm_micro.device_ms(lambda i, x=x: mm_micro.quantize_rows(
+        x), 8, 32) for x in xs_)
+    q_bound, q_kind = bound_ms(sum(32 * H * 3 + 4 * 32
+                                   for H, _ in mm_micro.SHAPES), 0.0)
+    print(f"  w8a8_quant_rows over the SHAPES' rows at M=32: device "
+          f"{q_dev:.4f} ms, as timed {q_ms:.4f} ms (bound {q_bound:.4f} ms, "
+          f"{q_kind}); plain quantize_rows {q_plain_dev:.4f} / {q_plain:.4f} "
+          "ms")
+    results["w8a8_quant_rows"] = dict(
+        name="w8a8_quant_rows", route="cuda",
+        source="p2p_llm_chat_tpu_torch/csrc/w8a8_mm.cu",
+        replaces="tools/mm_micro.py:56",
+        launches=quant_launches,
+        launches_by_path={"mm_micro --proj all": quant_launches},
+        max_abs_err=quant_err, bound_by=q_kind,
+        scope="the per-row int8 quantization (an XLA fusion around the "
+              "reference's pallas_call, no pl.pallas_call of its own), the "
+              "rows of one walk over the reference's SHAPES at M=32 (5 "
+              "launches); xq and xs bitwise against the plain "
+              "quantize_rows; device_ms from two CUDA-graph lengths",
+        ms=round(q_ms, 4), device_ms=round(q_dev, 4),
+        plain_ms=round(q_plain, 4), plain_device_ms=round(q_plain_dev, 4),
+        bound_ms=round(q_bound, 4), library_ms=None)
 
 
 def _rand_qkv(gen, R, Sq, Skv, Hq, Hkv, D):

@@ -87,6 +87,37 @@ def test_row_quantization_bitwise(ref_mm, interpreted):
     assert xq[1, :3].tolist() == [127, 0, -2]    # round half to even
 
 
+def test_row_scale_is_the_ieee_quotient(ref_mm, interpreted):
+    """The row scale is amax / 127 rounded once (IEEE f32 division, the
+    reference's), not amax times a rounded 1/127: on bf16 rows whose amax
+    makes the two differ, ``quantize_rows`` equals numpy's f32 quotient
+    and the reference's pallas_call operands bitwise (the card's
+    ``w8a8_quant_rows`` and ``quantize_rows`` are held to the same
+    quotient in chip_smoke.py's kernel_e phase)."""
+    rng = np.random.default_rng(18)
+    cand = np.asarray(jnp.asarray((rng.random(20000) * 10.0 ** rng.integers(
+        -3, 4, 20000)).astype(np.float32), jnp.bfloat16).astype(jnp.float32))
+    hard = cand[cand * np.float32(1.0 / 127.0) != cand / np.float32(127.0)]
+    assert hard.size > 50          # rows where a reciprocal would be off
+    hard = hard[:64]
+    x = rng.standard_normal((hard.size, 96)).astype(np.float32)
+    x = np.clip(x * hard[:, None], -hard[:, None], hard[:, None])
+    x[:, 3] = hard * np.where(np.arange(hard.size) % 2, -1.0, 1.0)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    tx = torch.from_numpy(np.array(xb.astype(jnp.float32))).to(torch.bfloat16)
+    assert (tx.float().abs().amax(dim=1).numpy() == hard).all()
+    xq, xs = mm_micro.quantize_rows(tx)
+    np.testing.assert_array_equal(xs[:, 0].numpy(), hard / np.float32(127))
+    O = 128
+    q = rng.integers(-127, 128, size=(96, O), dtype=np.int8)
+    s = (rng.random((1, O)) / 64).astype(np.float32)
+    with jax.disable_jit():
+        ref_mm.w8a8_matmul(xb, jnp.asarray(q), jnp.asarray(s))
+    (ref_xq, ref_xs, _, _), = interpreted
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(ref_xs))
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(ref_xq))
+
+
 @pytest.mark.parametrize("M,H,O", [(32, 256, 512), (5, 100, 512)])
 def test_output_matches_interpreted_pallas(ref_mm, interpreted, M, H, O):
     xb, q, s, tx = _inputs(M, H, O, H)
