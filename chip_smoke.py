@@ -1355,6 +1355,10 @@ def phase_kernel_dense(results: dict) -> None:
         (24, 8, 64, 1100, 512, [512, 300, 17, 2]),
         (16, 8, 128, 4096, 256, [256, 129, 128, 3]),
         (40, 8, 128, 1024, 768, [700, 768, 1, 65]),
+        # llama3.1-8b's heads on one rank of tp = 2 (serve/multihost.py's
+        # rounds: one row, the whole bucketed cache as the window).
+        (16, 4, 128, 512, 512, [300]),
+        (16, 4, 128, 128, 128, [65, 128, 1]),
     )
     for i, (Hq, Hkv, D, T, W, lengths) in enumerate(dec):
         cache, q = _dense_case(Hq, Hkv, D, T, lengths, seed=70 + i)
@@ -1789,6 +1793,13 @@ def phase_kernel_d(results: dict) -> None:
         q, k, v = _rand_qkv(gen, R, Sq, off + Sq + 19, Hq_, Hkv_, D_)
         case(f"ragged R={R} Sq={Sq} offset={off} Hq={Hq_} Hkv={Hkv_} "
              f"D={D_}", q, k, v, off, poison=off + Sq)
+    # llama3.1-8b's heads on one rank of tp = 2 (Hq 16, Hkv 4): a
+    # multihost round's prefill (one row, the bucketed prompt) and an
+    # embed group.
+    for (R, Sq, off) in ((1, 64, 0), (1, 512, 0), (2, 100, 0), (1, 77, 51)):
+        q, k, v = _rand_qkv(gen, R, Sq, off + Sq + 13, 16, 4, 128)
+        case(f"tp=2 rank R={R} Sq={Sq} offset={off} Hq=16 Hkv=4 D=128", q,
+             k, v, off, poison=off + Sq)
     check(tiles >= {1, 2, 4, 8}, f"kernel D: the cases ran q tiles of "
           f"{sorted(tiles)} warps per head only, not 1, 2, 4 and 8")
     # Timing: one llama3.1-8b layer's prefill attention at S = 2048.
@@ -6299,6 +6310,373 @@ def phase_server_multi(results: dict) -> None:
         _free()
 
 
+# -- phase 11: the lockstep multi-process plane -------------------------------
+
+MH_REQS = [  # (prompt, options): three greedy rows, one seeded sampled row
+    ("The co-pilot drafts a reply: ", {"num_predict": 16}),
+    ("are we still on for lunch tomorrow?", {"num_predict": 16}),
+    ("0123456789:;<=>?", {"num_predict": 16}),
+    ("seeded: see you at noon", {"num_predict": 16, "temperature": 0.8,
+                                 "top_p": 0.9, "seed": 42})]
+MH_LEG_S = 120.0     # each leg's limit
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mh_env(n: int, pid: int, port: int, **kw) -> dict:
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+        __file__)), SERVE_BACKEND="torch", SERVE_DEVICE="cuda",
+        SERVE_COORDINATOR=f"127.0.0.1:{port}", JAX_NUM_PROCESSES=str(n),
+        JAX_PROCESS_ID=str(pid), SERVE_MAX_SEQ="512", **kw)
+    for k in ("SERVE_KV", "SERVE_QUANT", "SERVE_TP", "CKPT_DIR",
+              "SERVE_MODELS", "SERVE_SPEC", "SERVE_DRAFT"):
+        if k not in kw:
+            env.pop(k, None)
+    return env
+
+
+def _mh_spawn(n: int, logdir: str, leg: str, cmd: list, **kw) -> list:
+    port = _free_port()
+    procs = []
+    for pid in range(n):
+        log = open(os.path.join(logdir, f"{leg}{pid}.log"), "w")
+        procs.append((subprocess.Popen(
+            cmd, env=_mh_env(n, pid, port, **kw), stdout=log,
+            stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def _mh_wait(procs, deadline: float, label: str) -> None:
+    """Every rank's exit before ``deadline``; rc 0 each."""
+    for i, (p, _) in enumerate(procs):
+        try:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"{label}: rank {i} still running at its "
+                               f"leg's limit; its log's tail:\n"
+                               f"{_mh_tail(procs, i)}") from None
+        check(p.returncode == 0, f"{label}: rank {i} exited "
+              f"{p.returncode}; its log's tail:\n{_mh_tail(procs, i)}")
+
+
+def _mh_kill(procs) -> None:
+    for p, log in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=30)
+        log.close()
+
+
+def _mh_summaries(logdir: str, leg: str, n: int) -> list:
+    out = []
+    for pid in range(n):
+        text = open(os.path.join(logdir, f"{leg}{pid}.log")).read()
+        mark = "summary: "
+        check(mark in text, f"{leg}: rank {pid} logged no summary; log "
+              f"tail:\n{text[-3000:]}")
+        out.append(json.loads(text.split(mark, 1)[1].splitlines()[0]))
+    return out
+
+
+def _mh_tail(procs, i: int) -> str:
+    log = procs[i][1]
+    log.flush()
+    with open(log.name) as f:
+        return f.read()[-3000:]
+
+
+def _mh_up(url: str, procs, deadline: float, label: str) -> None:
+    while time.monotonic() < deadline:
+        for i, (p, _) in enumerate(procs):
+            check(p.poll() is None, f"{label}: rank {i} exited "
+                  f"{p.returncode} before the front came up; its log's "
+                  f"tail:\n{_mh_tail(procs, i)}")
+        try:
+            _get(url + "/api/version", timeout=5)
+            return
+        except OSError:
+            time.sleep(0.5)
+    raise SmokeFailure(f"{label}: the front never came up")
+
+
+def _mh_line(label: str, sums: list) -> dict:
+    """Print a leg's round / step / collective times (each rank's p50)
+    beside the card, and return them."""
+    keys = ("round_ms_p50", "step_ms_p50", "collective_ms_p50")
+    print(f"  {label}: " + "; ".join(
+        f"rank {s['rank']} round {s['round_ms_p50']:.1f} ms, decode step "
+        f"{s['step_ms_p50']:.2f} ms, of it in collectives "
+        f"{s['collective_ms_p50']:.2f} ms ({s['steps']} steps, "
+        f"{s['rounds']} rounds; backend {s['backend']}; peak "
+        f"{s['peak_mb'] / 1024:.1f} GB)" for s in sums)
+        + f" [card: {card_line()}]", flush=True)
+    return {f"rank{s['rank']}": {k: round(s[k], 3) for k in keys}
+            | {"backend": s["backend"], "peak_gb": round(s["peak_mb"] / 1024,
+                                                         2)}
+            for s in sums}
+
+
+def _mh_rank_main() -> int:
+    """One rank of the tp = 2 parity leg (``chip_smoke.py --mh-rank``):
+    llama3.1-8b quote weights built on its card, its shard taken
+    (parallel/sharding.shard_model), the plane's engine; the leader runs
+    MH_REQS and writes the texts and the first round's logits. Every
+    rank writes a CRC of each round's gathered logits, its timings,
+    launches, peak memory and backend to MH_OUT."""
+    import zlib
+    import numpy as np
+    import torch
+    from p2p_llm_chat_tpu_torch import ops
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    from p2p_llm_chat_tpu_torch.models.synth import quote_params
+    from p2p_llm_chat_tpu_torch.parallel.distributed import (
+        init_distributed, multihost_mesh, rank_device)
+    from p2p_llm_chat_tpu_torch.parallel.mesh import MeshConfig
+    from p2p_llm_chat_tpu_torch.parallel.sharding import shard_model
+    from p2p_llm_chat_tpu_torch.serve.multihost import MultihostEngine
+    from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
+    init_distributed()
+    dev = rank_device()
+    torch.cuda.set_device(dev)
+    world = torch.distributed.get_world_size()
+    mesh = multihost_mesh(MeshConfig(tp=world), dev)
+    cfg = get_config("llama3.1-8b")
+    params = quote_params(cfg, seed=0, quant="", device=dev)
+    params = shard_model(params, cfg, mesh, dev)
+    eng = MultihostEngine(params, cfg, ByteTokenizer(cfg.vocab_size), mesh,
+                          max_seq=512)
+    crcs, first = [], []
+    gather = eng._gather_rows
+
+    def hooked(x):
+        a = gather(x)
+        crcs.append(zlib.crc32(a.tobytes()))
+        if not first:
+            first.append(a)
+        return a
+    eng._gather_rows = hooked
+    out = os.environ["MH_OUT"]
+    res = {"rank": mesh.rank}
+    if eng.is_follower:
+        eng.follower_loop()
+    else:
+        res["texts"] = _mh_run(eng)
+        eng.stop()
+        np.save(out + ".logits.npy", first[0])
+    res.update(crcs=crcs, backend=mesh.backend, **eng.timings(),
+               peak_mb=torch.cuda.max_memory_allocated(dev) / 2**20,
+               launches={k: w.launches for k, w in ops.wrappers().items()})
+    with open(out, "w") as f:
+        json.dump(res, f)
+    eng.close()
+    return 0
+
+
+def _mh_run(eng) -> list:
+    """MH_REQS through the engine, enqueued at once; their texts."""
+    from p2p_llm_chat_tpu_torch.serve.backend import (GenerateOptions,
+                                                      GenerateRequest)
+    gens = [eng.generate_stream(GenerateRequest(
+        prompt=p, model="x", options=GenerateOptions.from_ollama(o)))
+        for p, o in MH_REQS]
+    return ["".join(g) for g in gens]
+
+
+def phase_server_multihost(results: dict) -> None:
+    """The lockstep multi-process plane (serve/multihost.py) on the card,
+    three legs, each under MH_LEG_S with its processes killed in a
+    ``finally``:
+
+    - dp2: two ``python -m p2p_llm_chat_tpu_torch.serve`` processes on the
+      one card (``SERVE_COORDINATOR``, llama3.1-8b bf16 random init, 16 GB
+      a rank, the byte tokenizer): MH_REQS concurrently over HTTP (each
+      200 with tokens), ``/metrics`` requests above rounds, one
+      ``/api/embed``, SIGTERM to the leader ends both with rc 0 within
+      30 s, and each rank's summary shows kernels D and B (A8's decode
+      mode) launched;
+    - tp2: the same prompts through the plane in this process at tp = 1
+      (a mesh of one, no world) on llama3.1-8b quote weights (bf16), then
+      through two ranks at tp = 2 (``--mh-rank``, each taking its shard
+      of the same weights): greedy answers equal, the first round's
+      logits within STEP_TOL, each round's gathered logits the same bytes
+      on both ranks, kernels B and D launched on both;
+    - nccl1: one process, a world of one, whose compute group is NCCL
+      (llama3.2-1b): one request answers.
+
+    The two ranks on one card share it over gloo (NCCL refuses two ranks
+    on one device), which stages every collective through the host; the
+    times printed are that, not the speed of tensor parallelism."""
+    import tempfile
+    import numpy as np
+    import torch
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    from p2p_llm_chat_tpu_torch.models.synth import quote_params
+    from p2p_llm_chat_tpu_torch.parallel.mesh import Mesh, MeshConfig
+    from p2p_llm_chat_tpu_torch.serve.multihost import MultihostEngine
+    from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_mh_")
+    serve = [sys.executable, "-m", "p2p_llm_chat_tpu_torch.serve"]
+    readings: dict = {}
+    t_phase = time.monotonic()
+
+    # -- dp2: the normal entry point ---------------------------------------
+    leg = "dp2"
+    sport = _free_port()
+    url = f"http://127.0.0.1:{sport}"
+    deadline = time.monotonic() + MH_LEG_S
+    procs = _mh_spawn(2, logdir, leg, serve, MODEL_CONFIG="llama3.1-8b",
+                      SERVE_ADDR=f"127.0.0.1:{sport}",
+                      SERVE_MH_WINDOW_MS="250")
+    try:
+        _mh_up(url, procs, deadline, leg)
+        t_up = time.monotonic()
+        outs: list = [None] * len(MH_REQS)
+
+        def go(i):
+            prompt, opts = MH_REQS[i]
+            outs[i] = _post(url + "/api/generate", {
+                "model": "llama3.1-8b", "prompt": prompt, "stream": False,
+                "options": opts}, timeout=MH_LEG_S)
+        ts = [threading.Thread(target=go, args=(i,))
+              for i in range(len(MH_REQS))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=max(1.0, deadline - time.monotonic()))
+        burst_s = time.monotonic() - t_up
+        for i, o in enumerate(outs):
+            check(o is not None and o[0] == 200, f"{leg}: request {i} "
+                  f"answered {o and o[0]}")
+            body = json.loads(o[1])
+            check(body["done"] and body["eval_count"] >= 1,
+                  f"{leg}: request {i} generated nothing: {body}")
+        m = _metrics(url)
+        req_n = float(m["serve_multihost_requests"])
+        rounds = float(m["serve_multihost_batched_rounds"])
+        check(req_n > rounds, f"{leg}: {req_n} requests in {rounds} rounds")
+        st, body = _post(url + "/api/embed", {"model": "llama3.1-8b",
+                                              "input": ["see you at noon"]})
+        check(st == 200 and len(json.loads(body)["embeddings"][0])
+              == get_config("llama3.1-8b").hidden_size, f"{leg}: embed")
+        procs[0][0].send_signal(15)
+        _mh_wait(procs, time.monotonic() + 30, f"{leg} after SIGTERM")
+    finally:
+        _mh_kill(procs)
+    sums = _mh_summaries(logdir, leg, 2)
+    for s in sums:
+        for k in ("prefill_attention", "dense_attention"):
+            check(s["launches"][k] > 0, f"{leg}: rank {s['rank']} never "
+                  f"launched {k}")
+        check(s["backend"] == "gloo", f"{leg}: backend {s['backend']}")
+        _record_launches(results, f"server_multihost dp2 rank {s['rank']}",
+                         s["launches"])
+    print(f"server_multihost {leg}: 2 ranks on one card, {req_n:.0f} "
+          f"requests in {rounds:.0f} rounds in {burst_s:.2f} s, embed "
+          f"answered, SIGTERM -> rc 0 both; launches rank 0 "
+          f"{sums[0]['launches']}", flush=True)
+    readings[leg] = _mh_line(f"server_multihost {leg}", sums)
+
+    # -- tp2: parity against tp = 1 on the same weights --------------------
+    leg = "tp2"
+    cfg = get_config("llama3.1-8b")
+    params = quote_params(cfg, seed=0, quant="", device="cuda")
+    one = MultihostEngine(params, cfg, ByteTokenizer(cfg.vocab_size),
+                          Mesh.at(MeshConfig(), 0), max_seq=512)
+    first: list = []
+    gather = one._gather_rows
+
+    def hooked(x):
+        a = gather(x)
+        if not first:
+            first.append(a)
+        return a
+    one._gather_rows = hooked
+    try:
+        want = _mh_run(one)
+    finally:
+        one.stop()
+    tp1 = one.timings()
+    del one, params, gather, hooked
+    _free()
+    deadline = time.monotonic() + MH_LEG_S
+    port = _free_port()
+    procs = []
+    try:
+        for pid in range(2):
+            log = open(os.path.join(logdir, f"{leg}{pid}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mh-rank"],
+                env=_mh_env(2, pid, port, MH_OUT=os.path.join(
+                    logdir, f"{leg}{pid}.json")),
+                stdout=log, stderr=subprocess.STDOUT), log))
+        _mh_wait(procs, deadline, leg)
+    finally:
+        _mh_kill(procs)
+    ranks = [json.load(open(os.path.join(logdir, f"{leg}{pid}.json")))
+             for pid in range(2)]
+    got = np.load(os.path.join(logdir, f"{leg}0.json.logits.npy"))
+    greedy = [i for i, (_, o) in enumerate(MH_REQS)
+              if not o.get("temperature")]
+    for i in greedy:
+        check(ranks[0]["texts"][i] == want[i], f"{leg}: greedy request {i} "
+              f"answered {ranks[0]['texts'][i]!r} at tp = 2, {want[i]!r} at "
+              "tp = 1")
+    scale = float(np.abs(first[0]).max())
+    err = float(np.abs(got - first[0]).max())
+    check(err <= STEP_TOL * scale, f"{leg}: first round's logits off by "
+          f"{err} (max|logits| {scale})")
+    check(ranks[0]["crcs"] == ranks[1]["crcs"] and ranks[0]["crcs"],
+          f"{leg}: the ranks' gathered logits differ")
+    for r in ranks:
+        for k in ("prefill_attention", "dense_attention"):
+            check(r["launches"][k] > 0, f"{leg}: rank {r['rank']} never "
+                  f"launched {k}")
+        _record_launches(results, f"server_multihost tp2 rank {r['rank']}",
+                         r["launches"])
+    print(f"server_multihost {leg}: greedy answers {len(greedy)} of "
+          f"{len(MH_REQS)} equal at tp = 1 and tp = 2 (e.g. "
+          f"{want[greedy[0]][:40]!r}); first round's logits max|diff| "
+          f"{err:.4g} of max {scale:.4g}; {len(ranks[0]['crcs'])} rounds' "
+          "and steps' gathered logits the same bytes on both ranks; tp = 1 "
+          f"in this process: round {tp1['round_ms_p50']:.1f} ms, step "
+          f"{tp1['step_ms_p50']:.2f} ms", flush=True)
+    readings[leg] = _mh_line(f"server_multihost {leg}", ranks)
+    readings[leg]["tp1"] = {k: round(tp1[k], 3)
+                            for k in ("round_ms_p50", "step_ms_p50")}
+
+    # -- nccl1: a world of one on NCCL -------------------------------------
+    leg = "nccl1"
+    sport = _free_port()
+    url = f"http://127.0.0.1:{sport}"
+    deadline = time.monotonic() + MH_LEG_S
+    procs = _mh_spawn(1, logdir, leg, serve, MODEL_CONFIG="llama3.2-1b",
+                      SERVE_ADDR=f"127.0.0.1:{sport}")
+    try:
+        _mh_up(url, procs, deadline, leg)
+        st, body = _post(url + "/api/generate", {
+            "model": "llama3.2-1b", "prompt": "hi", "stream": False,
+            "options": {"num_predict": 8}}, timeout=MH_LEG_S)
+        check(st == 200 and json.loads(body)["eval_count"] >= 1,
+              f"{leg}: {st} {body[:200]}")
+        procs[0][0].send_signal(15)
+        _mh_wait(procs, time.monotonic() + 30, f"{leg} after SIGTERM")
+    finally:
+        _mh_kill(procs)
+    s = _mh_summaries(logdir, leg, 1)[0]
+    check(s["backend"] == "nccl", f"{leg}: compute backend {s['backend']}")
+    _record_launches(results, "server_multihost nccl1", s["launches"])
+    print(f"server_multihost {leg}: a world of one, compute group on "
+          f"{s['backend']}, one request answered, SIGTERM -> rc 0", flush=True)
+    results["_server_multihost"] = readings
+    print(f"server_multihost: three legs in {time.monotonic() - t_phase:.0f}"
+          f" s [card: {card_line()}]", flush=True)
+
+
 # Phase names for --only; a family name runs all of its members.
 PHASES = {
     "build": ("build",),
@@ -6308,7 +6686,7 @@ PHASES = {
     "step": ("step_llama", "step_llama_wta", "step_mixtral", "step_dense"),
     "server": ("server_llama", "server_llama_wta", "server_mixtral",
                "server_spec", "server_tier", "server_ckpt", "server_multi",
-               "server_dense", "server_draft"),
+               "server_dense", "server_draft", "server_multihost"),
     "profile": ("profile_llama", "profile_llama_wta", "profile_mixtral",
                 "profile_prefill"),
 }
@@ -6325,6 +6703,8 @@ def _free() -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    if sys.argv[1:] == ["--mh-rank"]:       # one rank of server_multihost
+        return _mh_rank_main()
     ap.add_argument("--only", default="build,kernel,step,server",
                     help="comma-separated phases to run: "
                     + ", ".join(f"{k} ({'/'.join(v)})"
@@ -6410,6 +6790,7 @@ def main() -> int:
         ("server_multi", lambda: phase_server_multi(results)),
         ("server_dense", lambda: phase_server_dense(results)),
         ("server_draft", lambda: phase_server_draft(results)),
+        ("server_multihost", lambda: phase_server_multihost(results)),
         ("profile_llama", lambda: phase_profile("llama3.1-8b", "int8")),
         ("profile_llama_wta", lambda: phase_profile("llama3.1-8b", "int8",
                                                     impl="kernel")),
@@ -6422,7 +6803,8 @@ def main() -> int:
         if phases & (set(PHASES["server"]) - {"server_spec", "server_tier",
                                               "server_ckpt", "server_multi",
                                               "server_dense",
-                                              "server_draft"}):
+                                              "server_draft",
+                                              "server_multihost"}):
             check(set(PHASES["kernel"]) <= phases, "the server phases "
                   "report into the kernel phases' results; run all of them")
         for name, run in runs:

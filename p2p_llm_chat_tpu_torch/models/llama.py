@@ -44,6 +44,7 @@ from ..ops.paged_attention import (check_impl, paged_attention,
 from ..ops.paged_kv import (PagedKVCache, write_decode, write_decode_burst,
                             write_decode_multi,
                             write_decode_multi_all_layers)
+from ..parallel.sharding import Split
 from ..utils.device import resolve_device
 from .configs import ModelConfig
 from .layers import (apply_rope_tables, attend_gqa, attend_gqa_auto,
@@ -100,10 +101,16 @@ class KVCache:
     @classmethod
     def create(cls, config: ModelConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: Optional[torch.device | str] = None) -> "KVCache":
+               device: Optional[torch.device | str] = None,
+               mesh=None) -> "KVCache":
         """A zeroed cache on ``device`` (the card unless the CPU is asked
-        for; see utils/device.py)."""
+        for; see utils/device.py). Under a ``mesh`` that cuts the layers
+        (parallel/sharding.Split) it holds this rank's kv heads, the
+        reference's ``(None, None, None, "kv_heads", None)``."""
         device = resolve_device(device)
+        split = Split.of(config, mesh)
+        if split is not None:
+            config = split.config
         shape = (config.num_layers, batch, cache_slots(max_seq),
                  config.num_kv_heads, config.head_dim)
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
@@ -187,12 +194,16 @@ def _ndim(leaf) -> int:
     return leaf.q.ndim if isinstance(leaf, (QTensor, QTensor4)) else leaf.ndim
 
 
-def fuse_params(params: dict) -> dict:
+def fuse_params(params: dict, experts: bool = True) -> dict:
     """Concatenate per-layer ``wq|wk|wv -> wqkv`` and ``w_gate|w_up`` on
     the output axis: ``wgu`` for dense [L, H, E] leaves, ``wgu_e`` for
     per-expert [L, NE, H, F] ones (int8 scales ride their columns, and
-    int4's group scales ``[..., ng, O]`` concatenate the same way). No-op
-    on an already fused tree."""
+    int4's group scales ``[..., ng, O]`` concatenate the same way). With
+    ``experts=False`` per-expert leaves stay separate (the reference
+    fuses them only with no mesh, llama.py:259-263). No-op on an already
+    fused tree. On a rank's shard (parallel/sharding.shard_params) the
+    result is the reference's per-device block of its interleaved
+    layout: ``[q_r | k_r | v_r]``, ``[gate_r | up_r]``."""
     layers = params["layers"]
     if "wqkv" in layers:
         return params
@@ -203,14 +214,62 @@ def fuse_params(params: dict) -> dict:
                                s=torch.cat([w.s for w in ws], dim=-1))
         return torch.cat(ws, dim=-1)
 
-    fused = {k: v for k, v in layers.items()
-             if k not in ("wq", "wk", "wv", "w_gate", "w_up")}
+    gu = "wgu" if _ndim(layers["w_gate"]) == 3 else (
+        "wgu_e" if experts else None)
+    drop = ("wq", "wk", "wv") + (("w_gate", "w_up") if gu else ())
+    fused = {k: v for k, v in layers.items() if k not in drop}
     fused["wqkv"] = cat([layers["wq"], layers["wk"], layers["wv"]])
-    gu = "wgu" if _ndim(layers["w_gate"]) == 3 else "wgu_e"
-    fused[gu] = cat([layers["w_gate"], layers["w_up"]])
+    if gu:
+        fused[gu] = cat([layers["w_gate"], layers["w_up"]])
     out = dict(params)
     out["layers"] = fused
     return out
+
+
+def unfuse_params(params: dict, config: ModelConfig) -> dict:
+    """The unfused tree (the reference's layout: ``wq``/``wk``/``wv``,
+    ``w_gate``/``w_up``) as views of a plain fused one's columns, for
+    parallel/sharding.shard_params."""
+    layers = params["layers"]
+    if "wqkv" not in layers:
+        return params
+    out = {k: v for k, v in layers.items()
+           if k not in ("wqkv", "wgu", "wgu_e")}
+    Q, KV = config.q_dim, config.kv_dim
+    qkv = layers["wqkv"]
+    if not isinstance(qkv, torch.Tensor):
+        raise TypeError("unfuse_params takes plain tensors")
+    out["wq"], out["wk"], out["wv"] = (qkv[..., :Q], qkv[..., Q:Q + KV],
+                                       qkv[..., Q + KV:])
+    gu = layers.get("wgu", layers.get("wgu_e"))
+    if gu is not None:
+        E = gu.shape[-1] // 2
+        out["w_gate"], out["w_up"] = gu[..., :E], gu[..., E:]
+    return dict(params, layers=out)
+
+
+def param_axes(config: ModelConfig) -> dict:
+    """Logical-axis tree matching the unfused tree (leading layer axis on
+    stacked leaves unsharded), the reference's; parallel/sharding.
+    shard_params reads it."""
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": (None, "embed"),
+            "wq": (None, "embed", "heads"),
+            "wk": (None, "embed", "kv_heads"),
+            "wv": (None, "embed", "kv_heads"),
+            "wo": (None, "heads", "embed"),
+            "mlp_norm": (None, "embed"),
+            "w_gate": (None, "embed", "mlp"),
+            "w_up": (None, "embed", "mlp"),
+            "w_down": (None, "mlp", "embed"),
+        },
+        "final_norm": ("embed",),
+    }
+    if not config.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
 
 
 @functools.lru_cache(maxsize=16)
@@ -247,27 +306,42 @@ def _attn_qkv(h: torch.Tensor, layers: dict, li: int, config: ModelConfig,
 
 
 def _post_attn(h: torch.Tensor, attn: torch.Tensor, layers: dict, li: int,
-               config: ModelConfig, mlp_fn=None) -> torch.Tensor:
+               config: ModelConfig, mlp_fn=None,
+               split: Optional[Split] = None) -> torch.Tensor:
     """Output projection + residual + MLP + residual. The MLP is the
     dense SwiGLU, or ``mlp_fn(x, layers, li)`` (models/mixtral.py plugs
-    its sparse-MoE MLP in here)."""
+    its sparse-MoE MLP in here). Under a ``split`` that cuts the layers,
+    ``attn`` holds this rank's heads and ``wgu`` its FFN columns: one
+    all-reduce over ``tp`` follows ``wo`` and one ``w_down``."""
     B, S = attn.shape[:2]
-    h = h + mm(attn.reshape(B, S, config.q_dim), layers["wo"], li)
+    o = mm(attn.reshape(B, S, config.q_dim), layers["wo"], li)
+    h = h + (o if split is None else split.reduce_layer(o))
     x = rms_norm(h, layers["mlp_norm"][li], config.rms_norm_eps)
     if mlp_fn is not None:
         return h + mlp_fn(x, layers, li)
     gu = mm(x, layers["wgu"], li)
     E = gu.shape[-1] // 2
     g = torch.nn.functional.silu(gu[..., :E]) * gu[..., E:]
-    return h + mm(g, layers["w_down"], li)
+    d = mm(g, layers["w_down"], li)
+    return h + (d if split is None else split.reduce_layer(d))
 
 
-def _lm_head(params: dict, config: ModelConfig, h: torch.Tensor
-             ) -> torch.Tensor:
-    """f32 logits of final-norm hidden states."""
+def _lm_head(params: dict, config: ModelConfig, h: torch.Tensor,
+             split: Optional[Split] = None) -> torch.Tensor:
+    """f32 logits of final-norm hidden states. Under a ``split`` that
+    cuts the vocabulary, this rank's columns (``embed.T`` when tied) are
+    all-gathered over ``tp`` in rank order."""
     lm_head = (params["embed"].T if config.tie_embeddings
                else params["lm_head"])
-    return mm(h, lm_head).float()
+    logits = mm(h, lm_head).float()
+    return logits if split is None else split.gather_vocab(logits)
+
+
+def _embed(params: dict, tokens: torch.Tensor,
+           split: Optional[Split] = None) -> torch.Tensor:
+    if split is None:
+        return params["embed"][tokens]
+    return split.embed(params["embed"], tokens)
 
 
 def _take_last(h: torch.Tensor, last_idx: Optional[torch.Tensor]
@@ -283,47 +357,51 @@ def _take_last(h: torch.Tensor, last_idx: Optional[torch.Tensor]
 
 
 def _logits(params: dict, config: ModelConfig, h: torch.Tensor,
-            last_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+            last_idx: Optional[torch.Tensor] = None,
+            split: Optional[Split] = None) -> torch.Tensor:
     h = rms_norm(_take_last(h, last_idx), params["final_norm"],
                  config.rms_norm_eps)
-    return _lm_head(params, config, h)
+    return _lm_head(params, config, h, split)
 
 
 def hidden_states(params: dict, config: ModelConfig, tokens: torch.Tensor,
                   positions: torch.Tensor, store, q_offset: int,
-                  mlp_fn=None, last_idx: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
+                  mlp_fn=None, last_idx: Optional[torch.Tensor] = None,
+                  split: Optional[Split] = None) -> torch.Tensor:
     """The decoder trunk over ``tokens`` [R, S] at ``positions`` (the
     reference's ``hidden_states``): embed, every layer, final norm. Each
     layer's k/v go to ``store(li, k, v)``, which returns the k/v its
     queries attend over (query i at absolute position ``q_offset + i``,
     causally; kernel D on the card). Returns the final-norm hidden states
     [R, S, H], or [R, 1, H] at chunk-local ``last_idx`` (gathered before
-    the norm, which is per position)."""
+    the norm, which is per position). ``split``: this rank's part of a
+    mesh (``config`` is then its local config; see :func:`_post_attn`)."""
     layers = params["layers"]
     rope = _rope(config, positions)
-    h = params["embed"][tokens]
+    h = _embed(params, tokens, split)
     for li in range(config.num_layers):
         q, k, v = _attn_qkv(h, layers, li, config, rope)
         k, v = store(li, k, v)
         h = _post_attn(h, attend_gqa_auto(q, k, v, q_offset), layers, li,
-                       config, mlp_fn)
+                       config, mlp_fn, split)
     return rms_norm(_take_last(h, last_idx), params["final_norm"],
                     config.rms_norm_eps)
 
 
 def _stack(params: dict, config: ModelConfig, tokens: torch.Tensor,
            positions: torch.Tensor, store, q_offset: int, mlp_fn,
-           last_idx: Optional[torch.Tensor]) -> torch.Tensor:
+           last_idx: Optional[torch.Tensor],
+           split: Optional[Split] = None) -> torch.Tensor:
     """:func:`hidden_states` then the lm_head: the logits at chunk-local
     ``last_idx`` ([R, 1, V] f32), or at every position ([R, S, V])."""
     return _lm_head(params, config, hidden_states(
         params, config, tokens, positions, store, q_offset, mlp_fn,
-        last_idx))
+        last_idx, split), split)
 
 
 def embed_pooled(params: dict, config: ModelConfig, tokens: torch.Tensor,
-                 lens: torch.Tensor, *, mlp_fn=None) -> torch.Tensor:
+                 lens: torch.Tensor, *, mlp_fn=None,
+                 mesh=None) -> torch.Tensor:
     """Sequence embeddings (the reference's ``embed_pooled``, the backend
     of ``POST /api/embed``): the length-masked mean of the final-norm
     hidden states in f32, divided by ``max(len, 1)``, L2-normalised with
@@ -333,12 +411,18 @@ def embed_pooled(params: dict, config: ModelConfig, tokens: torch.Tensor,
     position 0 over the bucket (kernel D at offset 0 on the card) with a
     no-op KV store; pads sit after each text, so no real position sees
     them, and they are masked out of the mean. Returns [R, H] f32 unit
-    vectors. ``mlp_fn``: see :func:`_post_attn`."""
+    vectors. ``mlp_fn``: see :func:`_post_attn`. ``mesh``: this rank's
+    weights are its shard (parallel/sharding.shard_params) and the
+    result is every rank's."""
     R, S = tokens.shape
     dev = tokens.device
+    split = Split.of(config, mesh)
+    if split is not None:
+        config = split.config
     positions = torch.arange(S, device=dev)[None, :].expand(R, S)
     h = hidden_states(params, config, tokens, positions,
-                      lambda li, k, v: (k, v), 0, mlp_fn).float()
+                      lambda li, k, v: (k, v), 0, mlp_fn,
+                      split=split).float()
     lens = lens.to(dev)
     valid = (torch.arange(S, device=dev)[None, :]
              < lens[:, None]).float()
@@ -350,7 +434,7 @@ def embed_pooled(params: dict, config: ModelConfig, tokens: torch.Tensor,
 
 def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,
             prompt_lens: torch.Tensor, last_only: bool = False, *,
-            mlp_fn=None, cache: Optional[KVCache] = None):
+            mlp_fn=None, cache: Optional[KVCache] = None, mesh=None):
     """Right-padded prompts from position 0 (causal from position 0 over
     the bucket, kernel D on the card; pads sit after each prompt, so no
     real query sees them).
@@ -362,9 +446,17 @@ def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,
     With a dense :class:`KVCache` of R rows (the reference's form) the k/v
     land in its slots 0..S of every row, its lengths become
     ``prompt_lens``, and it returns (logits, cache). ``mlp_fn``: see
-    :func:`_post_attn`."""
+    :func:`_post_attn`. ``mesh`` (the dense form only): this rank's
+    weights are its shard, ``cache`` holds its kv heads
+    (:meth:`KVCache.create` under the same mesh), and the logits are
+    every rank's."""
     R, S = tokens.shape
     dev = tokens.device
+    split = Split.of(config, mesh)
+    if split is not None:
+        if cache is None:
+            raise ValueError("prefill under a mesh writes a dense KVCache")
+        config = split.config
     positions = torch.arange(S, device=dev)[None, :].expand(R, S)
     last = ((prompt_lens.to(dev).long() - 1).clamp(min=0) if last_only
             else None)
@@ -375,7 +467,7 @@ def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,
             return k, v
 
         logits = _stack(params, config, tokens, positions, store_cache, 0,
-                        mlp_fn, last)
+                        mlp_fn, last, split)
         cache.lengths.copy_(prompt_lens.to(dev))
         return logits, cache
     shape = (config.num_layers, R, S, config.num_kv_heads, config.head_dim)
@@ -482,19 +574,21 @@ def write_dense(cache: KVCache, layer: int, k: torch.Tensor,
 def _dense_layers(params: dict, config: ModelConfig, tokens: torch.Tensor,
                   positions: torch.Tensor, cache: KVCache,
                   write_pos: torch.Tensor, attend, mlp_fn,
-                  last_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  last_idx: Optional[torch.Tensor] = None,
+                  split: Optional[Split] = None) -> torch.Tensor:
     """The reference's ``hidden_states`` + lm_head over the dense cache:
     each layer writes its k/v at ``write_pos`` (:func:`write_dense`),
     then ``attend(li, q, k, v)`` -> [B, S, Hq, D]. Returns the logits at
     every position, or at ``last_idx``."""
     layers = params["layers"]
     rope = _rope(config, positions)
-    h = params["embed"][tokens]
+    h = _embed(params, tokens, split)
     for li in range(config.num_layers):
         q, k, v = _attn_qkv(h, layers, li, config, rope)
         write_dense(cache, li, k, v, write_pos)
-        h = _post_attn(h, attend(li, q, k, v), layers, li, config, mlp_fn)
-    return _logits(params, config, h, last_idx)
+        h = _post_attn(h, attend(li, q, k, v), layers, li, config, mlp_fn,
+                       split)
+    return _logits(params, config, h, last_idx, split)
 
 
 def forward(params: dict, config: ModelConfig, tokens: torch.Tensor,
@@ -526,7 +620,7 @@ def forward(params: dict, config: ModelConfig, tokens: torch.Tensor,
 
 def decode_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
                 cache: KVCache, active: Optional[torch.Tensor] = None, *,
-                kv_window: Optional[int] = None, mlp_fn=None):
+                kv_window: Optional[int] = None, mlp_fn=None, mesh=None):
     """One autoregressive step over the dense cache (the reference's
     ``decode_step``): tokens [B, 1] at position ``lengths[b]``; each layer
     writes slot ``lengths[b]`` and attends slots ``[0, lengths[b]]`` of
@@ -537,18 +631,23 @@ def decode_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
     ``active`` ([B] bool) parks rows: a parked row still writes slot
     ``lengths[b]`` (garbage past its trusted length, overwritten before
     anything attends it) and does not advance. Returns (logits [B, 1, V]
-    f32, cache), lengths advanced where active, in place."""
+    f32, cache), lengths advanced where active, in place. ``mesh``: as in
+    :func:`prefill` (kernel B then attends this rank's kv heads)."""
     B = tokens.shape[0]
     dev = tokens.device
     W = cache.max_seq if kv_window is None else kv_window
     attend_len = cache.lengths + 1
+    split = Split.of(config, mesh)
+    if split is not None:
+        config = split.config
 
     def attend(li, q, k, v):
         return dense_attention(q[:, 0].contiguous(), cache, attend_len, li,
                                window=W)[:, None]
 
     logits = _dense_layers(params, config, tokens, cache.lengths[:, None],
-                           cache, cache.lengths[:, None], attend, mlp_fn)
+                           cache, cache.lengths[:, None], attend, mlp_fn,
+                           split=split)
     inc = (torch.ones(B, dtype=torch.int32, device=dev) if active is None
            else active.to(torch.int32))
     cache.lengths += inc

@@ -31,10 +31,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import Split
 from . import llama
 from .configs import ModelConfig
 from .llama import (KVCache, copy_slot_dense, fuse_params,  # noqa: F401
-                    new_carry)                  # (llama's layout)
+                    new_carry, unfuse_params)   # (llama's layout)
 from .quant import q_einsum
 
 # Sentinel: "derive capacity from config.moe_capacity_factor".
@@ -73,6 +74,30 @@ def init_params(config: ModelConfig, seed: int = 0,
     return init_params_quantized(config, seed, dtype, "", device)
 
 
+def param_axes(config: ModelConfig) -> dict:
+    """Logical-axis tree matching the unfused tree, the reference's: the
+    expert stacks cut over "experts" -> ("ep", "tp"), the router whole."""
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": (None, "embed"),
+            "wq": (None, "embed", "heads"),
+            "wk": (None, "embed", "kv_heads"),
+            "wv": (None, "embed", "kv_heads"),
+            "wo": (None, "heads", "embed"),
+            "mlp_norm": (None, "embed"),
+            "router": (None, "embed", None),      # tiny; replicated
+            "w_gate": (None, "experts", "embed", "expert_mlp"),
+            "w_up": (None, "experts", "embed", "expert_mlp"),
+            "w_down": (None, "experts", "expert_mlp", "embed"),
+        },
+        "final_norm": ("embed",),
+    }
+    if not config.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
 def _top_k(probs: torch.Tensor, k: int):
     """Top ``k`` along the last axis with ties to the lower index (as
     ``jax.lax.top_k``; ``torch.topk`` leaves tie order unspecified)."""
@@ -83,7 +108,8 @@ def _top_k(probs: torch.Tensor, k: int):
 
 def moe_mlp(x: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down,
             num_experts_per_tok: int, capacity: Optional[int] = None,
-            w_gu=None, layer: Optional[int] = None) -> torch.Tensor:
+            w_gu=None, layer: Optional[int] = None,
+            split: Optional[Split] = None) -> torch.Tensor:
     """Sparse-MoE SwiGLU via scatter/gather dispatch into capacity buckets.
 
     x: [B,S,H]; router: [H,NE]; w_gate/w_up: [NE,H,F]; w_down: [NE,F,H]
@@ -94,7 +120,13 @@ def moe_mlp(x: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down,
 
     The bucket array carries one extra row at index NE*C: an overflowing
     selection is written there and discarded, and reads 0 back — the
-    reference's scatter ``mode="drop"`` and gather ``mode="fill"``."""
+    reference's scatter ``mode="drop"`` and gather ``mode="fill"``.
+
+    Under a ``split`` that cuts the experts, the weights are this rank's
+    experts (``[NE_r, ...]``): routing and the buckets' slots are the
+    whole model's (the router is whole), this rank runs its experts'
+    buckets, a selection of another rank's expert reads 0, and the
+    weighted f32 sum is all-reduced over the expert group."""
     B, S, H = x.shape
     if layer is not None:
         router = router[layer]
@@ -118,6 +150,11 @@ def moe_mlp(x: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down,
     idx = torch.where(slot < C, expert * C + slot,
                       torch.full_like(slot, NE * C))
 
+    if split is not None and split.experts > 1:
+        NE = NE // split.experts
+        lo = split.first_expert(NE) * C
+        mine = (idx >= lo) & (idx < lo + NE * C)
+        idx = torch.where(mine, idx - lo, torch.full_like(idx, NE * C))
     xin = torch.zeros((NE * C + 1, H), dtype=x.dtype, device=x.device)
     xin[idx] = xt.repeat_interleave(k, dim=0)
     xin = xin[:NE * C].reshape(NE, C, H)
@@ -134,6 +171,8 @@ def moe_mlp(x: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down,
                    torch.zeros((1, H), dtype=y.dtype, device=y.device)])
     gathered = y[idx]                                            # [T*k,H]
     out = (gathered.reshape(T, k, H).float() * top_w[..., None]).sum(dim=1)
+    if split is not None and split.experts > 1:
+        out = split.reduce_experts(out)
     return out.to(x.dtype).reshape(B, S, H)
 
 
@@ -150,25 +189,28 @@ def _capacity_for(config: ModelConfig, tokens: int,
                       / config.num_experts))
 
 
-def _mlp_fn(config: ModelConfig, capacity: Optional[int]):
+def _mlp_fn(config: ModelConfig, capacity: Optional[int],
+            split: Optional[Split] = None):
     def fn(x: torch.Tensor, layers: dict, li: int) -> torch.Tensor:
         return moe_mlp(x, layers["router"], layers.get("w_gate"),
                        layers.get("w_up"), layers["w_down"],
                        config.num_experts_per_tok, capacity,
-                       w_gu=layers.get("wgu_e"), layer=li)
+                       w_gu=layers.get("wgu_e"), layer=li, split=split)
     return fn
 
 
 def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,
             prompt_lens: torch.Tensor, last_only: bool = False,
-            capacity=_AUTO, *, cache=None):
+            capacity=_AUTO, *, cache=None, mesh=None):
     """llama.prefill with the MoE MLP (same contract, both forms: the
-    chunk's k/v, or into a dense ``cache``). The capacity is reckoned
-    from the padded bucket's R*S tokens, as the reference's."""
+    chunk's k/v, or into a dense ``cache``; ``mesh`` as there, the
+    experts cut over ("ep", "tp")). The capacity is reckoned from the
+    padded bucket's R*S tokens, as the reference's."""
     cap = _capacity_for(config, int(tokens.shape[0] * tokens.shape[1]),
                         capacity)
     return llama.prefill(params, config, tokens, prompt_lens, last_only,
-                         mlp_fn=_mlp_fn(config, cap), cache=cache)
+                         mlp_fn=_mlp_fn(config, cap, Split.of(config, mesh)),
+                         cache=cache, mesh=mesh)
 
 
 def prefill_chunk(params: dict, config: ModelConfig, tokens: torch.Tensor,
@@ -214,12 +256,15 @@ def forward(params: dict, config: ModelConfig, tokens: torch.Tensor,
 
 
 def decode_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
-                cache, active=None, *, kv_window: Optional[int] = None):
+                cache, active=None, *, kv_window: Optional[int] = None,
+                mesh=None):
     """llama.decode_step (dense) with the MoE MLP, dropless (C = the
-    batch), including the parked-row invariant."""
+    batch), including the parked-row invariant; ``mesh`` as there."""
     return llama.decode_step(params, config, tokens, cache, active,
                              kv_window=kv_window,
-                             mlp_fn=_mlp_fn(config, None))
+                             mlp_fn=_mlp_fn(config, None,
+                                            Split.of(config, mesh)),
+                             mesh=mesh)
 
 
 def verify_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
@@ -242,7 +287,8 @@ def verify_tree(params: dict, config: ModelConfig, tokens: torch.Tensor,
 
 
 def embed_pooled(params: dict, config: ModelConfig, tokens: torch.Tensor,
-                 lens: torch.Tensor, capacity=_AUTO) -> torch.Tensor:
+                 lens: torch.Tensor, capacity=_AUTO, *,
+                 mesh=None) -> torch.Tensor:
     """llama.embed_pooled with the MoE MLP (the /api/embed backend; same
     contract). The capacity is reckoned from the padded bucket's R*S
     tokens, as the reference's (mixtral.py:442-451), so pad positions use
@@ -250,7 +296,9 @@ def embed_pooled(params: dict, config: ModelConfig, tokens: torch.Tensor,
     cap = _capacity_for(config, int(tokens.shape[0] * tokens.shape[1]),
                         capacity)
     return llama.embed_pooled(params, config, tokens, lens,
-                              mlp_fn=_mlp_fn(config, cap))
+                              mlp_fn=_mlp_fn(config, cap,
+                                             Split.of(config, mesh)),
+                              mesh=mesh)
 
 
 def decode_step_paged(params: dict, config: ModelConfig,

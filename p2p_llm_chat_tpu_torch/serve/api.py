@@ -47,6 +47,8 @@ FakeLLM.
 from __future__ import annotations
 
 import json
+import signal
+import sys
 import threading
 import time
 from datetime import datetime, timezone
@@ -841,7 +843,13 @@ class OllamaServer:
 
 def main() -> None:
     """Entry point: ``SERVE_BACKEND=torch`` serves the port's engine (on
-    the card unless ``SERVE_DEVICE=cpu``); ``fake`` serves FakeLLM."""
+    the card unless ``SERVE_DEVICE=cpu``); ``fake`` serves FakeLLM.
+
+    Under ``SERVE_COORDINATOR`` (serve/multihost.py) a follower runs no
+    front: it mirrors the leader's rounds until the leader broadcasts
+    shutdown. The leader serves the front until SIGTERM, then stops the
+    plane (the shutdown broadcast) and exits 0; every rank leaves the
+    world on the way out."""
     from .backend import FakeLLM
     kind = env_or("SERVE_BACKEND", "fake")
     if kind == "fake":
@@ -852,7 +860,23 @@ def main() -> None:
     else:
         raise SystemExit(f"SERVE_BACKEND must be fake|torch for the "
                          f"PyTorch front, got {kind!r}")
-    OllamaServer(backend).serve_forever()
+    if not hasattr(backend, "follower_loop"):
+        OllamaServer(backend).serve_forever()
+        return
+    if backend.is_follower:
+        try:
+            backend.follower_loop()
+        finally:
+            backend.close()
+        return
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
+    server = OllamaServer(backend)
+    try:
+        server.serve_forever()
+    finally:
+        server.stop()
+        backend.stop()
+        backend.close()
 
 
 if __name__ == "__main__":

@@ -461,9 +461,17 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
     (default ``tiny``) weights and the byte tokenizer. ``params``:
     weights of ``MODEL_CONFIG`` to serve instead of the random init,
     already on the device (e.g. models/synth.quote_params, whose output
-    n-gram drafts match)."""
-    if env_or("SERVE_COORDINATOR", "") or env_or("JAX_COORDINATOR", ""):
-        raise _not_in_slice("multi-host serving")
+    n-gram drafts match). ``SERVE_COORDINATOR`` (or ``JAX_COORDINATOR``)
+    builds the lockstep multi-process engine instead
+    (serve/multihost.build_multihost_engine; ``params`` is then the whole
+    tree each rank takes its shard of)."""
+    coord = env_or("SERVE_COORDINATOR", "") or None
+    if coord or env_or("JAX_COORDINATOR", ""):
+        # The lockstep multi-process plane (serve/multihost.py): every
+        # process joins the world and takes its shard; api.main runs the
+        # front on the leader and follower_loop on the others.
+        from .multihost import build_multihost_engine
+        return build_multihost_engine(coord, params=params, device=device)
     # Speculative decoding (the reference's engine.py:399-418): K n-gram
     # draft tokens per spec tick; tree verify over SERVE_SPEC_TREE_NODES
     # nodes (default 8 with speculation on; the scheduler snaps it).
@@ -478,7 +486,12 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
     spec_tree_nodes = env_int("SERVE_SPEC_TREE_NODES", 8) if spec_k else 0
     spec_tree_gap = env_float("SERVE_SPEC_TREE_GAP", 4.0)
     if env_int("SERVE_TP", 1) > 1:
-        raise _not_in_slice("tensor parallelism (SERVE_TP>1)")
+        raise _not_in_slice("tensor parallelism in the single-process "
+                            "engine (SERVE_TP>1 without SERVE_COORDINATOR; "
+                            "SERVE_TP serves inside the lockstep "
+                            "multi-process plane: start one process per "
+                            "card with SERVE_COORDINATOR, JAX_NUM_PROCESSES "
+                            "and JAX_PROCESS_ID)")
     if env_int("SERVE_PROFILE_PORT", 0) > 0:
         raise _not_in_slice("the live profiler server (SERVE_PROFILE_PORT)")
     quant = env_or("SERVE_QUANT", "")
