@@ -353,6 +353,13 @@ A_SHAPES = {          # llama3.1-8b projections: (H, O, launches per step)
     "w_down": (14336, 4096, 32),
     "lm_head": (4096, 128256, 1),
 }
+A_SHARD_SHAPES = {    # a tp = 2 rank's shards of them (serve/tp.py): (H, O)
+    "wqkv_r": (4096, 3072),
+    "wo_r": (2048, 4096),
+    "wgu_r": (4096, 14336),
+    "w_down_r": (7168, 4096),
+    "lm_head_r": (4096, 64128),
+}
 
 
 def phase_kernel_a(results: dict) -> None:
@@ -422,6 +429,15 @@ def phase_kernel_a(results: dict) -> None:
         check(x.data_ptr() % 16 != 0, "misaligned case is aligned")
         check_case(f"ragged M={M} H=128 O=256 x at +2 bytes", x, qt.q,
                    qt.s, 1)
+
+    # A tensor-parallel rank's shard shapes: new K (2048, 7168) and
+    # split-K plans, lm_head's 64128 columns.
+    for name, (H, O) in A_SHARD_SHAPES.items():
+        qt = rand_q(H, O, L=None if name == "lm_head_r" else 2)
+        for M in (32, 256):
+            check_case(f"tp2 shard {name} M={M} H={H} O={O}", rand_x(M, H),
+                       qt.q, qt.s, None if name == "lm_head_r" else 1)
+        del qt
 
     step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     chunk = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
@@ -692,7 +708,8 @@ def _b_timing(mode: str, cache, q, kc, vc, pages, L, impl=None) -> dict:
 
 def phase_kernel_b(results: dict) -> None:
     """Kernel B's append mode (TPU kernel rows 3 and 5) against its plain
-    version: int8 and bf16 pools at rep 2, 4 and 8 (D 32 and 128), windows
+    version: int8 and bf16 pools at rep 2, 4 and 8 (D 32 and 128; the int8
+    pool also at a tp = 2 rank's Hq 16, Hkv 4), windows
     of 64, 1000 and 4096 tokens with ragged lengths reaching into the
     NaN-filled page 0, page sizes 16 and 48 (chunks straddle pages,
     slices start mid-page); each case also bitwise against a rerun, its
@@ -718,6 +735,16 @@ def phase_kernel_b(results: dict) -> None:
                                                       W, lengths, seed=W)
                 worst = max(worst, _b_case(
                     f"kernel B {pool} Hq={Hq} Hkv={Hkv} D={D} W={W} "
+                    f"lengths={lengths}", cache, q, kc, vc, pages))
+                del cache
+        if quantized:
+            # A tp = 2 rank's heads of llama3.1-8b (serve/tp.py).
+            for W in (64, 1000, 4096):
+                lengths = [W, max(1, W - 37), max(1, W // 3 + 5), 1]
+                cache, q, kc, vc, pages = _paged_case(True, 16, 4, 128, W,
+                                                      lengths, seed=W + 1)
+                worst = max(worst, _b_case(
+                    f"kernel B int8 tp2 rank Hq=16 Hkv=4 D=128 W={W} "
                     f"lengths={lengths}", cache, q, kc, vc, pages))
                 del cache
         for ps in (16, 48):
@@ -3503,17 +3530,9 @@ def _metrics(url: str) -> dict:
 
 
 def _on_loop(sched, fn):
-    """Run ``fn`` on the scheduler thread between loop iterations (a
-    warmup job: only that thread touches the decode state) and return
-    its result."""
-    from p2p_llm_chat_tpu_torch.serve.scheduler import _WarmupJob
-    out = {}
-    job = _WarmupJob(lambda: out.setdefault("v", fn()))
-    sched._admit_q.put(job)
-    job.done.wait()
-    if job.err is not None:
-        raise job.err
-    return out["v"]
+    """Run ``fn`` on the scheduler thread between loop iterations (only
+    that thread touches the decode state) and return its result."""
+    return sched.run_on_loop(fn)
 
 
 def _quiesce(sched) -> None:
@@ -6183,8 +6202,11 @@ def phase_server_multi(results: dict) -> None:
             code = _status("GET", server.url + "/readyz")[0]
             after = (big.ready(), small.ready())
             states.add((before, code))
-            check(code != 200 or all(before), f"{label}: /readyz 200 with "
-                  f"engines ready {before}")
+            # Readiness only turns on: a 200 is a fault when an engine is
+            # still not ready after the call (one that turned ready
+            # between the read before and the call is not).
+            check(code != 200 or all(after), f"{label}: /readyz 200 with "
+                  f"engines ready {before} before the call, {after} after")
             if code == 200 and all(after):
                 break
             time.sleep(0.05)
@@ -6423,8 +6445,8 @@ def _mh_line(label: str, sums: list) -> dict:
 
 def _mh_rank_main() -> int:
     """One rank of the tp = 2 parity leg (``chip_smoke.py --mh-rank``):
-    llama3.1-8b quote weights built on its card, its shard taken
-    (parallel/sharding.shard_model), the plane's engine; the leader runs
+    its shard of llama3.1-8b's quote weights drawn on its card a layer at
+    a time, the plane's engine; the leader runs
     MH_REQS and writes the texts and the first round's logits. Every
     rank writes a CRC of each round's gathered logits, its timings,
     launches, peak memory and backend to MH_OUT."""
@@ -6437,7 +6459,6 @@ def _mh_rank_main() -> int:
     from p2p_llm_chat_tpu_torch.parallel.distributed import (
         init_distributed, multihost_mesh, rank_device)
     from p2p_llm_chat_tpu_torch.parallel.mesh import MeshConfig
-    from p2p_llm_chat_tpu_torch.parallel.sharding import shard_model
     from p2p_llm_chat_tpu_torch.serve.multihost import MultihostEngine
     from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
     init_distributed()
@@ -6446,8 +6467,9 @@ def _mh_rank_main() -> int:
     world = torch.distributed.get_world_size()
     mesh = multihost_mesh(MeshConfig(tp=world), dev)
     cfg = get_config("llama3.1-8b")
-    params = quote_params(cfg, seed=0, quant="", device=dev)
-    params = shard_model(params, cfg, mesh, dev)
+    # This rank's shard drawn a layer at a time (models/synth.quote_params
+    # under the mesh), never the whole bf16 tree.
+    params = quote_params(cfg, seed=0, quant="", device=dev, mesh=mesh)
     eng = MultihostEngine(params, cfg, ByteTokenizer(cfg.vocab_size), mesh,
                           max_seq=512)
     crcs, first = [], []
@@ -6477,6 +6499,273 @@ def _mh_rank_main() -> int:
     return 0
 
 
+# The tp2_engine leg (SERVE_TP in the continuous-batching engine): four
+# concurrent 16-token requests — the co-pilot's (a prefix hit), the
+# 1,500-byte long prompt (chunked: 1501 ids in a 2048 bucket, 8 chunks of
+# 256), a short one and a seeded sampled one; the first three are greedy
+# and make the parity part's prompts.
+TP_LEG_S = 90.0
+TP_ENGINE = dict(num_slots=4, max_seq=2048, page_size=64, kv_mode="paged",
+                 kv_quant=True, prefix_cache=True, prefill_chunk=256,
+                 decode_fuse_max=4, attn_impl="gather")
+
+
+def _tp_reqs() -> list:
+    from p2p_llm_chat_tpu_torch.serve.engine import SUGGEST_PREFIX
+    return [("co-pilot", SUGGEST_PREFIX + "are we still on for lunch "
+             "tomorrow?", {"num_predict": 16}),
+            ("long", LONG_PROMPT, {"num_predict": 16}),
+            ("short", "hello there", {"num_predict": 16}),
+            ("seeded", "see you at noon?", {"num_predict": 16,
+                                            "temperature": 0.8,
+                                            "top_p": 0.9, "seed": 11})]
+
+
+def _tp_env(**kw) -> dict:
+    """This process's env without any serving setting an earlier phase
+    left in it, plus ``kw``."""
+    drop = ("SERVE_", "PAGED_", "JAX_COORDINATOR", "JAX_NUM_PROCESSES",
+            "JAX_PROCESS_ID", "CKPT_DIR", "MODEL_CONFIG", "LLM_MODEL")
+    env = {k: v for k, v in os.environ.items() if not k.startswith(drop)}
+    env.update(PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+               SERVE_BACKEND="torch", SERVE_DEVICE="cuda", **kw)
+    return env
+
+
+def _tp_summaries(path: str, label: str) -> list:
+    """The ranks' summary lines (serve/engine.TorchEngine.close) in one
+    log, by rank."""
+    text = open(path).read()
+    sums = [json.loads(part.splitlines()[0])
+            for part in text.split("summary: ")[1:]]
+    check(sorted(s["rank"] for s in sums) == [0, 1], f"{label}: summaries "
+          f"of ranks {[s['rank'] for s in sums]}; log tail:\n{text[-3000:]}")
+    return sorted(sums, key=lambda s: s["rank"])
+
+
+def _tp_contexts(eng) -> list:
+    """The leg's greedy prompts through ``eng`` one after another (the
+    same admission shapes at tp = 1 and tp = 2): each context."""
+    from p2p_llm_chat_tpu_torch.serve.backend import (
+        GenerateOptions, GenerateRequest, RequestStats, collect)
+    out = []
+    for _, prompt, opts in _tp_reqs()[:3]:
+        stats = RequestStats()
+        collect(eng, GenerateRequest(prompt=prompt, model="x",
+                                     options=GenerateOptions.from_ollama(
+                                         opts)), stats)
+        out.append(list(stats.context))
+    return out
+
+
+def _tp_rank_main() -> int:
+    """One rank of the tp2_engine leg's parity part (``chip_smoke.py
+    --tp-rank``): its shard of llama3.1-8b's int8 quote weights drawn on
+    its card a layer at a time, the engine at tp = 2 (TP_ENGINE); the
+    leader warms it (the co-pilot prefix registered) and runs the greedy
+    prompts; every rank writes its digests, launches and peak to MH_OUT
+    and logs its summary line."""
+    import torch
+    from p2p_llm_chat_tpu_torch import ops
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    from p2p_llm_chat_tpu_torch.models.synth import quote_params
+    from p2p_llm_chat_tpu_torch.parallel.distributed import (
+        init_distributed, multihost_mesh, rank_device)
+    from p2p_llm_chat_tpu_torch.parallel.mesh import MeshConfig
+    from p2p_llm_chat_tpu_torch.serve.engine import TorchEngine
+    from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
+    init_distributed(join_timeout_s=120)
+    dev = rank_device()
+    torch.cuda.set_device(dev)
+    mesh = multihost_mesh(MeshConfig(tp=2), dev)
+    cfg = get_config("llama3.1-8b")
+    params = quote_params(cfg, seed=0, quant="int8", device=dev, mesh=mesh)
+    eng = TorchEngine(params, cfg, ByteTokenizer(cfg.vocab_size), mesh=mesh,
+                      device=dev, **TP_ENGINE)
+    res = {"rank": mesh.rank}
+    if eng.is_follower:
+        eng.follower_loop()
+    else:
+        eng.warmup((256,), background=False)
+        res["contexts"] = _tp_contexts(eng)
+        eng.stop()
+    res.update(digests=eng.scheduler.digests,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 2**30,
+               launches={k: w.launches for k, w in ops.wrappers().items()})
+    with open(os.environ["MH_OUT"], "w") as f:
+        json.dump(res, f)
+    eng.close()
+    return 0
+
+
+def _tp2_engine_leg(results: dict, logdir: str) -> dict:
+    """SERVE_TP = 2 in the continuous-batching engine (serve/tp.py), two
+    ranks on the one card over gloo, under TP_LEG_S:
+
+    - the normal entry, ``SERVE_TP=2 SERVE_KV=paged SERVE_QUANT=int8
+      SERVE_KV_QUANT=int8 MODEL_CONFIG=llama3.1-8b python -m
+      p2p_llm_chat_tpu_torch.serve`` (random weights, full width and
+      depth, prefix on, chunk 256, fuse 4, the byte tokenizer; the leader
+      starts its follower): the four requests of :func:`_tp_reqs` at once
+      (each 200 and non-empty), ``/metrics`` (a prefix admit, >= 5 prefill
+      chunks, fused ticks), one ``/api/embed``, SIGTERM -> rc 0 within
+      30 s; from each rank's summary line kernels A, B (append) and D
+      launched, the token digests equal on both ranks, the peak;
+    - parity: the greedy prompts on int8 quote weights through two
+      ``--tp-rank`` ranks, then (after they exit) a tp = 1 engine on the
+      same weights: equal contexts, or parting on a near tie as
+      :func:`_against_cold` judges it."""
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    from p2p_llm_chat_tpu_torch.models.synth import quote_params
+    from p2p_llm_chat_tpu_torch.serve.engine import TorchEngine
+    from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
+    leg = "tp2_engine"
+    t_leg = time.monotonic()
+    deadline = t_leg + TP_LEG_S
+    sport = _free_port()
+    url = f"http://127.0.0.1:{sport}"
+    path = os.path.join(logdir, f"{leg}.log")
+    log = open(path, "w")
+    procs = [(subprocess.Popen(
+        [sys.executable, "-m", "p2p_llm_chat_tpu_torch.serve"],
+        env=_tp_env(SERVE_TP="2", SERVE_KV="paged", SERVE_QUANT="int8",
+                    SERVE_KV_QUANT="int8", MODEL_CONFIG="llama3.1-8b",
+                    SERVE_PREFIX="1", SERVE_PREFILL_CHUNK="256",
+                    SERVE_FUSE="4", SERVE_MAX_SEQ="2048", SERVE_SLOTS="4",
+                    SERVE_WARMUP="256", SERVE_ADDR=f"127.0.0.1:{sport}"),
+        stdout=log, stderr=subprocess.STDOUT), log)]
+    reqs = _tp_reqs()
+    try:
+        _mh_up(url, procs, deadline, leg)
+        while True:
+            try:
+                if _get(url + "/readyz", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            check(procs[0][0].poll() is None and time.monotonic() < deadline,
+                  f"{leg}: never ready; log tail:\n{_mh_tail(procs, 0)}")
+            time.sleep(0.5)
+        t_ready = time.monotonic() - t_leg
+        answers, burst_s = _burst(url, [
+            ("/api/generate", {"model": "llama3.1-8b", "prompt": p,
+                               "stream": False, "options": o})
+            for _, p, o in reqs])
+        ttft = {}
+        for (label, _, _), ans in zip(reqs, answers):
+            check(not isinstance(ans, Exception) and ans[0] == 200,
+                  f"{leg}: {label} answered {ans!r}")
+            # Random weights over the byte tokenizer mostly sample ids
+            # past its 256 bytes, which decode to no text: a non-empty
+            # answer is one with generated tokens in its context.
+            body = json.loads(ans[1])
+            check(body["done"] and body["eval_count"] >= 1
+                  and len(body["context"]) == body["prompt_eval_count"]
+                  + body["eval_count"], f"{leg}: {label} empty: {body}")
+            ttft[label] = body["prompt_eval_duration"] / 1e6
+        m = _metrics(url)
+        admits = float(m["serve_prefix_admits_total"])
+        chunks = float(m["prefill_chunks_total"])
+        fused = float(m["decode_fused_ticks_total"])
+        check(admits >= 1 and chunks >= 5 and fused > 0, f"{leg}: prefix "
+              f"admits {admits}, prefill chunks {chunks}, fused ticks {fused}")
+        st, body = _post(url + "/api/embed", {"model": "llama3.1-8b",
+                                              "input": ["see you at noon"]})
+        check(st == 200 and len(json.loads(body)["embeddings"][0])
+              == get_config("llama3.1-8b").hidden_size, f"{leg}: embed")
+        procs[0][0].send_signal(15)
+        _mh_wait(procs, time.monotonic() + 30, f"{leg} after SIGTERM")
+    finally:
+        _mh_kill(procs)
+    sums = _tp_summaries(path, leg)
+    for s in sums:
+        for k in ("quant_matmul", "paged_attention_append",
+                  "prefill_attention"):
+            check(s["launches"][k] > 0, f"{leg}: rank {s['rank']} never "
+                  f"launched {k}")
+        check(s["digests_equal"] is True and s["backend"] == "gloo",
+              f"{leg}: rank {s['rank']}: digests equal "
+              f"{s['digests_equal']}, backend {s['backend']}")
+        _record_launches(results, f"server_multihost {leg} rank {s['rank']}",
+                         s["launches"])
+    check(sums[0]["digest"] == sums[1]["digest"], f"{leg}: digests "
+          f"{sums[0]['digest']} / {sums[1]['digest']}")
+    t_env = time.monotonic() - t_leg
+    print(f"server_multihost {leg}: SERVE_TP=2 through the normal entry, "
+          f"ready in {t_ready:.1f} s, 4 requests in {burst_s:.2f} s (TTFT "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in ttft.items())
+          + f"), prefix admits {admits:.0f}, prefill chunks {chunks:.0f}, "
+          f"fused ticks {fused:.0f}, embed answered, SIGTERM -> rc 0; "
+          + "; ".join(f"rank {s['rank']}: decode step p50 "
+                      f"{s['step_ms_p50']:.2f} ms, of it in collectives "
+                      f"{s['collective_ms_p50']:.2f} ms ({s['steps']} "
+                      f"ticks), backend {s['backend']}, peak "
+                      f"{s['peak_gb']:.1f} GB, digest {s['digest']}, "
+                      f"launches A {s['launches']['quant_matmul']} B "
+                      f"{s['launches']['paged_attention_append']} D "
+                      f"{s['launches']['prefill_attention']}" for s in sums)
+          + f"; {t_env:.0f} s [card: {card_line()}]", flush=True)
+    out = {f"rank{s['rank']}": {
+        "step_ms_p50": round(s["step_ms_p50"], 3),
+        "collective_ms_p50": round(s["collective_ms_p50"], 3),
+        "peak_gb": round(s["peak_gb"], 2), "backend": s["backend"]}
+        for s in sums}
+    out["ttft_ms"] = {k: round(v, 1) for k, v in ttft.items()}
+
+    # -- parity: tp = 2 against tp = 1 on int8 quote weights -------------
+    port = _free_port()
+    procs = []
+    try:
+        for pid in range(2):
+            plog = open(os.path.join(logdir, f"{leg}_parity{pid}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tp-rank"],
+                env=_tp_env(SERVE_COORDINATOR=f"127.0.0.1:{port}",
+                            JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid),
+                            MH_OUT=os.path.join(logdir,
+                                                f"{leg}_parity{pid}.json")),
+                stdout=plog, stderr=subprocess.STDOUT), plog))
+        _mh_wait(procs, deadline + 60, f"{leg} parity")
+    finally:
+        _mh_kill(procs)
+    ranks = [json.load(open(os.path.join(logdir, f"{leg}_parity{pid}.json")))
+             for pid in range(2)]
+    for r in ranks:
+        check(len(set(r["digests"] or [None])) == 1 and r["digests"],
+              f"{leg} parity: rank {r['rank']} digests {r['digests']}")
+        for k in ("quant_matmul", "paged_attention_append",
+                  "prefill_attention"):
+            check(r["launches"][k] > 0, f"{leg} parity: rank {r['rank']} "
+                  f"never launched {k}")
+    cfg = get_config("llama3.1-8b")
+    one = TorchEngine(quote_params(cfg, seed=0, quant="int8", device="cuda"),
+                      cfg, ByteTokenizer(cfg.vocab_size), device="cuda",
+                      **TP_ENGINE)
+    try:
+        one.warmup((256,), background=False)
+        want = _tp_contexts(one)
+        lines = []
+        for (label, prompt, _), cold, got in zip(_tp_reqs(), want,
+                                                 ranks[0]["contexts"]):
+            n_prompt = len(one.scheduler.tokenizer.encode(prompt,
+                                                          add_bos=True))
+            lines.append(f"{label}: " + _against_cold(
+                f"{leg} parity", one.scheduler, "tp = 2", got, cold,
+                n_prompt))
+    finally:
+        one.stop()
+        del one
+        _free()
+    print(f"server_multihost {leg} parity (int8 quote weights, greedy): "
+          + "; ".join(lines) + "; peak a rank "
+          + ", ".join(f"{r['peak_gb']:.1f}" for r in ranks)
+          + f" GB; the leg in {time.monotonic() - t_leg:.0f} s [card: "
+          f"{card_line()}]", flush=True)
+    out["parity_peak_gb"] = [round(r["peak_gb"], 2) for r in ranks]
+    out["leg_s"] = round(time.monotonic() - t_leg, 1)
+    return out
+
+
 def _mh_run(eng) -> list:
     """MH_REQS through the engine, enqueued at once; their texts."""
     from p2p_llm_chat_tpu_torch.serve.backend import (GenerateOptions,
@@ -6490,7 +6779,8 @@ def _mh_run(eng) -> list:
 def phase_server_multihost(results: dict) -> None:
     """The lockstep multi-process plane (serve/multihost.py) on the card,
     three legs, each under MH_LEG_S with its processes killed in a
-    ``finally``:
+    ``finally``, then ``SERVE_TP`` in the continuous-batching engine
+    (:func:`_tp2_engine_leg`, under TP_LEG_S):
 
     - dp2: two ``python -m p2p_llm_chat_tpu_torch.serve`` processes on the
       one card (``SERVE_COORDINATOR``, llama3.1-8b bf16 random init, 16 GB
@@ -6501,8 +6791,9 @@ def phase_server_multihost(results: dict) -> None:
       mode) launched;
     - tp2: the same prompts through the plane in this process at tp = 1
       (a mesh of one, no world) on llama3.1-8b quote weights (bf16), then
-      through two ranks at tp = 2 (``--mh-rank``, each taking its shard
-      of the same weights): greedy answers equal, the first round's
+      through two ranks at tp = 2 (``--mh-rank``, each drawing its shard
+      of the same weights a layer at a time): greedy answers equal, the
+      first round's
       logits within STEP_TOL, each round's gathered logits the same bytes
       on both ranks, kernels B and D launched on both;
     - nccl1: one process, a world of one, whose compute group is NCCL
@@ -6648,6 +6939,13 @@ def phase_server_multihost(results: dict) -> None:
     readings[leg] = _mh_line(f"server_multihost {leg}", ranks)
     readings[leg]["tp1"] = {k: round(tp1[k], 3)
                             for k in ("round_ms_p50", "step_ms_p50")}
+    print(f"server_multihost {leg}: peak a rank "
+          f"{max(r['peak_mb'] for r in ranks) / 1024:.1f} GB with the shard "
+          "drawn a layer at a time (building the whole bf16 tree first, "
+          "then cutting it, peaked at 26.7 GB: PERF.md §6) "
+          f"[card: {card_line()}]", flush=True)
+
+    readings["tp2_engine"] = _tp2_engine_leg(results, logdir)
 
     # -- nccl1: a world of one on NCCL -------------------------------------
     leg = "nccl1"
@@ -6673,7 +6971,7 @@ def phase_server_multihost(results: dict) -> None:
     print(f"server_multihost {leg}: a world of one, compute group on "
           f"{s['backend']}, one request answered, SIGTERM -> rc 0", flush=True)
     results["_server_multihost"] = readings
-    print(f"server_multihost: three legs in {time.monotonic() - t_phase:.0f}"
+    print(f"server_multihost: four legs in {time.monotonic() - t_phase:.0f}"
           f" s [card: {card_line()}]", flush=True)
 
 
@@ -6705,6 +7003,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     if sys.argv[1:] == ["--mh-rank"]:       # one rank of server_multihost
         return _mh_rank_main()
+    if sys.argv[1:] == ["--tp-rank"]:       # one rank of its tp2_engine leg
+        return _tp_rank_main()
     ap.add_argument("--only", default="build,kernel,step,server",
                     help="comma-separated phases to run: "
                     + ", ".join(f"{k} ({'/'.join(v)})"

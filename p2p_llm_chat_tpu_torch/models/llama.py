@@ -55,8 +55,8 @@ from .quant import QTensor, QTensor4, _quantize_leaf, mm, stream_bufs
 def init_params_quantized(config: ModelConfig, seed: int = 0,
                           dtype: torch.dtype = torch.bfloat16,
                           quant: str = "int8",
-                          device: Optional[torch.device | str] = None
-                          ) -> dict:
+                          device: Optional[torch.device | str] = None,
+                          mesh=None) -> dict:
     """Random init (scaled normal, std = hidden^-0.5; embeddings N(0, 1))
     generated layer by layer on ``device`` (the card unless the CPU is
     asked for; see utils/device.py) from one ``torch.Generator``
@@ -67,7 +67,8 @@ def init_params_quantized(config: ModelConfig, seed: int = 0,
     leaves, group-wise; a leaf whose contraction cannot group keeps int8,
     as in the reference) or ``""`` (plain ``dtype`` leaves). The
     distribution is the reference's; the random stream is not (torch and
-    jax generators differ)."""
+    jax generators differ). ``mesh``: this rank's shard of the same tree
+    (:func:`random_tree`)."""
     E = config.intermediate_size
     dims = {
         "wqkv": (config.hidden_size, config.q_dim + 2 * config.kv_dim),
@@ -75,7 +76,7 @@ def init_params_quantized(config: ModelConfig, seed: int = 0,
         "wgu": (config.hidden_size, 2 * E),
         "w_down": (E, config.hidden_size),
     }
-    return random_tree(config, dims, {}, seed, dtype, quant, device)
+    return random_tree(config, dims, {}, seed, dtype, quant, device, mesh)
 
 
 @dataclass
@@ -125,15 +126,17 @@ class KVCache:
 
 def init_params(config: ModelConfig, seed: int = 0,
                 dtype: torch.dtype = torch.bfloat16,
-                device: Optional[torch.device | str] = None) -> dict:
+                device: Optional[torch.device | str] = None,
+                mesh=None) -> dict:
     """The bf16 random tree (the reference's ``init_params``: scaled
-    normal, embeddings N(0, 1)), built fused by :func:`random_tree`."""
-    return init_params_quantized(config, seed, dtype, "", device)
+    normal, embeddings N(0, 1)), built fused by :func:`random_tree`
+    (``mesh``: this rank's shard of it)."""
+    return init_params_quantized(config, seed, dtype, "", device, mesh)
 
 
 def random_tree(config: ModelConfig, dims: dict, plain_dims: dict,
                 seed: int, dtype: torch.dtype, quant: str,
-                device: Optional[torch.device | str]) -> dict:
+                device: Optional[torch.device | str], mesh=None) -> dict:
     """The layer-by-layer random build shared by both families: stacked
     ``dims`` leaves (quantized at ``quant``; a 3-D shape is an expert
     stack, generated and quantized one expert at a time, so one layer of
@@ -141,10 +144,20 @@ def random_tree(config: ModelConfig, dims: dict, plain_dims: dict,
     — int8 scales are per (expert, column) and int4 scales per (expert,
     group, column), so the result is the same), then stacked
     ``plain_dims`` leaves in ``dtype``, then the embedding and an
-    untied lm_head."""
+    untied lm_head.
+
+    ``mesh``: this rank's shard (parallel/sharding.Split) of the same
+    tree. Every rank draws every layer whole from the same stream,
+    quantizes it whole (a row-cut leaf's scale reduces over all its rows,
+    as the reference's quantization of the sharded global array does)
+    and keeps its cut (parallel/sharding.cut_leaf); an expert stack keeps
+    the rank's experts. The peak is the shard plus one layer's leaf, not
+    the whole tree."""
+    from ..parallel.sharding import cut_leaf
     if quant not in ("int8", "int4", ""):
         raise ValueError(f"quant must be int8, int4 or '', got {quant!r}")
     device = resolve_device(device)
+    split = Split.of(config, mesh)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     L, H = config.num_layers, config.hidden_size
@@ -160,34 +173,62 @@ def random_tree(config: ModelConfig, dims: dict, plain_dims: dict,
         "mlp_norm": torch.ones((L, H), dtype=dtype, device=device),
     }
     for name, shape in dims.items():
-        layers[name] = (stream_bufs(L, shape, quant, device) if quant else
-                        torch.empty((L, *shape), dtype=dtype, device=device))
+        if split is None:
+            layers[name] = (stream_bufs(L, shape, quant, device) if quant
+                            else torch.empty((L, *shape), dtype=dtype,
+                                             device=device))
     for name, shape in plain_dims.items():
         layers[name] = torch.empty((L, *shape), dtype=dtype, device=device)
     for li in range(L):
         for name, shape in dims.items():
             expert = len(shape) == 3
+            ne, lo = (shape[0] if expert else 1), 0
+            if expert and split is not None and split.experts > 1:
+                ne = shape[0] // split.experts
+                lo = split.first_expert(ne)
             for idx in ([(li, e) for e in range(shape[0])] if expert
                         else [(li,)]):
                 w = normal(shape[-2:])
-                if quant:
-                    qt = _quantize_leaf(w, quant, expert=expert)
-                    layers[name].q[idx] = qt.q
-                    layers[name].s[idx] = qt.s
-                else:
-                    layers[name][idx] = w
+                if expert and not lo <= idx[1] < lo + ne:
+                    continue
+                leaf = _quantize_leaf(w, quant, expert=expert) if quant \
+                    else w
                 del w
+                if not expert:
+                    leaf = cut_leaf(name, leaf, split)
+                if name not in layers:
+                    layers[name] = _stacked_like(
+                        leaf, (L, ne) if expert else (L,), device)
+                at = (li, idx[1] - lo) if expert else idx
+                if quant:
+                    layers[name].q[at] = leaf.q
+                    layers[name].s[at] = leaf.s
+                else:
+                    layers[name][at] = leaf
+                del leaf
         for name, shape in plain_dims.items():
             layers[name][li] = normal(shape)
     params = {
-        "embed": normal((config.vocab_size, H), scale=1.0),
+        "embed": cut_leaf("embed", normal((config.vocab_size, H),
+                                          scale=1.0), split),
         "layers": layers,
         "final_norm": torch.ones((H,), dtype=dtype, device=device),
     }
     if not config.tie_embeddings:
         head = normal((H, config.vocab_size))
-        params["lm_head"] = _quantize_leaf(head, quant) if quant else head
+        params["lm_head"] = cut_leaf(
+            "lm_head", _quantize_leaf(head, quant) if quant else head, split)
     return params
+
+
+def _stacked_like(leaf, lead: tuple, device):
+    """An empty stacked buffer ``[*lead, ...]`` for layers shaped (and
+    quantized) like ``leaf``."""
+    def empty(t):
+        return torch.empty((*lead, *t.shape), dtype=t.dtype, device=device)
+    if isinstance(leaf, (QTensor, QTensor4)):
+        return type(leaf)(q=empty(leaf.q), s=empty(leaf.s))
+    return empty(leaf)
 
 
 def _ndim(leaf) -> int:
@@ -344,6 +385,13 @@ def _embed(params: dict, tokens: torch.Tensor,
     return split.embed(params["embed"], tokens)
 
 
+def _local(config: ModelConfig, mesh) -> tuple:
+    """(this rank's config, its :class:`Split`) under ``mesh``; the
+    config itself and None where nothing is cut."""
+    split = Split.of(config, mesh)
+    return (config, None) if split is None else (split.config, split)
+
+
 def _take_last(h: torch.Tensor, last_idx: Optional[torch.Tensor]
                ) -> torch.Tensor:
     """h [R, S, H] at each row's position ``last_idx`` [R] -> [R, 1, H]
@@ -446,17 +494,13 @@ def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,
     With a dense :class:`KVCache` of R rows (the reference's form) the k/v
     land in its slots 0..S of every row, its lengths become
     ``prompt_lens``, and it returns (logits, cache). ``mlp_fn``: see
-    :func:`_post_attn`. ``mesh`` (the dense form only): this rank's
+    :func:`_post_attn`. ``mesh``: this rank's
     weights are its shard, ``cache`` holds its kv heads
     (:meth:`KVCache.create` under the same mesh), and the logits are
-    every rank's."""
+    every rank's; the paged admission's k/v are this rank's kv heads."""
     R, S = tokens.shape
     dev = tokens.device
-    split = Split.of(config, mesh)
-    if split is not None:
-        if cache is None:
-            raise ValueError("prefill under a mesh writes a dense KVCache")
-        config = split.config
+    config, split = _local(config, mesh)
     positions = torch.arange(S, device=dev)[None, :].expand(R, S)
     last = ((prompt_lens.to(dev).long() - 1).clamp(min=0) if last_only
             else None)
@@ -481,18 +525,20 @@ def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,
         return k, v
 
     logits = _stack(params, config, tokens, positions, store, 0, mlp_fn,
-                    last)
+                    last, split)
     return logits, k_all, v_all
 
 
 def new_carry(config: ModelConfig, R: int, W: int, dtype: torch.dtype,
               device, prefix_k: Optional[torch.Tensor] = None,
-              prefix_v: Optional[torch.Tensor] = None
+              prefix_v: Optional[torch.Tensor] = None, *, mesh=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """A zeroed dense continuation carry (k, v), each [L, R, W, Hkv, D],
     for :func:`prefill_chunk`; a prefix's KV ([L, P, Hkv, D]) is
     broadcast into every row's first P slots (the reference's prefix
-    splice, serve/scheduler.py _prefill_first_token_prefix)."""
+    splice, serve/scheduler.py _prefill_first_token_prefix). Under a
+    ``mesh`` ``Hkv`` is this rank's kv heads."""
+    config, _ = _local(config, mesh)
     shape = (config.num_layers, R, W, config.num_kv_heads, config.head_dim)
     k = torch.zeros(shape, dtype=dtype, device=device)
     v = torch.zeros(shape, dtype=dtype, device=device)
@@ -506,7 +552,7 @@ def new_carry(config: ModelConfig, R: int, W: int, dtype: torch.dtype,
 def prefill_chunk(params: dict, config: ModelConfig, tokens: torch.Tensor,
                   carry_k: torch.Tensor, carry_v: torch.Tensor, offset: int,
                   last_idx: Optional[torch.Tensor] = None, *,
-                  mlp_fn=None) -> torch.Tensor:
+                  mlp_fn=None, mesh=None) -> torch.Tensor:
     """Continuation prefill: C prompt tokens per row at positions
     ``offset .. offset+C``, resuming from the KV already in the carry
     (:func:`new_carry`, [L, R, W, Hkv, D]) — the chunked-admission unit,
@@ -520,9 +566,12 @@ def prefill_chunk(params: dict, config: ModelConfig, tokens: torch.Tensor,
     does not depend on how the prompt was cut into chunks.
 
     ``last_idx`` ([R] int): CHUNK-LOCAL position to gather logits at.
-    Returns logits [R, 1, V] f32 (or [R, C, V] without ``last_idx``)."""
+    Returns logits [R, 1, V] f32 (or [R, C, V] without ``last_idx``).
+    ``mesh``: as in :func:`prefill` (the carry holds this rank's kv
+    heads, :func:`new_carry` under the same mesh)."""
     R, C = tokens.shape
     dev = tokens.device
+    config, split = _local(config, mesh)
     positions = (offset + torch.arange(C, device=dev))[None, :].expand(R, C)
 
     def store(li, k, v):
@@ -531,20 +580,20 @@ def prefill_chunk(params: dict, config: ModelConfig, tokens: torch.Tensor,
         return carry_k[li], carry_v[li]
 
     return _stack(params, config, tokens, positions, store, offset, mlp_fn,
-                  last_idx)
+                  last_idx, split)
 
 
 def prefill_chunk_dense(params: dict, config: ModelConfig,
                         tokens: torch.Tensor, cache: KVCache, offset: int,
                         last_idx: Optional[torch.Tensor] = None, *,
-                        mlp_fn=None):
+                        mlp_fn=None, mesh=None):
     """The reference's ``prefill_chunk`` over a dense :class:`KVCache`:
     :func:`prefill_chunk` with the cache as the carry (C tokens per row
     written at slots ``offset .. offset+C``, attending the cache causally
     through kernel D). Lengths do not move: the caller installs them with
     the final chunk. Returns (logits, cache)."""
     return prefill_chunk(params, config, tokens, cache.k, cache.v, offset,
-                         last_idx, mlp_fn=mlp_fn), cache
+                         last_idx, mlp_fn=mlp_fn, mesh=mesh), cache
 
 
 def write_dense(cache: KVCache, layer: int, k: torch.Tensor,
@@ -637,9 +686,7 @@ def decode_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
     dev = tokens.device
     W = cache.max_seq if kv_window is None else kv_window
     attend_len = cache.lengths + 1
-    split = Split.of(config, mesh)
-    if split is not None:
-        config = split.config
+    config, split = _local(config, mesh)
 
     def attend(li, q, k, v):
         return dense_attention(q[:, 0].contiguous(), cache, attend_len, li,
@@ -656,7 +703,8 @@ def decode_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
 
 def verify_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
                 cache: KVCache, *, kv_window: Optional[int] = None,
-                mlp_fn=None, last_idx: Optional[torch.Tensor] = None):
+                mlp_fn=None, last_idx: Optional[torch.Tensor] = None,
+                mesh=None):
     """Speculative verify over the dense cache (the reference's
     ``verify_step``): tokens [B, S] = [pending token, drafts...]; position
     j of row b writes slot ``lengths[b] + j`` (dropped at or past
@@ -665,7 +713,9 @@ def verify_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
     verify mode on the card: the committed slots from the cache, the
     block's own k/v under the chain mask). ``kv_window`` must cover
     ``lengths + S``. Lengths do not move. Returns (logits [B, S, V] f32,
-    or [B, 1, V] at block-local ``last_idx``; cache)."""
+    or [B, 1, V] at block-local ``last_idx``; cache). ``mesh``: as in
+    :func:`decode_step`."""
+    config, split = _local(config, mesh)
     B, S = tokens.shape
     dev = tokens.device
     W = cache.max_seq if kv_window is None else kv_window
@@ -678,12 +728,12 @@ def verify_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
                                       window=W)
 
     return _dense_layers(params, config, tokens, pos, cache, pos, attend,
-                         mlp_fn, last_idx), cache
+                         mlp_fn, last_idx, split), cache
 
 
 def verify_tree(params: dict, config: ModelConfig, tokens: torch.Tensor,
                 depths: torch.Tensor, anc: torch.Tensor, cache: KVCache, *,
-                kv_window: Optional[int] = None, mlp_fn=None):
+                kv_window: Optional[int] = None, mlp_fn=None, mesh=None):
     """Tree-speculation verify over the dense cache (the reference's
     ``verify_tree``): N nodes per row (tokens [B, N], node 0 the pending
     token); node i writes slot ``lengths + i`` at RoPE position
@@ -691,7 +741,9 @@ def verify_tree(params: dict, config: ModelConfig, tokens: torch.Tensor,
     nodes of its own root path (``anc`` [B, N, N] bool, the block mask of
     kernel B's verify mode; :func:`tree_attention_mask` over the window).
     ``kv_window`` must cover ``lengths + N``. Lengths do not move.
-    Returns (logits [B, N, V] f32, cache)."""
+    Returns (logits [B, N, V] f32, cache). ``mesh``: as in
+    :func:`decode_step`."""
+    config, split = _local(config, mesh)
     B, N = tokens.shape
     dev = tokens.device
     W = cache.max_seq if kv_window is None else kv_window
@@ -705,7 +757,7 @@ def verify_tree(params: dict, config: ModelConfig, tokens: torch.Tensor,
                                       window=W, block_mask=anc)
 
     return _dense_layers(params, config, tokens, base + depths.long(),
-                         cache, wp, attend, mlp_fn), cache
+                         cache, wp, attend, mlp_fn, split=split), cache
 
 
 def copy_slot_dense(cache: KVCache, src_pos: torch.Tensor,
@@ -726,7 +778,8 @@ def copy_slot_dense(cache: KVCache, src_pos: torch.Tensor,
 def decode_step_paged(params: dict, config: ModelConfig,
                       tokens: torch.Tensor, cache: PagedKVCache,
                       active: Optional[torch.Tensor] = None, *,
-                      pages: int, mlp_fn=None, impl: Optional[str] = None):
+                      pages: int, mlp_fn=None, impl: Optional[str] = None,
+                      mesh=None):
     """One autoregressive step over the paged pool for every row.
 
     tokens: [B, 1] (this step's input token per row, at position
@@ -751,13 +804,17 @@ def decode_step_paged(params: dict, config: ModelConfig,
     :func:`_post_attn`.
 
     Returns (logits [B, 1, V] f32, cache) — the cache is updated in
-    place, lengths advanced where active."""
+    place, lengths advanced where active. ``mesh``: this rank's weights
+    are its shard and the pool holds its kv heads
+    (ops/paged_kv.PagedKVCache.create under the same mesh); the logits
+    are every rank's."""
     impl = check_impl(pa._DEFAULT_IMPL if impl is None else impl)
+    config, split = _local(config, mesh)
     B = tokens.shape[0]
     dev = tokens.device
     layers = params["layers"]
     rope = _rope(config, cache.lengths[:, None])
-    h = params["embed"][tokens]
+    h = _embed(params, tokens, split)
     inc = (torch.ones(B, dtype=torch.int32, device=dev) if active is None
            else active.to(torch.int32))
     if impl != "gather":
@@ -770,19 +827,20 @@ def decode_step_paged(params: dict, config: ModelConfig,
                                    pages=pages, impl=impl,
                                    k_scale=cache.k_scale,
                                    v_scale=cache.v_scale)
-            h = _post_attn(h, attn[:, None], layers, li, config, mlp_fn)
+            h = _post_attn(h, attn[:, None], layers, li, config, mlp_fn,
+                           split)
         cache.lengths += inc
-        return _logits(params, config, h), cache
+        return _logits(params, config, h, split=split), cache
     k_steps, v_steps = [], []
     for li in range(config.num_layers):
         q, k, v = _attn_qkv(h, layers, li, config, rope)
         k0, v0 = k[:, 0].contiguous(), v[:, 0].contiguous()
         attn = paged_attention_append(q[:, 0].contiguous(), k0, v0, cache,
                                       cache.lengths, li, pages=pages)
-        h = _post_attn(h, attn[:, None], layers, li, config, mlp_fn)
+        h = _post_attn(h, attn[:, None], layers, li, config, mlp_fn, split)
         k_steps.append(k0)
         v_steps.append(v0)
-    logits = _logits(params, config, h)
+    logits = _logits(params, config, h, split=split)
     write_decode_burst(cache, torch.stack(k_steps), torch.stack(v_steps), inc)
     return logits, cache
 
@@ -791,7 +849,7 @@ def decode_fused(params: dict, config: ModelConfig, tokens: torch.Tensor,
                  cache: PagedKVCache, active: Optional[torch.Tensor] = None,
                  *, num_steps: int, sample_fn, sample_state, stop_ids,
                  pages: Optional[int] = None, impl: Optional[str] = None,
-                 kv_window: Optional[int] = None, step_fn=None):
+                 kv_window: Optional[int] = None, step_fn=None, mesh=None):
     """``num_steps`` autoregressive steps in one call (the reference's
     ``decode_fused``, llama.py:677-744, with a Python loop in place of
     ``lax.scan``), so the serving loop captures K steps in one CUDA graph
@@ -817,7 +875,9 @@ def decode_fused(params: dict, config: ModelConfig, tokens: torch.Tensor,
 
     Returns (tokens [K, B], emitted [K, B] bool — whether the row was
     live when that step sampled, next_tokens [B, 1], cache, active [B],
-    sample_state). The cache is updated in place."""
+    sample_state). The cache is updated in place. ``mesh`` rides into
+    every step (the logits each step samples are every rank's, so every
+    rank samples the same tokens)."""
     dense = pages is None
     if step_fn is None:
         step_fn = decode_step if dense else decode_step_paged
@@ -829,10 +889,10 @@ def decode_fused(params: dict, config: ModelConfig, tokens: torch.Tensor,
         emit_pos = cache.lengths + 1       # emitted token's context slot
         if dense:
             logits, cache = step_fn(params, config, tokens, cache, act,
-                                    kv_window=kv_window)
+                                    kv_window=kv_window, mesh=mesh)
         else:
             logits, cache = step_fn(params, config, tokens, cache, act,
-                                    pages=pages, impl=impl)
+                                    pages=pages, impl=impl, mesh=mesh)
         toks, sample_state = sample_fn(logits[:, 0, :], sample_state,
                                        emit_pos, act)
         # Parked rows keep their previous input token (the plain step's
@@ -869,7 +929,8 @@ def tree_attention_mask(lengths: torch.Tensor, anc: torch.Tensor,
 def _verify_gather(params: dict, config: ModelConfig, tokens: torch.Tensor,
                    positions: torch.Tensor, cache: PagedKVCache, pages: int,
                    mlp_fn, block_mask: Optional[torch.Tensor],
-                   last_idx: Optional[torch.Tensor] = None):
+                   last_idx: Optional[torch.Tensor] = None,
+                   split: Optional[Split] = None):
     """The attend-then-write verify forward: each layer attends the pool
     window plus the block's own k/v under ``block_mask`` (kernel B's
     verify mode on the card), and ONE write_decode_multi_all_layers lands
@@ -877,7 +938,7 @@ def _verify_gather(params: dict, config: ModelConfig, tokens: torch.Tensor,
     position, or at ``last_idx`` only."""
     layers = params["layers"]
     rope = _rope(config, positions)
-    h = params["embed"][tokens]
+    h = _embed(params, tokens, split)
     k_all, v_all = [], []
     for li in range(config.num_layers):
         q, k, v = _attn_qkv(h, layers, li, config, rope)
@@ -885,10 +946,10 @@ def _verify_gather(params: dict, config: ModelConfig, tokens: torch.Tensor,
         attn = paged_attention_verify_append(
             q.contiguous(), k, v, cache, cache.lengths, li, pages=pages,
             block_mask=block_mask)
-        h = _post_attn(h, attn, layers, li, config, mlp_fn)
+        h = _post_attn(h, attn, layers, li, config, mlp_fn, split)
         k_all.append(k)
         v_all.append(v)
-    logits = _logits(params, config, h, last_idx)
+    logits = _logits(params, config, h, last_idx, split)
     write_decode_multi_all_layers(cache, torch.stack(k_all),
                                   torch.stack(v_all))
     return logits, cache
@@ -897,7 +958,7 @@ def _verify_gather(params: dict, config: ModelConfig, tokens: torch.Tensor,
 def verify_step_paged(params: dict, config: ModelConfig,
                       tokens: torch.Tensor, cache: PagedKVCache, *,
                       pages: int, mlp_fn=None, impl: Optional[str] = None,
-                      last_idx: Optional[torch.Tensor] = None):
+                      last_idx: Optional[torch.Tensor] = None, mesh=None):
     """Speculative verify over the paged pool (the reference's
     ``verify_step_paged``): S candidate positions per row — tokens [B, S]
     = the pending token then the drafts — at positions ``lengths + j``,
@@ -916,18 +977,20 @@ def verify_step_paged(params: dict, config: ModelConfig,
     ``last_idx`` ([B] int, block-local): the logits of that position only,
     [B, 1, V] — a session wake's shape (serve/scheduler.py), where S is
     the new turn's suffix bucket (up to 256) and every position's logits
-    would be a [B*S, V] f32 temporary."""
+    would be a [B*S, V] f32 temporary. ``mesh``: as in
+    :func:`decode_step_paged`."""
     impl = check_impl(pa._DEFAULT_IMPL if impl is None else impl)
+    config, split = _local(config, mesh)
     B, S = tokens.shape
     dev = tokens.device
     positions = (cache.lengths[:, None].long()
                  + torch.arange(S, device=dev)[None, :])
     if impl == "gather":
         return _verify_gather(params, config, tokens, positions, cache,
-                              pages, mlp_fn, None, last_idx)
+                              pages, mlp_fn, None, last_idx, split)
     layers = params["layers"]
     rope = _rope(config, positions)
-    h = params["embed"][tokens]
+    h = _embed(params, tokens, split)
     for li in range(config.num_layers):
         q, k, v = _attn_qkv(h, layers, li, config, rope)
         write_decode_multi(cache, li, k, v)
@@ -936,14 +999,14 @@ def verify_step_paged(params: dict, config: ModelConfig,
             cache.lengths + (j + 1), li, pages=pages, impl=impl,
             k_scale=cache.k_scale, v_scale=cache.v_scale)
             for j in range(S)], dim=1)
-        h = _post_attn(h, attn, layers, li, config, mlp_fn)
-    return _logits(params, config, h, last_idx), cache
+        h = _post_attn(h, attn, layers, li, config, mlp_fn, split)
+    return _logits(params, config, h, last_idx, split), cache
 
 
 def verify_tree_paged(params: dict, config: ModelConfig,
                       tokens: torch.Tensor, depths: torch.Tensor,
                       anc: torch.Tensor, cache: PagedKVCache, *, pages: int,
-                      mlp_fn=None):
+                      mlp_fn=None, mesh=None):
     """Tree-speculation verify over the paged pool (the reference's
     ``verify_tree_paged``): N tree nodes per row — tokens [B, N], node 0
     the pending token, nodes 1..K the main chain, the rest sibling leaves
@@ -953,7 +1016,8 @@ def verify_tree_paged(params: dict, config: ModelConfig,
     :func:`tree_attention_mask`'s ancestor matrix). Always the
     attend-then-write branch (kernel B's verify mode under ``anc``),
     whatever the decode impl. Lengths do not move. Returns (logits
-    [B, N, V] f32, cache)."""
+    [B, N, V] f32, cache). ``mesh``: as in :func:`decode_step_paged`."""
+    config, split = _local(config, mesh)
     positions = cache.lengths[:, None].long() + depths.long()
     return _verify_gather(params, config, tokens, positions, cache, pages,
-                          mlp_fn, anc)
+                          mlp_fn, anc, split=split)

@@ -45,14 +45,16 @@ _AUTO = "auto"
 def init_params_quantized(config: ModelConfig, seed: int = 0,
                           dtype: torch.dtype = torch.bfloat16,
                           quant: str = "int8",
-                          device: Optional[torch.device | str] = None
-                          ) -> dict:
+                          device: Optional[torch.device | str] = None,
+                          mesh=None) -> dict:
     """Random init straight into the FUSED tree, layer by layer (and one
     expert at a time) on ``device`` (the card unless the CPU is asked for;
     see utils/device.py): ``wqkv``, ``wo``, the per-expert ``wgu_e``
     [NE, H, 2F] and ``w_down`` [NE, F, H] at ``quant`` (``int8``, ``int4``
     or ``""``), the router bf16. ``fuse_params`` is a no-op on the
-    result. mixtral-8x7b is ~46.8 GB at int8 and ~24.8 GB at int4."""
+    result. mixtral-8x7b is ~46.8 GB at int8 and ~24.8 GB at int4.
+    ``mesh``: this rank's shard (llama.random_tree: its heads and its
+    experts, ``wgu_e`` fused)."""
     if not config.is_moe:
         raise ValueError("mixtral.init_params_quantized needs experts")
     H, NE = config.hidden_size, config.num_experts
@@ -64,14 +66,16 @@ def init_params_quantized(config: ModelConfig, seed: int = 0,
         "w_down": (NE, F_, H),
     }
     return llama.random_tree(config, dims, {"router": (H, NE)}, seed, dtype,
-                             quant, device)
+                             quant, device, mesh)
 
 
 def init_params(config: ModelConfig, seed: int = 0,
                 dtype: torch.dtype = torch.bfloat16,
-                device: Optional[torch.device | str] = None) -> dict:
-    """The bf16 random tree (the reference's ``init_params``), fused."""
-    return init_params_quantized(config, seed, dtype, "", device)
+                device: Optional[torch.device | str] = None,
+                mesh=None) -> dict:
+    """The bf16 random tree (the reference's ``init_params``), fused
+    (``mesh``: this rank's shard of it)."""
+    return init_params_quantized(config, seed, dtype, "", device, mesh)
 
 
 def param_axes(config: ModelConfig) -> dict:
@@ -216,8 +220,9 @@ def prefill(params: dict, config: ModelConfig, tokens: torch.Tensor,
 def prefill_chunk(params: dict, config: ModelConfig, tokens: torch.Tensor,
                   carry_k: torch.Tensor, carry_v: torch.Tensor, offset: int,
                   last_idx: Optional[torch.Tensor] = None,
-                  capacity=_AUTO) -> torch.Tensor:
-    """llama.prefill_chunk with the MoE MLP (same contract). The capacity
+                  capacity=_AUTO, *, mesh=None) -> torch.Tensor:
+    """llama.prefill_chunk with the MoE MLP (same contract, ``mesh`` as
+    there). The capacity
     is reckoned from the CHUNK's R*C tokens, as the reference's, so under
     a bounding ``moe_capacity_factor`` (mixtral-8x7b prefills at 2.0) an
     expert bucket can overflow differently than in the whole-prompt
@@ -226,19 +231,25 @@ def prefill_chunk(params: dict, config: ModelConfig, tokens: torch.Tensor,
     cap = _capacity_for(config, int(tokens.shape[0] * tokens.shape[1]),
                         capacity)
     return llama.prefill_chunk(params, config, tokens, carry_k, carry_v,
-                               offset, last_idx, mlp_fn=_mlp_fn(config, cap))
+                               offset, last_idx,
+                               mlp_fn=_mlp_fn(config, cap,
+                                              Split.of(config, mesh)),
+                               mesh=mesh)
 
 
 def prefill_chunk_dense(params: dict, config: ModelConfig,
                         tokens: torch.Tensor, cache, offset: int,
                         last_idx: Optional[torch.Tensor] = None,
-                        capacity=_AUTO):
+                        capacity=_AUTO, *, mesh=None):
     """llama.prefill_chunk_dense with the MoE MLP; the capacity is the
-    chunk's, as in :func:`prefill_chunk`."""
+    chunk's, as in :func:`prefill_chunk` (``mesh`` as there)."""
     cap = _capacity_for(config, int(tokens.shape[0] * tokens.shape[1]),
                         capacity)
     return llama.prefill_chunk_dense(params, config, tokens, cache, offset,
-                                     last_idx, mlp_fn=_mlp_fn(config, cap))
+                                     last_idx,
+                                     mlp_fn=_mlp_fn(config, cap,
+                                                    Split.of(config, mesh)),
+                                     mesh=mesh)
 
 
 def forward(params: dict, config: ModelConfig, tokens: torch.Tensor,
@@ -269,21 +280,26 @@ def decode_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
 
 def verify_step(params: dict, config: ModelConfig, tokens: torch.Tensor,
                 cache, *, kv_window: Optional[int] = None,
-                last_idx: Optional[torch.Tensor] = None):
+                last_idx: Optional[torch.Tensor] = None, mesh=None):
     """llama.verify_step (dense) with the MoE MLP, dropless (the
-    reference's mixtral.verify_step)."""
+    reference's mixtral.verify_step; ``mesh`` as there)."""
     return llama.verify_step(params, config, tokens, cache,
                              kv_window=kv_window,
-                             mlp_fn=_mlp_fn(config, None), last_idx=last_idx)
+                             mlp_fn=_mlp_fn(config, None,
+                                            Split.of(config, mesh)),
+                             last_idx=last_idx, mesh=mesh)
 
 
 def verify_tree(params: dict, config: ModelConfig, tokens: torch.Tensor,
                 depths: torch.Tensor, anc: torch.Tensor, cache, *,
-                kv_window: Optional[int] = None):
-    """llama.verify_tree (dense) with the MoE MLP, dropless."""
+                kv_window: Optional[int] = None, mesh=None):
+    """llama.verify_tree (dense) with the MoE MLP, dropless (``mesh`` as
+    there)."""
     return llama.verify_tree(params, config, tokens, depths, anc, cache,
                              kv_window=kv_window,
-                             mlp_fn=_mlp_fn(config, None))
+                             mlp_fn=_mlp_fn(config, None,
+                                            Split.of(config, mesh)),
+                             mesh=mesh)
 
 
 def embed_pooled(params: dict, config: ModelConfig, tokens: torch.Tensor,
@@ -303,21 +319,23 @@ def embed_pooled(params: dict, config: ModelConfig, tokens: torch.Tensor,
 
 def decode_step_paged(params: dict, config: ModelConfig,
                       tokens: torch.Tensor, cache, active=None, *,
-                      pages: int, impl: Optional[str] = None):
+                      pages: int, impl: Optional[str] = None, mesh=None):
     """llama.decode_step_paged with the MoE MLP (same contract, both
     branches: the attention impl rides along below the ``mlp_fn`` seam,
-    as in the reference's mixtral.py:403-417). Decode is always dropless:
-    C = the batch."""
+    as in the reference's mixtral.py:403-417; ``mesh`` as there). Decode
+    is always dropless: C = the batch."""
     return llama.decode_step_paged(params, config, tokens, cache, active,
-                                   pages=pages, mlp_fn=_mlp_fn(config, None),
-                                   impl=impl)
+                                   pages=pages,
+                                   mlp_fn=_mlp_fn(config, None,
+                                                  Split.of(config, mesh)),
+                                   impl=impl, mesh=mesh)
 
 
 def decode_fused(params: dict, config: ModelConfig, tokens: torch.Tensor,
                  cache, active=None, *, num_steps: int, sample_fn,
                  sample_state, stop_ids, pages: Optional[int] = None,
                  impl: Optional[str] = None,
-                 kv_window: Optional[int] = None):
+                 kv_window: Optional[int] = None, mesh=None):
     """llama.decode_fused over the MoE step (the reference's
     mixtral.py:355-372; same contract: K steps in one call, EOS parks
     inside the loop, bitwise K sequential plain steps), paged at
@@ -328,27 +346,31 @@ def decode_fused(params: dict, config: ModelConfig, tokens: torch.Tensor,
                               sample_state=sample_state, stop_ids=stop_ids,
                               pages=pages, impl=impl, kv_window=kv_window,
                               step_fn=(decode_step if pages is None
-                                       else decode_step_paged))
+                                       else decode_step_paged), mesh=mesh)
 
 
 def verify_step_paged(params: dict, config: ModelConfig,
                       tokens: torch.Tensor, cache, *, pages: int,
                       impl: Optional[str] = None,
-                      last_idx: Optional[torch.Tensor] = None):
+                      last_idx: Optional[torch.Tensor] = None, mesh=None):
     """llama.verify_step_paged with the MoE MLP (the reference's
     mixtral.py:420-429; ``last_idx`` passes through for the session
     wake): the expert grid sees the verify's B*S tokens, dropless
-    (capacity None)."""
+    (capacity None; ``mesh`` as there)."""
     return llama.verify_step_paged(params, config, tokens, cache,
-                                   pages=pages, mlp_fn=_mlp_fn(config, None),
-                                   impl=impl, last_idx=last_idx)
+                                   pages=pages,
+                                   mlp_fn=_mlp_fn(config, None,
+                                                  Split.of(config, mesh)),
+                                   impl=impl, last_idx=last_idx, mesh=mesh)
 
 
 def verify_tree_paged(params: dict, config: ModelConfig,
                       tokens: torch.Tensor, depths: torch.Tensor,
-                      anc: torch.Tensor, cache, *, pages: int):
+                      anc: torch.Tensor, cache, *, pages: int, mesh=None):
     """llama.verify_tree_paged with the MoE MLP, dropless (the
-    reference's mixtral.py:432-439)."""
+    reference's mixtral.py:432-439; ``mesh`` as there)."""
     return llama.verify_tree_paged(params, config, tokens, depths, anc,
                                    cache, pages=pages,
-                                   mlp_fn=_mlp_fn(config, None))
+                                   mlp_fn=_mlp_fn(config, None,
+                                                  Split.of(config, mesh)),
+                                   mesh=mesh)

@@ -17,6 +17,15 @@ matmul, as the reference's ``_deq_once`` / ``_deq4_once`` + XLA do. A
 layer index takes the place of the reference's ``LayerSlice``: a stacked
 ``[L, in, out]`` (or ``[L, NE, in, out]``) weight is read at that layer
 without a slice copy.
+
+Under tensor parallelism the reference quantizes the sharded GLOBAL
+arrays (``quantize_params(params, mesh)``), so a row-cut leaf's scale
+reduces over every row; a port rank quantizes each leaf whole and then
+keeps its cut (parallel/sharding.cut_leaf), which gives the same bytes
+and scales. The reference's ``set_mm_impl`` (XLA matmuls process-wide
+under a mesh, because a ``pallas_call`` cannot take mesh-sharded
+operands) has no counterpart: the port's kernels take a rank's shard as
+plain tensors.
 """
 
 from __future__ import annotations

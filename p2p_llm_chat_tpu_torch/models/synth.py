@@ -60,7 +60,8 @@ def successor_map(vocab: int, mode: str = "quote") -> np.ndarray:
 def quote_params(config: ModelConfig, seed: int = 0,
                  dtype: torch.dtype = torch.bfloat16, quant: str = "int8",
                  mode: str = "quote",
-                 device: Optional[torch.device | str] = None) -> dict:
+                 device: Optional[torch.device | str] = None,
+                 mesh=None) -> dict:
     """The family's random fused tree at ``quant`` (``int8``, ``int4`` or
     ``""``; seed ``seed``) on ``device`` (the card unless the CPU is
     asked for), with ``wo`` and ``w_down`` damped by 0.1, the embedding
@@ -68,13 +69,19 @@ def quote_params(config: ModelConfig, seed: int = 0,
     from :func:`successor_map`: ``lm_head[:, j] = 4 sum_{succ(t) = j}
     w_t emb[t]`` with ``w_t = 1`` for printable tokens and 1/sqrt(strays
     per column) for the rest (the reference's construction, on the
-    device: at 8B dims the head is 2.1 GB in f32)."""
+    device: at 8B dims the head is 2.1 GB in f32). ``mesh``: this rank's
+    shard of the same tree, the layers drawn a layer at a time
+    (llama.random_tree) and the embedding and head built whole, then
+    cut (parallel/sharding.cut_leaf)."""
+    from ..parallel.sharding import Split, cut_leaf
     from . import family_for
     if config.tie_embeddings:
         raise ValueError("quote workload needs an untied lm_head")
     device = resolve_device(device)
     params = family_for(config).init_params_quantized(
-        config, seed=seed, dtype=dtype, quant=quant, device=device)
+        config, seed=seed, dtype=dtype, quant=quant, device=device,
+        mesh=mesh)
+    split = Split.of(config, mesh)
     layers = dict(params["layers"])
     for name in ("wo", "w_down"):
         leaf = layers[name]
@@ -98,7 +105,9 @@ def quote_params(config: ModelConfig, seed: int = 0,
                     emb * torch.from_numpy(weights).to(device)[:, None])
     lm = lm_t.T.contiguous() * 4.0
     del lm_t
-    params["embed"] = emb.to(dtype)
+    params["embed"] = cut_leaf("embed", emb.to(dtype), split)
     del emb
-    params["lm_head"] = _quantize_leaf(lm, quant) if quant else lm.to(dtype)
+    params["lm_head"] = cut_leaf(
+        "lm_head", _quantize_leaf(lm, quant) if quant else lm.to(dtype),
+        split)
     return params

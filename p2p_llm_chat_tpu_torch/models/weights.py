@@ -25,9 +25,14 @@ then written in place into :func:`~.quant.stream_bufs`. The result is
 bit-identical to the reference's (host-numpy IEEE f32 abs-max / 127 or
 / 7, round-half-even, clip), which equals load-bf16 -> quantize -> fuse.
 
-Native Orbax directories (reference ``models/checkpoint.py``) need JAX
-and Orbax: the port refuses them by name, as it refuses mesh-streaming
-loads (:func:`load_checkpoint_streaming`), which wait for parallelism.
+Under a ``mesh`` (parallel/mesh.py) both loaders give this rank's FUSED
+shard: a layer at a time is read from the memory-mapped shards,
+transposed and fused, quantized WHOLE (a row-cut leaf's scale reduces
+over all its rows, as the reference's quantization of the sharded global
+array does) and cut to the rank's part (parallel/sharding.cut_leaf);
+:func:`load_checkpoint_streaming` is the reference's mesh entry over
+them. Native Orbax directories (reference ``models/checkpoint.py``) need
+JAX and Orbax: the port refuses them by name.
 """
 
 from __future__ import annotations
@@ -285,17 +290,22 @@ def _upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 def load_checkpoint(ckpt_dir: str, config: Optional[ModelConfig] = None,
                     dtype: torch.dtype = torch.bfloat16,
-                    device: Optional[torch.device | str] = None
-                    ) -> tuple[dict, ModelConfig]:
+                    device: Optional[torch.device | str] = None,
+                    mesh=None) -> tuple[dict, ModelConfig]:
     """The unfused ``dtype`` tree of an HF directory on ``device`` (the
     card unless the CPU is asked for), as the reference's
     ``load_checkpoint`` builds it (one card, no mesh). Each tensor is
     uploaded from its mapping and written into its (layer[, expert])
     slot of a stacked leaf allocated on the device, so the host holds no
-    copy of the checkpoint."""
+    copy of the checkpoint. Under a ``mesh`` that cuts the model, this
+    rank's FUSED ``dtype`` shard, read a layer at a time
+    (:func:`load_checkpoint_quantized`'s walk, unquantized)."""
     _refuse_native(ckpt_dir)
     if config is None:
         config = config_from_hf_json(os.path.join(ckpt_dir, "config.json"))
+    from ..parallel.sharding import Split
+    if Split.of(config, mesh) is not None:
+        return _load_fused(ckpt_dir, config, "", dtype, device, mesh)
     device = resolve_device(device)
     L, NE = config.num_layers, config.num_experts
     params: dict[str, Any] = {"layers": {}}
@@ -331,13 +341,26 @@ def _n_logical(tree) -> int:
     return tree.numel()
 
 
-def load_checkpoint_streaming(*args, **kwargs):
-    """The reference's mesh-sharded streaming load: not in the port until
-    it serves across cards (tensor parallelism)."""
-    raise SystemExit("load_checkpoint_streaming (mesh-sharded checkpoint "
-                     "loads) is not ported to the PyTorch engine yet: it "
-                     "waits for parallelism; one card loads through "
-                     "load_checkpoint or load_checkpoint_quantized")
+def load_checkpoint_streaming(ckpt_dir: str,
+                              config: Optional[ModelConfig] = None,
+                              mesh=None, dtype: torch.dtype = torch.bfloat16,
+                              quant: str = "",
+                              device: Optional[torch.device | str] = None
+                              ) -> tuple[dict, ModelConfig]:
+    """The reference's memory-bounded mesh load
+    (p2p_llm_chat_tpu/models/weights.py ``load_checkpoint_streaming``,
+    which the engine calls under ``SERVE_TP``): this rank's fused shard of
+    an HF directory under ``mesh``, a layer at a time — bf16 (``quant``
+    ``""``; :func:`load_checkpoint`) or int8 / int4
+    (:func:`load_checkpoint_quantized`), quantized whole before the cut,
+    which is what the reference's quantization of its sharded tree
+    computes. With no mesh, or one that cuts nothing, the one-card
+    loads."""
+    if quant:
+        return load_checkpoint_quantized(ckpt_dir, config, quant=quant,
+                                         device=device, mesh=mesh)
+    return load_checkpoint(ckpt_dir, config, dtype=dtype, device=device,
+                           mesh=mesh)
 
 
 class UnsupportedForQuantizedLoad(ValueError):
@@ -383,7 +406,7 @@ def load_checkpoint_quantized(ckpt_dir: str,
                               config: Optional[ModelConfig] = None,
                               quant: str = "int8",
                               device: Optional[torch.device | str] = None,
-                              stats: Optional[dict] = None,
+                              stats: Optional[dict] = None, mesh=None
                               ) -> tuple[dict, ModelConfig]:
     """Stream an HF directory onto ``device`` (the card unless the CPU is
     asked for) straight into the FUSED quantized tree: ``quant`` ``int8``
@@ -402,11 +425,24 @@ def load_checkpoint_quantized(ckpt_dir: str,
 
     ``stats``, when given, receives the walls: ``layers_s`` (per layer:
     read + upload s, quantize s), ``top_s`` and ``total_s`` (the card
-    synchronised at each boundary)."""
-    from . import family_for, llama, mixtral
-
+    synchronised at each boundary). ``mesh``: this rank's shard, each
+    leaf quantized whole and then cut (parallel/sharding.cut_leaf); an
+    expert stack keeps the rank's experts."""
     if quant not in ("int8", "int4"):
         raise ValueError(f"quant must be int8|int4, got {quant!r}")
+    return _load_fused(ckpt_dir, config, quant, torch.bfloat16, device,
+                       mesh, stats)
+
+
+def _load_fused(ckpt_dir: str, config: Optional[ModelConfig], quant: str,
+                dtype: torch.dtype, device, mesh,
+                stats: Optional[dict] = None) -> tuple[dict, ModelConfig]:
+    """The layer-at-a-time walk of :func:`load_checkpoint_quantized`, at
+    ``quant`` (``""``: plain ``dtype`` leaves) and cut to this rank's part
+    under ``mesh``."""
+    from ..parallel.sharding import Split, cut_leaf
+    from . import family_for, llama, mixtral
+
     _refuse_native(ckpt_dir)
     # The family gate first, from metadata alone: a rejected checkpoint
     # is not read before the caller re-loads it another way.
@@ -420,11 +456,16 @@ def load_checkpoint_quantized(ckpt_dir: str,
             "load_checkpoint_quantized covers the llama and mixtral "
             f"families; {config.name} keeps the standard load paths")
     device = resolve_device(device)
+    split = Split.of(config, mesh)
     shards = _Shards(ckpt_dir, config)
-    bf16 = torch.bfloat16
+    bf16 = dtype
     moe = config.is_moe
     L, H = config.num_layers, config.hidden_size
     F, NE = config.intermediate_size, config.num_experts
+    ne, lo = NE, 0                     # this rank's experts
+    if moe and split is not None and split.experts > 1:
+        ne = NE // split.experts
+        lo = split.first_expert(ne)
     dims: dict[str, tuple] = {
         "wqkv": (H, config.q_dim + 2 * config.kv_dim),
         "wo": (config.q_dim, H),
@@ -433,8 +474,9 @@ def load_checkpoint_quantized(ckpt_dir: str,
         dims.update(wgu_e=(NE, H, 2 * F), w_down=(NE, F, H))
     else:
         dims.update(wgu=(H, 2 * F), w_down=(F, H))
-    bufs = {name: stream_bufs(L, shape, quant, device)
-            for name, shape in dims.items()}
+    bufs: dict[str, Any] = ({} if split is not None or not quant else
+                            {name: stream_bufs(L, shape, quant, device)
+                             for name, shape in dims.items()})
     layers: dict[str, Any] = {
         "attn_norm": torch.empty((L, H), dtype=bf16, device=device),
         "mlp_norm": torch.empty((L, H), dtype=bf16, device=device),
@@ -444,10 +486,25 @@ def load_checkpoint_quantized(ckpt_dir: str,
 
     def put(name: str, idx: tuple, w: torch.Tensor) -> None:
         # Round through bf16 (f32 shards included), then quantize with
-        # the stacked buffer's own precision choice.
-        qt = _quantize_leaf(w.to(bf16), quant, expert=len(idx) == 2)
-        bufs[name].q[idx] = qt.q
-        bufs[name].s[idx] = qt.s
+        # the stacked buffer's own precision choice; under a mesh the
+        # whole leaf is quantized, then cut.
+        expert = len(idx) == 2
+        if expert and not lo <= idx[1] < lo + ne:
+            return
+        leaf = (_quantize_leaf(w.to(bf16), quant, expert=expert) if quant
+                else w.to(bf16))
+        if expert:
+            idx = (idx[0], idx[1] - lo)
+        else:
+            leaf = cut_leaf(name, leaf, split)
+        if name not in bufs:
+            bufs[name] = llama._stacked_like(leaf, (L, ne) if expert
+                                             else (L,), device)
+        if quant:
+            bufs[name].q[idx] = leaf.q
+            bufs[name].s[idx] = leaf.s
+        else:
+            bufs[name][idx] = leaf
 
     def up(spec) -> torch.Tensor:
         return _upload(shards.get(spec), device)
@@ -487,20 +544,23 @@ def load_checkpoint_quantized(ckpt_dir: str,
         per_layer.append((read_s, quant_s))
     layers.update(bufs)
     params: dict[str, Any] = {
-        "embed": up(("model.embed_tokens.weight", False)).to(bf16),
+        "embed": cut_leaf("embed", up(("model.embed_tokens.weight",
+                                        False)).to(bf16), split),
         "layers": layers,
         "final_norm": up(("model.norm.weight", False)).to(bf16),
     }
     if not config.tie_embeddings:
         head = up(("lm_head.weight", True)).to(bf16)
-        params["lm_head"] = _quantize_leaf(head, quant)
+        params["lm_head"] = cut_leaf(
+            "lm_head", _quantize_leaf(head, quant) if quant else head, split)
         del head
     t_end = _sync(device)
     if stats is not None:
         stats.update(layers_s=per_layer, top_s=t_end - t0,
                      total_s=t_end - t_start)
-    log.info("loaded %s quantized+fused (streaming, one layer at a time "
-             "on %s) in %.1f s: %.2fB params %s", config.name, device,
-             t_end - t_start, _n_logical(params) / 1e9,
-             quant_mode(params) or "int8")
+    log.info("loaded %s %s+fused (streaming, one layer at a time on %s%s) "
+             "in %.1f s: %.2fB params", config.name,
+             quant_mode(params) or str(dtype).replace("torch.", ""), device,
+             "" if split is None else f", rank {mesh.rank}'s shard",
+             t_end - t_start, _n_logical(params) / 1e9)
     return params, config

@@ -60,11 +60,21 @@ class PagedKVCache:
     def create(cls, config: ModelConfig, batch: int, num_pages: int,
                page_size: int, max_pages_per_row: Optional[int] = None,
                dtype: torch.dtype = torch.bfloat16, quantized: bool = False,
-               device: Optional[torch.device | str] = None
+               device: Optional[torch.device | str] = None, mesh=None
                ) -> "PagedKVCache":
         """A zeroed pool on ``device`` (the card unless the CPU is asked
-        for; see utils/device.py)."""
+        for; see utils/device.py). Under a ``mesh`` that cuts the heads
+        (parallel/sharding.Split) the pool holds this rank's kv heads and
+        an int8 pool's scales are ``[L, N, Hkv_r, ps_pad]`` — the
+        reference's pool spec, kv heads on ``tp``; the page table and
+        lengths stay whole (the leader's host decisions write them). The
+        writes below work per head, so they run unchanged on a shard, and
+        an int8 scale per head row is the same number cut or not."""
+        from ..parallel.sharding import Split
         device = resolve_device(device)
+        split = Split.of(config, mesh)
+        if split is not None:
+            config = split.config
         shape = (config.num_layers, num_pages, page_size,
                  config.num_kv_heads, config.head_dim)
         if max_pages_per_row is None:

@@ -20,6 +20,13 @@ when the caller asks for it (``SERVE_DEVICE=cpu``, ``device="cpu"``).
   the world, and ``dp`` is a multiple of the host count, so a replica
   never straddles a host (in the port a process holds one card, so the
   host takes the place of the reference's multi-device process).
+- :func:`start_local_world` is ``SERVE_TP`` without a coordinator (the
+  reference's ``local_mesh`` over one host's chips): this process
+  starts ``t - 1`` follower processes (``python -m
+  p2p_llm_chat_tpu_torch.serve.tp``) on 127.0.0.1 at a free port and
+  joins them as rank 0. Every rank joins with a time limit, and a
+  follower dies with the process that started it (:func:`die_with_parent`),
+  so a killed leader leaves no rank holding a card.
 
 The reference's ``_enable_cpu_collectives`` switches JAX's CPU client to
 gloo; torch.distributed has gloo on the CPU already, so it has no
@@ -28,9 +35,17 @@ counterpart.
 
 from __future__ import annotations
 
+import atexit
+import ctypes
 import datetime
+import gc
 import os
+import signal
 import socket
+import subprocess
+import sys
+import time
+import weakref
 from typing import Optional
 
 import torch
@@ -46,6 +61,11 @@ log = get_logger("parallel.distributed")
 CONTROL_TIMEOUT = datetime.timedelta(days=365)
 
 
+# The meshes over this world (multihost_mesh), whose group handles
+# leave_world drops.
+_MESHES: "weakref.WeakSet[Mesh]" = weakref.WeakSet()
+
+
 def _up() -> bool:
     d = torch.distributed
     return d.is_available() and d.is_initialized()
@@ -53,10 +73,13 @@ def _up() -> bool:
 
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None) -> bool:
+                     process_id: Optional[int] = None,
+                     join_timeout_s: Optional[float] = None) -> bool:
     """Join the world; True when this process is in one. No-op (False)
     when neither the arguments nor the env name a coordinator or a
-    process count."""
+    process count. ``join_timeout_s``: the join fails (raises) when the
+    world is not whole within it; without it the join may wait as long
+    as the control group does."""
     coordinator = (coordinator or os.environ.get("SERVE_COORDINATOR")
                    or os.environ.get("JAX_COORDINATOR"))
     n = num_processes if num_processes is not None else int(
@@ -73,12 +96,98 @@ def init_distributed(coordinator: Optional[str] = None,
             "JAX_COORDINATOR, host:port of process 0), JAX_NUM_PROCESSES "
             f"and JAX_PROCESS_ID in [0, n); got {coordinator!r}, n={n}, "
             f"id={pid}")
-    torch.distributed.init_process_group(
-        "gloo", init_method=f"tcp://{coordinator}", world_size=n, rank=pid,
-        timeout=CONTROL_TIMEOUT)
+    if join_timeout_s is None:
+        torch.distributed.init_process_group(
+            "gloo", init_method=f"tcp://{coordinator}", world_size=n,
+            rank=pid, timeout=CONTROL_TIMEOUT)
+    else:
+        host, port = coordinator.rsplit(":", 1)
+        store = torch.distributed.TCPStore(
+            host, int(port), n, is_master=pid == 0,
+            timeout=datetime.timedelta(seconds=join_timeout_s))
+        torch.distributed.init_process_group(
+            "gloo", store=store, world_size=n, rank=pid,
+            timeout=CONTROL_TIMEOUT)
+    atexit.register(leave_world)
     log.info("distributed runtime up: process %d/%d (control group gloo "
              "via %s)", pid, n, coordinator)
     return True
+
+
+def leave_world() -> None:
+    """Destroy every process group and drop every mesh's handles to them
+    (:func:`multihost_mesh` keeps a weak list). A gloo group still
+    referenced when the interpreter exits is torn down during its
+    finalization, which can abort the process ("terminate called without
+    an active exception") after its work is done; none is left for it
+    here. :func:`init_distributed` also runs this at exit."""
+    d = torch.distributed
+    if d.is_available() and d.is_initialized():
+        d.destroy_process_group()
+    for mesh in list(_MESHES):
+        mesh.groups.clear()
+        mesh.control = mesh.world = None
+    gc.collect()
+
+
+def free_port(host: str = "127.0.0.1") -> int:
+    with socket.socket() as s:
+        s.bind((host, 0))
+        return s.getsockname()[1]
+
+
+def die_with_parent(parent: int) -> None:
+    """Ask Linux to SIGKILL this process when the thread that started it
+    exits (``prctl(PR_SET_PDEATHSIG)``; raises where that cannot be
+    set), and exit now if ``parent`` (its pid; 0 = unknown) is already
+    gone."""
+    libc = ctypes.CDLL("libc.so.6", use_errno=True)
+    if libc.prctl(1, signal.SIGKILL, 0, 0, 0) != 0:     # PR_SET_PDEATHSIG
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG)")
+    if parent and os.getppid() != parent:
+        os._exit(1)
+
+
+def start_local_world(tp: int, join_timeout_s: float = 300.0
+                      ) -> list[subprocess.Popen]:
+    """Start ranks 1 .. ``tp``-1 as follower processes (``python -m
+    p2p_llm_chat_tpu_torch.serve.tp``, this process's env plus
+    ``SERVE_TP_WORLD`` / ``SERVE_TP_RANK`` / ``SERVE_TP_PARENT`` /
+    ``SERVE_TP_JOIN_S``) on 127.0.0.1 at a free port and join them as
+    rank 0, every rank within ``join_timeout_s``. Returns the followers'
+    processes (killed here if the join fails)."""
+    addr = f"127.0.0.1:{free_port()}"
+    procs = []
+    try:
+        for rank in range(1, tp):
+            env = dict(os.environ, SERVE_TP=str(tp), SERVE_TP_WORLD=addr,
+                       SERVE_TP_RANK=str(rank),
+                       SERVE_TP_PARENT=str(os.getpid()),
+                       SERVE_TP_JOIN_S=str(join_timeout_s))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "p2p_llm_chat_tpu_torch.serve.tp"],
+                env=env))
+        init_distributed(coordinator=addr, num_processes=tp, process_id=0,
+                         join_timeout_s=join_timeout_s)
+    except BaseException:
+        stop_processes(procs, 0.0)
+        raise
+    log.info("local tensor-parallel world up: %d ranks via %s (followers "
+             "%s)", tp, addr, [p.pid for p in procs])
+    return procs
+
+
+def stop_processes(procs: list, timeout_s: float) -> list:
+    """Wait up to ``timeout_s`` for ``procs`` to exit, kill the rest;
+    their exit codes."""
+    deadline = time.monotonic() + timeout_s
+    for p in procs:
+        try:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=30)
+    return [p.returncode for p in procs]
 
 
 def rank_device(device: Optional[str | torch.device] = None
@@ -148,4 +257,6 @@ def multihost_mesh(cfg: MeshConfig,
     world = peers(device)
     if len(world) > 1:
         check_layout(cfg, len(world), len({h for h, _ in world}))
-    return make_mesh(cfg, backend=_logged_backend(world))
+    mesh = make_mesh(cfg, backend=_logged_backend(world))
+    _MESHES.add(mesh)
+    return mesh

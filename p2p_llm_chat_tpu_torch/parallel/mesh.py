@@ -133,6 +133,12 @@ class Mesh:
             torch.distributed.all_gather(parts, x, group=g)
         return torch.cat(parts, dim=dim)
 
+    def drop_collective_timing(self) -> None:
+        """Forget the collectives timed since the last take (their events
+        need not have completed)."""
+        self._timed.clear()
+        self._host_ms = 0.0
+
     def take_collective_ms(self) -> float:
         """The time the collectives took since the last call: CUDA events
         around each on the card (read after the caller's synchronising

@@ -38,7 +38,12 @@ from typing import Any, Optional
 import torch
 
 from ..models.configs import ModelConfig
+from ..utils.log import get_logger
 from .mesh import Mesh
+
+log = get_logger("parallel.sharding")
+# Leaf names whose int4 cut fell inside a group, logged once each.
+_GROUP_LOGGED: set = set()
 
 # logical axis -> mesh axis (or None = replicated). A logical axis may map to
 # a tuple of mesh axes (sharded over their product).
@@ -238,18 +243,148 @@ def shard_params(params: Any, axes_tree: Any, mesh: Mesh,
 def shard_model(params: dict, config: ModelConfig, mesh: Optional[Mesh],
                 device: Optional[str | torch.device] = None) -> dict:
     """This rank's FUSED tree of a model of ``config`` from the whole one
-    (fused or not, plain tensors): unfused into views, cut by
+    (fused or not). Plain tensors: unfused into views, cut by
     :func:`shard_params`, fused again, the expert stacks left separate
-    (the reference fuses them only with no mesh). Where nothing is cut
+    (the reference fuses them only with no mesh). A quantized tree
+    (int8 ``QTensor`` / int4 ``QTensor4`` leaves, quantized WHOLE, as the
+    reference quantizes the sharded global arrays) is cut leaf by leaf in
+    its fused layout by :func:`cut_leaf`. Where nothing is cut
     (:meth:`Split.of` is None) the tree is only fused."""
     from ..models import family_for
+    from ..models.quant import quant_mode
     family = family_for(config)
-    if Split.of(config, mesh) is None:
+    split = Split.of(config, mesh)
+    if split is None:
         return _to(family.fuse_params(params), device)
+    if quant_mode(params):
+        fused = family.fuse_params(params)
+        out = {k: (cut_leaf(k, v, split, device) if k != "layers" else
+                   {n: cut_leaf(n, w, split, device, stacked=True)
+                    for n, w in v.items()})
+               for k, v in fused.items()}
+        return out
     tree = shard_params(family.unfuse_params(params, config),
                         family.param_axes(config), mesh, device,
                         config=config)
     return family.fuse_params(tree, experts=False)
+
+
+# -- cutting fused leaves ------------------------------------------------------
+#
+# A fused leaf's cut is a list of (dim, blocks, ways): along ``dim``
+# (counted from the end of the per-layer shape) the leaf is the
+# concatenation of ``blocks`` (their sizes), and each block is cut
+# ``ways`` ways; the rank keeps its piece of every block, concatenated
+# in order (``wqkv`` -> ``[q_r | k_r | v_r]``). Column cuts are dim -1,
+# row cuts -2, expert cuts -3.
+
+
+def fused_cuts(name: str, split: Split, shape: tuple) -> list:
+    """The cuts of fused leaf ``name`` (per-layer ``shape``, or the
+    top-level ``embed`` / ``lm_head``) on this rank's :class:`Split`."""
+    cfg, t = split.config, split.layers
+    if name == "embed":
+        return [(-2, (shape[-2],), split.vocab)]
+    if name == "lm_head":
+        return [(-1, (shape[-1],), split.vocab)]
+    if len(shape) == 3:            # an expert stack [NE, K, O]
+        return ([(-3, (shape[-3],), split.experts)]
+                if name in ("wgu_e", "w_down") else [])
+    if name == "wqkv":
+        q = cfg.num_heads * t * cfg.head_dim
+        kv = (shape[-1] - q) // 2
+        return [(-1, (q, kv, kv), t)]
+    if name == "wgu":
+        return [(-1, (shape[-1] // 2,) * 2, t)]
+    if name in ("wo", "w_down"):
+        return [(-2, (shape[-2],), t)]
+    return []
+
+
+def _narrow_blocks(x: torch.Tensor, dim: int, blocks: tuple, ways: int,
+                   i: int) -> torch.Tensor:
+    parts, at = [], 0
+    for b in blocks:
+        if b % ways:
+            raise ValueError(f"cannot cut a block of {b} {ways} ways")
+        n = b // ways
+        parts.append(x.narrow(dim, at + i * n, n))
+        at += b
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def cut_leaf(name: str, w, split: Optional[Split],
+             device: Optional[str | torch.device] = None, *,
+             stacked: bool = False):
+    """This rank's part of one FUSED leaf ``name`` (a plain tensor, a
+    ``QTensor`` or a ``QTensor4``; ``stacked``: with the leading layer
+    axis), as a tensor of its own on ``device``:
+
+    - a plain leaf keeps its pieces of :func:`fused_cuts`;
+    - int8 ``q`` is cut like its weight, and its per-output scale with it
+      under a column or expert cut; under a row cut (``wo``,
+      ``w_down``) the scale reduced over every row and stays whole — the
+      reference's global scale;
+    - int4 is cut by logical rows: the rank's rows are unpacked and
+      packed again in the split-half layout of its own contraction, and
+      its group scales are cut by whole groups. Where the cut falls
+      inside a group (one group spans several ranks' rows) the rank
+      keeps the scale of the group its rows lie in (the whole scale when
+      there is one group), and the log says so; rows that straddle a
+      group boundary cannot be served and raise."""
+    from ..models.quant import QTensor, QTensor4, pack4
+    from ..ops.quant_mm import unpack4
+
+    def own(x):
+        return torch.empty(x.shape, dtype=x.dtype,
+                           device=x.device if device is None
+                           else device).copy_(x)
+
+    if split is None:
+        return w if device is None else _to(w, device)
+    shape = tuple(w.q.shape if isinstance(w, QTensor) else w.shape)
+    cuts = [c for c in fused_cuts(name, split,
+                                  shape[1:] if stacked else shape)
+            if c[2] > 1]
+    if not cuts:
+        return (type(w)(q=own(w.q), s=own(w.s))
+                if isinstance(w, (QTensor, QTensor4)) else own(w))
+
+    def index(dim, ways):
+        return split.mesh.index(DEFAULT_RULES["experts"] if dim == -3
+                                else "tp")
+
+    if not isinstance(w, (QTensor, QTensor4)):
+        for dim, blocks, ways in cuts:
+            w = _narrow_blocks(w, dim, blocks, ways, index(dim, ways))
+        return own(w)
+    q, s = w.q, w.s
+    for dim, blocks, ways in cuts:
+        i = index(dim, ways)
+        if dim != -2:
+            q = _narrow_blocks(q, dim, blocks, ways, i)
+            s = _narrow_blocks(s, dim, blocks, ways, i)
+            continue
+        if isinstance(w, QTensor):
+            q = _narrow_blocks(q, -2, blocks, ways, i)
+            continue
+        K = 2 * q.shape[-2]
+        ng = s.shape[-2]
+        q = pack4(_narrow_blocks(unpack4(q), -2, (K,), ways, i))
+        if ng % ways == 0:
+            s = _narrow_blocks(s, -2, (ng,), ways, i)
+        elif ways % ng == 0:
+            s = s.narrow(-2, i * ng // ways, 1)
+            if name not in _GROUP_LOGGED:
+                _GROUP_LOGGED.add(name)
+                log.info("%s: the cut falls inside an int4 group (%d rows "
+                         "over %d ranks); each rank keeps its group's "
+                         "scale%s", name, K // ng, ways // ng,
+                         " (the whole scale)" if ng == 1 else "")
+        else:
+            raise ValueError(f"{name}: {ng} int4 groups cannot be cut "
+                             f"{ways} ways (a rank's rows straddle groups)")
+    return type(w)(q=own(q), s=own(s))
 
 
 def _to(tree, device):

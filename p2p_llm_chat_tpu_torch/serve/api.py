@@ -845,11 +845,12 @@ def main() -> None:
     """Entry point: ``SERVE_BACKEND=torch`` serves the port's engine (on
     the card unless ``SERVE_DEVICE=cpu``); ``fake`` serves FakeLLM.
 
-    Under ``SERVE_COORDINATOR`` (serve/multihost.py) a follower runs no
-    front: it mirrors the leader's rounds until the leader broadcasts
-    shutdown. The leader serves the front until SIGTERM, then stops the
-    plane (the shutdown broadcast) and exits 0; every rank leaves the
-    world on the way out."""
+    Under ``SERVE_COORDINATOR`` (serve/multihost.py), and on the ranks of
+    ``SERVE_TP`` (serve/tp.py), a follower runs no front: it mirrors the
+    leader's rounds or ops until the leader broadcasts shutdown. The
+    leader serves the front until SIGTERM, then stops the plane (the
+    shutdown broadcast), and exits 0 once its followers have; every rank
+    logs its summary line and leaves the world on the way out."""
     from .backend import FakeLLM
     kind = env_or("SERVE_BACKEND", "fake")
     if kind == "fake":
@@ -860,7 +861,7 @@ def main() -> None:
     else:
         raise SystemExit(f"SERVE_BACKEND must be fake|torch for the "
                          f"PyTorch front, got {kind!r}")
-    if not hasattr(backend, "follower_loop"):
+    if not getattr(backend, "lockstep", hasattr(backend, "follower_loop")):
         OllamaServer(backend).serve_forever()
         return
     if backend.is_follower:

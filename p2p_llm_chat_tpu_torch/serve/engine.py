@@ -32,8 +32,21 @@ target's vocabulary, a checkpoint directory loads through
 models/weights.py at ``SERVE_QUANT``; a draft that fails to load, or does
 not fit the target, leaves n-gram-only speculation, as in the reference.
 Features of the reference that later slices port fail loudly when asked
-for explicitly (``SERVE_TP>1``, ``SERVE_PROFILE_PORT>0``, multi-host; a
-native Orbax ``CKPT_DIR``). ``SERVE_ADMIT_CHUNK`` caps the rows
+for explicitly (``SERVE_PROFILE_PORT>0``; a native Orbax ``CKPT_DIR``;
+under ``SERVE_TP`` the KV tier, ``SERVE_MODELS`` and the session and
+prefix wire).
+
+``SERVE_TP = t > 1`` (without ``SERVE_COORDINATOR``, which builds the
+lockstep plane of serve/multihost.py instead) serves this engine over t
+ranks, one process per card, as the reference's single-process
+``SERVE_TP`` serves its engine over a local mesh: this process is rank 0
+and starts ranks 1 .. t-1 (parallel/distributed.start_local_world), each
+takes its shard a layer at a time (random init, or the checkpoint through
+models/weights.load_checkpoint_streaming), and the scheduler's device ops
+stream to them (serve/tp.py). The reference lays ``dp = n // tp``
+replicas of the batch over a host's other chips; they compute the same
+rows, so the port serves ``dp = 1`` and logs it. ``SERVE_DRAFT`` is
+ignored under tp with the reference's warning. ``SERVE_ADMIT_CHUNK`` caps the rows
 of each admission prefill, and ``SERVE_WARMUP`` (default ``128,256``)
 names the warmup buckets, as in the reference. Prompt
 admission runs the reference's defaults: chunked prefill
@@ -71,6 +84,7 @@ scheduler's capture lock (see the method).
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 from typing import Iterator, Optional
@@ -147,16 +161,24 @@ class TorchEngine:
                  kv_host_gb: float = 0.0, kv_idle_s: float = 30.0,
                  kv_mode: str = "dense", draft: Optional[tuple] = None,
                  name: Optional[str] = None,
-                 device: Optional[torch.device | str] = None) -> None:
+                 device: Optional[torch.device | str] = None,
+                 mesh=None) -> None:
         """``kv_mode``: ``dense`` (the default, as the reference's) or
         ``paged`` (serve/scheduler.py).""
         ``draft``: ``(params, config)`` of a small draft model made
         resident beside the target (needs ``spec_k`` > 0, the target's
         vocabulary and a max_seq covering the target's; a pairing that
         does not fit logs a warning and serves n-gram-only, as the
-        reference's)."""
+        reference's).
+
+        ``mesh``: tensor parallelism over its ranks (``params`` is this
+        rank's shard; serve/tp.py; no ``draft`` with it, which the
+        scheduler refuses). On rank 0 the engine serves; on the others it
+        is a follower (:attr:`is_follower`) that runs
+        :meth:`follower_loop` and no front."""
         self.name = name or config.name
         self.config = config
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.prefix_texts = tuple(prefix_texts) if prefix_cache else ()
         drafter = None
         if draft is not None and spec_k:
@@ -194,12 +216,62 @@ class TorchEngine:
             loop_budget_ms=loop_budget_ms, spec_k=spec_k,
             spec_tree_nodes=spec_tree_nodes, spec_tree_gap=spec_tree_gap,
             kv_host_gb=kv_host_gb, kv_idle_s=kv_idle_s, kv_mode=kv_mode,
-            drafter=drafter, device=device)
+            drafter=drafter, device=device, mesh=self.mesh,
+            follower=self.is_follower)
         self._embed_lock = threading.Lock()
         self._embed_stream = None
         # The checkpoint load's walls (models/weights.py stats) when the
         # engine was built from one, else None.
         self.load_stats: Optional[dict] = None
+        # The follower processes this rank started (a local tp world).
+        self.followers: list = []
+
+    # -- tensor parallelism (serve/tp.py) ---------------------------------
+
+    @property
+    def is_follower(self) -> bool:
+        return self.mesh is not None and self.mesh.rank != 0
+
+    @property
+    def lockstep(self) -> bool:
+        """Ranks in step (serve/api.main runs a follower's loop, and the
+        leader's shutdown, as for serve/multihost.py)."""
+        return self.mesh is not None
+
+    def follower_loop(self) -> None:
+        if not self.is_follower:
+            raise RuntimeError("the leader does not follow")
+        from .tp import tp_follower_loop
+        tp_follower_loop(self.scheduler)
+
+    def close(self) -> None:
+        """Log this rank's summary line (backend, peak device GB, decode
+        step p50 and its time in collectives, the token digest and
+        whether every rank's equals it, the kernels' launches), leave the
+        world and reap the followers this rank started: after
+        :meth:`stop` on the leader, after :meth:`follower_loop` returns on
+        a follower."""
+        from ..ops import wrappers
+        from ..parallel.distributed import leave_world, stop_processes
+        if self.mesh is None:
+            return
+        sched = self.scheduler
+        dev = sched.device
+        peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+                if dev.type == "cuda" else None)
+        digests = sched.digests
+        summary = dict(
+            sched.tp_timings(), rank=self.mesh.rank, backend=self.mesh.backend,
+            peak_gb=peak, digest=sched.token_digest(),
+            digests_equal=None if digests is None else len(set(digests)) == 1,
+            launches={k: w.launches for k, w in wrappers().items()})
+        log.info("tp rank %d summary: %s", self.mesh.rank,
+                 json.dumps(summary))
+        leave_world()
+        if self.followers:
+            rcs = stop_processes(self.followers, 30.0)
+            log.info("tp followers exited: rc %s", rcs)
+            self.followers = []
 
     def generate_stream(self, req: GenerateRequest,
                         stats: Optional[RequestStats] = None) -> Iterator[str]:
@@ -243,17 +315,25 @@ class TorchEngine:
         (the ticks' results do not depend on it), and under the
         scheduler's ``capture_lock``, so none of its CUDA calls can land
         inside a decode-graph capture (a capture waits for the chunk in
-        flight; the warmup captures every graph before traffic)."""
+        flight; the warmup captures every graph before traffic).
+
+        Under tensor parallelism the chunks run instead as ops on the
+        scheduler's thread between ticks (BatchScheduler.run_on_loop):
+        an embed's collectives then keep the one order every rank runs."""
         sched = self.scheduler
         ids = [sched.tokenizer.encode(t, add_bos=True)[:sched.max_seq]
                for t in texts]
-        n_tokens = sum(len(i) for i in ids)
-        out: list[list[float]] = []
-        with self._embed_lock:
-            for n, toks, lens in embed_batches(ids, sched.max_seq):
-                vecs = self._embed_chunk(toks, lens)
-                out.extend(vecs[r].tolist() for r in range(n))
-        return out, n_tokens
+        if self.mesh is not None:
+            chunks = sched.run_on_loop(lambda: [
+                (n, sched._dev("embed", toks, lens).cpu())
+                for n, toks, lens in embed_batches(ids, sched.max_seq)])
+        else:
+            with self._embed_lock:
+                chunks = [(n, self._embed_chunk(toks, lens))
+                          for n, toks, lens in embed_batches(ids,
+                                                             sched.max_seq)]
+        out = [vecs[r].tolist() for n, vecs in chunks for r in range(n)]
+        return out, sum(len(i) for i in ids)
 
     def _embed_chunk(self, toks: torch.Tensor, lens: torch.Tensor
                      ) -> torch.Tensor:
@@ -284,7 +364,10 @@ class TorchEngine:
         stays not-ready until it is done, and for good if it fails (the
         error is kept in :attr:`warmup_error`). ``background``: on a
         thread of its own, else on the caller's, raising what the warmup
-        raised (serve/multi.py walks its engines so)."""
+        raised (serve/multi.py walks its engines so). A follower rank
+        warms through the leader's ops."""
+        if self.is_follower:
+            return
         if not background:
             self.scheduler.warmup(buckets, self.prefix_texts)
             return
@@ -344,6 +427,7 @@ class TorchEngine:
         sched = self.scheduler
         if sched._prefix is None:
             return None
+        self._refuse_under_tp("prefix export")
         with sched.capture_lock:
             return sched._prefix.export_payload(h)
 
@@ -356,11 +440,18 @@ class TorchEngine:
         sched = self.scheduler
         if sched._prefix is None:
             return None
+        self._refuse_under_tp("prefix import")
         cfg = self.config
         with sched.capture_lock:
             return sched._prefix.import_payload(
                 data, device=sched.device,
                 geometry=(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim))
+
+    def _refuse_under_tp(self, what: str) -> None:
+        """The wire formats carry every kv head; a rank holds its share
+        (gathering the shards for the wire is queued work)."""
+        if self.mesh is not None:
+            raise RuntimeError(_not_in_slice_text(f"{what} under SERVE_TP"))
 
     # -- sessions: migration and disaggregated prefill (serve/kv_tier.py) ---
 
@@ -398,11 +489,15 @@ class TorchEngine:
         self.scheduler.stop()
 
 
+def _not_in_slice_text(what: str) -> str:
+    return (f"{what} is not ported to the PyTorch engine yet "
+            "(p2p_llm_chat_tpu_torch serves llama and mixtral models from a "
+            "dense KV cache or a paged KV pool, on one card or over SERVE_TP "
+            "ranks, in this version)")
+
+
 def _not_in_slice(what: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported to the PyTorch engine yet "
-                      "(p2p_llm_chat_tpu_torch serves llama and mixtral "
-                      "models from a dense KV cache or a paged KV pool on "
-                      "one card in this version)")
+    return SystemExit(_not_in_slice_text(what))
 
 
 def is_ckpt_ref(ref: str) -> bool:
@@ -452,6 +547,42 @@ def parse_serve_models(spec: str, ckpt_dir: str = "",
     return specs
 
 
+def _rank_device(device) -> torch.device:
+    from ..parallel.distributed import rank_device
+    dev = rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def _tp_world(tp: int, device) -> tuple:
+    """The ``SERVE_TP`` mesh (``tp`` ranks, ``dp = 1``) and the follower
+    processes this rank started: a world joined already (a follower,
+    serve/tp.main, or a caller that joined one) is used as it is;
+    otherwise this process starts ranks 1 .. tp-1 and is rank 0
+    (parallel/distributed.start_local_world)."""
+    from ..parallel.distributed import multihost_mesh, start_local_world
+    from ..parallel.mesh import MeshConfig
+    followers: list = []
+    d = torch.distributed
+    if not (d.is_available() and d.is_initialized()):
+        followers = start_local_world(tp)
+    if d.get_world_size() != tp:
+        raise SystemExit(f"SERVE_TP={tp} needs a world of {tp} ranks, this "
+                         f"one has {d.get_world_size()}")
+    dev = _rank_device(device)
+    mesh = multihost_mesh(MeshConfig(tp=tp), dev)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if mesh.rank == 0 and cards > tp:
+        # The reference's local_mesh lays dp = n // tp replicas of the
+        # batch over the other chips; they compute the same rows.
+        log.info("SERVE_TP=%d on %d cards: serving dp = 1 (replicas of "
+                 "the batch would compute the same rows)", tp, cards)
+    log.info("tensor-parallel serving: rank %d/%d on %s, compute groups "
+             "on %s", mesh.rank, tp, dev, mesh.backend)
+    return mesh, followers
+
+
 def build_engine_from_env(device: Optional[str | torch.device] = None,
                           params: Optional[dict] = None) -> Backend:
     """Engine (or a multi-model front) from env vars, on ``device`` — by
@@ -485,13 +616,26 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
                     "the drafter")
     spec_tree_nodes = env_int("SERVE_SPEC_TREE_NODES", 8) if spec_k else 0
     spec_tree_gap = env_float("SERVE_SPEC_TREE_GAP", 4.0)
-    if env_int("SERVE_TP", 1) > 1:
-        raise _not_in_slice("tensor parallelism in the single-process "
-                            "engine (SERVE_TP>1 without SERVE_COORDINATOR; "
-                            "SERVE_TP serves inside the lockstep "
-                            "multi-process plane: start one process per "
-                            "card with SERVE_COORDINATOR, JAX_NUM_PROCESSES "
-                            "and JAX_PROCESS_ID)")
+    tp = env_int("SERVE_TP", 1)
+    if tp > 1:
+        # What the wire formats and the tier would need the shards
+        # gathered for stays refused, before any follower starts.
+        if env_float("SERVE_KV_HOST_GB", 0.0) > 0:
+            raise _not_in_slice("the KV tier (SERVE_KV_HOST_GB > 0) under "
+                                "SERVE_TP")
+        if env_or("SERVE_MODELS", ""):
+            raise _not_in_slice("multi-model serving (SERVE_MODELS) under "
+                                "SERVE_TP")
+        if env_or("SERVE_REPLICA_CLASS", "mixed").strip().lower() \
+                == "prefill":
+            raise _not_in_slice("the prefill replica class "
+                                "(SERVE_REPLICA_CLASS=prefill) under "
+                                "SERVE_TP")
+        if draft_ref:
+            log.warning("SERVE_DRAFT is single-card only (the drafter does "
+                        "not shard); ignoring it under SERVE_TP>1 — n-gram-"
+                        "only speculation")
+            draft_ref = ""
     if env_int("SERVE_PROFILE_PORT", 0) > 0:
         raise _not_in_slice("the live profiler server (SERVE_PROFILE_PORT)")
     quant = env_or("SERVE_QUANT", "")
@@ -527,7 +671,11 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
     prefix_cache = env_bool("SERVE_PREFIX", True)
     prefix_texts = (SUGGEST_PREFIX,) + tuple(
         t for t in env_or("SERVE_PREFIX_TEXTS", "").split("||") if t)
-    dev = resolve_device(device)
+    mesh, followers = None, []
+    if tp > 1:
+        mesh, followers = _tp_world(tp, device)
+    dev = (resolve_device(device) if mesh is None
+           else _rank_device(device))
     qt = env_float("SERVE_QUEUE_TIMEOUT", 60.0)
     qm = env_int("SERVE_QUEUE_MAX", -1)
     log.info("serving %s weights, %s %s KV on %s; paged attention impl %s "
@@ -593,14 +741,14 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
             spec_k=spec_k, spec_tree_nodes=spec_tree_nodes,
             spec_tree_gap=spec_tree_gap, kv_host_gb=kv_host_gb,
             kv_idle_s=kv_idle_s, kv_mode=kv_mode,
-            draft=load_draft_for(config), name=name, device=dev)
+            draft=load_draft_for(config), name=name, device=dev, mesh=mesh)
 
     def random_engine(config, seed: int, name: str) -> TorchEngine:
         log.info("%s: random-init %s (seed %d) with the byte tokenizer",
                  name, config.name, seed)
         return make_engine(
             family_for(config).init_params_quantized(
-                config, seed=seed, quant=quant, device=dev),
+                config, seed=seed, quant=quant, device=dev, mesh=mesh),
             config, ByteTokenizer(vocab_size=config.vocab_size), name)
 
     def load_ckpt_engine(tag: Optional[str], path: str) -> TorchEngine:
@@ -611,10 +759,16 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
         from ..models.quant import quantize_params
         from ..models.weights import (UnsupportedForQuantizedLoad,
                                       load_checkpoint,
-                                      load_checkpoint_quantized)
+                                      load_checkpoint_quantized,
+                                      load_checkpoint_streaming)
         stats: dict = {}
         params = None
-        if quant:
+        if mesh is not None:
+            # This rank's shard, a layer at a time (the reference's mesh
+            # entry); each leaf quantized whole, then cut.
+            params, config = load_checkpoint_streaming(
+                path, mesh=mesh, quant=quant, device=dev)
+        elif quant:
             # Stream straight into the fused quantized tree: the bf16
             # model never exists on the card.
             try:
@@ -658,9 +812,14 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
         if params is None:
             engine = random_engine(config, 0, name)
         else:
+            if mesh is not None:
+                from ..parallel.sharding import shard_model
+                params = shard_model(params, config, mesh, dev)
             engine = make_engine(
                 params, config, ByteTokenizer(vocab_size=config.vocab_size),
                 name)
+    if mesh is not None:
+        engine.followers = followers
     warm = env_or("SERVE_WARMUP", "128,256")
     if warm and warm != "0":
         engine.warmup(tuple(int(b) for b in warm.split(",") if b.strip()))

@@ -599,6 +599,7 @@ class MultihostEngine:
         :meth:`stop` on the leader, after :meth:`follower_loop` returns on
         a follower."""
         from ..ops import wrappers
+        from ..parallel.distributed import leave_world
         peak = (torch.cuda.max_memory_allocated(self._device) / 2**20
                 if self._device.type == "cuda" else None)
         summary = dict(self.timings(), rank=self.mesh.rank,
@@ -607,9 +608,7 @@ class MultihostEngine:
                                  for k, w in wrappers().items()})
         log.info("multihost rank %d summary: %s", self.mesh.rank,
                  json.dumps(summary))
-        d = torch.distributed
-        if d.is_available() and d.is_initialized():
-            d.destroy_process_group()
+        leave_world()
 
 
 def _leaves(tree):
@@ -627,9 +626,10 @@ def build_multihost_engine(coordinator: Optional[str] = None, *,
     """The ``SERVE_COORDINATOR`` env path: join the world, build the
     ``dp × tp`` mesh (``SERVE_TP`` must divide the world size), take this
     rank's shard of ``MODEL_CONFIG`` (random bf16 init from seed 0 on
-    every rank, as the reference's, or ``params``: the whole tree of
-    that config, fused or not) on its device, return the engine
-    (serve/api.main runs the leader's front or a follower's loop)."""
+    every rank, as the reference's, each rank drawing only its shard a
+    layer at a time; or ``params``: the whole tree of that config, fused
+    or not) on its device, return the engine (serve/api.main runs the
+    leader's front or a follower's loop)."""
     from ..models.configs import get_config
     from ..parallel.distributed import (init_distributed, multihost_mesh,
                                         rank_device)
@@ -656,8 +656,10 @@ def build_multihost_engine(coordinator: Optional[str] = None, *,
     mesh = multihost_mesh(MeshConfig(dp=world // tp, tp=tp), dev)
     config = get_config(env_or("MODEL_CONFIG", "tiny"))
     if params is None:
-        params = family_for(config).init_params(config, seed=0, device=dev)
-    params = shard_model(params, config, mesh, dev)
+        params = family_for(config).init_params(config, seed=0, device=dev,
+                                                mesh=mesh)
+    else:
+        params = shard_model(params, config, mesh, dev)
     tok = ByteTokenizer(vocab_size=config.vocab_size)
     eng = MultihostEngine(params, config, tok, mesh,
                           max_seq=env_int("SERVE_MAX_SEQ", 512),

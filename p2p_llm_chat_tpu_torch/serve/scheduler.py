@@ -104,8 +104,20 @@ loop events dumped on a stall, a reset or on demand (obs/flight.py), the
 sampled requests (obs/trace.py), and the warmup's device-step probe
 behind ``decode_device_ms``.
 
-Not in this slice (later ones): tensor parallelism, which changes no
-greedy output in the reference.
+Tensor parallelism (``mesh``, the reference's ``SERVE_TP`` inside this
+engine): every device call the loop makes goes through :meth:`BatchScheduler.
+_dev` as one op of host values (serve/tp.py): the leader (rank 0) sends it
+to the follower ranks over the gloo control group, then runs it; each
+follower runs the same op on its own scheduler (built the same way, with
+no loop thread), so every rank issues the same kernels and collectives in
+the same order on its shard (the pool and the dense cache cut over kv
+heads, parallel/sharding.py). Host decisions (queue, allocator, prefix
+lookup, drafts, streaming) are the leader's alone. Sampling runs on every
+rank from the gathered logits, the same bytes everywhere, so no follower
+reads a token back; each rank folds what it sampled into a running
+digest, compared at shutdown. Under tp the decode and spec programs run
+eagerly (gloo's host staging cannot be captured in a CUDA graph), and the
+KV tier and the draft model are refused (the engine's build).
 """
 
 from __future__ import annotations
@@ -265,10 +277,10 @@ class _Slot:
 
 @dataclass
 class _PrefillCarry:
-    """A half-prefilled admission chunk (chunked prefill). Touched only by
-    the scheduler thread. ``k``/``v`` are the dense carry [L, R, P0+S,
-    Hkv, D] (the prefix in its first P0 slots), ``logits`` [R, V] the
-    rows' last-prompt-position logits, merged as chunks pass them."""
+    """A half-prefilled admission chunk (chunked prefill): its host
+    arrays. Touched only by the scheduler thread; the device carry lives
+    in ``BatchScheduler._pc_dev`` on every rank (:meth:`BatchScheduler.
+    _dev_chunk`)."""
 
     chunk: list[_Slot]
     rows: list[int]
@@ -280,9 +292,6 @@ class _PrefillCarry:
     suf_lens: torch.Tensor         # [R] suffix lengths
     total_lens: torch.Tensor       # [R] prefix + suffix lengths
     tables: torch.Tensor           # [R, max_pages_per_row] page maps
-    k: Optional[torch.Tensor] = None
-    v: Optional[torch.Tensor] = None
-    logits: Optional[torch.Tensor] = None
 
 
 class _SlotStream:
@@ -331,22 +340,42 @@ def capture_lock_for(device: torch.device) -> threading.Lock:
 
 class _WarmupJob:
     """A closure run ON the scheduler thread (only it may touch the
-    device state)."""
+    device state) at the top of a loop iteration
+    (:meth:`BatchScheduler.post_on_loop`): the warmup, an embed under
+    tensor parallelism; ``result`` is what it returned."""
 
-    __slots__ = ("fn", "done", "err")
+    __slots__ = ("fn", "done", "err", "result")
 
     def __init__(self, fn) -> None:
         self.fn = fn
         self.done = threading.Event()
         self.err: Optional[BaseException] = None
+        self.result = None
 
     def run(self) -> None:
         try:
-            self.fn()
+            self.result = self.fn()
         except BaseException as e:   # noqa: BLE001 — re-raised by caller
             self.err = e
         finally:
             self.done.set()
+
+
+# Device ops (serve/tp.py's op names) -> the BatchScheduler method each
+# runs; every argument is a host value.
+_OPS = {
+    "reset": "_reset_device_state",
+    "warm_prefill": "_dev_warm_prefill",
+    "prefix": "_dev_prefix",
+    "warm_window": "_warm_window",
+    "probe": "_probe_device_step",
+    "admit": "_dev_admit",
+    "chunk": "_dev_chunk",
+    "tick": "_dev_tick",
+    "spec": "_dev_spec",
+    "release": "_dev_release",
+    "embed": "_dev_embed",
+}
 
 
 class BatchScheduler:
@@ -368,7 +397,8 @@ class BatchScheduler:
                  spec_tree_gap: float = 4.0,
                  kv_host_gb: float = 0.0, kv_idle_s: float = 30.0,
                  kv_mode: str = "dense", drafter=None,
-                 device: Optional[torch.device | str] = None) -> None:
+                 device: Optional[torch.device | str] = None,
+                 mesh=None, follower: bool = False) -> None:
         """``kv_mode``: ``dense`` (one ``[L, B, max_seq, Hkv, D]`` cache,
         the reference's default layout; bf16 only) or ``paged`` (the page
         pool, bf16 or int8).
@@ -430,7 +460,13 @@ class BatchScheduler:
         Register templates with :meth:`register_prefix` / warmup
         ``prefix_texts``; a head seen twice auto-promotes.
         ``SERVE_PREFIX_MB`` > 0 bounds the store by bytes (cost eviction)
-        instead of 8 entries."""
+        instead of 8 entries.
+
+        ``mesh``: tensor parallelism over the mesh's ranks (``params`` is
+        this rank's shard, parallel/sharding.py; see the module's
+        docstring). Rank 0 runs the loop and sends its device ops to the
+        others; ``follower``: this rank mirrors them instead
+        (:meth:`run_op`, serve/tp.tp_follower_loop) and runs no loop."""
         if queue_max is not None and queue_max < 0:
             raise ValueError(f"queue_max must be >= 0, got {queue_max}")
         if prefill_chunk < 0:
@@ -448,6 +484,19 @@ class BatchScheduler:
         if kv_quant and kv_mode != "paged":
             raise ValueError("kv_quant=True needs kv_mode='paged' (the "
                              "dense cache is bf16)")
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._tp = self.mesh is not None
+        if self._tp and ((kv_host_gb or 0) > 0 or drafter is not None):
+            raise ValueError("the KV tier and the draft model do not run "
+                             "under tensor parallelism")
+        self._follower = self._tp and follower
+        if self._tp and not self._follower:
+            from ..parallel.sharding import Split
+            split = Split.of(config, self.mesh)
+            if split is None or split.layers == 1:
+                log.info("tp=%d does not divide %s's heads, kv heads and "
+                         "FFN: every rank computes the whole layers",
+                         self.mesh.shape["tp"], config.name)
         self.kv_mode = kv_mode
         self.decode_fuse_max = decode_fuse_max
         self._fuse_ramp = 1
@@ -622,12 +671,31 @@ class BatchScheduler:
         self._park_all_req = threading.Event()
         self._park_all_ack = threading.Event()
         self._park_all_key: Optional[str] = None
+        # Tensor parallelism: the leader's op channel (serve/tp.py), a
+        # follower's prefix KV by token ids (the leader's entries hold
+        # theirs), the chunked admission's device carry (k, v, logits),
+        # the running digest of sampled tokens, and per decode tick the
+        # step's wall and its time in collectives.
+        self._channel = None
+        if self._tp and not self._follower:
+            from .tp import TPChannel
+            self._channel = TPChannel(self.mesh)
+        self._prefix_dev: dict[tuple, tuple] = {}
+        self._pc_dev: Optional[list] = None
+        self._digest = (torch.zeros((), dtype=torch.long, device=self.device)
+                        if self._tp else None)
+        self.digests: Optional[list] = None
+        self._tp_step_ms: list[float] = []
+        self._tp_coll_ms: list[float] = []
         self._alloc_device_state()
         self._admit_q: "queue.Queue[Optional[object]]" = queue.Queue()
+        self._jobs: "queue.Queue[_WarmupJob]" = queue.Queue()
         self._closed = threading.Event()
-        self._thread = threading.Thread(target=self._loop, daemon=True,
-                                        name="torch-scheduler")
-        self._thread.start()
+        self._thread: Optional[threading.Thread] = None
+        if not self._follower:
+            self._thread = threading.Thread(target=self._loop, daemon=True,
+                                            name="torch-scheduler")
+            self._thread.start()
 
     # -- device state ------------------------------------------------------
 
@@ -640,12 +708,14 @@ class BatchScheduler:
         B, dev = self.num_slots, self.device
         if self.kv_mode == "dense":
             self._cache = KVCache.create(self.config, B, self.max_seq,
-                                         dtype=self._dtype, device=dev)
+                                         dtype=self._dtype, device=dev,
+                                         mesh=self.mesh)
         else:
             self._cache = PagedKVCache.create(
                 self.config, B, self.num_pages, self.page_size,
                 max_pages_per_row=-(-self.max_seq // self.page_size),
-                dtype=self._dtype, quantized=self.kv_quant, device=dev)
+                dtype=self._dtype, quantized=self.kv_quant, device=dev,
+                mesh=self.mesh)
         self._next = torch.zeros((B, 1), dtype=torch.long, device=dev)
         # Per-row sampling options, keys ([seed, counter]) and penalty
         # ring (the token at context position p sits at p % _RING; ids >=
@@ -714,6 +784,138 @@ class BatchScheduler:
         self._ring_dev.fill_(self.config.vocab_size)
         self._active_dev.zero_()
         self._active_host = None
+        self._pc_dev = None
+
+    # -- tensor parallelism: the device ops (serve/tp.py) -----------------
+
+    def _dev(self, op: str, *args):
+        """Run device op ``op`` (:data:`_OPS`) with host arguments; under
+        tensor parallelism the leader first sends it to the follower
+        ranks (a prefix entry rides as its token ids). An op never calls
+        another op: the followers run each one whole. Under tensor
+        parallelism an op that raises marks the channel down: the ranks
+        may have stopped at different collectives of it, so no later op
+        may run (the loop ends the plane, :meth:`_end_plane`)."""
+        ch = self._channel
+        if ch is None:
+            return getattr(self, _OPS[op])(*args)
+        if ch.down:
+            raise RuntimeError("the tensor-parallel plane is down")
+        try:
+            ch.send(op, tuple(
+                a.ids if isinstance(a, PrefixEntry) else a for a in args))
+            return getattr(self, _OPS[op])(*args)
+        except BaseException:
+            ch.down = True
+            raise
+
+    def run_op(self, op: str, args: tuple) -> None:
+        """A follower's mirror of one leader op (serve/tp.py)."""
+        getattr(self, _OPS[op])(*args)
+
+    def post_on_loop(self, fn) -> _WarmupJob:
+        """Queue ``fn()`` for the scheduler thread, which runs it at the
+        top of its next loop iteration, between ticks (under tensor
+        parallelism an embed's collectives must not interleave with a
+        tick's on the same groups); returns the job to wait on."""
+        if self._closed.is_set():
+            raise RuntimeError("scheduler is stopped")
+        job = _WarmupJob(fn)
+        self._jobs.put(job)
+        self._admit_q.put(None)       # ends an idle loop's admission wait
+        return job
+
+    def run_on_loop(self, fn):
+        """:meth:`post_on_loop` and wait: returns what ``fn`` returned,
+        raises what it raised."""
+        job = self.post_on_loop(fn)
+        job.done.wait()
+        if job.err is not None:
+            raise job.err
+        return job.result
+
+    def _run_jobs(self) -> None:
+        while True:
+            try:
+                job = self._jobs.get_nowait()
+            except queue.Empty:
+                return
+            job.run()
+            if self._channel is not None and self._channel.down:
+                raise RuntimeError("an op of a job on the loop failed "
+                                   "under tensor parallelism")
+
+    def _fold(self, toks: torch.Tensor) -> None:
+        """Fold a block of sampled tokens into this rank's running digest
+        (on the device; every rank folds the same blocks in the same
+        order, so equal digests at shutdown mean the ranks sampled the
+        same tokens)."""
+        t = toks.reshape(-1).long()
+        w = torch.arange(1, t.numel() + 1, device=t.device)
+        self._digest.copy_((self._digest * 1000003 + (t * w).sum())
+                           % 2147483647)
+
+    def token_digest(self) -> Optional[int]:
+        return None if self._digest is None else int(self._digest)
+
+    def tp_timings(self) -> dict:
+        """p50 decode step (ms, the tick's wall over its K) and its time
+        in collectives under tensor parallelism, with the tick count."""
+        def p50(xs) -> Optional[float]:
+            return float(np.median(xs)) if xs else None
+        return {"steps": len(self._tp_step_ms),
+                "step_ms_p50": p50(self._tp_step_ms),
+                "collective_ms_p50": p50(self._tp_coll_ms)}
+
+    def _prefix_kv(self, prefix) -> tuple:
+        """(k, v) of a prefix: the leader's entry, or on a follower its
+        own copy under the entry's token ids."""
+        if isinstance(prefix, PrefixEntry):
+            return prefix.k, prefix.v
+        return self._prefix_dev[prefix]
+
+    def _prefix_keep(self) -> Optional[list]:
+        """The prefix ids a follower must keep (tensor parallelism): the
+        store's entries and those queued requests matched."""
+        if not self._tp:
+            return None
+        keep = [e.ids for e in self._prefix.snapshot()]
+        return keep + [s.prefix.ids for s in self._admit_carry + self._waiting
+                       if s.prefix is not None]
+
+    def _dev_warm_prefill(self, S: int) -> None:
+        toks = torch.zeros((1, S), dtype=torch.long, device=self.device)
+        lens = torch.full((1,), S, dtype=torch.long, device=self.device)
+        self._family.prefill(self._params, self.config, toks, lens,
+                             last_only=True, mesh=self.mesh)
+
+    def _dev_prefix(self, ids: tuple, keep: Optional[list]) -> tuple:
+        """The KV [L, P, Hkv, D] of prefix ``ids`` by a whole-prompt
+        prefill; a follower keeps it under ``ids`` and drops the entries
+        outside ``keep``."""
+        toks = torch.tensor([list(ids)], dtype=torch.long,
+                            device=self.device)
+        lens = torch.full((1,), len(ids), dtype=torch.long,
+                          device=self.device)
+        _, k_all, v_all = self._family.prefill(
+            self._params, self.config, toks, lens, last_only=True,
+            mesh=self.mesh)
+        kv = (k_all[:, 0].contiguous(), v_all[:, 0].contiguous())
+        if self._follower:
+            live = set(keep or ()) | {ids}
+            for key in [k for k in self._prefix_dev if k not in live]:
+                del self._prefix_dev[key]
+            self._prefix_dev[ids] = kv
+        return kv
+
+    def _dev_release(self, row: int) -> None:
+        zero_row(self._cache, row)
+
+    def _dev_embed(self, toks: torch.Tensor, lens: torch.Tensor
+                   ) -> torch.Tensor:
+        return self._family.embed_pooled(
+            self._params, self.config, toks.to(self.device),
+            lens.to(self.device), mesh=self.mesh)
 
     # -- client side (HTTP threads) ----------------------------------------
 
@@ -723,7 +925,8 @@ class BatchScheduler:
 
     @property
     def ready(self) -> bool:
-        if self._closed.is_set() or not self._thread.is_alive():
+        if (self._closed.is_set() or self._thread is None
+                or not self._thread.is_alive()):
             return False
         if self._draining.is_set() or self.warmup_error is not None:
             return False
@@ -824,16 +1027,11 @@ class BatchScheduler:
 
         def run() -> None:
             for S in buckets:
-                toks = torch.zeros((1, S), dtype=torch.long,
-                                   device=self.device)
-                lens = torch.full((1,), S, dtype=torch.long,
-                                  device=self.device)
-                self._family.prefill(self._params, self.config, toks,
-                                     lens, last_only=True)
+                self._dev("warm_prefill", S)
             for text in prefix_texts:
                 self.register_prefix(text)
             for w in self._window_ladder():
-                self._warm_window(w)
+                self._dev("warm_window", w)
             if self._draft_model is not None:
                 self._draft_model.warm(buckets, self._window_ladder())
             if self._tier is not None:
@@ -841,19 +1039,18 @@ class BatchScheduler:
                     if S <= _WAKE_MAX_SUFFIX:
                         for w in self._window_ladder():
                             self._warm_wake(w, S)
-            self._probe_device_step()
+            self._dev("probe")
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             # A wake's suffix rounds up to the smallest warmed bucket
             # (the reference's _serving_bucket) from here on.
             self._warmed_buckets = buckets
 
-        job = _WarmupJob(run)
-        self._admit_q.put(job)
-        job.done.wait()
-        if job.err is not None:
-            self.warmup_error = job.err
-            raise job.err
+        try:
+            self.run_on_loop(run)
+        except BaseException as e:
+            self.warmup_error = e
+            raise
         self._warmup_done_at = time.monotonic()
 
     # -- decode programs (scheduler thread) ---------------------------------
@@ -963,7 +1160,7 @@ class BatchScheduler:
                 self._active_dev if active is None else active,
                 num_steps=K, sample_fn=sample_fn,
                 sample_state=(self._keys_dev, self._ring_dev),
-                stop_ids=self._stop_dev, **kv)
+                stop_ids=self._stop_dev, mesh=self.mesh, **kv)
             self._toks_out[K].copy_(toks)
             self._next.copy_(nxt)
             self._keys_dev.copy_(keys)
@@ -981,12 +1178,14 @@ class BatchScheduler:
         every window's) on the scheduler's capture stream into the shared
         pool — capture only, nothing runs on live rows. The wrappers'
         launch counts that the capture recorded are taken back and
-        re-added at each replay."""
+        re-added at each replay. Under tensor parallelism the function
+        itself (gloo stages the collectives through the host, which a
+        graph cannot capture)."""
         prog = self._programs.get(key)
         if prog is not None:
             return prog
         fn = make()
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self._tp:
             prog = _DecodeProgram(fn)
         else:
             wrappers = ops.wrappers()
@@ -1183,11 +1382,12 @@ class BatchScheduler:
                     logits, _ = fam.verify_tree(
                         self._params, self.config, tokens,
                         buf[:, cols["depths"]], anc, cache,
-                        kv_window=window)
+                        kv_window=window, mesh=self.mesh)
                 else:
                     logits, _ = fam.verify_tree_paged(
                         self._params, self.config, tokens,
-                        buf[:, cols["depths"]], anc, cache, pages=pages)
+                        buf[:, cols["depths"]], anc, cache, pages=pages,
+                        mesh=self.mesh)
                 accepted, used, corr, keys = spec_verify_tree(
                     logits, drafts, sib_tok, sib_node, *opts, **ring)
                 sel = (accepted - 1).clamp(0, K - 1)[:, None]
@@ -1200,9 +1400,10 @@ class BatchScheduler:
             else:
                 logits, _ = (fam.verify_step(
                     self._params, self.config, tokens, cache,
-                    kv_window=window) if dense else fam.verify_step_paged(
-                    self._params, self.config, tokens, cache, pages=pages,
-                    impl=self.attn_impl))
+                    kv_window=window, mesh=self.mesh) if dense else
+                    fam.verify_step_paged(
+                        self._params, self.config, tokens, cache,
+                        pages=pages, impl=self.attn_impl, mesh=self.mesh))
                 accepted, corr, keys = spec_verify_batched(logits, drafts,
                                                            *opts, **ring)
                 used = torch.zeros_like(accepted)
@@ -1309,14 +1510,9 @@ class BatchScheduler:
         return P
 
     def _install_prefix(self, ids) -> None:
-        toks = torch.tensor([list(ids)], dtype=torch.long, device=self.device)
-        lens = torch.full((1,), len(ids), dtype=torch.long,
-                          device=self.device)
-        _, k_all, v_all = self._family.prefill(self._params, self.config,
-                                               toks, lens, last_only=True)
-        self._prefix.put(PrefixEntry(ids=tuple(ids),
-                                     k=k_all[:, 0].contiguous(),
-                                     v=v_all[:, 0].contiguous()))
+        ids = tuple(ids)
+        k, v = self._dev("prefix", ids, self._prefix_keep())
+        self._prefix.put(PrefixEntry(ids=ids, k=k, v=v))
         log.info("cached prefix KV: %d tokens (%d entries)", len(ids),
                  len(self._prefix))
 
@@ -1540,6 +1736,8 @@ class BatchScheduler:
         return self._flight.dump(reason)
 
     def stop(self) -> None:
+        if self._follower:
+            return
         self._closed.set()
         self._admit_q.put(None)
         self._thread.join(timeout=10.0)
@@ -1553,13 +1751,25 @@ class BatchScheduler:
         self._waiting, self._admit_carry = [], []
         while True:
             try:
+                job = self._jobs.get_nowait()
+            except queue.Empty:
+                break
+            job.err = RuntimeError("scheduler stopped")
+            job.done.set()
+        if self._channel is not None:
+            if self._thread.is_alive():
+                # A loop stuck in an op cannot be joined; a second sender
+                # would mix ops on the control group.
+                log.error("scheduler loop did not stop; the follower "
+                          "ranks are not told to shut down")
+            else:
+                self._channel.shutdown(self)
+        while True:
+            try:
                 s = self._admit_q.get_nowait()
             except queue.Empty:
                 break
-            if isinstance(s, _WarmupJob):
-                s.err = RuntimeError("scheduler stopped before warmup ran")
-                s.done.set()
-            elif s is not None:
+            if s is not None:
                 s.finish()
 
     def metrics_snapshot(self) -> dict[str, float]:
@@ -1694,6 +1904,7 @@ class BatchScheduler:
             self._loop_beat = it_start
             self._loop_iter += 1
             try:
+                self._run_jobs()
                 self._drain_park_all()
                 self._admit_pending(block=not self._any_active()
                                     and pending is None
@@ -1744,9 +1955,59 @@ class BatchScheduler:
                 log.exception("serving tick failed; failing in-flight "
                               "requests")
                 pending = None
-                self._fail_all_and_reset()
+                self._recover()
             finally:
                 self._watchdog(it_start)
+
+    def _recover(self) -> None:
+        """After a failed loop iteration: fail the requests and reset the
+        state (:meth:`_fail_all_and_reset`; its reset is an op, so every
+        rank resets). Under tensor parallelism, once an op has failed,
+        end the plane instead (:meth:`_end_plane`)."""
+        ch = self._channel
+        if ch is None:
+            self._fail_all_and_reset()
+            return
+        if not ch.down:
+            try:
+                self._fail_all_and_reset()
+                return
+            except Exception:   # noqa: BLE001
+                if not ch.down:
+                    raise
+                log.exception("the reset op failed")
+        self._end_plane()
+
+    def _end_plane(self) -> None:
+        """The leader's end of a tensor-parallel plane after an op failed
+        on it, or its collectives failed because a follower left: a rank
+        that stopped partway through an op cannot rejoin the stream (its
+        peers wait in that op's collectives, or would pair their next
+        ones with its leftovers), so every request fails, the scheduler
+        takes no more (``ready`` turns false, ``submit`` raises), and
+        this rank leaves the world, which ends the followers' waits with
+        an error: they exit non-zero."""
+        log.error("an op failed under tensor parallelism; the plane stops "
+                  "and this rank leaves the world")
+        self._closed.set()
+        msg = "internal error: the tensor-parallel plane stopped"
+        self._fail_rows(msg)
+        while True:
+            try:
+                s = self._admit_q.get_nowait()
+            except queue.Empty:
+                break
+            if s is not None:
+                s.fail(msg)
+        while True:
+            try:
+                job = self._jobs.get_nowait()
+            except queue.Empty:
+                break
+            job.err = RuntimeError(msg)
+            job.done.set()
+        from ..parallel.distributed import leave_world
+        leave_world()
 
     def _watchdog(self, it_start: float) -> None:
         """Loop-iteration watchdog (the reference's): an iteration past
@@ -1815,9 +2076,10 @@ class BatchScheduler:
                                          timeout=timeout)
             except queue.Empty:
                 break
-            if isinstance(slot, _WarmupJob):
-                slot.run()
-                break
+            if slot is None and not self._closed.is_set():
+                if not self._jobs.empty():
+                    break             # post_on_loop's wake: run the job
+                continue              # a wake whose job already ran
             if slot is None or self._closed.is_set():
                 if slot is not None:
                     slot.finish()
@@ -2117,23 +2379,38 @@ class BatchScheduler:
         t_admit = time.monotonic()
         for s in chunk:
             s.admit_t = t_admit
-        dev = self.device
         prefix = chunk[0].prefix
         tokens, suf, total, tables = self._host_arrays(chunk, S)
+        toks = self._dev("admit", rows, tokens, suf, total, tables, prefix,
+                         self._sample_args(chunk))
+        if prefix is not None:
+            self._n_prefix_admits += len(chunk)
+            self._n_prefix_tokens += prefix.length * len(chunk)
+        self._admit_since_tick = True
+        self._install_admitted(chunk, rows, toks)
+
+    def _dev_admit(self, rows: list[int], tokens: torch.Tensor,
+                   suf: torch.Tensor, total: torch.Tensor,
+                   tables: torch.Tensor, prefix, samp: tuple
+                   ) -> torch.Tensor:
+        """The device half of :meth:`_admit_chunk` (host arrays in): the
+        prefill (over the prefix's KV when ``prefix`` is given), the KV
+        into the rows, and the first tokens sampled (returned, on the
+        device)."""
+        dev = self.device
         if prefix is None:
             logits, k_all, v_all = self._family.prefill(
                 self._params, self.config, tokens.to(dev), total.to(dev),
-                last_only=True)
+                last_only=True, mesh=self.mesh)
         else:
-            P = prefix.length
+            pk, pv = self._prefix_kv(prefix)
+            P = pk.shape[1]
             k_all, v_all = self._family.new_carry(
-                self.config, len(chunk), P + S, self._dtype, dev, prefix.k,
-                prefix.v)
+                self.config, len(rows), P + tokens.shape[1], self._dtype,
+                dev, pk, pv, mesh=self.mesh)
             logits = self._family.prefill_chunk(
                 self._params, self.config, tokens.to(dev), k_all, v_all, P,
-                (suf - 1).to(dev))
-            self._n_prefix_admits += len(chunk)
-            self._n_prefix_tokens += P * len(chunk)
+                (suf - 1).to(dev), mesh=self.mesh)
         if self.kv_mode == "dense":
             self._write_rows(rows, k_all, v_all, 0)
             self._cache.lengths[torch.tensor(rows, device=dev)] = total.to(
@@ -2143,8 +2420,7 @@ class BatchScheduler:
                                 torch.tensor(rows, dtype=torch.long), total,
                                 tables)
         del k_all, v_all
-        self._admit_since_tick = True
-        self._install_admitted(chunk, rows, logits[:, 0, :])
+        return self._sample_first(rows, logits[:, 0, :], samp)
 
     def _write_rows(self, rows: list[int], k: torch.Tensor, v: torch.Tensor,
                     start: int) -> None:
@@ -2178,70 +2454,88 @@ class BatchScheduler:
         their first tokens (TTFT lands there)."""
         failpoint("serve.scheduler.admit")   # the chunked leg of the site
         pc = self._prefill_carry
-        dev = self.device
         C, off = pc.C, pc.off
         self._flight.note("prefill_chunk", self._loop_iter, off=off, C=C,
                           S=pc.S, n=len(pc.chunk))
         P0 = pc.prefix.length if pc.prefix is not None else 0
-        base = P0 + off
         R = len(pc.chunk)
+        final = off + C >= pc.S
+        toks = self._dev(
+            "chunk", pc.rows, off, C, pc.S, P0,
+            pc.prefix if off == 0 else None, pc.tokens[:, off:off + C],
+            pc.suf_lens, pc.tables, pc.total_lens,
+            self._sample_args(pc.chunk) if final else None)
+        self._n_prefill_chunks += 1
+        self._admit_since_tick = True
+        pc.off = off + C
+        if not final:
+            return
+        self._prefill_carry = None
+        if pc.prefix is not None:
+            self._n_prefix_admits += R
+            self._n_prefix_tokens += P0 * R
+        self._install_admitted(pc.chunk, pc.rows, toks)
+
+    def _dev_chunk(self, rows: list[int], off: int, C: int, S: int, P0: int,
+                   prefix, tokens: torch.Tensor, suf_lens: torch.Tensor,
+                   tables: torch.Tensor, total_lens: torch.Tensor,
+                   samp: Optional[tuple]) -> Optional[torch.Tensor]:
+        """The device half of :meth:`_prefill_step`: chunk ``tokens``
+        [R, C] at suffix offset ``off`` over the carry ``_pc_dev`` (made
+        at ``off`` 0, the prefix's KV in its first P0 slots), the logits
+        of rows whose last prompt position falls in it merged into the
+        carried ones, the chunk's KV into the rows; the final chunk
+        (``samp`` given) installs the rows' tables and lengths and
+        returns their first tokens."""
+        dev = self.device
+        R = len(rows)
+        base = P0 + off
         if off == 0:
-            pc.k, pc.v = self._family.new_carry(
-                self.config, R, P0 + pc.S, self._dtype, dev,
-                *((pc.prefix.k, pc.prefix.v) if pc.prefix is not None
-                  else ()))
-            pc.logits = torch.zeros((R, self.config.vocab_size),
-                                    dtype=torch.float32, device=dev)
-        local_last = (pc.suf_lens - 1 - off).to(dev)
+            k, v = self._family.new_carry(
+                self.config, R, P0 + S, self._dtype, dev,
+                *(self._prefix_kv(prefix) if prefix is not None else ()),
+                mesh=self.mesh)
+            self._pc_dev = [k, v, torch.zeros(
+                (R, self.config.vocab_size), dtype=torch.float32,
+                device=dev)]
+        k, v, carried = self._pc_dev
+        local_last = (suf_lens - 1 - off).to(dev)
         logits = self._family.prefill_chunk(
-            self._params, self.config, pc.tokens[:, off:off + C].to(dev),
-            pc.k, pc.v, base, local_last.clamp(0, C - 1))
+            self._params, self.config, tokens.to(dev), k, v, base,
+            local_last.clamp(0, C - 1), mesh=self.mesh)
         keep = (local_last >= 0) & (local_last < C)
-        pc.logits = torch.where(keep[:, None], logits[:, 0, :], pc.logits)
+        carried = torch.where(keep[:, None], logits[:, 0, :], carried)
+        self._pc_dev[2] = carried
         lo = 0 if off == 0 else base       # the first chunk carries the prefix
         if self.kv_mode == "dense":
             if off == 0:
                 # The rows are parked while their chunks land, and a
                 # parked row writes slot lengths[b] each tick: at max_seq
                 # that write drops (the reference's move).
-                self._cache.lengths[torch.tensor(pc.rows, device=dev)] = \
+                self._cache.lengths[torch.tensor(rows, device=dev)] = \
                     self.max_seq
-            self._write_rows(pc.rows, pc.k[:, :, lo:base + C],
-                             pc.v[:, :, lo:base + C], lo)
+            self._write_rows(rows, k[:, :, lo:base + C], v[:, :, lo:base + C],
+                             lo)
         else:
-            write_prefill_chunk(self._cache, pc.k[:, :, lo:base + C],
-                                pc.v[:, :, lo:base + C], pc.tables, lo)
-        self._n_prefill_chunks += 1
-        self._admit_since_tick = True
-        pc.off = off + C
-        if pc.off < pc.S:
-            return
-        self._prefill_carry = None
-        rows = torch.tensor(pc.rows, dtype=torch.long, device=dev)
-        if self.kv_mode == "paged":
-            self._cache.page_table[rows] = pc.tables.to(dev)
-        self._cache.lengths[rows] = pc.total_lens.to(
-            device=dev, dtype=torch.int32)
-        if pc.prefix is not None:
-            self._n_prefix_admits += R
-            self._n_prefix_tokens += P0 * R
-        self._install_admitted(pc.chunk, pc.rows, pc.logits)
-
-    def _install_admitted(self, chunk: list[_Slot], rows: list[int],
-                          logits: torch.Tensor,
-                          wake: Optional[tuple[float, list[int]]] = None
-                          ) -> None:
-        """Admission epilogue shared by the one-piece, the chunked and the
-        wake paths: write the rows' options, keys (``[seed, 0]``) and
-        rings into the persistent device state in place, sample each row's
-        first token from ``logits`` ([R, V]) with the device sampler,
-        install the slots and stream. ``wake``: (the wake's start, each
-        row's session length) — the first token of a woken session is
-        sampled exactly as a cold admission's; the wake is counted, timed
-        (``kv_wake_ms``) and traced (``sched.wake``) instead."""
-        R = len(chunk)
-        dev = self.device
+            write_prefill_chunk(self._cache, k[:, :, lo:base + C],
+                                v[:, :, lo:base + C], tables, lo)
+        if samp is None:
+            return None
+        self._pc_dev = None
         idx = torch.tensor(rows, dtype=torch.long, device=dev)
+        if self.kv_mode == "paged":
+            self._cache.page_table[idx] = tables.to(dev)
+        self._cache.lengths[idx] = total_lens.to(device=dev,
+                                                 dtype=torch.int32)
+        return self._sample_first(rows, carried, samp)
+
+    def _sample_args(self, chunk: list[_Slot]) -> tuple:
+        """Host arrays of the rows' sampling state for
+        :meth:`_sample_first`: temperatures, top-k, top-p, repeat
+        penalties, keys ``[seed, 0]``, the penalty rings holding the
+        prompts' tails, and each first token's context position
+        (len(prompt))."""
+        R = len(chunk)
         opts = [slot.req.options for slot in chunk]
         rings = torch.full((R, _RING), self.config.vocab_size,
                            dtype=torch.long)
@@ -2249,28 +2543,58 @@ class BatchScheduler:
             n = len(slot.prompt_ids)
             for p in range(max(0, n - _RING), n):    # the prompt's tail
                 rings[i, p % _RING] = slot.prompt_ids[p]
-        self._temps_dev[idx] = torch.tensor(
-            [o.temperature for o in opts], dtype=torch.float32, device=dev)
-        self._top_ks_dev[idx] = torch.tensor(
-            [o.top_k for o in opts], dtype=torch.long, device=dev)
-        self._top_ps_dev[idx] = torch.tensor(
-            [o.top_p for o in opts], dtype=torch.float32, device=dev)
-        self._rps_dev[idx] = torch.tensor(
-            [o.repeat_penalty for o in opts], dtype=torch.float32,
-            device=dev)
-        self._keys_dev[idx] = torch.tensor(
-            [[slot.seed, 0] for slot in chunk], dtype=torch.long, device=dev)
-        self._ring_dev[idx] = rings.to(dev)
-        # Each row's first token sits at context position len(prompt).
-        emit = torch.tensor([len(s.prompt_ids) for s in chunk], device=dev)
+        return (torch.tensor([o.temperature for o in opts],
+                             dtype=torch.float32),
+                torch.tensor([o.top_k for o in opts], dtype=torch.long),
+                torch.tensor([o.top_p for o in opts], dtype=torch.float32),
+                torch.tensor([o.repeat_penalty for o in opts],
+                             dtype=torch.float32),
+                torch.tensor([[slot.seed, 0] for slot in chunk],
+                             dtype=torch.long),
+                rings,
+                torch.tensor([len(s.prompt_ids) for s in chunk],
+                             dtype=torch.long))
+
+    def _sample_first(self, rows: list[int], logits: torch.Tensor,
+                      samp: tuple) -> torch.Tensor:
+        """Write the rows' options, keys and rings (:meth:`_sample_args`)
+        into the persistent device state in place and sample each row's
+        first token from ``logits`` ([R, V]) with the device sampler; the
+        tokens [R] (on the device) also become the rows' feed."""
+        dev = self.device
+        idx = torch.tensor(rows, dtype=torch.long, device=dev)
+        temps, top_ks, top_ps, rps, keys, rings, emit = (
+            t.to(dev) for t in samp)
+        self._temps_dev[idx] = temps
+        self._top_ks_dev[idx] = top_ks
+        self._top_ps_dev[idx] = top_ps
+        self._rps_dev[idx] = rps
+        self._keys_dev[idx] = keys
+        self._ring_dev[idx] = rings
         toks, keys, ring = sample_step_batched(
             logits, self._keys_dev[idx], self._temps_dev[idx],
             self._top_ks_dev[idx], self._top_ps_dev[idx],
             ring=self._ring_dev[idx], rp=self._rps_dev[idx], emit_pos=emit,
-            active=torch.ones((R,), dtype=torch.bool, device=dev))
+            active=torch.ones((len(rows),), dtype=torch.bool, device=dev))
         self._keys_dev[idx] = keys
         self._ring_dev[idx] = ring
         self._next[idx, 0] = toks
+        if self._tp:
+            self._fold(toks)
+        return toks
+
+    def _install_admitted(self, chunk: list[_Slot], rows: list[int],
+                          toks: torch.Tensor,
+                          wake: Optional[tuple[float, list[int]]] = None
+                          ) -> None:
+        """Admission epilogue shared by the one-piece, the chunked and the
+        wake paths, on the host: read the rows' first tokens (``toks``
+        [R], :meth:`_sample_first`), install the slots and stream.
+        ``wake``: (the wake's start, each row's session length) — the
+        first token of a woken session is sampled exactly as a cold
+        admission's; the wake is counted, timed (``kv_wake_ms``) and
+        traced (``sched.wake``) instead."""
+        R = len(chunk)
         first = toks.tolist()
         # Draft sources index each row's prompt before its first token is
         # appended (release never precedes admit); the model drafter
@@ -2369,9 +2693,8 @@ class BatchScheduler:
             self._wall_hist.observe(
                 (now - self._last_dispatch[0]) * 1e3 / self._last_dispatch[1])
         self._last_dispatch = (now, K)
-        self._sync_active()
         window = self._window(extra=max(1, inflight + K - 1))
-        self._decode_fused_for(window, K)()
+        self._dev("tick", window, K, self._live_rows())
         toks = self._host_toks[self._flip][:K]
         self._flip ^= 1
         toks.copy_(self._toks_out[K], non_blocking=True)
@@ -2381,9 +2704,36 @@ class BatchScheduler:
             event.record()
         return toks, event, list(self._slots), K
 
-    def _sync_active(self) -> None:
-        """Upload the live-row mask when the set of live rows changed."""
-        active = tuple(s is not None for s in self._slots)
+    def _dev_tick(self, window: int, K: int, active: tuple) -> None:
+        """The device half of a decode tick: the live-row mask, then the
+        program of K steps at ``window``. Under tensor parallelism the
+        tick runs eagerly, ends synchronised, and its wall over K and its
+        collectives' time over K (the tick's own: earlier ops' are
+        dropped) are the step's readings."""
+        if self._tp:
+            self.mesh.drop_collective_timing()
+        t0 = time.perf_counter()
+        self._sync_active(active)
+        self._decode_fused_for(window, K)()
+        if not self._tp:
+            return
+        self._fold(self._toks_out[K])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        coll = self.mesh.take_collective_ms()
+        if len(self._tp_step_ms) < 4096:
+            self._tp_step_ms.append((time.perf_counter() - t0) * 1e3 / K)
+            self._tp_coll_ms.append(coll / K)
+
+    def _live_rows(self) -> tuple:
+        return tuple(s is not None for s in self._slots)
+
+    def _sync_active(self, active: Optional[tuple] = None) -> None:
+        """Upload the live-row mask when the set of live rows changed
+        (``active``: the mask as the leader sent it; default the
+        slots')."""
+        if active is None:
+            active = self._live_rows()
         if active != self._active_host:
             self._active_host = active
             mask = torch.tensor(active, dtype=torch.bool)
@@ -2494,13 +2844,11 @@ class BatchScheduler:
         self._n_spec_ticks += 1
         self._last_dispatch = None    # a spec wall is not a decode step's
         self._note_admission_gap(time.monotonic())
-        self._sync_active()
         for name, rows_d in src_rows.items():
             if rows_d:
                 self._n_spec_dispatch_src[name] += 1
         window = self._window(extra=N - 1 if tree else K)
-        self._spec_in.copy_(self._spec_host, non_blocking=True)
-        self._spec_for(window)()
+        self._dev("spec", window, host, self._live_rows())
         self._spec_out_host.copy_(self._spec_out, non_blocking=True)
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -2545,6 +2893,19 @@ class BatchScheduler:
                     self._release(row)
                     break
         return True
+
+    def _dev_spec(self, window: int, block, active: tuple) -> None:
+        """The device half of a spec tick: the live-row mask, the input
+        block (``block``: the pinned host block's numpy view, a copy on a
+        follower) to the device in one copy, the window's spec
+        program."""
+        self._sync_active(active)
+        if self._follower:
+            self._spec_host.numpy()[...] = block
+        self._spec_in.copy_(self._spec_host, non_blocking=True)
+        self._spec_for(window)()
+        if self._tp:
+            self._fold(self._spec_out)
 
     def _process_tick(self, toks: torch.Tensor, event, snapshot: list,
                       K: int) -> None:
@@ -2649,7 +3010,7 @@ class BatchScheduler:
         if slot is not None and slot.pages:
             # Fills on the stream, after every tick already queued: a
             # tick in flight still writes this row's own pages.
-            zero_row(self._cache, row)
+            self._dev("release", row)
             self._alloc.free(slot.pages)
             slot.pages = None
 
@@ -2666,22 +3027,26 @@ class BatchScheduler:
             log.warning("flight recorder dumped to %s", path)
         except OSError as e:
             log.warning("flight-recorder dump failed: %s", e)
-        for i, s in enumerate(self._slots):
-            if s is not None:
-                s.fail("internal error: serving state was reset")
-                self._slots[i] = None
-        pc, self._prefill_carry = self._prefill_carry, None
-        for s in self._admit_carry + self._waiting + (pc.chunk if pc else []):
-            s.pages = None
-            s.fail("internal error: serving state was reset")
-        self._admit_carry, self._waiting = [], []
+        self._fail_rows("internal error: serving state was reset")
         for src in self._sources:
             src.reset()
         if self._tier is not None:
             # Resident sessions' page ids point into the allocator being
             # rebuilt; parked payloads live on the host and survive.
             self._tier.reset_resident()
-        self._reset_device_state()
+        self._dev("reset")
+
+    def _fail_rows(self, msg: str) -> None:
+        """Fail every in-flight request and every one queued for a row."""
+        for i, s in enumerate(self._slots):
+            if s is not None:
+                s.fail(msg)
+                self._slots[i] = None
+        pc, self._prefill_carry = self._prefill_carry, None
+        for s in self._admit_carry + self._waiting + (pc.chunk if pc else []):
+            s.pages = None
+            s.fail(msg)
+        self._admit_carry, self._waiting = [], []
 
     # -- the KV tier: retain, park, wake (scheduler thread) -----------------
 
@@ -3086,7 +3451,9 @@ class BatchScheduler:
                                                       dtype=torch.int32)
         self._wake_shapes_run.add((w, S))
         self._admit_since_tick = True
-        self._install_admitted([s for s, _, _ in live],
-                               [r for _, r, _ in live], logits,
-                               wake=(t0, starts.tolist()))
+        woken = [s for s, _, _ in live]
+        rows_w = [r for _, r, _ in live]
+        self._install_admitted(woken, rows_w, self._sample_first(
+            rows_w, logits, self._sample_args(woken)),
+            wake=(t0, starts.tolist()))
         return demoted, unused

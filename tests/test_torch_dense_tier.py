@@ -48,7 +48,6 @@ from p2p_llm_chat_tpu_torch.serve.backend import (GenerateOptions,
                                                   GenerateRequest,
                                                   RequestStats)
 from p2p_llm_chat_tpu_torch.serve.engine import TorchEngine
-from p2p_llm_chat_tpu_torch.serve.scheduler import _WarmupJob
 from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
 
 torch.set_num_threads(2)
@@ -93,8 +92,7 @@ def _port_engine(params, config="tiny", **kw):
 
 def _on_loop(sched, fn):
     """Run ``fn`` on the scheduler thread between iterations."""
-    job = _WarmupJob(fn)
-    sched._admit_q.put(job)
+    job = sched.post_on_loop(fn)
     assert job.done.wait(60), "the loop never ran the job"
     if job.err is not None:
         raise job.err

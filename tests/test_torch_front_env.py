@@ -27,7 +27,7 @@ from p2p_llm_chat_tpu_torch.serve.backend import (FakeLLM, GenerateOptions,
                                                   OverloadError)
 from p2p_llm_chat_tpu_torch.serve.engine import (TorchEngine,
                                                  build_engine_from_env)
-from p2p_llm_chat_tpu_torch.serve.scheduler import BatchScheduler, _WarmupJob
+from p2p_llm_chat_tpu_torch.serve.scheduler import BatchScheduler
 from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
 
 torch.set_num_threads(2)
@@ -108,7 +108,7 @@ def _admission_prefills(engine, prompts) -> list[int]:
 
     sched._admit_chunk = counted
     hold = threading.Event()
-    sched._admit_q.put(_WarmupJob(hold.wait))
+    sched.post_on_loop(hold.wait)
     streams = [engine.generate_stream(GenerateRequest(
         prompt=p, options=GenerateOptions(max_tokens=2))) for p in prompts]
     hold.set()

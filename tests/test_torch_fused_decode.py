@@ -62,8 +62,7 @@ from p2p_llm_chat_tpu_torch.serve.backend import (GenerateOptions,
                                                   GenerateRequest,
                                                   RequestStats, collect)
 from p2p_llm_chat_tpu_torch.serve.engine import TorchEngine
-from p2p_llm_chat_tpu_torch.serve.scheduler import (BatchScheduler, _Slot,
-                                                    _WarmupJob)
+from p2p_llm_chat_tpu_torch.serve.scheduler import BatchScheduler, _Slot
 from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
 
 torch.set_num_threads(2)
@@ -448,10 +447,10 @@ def test_cancel_in_flight_and_readmit_into_the_same_row(quote):
     engine = _engine(params, 4, num_slots=1)
     sched = engine.scheduler
     hold = threading.Event()
-    sched._admit_q.put(_WarmupJob(hold.wait))
+    sched.post_on_loop(hold.wait)
     try:
         deadline = time.monotonic() + 30
-        while not sched._admit_q.empty():       # the loop took the job
+        while not sched._jobs.empty():          # the loop took the job
             assert time.monotonic() < deadline
             time.sleep(0.01)
         a = engine.generate_stream(GenerateRequest(

@@ -175,8 +175,10 @@ def test_shard_params_refuses_quantized_leaves():
     q = llama.init_params_quantized(cfg, seed=0, quant="int8",
                                     device="cpu")
     with pytest.raises(TypeError, match="plain tensors"):
-        sharding.shard_model(q, cfg, mesh.Mesh.at(mesh.MeshConfig(tp=2), 0),
-                             "cpu")
+        sharding.shard_params({"wo": q["layers"]["wo"]},
+                              {"wo": (None, "heads", "embed")},
+                              mesh.Mesh.at(mesh.MeshConfig(tp=2), 0),
+                              "cpu", config=cfg)
 
 
 def test_single_process_fallbacks(monkeypatch):

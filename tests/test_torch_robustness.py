@@ -40,7 +40,6 @@ from p2p_llm_chat_tpu_torch.serve.backend import (FakeLLM, GenerateOptions,
                                                   GenerateRequest,
                                                   RequestStats)
 from p2p_llm_chat_tpu_torch.serve.engine import TorchEngine
-from p2p_llm_chat_tpu_torch.serve.scheduler import _WarmupJob
 from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
 from p2p_llm_chat_tpu_torch.utils import backoff
 from p2p_llm_chat_tpu_torch.utils import failpoints as fp
@@ -232,11 +231,7 @@ def run(engine, prompt, max_tokens=8, **opts) -> str:
 
 
 def _on_loop(sched, fn=lambda: None):
-    job = _WarmupJob(fn)
-    sched._admit_q.put(job)
-    job.done.wait()
-    if job.err is not None:
-        raise job.err
+    sched.run_on_loop(fn)
 
 
 def _quiesce(engine) -> None:

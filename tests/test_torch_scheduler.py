@@ -25,7 +25,6 @@ from p2p_llm_chat_tpu_torch.serve.backend import (GenerateOptions,
                                                   OverloadError,
                                                   RequestStats, collect)
 from p2p_llm_chat_tpu_torch.serve.engine import TorchEngine
-from p2p_llm_chat_tpu_torch.serve.scheduler import _WarmupJob
 from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
 
 torch.set_num_threads(2)
@@ -104,7 +103,7 @@ def test_bounded_queue_sheds_at_submit(params):
     engine = _engine(params, num_slots=1, queue_max=1)
     hold = threading.Event()
     # Occupy the scheduler thread so submitted requests stay queued.
-    engine.scheduler._admit_q.put(_WarmupJob(hold.wait))
+    engine.scheduler.post_on_loop(hold.wait)
     try:
         kept = engine.generate_stream(_req("x", max_tokens=2))
         with pytest.raises(OverloadError):

@@ -206,8 +206,10 @@ def test_gpu_default_entry_point_raises_without_a_card(monkeypatch):
 
 # Features of the reference that the port now serves; a missing
 # checkpoint directory raises the reference's FileNotFoundError; the
-# others still exit with "not ported". The KV layout is pinned to
-# SERVE_KV=paged (the KV tier needs it) unless the case names it.
+# others still exit with "not ported" (SERVE_TP alone serves over its
+# own ranks, tests/test_torch_tp_engine.py; with the KV tier it is still
+# refused). The KV layout is pinned to SERVE_KV=paged (the KV tier needs
+# it) unless the case names it.
 _PORTED = ({"SERVE_SPEC": "2"}, {"SERVE_QUANT": "int4"},
            {"MODEL_CONFIG": "tiny-moe"}, {"SERVE_KV_HOST_GB": "1"},
            {"SERVE_MODELS": "a=tiny"}, {"SERVE_KV": "dense"},
@@ -216,7 +218,7 @@ _PORTED = ({"SERVE_SPEC": "2"}, {"SERVE_QUANT": "int4"},
 
 @pytest.mark.parametrize("env", [{"SERVE_SPEC": "2"},
                                  {"SERVE_KV_HOST_GB": "1"},
-                                 {"SERVE_TP": "2"},
+                                 {"SERVE_TP": "2", "SERVE_KV_HOST_GB": "1"},
                                  {"SERVE_MODELS": "a=tiny"},
                                  {"CKPT_DIR": "/nonexistent"},
                                  {"SERVE_PROFILE_PORT": "9999"},

@@ -438,5 +438,5 @@ def test_native_orbax_directory_is_refused(tmp_path):
     for load in (weights.load_checkpoint, weights.load_checkpoint_quantized):
         with pytest.raises(SystemExit, match="native Orbax"):
             load(str(tmp_path), device="cpu")
-    with pytest.raises(SystemExit, match="parallelism"):
+    with pytest.raises(SystemExit, match="native Orbax"):
         weights.load_checkpoint_streaming(str(tmp_path))
