@@ -121,7 +121,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ``raise*1`` (a streamed request ends in an error record, one
    ``failpoint_hits_total``, greedy rerun unchanged); and holds a pinned
    ``X-Graft-Trace`` request's ``api.request`` and ``sched.*`` spans on
-   ``/admin/trace``, with ``/admin/trace/dump`` writing its file;
+   ``/admin/trace``, with ``/admin/trace/dump`` writing its file. The
+   first llama3.1-8b server also serves ``SERVE_PROFILE_PORT``: after its
+   readings a third greedy rerun and a chunked prompt run under a 2 s
+   capture of the loop, whose trace must name kernels A, B and D by their
+   ``__global__`` names and the ``sched.tick`` and ``sched.chunk`` ranges;
 5. server_spec — four SERVE_SPEC=4 servers on full-width quote weights
    (models/synth.quote_params): llama3.1-8b int8 with the tree default
    (8 nodes) and linear over an int8 pool, linear over a bf16 pool with
@@ -206,7 +210,10 @@ build,kernel_b_verify,server_tier`` on the KV tier; ``--only
 build,server_ckpt,server_multi`` on checkpoints and the multi front;
 ``--only build,kernel_dense,step_dense,server_dense,server_draft`` on
 the dense path and the drafter; ``--only
-build,kernel_dense,server_tier`` on the KV tier over both layouts).
+build,kernel_dense,server_tier`` on the KV tier over both layouts;
+``--only build,kernel_b_verify,server_multihost,server_llama`` on
+``SERVE_TP``'s KV tier and session wire, the multi-process plane and the
+profiler server).
 Exits non-zero, printing no result, where no CUDA device is available.
 """
 
@@ -1023,7 +1030,8 @@ def phase_kernel_b_verify(results: dict) -> None:
     chain and tree masks (random per-row ancestry), S 2, 5, 8, 16 and 64
     (the largest speculative block, wider than D = 32), then the wake's
     S = 128 and 256 under the chain mask at R = 1 and 2 and windows of 128
-    and 2048, and S = 512 chains at W = 2048 on both pools, rep 1-8,
+    and 2048 (one on a tp = 2 rank's heads, Hq 16 over Hkv 4), and
+    S = 512 chains at W = 2048 on both pools, rep 1-8,
     D 32-128, page sizes 16, 48 and 64, windows up to 4096, NaN in every
     dead slot; each case also bitwise against a rerun, its rows' B = 1
     calls and a window twice as wide. Timed per 32-layer llama3.1-8b verify at
@@ -1064,6 +1072,9 @@ def phase_kernel_b_verify(results: dict) -> None:
         (False, 32, 8, 128, 64, 2048, 256, False, [2048, 1000]),
         (True, 32, 8, 128, 64, 2048, 128, False, [2048]),
         (False, 32, 8, 128, 64, 128, 128, False, [1, 127]),
+        # A wake on one rank of SERVE_TP = 2 (llama3.1-8b's heads cut in
+        # two: 16 query heads over 4 kv heads).
+        (True, 16, 4, 128, 64, 2048, 256, False, [1532, 64]),
         # The widest block (a drafter's 512-position catch-up feed).
         (True, 32, 8, 128, 64, 2048, 512, False, [2048, 700]),
         (False, 32, 8, 128, 48, 2048, 512, False, [1500, 1]),
@@ -3826,7 +3837,9 @@ def _server_embed(results: dict, label: str, url: str, engine, reqs,
           f"server {label}: the embeds launched kernel D "
           f"{launches.get('prefill_attention')} times")
     for name, n in launches.items():
-        rec = results[name]
+        rec = results.get(name)
+        if rec is None:             # its kernel phase did not run
+            continue
         rec.setdefault("launches_by_path", {})[f"{label} embed"] = n
         rec["launches"] = rec.get("launches", 0) + n
     for call in idle:
@@ -4000,7 +4013,8 @@ def _check_burst(label: str, reqs, answers) -> list:
 
 def phase_server(results: dict, model: str, quant: str,
                  expect: tuple[str, ...], prefill_chunk: int = 256,
-                 impl: str = "gather", kv: str = "paged") -> None:
+                 impl: str = "gather", kv: str = "paged",
+                 capture: bool = False) -> None:
     """The engine for ``model`` at ``quant`` weights (32 layers, paged KV
     — int8 under the default attend-then-write ``impl``, bf16 under a
     write-then-attend one — or, with ``kv="dense"``, the bf16 dense cache
@@ -4014,7 +4028,9 @@ def phase_server(results: dict, model: str, quant: str,
     and the other branch's attention kernel never (on the dense cache,
     neither of kernel B's paged decode modes). The co-pilot request
     must take the prefix path, and with chunking on the long prompt must
-    admit in chunks."""
+    admit in chunks. With ``capture``, the engine serves
+    ``SERVE_PROFILE_PORT`` and, after the readings, a third greedy rerun
+    runs under a 2 s capture of the loop (:func:`_server_capture`)."""
     import torch
     from p2p_llm_chat_tpu_torch.serve.api import OllamaServer
     from p2p_llm_chat_tpu_torch.serve.engine import build_engine_from_env
@@ -4031,7 +4047,9 @@ def phase_server(results: dict, model: str, quant: str,
                       SERVE_SLOTS="8",
                       SERVE_MAX_SEQ="4096", SERVE_DEVICE="cuda",
                       SERVE_PREFILL_CHUNK=str(prefill_chunk),
-                      SERVE_PREFIX="1", PAGED_ATTN_IMPL=impl)
+                      SERVE_PREFIX="1", PAGED_ATTN_IMPL=impl,
+                      SERVE_PROFILE_PORT=str(_free_port()) if capture
+                      else "0")
     print(f"server {label}: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
           "allocated before the build", flush=True)
     t0 = time.monotonic()
@@ -4076,8 +4094,9 @@ def phase_server(results: dict, model: str, quant: str,
         finals = _check_burst(f"server {label}", reqs, answers)
         # Determinism: the same greedy request twice, alone, gives the
         # same context ids.
-        ctx = [json.loads(_post(url + reqs[0][0], reqs[0][1])[1])["context"]
-               for _ in range(2)]
+        recs = [json.loads(_post(url + reqs[0][0], reqs[0][1])[1])
+                for _ in range(2)]
+        ctx = [r["context"] for r in recs]
         check(ctx[0] == ctx[1], f"server {label}: greedy reruns differ")
         launches = {name: fn.launches for name, fn in wrappers.items()}
         print(f"server {label}: {len(reqs)} concurrent requests answered in "
@@ -4104,11 +4123,7 @@ def phase_server(results: dict, model: str, quant: str,
               f"server {label}: prefill_chunks_total "
               f"{snap['prefill_chunks_total']} at SERVE_PREFILL_CHUNK="
               f"{prefill_chunk}")
-        for name, n in launches.items():
-            if n:
-                rec = results[name]
-                rec.setdefault("launches_by_path", {})[label] = n
-                rec["launches"] = rec.get("launches", 0) + n
+        _record_launches(results, label, launches)
         ttfts = [r["prompt_eval_duration"] / 1e6 for r in finals]
         print(f"server {label}: TTFT ms by request: long prompt "
               f"({finals[3]['prompt_eval_count']} tokens) {ttfts[3]:.1f}, "
@@ -4139,6 +4154,21 @@ def phase_server(results: dict, model: str, quant: str,
               f"{fused['decode_fused_mean_k']:.3f}, decode_stall_ms "
               f"{fused['decode_stall_ms']:.3f}; "
               f"{len(engine.scheduler._programs)} decode graphs")
+        if capture:
+            # After the readings above, so that they stay comparable: a
+            # third greedy rerun under a capture of the loop.
+            rec, cap = _server_capture(label, engine, url, reqs)
+            check(rec["context"] == ctx[0], f"server {label}: the greedy "
+                  "rerun under the capture differs")
+            cost = [r["eval_duration"] / 1e6 / r["eval_count"]
+                    for r in (recs[1], rec)]
+            print(f"server {label}: the greedy rerun's decode {cost[0]:.3f} "
+                  f"ms a token, {cost[1]:.3f} under the capture "
+                  f"({cost[1] / cost[0] - 1:+.1%}) [card: {card_line()}]",
+                  flush=True)
+            results.setdefault("_profile_capture", {})[label] = dict(
+                cap, rerun_token_ms=round(cost[0], 4),
+                rerun_token_ms_captured=round(cost[1], 4))
         conc = _server_embed(results, label, url, engine, reqs, expect,
                              ctx[0])
         print(f"server {label}: the burst's decode p50 {burst_p50:.3f} ms a "
@@ -4151,6 +4181,79 @@ def phase_server(results: dict, model: str, quant: str,
     finally:
         server.stop()
         engine.stop()
+        os.environ.pop("SERVE_PROFILE_PORT", None)
+
+
+# The __global__ names of kernels A, B (its append mode's split launch)
+# and D, as torch.profiler names their launches.
+CAPTURE_KERNELS = {"A": "qmm_kernel", "B": "paged_split_kernel",
+                   "D": "prefill_attn_kernel"}
+
+
+def _server_capture(label: str, engine, url: str, reqs) -> tuple:
+    """A 2 s capture through the engine's ``SERVE_PROFILE_PORT`` listener
+    (obs/profile_server.py) while the greedy rerun, then a 401-token
+    prompt (two chunks, two tokens), run: the trace must name kernels A,
+    B (append) and D by their ``__global__`` names, the decode graphs'
+    replays included, and the loop's ``sched.tick`` and ``sched.chunk``
+    ranges.
+    Returns the rerun's final record and the capture's readings (trace
+    bytes, gzip and raw, events, kernel launches, ``sched.*`` ranges, the
+    capture's wall, the loop's ms in starting and stopping it)."""
+    import gzip
+    prof_url = engine.profile_server.url
+    got: dict = {}
+
+    def take():
+        t0 = time.monotonic()
+        req = urllib.request.Request(
+            prof_url + "/profile", method="POST",
+            data=json.dumps({"duration_ms": 2000}).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                got["res"] = (r.status, r.read(),
+                              float(r.headers["X-Profile-Loop-Ms"]))
+        except Exception as e:   # noqa: BLE001 — reported by the check
+            got["res"] = (None, repr(e).encode(), None)
+        got["wall_s"] = time.monotonic() - t0
+    t = threading.Thread(target=take)
+    t.start()
+    time.sleep(0.2)
+    rec = json.loads(_post(url + reqs[0][0], reqs[0][1])[1])
+    # A 401-token prompt: two chunks of 256, then two tokens of decode.
+    long_status, _ = _post(url + "/api/generate", {
+        "prompt": LONG_PROMPT[:400], "stream": False,
+        "options": {"num_predict": 2}})
+    t.join(120)
+    check(not t.is_alive() and long_status == 200, f"server {label}: the "
+          "capture or the chunked prompt under it did not finish")
+    status, body, loop_ms = got["res"]
+    check(status == 200, f"server {label}: POST /profile answered {status}: "
+          f"{body[:200]!r}")
+    raw = gzip.decompress(body)
+    events = json.loads(raw)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    ranges = {}
+    for e in events:
+        name = e.get("name", "")
+        if name.startswith("sched."):
+            ranges[name] = ranges.get(name, 0) + 1
+    found = {k: sum(n in name for name in kernels)
+             for k, n in CAPTURE_KERNELS.items()}
+    check(all(found.values()) and ranges.get("sched.tick")
+          and ranges.get("sched.chunk"), f"server {label}: the capture "
+          f"names kernels {found} and ranges {ranges}")
+    print(f"server {label}: a 2 s capture through SERVE_PROFILE_PORT during "
+          f"the greedy rerun and a chunked prompt: {len(body)} bytes gzip "
+          f"({len(raw)} raw), {len(events)} events, {len(kernels)} kernel "
+          f"launches (A {found['A']}, B {found['B']}, D {found['D']} by "
+          f"their __global__ names), ranges {ranges}; answered in "
+          f"{got['wall_s']:.2f} s, the loop {loop_ms:.1f} ms in starting "
+          "and stopping the profiler", flush=True)
+    return rec, dict(gzip_bytes=len(body), raw_bytes=len(raw),
+                     events=len(events), kernel_launches=len(kernels),
+                     by_kernel=found, ranges=ranges,
+                     wall_s=round(got["wall_s"], 3), loop_ms=loop_ms)
 
 
 # The spec servers' burst: the chat burst's shapes with longer answers
@@ -4387,7 +4490,8 @@ def _serve_env(**kw) -> None:
     """The server phases' engine env (a later phase's settings never
     leak into the next one's build)."""
     for k in ("SERVE_SPEC", "SERVE_SPEC_TREE_NODES", "SERVE_DRAFT",
-              "SERVE_KV_HOST_GB", "CKPT_DIR", "SERVE_MODELS"):
+              "SERVE_KV_HOST_GB", "CKPT_DIR", "SERVE_MODELS",
+              "SERVE_PROFILE_PORT"):
         os.environ.pop(k, None)
     os.environ.update(SERVE_BACKEND="torch", SERVE_SLOTS="8",
                       SERVE_MAX_SEQ="4096", SERVE_DEVICE="cuda",
@@ -6504,10 +6608,13 @@ def _mh_rank_main() -> int:
 # 1,500-byte long prompt (chunked: 1501 ids in a 2048 bucket, 8 chunks of
 # 256), a short one and a seeded sampled one; the first three are greedy
 # and make the parity part's prompts.
-TP_LEG_S = 90.0
+TP_LEG_S = 110.0
 TP_ENGINE = dict(num_slots=4, max_seq=2048, page_size=64, kv_mode="paged",
                  kv_quant=True, prefix_cache=True, prefill_chunk=256,
-                 decode_fuse_max=4, attn_impl="gather")
+                 decode_fuse_max=4, attn_impl="gather", kv_host_gb=8.0,
+                 kv_idle_s=600.0)
+# The tier's second turn: a follow-up to the 1,500-byte first turn.
+TP_TIER_SUFFIX = " So, are we still on for lunch tomorrow at noon?"
 
 
 def _tp_reqs() -> list:
@@ -6543,28 +6650,88 @@ def _tp_summaries(path: str, label: str) -> list:
     return sorted(sums, key=lambda s: s["rank"])
 
 
-def _tp_contexts(eng) -> list:
+def _tp_contexts(eng) -> tuple[list, list]:
     """The leg's greedy prompts through ``eng`` one after another (the
-    same admission shapes at tp = 1 and tp = 2): each context."""
+    same admission shapes at tp = 1 and tp = 2): each context, and each
+    TTFT in ms."""
     from p2p_llm_chat_tpu_torch.serve.backend import (
         GenerateOptions, GenerateRequest, RequestStats, collect)
-    out = []
+    out, ttft = [], []
     for _, prompt, opts in _tp_reqs()[:3]:
         stats = RequestStats()
         collect(eng, GenerateRequest(prompt=prompt, model="x",
                                      options=GenerateOptions.from_ollama(
                                          opts)), stats)
         out.append(list(stats.context))
-    return out
+        ttft.append(stats.ttft_s * 1e3)
+    return out, ttft
+
+
+def _tp_turn(eng, prompt: str, ctx=()) -> tuple:
+    """One greedy 8-token turn of a conversation through ``eng``: its
+    context and TTFT in ms."""
+    from p2p_llm_chat_tpu_torch.serve.backend import (
+        GenerateOptions, GenerateRequest, RequestStats, collect)
+    stats = RequestStats()
+    collect(eng, GenerateRequest(prompt=prompt, model="x",
+                                 context=tuple(ctx),
+                                 options=GenerateOptions.from_ollama(
+                                     {"num_predict": 8})), stats)
+    return list(stats.context), stats.ttft_s * 1e3
+
+
+def _tp_tier(eng, path: str, ctx1: list, cold_ms: float) -> dict:
+    """The KV tier at tp = 2 on the leader (``--tp-rank``): the long
+    parity prompt's conversation (``ctx1``: 1502 ids admitted cold in
+    ``cold_ms``, 8 chunks of the 2048 bucket, as its follow-up's 1557
+    would take), retained under its head key, is parked alone (the park
+    op: each rank gathers its pages, the kv heads all-gathered over tp,
+    the leader's readback) and exported to ``path``; then the follow-up
+    wakes (the leader's payload broadcast over tp, each rank scattering
+    its heads, the suffix through kernel B's verify mode). Readings: the
+    park wall (its handshake with the loop included), the payload's bytes
+    per parked token, the woken and the cold TTFT and
+    ``kv_wake_p50_ms``."""
+    from p2p_llm_chat_tpu_torch.serve import kv_tier
+    sched = eng.scheduler
+    key = kv_tier.head_key(ctx1)
+    deadline = time.monotonic() + 30
+    while key not in sched.session_list():
+        check(time.monotonic() < deadline, "tp2 tier: the first turn was "
+              "never retained")
+        time.sleep(0.01)
+    check(not sched.session_list()[key]["parked"], "tp2 tier: the session "
+          "was parked before its timed park")
+    t0 = time.perf_counter()
+    sched.park_all(key=key)
+    park_ms = (time.perf_counter() - t0) * 1e3
+    check(sched.session_list()[key]["parked"], "tp2 tier: not parked")
+    data = eng.session_export(key)
+    with open(path, "wb") as f:
+        f.write(data)
+    sess = kv_tier.deserialize_session(data)
+    nbytes = sum(kv_tier.tensor_nbytes(a) for a in sess.host[0]
+                 if a is not None)
+    waked = eng.metrics_snapshot()["kv_waked_total"]
+    ctx2, wake_ms = _tp_turn(eng, TP_TIER_SUFFIX, ctx1)
+    m = eng.metrics_snapshot()
+    check(m["kv_waked_total"] == waked + 1, f"tp2 tier: the follow-up did "
+          f"not wake ({waked} -> {m['kv_waked_total']} wakes)")
+    return dict(context2=ctx2, park_ms=park_ms,
+                payload_bytes=nbytes, tokens=sess.length,
+                slots=sess.host[1] * sched.page_size, wake_ttft_ms=wake_ms,
+                cold_ttft_ms=cold_ms, kv_wake_p50_ms=m["kv_wake_p50_ms"],
+                kv_waked_total=m["kv_waked_total"])
 
 
 def _tp_rank_main() -> int:
     """One rank of the tp2_engine leg's parity part (``chip_smoke.py
     --tp-rank``): its shard of llama3.1-8b's int8 quote weights drawn on
     its card a layer at a time, the engine at tp = 2 (TP_ENGINE); the
-    leader warms it (the co-pilot prefix registered) and runs the greedy
-    prompts; every rank writes its digests, launches and peak to MH_OUT
-    and logs its summary line."""
+    leader warms it (the co-pilot prefix registered), runs the greedy
+    prompts and the KV tier's conversation (:func:`_tp_tier`); every
+    rank writes its digests, launches and peak to MH_OUT and logs its
+    summary line."""
     import torch
     from p2p_llm_chat_tpu_torch import ops
     from p2p_llm_chat_tpu_torch.models.configs import get_config
@@ -6587,7 +6754,9 @@ def _tp_rank_main() -> int:
         eng.follower_loop()
     else:
         eng.warmup((256,), background=False)
-        res["contexts"] = _tp_contexts(eng)
+        res["contexts"], ttft = _tp_contexts(eng)
+        res["tier"] = _tp_tier(eng, os.environ["MH_OUT"] + ".session",
+                               res["contexts"][1], ttft[1])
         eng.stop()
     res.update(digests=eng.scheduler.digests,
                peak_gb=torch.cuda.max_memory_allocated(dev) / 2**30,
@@ -6611,10 +6780,17 @@ def _tp2_engine_leg(results: dict, logdir: str) -> dict:
       chunks, fused ticks), one ``/api/embed``, SIGTERM -> rc 0 within
       30 s; from each rank's summary line kernels A, B (append) and D
       launched, the token digests equal on both ranks, the peak;
+    - the KV tier on (``SERVE_KV_HOST_GB``): a conversation parked
+      between its turns (by its ``/admin/session/export``) whose second
+      turn wakes (``kv_waked_total`` >= 1);
     - parity: the greedy prompts on int8 quote weights through two
       ``--tp-rank`` ranks, then (after they exit) a tp = 1 engine on the
       same weights: equal contexts, or parting on a near tie as
-      :func:`_against_cold` judges it."""
+      :func:`_against_cold` judges it; the ranks' tier conversation
+      (:func:`_tp_tier`: the long prompt's session parked, exported and
+      its follow-up woken, timed)
+      and its session imported at tp = 1, woken to tp = 2's reply token
+      for token."""
     from p2p_llm_chat_tpu_torch.models.configs import get_config
     from p2p_llm_chat_tpu_torch.models.synth import quote_params
     from p2p_llm_chat_tpu_torch.serve.engine import TorchEngine
@@ -6632,7 +6808,8 @@ def _tp2_engine_leg(results: dict, logdir: str) -> dict:
                     SERVE_KV_QUANT="int8", MODEL_CONFIG="llama3.1-8b",
                     SERVE_PREFIX="1", SERVE_PREFILL_CHUNK="256",
                     SERVE_FUSE="4", SERVE_MAX_SEQ="2048", SERVE_SLOTS="4",
-                    SERVE_WARMUP="256", SERVE_ADDR=f"127.0.0.1:{sport}"),
+                    SERVE_WARMUP="256", SERVE_KV_HOST_GB="4",
+                    SERVE_ADDR=f"127.0.0.1:{sport}"),
         stdout=log, stderr=subprocess.STDOUT), log)]
     reqs = _tp_reqs()
     try:
@@ -6673,6 +6850,26 @@ def _tp2_engine_leg(results: dict, logdir: str) -> dict:
                                               "input": ["see you at noon"]})
         check(st == 200 and len(json.loads(body)["embeddings"][0])
               == get_config("llama3.1-8b").hidden_size, f"{leg}: embed")
+        # The KV tier: a conversation parked between its turns (its
+        # export parks it: the park op over both ranks) whose second turn
+        # wakes.
+        rec = _tier_gen(leg, url, "remind me what we said about lunch",
+                        "tp-conv", n=4)
+        # Retention runs on the loop once the stream has closed.
+        while "sid:tp-conv" not in json.loads(_get(
+                url + "/admin/session")[1])["sessions"]:
+            check(time.monotonic() < deadline, f"{leg}: the first turn's "
+                  "session was never retained")
+            time.sleep(0.05)
+        st, _ = _status("GET", url + "/admin/session/export?key=sid:tp-conv")
+        check(st == 200, f"{leg}: the session's export answered {st}")
+        _tier_gen(leg, url, " and dinner?", "tp-conv", rec["context"], n=4)
+        tier_m = _metrics(url)
+        waked = float(tier_m["kv_waked_total"])
+        check(waked >= 1 and float(tier_m["kv_parked_total"]) >= 1,
+              f"{leg}: the second turn did not wake a parked session "
+              f"(kv_waked_total {waked}, kv_parked_total "
+              f"{tier_m['kv_parked_total']})")
         procs[0][0].send_signal(15)
         _mh_wait(procs, time.monotonic() + 30, f"{leg} after SIGTERM")
     finally:
@@ -6695,7 +6892,8 @@ def _tp2_engine_leg(results: dict, logdir: str) -> dict:
           f"ready in {t_ready:.1f} s, 4 requests in {burst_s:.2f} s (TTFT "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in ttft.items())
           + f"), prefix admits {admits:.0f}, prefill chunks {chunks:.0f}, "
-          f"fused ticks {fused:.0f}, embed answered, SIGTERM -> rc 0; "
+          f"fused ticks {fused:.0f}, embed answered, a parked conversation's "
+          f"second turn woken (kv_waked_total {waked:.0f}), SIGTERM -> rc 0; "
           + "; ".join(f"rank {s['rank']}: decode step p50 "
                       f"{s['step_ms_p50']:.2f} ms, of it in collectives "
                       f"{s['collective_ms_p50']:.2f} ms ({s['steps']} "
@@ -6741,9 +6939,24 @@ def _tp2_engine_leg(results: dict, logdir: str) -> dict:
     one = TorchEngine(quote_params(cfg, seed=0, quant="int8", device="cuda"),
                       cfg, ByteTokenizer(cfg.vocab_size), device="cuda",
                       **TP_ENGINE)
+    tier = ranks[0]["tier"]
     try:
         one.warmup((256,), background=False)
-        want = _tp_contexts(one)
+        # The session parked at tp = 2, imported here and woken: the reply
+        # of tp = 2's own wake, token for token. (First: the parity run
+        # below retains its own copy of the long prompt's conversation,
+        # which an import would not replace.)
+        with open(os.path.join(logdir, f"{leg}_parity0.json.session"),
+                  "rb") as f:
+            check(one.session_import(f.read()) is not None,
+                  f"{leg}: the tp = 2 session did not import at tp = 1")
+        moved, _ = _tp_turn(one, TP_TIER_SUFFIX, ranks[0]["contexts"][1])
+        check(one.metrics_snapshot()["kv_waked_total"] == 1,
+              f"{leg}: the imported session did not wake at tp = 1")
+        check(moved == tier["context2"], f"{leg}: the tp = 2 session woken "
+              f"at tp = 1 parts from tp = 2's reply at context position "
+              f"{_first_diff(moved, tier['context2'])}")
+        want, _ = _tp_contexts(one)
         lines = []
         for (label, prompt, _), cold, got in zip(_tp_reqs(), want,
                                                  ranks[0]["contexts"]):
@@ -6761,6 +6974,23 @@ def _tp2_engine_leg(results: dict, logdir: str) -> dict:
           + ", ".join(f"{r['peak_gb']:.1f}" for r in ranks)
           + f" GB; the leg in {time.monotonic() - t_leg:.0f} s [card: "
           f"{card_line()}]", flush=True)
+    n_new = len(tier["context2"]) - len(ranks[0]["contexts"][1])
+    print(f"server_multihost {leg} tier (int8 quote weights, int8 pool): "
+          f"a {tier['tokens']}-token session parked in "
+          f"{tier['park_ms']:.1f} ms (park_all of one key: the loop's "
+          f"handshake, the gather on both ranks, the kv heads all-gathered "
+          f"over gloo, the leader's readback), {tier['payload_bytes']} bytes "
+          f"all-gathered = {tier['payload_bytes'] / tier['tokens']:.0f} "
+          f"bytes per parked token ({tier['slots']} slots in its pages); "
+          f"the follow-up ({n_new} ids more) woken: TTFT "
+          f"{tier['wake_ttft_ms']:.1f} ms (kv_wake_p50_ms "
+          f"{tier['kv_wake_p50_ms']}) against the cold first turn's "
+          f"{tier['cold_ttft_ms']:.1f} ms (the same bucket and chunks); "
+          "exported, imported at tp = 1 and woken there: the reply "
+          f"equal to tp = 2's, token for token [card: {card_line()}]",
+          flush=True)
+    out["tier"] = {k: (round(v, 3) if isinstance(v, float) else v)
+                   for k, v in tier.items() if not k.startswith("context")}
     out["parity_peak_gb"] = [round(r["peak_gb"], 2) for r in ranks]
     out["leg_s"] = round(time.monotonic() - t_leg, 1)
     return out
@@ -7060,7 +7290,8 @@ def main() -> int:
         ("step_dense", lambda: phase_step_dense("mixtral-8x7b", "int4")),
         ("server_llama", lambda: phase_server(
             results, "llama3.1-8b", "int8",
-            ("quant_matmul", "paged_attention_append", "prefill_attention"))),
+            ("quant_matmul", "paged_attention_append", "prefill_attention"),
+            capture=True)),
         ("server_llama", lambda: phase_server(
             results, "llama3.1-8b", "int8",
             ("quant_matmul", "paged_attention_append", "prefill_attention"),
@@ -7100,13 +7331,6 @@ def main() -> int:
                                                           "int8")),
     ]
     try:
-        if phases & (set(PHASES["server"]) - {"server_spec", "server_tier",
-                                              "server_ckpt", "server_multi",
-                                              "server_dense",
-                                              "server_draft",
-                                              "server_multihost"}):
-            check(set(PHASES["kernel"]) <= phases, "the server phases "
-                  "report into the kernel phases' results; run all of them")
         for name, run in runs:
             if name in phases:
                 print(f"{name}:", flush=True)

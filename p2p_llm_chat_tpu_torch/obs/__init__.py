@@ -14,6 +14,9 @@ Two complementary observability planes:
   demand. Answers "what was the loop doing when it hung" after the
   fact, with zero steady-state cost beyond a deque append.
 
+:mod:`.profile_server` is the live ``torch.profiler`` capture of the
+serving loop behind ``SERVE_PROFILE_PORT``.
+
 docs/observability.md carries the span taxonomy, the header contract,
 and the flight-recorder runbook.
 """

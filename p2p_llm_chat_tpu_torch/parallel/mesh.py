@@ -11,8 +11,9 @@ lines. A size-1 axis has no group, and a mesh of one rank none at all:
 the model code treats it as no mesh.
 
 The :class:`Mesh` is also where the collectives live (:meth:`Mesh.
-all_reduce`, :meth:`Mesh.all_gather`): every one the model forms and the
-multi-process plane run goes through it, so it can time them
+all_reduce`, :meth:`Mesh.all_gather`, :meth:`Mesh.broadcast`): every one
+the model forms, the multi-process plane and the tensor-parallel KV tier
+run goes through it, so it can time them
 (:meth:`Mesh.take_collective_ms`).
 """
 
@@ -132,6 +133,19 @@ class Mesh:
         with self._timing(x):
             torch.distributed.all_gather(parts, x, group=g)
         return torch.cat(parts, dim=dim)
+
+    def broadcast(self, x: torch.Tensor, axes, src: int = 0
+                  ) -> torch.Tensor:
+        """``x`` of the line's rank at index ``src`` along ``axes`` on every
+        rank of the line, in place (``x`` contiguous); ``x`` itself where
+        the line is this rank alone."""
+        g = self.group(axes)
+        if g is None:
+            return x
+        with self._timing(x):
+            torch.distributed.broadcast(
+                x, torch.distributed.get_global_rank(g, src), group=g)
+        return x
 
     def drop_collective_timing(self) -> None:
         """Forget the collectives timed since the last take (their events

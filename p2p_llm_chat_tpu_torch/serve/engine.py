@@ -32,9 +32,11 @@ target's vocabulary, a checkpoint directory loads through
 models/weights.py at ``SERVE_QUANT``; a draft that fails to load, or does
 not fit the target, leaves n-gram-only speculation, as in the reference.
 Features of the reference that later slices port fail loudly when asked
-for explicitly (``SERVE_PROFILE_PORT>0``; a native Orbax ``CKPT_DIR``;
-under ``SERVE_TP`` the KV tier, ``SERVE_MODELS`` and the session and
-prefix wire).
+for explicitly (a native Orbax ``CKPT_DIR``; ``SERVE_MODELS`` under
+``SERVE_TP``). ``SERVE_PROFILE_PORT=N`` starts the live profiler server
+on port N (obs/profile_server.py: ``POST /profile`` captures
+``torch.profiler`` over the serving loop; the reference's speaks xprof's
+protocol instead), on the leader only under ``SERVE_TP``.
 
 ``SERVE_TP = t > 1`` (without ``SERVE_COORDINATOR``, which builds the
 lockstep plane of serve/multihost.py instead) serves this engine over t
@@ -46,7 +48,9 @@ models/weights.load_checkpoint_streaming), and the scheduler's device ops
 stream to them (serve/tp.py). The reference lays ``dp = n // tp``
 replicas of the batch over a host's other chips; they compute the same
 rows, so the port serves ``dp = 1`` and logs it. ``SERVE_DRAFT`` is
-ignored under tp with the reference's warning. ``SERVE_ADMIT_CHUNK`` caps the rows
+ignored under tp with the reference's warning. The KV tier, the session
+and prefix wire and the prefill replica class run under tp over the kv
+heads' shards (serve/scheduler.py). ``SERVE_ADMIT_CHUNK`` caps the rows
 of each admission prefill, and ``SERVE_WARMUP`` (default ``128,256``)
 names the warmup buckets, as in the reference. Prompt
 admission runs the reference's defaults: chunked prefill
@@ -225,6 +229,9 @@ class TorchEngine:
         self.load_stats: Optional[dict] = None
         # The follower processes this rank started (a local tp world).
         self.followers: list = []
+        # The SERVE_PROFILE_PORT listener (obs/profile_server.py), closed
+        # by stop().
+        self.profile_server = None
 
     # -- tensor parallelism (serve/tp.py) ---------------------------------
 
@@ -421,37 +428,14 @@ class TorchEngine:
         return None if store is None else store.hashes()
 
     def prefix_export(self, h: str) -> Optional[bytes]:
-        """One entry's wire payload. Its k/v copy off the card on this
-        (HTTP) thread, under the scheduler's capture lock, as an embed's
-        work does, so no copy lands inside a decode-graph capture."""
-        sched = self.scheduler
-        if sched._prefix is None:
-            return None
-        self._refuse_under_tp("prefix export")
-        with sched.capture_lock:
-            return sched._prefix.export_payload(h)
+        """One entry's wire payload (scheduler.prefix_export)."""
+        return self.scheduler.prefix_export(h)
 
     def prefix_import(self, data: bytes):
         """Install a peer's exported prefix entry on this engine's device
-        (the store locks; the loop reads entries between admissions; the
-        copy onto the card holds the capture lock, as in
-        :meth:`prefix_export`). None on a malformed payload or one of
+        (scheduler.prefix_import). None on a malformed payload or one of
         another geometry."""
-        sched = self.scheduler
-        if sched._prefix is None:
-            return None
-        self._refuse_under_tp("prefix import")
-        cfg = self.config
-        with sched.capture_lock:
-            return sched._prefix.import_payload(
-                data, device=sched.device,
-                geometry=(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim))
-
-    def _refuse_under_tp(self, what: str) -> None:
-        """The wire formats carry every kv head; a rank holds its share
-        (gathering the shards for the wire is queued work)."""
-        if self.mesh is not None:
-            raise RuntimeError(_not_in_slice_text(f"{what} under SERVE_TP"))
+        return self.scheduler.prefix_import(data)
 
     # -- sessions: migration and disaggregated prefill (serve/kv_tier.py) ---
 
@@ -486,18 +470,18 @@ class TorchEngine:
         return self.scheduler.draining
 
     def stop(self) -> None:
+        if self.profile_server is not None:
+            self.profile_server.stop()
+            self.profile_server = None
         self.scheduler.stop()
 
 
-def _not_in_slice_text(what: str) -> str:
-    return (f"{what} is not ported to the PyTorch engine yet "
-            "(p2p_llm_chat_tpu_torch serves llama and mixtral models from a "
-            "dense KV cache or a paged KV pool, on one card or over SERVE_TP "
-            "ranks, in this version)")
-
-
 def _not_in_slice(what: str) -> SystemExit:
-    return SystemExit(_not_in_slice_text(what))
+    return SystemExit(
+        f"{what} is not ported to the PyTorch engine yet "
+        "(p2p_llm_chat_tpu_torch serves llama and mixtral models from a "
+        "dense KV cache or a paged KV pool, on one card or over SERVE_TP "
+        "ranks, in this version)")
 
 
 def is_ckpt_ref(ref: str) -> bool:
@@ -618,26 +602,17 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
     spec_tree_gap = env_float("SERVE_SPEC_TREE_GAP", 4.0)
     tp = env_int("SERVE_TP", 1)
     if tp > 1:
-        # What the wire formats and the tier would need the shards
-        # gathered for stays refused, before any follower starts.
-        if env_float("SERVE_KV_HOST_GB", 0.0) > 0:
-            raise _not_in_slice("the KV tier (SERVE_KV_HOST_GB > 0) under "
-                                "SERVE_TP")
+        # One op stream per model on the same ranks is queued work:
+        # refused before any follower starts.
         if env_or("SERVE_MODELS", ""):
             raise _not_in_slice("multi-model serving (SERVE_MODELS) under "
-                                "SERVE_TP")
-        if env_or("SERVE_REPLICA_CLASS", "mixed").strip().lower() \
-                == "prefill":
-            raise _not_in_slice("the prefill replica class "
-                                "(SERVE_REPLICA_CLASS=prefill) under "
                                 "SERVE_TP")
         if draft_ref:
             log.warning("SERVE_DRAFT is single-card only (the drafter does "
                         "not shard); ignoring it under SERVE_TP>1 — n-gram-"
                         "only speculation")
             draft_ref = ""
-    if env_int("SERVE_PROFILE_PORT", 0) > 0:
-        raise _not_in_slice("the live profiler server (SERVE_PROFILE_PORT)")
+    profile_port = env_int("SERVE_PROFILE_PORT", 0)
     quant = env_or("SERVE_QUANT", "")
     if quant not in ("", "int8", "int4"):
         raise SystemExit(f"SERVE_QUANT must be one of '', 'int8', 'int4'; "
@@ -820,6 +795,18 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
                 name)
     if mesh is not None:
         engine.followers = followers
+    if profile_port > 0 and (mesh is None or mesh.rank == 0):
+        # The live profiler server, on its own port as the reference's;
+        # under tp on the leader, whose loop drives every rank.
+        from ..obs.profile_server import ProfileServer
+        targets = ({tag: b.scheduler for tag, b in engine.backends.items()}
+                   if specs else {engine.name: engine.scheduler})
+        try:
+            engine.profile_server = ProfileServer(
+                targets, f"0.0.0.0:{profile_port}").start()
+        except BaseException:
+            engine.stop()
+            raise
     warm = env_or("SERVE_WARMUP", "128,256")
     if warm and warm != "0":
         engine.warmup(tuple(int(b) for b in warm.split(",") if b.strip()))

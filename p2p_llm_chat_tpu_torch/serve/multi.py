@@ -45,6 +45,9 @@ class MultiBackend:
                              f"{sorted(self.backends)}")
         self.name = self.default
         self._warmup_error: Optional[BaseException] = None
+        # The SERVE_PROFILE_PORT listener over every engine's loop
+        # (obs/profile_server.py), closed by stop().
+        self.profile_server = None
 
     def for_model(self, model: str) -> Backend:
         """Exact tag match, else the default (drop-in fallback)."""
@@ -146,6 +149,9 @@ class MultiBackend:
                 fn()
 
     def stop(self) -> None:
+        if self.profile_server is not None:
+            self.profile_server.stop()
+            self.profile_server = None
         for b in self.backends.values():
             fn = getattr(b, "stop", None)
             if fn is not None:

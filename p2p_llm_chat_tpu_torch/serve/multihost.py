@@ -41,6 +41,17 @@ Each round and decode step is timed on the host clock (both end in the
 host readback of the gathered logits), and the collectives inside a step
 by CUDA events on the card (parallel/mesh.Mesh.take_collective_ms). Each
 rank logs them with its kernels' launch counts when it closes.
+
+A failed round ends the plane (a deliberate divergence from the
+reference, whose follower logs the failure and waits for the next
+broadcast). A round issues its collectives one at a time from Python, so
+a rank that failed partway leaves its peers waiting in a collective, or
+pairing their next ones with its leftovers: no rank can realign. A
+follower whose round fails logs it, leaves the world and raises, so its
+process exits non-zero; the leader's collectives then fail. A leader
+whose round fails (its own fault, or a follower gone) fails the batch
+and every queued request, turns not ready, refuses new work and leaves
+the world, which ends the followers' waits with an error.
 """
 
 from __future__ import annotations
@@ -183,6 +194,8 @@ class MultihostEngine:
         self._q: "queue.Queue" = queue.Queue()
         self._dispatcher: Optional[threading.Thread] = None
         self._stopped = threading.Event()
+        # A round failed: the plane stopped for good (not a shutdown).
+        self._down = False
         self._requests_served = 0       # owned-by: _dispatch_loop
         self._batched_rounds = 0        # owned-by: _dispatch_loop
         self._rows_served_total = 0     # owned-by: _dispatch_loop
@@ -427,8 +440,10 @@ class MultihostEngine:
                 except Exception as e:        # noqa: BLE001
                     log.exception("multihost embed round failed")
                     item.error = e
-                finally:
                     item.event.set()
+                    self._end_plane(held)
+                    return
+                item.event.set()
                 continue
             batch = [item]
             deadline = time.monotonic() + self.window_s
@@ -453,12 +468,13 @@ class MultihostEngine:
                 results = self._run_cmd(self._broadcast(self._pack(batch)))
                 self._batched_rounds += 1
                 self._rows_served_total += len(batch)
-            except Exception as e:            # deliver, don't kill the loop
+            except Exception as e:            # noqa: BLE001
                 log.exception("multihost round failed")
                 for p in batch:
                     p.error = e
                     p.event.set()
-                continue
+                self._end_plane(held)
+                return
             # Per-row post-processing fails alone.
             for p, ids in zip(batch, results):
                 try:
@@ -471,11 +487,41 @@ class MultihostEngine:
                 finally:
                     p.event.set()
 
+    def _end_plane(self, held: deque) -> None:
+        """The leader's end of the plane after a failed round: the ranks
+        may have stopped at different collectives of it, so none can
+        realign. Every held and queued request fails, the engine turns
+        not ready and refuses new work, and this rank leaves the world,
+        which ends the followers' waits with an error."""
+        log.error("a lockstep round failed; the plane stops and this rank "
+                  "leaves the world")
+        self._down = True
+        self._stopped.set()
+        err = RuntimeError("internal error: the multihost plane stopped")
+        while True:
+            try:
+                item = held.popleft() if held else self._q.get_nowait()
+            except queue.Empty:
+                break
+            if item is not _SHUTDOWN:
+                item.error = err
+                item.event.set()
+        from ..parallel.distributed import leave_world
+        leave_world()
+
     # -- Backend protocol (leader) -----------------------------------------
 
     def _leader_only(self) -> None:
         if self.is_follower:
             raise RuntimeError("only the leader (rank 0) serves HTTP")
+        if self._down:
+            raise RuntimeError("the multihost plane stopped after a failed "
+                               "round")
+
+    def ready(self) -> bool:
+        """Taking work: false once the plane stopped (shutdown or a failed
+        round)."""
+        return not self._stopped.is_set()
 
     def generate_stream(self, req: GenerateRequest,
                         stats: Optional[RequestStats] = None) -> Iterator[str]:
@@ -513,7 +559,11 @@ class MultihostEngine:
 
     def follower_loop(self) -> None:
         """Run on every rank but the leader: join each broadcast and
-        mirror the leader's programs until shutdown."""
+        mirror the leader's programs until shutdown. A round that fails
+        is logged, this rank leaves the world and the error is raised
+        (the process exits non-zero): its peers may wait in a collective
+        it never reached, so it cannot realign (the module's
+        docstring)."""
         if not self.is_follower:
             raise RuntimeError("the leader does not follow")
         log.info("multihost follower %d/%d ready", self.mesh.rank,
@@ -526,15 +576,13 @@ class MultihostEngine:
                 return
             try:
                 self._run_cmd(got)
-            except Exception:                 # noqa: BLE001
-                # A failed round (e.g. out of memory) raises the same
-                # error at the same point on every rank (same programs,
-                # same inputs), so every rank abandons it there and
-                # realigns on the next broadcast, as the leader does. A
-                # failure of one rank alone still desyncs the mesh: the
-                # fault boundary of a lockstep front.
-                log.exception("follower %d: round failed; realigning",
+            except Exception:
+                log.exception("follower %d: round failed; leaving the world "
+                              "(a rank cannot rejoin the lockstep partway)",
                               self.mesh.rank)
+                from ..parallel.distributed import leave_world
+                leave_world()
+                raise
 
     def render_chat(self, messages: list[dict]) -> str:
         from .engine import default_chat_prompt

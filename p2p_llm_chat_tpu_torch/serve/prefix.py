@@ -199,36 +199,42 @@ class PrefixStore:
             return {e.token_hash: {"len": e.length, "hits": e.hits}
                     for e in self._entries.values()}
 
-    def export_payload(self, h: str) -> Optional[bytes]:
+    def export_payload(self, h: str, gather=None) -> Optional[bytes]:
         """One entry (by token hash) for a peer replica: ids and k/v as
         float32 with the entry's dtype name, in an npz. None = not
-        cached. The members are stored, not deflated: deflating a
-        512-token llama3.1-8b entry (134 MB of f32) takes 30 s or more of
-        host CPU, past the 30 s a peer's pull waits; ``np.load`` reads
-        either form, the reference's importer included."""
+        cached. ``gather(entry)``: the entry's (k, v) with every kv head
+        where the entry holds a shard of them (tensor parallelism). The
+        members are stored, not deflated: deflating a 512-token
+        llama3.1-8b entry (134 MB of f32) takes 30 s or more of host CPU,
+        past the 30 s a peer's pull waits; ``np.load`` reads either form,
+        the reference's importer included."""
         with self._lock:
             entry = next((e for e in self._entries.values()
                           if e.token_hash == h), None)
         if entry is None:
             return None
+        k, v = (entry.k, entry.v) if gather is None else gather(entry)
         buf = io.BytesIO()
         np.savez(
             buf, version=np.int64(_WIRE_VERSION),
             ids=np.asarray(entry.ids, np.int64),
             dtype=np.bytes_(_WIRE_NAMES[entry.k.dtype].encode()),
-            k=entry.k.detach().float().cpu().numpy(),
-            v=entry.v.detach().float().cpu().numpy())
+            k=k.detach().float().cpu().numpy(),
+            v=v.detach().float().cpu().numpy())
         return buf.getvalue()
 
     def import_payload(self, data: bytes,
                        device: Optional[torch.device | str] = None,
-                       geometry: Optional[tuple[int, int, int]] = None
-                       ) -> Optional[PrefixEntry]:
+                       geometry: Optional[tuple[int, int, int]] = None,
+                       place=None) -> Optional[PrefixEntry]:
         """Install a peer's exported entry on ``device`` in the payload's
         dtype (idempotent: a cached head is replaced by the same KV).
         Returns the entry, or None on a malformed or other-version
         payload, or one whose k/v are not ``geometry`` = (layers, kv
-        heads, head dim) when given."""
+        heads, head dim) when given. ``place(ids, k, v)``: the entry's
+        (k, v) on the device from the whole host arrays in the entry's
+        dtype, where the entry holds a shard of the heads (tensor
+        parallelism)."""
         try:
             with np.load(io.BytesIO(data)) as z:
                 if int(z["version"]) != _WIRE_VERSION:
@@ -245,7 +251,11 @@ class PrefixStore:
         if geometry is not None and (k.shape[0], *k.shape[2:]) != tuple(
                 geometry):
             return None
-        entry = PrefixEntry(ids=ids, k=k.to(device=device, dtype=dtype),
-                            v=v.to(device=device, dtype=dtype))
+        if place is None:
+            k, v = k.to(device=device, dtype=dtype), v.to(device=device,
+                                                          dtype=dtype)
+        else:
+            k, v = place(ids, k.to(dtype), v.to(dtype))
+        entry = PrefixEntry(ids=ids, k=k, v=v)
         self.put(entry)
         return entry

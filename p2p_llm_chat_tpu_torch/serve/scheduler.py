@@ -117,7 +117,20 @@ rank from the gathered logits, the same bytes everywhere, so no follower
 reads a token back; each rank folds what it sampled into a running
 digest, compared at shutdown. Under tp the decode and spec programs run
 eagerly (gloo's host staging cannot be captured in a CUDA graph), and the
-KV tier and the draft model are refused (the engine's build).
+draft model is refused (the engine's build ignores ``SERVE_DRAFT``).
+
+The KV tier runs under tp as on one card: its index, policies and host
+bytes are the leader's, and every payload keeps the one-card wire format
+with every kv head. A park gathers each rank's pages (or dense row) and
+all-gathers the kv-head axis over ``tp`` in rank order; only the leader
+reads the result back. A wake, an import or a prefix import broadcasts the
+leader's arrays over ``tp`` as tensors (never in the op blob), and each
+rank scatters its own heads; the wake's forward then runs as an op like
+a tick. Page ids are host values in every op, so every rank's pool
+agrees; freeing pages and forgetting a session change host state only.
+
+Every op runs under ``torch.profiler.record_function("sched.<op>")``, so
+a capture of the loop (obs/profile_server.py) names the scheduler's work.
 """
 
 from __future__ import annotations
@@ -361,8 +374,30 @@ class _WarmupJob:
             self.done.set()
 
 
+class _Payload:
+    """Host or device arrays the leader hands every rank inside an op (a
+    parked session, a prefix entry). In the op blob they ride as their
+    (shape, dtype) only; the arrays follow as broadcasts over ``tp``
+    (:meth:`BatchScheduler._receive`), so a 100 MB session is never
+    pickled."""
+
+    __slots__ = ("arrays", "spec")
+
+    def __init__(self, arrays: tuple) -> None:
+        self.arrays = arrays
+        self.spec = tuple(None if a is None else (tuple(a.shape), a.dtype)
+                          for a in arrays)
+
+    def __getstate__(self) -> tuple:
+        return self.spec
+
+    def __setstate__(self, spec: tuple) -> None:
+        self.spec = spec
+        self.arrays = None
+
+
 # Device ops (serve/tp.py's op names) -> the BatchScheduler method each
-# runs; every argument is a host value.
+# runs; every argument is a host value (a _Payload's arrays follow it).
 _OPS = {
     "reset": "_reset_device_state",
     "warm_prefill": "_dev_warm_prefill",
@@ -375,6 +410,13 @@ _OPS = {
     "spec": "_dev_spec",
     "release": "_dev_release",
     "embed": "_dev_embed",
+    "park": "_dev_park",
+    "park_row": "_dev_park_row",
+    "wake_kv": "_dev_wake_kv",
+    "wake_row": "_dev_wake_row",
+    "wake": "_dev_wake",
+    "prefix_gather": "_dev_prefix_gather",
+    "prefix_place": "_dev_prefix_place",
 }
 
 
@@ -486,14 +528,18 @@ class BatchScheduler:
                              "dense cache is bf16)")
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self._tp = self.mesh is not None
-        if self._tp and ((kv_host_gb or 0) > 0 or drafter is not None):
-            raise ValueError("the KV tier and the draft model do not run "
-                             "under tensor parallelism")
+        if self._tp and drafter is not None:
+            raise ValueError("the draft model does not run under tensor "
+                             "parallelism")
         self._follower = self._tp and follower
-        if self._tp and not self._follower:
+        # Ways the KV cache's kv heads are cut over tp (1: whole on every
+        # rank): what a park all-gathers and a wake slices.
+        self._kv_ways = 1
+        if self._tp:
             from ..parallel.sharding import Split
             split = Split.of(config, self.mesh)
-            if split is None or split.layers == 1:
+            self._kv_ways = split.layers if split is not None else 1
+            if self._kv_ways == 1 and not self._follower:
                 log.info("tp=%d does not divide %s's heads, kv heads and "
                          "FFN: every rank computes the whole layers",
                          self.mesh.shape["tp"], config.name)
@@ -797,21 +843,65 @@ class BatchScheduler:
         may have stopped at different collectives of it, so no later op
         may run (the loop ends the plane, :meth:`_end_plane`)."""
         ch = self._channel
-        if ch is None:
-            return getattr(self, _OPS[op])(*args)
-        if ch.down:
-            raise RuntimeError("the tensor-parallel plane is down")
-        try:
-            ch.send(op, tuple(
-                a.ids if isinstance(a, PrefixEntry) else a for a in args))
-            return getattr(self, _OPS[op])(*args)
-        except BaseException:
-            ch.down = True
-            raise
+        with torch.profiler.record_function(f"sched.{op}"):
+            if ch is None:
+                return getattr(self, _OPS[op])(*args)
+            if ch.down:
+                raise RuntimeError("the tensor-parallel plane is down")
+            try:
+                ch.send(op, tuple(
+                    a.ids if isinstance(a, PrefixEntry) else a for a in args))
+                return getattr(self, _OPS[op])(*args)
+            except BaseException:
+                ch.down = True
+                raise
 
     def run_op(self, op: str, args: tuple) -> None:
         """A follower's mirror of one leader op (serve/tp.py)."""
-        getattr(self, _OPS[op])(*args)
+        with torch.profiler.record_function(f"sched.{op}"):
+            getattr(self, _OPS[op])(*args)
+
+    # The kv-head axis of the tier's payloads (tensor parallelism): a
+    # payload holds every head; this rank's cache holds 1 / _kv_ways of
+    # them, heads [r·H/t, (r+1)·H/t) on the rank at tp index r.
+
+    def _heads_whole(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's ``x`` with every kv head along ``dim``: the ranks'
+        heads all-gathered over tp in rank order (collective)."""
+        if self._kv_ways == 1:
+            return x
+        return self.mesh.all_gather(x, "tp", dim)
+
+    def _heads_mine(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's heads of a whole ``x`` along ``dim``."""
+        if self._kv_ways == 1:
+            return x
+        n = x.shape[dim] // self._kv_ways
+        return x.narrow(dim, self.mesh.index("tp") * n, n)
+
+    def _whole_shape(self, t: torch.Tensor, dim: int) -> tuple:
+        """``t``'s shape with every kv head along ``dim``."""
+        shape = list(t.shape)
+        shape[dim] *= self._kv_ways
+        return tuple(shape)
+
+    def _receive(self, payload: _Payload) -> tuple:
+        """A payload's arrays on this rank's device: the upload on one
+        card; under tensor parallelism the leader's arrays broadcast over
+        tp (collective; the leader passes host or device arrays, a
+        follower only their spec)."""
+        out = []
+        for i, spec in enumerate(payload.spec):
+            if spec is None:
+                out.append(None)
+            elif payload.arrays is not None:
+                t = payload.arrays[i].to(self.device, non_blocking=True)
+                out.append(self.mesh.broadcast(t.contiguous(), "tp")
+                           if self._tp else t)
+            else:
+                t = torch.empty(spec[0], dtype=spec[1], device=self.device)
+                out.append(self.mesh.broadcast(t, "tp"))
+        return tuple(out)
 
     def post_on_loop(self, fn) -> _WarmupJob:
         """Queue ``fn()`` for the scheduler thread, which runs it at the
@@ -900,13 +990,35 @@ class BatchScheduler:
         _, k_all, v_all = self._family.prefill(
             self._params, self.config, toks, lens, last_only=True,
             mesh=self.mesh)
-        kv = (k_all[:, 0].contiguous(), v_all[:, 0].contiguous())
+        return self._keep_prefix(ids, keep, (k_all[:, 0].contiguous(),
+                                             v_all[:, 0].contiguous()))
+
+    def _keep_prefix(self, ids: tuple, keep: Optional[list],
+                     kv: tuple) -> tuple:
+        """A follower keeps prefix ``kv`` under ``ids`` and drops the
+        entries outside ``keep``; returns ``kv``."""
         if self._follower:
             live = set(keep or ()) | {ids}
             for key in [k for k in self._prefix_dev if k not in live]:
                 del self._prefix_dev[key]
             self._prefix_dev[ids] = kv
         return kv
+
+    def _dev_prefix_gather(self, prefix) -> tuple:
+        """A cached prefix's (k, v) [L, P, Hkv, D] with every kv head, for
+        the prefix wire (the leader reads it back)."""
+        k, v = self._prefix_kv(prefix)
+        return self._heads_whole(k, 2), self._heads_whole(v, 2)
+
+    def _dev_prefix_place(self, ids: tuple, payload: _Payload,
+                          keep: Optional[list]) -> tuple:
+        """An imported prefix entry's (k, v) with every kv head (the
+        leader's arrays, broadcast): this rank's heads, kept by a
+        follower under ``ids``."""
+        k, v = self._receive(payload)
+        return self._keep_prefix(ids, keep, (
+            self._heads_mine(k, 2).contiguous(),
+            self._heads_mine(v, 2).contiguous()))
 
     def _dev_release(self, row: int) -> None:
         zero_row(self._cache, row)
@@ -1528,6 +1640,43 @@ class BatchScheduler:
         except Exception:   # noqa: BLE001 — promotion is optional
             log.exception("prefix promotion build failed")
 
+    # -- the prefix wire (serve/prefix.py) ----------------------------------
+
+    def prefix_export(self, h: str) -> Optional[bytes]:
+        """One cached prefix's wire payload (None: not cached, or the
+        prefix cache is off). On one card its k/v copy off the device on
+        the calling (HTTP) thread under the capture lock, as an embed's
+        work does, so no copy lands inside a decode-graph capture; under
+        tensor parallelism the ranks' heads are all-gathered by an op on
+        the loop, between ticks."""
+        store = self._prefix
+        if store is None:
+            return None
+        if not self._tp:
+            with self.capture_lock:
+                return store.export_payload(h)
+        return self.run_on_loop(lambda: store.export_payload(
+            h, gather=lambda e: self._dev("prefix_gather", e)))
+
+    def prefix_import(self, data: bytes) -> Optional[PrefixEntry]:
+        """Install a peer's exported prefix entry (every kv head on the
+        wire; under tensor parallelism each rank keeps its own, by an op
+        on the loop). None on a malformed payload or one of another
+        geometry."""
+        store = self._prefix
+        if store is None:
+            return None
+        cfg = self.config
+        geometry = (cfg.num_layers, cfg.num_kv_heads, cfg.head_dim)
+        if not self._tp:
+            with self.capture_lock:
+                return store.import_payload(data, device=self.device,
+                                            geometry=geometry)
+        return self.run_on_loop(lambda: store.import_payload(
+            data, geometry=geometry, place=lambda ids, k, v: self._dev(
+                "prefix_place", ids, _Payload((k, v)),
+                self._prefix_keep())))
+
     # -- the KV tier: park_all, migration, disaggregated prefill -----------
 
     def park_all(self, timeout_s: float = 30.0,
@@ -1683,25 +1832,28 @@ class BatchScheduler:
                    for t in sess.tokens):
                 return False
             k, v = arrays[0], arrays[1]
-            ck = self._cache.k
+            # The cache's shape with every kv head (a tp rank holds a
+            # share; the wire carries them all).
+            ck = self._whole_shape(self._cache.k, 3)
             if (k is None or v is None or v.shape != k.shape
-                    or v.dtype != k.dtype or k.dtype != ck.dtype
-                    or k.dim() != ck.dim() - (kind == "dense")
-                    or k.shape[0] != ck.shape[0]):
+                    or v.dtype != k.dtype or k.dtype != self._cache.k.dtype
+                    or k.dim() != len(ck) - (kind == "dense")
+                    or k.shape[0] != ck[0]):
                 return False
             if kind == "dense":
                 # A row [L, W, Hkv, D] against the cache [L, B, T, Hkv, D].
                 return (k.shape[1] == span and span <= self.max_seq
-                        and tuple(k.shape[2:]) == tuple(ck.shape[3:])
+                        and tuple(k.shape[2:]) == ck[3:]
                         and sess.length <= span)
             ks, vs = arrays[2], arrays[3]
-            if tuple(k.shape[2:]) != tuple(ck.shape[2:]):
+            if tuple(k.shape[2:]) != ck[2:]:
                 return False
             if (ks is not None) != bool(self.kv_quant):
                 return False
             if ks is not None:
                 cs = self._cache.k_scale
-                want = (ck.shape[0], k.shape[1], *cs.shape[2:])
+                want = (ck[0], k.shape[1],
+                        *self._whole_shape(cs, 2)[2:])
                 if (vs is None or tuple(ks.shape) != want
                         or tuple(vs.shape) != want
                         or ks.dtype != cs.dtype or vs.dtype != cs.dtype):
@@ -3085,7 +3237,7 @@ class BatchScheduler:
             return False
         keep = min(len(slot.pages), self._alloc.pages_for(slot.ctx_len))
         kept, extra = slot.pages[:keep], slot.pages[keep:]
-        zero_row(self._cache, row)
+        self._dev("release", row)
         if extra:
             self._alloc.free(extra)
         slot.pages = None
@@ -3106,10 +3258,8 @@ class BatchScheduler:
         ``len(tokens)`` and beyond, queued before the copy: slots the
         session does not trust."""
         W = _bucket(len(tokens), self.max_seq)
-        payload = tuple(
-            self._to_host(a[:, row, :W].clone(
-                memory_format=torch.contiguous_format))
-            for a in (self._cache.k, self._cache.v))
+        payload = tuple(self._to_host(a)
+                        for a in self._dev("park_row", row, W))
         old = self._tier.take(key)
         if old is not None:
             self._recycle_session(old)
@@ -3118,6 +3268,13 @@ class BatchScheduler:
             nbytes=sum(tensor_nbytes(a) for a in payload)))
         self._tier.note_parked()
         self._tier_enforce()
+
+    def _dev_park_row(self, row: int, W: int) -> tuple:
+        """The device half of a dense park: (k, v) [L, W, Hkv, D] of
+        ``row``'s first ``W`` slots, with every kv head."""
+        return tuple(self._heads_whole(a[:, row, :W].clone(
+            memory_format=torch.contiguous_format), 2)
+            for a in (self._cache.k, self._cache.v))
 
     def _recycle_session(self, sess: SessionKV) -> None:
         """Return a replaced session's resident pages to the allocator."""
@@ -3155,9 +3312,8 @@ class BatchScheduler:
             return
         pages, n = sess.pages, len(sess.pages)
         P2 = 1 << max(0, n - 1).bit_length()
-        padded = torch.tensor(pages + [0] * (P2 - n), dtype=torch.long)
         payload = tuple(None if a is None else self._to_host(a)
-                        for a in gather_pages(self._cache, padded))
+                        for a in self._dev("park", pages + [0] * (P2 - n)))
         self._alloc.free(pages)
         self._tier.insert(SessionKV(
             key=sess.key, tokens=sess.tokens, length=sess.length,
@@ -3165,6 +3321,16 @@ class BatchScheduler:
             last_used=sess.last_used))
         self._tier.note_parked(pages_freed=n)
         self._tier_enforce()
+
+    def _dev_park(self, pages: list) -> tuple:
+        """The device half of a paged park: the raw pool words of
+        ``pages`` (ops/paged_kv.gather_pages) with every kv head — k, v
+        [L, P, ps, Hkv, D] and the scales [L, P, Hkv, ps_pad]."""
+        k, v, ks, vs = gather_pages(self._cache, torch.tensor(
+            pages, dtype=torch.long))
+        return (self._heads_whole(k, 3), self._heads_whole(v, 3),
+                None if ks is None else self._heads_whole(ks, 2),
+                None if vs is None else self._heads_whole(vs, 2))
 
     def _reclaim_pages(self, need: int) -> None:
         """Pool pressure: park resident sessions, least recently used
@@ -3268,16 +3434,9 @@ class BatchScheduler:
                 self._tier.insert(sess)
                 slot.wake_dev = None
                 return False
-            dev = None
-            if slot.wake_dev is not None and slot.wake_dev[0] is sess:
-                dev = slot.wake_dev[1]
-            slot.wake_dev = None
-            if dev is None:
-                dev = self._upload(arrays)
             P2 = arrays[0].shape[1]
-            padded = torch.tensor(pages[:n] + [0] * (P2 - n),
-                                  dtype=torch.long)
-            scatter_pages(self._cache, padded, *dev)
+            self._dev("wake_kv", pages[:n] + [0] * (P2 - n),
+                      _Payload(self._wake_arrays(slot, sess)))
         else:
             extra = need - len(sess.pages)
             if extra > 0:
@@ -3305,16 +3464,37 @@ class BatchScheduler:
         ``_inject_row_for``; the decode graphs hold the cache's storage),
         from the upload :meth:`_wake_candidate` began when it is this
         session's."""
-        arrays, W = sess.host
+        self._dev("wake_row", row, sess.host[1],
+                  _Payload(self._wake_arrays(slot, sess)))
+        slot.pages = []
+
+    def _wake_arrays(self, slot: _Slot, sess: SessionKV) -> tuple:
+        """A parked session's arrays for its wake: the upload
+        :meth:`_wake_candidate` began when it is this session's, else the
+        host arrays."""
         dev = None
         if slot.wake_dev is not None and slot.wake_dev[0] is sess:
             dev = slot.wake_dev[1]
         slot.wake_dev = None
-        if dev is None:
-            dev = self._upload(arrays)
-        self._cache.k[:, row, :W].copy_(dev[0])
-        self._cache.v[:, row, :W].copy_(dev[1])
-        slot.pages = []
+        return sess.host[0] if dev is None else dev
+
+    def _dev_wake_kv(self, pages: list, payload: _Payload) -> None:
+        """Scatter a parked session's pool words into ``pages`` (padded
+        with garbage page 0), in place: this rank's heads of the
+        leader's arrays."""
+        k, v, ks, vs = self._receive(payload)
+        scatter_pages(
+            self._cache, torch.tensor(pages, dtype=torch.long),
+            self._heads_mine(k, 3), self._heads_mine(v, 3),
+            None if ks is None else self._heads_mine(ks, 2),
+            None if vs is None else self._heads_mine(vs, 2))
+
+    def _dev_wake_row(self, row: int, W: int, payload: _Payload) -> None:
+        """Copy a parked dense session into slots ``0 .. W`` of ``row``
+        in place: this rank's heads of the leader's arrays."""
+        k, v = self._receive(payload)
+        self._cache.k[:, row, :W].copy_(self._heads_mine(k, 2))
+        self._cache.v[:, row, :W].copy_(self._heads_mine(v, 2))
 
     def _wake_forward(self, tokens: torch.Tensor, tables: torch.Tensor,
                       starts: torch.Tensor, last: torch.Tensor,
@@ -3348,8 +3528,27 @@ class BatchScheduler:
         pages = min(-(-(window + S) // ps), view.max_pages_per_row)
         logits, _ = self._family.verify_step_paged(
             self._params, self.config, tokens.to(dev), view, pages=pages,
-            impl=impl, last_idx=last.to(dev))
+            impl=impl, last_idx=last.to(dev), mesh=self.mesh)
         return logits[:, 0, :]
+
+    def _dev_wake(self, tokens: torch.Tensor, tables: torch.Tensor,
+                  starts: torch.Tensor, last: torch.Tensor, window: int,
+                  rows: Optional[list] = None, samp: Optional[tuple] = None
+                  ) -> Optional[torch.Tensor]:
+        """The device half of a wake: :meth:`_wake_forward`, then (with
+        ``rows``) the rows' tables and lengths (session + suffix) and
+        their first tokens sampled (:meth:`_sample_first`, returned on
+        the device). Without ``rows``, a warmup's forward only."""
+        logits = self._wake_forward(tokens, tables, starts, last, window)
+        if rows is None:
+            return None
+        dev = self.device
+        idx = torch.tensor(rows, dtype=torch.long, device=dev)
+        if self.kv_mode == "paged":
+            self._cache.page_table[idx] = tables.to(dev)
+        self._cache.lengths[idx] = (starts + last + 1).to(device=dev,
+                                                          dtype=torch.int32)
+        return self._sample_first(rows, logits, samp)
 
     def _warm_wake(self, w: int, S: int) -> None:
         """Run one wake forward at (window ``w``, suffix bucket ``S``) on
@@ -3371,8 +3570,8 @@ class BatchScheduler:
         else:
             table = torch.zeros((1, self._cache.max_pages_per_row),
                                 dtype=torch.int32)
-        self._wake_forward(torch.zeros((1, S), dtype=torch.long), table,
-                           zeros, zeros, w)
+        self._dev("wake", torch.zeros((1, S), dtype=torch.long), table,
+                  zeros, zeros, w)
         self._wake_shapes_run.add((w, S))
 
     def _admit_wake(self, chunk: list[_Slot], rows: list[int],
@@ -3441,19 +3640,12 @@ class BatchScheduler:
             sufs[i] = len(suffix)
             slot.admit_t = t0
         self._flight.note("wake", self._loop_iter, n=R, S=S, w=w)
-        logits = self._wake_forward(tokens, tables, starts, sufs - 1, w)
-        dev = self.device
-        idx = torch.tensor([row for _, row, _ in live], dtype=torch.long,
-                           device=dev)
-        if not dense:
-            self._cache.page_table[idx] = tables.to(dev)
-        self._cache.lengths[idx] = (starts + sufs).to(device=dev,
-                                                      dtype=torch.int32)
-        self._wake_shapes_run.add((w, S))
-        self._admit_since_tick = True
         woken = [s for s, _, _ in live]
         rows_w = [r for _, r, _ in live]
-        self._install_admitted(woken, rows_w, self._sample_first(
-            rows_w, logits, self._sample_args(woken)),
-            wake=(t0, starts.tolist()))
+        toks = self._dev("wake", tokens, tables, starts, sufs - 1, w, rows_w,
+                         self._sample_args(woken))
+        self._wake_shapes_run.add((w, S))
+        self._admit_since_tick = True
+        self._install_admitted(woken, rows_w, toks,
+                               wake=(t0, starts.tolist()))
         return demoted, unused

@@ -17,8 +17,11 @@ kernels and collectives in the same order on its shard.
   host values (row indices, token ids, page tables, lengths, window, K,
   the live mask, sampling options and seeds, prefix ids), both broadcast
   on the gloo control group (parallel/mesh.Mesh.control). It never
-  carries a device tensor. Sampling runs on every rank from the gathered
-  logits, the same bytes everywhere, so no follower reads a token back.
+  carries a device tensor: the arrays of a KV tier op (a session or a
+  prefix entry to place, serve/scheduler._Payload) ride as their shapes,
+  and the op itself broadcasts them over ``tp``. Sampling runs on every
+  rank from the gathered logits, the same bytes everywhere, so no
+  follower reads a token back.
 - Every rank folds the tokens it sampled into a running digest
   (``BatchScheduler._fold``); at shutdown the ranks all-gather their
   digests over the control group, and a mismatch is logged as an error

@@ -14,7 +14,11 @@ across: every rank loads the numpy tree and takes its shard.
   1e-4 of its;
 - the env path: two ``python -m p2p_llm_chat_tpu_torch.serve`` processes
   (``SERVE_DEVICE=cpu SERVE_COORDINATOR=... MODEL_CONFIG=tiny``) answer
-  over HTTP, and both exit 0 after SIGTERM to the leader.
+  over HTTP, and both exit 0 after SIGTERM to the leader;
+- a fault planted in the follower's round ends the plane within the
+  test's bound instead of hanging it: the follower leaves the world and
+  exits non-zero, and the leader fails its requests, turns not ready and
+  refuses new ones.
 
 Every spawned rank has a time limit and is killed on the way out.
 """
@@ -89,6 +93,55 @@ sys.stdin.readline()
 srv.stop()
 eng.stop()
 eng.close()
+"""
+
+
+_FAULT = r"""
+import json, os, sys, threading
+sys.path.insert(0, os.environ["REPO"])
+import torch
+torch.set_num_threads(1)
+from p2p_llm_chat_tpu_torch.serve.backend import (GenerateOptions,
+                                                  GenerateRequest)
+from p2p_llm_chat_tpu_torch.serve.engine import build_engine_from_env
+
+eng = build_engine_from_env()
+if eng.is_follower:
+    def planted(cmd):
+        raise RuntimeError("planted fault")
+    eng._run_cmd = planted
+    try:
+        eng.follower_loop()
+    finally:
+        eng.close()
+    sys.exit(0)
+errors = [None, None]
+
+
+def gen(i, prompt):
+    try:
+        "".join(eng.generate_stream(GenerateRequest(
+            prompt=prompt, options=GenerateOptions(max_tokens=8))))
+    except RuntimeError as e:
+        errors[i] = str(e)
+
+
+ts = [threading.Thread(target=gen, args=(i, p))
+      for i, p in enumerate(["first request", "second request"])]
+for t in ts:
+    t.start()
+for t in ts:
+    t.join(30)
+out = dict(errors=errors, hung=[t.is_alive() for t in ts],
+           ready=eng.ready())
+try:
+    eng.generate_stream(GenerateRequest(prompt="later"))
+    out["later"] = None
+except RuntimeError as e:
+    out["later"] = str(e)
+eng.stop()
+eng.close()
+print("RESULT " + json.dumps(out), flush=True)
 """
 
 
@@ -290,3 +343,21 @@ def test_env_path_serves_and_exits_zero_on_sigterm():
     assert "follower 1 shutting down" in outs[1]
     for o in outs:
         assert '"backend": "gloo"' in o.split("summary: ", 1)[1]
+
+
+def test_a_failed_round_on_the_follower_ends_the_plane():
+    deadline = time.monotonic() + LIMIT_S
+    procs = _spawn(2, {"SERVE_MH_WINDOW_MS": "200"}, code=_FAULT)
+    leader, follower = _reap(procs, deadline)
+    assert procs[1].returncode != 0, follower[-4000:]
+    assert "round failed; leaving the world" in follower
+    assert "planted fault" in follower
+    assert procs[0].returncode == 0, leader[-4000:]
+    assert "the plane stops" in leader
+    res = json.loads(leader.split("RESULT ", 1)[1].splitlines()[0])
+    assert res["hung"] == [False, False]
+    # Each request failed with the round's error (the peer left), or, if
+    # it was queued behind the round, with the plane's.
+    assert all(res["errors"]), res
+    assert res["ready"] is False
+    assert "plane stopped" in res["later"]

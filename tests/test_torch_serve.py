@@ -11,6 +11,7 @@ the reference's output).
 """
 
 import json
+import socket
 import time
 import urllib.request
 
@@ -207,18 +208,22 @@ def test_gpu_default_entry_point_raises_without_a_card(monkeypatch):
 # Features of the reference that the port now serves; a missing
 # checkpoint directory raises the reference's FileNotFoundError; the
 # others still exit with "not ported" (SERVE_TP alone serves over its
-# own ranks, tests/test_torch_tp_engine.py; with the KV tier it is still
-# refused). The KV layout is pinned to SERVE_KV=paged (the KV tier needs
-# it) unless the case names it.
+# own ranks, tests/test_torch_tp_engine.py, with the KV tier too,
+# tests/test_torch_tp_tier.py; with SERVE_MODELS it is still refused,
+# before any follower starts). SERVE_PROFILE_PORT starts its listener on
+# a free port in place of the case's, and stop() closes it. The KV
+# layout is pinned to SERVE_KV=paged (the KV tier needs it) unless the
+# case names it.
 _PORTED = ({"SERVE_SPEC": "2"}, {"SERVE_QUANT": "int4"},
            {"MODEL_CONFIG": "tiny-moe"}, {"SERVE_KV_HOST_GB": "1"},
            {"SERVE_MODELS": "a=tiny"}, {"SERVE_KV": "dense"},
-           {"SERVE_SPEC": "2", "SERVE_DRAFT": "tiny"})
+           {"SERVE_SPEC": "2", "SERVE_DRAFT": "tiny"},
+           {"SERVE_PROFILE_PORT": "9999"})
 
 
 @pytest.mark.parametrize("env", [{"SERVE_SPEC": "2"},
                                  {"SERVE_KV_HOST_GB": "1"},
-                                 {"SERVE_TP": "2", "SERVE_KV_HOST_GB": "1"},
+                                 {"SERVE_TP": "2", "SERVE_MODELS": "a=tiny"},
                                  {"SERVE_MODELS": "a=tiny"},
                                  {"CKPT_DIR": "/nonexistent"},
                                  {"SERVE_PROFILE_PORT": "9999"},
@@ -236,9 +241,20 @@ def test_features_of_later_slices_fail_loudly(env, monkeypatch):
         # The module's server fixture sets an int8 pool, which a dense
         # cache refuses.
         monkeypatch.delenv("SERVE_KV_QUANT", raising=False)
+    if "SERVE_PROFILE_PORT" in env:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        monkeypatch.setenv("SERVE_PROFILE_PORT", str(port))
     if env in _PORTED:
         engine = build_engine_from_env()
+        if "SERVE_PROFILE_PORT" in env:
+            assert engine.profile_server is not None
         engine.stop()
+        if "SERVE_PROFILE_PORT" in env:
+            with pytest.raises(ConnectionRefusedError):
+                socket.create_connection(("127.0.0.1", port),
+                                         timeout=5).close()
         return
     if "CKPT_DIR" in env:
         with pytest.raises(FileNotFoundError):
