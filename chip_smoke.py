@@ -38,7 +38,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    S = 256 and 2048), the 256-wide chunks of a 2048 prompt (rows bitwise
    equal to the whole prompt's), a co-pilot-template suffix and ragged
    shapes that run every q tile its plan picks, timed whole and in chunks
-   beside SDPA and the bound, and kernel E (w8a8 on int8 tensor cores:
+   beside SDPA and the bound, with its log-sum-exp at a ring hop's
+   shapes (R = 2, 2048 over 2048, offsets 0 and 2048, 32 / 8 and 16 / 4
+   heads: the output bitwise the launch's without it, timed both ways),
+   and kernel E (w8a8 on int8 tensor cores:
    the TMA route and the ragged route, each bitwise against its plain
    version, alone and chained after the row quantization kernel, at the
    mm_micro and llama3.1-8b shapes, the TMA route's edges and the ragged
@@ -55,7 +58,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    attention (kernel B's verify mode on the waking rows {5} or {6, 1} of
    a llama3.1-8b cache of 8 x 4096, S = 64 and 256, W = 2048 and 4096,
    NaN past each row's length and in every row not waking) against the
-   reference's attend_gqa over those rows, timed per llama3.1-8b step
+   reference's attend_gqa over those rows, A8's decode mode with its
+   log-sum-exp at sp decode's shard (B = 2, W = 2048, a row of 0 slots:
+   output 0, lse -inf; the output bitwise the launch's without it,
+   timed both ways), timed per llama3.1-8b step
    at W = 1024 and 4096 (and verify at S = 5, the wake at R = 1, S = 256,
    W = 2048) beside the bound and SDPA;
 3. step   — one full-width decode step (depth cut to 2 layers) through the
@@ -87,7 +93,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    against the CPU's plain path, ``decode_fused`` at K = 4 bitwise equal
    to 4 steps, and the scheduler's dense decode graphs (K = 1 replay
    bitwise equal to the eager step, K = 4 to four K = 1 replays); and
-   the int8 pool's writes, card against CPU, bitwise;
+   the int8 pool's writes, card against CPU, bitwise; then
+   ``step_parallel``, the pipeline and ring programs on four rank
+   processes (``chip_smoke.py --par-rank``) over gloo on the one card:
+   pp = 2, sp = 2, sp 2 x tp 2 (llama3.1-8b cut to 4 layers) and sp 2 x
+   ep 2 (mixtral-8x7b cut to 2), int8 quote weights, each against the
+   single-rank prefill and decode on the card (logits and k cache within
+   PAR_TOL, greedy tokens equal, decode logits bitwise equal on every
+   rank, kernels D and B with their log-sum-exp on the ring's legs);
 4. server — the port's engine behind its Ollama front on localhost
    answers 7 concurrent requests (one 1500-token prompt, one co-pilot
    request) and two greedy reruns, five times: llama3.1-8b int8 with the
@@ -213,7 +226,8 @@ the dense path and the drafter; ``--only
 build,kernel_dense,server_tier`` on the KV tier over both layouts;
 ``--only build,kernel_b_verify,server_multihost,server_llama`` on
 ``SERVE_TP``'s KV tier and session wire, the multi-process plane and the
-profiler server).
+profiler server; ``--only build,kernel_d,kernel_dense,step_parallel`` on
+the pipeline and ring programs).
 Exits non-zero, printing no result, where no CUDA device is available.
 """
 
@@ -255,6 +269,15 @@ D_TOL = 1e-2        # of max|plain|: the plain version rounds the softmax-
 #                     and the f32 summation order
 STEP_TOL = 5e-2     # of max|logits|: bf16 activations through 2 layers,
 #                     rounded at different places on the two paths
+LSE_ATOL = 1e-3     # absolute, natural log: kernels D and B's log-sum-exp
+#                     against the plain f32 logsumexp of the same bf16
+#                     inputs (f32 scores summed in another order, exp2f):
+#                     a merge weight exp(lse) off by at most 0.1%
+PAR_TOL = 5e-2      # of max|oracle|: step_parallel's logits and k cache
+#                     against the single-rank oracle on the card, bf16
+#                     activations through 4 layers (2 for mixtral), the
+#                     hops / shards merged in f32 from bf16 partials where
+#                     the oracle attends in one call
 
 
 class SmokeFailure(RuntimeError):
@@ -1363,6 +1386,82 @@ def _wake_timing(S: int = 256, W: int = 2048, L: int = 8) -> dict:
                 library_device_ms=round(32 * lib_dev, 4), **parts)
 
 
+def _dense_lse() -> dict:
+    """A8's decode mode with its log-sum-exp at sp decode's shapes
+    (parallel/ring.sp_decode_step: B = 2 rows over a rank's 2048-slot
+    sequence shard), at llama3.1-8b's heads and a tp = 2 rank's, one row
+    with 0 local slots (a shard past its length; NaN in every slot of
+    it): the output bitwise equal to the launch without it, lse within
+    LSE_ATOL of the plain version's, the empty row 0 with lse -inf. Both
+    launches timed at 32 / 8 heads."""
+    import torch
+    from p2p_llm_chat_tpu_torch.ops import dense_attention as da
+    W, worst, times = 2048, 0.0, {}
+    cases = ((32, 8, [1952, 0]), (32, 8, [2048, 905]), (16, 4, [0, 2048]),
+             (16, 4, [1, 1400]))
+    for i, (Hq, Hkv, lengths) in enumerate(cases):
+        cache, q = _dense_case(Hq, Hkv, 128, W, lengths, seed=120 + i)
+        label = f"A8 sp decode shard Hq={Hq} Hkv={Hkv} W={W} " \
+                f"lengths={lengths}"
+        out, lse = da.dense_attention(q, cache, cache.lengths, 1, window=W,
+                                      return_lse=True)
+        check(torch.equal(out, da.dense_attention(q, cache, cache.lengths,
+                                                  1, window=W)),
+              f"{label}: the output differs from the launch without the "
+              "log-sum-exp")
+        ref_out, ref_lse = da.dense_attention_plain(
+            q, cache.k, cache.v, cache.lengths, 1, window=W,
+            return_lse=True)
+        _rel_err(label, out, ref_out, B_TOL)
+        worst = max(worst, _lse_err(label, lse, ref_lse))
+        for b, n in enumerate(lengths):
+            if n == 0:
+                check(bool((out[b] == 0).all())
+                      and bool(torch.isneginf(lse[b]).all()),
+                      f"{label}: the row of 0 slots is not 0 with lse -inf")
+        if Hq == 32 and 0 in lengths:
+            ln = cache.lengths
+            plain = time_ms(lambda i: da.dense_attention(q, cache, ln, 1,
+                                                         window=W), 200)
+            with_lse = time_ms(lambda i: da.dense_attention(
+                q, cache, ln, 1, window=W, return_lse=True), 200)
+            plain2 = time_ms(lambda i: da.dense_attention(q, cache, ln, 1,
+                                                          window=W), 200)
+            dev = graph_ms(lambda i: da.dense_attention(q, cache, ln, 1,
+                                                        window=W), n=32)
+            dev_lse = graph_ms(lambda i: da.dense_attention(
+                q, cache, ln, 1, window=W, return_lse=True), n=32)
+            dev2 = graph_ms(lambda i: da.dense_attention(q, cache, ln, 1,
+                                                         window=W), n=32)
+            n_kv = sum(lengths)           # the slots this call attends
+            b_ms, kind = bound_ms(2 * n_kv * Hkv * 128 * 2
+                                  + 2 * 2 * Hq * 128 * 2 + 2 * 4 * Hq,
+                                  4.0 * Hq * 128 * n_kv)
+            times = dict(ms=round(min(plain, plain2), 5),
+                         lse_ms=round(with_lse, 5),
+                         device_ms=round(min(dev, dev2), 5),
+                         lse_device_ms=round(dev_lse, 5),
+                         bound_ms=round(b_ms, 5), bound_by=kind)
+            print(f"  A8 sp decode shard B=2 W={W} (8B heads): as timed "
+                  f"{min(plain, plain2) * 1e3:.1f} us without the lse "
+                  f"({plain * 1e3:.1f}, {plain2 * 1e3:.1f}), "
+                  f"{with_lse * 1e3:.1f} us with it "
+                  f"({with_lse / min(plain, plain2) - 1:+.1%}); on the "
+                  f"device (CUDA graphs) {min(dev, dev2) * 1e3:.2f} us "
+                  f"({dev * 1e3:.2f}, {dev2 * 1e3:.2f}), "
+                  f"{dev_lse * 1e3:.2f} us with it "
+                  f"({dev_lse / min(dev, dev2) - 1:+.1%}); bound "
+                  f"{b_ms * 1e3:.2f} us ({kind})", flush=True)
+        del cache
+    return dict(lse_max_abs_err=worst, per_layer=times,
+                scope="sp decode's attention on one rank's shard per "
+                      "layer: B=2 over a 2048-slot shard, lengths 1952 and "
+                      "0, Hq 32, Hkv 8, D 128; ms as timed without the "
+                      "log-sum-exp (the faster of two runs around the lse "
+                      "run), lse_ms with it; device_ms / lse_device_ms the "
+                      "same replayed from CUDA graphs")
+
+
 def phase_kernel_dense(results: dict) -> None:
     """A8, the dense KV path's attention (the reference's XLA
     ``attend_gqa`` over ``cache.k/v[l, :, :window]`` in ``decode_step``,
@@ -1458,6 +1557,7 @@ def phase_kernel_dense(results: dict) -> None:
             rows, starts, S, W, 110 + i))
         del cache
     torch.cuda.empty_cache()
+    sp_decode = _dense_lse()
     t1024 = _dense_timing(8, 1024)
     t4096 = _dense_timing(8, 4096)
     tver = _dense_timing(8, 1024, S=5)
@@ -1468,6 +1568,7 @@ def phase_kernel_dense(results: dict) -> None:
         wrapper="p2p_llm_chat_tpu_torch/ops/dense_attention.py",
         replaces="p2p_llm_chat_tpu/models/layers.py:102",
         max_abs_err=worst["dense_attention"], **t1024, w4096=t4096,
+        sp_decode=sp_decode,
         scope="A8 decode mode: kernel B's pool mode over the dense cache's "
               "identity pool view (the reference computes it in XLA, no "
               "pl.pallas_call), one llama3.1-8b decode step at B=8, "
@@ -1840,6 +1941,7 @@ def phase_kernel_d(results: dict) -> None:
              k, v, off, poison=off + Sq)
     check(tiles >= {1, 2, 4, 8}, f"kernel D: the cases ran q tiles of "
           f"{sorted(tiles)} warps per head only, not 1, 2, 4 and 8")
+    ring = _kernel_d_lse(gen)
     # Timing: one llama3.1-8b layer's prefill attention at S = 2048.
     R, S = 1, 2048
     q, k, v = _rand_qkv(gen, R, S, S, Hq, Hkv, D)
@@ -1894,7 +1996,91 @@ def phase_kernel_d(results: dict) -> None:
         bound_ms=round(32 * b_ms, 4), library_ms=round(32 * lib, 4),
         chunked_ms=round(32 * chunk_ms, 4),
         chunked_bound_ms=round(32 * cb_ms, 4),
-        chunked_library_ms=round(32 * chunk_lib, 4))
+        chunked_library_ms=round(32 * chunk_lib, 4), ring_hop=ring)
+
+
+def _lse_err(label: str, lse, ref) -> float:
+    """max|lse - ref| over the rows where ref is finite, against
+    LSE_ATOL; the rows where ref is -inf must be -inf too."""
+    import torch
+    torch.cuda.synchronize()
+    dead = torch.isneginf(ref)
+    check(bool(torch.equal(torch.isneginf(lse), dead)),
+          f"{label}: -inf rows differ from the plain version's")
+    check(bool(torch.isfinite(lse[~dead]).all()), f"{label}: non-finite "
+          "log-sum-exp on a row with something to attend")
+    err = (lse[~dead] - ref[~dead]).abs().max().item() if (~dead).any() \
+        else 0.0
+    print(f"  {label}: lse max_abs_err {err:.3e} (tol {LSE_ATOL:.0e}; "
+          f"{int(dead.sum())} rows -inf)")
+    check(err <= LSE_ATOL, f"{label}: lse err {err:.3e} > {LSE_ATOL}")
+    return err
+
+
+def _kernel_d_lse(gen) -> dict:
+    """Kernel D with its log-sum-exp at a ring hop's shapes
+    (parallel/ring.py: a 2048-token chunk of the sp = 2 leg's prompt, R =
+    2, against its own chunk at offset 0 and an earlier one at 2048), at
+    llama3.1-8b's heads and a tp = 2 rank's: the output bitwise equal to
+    the launch without it, lse within LSE_ATOL of the plain version's.
+    Both launches timed at 32 / 8 heads, offset 0 and 2048."""
+    import torch
+    from p2p_llm_chat_tpu_torch.ops.prefill_attention import (
+        prefill_attention, prefill_attention_reference)
+    R, S, D = 2, 2048, 128
+    worst, times = 0.0, {}
+    for Hq, Hkv in ((32, 8), (16, 4)):
+        for off in (0, S):
+            q, k, v = _rand_qkv(gen, R, S, S, Hq, Hkv, D)
+            label = f"kernel D ring hop R={R} S={S} offset={off} Hq={Hq} " \
+                    f"Hkv={Hkv}"
+            out, lse = prefill_attention(q, k, v, off, return_lse=True)
+            check(lse.shape == (R, Hq, S) and lse.dtype == torch.float32,
+                  f"{label}: lse {tuple(lse.shape)} {lse.dtype}")
+            check(torch.equal(out, prefill_attention(q, k, v, off)),
+                  f"{label}: the output differs from the launch without "
+                  "the log-sum-exp")
+            ref_out, ref_lse = prefill_attention_reference(q, k, v, off,
+                                                           True)
+            _rel_err(label, out, ref_out, D_TOL)
+            worst = max(worst, _lse_err(label, lse, ref_lse))
+            del ref_out, ref_lse
+            if Hq == 32:
+                plain = time_ms(lambda i: prefill_attention(q, k, v, off),
+                                40)
+                with_lse = time_ms(lambda i: prefill_attention(
+                    q, k, v, off, return_lse=True), 40)
+                plain2 = time_ms(lambda i: prefill_attention(q, k, v, off),
+                                 40)
+                dev = graph_ms(lambda i: prefill_attention(q, k, v, off),
+                               n=8)
+                dev_lse = graph_ms(lambda i: prefill_attention(
+                    q, k, v, off, return_lse=True), n=8)
+                # Row i sees min(off + i + 1, S) keys.
+                flops = 4.0 * R * Hq * D * sum(min(off + i + 1, S)
+                                               for i in range(S))
+                b_ms, kind = bound_ms(
+                    2 * (2 * R * S * Hq * D + 2 * R * S * Hkv * D)
+                    + 4 * R * Hq * S, flops)
+                times[f"offset{off}"] = dict(
+                    ms=round(min(plain, plain2), 5),
+                    lse_ms=round(with_lse, 5), device_ms=round(dev, 5),
+                    lse_device_ms=round(dev_lse, 5), bound_ms=round(b_ms, 5),
+                    bound_by=kind)
+                print(f"  kernel D ring hop offset={off} (R={R}, S={S}, 8B "
+                      f"heads): {min(plain, plain2) * 1e3:.1f} us without "
+                      f"the lse ({plain * 1e3:.1f}, {plain2 * 1e3:.1f}), "
+                      f"{with_lse * 1e3:.1f} us with it "
+                      f"({with_lse / min(plain, plain2) - 1:+.1%}); on the "
+                      f"device {dev * 1e3:.1f} / {dev_lse * 1e3:.1f} us "
+                      f"({dev_lse / dev - 1:+.1%}); bound {b_ms * 1e3:.1f} us "
+                      f"({kind})", flush=True)
+    return dict(lse_max_abs_err=worst, per_layer=times,
+                scope="one ring hop's attention per layer: R=2 rows of a "
+                      "2048-token chunk over a 2048-token chunk, Hq 32, "
+                      "Hkv 8, D 128; ms without the log-sum-exp (the "
+                      "faster of two runs around the lse run), lse_ms with "
+                      "it")
 
 
 def _rel_err(label: str, out, ref, tol: float) -> float:
@@ -7205,13 +7391,464 @@ def phase_server_multihost(results: dict) -> None:
           f" s [card: {card_line()}]", flush=True)
 
 
+# -- step_parallel: the pipeline and ring programs (parallel/pipeline.py,
+# parallel/ring.py) on one world of four rank processes on the one card -----
+
+PAR_LEG_S = 90       # each leg's limit, and set-up's, in every rank
+PAR_RANKS = 4
+PAR_MODELS = {"llama": ("llama3.1-8b", 4), "mixtral": ("mixtral-8x7b", 2)}
+# leg -> (mesh axes, model, traffic); traffic -> (batch, bucket, prompt
+# lengths, decode steps, (step, row) parked by ``active`` or None)
+PAR_TRAFFIC = {
+    "pp": (4, 1024, (1000, 1016, 700, 512), 8, None),
+    "ring": (2, 4096, (4000, 3000), 8, (3, 1)),
+    "moe": (1, 2048, (2000,), 4, None),
+}
+PAR_LEGS = {
+    "pp2": (dict(pp=2), "llama", "pp"),
+    "sp2": (dict(sp=2), "llama", "ring"),
+    "sp2xtp2": (dict(sp=2, tp=2), "llama", "ring"),
+    "sp2xep2": (dict(ep=2, sp=2), "mixtral", "moe"),
+}
+PAR_MICROBATCHES = 2
+
+
+def _par_config(model: str):
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    name, layers = PAR_MODELS[model]
+    return get_config(name).with_(num_layers=layers)
+
+
+def _par_traffic(name: str):
+    """(tokens [B, S] right-padded with 0, prompt lengths [B], active
+    [steps, B]) of a traffic, from a seed of its own."""
+    import numpy as np
+    B, S, lens, steps, parked = PAR_TRAFFIC[name]
+    rng = np.random.default_rng(10 * S + B)
+    toks = np.zeros((B, S), np.int64)
+    for b, n in enumerate(lens):
+        toks[b, :n] = rng.integers(32, 127, n)
+    active = np.ones((steps, B), bool)
+    if parked is not None:
+        active[parked] = False
+    return toks, np.array(lens, np.int32), active
+
+
+def _par_positions(name: str) -> list:
+    """The (row, position) pairs whose logits are compared: every 256th
+    prompt position and each row's last."""
+    _, _, lens, _, _ = PAR_TRAFFIC[name]
+    return [(b, p) for b, n in enumerate(lens)
+            for p in sorted(set(range(0, n, 256)) | {n - 1})]
+
+
+def _par_kv_positions(name: str, final_lengths) -> list:
+    """The (row, slot) pairs of the k cache compared: the logits'
+    positions and every slot decode committed."""
+    _, _, lens, _, _ = PAR_TRAFFIC[name]
+    return sorted(set(_par_positions(name))
+                  | {(b, p) for b, n in enumerate(lens)
+                     for p in range(n, int(final_lengths[b]))})
+
+
+def _par_oracle(model: str, traffic: str, params, cfg, dev) -> dict:
+    """The single-rank forms on the card (prefill into a dense cache, then
+    greedy decode steps): the port's own result the parallel forms are
+    held against. MoE prefill dropless (``capacity=None``), as the
+    ring's."""
+    import numpy as np
+    import torch
+    from p2p_llm_chat_tpu_torch.models import family_for
+    from p2p_llm_chat_tpu_torch.models.llama import KVCache
+    fam = family_for(cfg)
+    toks, lens, active = _par_traffic(traffic)
+    B, S = toks.shape
+    kw = {"capacity": None} if cfg.is_moe else {}
+    cache = KVCache.create(cfg, B, S, device=dev)
+    t = torch.from_numpy(toks).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    with torch.no_grad():
+        lg, cache = fam.prefill(params, cfg, t, ln, cache=cache, **kw)
+        rows = torch.arange(B, device=dev)
+        nxt = lg[rows, ln.long() - 1].argmax(-1)
+        out = {"first": nxt.cpu().numpy()}
+        pos = _par_positions(traffic)
+        out["logits"] = torch.stack([lg[b, p] for b, p in pos]).cpu().numpy()
+        del lg
+        chain, steps = [nxt.cpu().numpy()], []
+        for i in range(active.shape[0]):
+            lg, cache = fam.decode_step(
+                params, cfg, nxt[:, None], cache,
+                torch.from_numpy(active[i]).to(dev))
+            nxt = lg[:, 0].argmax(-1)
+            steps.append(lg[:, 0].cpu().numpy())
+            chain.append(nxt.cpu().numpy())
+        out["steps"] = np.stack(steps)
+        out["tokens"] = np.stack(chain)
+        out["lengths"] = cache.lengths.cpu().numpy()
+        kv = _par_kv_positions(traffic, out["lengths"])
+        out["k"] = torch.stack([cache.k[:, b, p] for b, p in kv]
+                               ).float().cpu().numpy()    # [n, L, Hkv, D]
+    return out
+
+
+def _par_launches() -> dict:
+    from p2p_llm_chat_tpu_torch.ops.dense_attention import dense_attention
+    from p2p_llm_chat_tpu_torch.ops.prefill_attention import (
+        prefill_attention)
+    out = _launch_counts()
+    out["prefill_attention_lse"] = prefill_attention.lse_launches
+    out["dense_attention_lse"] = dense_attention.lse_launches
+    return out
+
+
+def _par_zero() -> None:
+    from p2p_llm_chat_tpu_torch.ops.dense_attention import dense_attention
+    from p2p_llm_chat_tpu_torch.ops.prefill_attention import (
+        prefill_attention)
+    for w in _wrappers().values():
+        w.launches = 0
+    prefill_attention.lse_launches = dense_attention.lse_launches = 0
+
+
+def _par_leg(leg: str, mesh, params, cfg, dev) -> dict:
+    """One leg on this rank: the parallel prefill and greedy decode steps
+    of its traffic, timed (host wall around each call with the card
+    synchronised; the time in collectives from the mesh's CUDA events),
+    with the bytes this rank sent, its peak memory and its launches."""
+    import zlib
+    import numpy as np
+    import torch
+    from p2p_llm_chat_tpu_torch.parallel.pipeline import (pp_decode_step,
+                                                          pp_prefill)
+    from p2p_llm_chat_tpu_torch.parallel.ring import (moe_ring_mlp_fn,
+                                                      ring_prefill,
+                                                      sp_decode_step)
+    axes, model, traffic = PAR_LEGS[leg]
+    toks, lens, active = _par_traffic(traffic)
+    B, S = toks.shape
+    t = torch.from_numpy(toks).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    pp = "pp" in axes
+    fn = moe_ring_mlp_fn(cfg, "ep", mesh) if cfg.is_moe else None
+    sp = axes.get("sp", 1)
+    my = mesh.coords.get("sp", 0)
+    _par_zero()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, res = {}, {"rank": mesh.rank, "backend": mesh.backend}
+
+    def timed(call):
+        torch.cuda.synchronize(dev)
+        mesh.drop_collective_timing()
+        t0 = time.perf_counter()
+        r = call()
+        torch.cuda.synchronize(dev)
+        return r, (time.perf_counter() - t0) * 1e3, mesh.take_collective_ms()
+
+    sent0 = mesh.sent_bytes
+    with torch.no_grad():
+        if pp:
+            (lg, cache), ms, coll = timed(lambda: pp_prefill(
+                params, cfg, t, ln, mesh, microbatches=PAR_MICROBATCHES,
+                last_only=True))
+            nxt = lg[:, 0].argmax(-1)
+            out["logits"] = lg[:, 0].cpu().numpy()
+            sends = PAR_MICROBATCHES if mesh.coords["pp"] < axes["pp"] - 1 \
+                else 0
+        else:
+            (lg, cache), ms, coll = timed(lambda: ring_prefill(
+                params, cfg, t, ln, mesh, mlp_fn=fn))
+            Sl = S // sp
+            pos = [(b, p) for b, p in _par_positions(traffic)
+                   if my * Sl <= p < (my + 1) * Sl]
+            out["logits"] = torch.stack([lg[b, p - my * Sl] for b, p in pos]
+                                        ).cpu().numpy()
+            out["logit_pos"] = np.array(pos)
+            # Each row's first token from the rank that holds its last
+            # prompt position (the harness's, outside the timed call).
+            first = torch.zeros(B, dtype=torch.float32, device=dev)
+            for b, n in enumerate(lens):
+                if my * Sl <= n - 1 < (my + 1) * Sl:
+                    first[b] = lg[b, n - 1 - my * Sl].argmax().float()
+            nxt = mesh.all_reduce(first, "sp").long()
+            mesh.drop_collective_timing()
+            sends = cfg.num_layers * (sp - 1)
+        del lg
+        res.update(prefill_ms=ms, prefill_coll_ms=coll,
+                   sent_bytes=mesh.sent_bytes - sent0, sends=sends)
+        chain, steps, walls, colls = [nxt.cpu().numpy()], [], [], []
+        for i in range(active.shape[0]):
+            act = torch.from_numpy(active[i]).to(dev)
+            if pp:
+                (lg, cache), ms, coll = timed(lambda: pp_decode_step(
+                    params, cfg, nxt[:, None], cache, mesh, active=act))
+            else:
+                (lg, cache), ms, coll = timed(lambda: sp_decode_step(
+                    params, cfg, nxt[:, None], cache, mesh, active=act,
+                    mlp_fn=fn))
+            walls.append(ms)
+            colls.append(coll)
+            nxt = lg[:, 0].argmax(-1)
+            steps.append(lg[:, 0].cpu().numpy())
+            chain.append(nxt.cpu().numpy())
+        res["launches"] = _par_launches()
+        res.update(decode_ms=walls, decode_coll_ms=colls,
+                   peak_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+        steps = np.stack(steps)
+        res["steps_crc"] = zlib.crc32(steps.tobytes())
+        res["logits_crc"] = zlib.crc32(out["logits"].tobytes())
+        out["steps"] = steps
+        out["tokens"] = np.stack(chain)
+        out["lengths"] = cache.lengths.cpu().numpy()
+        # This rank's part of the k cache at the compared slots: its
+        # layers (a stage), its sequence shard and its kv heads.
+        Sl = cache.max_seq if not pp else S
+        lo_layer = mesh.coords["pp"] * cfg.num_layers // axes["pp"] \
+            if pp else 0
+        kv = [(b, p) for b, p in _par_kv_positions(traffic, out["lengths"])
+              if pp or my * Sl <= p < (my + 1) * Sl]
+        out["k"] = torch.stack([cache.k[:, b, p - (0 if pp else my * Sl)]
+                                for b, p in kv]).float().cpu().numpy()
+        out["k_pos"] = np.array(kv)
+        Hl = cache.k.shape[3]
+        res.update(layer_lo=lo_layer, head_lo=mesh.coords.get("tp", 0) * Hl)
+    return out, res
+
+
+def _par_rank_main() -> int:
+    """One rank of step_parallel (``chip_smoke.py --par-rank``): joins the
+    world of four, builds every leg's mesh in one order (``new_group`` is
+    collective), draws each model's whole quote tree on the card from
+    seed 0 and keeps its cut of it per leg; rank 0 also runs the
+    single-rank oracle of each traffic. Each leg (and set-up) has
+    PAR_LEG_S seconds (SIGALRM, which ends the process); results go to
+    PAR_OUT as ``<leg>.rank<r>.npz`` / ``.json``, the oracle's as
+    ``<traffic>.oracle.npz``."""
+    import signal
+    import numpy as np
+    import torch
+    from p2p_llm_chat_tpu_torch.models.synth import quote_params
+    from p2p_llm_chat_tpu_torch.parallel import distributed, sharding
+    from p2p_llm_chat_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from p2p_llm_chat_tpu_torch.parallel.ring import shard_ring_params
+    signal.alarm(PAR_LEG_S)
+    distributed.init_distributed(join_timeout_s=60)
+    dev = distributed.rank_device()
+    torch.cuda.set_device(dev)
+    rank = torch.distributed.get_rank()
+    out_dir = os.environ["PAR_OUT"]
+    backend = distributed.compute_backend(dev)
+    meshes = {}
+    for leg, (axes, _, _) in PAR_LEGS.items():
+        mc = MeshConfig(**axes)
+        meshes[leg] = make_mesh(mc, list(range(mc.size)), backend=backend)
+    for model in ("llama", "mixtral"):
+        signal.alarm(PAR_LEG_S)
+        cfg = _par_config(model)
+        params = quote_params(cfg, seed=0, quant="int8", device=dev)
+        if rank == 0:
+            for traffic in sorted({tr for _, m, tr in PAR_LEGS.values()
+                                   if m == model}):
+                np.savez(os.path.join(out_dir, f"{traffic}.oracle.npz"),
+                         **_par_oracle(model, traffic, params, cfg, dev))
+        torch.distributed.barrier()
+        for leg, (axes, m, _) in PAR_LEGS.items():
+            if m != model:
+                continue
+            signal.alarm(PAR_LEG_S)
+            mesh = meshes[leg]
+            if mesh.coords:
+                part = (sharding.stage_layers(params, cfg, mesh, dev)
+                        if "pp" in axes
+                        else shard_ring_params(params, cfg, mesh, dev))
+                arrays, res = _par_leg(leg, mesh, part, cfg, dev)
+                del part
+                base = os.path.join(out_dir, f"{leg}.rank{rank}")
+                np.savez(base + ".npz", **arrays)
+                with open(base + ".json", "w") as f:
+                    json.dump(res, f)
+                torch.cuda.empty_cache()
+            torch.distributed.barrier()
+        del params
+        torch.cuda.empty_cache()
+    signal.alarm(0)
+    distributed.leave_world()
+    return 0
+
+
+def _par_check_leg(results: dict, leg: str, out_dir: str) -> dict:
+    """Hold one leg's ranks against the oracle of its traffic; print and
+    return its readings."""
+    import numpy as np
+    axes, model, traffic = PAR_LEGS[leg]
+    n = int(np.prod(list(axes.values())))
+    ref = dict(np.load(os.path.join(out_dir, f"{traffic}.oracle.npz")))
+    ranks, sums = [], []
+    for r in range(n):
+        base = os.path.join(out_dir, f"{leg}.rank{r}")
+        ranks.append(dict(np.load(base + ".npz")))
+        with open(base + ".json") as f:
+            sums.append(json.load(f))
+    pp = "pp" in axes
+    # Logits: pp's last prompt positions (every rank, the last stage's
+    # broadcast); the ring's compared positions, each rank its chunk's.
+    err = scale = 0.0
+    if pp:
+        want = ref["logits"][[i for i, (b, p) in enumerate(
+            _par_positions(traffic)) if p == PAR_TRAFFIC[traffic][2][b] - 1]]
+        for r in range(n):
+            err = max(err, float(np.abs(ranks[r]["logits"] - want).max()))
+        scale = float(np.abs(want).max())
+    else:
+        index = {tuple(x): i for i, x in enumerate(_par_positions(traffic))}
+        seen = set()
+        for r in range(n):
+            rows = [index[tuple(x)] for x in ranks[r]["logit_pos"]]
+            seen.update(rows)
+            want = ref["logits"][rows]
+            err = max(err, float(np.abs(ranks[r]["logits"] - want).max()))
+            scale = max(scale, float(np.abs(want).max()))
+        check(seen == set(index.values()), f"step_parallel {leg}: the ranks "
+              "returned logits for only some of the compared positions")
+        if "tp" in axes:           # a chunk's two tp ranks, bitwise
+            for r in range(0, n, 2):
+                a_, b_ = ranks[r]["logits"], ranks[r + 1]["logits"]
+                check(sums[r]["logits_crc"] == sums[r + 1]["logits_crc"],
+                      f"step_parallel {leg}: ranks {r} and {r + 1} return "
+                      f"their chunk's logits differently (max|diff| "
+                      f"{np.abs(a_ - b_).max():.3e}, {(a_ != b_).mean():.2%}"
+                      f" of them, rows {sorted(set(np.nonzero(a_ != b_)[0].tolist()))[:20]})")
+    check(err <= PAR_TOL * scale, f"step_parallel {leg}: prefill logits err "
+          f"{err:.3e} > {PAR_TOL} of max|oracle| {scale:.3e}")
+    steps_err = float(np.abs(ranks[0]["steps"] - ref["steps"]).max())
+    steps_scale = float(np.abs(ref["steps"]).max())
+    check(steps_err <= PAR_TOL * steps_scale, f"step_parallel {leg}: decode "
+          f"logits err {steps_err:.3e} > {PAR_TOL} of {steps_scale:.3e}")
+    for r in range(n):
+        check(np.array_equal(ranks[r]["tokens"], ref["tokens"]),
+              f"step_parallel {leg}: rank {r}'s greedy tokens "
+              f"{ranks[r]['tokens'].T.tolist()} differ from the oracle's "
+              f"{ref['tokens'].T.tolist()}")
+        check(sums[r]["steps_crc"] == sums[0]["steps_crc"],
+              f"step_parallel {leg}: rank {r}'s decode logits differ from "
+              "rank 0's")
+        check(np.array_equal(ranks[r]["lengths"], ref["lengths"]),
+              f"step_parallel {leg}: rank {r}'s lengths "
+              f"{ranks[r]['lengths']} != {ref['lengths']}")
+    # The k cache at the compared slots: each rank's layers, sequence
+    # shard and kv heads against the oracle's.
+    kv_index = {tuple(x): i for i, x in enumerate(
+        _par_kv_positions(traffic, ref["lengths"]))}
+    k_err = k_scale = 0.0
+    for r in range(n):
+        got = ranks[r]["k"]                     # [n, L_r, H_r, D]
+        rows = [kv_index[tuple(x)] for x in ranks[r]["k_pos"]]
+        lo, h0 = sums[r]["layer_lo"], sums[r]["head_lo"]
+        want = ref["k"][rows][:, lo:lo + got.shape[1], h0:h0 + got.shape[2]]
+        k_err = max(k_err, float(np.abs(got - want).max()))
+        k_scale = max(k_scale, float(np.abs(want).max()))
+    check(k_err <= PAR_TOL * k_scale, f"step_parallel {leg}: k cache err "
+          f"{k_err:.3e} > {PAR_TOL} of {k_scale:.3e}")
+    # Kernels D and B on every rank (with the log-sum-exp on the ring's),
+    # A on every rank (the decode projections; the experts' grid on MoE).
+    ring = not pp
+    for s in sums:
+        L = s["launches"]
+        need = ["prefill_attention", "dense_attention", "quant_matmul"]
+        if model == "mixtral":
+            need.append("quant_matmul_experts_stacked")
+        for k in need:
+            check(L.get(k, 0) > 0, f"step_parallel {leg}: rank {s['rank']} "
+                  f"never launched {k}")
+        check(L["prefill_attention_lse"] == (L["prefill_attention"] if ring
+                                             else 0)
+              and L["dense_attention_lse"] == (L["dense_attention"] if ring
+                                               else 0),
+              f"step_parallel {leg}: rank {s['rank']}'s log-sum-exp "
+              f"launches {L}")
+        _record_launches(results, f"step_parallel {leg} rank {s['rank']}",
+                         {k: v for k, v in L.items()
+                          if not k.endswith("_lse")})
+    per = []
+    for s in sums:
+        dec, dcoll = _p50(s["decode_ms"]), _p50(s["decode_coll_ms"])
+        per.append(dict(
+            rank=s["rank"], prefill_ms=round(s["prefill_ms"], 3),
+            prefill_coll_share=round(s["prefill_coll_ms"]
+                                     / s["prefill_ms"], 4),
+            decode_step_ms_p50=round(dec, 3),
+            decode_coll_ms_p50=round(dcoll, 3),
+            bytes_per_send=(s["sent_bytes"] // s["sends"] if s["sends"]
+                            else 0),
+            peak_gb=round(s["peak_gb"], 3), backend=s["backend"],
+            launches={k: v for k, v in s["launches"].items() if v}))
+    what = "handoff" if pp else "ring hop"
+    print(f"  step_parallel {leg} ({model}, {n} ranks, "
+          f"{PAR_MODELS[model][1]} layers; B={PAR_TRAFFIC[traffic][0]}, "
+          f"S={PAR_TRAFFIC[traffic][1]}): prefill logits max_abs_err "
+          f"{err:.3e} (tol {PAR_TOL} of max|oracle| {scale:.3e}), decode "
+          f"logits {steps_err:.3e} (of {steps_scale:.3e}), k cache "
+          f"{k_err:.3e} (of {k_scale:.3e}); greedy tokens equal over "
+          f"{len(ref['steps'])} steps; decode logits bitwise equal on every "
+          f"rank", flush=True)
+    for p in per:
+        print(f"    rank {p['rank']}: prefill {p['prefill_ms']:.1f} ms "
+              f"({p['prefill_coll_share']:.1%} in collectives), decode step "
+              f"p50 {p['decode_step_ms_p50']:.2f} ms ({p['decode_coll_ms_p50']:.2f}"
+              f" ms, {p['decode_coll_ms_p50'] / p['decode_step_ms_p50']:.1%}"
+              f" in collectives), {p['bytes_per_send']:,} bytes a "
+              f"{what} sent, peak {p['peak_gb']:.2f} GB, backend "
+              f"{p['backend']}; launches {p['launches']}", flush=True)
+    return {"logits_max_abs_err": err, "decode_max_abs_err": steps_err,
+            "k_max_abs_err": k_err, "ranks": per}
+
+
+def phase_step_parallel(results: dict) -> None:
+    """The pipeline and ring programs on the card: one world of four rank
+    processes (``chip_smoke.py --par-rank``) over gloo on the one card,
+    four legs — pp = 2 (llama3.1-8b cut to 4 layers, B = 4, S = 1024, 2
+    microbatches, 8 greedy steps), sp = 2 (B = 2, S = 4096, prompts of
+    4000 and 3000, 8 steps, row 1 parked in one), sp 2 x tp 2 (the same
+    traffic) and sp 2 x ep 2 (mixtral-8x7b cut to 2 layers, B = 1, S =
+    2048, 4 steps) — all on int8 quote weights, each held against the
+    single-rank prefill and decode of the same weights on the card
+    (rank 0): logits and the k cache within PAR_TOL, greedy tokens
+    equal, decode logits bitwise equal on every rank, kernels D and B on
+    every rank (with their log-sum-exp on the ring's legs) and kernel A.
+    Two ranks time-slice one card and gloo stages every transfer through
+    the host: no figure here is the speed of pp or sp across cards."""
+    import tempfile
+    from p2p_llm_chat_tpu_torch.ops import _build
+    for name in _build.KERNELS:          # built once, before the ranks
+        _build.build(name)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    t0 = time.monotonic()
+    procs = _mh_spawn(PAR_RANKS, out_dir, "par",
+                      [sys.executable, os.path.abspath(__file__),
+                       "--par-rank"], PAR_OUT=out_dir)
+    try:
+        _mh_wait(procs, t0 + PAR_LEG_S * (len(PAR_LEGS) + 2),
+                 "step_parallel")
+    finally:
+        _mh_kill(procs)
+    world_s = time.monotonic() - t0
+    readings = {leg: _par_check_leg(results, leg, out_dir)
+                for leg in PAR_LEGS}
+    readings["world_s"] = round(world_s, 1)
+    results["_step_parallel"] = readings
+    print(f"step_parallel: four legs in {world_s:.0f} s (world of "
+          f"{PAR_RANKS} ranks, gloo on one card) [card: {card_line()}]",
+          flush=True)
+
+
 # Phase names for --only; a family name runs all of its members.
 PHASES = {
     "build": ("build",),
     "kernel": ("kernel_a", "kernel_b", "kernel_b_pool", "kernel_b_verify",
                "kernel_c", "kernel_experts", "kernel_d", "kernel_e",
                "kernel_dense"),
-    "step": ("step_llama", "step_llama_wta", "step_mixtral", "step_dense"),
+    "step": ("step_llama", "step_llama_wta", "step_mixtral", "step_dense",
+             "step_parallel"),
     "server": ("server_llama", "server_llama_wta", "server_mixtral",
                "server_spec", "server_tier", "server_ckpt", "server_multi",
                "server_dense", "server_draft", "server_multihost"),
@@ -7235,6 +7872,8 @@ def main() -> int:
         return _mh_rank_main()
     if sys.argv[1:] == ["--tp-rank"]:       # one rank of its tp2_engine leg
         return _tp_rank_main()
+    if sys.argv[1:] == ["--par-rank"]:      # one rank of step_parallel
+        return _par_rank_main()
     ap.add_argument("--only", default="build,kernel,step,server",
                     help="comma-separated phases to run: "
                     + ", ".join(f"{k} ({'/'.join(v)})"
@@ -7288,6 +7927,7 @@ def main() -> int:
         ("step_mixtral", lambda: phase_step("mixtral-8x7b", "int4", False)),
         ("step_dense", lambda: phase_step_dense("llama3.1-8b", "int8")),
         ("step_dense", lambda: phase_step_dense("mixtral-8x7b", "int4")),
+        ("step_parallel", lambda: phase_step_parallel(results)),
         ("server_llama", lambda: phase_server(
             results, "llama3.1-8b", "int8",
             ("quant_matmul", "paged_attention_append", "prefill_attention"),

@@ -726,9 +726,14 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
 // (kc != nullptr) seeds the merge with the current token's term
 // (m = s_cur, l = 1, acc = v_cur), pool mode starts from (m = -inf,
 // l = 0, acc = 0). A row with nothing to attend (pool mode, lengths[b]
-// = 0: outside the serving contract) gets zeros. Grid (B, Hq), one thread
-// per element of D; s_cur is one dot product per (b, h), reduced over the
-// block's warps in a fixed order.
+// = 0: a sequence shard that holds none of the row's slots,
+// parallel/ring.py) gets zeros. With LSE (pool mode only,
+// paged_pool_launch_lse) thread 0 also writes the merged log-sum-exp of
+// the row's scaled scores, (m + log2 l) ln 2 in natural log, -inf where
+// nothing was attended; the other instantiation compiles to the kernel
+// without it. Grid (B, Hq), one thread per element of D; s_cur is one dot
+// product per (b, h), reduced over the block's warps in a fixed order.
+template <bool LSE>
 __global__ void paged_combine_kernel(const __nv_bfloat16* __restrict__ q,
                                      const __nv_bfloat16* __restrict__ kc,
                                      const __nv_bfloat16* __restrict__ vc,
@@ -736,6 +741,7 @@ __global__ void paged_combine_kernel(const __nv_bfloat16* __restrict__ q,
                                      const float* __restrict__ ws_acc,
                                      const float* __restrict__ ws_ml,
                                      __nv_bfloat16* __restrict__ out,
+                                     float* __restrict__ lse,
                                      int Hq, int Hkv, int D, int splits,
                                      int window, float scale_log2)
 {
@@ -779,6 +785,11 @@ __global__ void paged_combine_kernel(const __nv_bfloat16* __restrict__ q,
         num += ws_acc[(wb + sp) * D + d] * f;
     }
     out[qi + d] = __float2bfloat16(den > 0.f ? num / den : 0.f);
+    if constexpr (LSE) {
+        if (d == 0)
+            lse[(size_t)b * Hq + h] = den > 0.f
+                ? (m + log2f(den)) * 0.6931471805599453f : -INFINITY;
+    }
 }
 
 // One chunk of VCH key positions for the 16 rows a warp holds (lane rows
@@ -1295,9 +1306,9 @@ cudaError_t launch_combine(void (*kernel)(Params...), dim3 grid, int threads,
 int launch(const void* q, const void* kc, const void* vc, const void* kp,
            const void* vp, const void* ks, const void* vs, const void* pt,
            int pt_stride, const void* lengths, void* ws_acc, void* ws_ml,
-           void* out, int B, int Hq, int Hkv, int D, int N, int ps,
-           int ps_pad, int layer, int pages, int splits, int quantized,
-           void* stream)
+           void* out, void* lse, int B, int Hq, int Hkv, int D, int N,
+           int ps, int ps_pad, int layer, int pages, int splits,
+           int quantized, void* stream)
 {
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     if (bad_geometry(B, Hq, Hkv, D, ps, pages, splits, SLICE, quantized, ks,
@@ -1310,14 +1321,15 @@ int launch(const void* q, const void* kc, const void* vc, const void* kp,
         scale_log2);
     if (err != cudaSuccess) return (int)err;
     return (int)launch_combine(
-        paged_combine_kernel, dim3(B, Hq), D, st,
+        lse != nullptr ? paged_combine_kernel<true>
+                       : paged_combine_kernel<false>, dim3(B, Hq), D, st,
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(kc),
         static_cast<const __nv_bfloat16*>(vc),
         static_cast<const int*>(lengths),
         static_cast<const float*>(ws_acc), static_cast<const float*>(ws_ml),
-        static_cast<__nv_bfloat16*>(out), Hq, Hkv, D, splits, pages * ps,
-        scale_log2);
+        static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Hq, Hkv,
+        D, splits, pages * ps, scale_log2);
 }
 
 template <typename T, int D>
@@ -1375,8 +1387,8 @@ int paged_append_launch(const void* q, const void* kc, const void* vc,
 {
     if (kc == nullptr || vc == nullptr) return (int)cudaErrorInvalidValue;
     return launch(q, kc, vc, kp, vp, ks, vs, pt, pt_stride, lengths, ws_acc,
-                  ws_ml, out, B, Hq, Hkv, D, N, ps, ps_pad, layer, pages,
-                  splits, quantized, stream);
+                  ws_ml, out, nullptr, B, Hq, Hkv, D, N, ps, ps_pad, layer,
+                  pages, splits, quantized, stream);
 }
 
 // Pool mode: the append mode's operands without kc/vc; lengths [B] counts
@@ -1389,8 +1401,26 @@ int paged_pool_launch(const void* q, const void* kp, const void* vp,
                       int splits, int quantized, void* stream)
 {
     return launch(q, nullptr, nullptr, kp, vp, ks, vs, pt, pt_stride,
-                  lengths, ws_acc, ws_ml, out, B, Hq, Hkv, D, N, ps, ps_pad,
-                  layer, pages, splits, quantized, stream);
+                  lengths, ws_acc, ws_ml, out, nullptr, B, Hq, Hkv, D, N, ps,
+                  ps_pad, layer, pages, splits, quantized, stream);
+}
+
+// Pool mode that also writes lse [B,Hq] f32: each row's natural-log
+// log-sum-exp of its scaled scores over the attended slots, -inf for a
+// row of lengths 0 (whose output is 0). The operands otherwise as
+// paged_pool_launch's.
+int paged_pool_launch_lse(const void* q, const void* kp, const void* vp,
+                          const void* ks, const void* vs, const void* pt,
+                          int pt_stride, const void* lengths, void* ws_acc,
+                          void* ws_ml, void* out, void* lse, int B, int Hq,
+                          int Hkv, int D, int N, int ps, int ps_pad,
+                          int layer, int pages, int splits, int quantized,
+                          void* stream)
+{
+    if (lse == nullptr) return (int)cudaErrorInvalidValue;
+    return launch(q, nullptr, nullptr, kp, vp, ks, vs, pt, pt_stride,
+                  lengths, ws_acc, ws_ml, out, lse, B, Hq, Hkv, D, N, ps,
+                  ps_pad, layer, pages, splits, quantized, stream);
 }
 
 // Verify mode. q [B,S,Hq,D] bf16 (S query positions per row); kb/vb

@@ -52,6 +52,14 @@
 //   upper half is never loaded). A warp skips a tile wholly past its rows
 //   and masks only a tile that crosses its diagonal or kv_end.
 //
+// The log-sum-exp (a ring hop's softmax statistics, parallel/ring.py):
+// with a non-null `lse` the epilogue also writes, per query row,
+//   lse[r, h, i] = log sum_j exp(q[r, i, h] . k[r, j, h / rep] / sqrt(D))
+// over the same visible j (natural log, f32, [R, Hq, Sq]) from the row's
+// running max and sum, (m + log2 l) ln 2 in the walk's log2 units. A null
+// pointer (every other caller) writes nothing else and leaves the
+// output's arithmetic as it is.
+//
 // Two properties callers rely on (chunked prefill and the prefix path):
 // - Rows do not depend on the call. A row's result depends only on its
 //   absolute position and the k/v it can see: kv tiles sit at absolute
@@ -175,8 +183,9 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
 prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ out, int Sq, int Skv,
-                    int Hq, int Hkv, int rep, int QW, int q_offset,
+                    __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ lse, int Sq, int Skv, int Hq,
+                    int Hkv, int rep, int QW, int q_offset,
                     float scale_log2)
 {
     constexpr int RS = D + 8;        // shared row stride (halves)
@@ -401,6 +410,12 @@ prefill_attn_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     const int r0 = p0 + gid, r1 = r0 + 8;
+    if (lse != nullptr && tig == 0) {  // the quad's lanes hold one m, l
+        constexpr float LN2 = 0.6931471805599453f;
+        float* const lr = lse + ((size_t)b * Hq + h) * Sq;
+        if (r0 < Sq) lr[r0] = (m0 + log2f(l0)) * LN2;
+        if (r1 < Sq) lr[r1] = (m1 + log2f(l1)) * LN2;
+    }
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 #pragma unroll
     for (int dn = 0; dn < ND; ++dn) {
@@ -446,9 +461,9 @@ int q_tile_warps(int R, int Sq, int Hkv, int rep, int sms)
 
 template <int D>
 cudaError_t launch(dim3 grid, int nw, cudaStream_t st, const void* q,
-                   const void* k, const void* v, void* out, int Sq, int Skv,
-                   int Hq, int Hkv, int rep, int QW, int q_offset,
-                   float scale_log2)
+                   const void* k, const void* v, void* out, void* lse,
+                   int Sq, int Skv, int Hq, int Hkv, int rep, int QW,
+                   int q_offset, float scale_log2)
 {
     // Above 48 KB a launch needs the opt-in, once per device, at the
     // largest block's size.
@@ -468,8 +483,8 @@ cudaError_t launch(dim3 grid, int nw, cudaStream_t st, const void* q,
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), Sq, Skv, Hq, Hkv, rep, QW,
-        q_offset, scale_log2);
+        static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Sq,
+        Skv, Hq, Hkv, rep, QW, q_offset, scale_log2);
     return cudaGetLastError();
 }
 
@@ -483,15 +498,10 @@ bool geometry_ok(int R, int Sq, int Skv, int Hq, int Hkv, int D,
            && (long long)Hkv * R <= 0x7fffffffLL && Sq <= 16 * 65535;
 }
 
-}  // namespace
-
-extern "C" {
-
-// q [R,Sq,Hq,D] bf16; k/v [R,Skv,Hkv,D] bf16; out [R,Sq,Hq,D] bf16; all
-// contiguous. Query i sits at absolute position q_offset + i.
-int prefill_attention_launch(const void* q, const void* k, const void* v,
-                             void* out, int R, int Sq, int Skv, int Hq,
-                             int Hkv, int D, int q_offset, void* stream)
+// Check the geometry, plan the q tile and launch (lse may be null).
+int run(const void* q, const void* k, const void* v, void* out, void* lse,
+        int R, int Sq, int Skv, int Hq, int Hkv, int D, int q_offset,
+        void* stream)
 {
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     if (!geometry_ok(R, Sq, Skv, Hq, Hkv, D, q_offset))
@@ -504,12 +514,37 @@ int prefill_attention_launch(const void* q, const void* k, const void* v,
     const dim3 grid(Hkv * R, (Sq + BQ - 1) / BQ);
     const int nw = rep * QW;
     const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-#define PF_ARGS grid, nw, st, q, k, v, out, Sq, Skv, Hq, Hkv, rep, QW, \
-    q_offset, scale_log2
+#define PF_ARGS grid, nw, st, q, k, v, out, lse, Sq, Skv, Hq, Hkv, rep, \
+    QW, q_offset, scale_log2
     if (D == 32) return (int)launch<32>(PF_ARGS);
     if (D == 64) return (int)launch<64>(PF_ARGS);
     return (int)launch<128>(PF_ARGS);
 #undef PF_ARGS
+}
+
+}  // namespace
+
+extern "C" {
+
+// q [R,Sq,Hq,D] bf16; k/v [R,Skv,Hkv,D] bf16; out [R,Sq,Hq,D] bf16; all
+// contiguous. Query i sits at absolute position q_offset + i.
+int prefill_attention_launch(const void* q, const void* k, const void* v,
+                             void* out, int R, int Sq, int Skv, int Hq,
+                             int Hkv, int D, int q_offset, void* stream)
+{
+    return run(q, k, v, out, nullptr, R, Sq, Skv, Hq, Hkv, D, q_offset,
+               stream);
+}
+
+// The same call that also writes lse [R,Hq,Sq] f32, each query row's
+// natural-log log-sum-exp of its scaled, masked scores.
+int prefill_attention_launch_lse(const void* q, const void* k,
+                                 const void* v, void* out, void* lse, int R,
+                                 int Sq, int Skv, int Hq, int Hkv, int D,
+                                 int q_offset, void* stream)
+{
+    if (lse == nullptr) return (int)cudaErrorInvalidValue;
+    return run(q, k, v, out, lse, R, Sq, Skv, Hq, Hkv, D, q_offset, stream);
 }
 
 // The q tile a launch of this geometry runs on the current device:

@@ -109,6 +109,26 @@ def attend_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, Hq, D)
 
 
+def gqa_lse(q: torch.Tensor, k: torch.Tensor,
+            mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The log-sum-exp (natural log, f32) of each query row's scaled
+    scores under ``mask`` (as :func:`attend_gqa` takes them): [B, Hq, Sq].
+    A row that sees nothing is -inf (masked scores are -inf here, not
+    ``NEG_INF``). These are the softmax statistics that merge partial
+    attentions over disjoint key sets (the reference's ``_online_update``
+    (m, l) as ``m + log l``)."""
+    B, Sq, Hq, D = q.shape
+    G = k.shape[2]
+    qg = q.reshape(B, Sq, G, Hq // G, D)
+    scores = torch.einsum("bsgrd,btgd->bgrst", qg.float(), k.float())
+    scores = scores / math.sqrt(D)
+    if mask is not None:
+        if mask.ndim == 4:                     # [B|1, 1, Sq, Skv]
+            mask = mask[:, :, None]
+        scores = scores.masked_fill(~mask, float("-inf"))
+    return torch.logsumexp(scores, dim=-1).reshape(B, Hq, Sq)
+
+
 def attend_gqa_causal0(q: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor) -> torch.Tensor:
     """Causal-from-position-0 attention over equal-length q/k/v

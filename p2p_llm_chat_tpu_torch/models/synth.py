@@ -57,6 +57,30 @@ def successor_map(vocab: int, mode: str = "quote") -> np.ndarray:
     return succ
 
 
+def _successor_sum(emb: torch.Tensor, succ: np.ndarray, stray: np.ndarray,
+                   weights: np.ndarray) -> torch.Tensor:
+    """``out[j] = sum_{succ(t) = j} w_t emb[t]`` [V, H] f32, summed in one
+    fixed order on every device: ``succ`` is one-to-one on the printable
+    ids, and a stray ``t`` maps to ``_ASCII_LO + t % n`` (n printable ids),
+    so the printable rows are placed and each residue class of the strays
+    is summed over one axis of a [V / n, n, H] view. (``index_add_`` on the
+    card accumulates with atomics, whose order, and so whose bits, vary
+    from run to run and from process to process: ranks that each build
+    the tree would hold different heads.)"""
+    V, H = emb.shape
+    n = _ASCII_HI - _ASCII_LO
+    dev = emb.device
+    out = torch.zeros((V, H), dtype=torch.float32, device=dev)
+    out[torch.from_numpy(succ[_ASCII_LO:_ASCII_HI]).to(dev)] = \
+        emb[_ASCII_LO:_ASCII_HI].float()
+    cls = torch.zeros((-(-V // n) * n, H), dtype=torch.float32, device=dev)
+    cls[:V] = emb
+    cls[:V] *= torch.from_numpy(np.where(stray, weights, 0.0).astype(
+        np.float32)).to(dev)[:, None]
+    out[_ASCII_LO:_ASCII_HI] += cls.view(-1, n, H).sum(dim=0)
+    return out
+
+
 def quote_params(config: ModelConfig, seed: int = 0,
                  dtype: torch.dtype = torch.bfloat16, quant: str = "int8",
                  mode: str = "quote",
@@ -100,11 +124,7 @@ def quote_params(config: ModelConfig, seed: int = 0,
     stray[_ASCII_LO:_ASCII_HI] = False
     per_col = max(1, int(stray.sum()) // (_ASCII_HI - _ASCII_LO))
     weights = np.where(stray, 1.0 / np.sqrt(per_col), 1.0).astype(np.float32)
-    lm_t = torch.zeros((V, H), dtype=torch.float32, device=device)
-    lm_t.index_add_(0, torch.from_numpy(succ).to(device),
-                    emb * torch.from_numpy(weights).to(device)[:, None])
-    lm = lm_t.T.contiguous() * 4.0
-    del lm_t
+    lm = _successor_sum(emb, succ, stray, weights).T.contiguous() * 4.0
     params["embed"] = cut_leaf("embed", emb.to(dtype), split)
     del emb
     params["lm_head"] = cut_leaf(

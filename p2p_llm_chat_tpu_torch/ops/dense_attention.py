@@ -13,7 +13,11 @@ attended), so ``[L, B, T, Hkv, D]`` is, bit for bit, the pool
 ``table[b, i] = b * (T / ps) + i``, whatever ``SERVE_MAX_SEQ`` is. So:
 
 - :func:`dense_attention` (decode, write-then-attend) is kernel B's pool
-  mode on a zero-copy view of the cache;
+  mode on a zero-copy view of the cache; with ``return_lse`` it also
+  returns each row's log-sum-exp, which merges the partial attentions of
+  a cache split over sequence shards (parallel/ring.sp_decode_step). A
+  shard may hold none of a row's slots (``lengths`` 0): that row comes
+  back as output 0 and log-sum-exp -inf, never NaN;
 - :func:`dense_attention_verify` (speculative verify, chain or tree) is
   kernel B's verify mode on the same view, with the block's own k/v and
   its mask passed in, as ``verify_step_paged`` passes them;
@@ -25,7 +29,8 @@ The identity table is built once per (rows, pages per row, device) and
 kept, so the serving loop's CUDA graphs capture it as a constant. Each
 wrapper launches kernel B for CUDA tensors (or raises) and runs its plain
 version, the reference's math, only for tensors on the CPU;
-``<wrapper>.launches`` counts kernel launches.
+``<wrapper>.launches`` counts kernel launches (``dense_attention.
+lse_launches`` those with the log-sum-exp).
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from ..models.layers import attend_gqa
+from ..models.layers import attend_gqa, gqa_lse
 from . import paged_attention as pa
 from .paged_kv import PagedKVCache
 
@@ -114,19 +119,25 @@ def _live_window(cache_k, cache_v, layer: int, window: int,
 
 def dense_attention_plain(q: torch.Tensor, cache_k: torch.Tensor,
                           cache_v: torch.Tensor, lengths: torch.Tensor,
-                          layer: int, *, window: int) -> torch.Tensor:
+                          layer: int, *, window: int,
+                          return_lse: bool = False):
     """The reference's decode attention (``attend_gqa`` over
     ``cache.k/v[layer, :, :window]`` under ``length_mask(window,
     lengths)``). q [B, Hq, D]; lengths [B] slots to attend, the one this
-    step wrote included. Returns [B, Hq, D] in q.dtype."""
+    step wrote included. Returns [B, Hq, D] in q.dtype; with
+    ``return_lse`` also the rows' log-sum-exp [B, Hq] f32
+    (``layers.gqa_lse``; -inf, and output 0, for a row of lengths 0)."""
     pos = torch.arange(window, device=q.device)
     mask = pos[None, None, :] < lengths.long()[:, None, None]  # [B, 1, W]
     k, v = _live_window(cache_k, cache_v, layer, window, mask)
-    return attend_gqa(q[:, None], k, v, mask[:, None])[:, 0].to(q.dtype)
+    out = attend_gqa(q[:, None], k, v, mask[:, None])[:, 0].to(q.dtype)
+    if not return_lse:
+        return out
+    return out, gqa_lse(q[:, None], k, mask[:, None])[..., 0]
 
 
 def dense_attention(q: torch.Tensor, cache, lengths: torch.Tensor,
-                    layer: int, *, window: int) -> torch.Tensor:
+                    layer: int, *, window: int, return_lse: bool = False):
     """Decode attention for one layer over the dense cache, write-then-
     attend: the step's k/v already sit at slot ``lengths - 1`` of each
     row. q [B, Hq, D]; ``cache`` holds k/v ``[L, B, T, Hkv, D]``;
@@ -135,16 +146,20 @@ def dense_attention(q: torch.Tensor, cache, lengths: torch.Tensor,
 
     On the card: kernel B's pool mode over :func:`pool_view` (bf16
     caches), ``ceil(window / ps)`` pages per row. On the CPU:
-    :func:`dense_attention_plain`. Returns [B, Hq, D] in q.dtype."""
+    :func:`dense_attention_plain`. Returns [B, Hq, D] in q.dtype; with
+    ``return_lse`` (out, lse [B, Hq] f32), the log-sum-exp written by
+    the kernel's combine beside the output (a row of lengths 0: output
+    0, lse -inf)."""
     if q.device.type == "cpu":
         return dense_attention_plain(q, cache.k, cache.v, lengths, layer,
-                                     window=window)
+                                     window=window, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"dense_attention: unsupported device {q.device}")
     kp, vp, table, ps = pool_view(cache.k, cache.v)
     out = pa._launch("dense_attention", q, None, None, kp, vp, None, None,
-                     table, lengths, layer, -(-window // ps))
+                     table, lengths, layer, -(-window // ps), return_lse)
     dense_attention.launches += 1
+    dense_attention.lse_launches += return_lse
     return out
 
 
@@ -223,4 +238,6 @@ def dense_attention_verify(q_blk: torch.Tensor, k_blk: torch.Tensor,
 
 
 dense_attention.launches = 0
+# Of those, the launches that wrote the log-sum-exp (sp decode's shards).
+dense_attention.lse_launches = 0
 dense_attention_verify.launches = 0

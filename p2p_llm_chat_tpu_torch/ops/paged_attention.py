@@ -222,6 +222,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.paged_pool_launch.restype = i
     lib.paged_pool_launch.argtypes = (
         [p] * 6 + [i, p, p, p, p] + [i] * 11 + [p])
+    lib.paged_pool_launch_lse.restype = i
+    lib.paged_pool_launch_lse.argtypes = (
+        [p] * 6 + [i, p, p, p, p, p] + [i] * 11 + [p])
     lib.paged_split_smem.restype = i
     lib.paged_split_smem.argtypes = [i, i]
     lib.paged_slice_tokens.restype = i
@@ -307,9 +310,12 @@ def verify_plan(width: int, B: int, S: int, Hq: int, D: int,
 
 
 def _launch(what: str, q, k_cur, v_cur, k_pages, v_pages, k_scale, v_scale,
-            page_table, lengths, layer: int, pages: int) -> torch.Tensor:
+            page_table, lengths, layer: int, pages: int,
+            return_lse: bool = False):
     """Check the operands and launch kernel B: append mode with
-    ``k_cur``/``v_cur``, pool mode without."""
+    ``k_cur``/``v_cur``, pool mode without. ``return_lse`` (pool mode):
+    (out, lse), lse [B, Hq] f32 the rows' log-sum-exp from the combine,
+    -inf where a row has no slot to attend."""
     B, Hq, D = q.shape
     L, N, ps, Hkv, Dp = k_pages.shape
     cur = () if k_cur is None else (("k_cur", k_cur), ("v_cur", v_cur))
@@ -330,7 +336,15 @@ def _launch(what: str, q, k_cur, v_cur, k_pages, v_pages, k_scale, v_scale,
             acc_ptr + B * Hq * splits * D * 4, out.data_ptr(), B, Hq, Hkv,
             D, N, ps, ps_pad, layer, pages, splits, int(quantized),
             _build.stream_ptr(q.device))
-    if k_cur is None:
+    lse = None
+    if return_lse:
+        if k_cur is not None:
+            raise ValueError(f"{what}: the log-sum-exp is pool mode's only")
+        lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+        rc = lib.paged_pool_launch_lse(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks_ptr,
+            vs_ptr, *tail[:5], out.data_ptr(), lse.data_ptr(), *tail[6:])
+    elif k_cur is None:
         rc = lib.paged_pool_launch(q.data_ptr(), k_pages.data_ptr(),
                                    v_pages.data_ptr(), ks_ptr, vs_ptr, *tail)
     else:
@@ -339,7 +353,7 @@ def _launch(what: str, q, k_cur, v_cur, k_pages, v_pages, k_scale, v_scale,
                                      v_pages.data_ptr(), ks_ptr, vs_ptr,
                                      *tail)
     _build.check(rc, lib, "paged_append_error_string", what)
-    return out
+    return (out, lse) if return_lse else out
 
 
 def paged_attention_append(q: torch.Tensor, k_cur: torch.Tensor,

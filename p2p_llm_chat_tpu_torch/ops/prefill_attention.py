@@ -14,7 +14,14 @@ dense XLA attend, an XLA chunk-scan flash, and the Pallas library's
 ``S % 512 == 0``); those thresholds are TPU artefacts. Here
 :func:`prefill_attention` launches kernel D for CUDA tensors at every size
 (or raises) and runs :func:`prefill_attention_reference` only for tensors
-on the CPU. ``prefill_attention.launches`` counts kernel launches.
+on the CPU. ``prefill_attention.launches`` counts kernel launches
+(``.lse_launches`` those with the log-sum-exp).
+
+With ``return_lse=True`` both also return each query row's log-sum-exp
+(natural log, f32, ``[R, Hq, Sq]``): the softmax statistics a ring hop
+merges by (parallel/ring.py). The kernel writes it from its running max
+and sum through a pointer that is null on every other call, whose output
+it leaves as it is.
 """
 
 from __future__ import annotations
@@ -30,39 +37,45 @@ MAX_REP = 8
 
 
 def prefill_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                                v: torch.Tensor,
-                                q_offset: int = 0) -> torch.Tensor:
+                                v: torch.Tensor, q_offset: int = 0,
+                                return_lse: bool = False):
     """Plain PyTorch version: ``attend_gqa`` under
     ``causal_mask(Sq, Skv, q_offset)``. q [R, Sq, Hq, D]; k/v
-    [R, Skv, Hkv, D]. Returns [R, Sq, Hq, D] in q.dtype."""
-    from ..models.layers import attend_gqa, causal_mask
+    [R, Skv, Hkv, D]. Returns [R, Sq, Hq, D] in q.dtype; with
+    ``return_lse`` also the rows' log-sum-exp [R, Hq, Sq] in f32
+    (``layers.gqa_lse``)."""
+    from ..models.layers import attend_gqa, causal_mask, gqa_lse
     mask = causal_mask(q.shape[1], k.shape[1], q_offset, q.device)
-    return attend_gqa(q, k, v, mask)
+    out = attend_gqa(q, k, v, mask)
+    return (out, gqa_lse(q, k, mask)) if return_lse else out
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.prefill_attention_launch.restype = i
     lib.prefill_attention_launch.argtypes = [p] * 4 + [i] * 7 + [p]
+    lib.prefill_attention_launch_lse.restype = i
+    lib.prefill_attention_launch_lse.argtypes = [p] * 5 + [i] * 7 + [p]
     lib.prefill_attention_plan.restype = i
     lib.prefill_attention_plan.argtypes = [i] * 5 + [p] * 2
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      q_offset: int = 0) -> torch.Tensor:
+                      q_offset: int = 0, return_lse: bool = False):
     """Causal attention of q [R, Sq, Hq, D] over k/v [R, Skv, Hkv, D]
     (contiguous bf16 on the card; D in {32, 64, 128}, Hq / Hkv <= 8) with
     query ``i`` at absolute position ``q_offset + i``. Returns
-    [R, Sq, Hq, D] in q.dtype."""
+    [R, Sq, Hq, D] in q.dtype; with ``return_lse`` (out, lse), lse the
+    rows' log-sum-exp [R, Hq, Sq] f32."""
     if q.device.type == "cpu":
-        return prefill_attention_reference(q, k, v, q_offset)
+        return prefill_attention_reference(q, k, v, q_offset, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"prefill_attention: unsupported device {q.device}")
-    return _launch(q, k, v, q_offset)
+    return _launch(q, k, v, q_offset, return_lse)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            q_offset: int) -> torch.Tensor:
+            q_offset: int, return_lse: bool = False):
     """Check the operands and launch kernel D. The kernel picks its q tile
     from the geometry and the card (:func:`q_tile_plan`); its kv tiles sit
     at absolute offsets of 64, so nothing handed over here but ``Sq`` and
@@ -84,13 +97,22 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(v.shape)} q_offset {q_offset}")
     out = torch.empty_like(q)
     lib = _build.load("prefill_attention", _bind)
-    rc = lib.prefill_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), R, Sq,
-        Skv, Hq, Hkv, D, int(q_offset), _build.stream_ptr(q.device))
+    tail = (R, Sq, Skv, Hq, Hkv, D, int(q_offset),
+            _build.stream_ptr(q.device))
+    lse = None
+    if return_lse:
+        lse = torch.empty((R, Hq, Sq), dtype=torch.float32, device=q.device)
+        rc = lib.prefill_attention_launch_lse(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), *tail)
+    else:
+        rc = lib.prefill_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *tail)
     _build.check(rc, lib, "prefill_attention_error_string",
                  "prefill_attention")
     prefill_attention.launches += 1
-    return out
+    prefill_attention.lse_launches += return_lse
+    return (out, lse) if return_lse else out
 
 
 def q_tile_plan(R: int, Sq: int, Hq: int, Hkv: int, D: int
@@ -109,3 +131,5 @@ def q_tile_plan(R: int, Sq: int, Hq: int, Hkv: int, D: int
 
 
 prefill_attention.launches = 0
+# Of those, the launches that wrote the log-sum-exp (the ring's hops).
+prefill_attention.lse_launches = 0

@@ -1,6 +1,9 @@
 """The parallel layer of the port on ``torch.distributed``: the mesh of
-ranks (:mod:`.mesh`), the logical-axis rules and each rank's shard
-(:mod:`.sharding`), and joining a world of processes
-(:mod:`.distributed`). serve/multihost.py stands on all three. The
-reference's pipeline and ring-attention programs (parallel/pipeline.py,
-parallel/ring.py) are not ported."""
+ranks and its collectives, the shift along a ring or a chain included
+(:mod:`.mesh`), the logical-axis rules and each rank's shard, a pipeline
+stage's layers among them (:mod:`.sharding`), joining a world of
+processes (:mod:`.distributed`), and the reference's two programs over
+the ``pp`` and ``sp`` axes: pipeline-parallel prefill and decode
+(:mod:`.pipeline`) and ring-attention prefill with sequence-parallel
+decode, composed with ``tp`` or ``ep`` (:mod:`.ring`). serve/multihost.py
+and serve/tp.py stand on the first three."""

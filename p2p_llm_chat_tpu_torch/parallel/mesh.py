@@ -11,9 +11,10 @@ lines. A size-1 axis has no group, and a mesh of one rank none at all:
 the model code treats it as no mesh.
 
 The :class:`Mesh` is also where the collectives live (:meth:`Mesh.
-all_reduce`, :meth:`Mesh.all_gather`, :meth:`Mesh.broadcast`): every one
-the model forms, the multi-process plane and the tensor-parallel KV tier
-run goes through it, so it can time them
+all_reduce`, :meth:`Mesh.all_gather`, :meth:`Mesh.broadcast`, and the
+shift along a ring or a chain, :meth:`Mesh.ppermute`): every one the model
+forms, the pipeline and ring programs, the multi-process plane and the
+tensor-parallel KV tier run goes through it, so it can time them
 (:meth:`Mesh.take_collective_ms`).
 """
 
@@ -76,6 +77,8 @@ class Mesh:
     world: object = None
     _timed: list = field(default_factory=list)
     _host_ms: float = 0.0
+    # Bytes this rank has sent by :meth:`ppermute` (never reset here).
+    sent_bytes: int = 0
 
     @property
     def size(self) -> int:
@@ -113,14 +116,18 @@ class Mesh:
 
     # -- collectives ------------------------------------------------------
 
-    def all_reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
-        """The sum of ``x`` over the line along ``axes``, in place; ``x``
-        itself where the line is this rank alone."""
+    def all_reduce(self, x: torch.Tensor, axes, op: str = "sum"
+                   ) -> torch.Tensor:
+        """The sum (``op="max"``: the maximum) of ``x`` over the line
+        along ``axes``, in place; ``x`` itself where the line is this
+        rank alone."""
         g = self.group(axes)
         if g is None:
             return x
+        red = {"sum": torch.distributed.ReduceOp.SUM,
+               "max": torch.distributed.ReduceOp.MAX}[op]
         with self._timing(x):
-            torch.distributed.all_reduce(x, group=g)
+            torch.distributed.all_reduce(x, op=red, group=g)
         return x
 
     def all_gather(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
@@ -146,6 +153,66 @@ class Mesh:
             torch.distributed.broadcast(
                 x, torch.distributed.get_global_rank(g, src), group=g)
         return x
+
+    def ppermute(self, x: torch.Tensor, axes, shift: int = 1, *,
+                 wrap: bool = True, send: bool = True, recv: bool = True
+                 ) -> Optional[torch.Tensor]:
+        """The counterpart of ``jax.lax.ppermute`` along ``axes``: this
+        rank (index i of n on the line) sends ``x`` to index ``i + shift``
+        and returns what index ``i - shift`` sent, a tensor shaped and
+        typed like ``x`` on its device.
+
+        ``wrap`` (a ring) takes the indices modulo n. Without it (a
+        chain: the pipeline's stages) a rank whose destination lies past
+        the line sends nothing, and one whose source lies before it
+        receives nothing and returns None. ``send`` / ``recv`` False:
+        this rank sits out that half of the exchange this time; the
+        callers' schedule, which every rank knows, pairs each send with
+        its receive (a rank that only receives passes a tensor of the
+        shape and type it expects). Where the line is this rank alone:
+        ``x`` under ``wrap``, else None.
+
+        The receive and the send are posted together and then waited on
+        (two blocking sends facing each other, as at n = 2, would
+        deadlock), each wait bounded by the group's limit. Gloo's
+        point-to-point takes host tensors only: there a CUDA tensor goes
+        through pinned host memory, copied out before the send and back
+        after the receive."""
+        dist = torch.distributed
+        g = self.group(axes)
+        if g is None:
+            return x if wrap and send and recv else None
+        n, i = self.span(axes), self.index(axes)
+        dst, src = i + shift, i - shift
+        if wrap:
+            dst, src = dst % n, src % n
+        send = send and 0 <= dst < n
+        recv = recv and 0 <= src < n
+        if not (send or recv):
+            return None
+        staged = x.is_cuda and self.backend != "nccl"
+        with self._timing(x):
+            ops, buf = [], None
+            if recv:
+                buf = torch.empty(x.shape, dtype=x.dtype,
+                                  device="cpu" if staged else x.device,
+                                  pin_memory=staged)
+                ops.append(dist.P2POp(dist.irecv, buf,
+                                      dist.get_global_rank(g, src), g))
+            if send:
+                out = x.contiguous()
+                if staged:
+                    host = torch.empty(x.shape, dtype=x.dtype,
+                                       pin_memory=True)
+                    out = host.copy_(out)
+                ops.append(dist.P2POp(dist.isend, out,
+                                      dist.get_global_rank(g, dst), g))
+                self.sent_bytes += x.numel() * x.element_size()
+            for work in dist.batch_isend_irecv(ops):
+                work.wait(COMPUTE_TIMEOUT)
+            if staged and buf is not None:
+                buf = buf.to(x.device, non_blocking=True)
+        return buf
 
     def drop_collective_timing(self) -> None:
         """Forget the collectives timed since the last take (their events

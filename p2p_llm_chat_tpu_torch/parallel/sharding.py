@@ -28,6 +28,12 @@ collectives, models/llama.py) read it.
 - ``constrain`` (the reference's in-jit activation hint) has no
   counterpart: the port's layouts are explicit, each form runs on its
   rank's slices and the collectives are written out.
+- Two more layouts serve the reference's pipeline and ring programs
+  (parallel/pipeline.py, parallel/ring.py): :func:`stage_layers` keeps a
+  pipeline stage's contiguous block of the stacked layers (the
+  reference's ``_stage_specs``), and the ring's rules (``RING_RULES``:
+  the embedding and lm_head whole) go to :meth:`Split.of` and
+  :func:`shard_model` as ``rules``.
 """
 
 from __future__ import annotations
@@ -133,15 +139,17 @@ class Split:
     experts: int
 
     @classmethod
-    def of(cls, config: ModelConfig, mesh: Optional[Mesh]
-           ) -> Optional["Split"]:
+    def of(cls, config: ModelConfig, mesh: Optional[Mesh],
+           rules: LogicalRules = DEFAULT_RULES) -> Optional["Split"]:
         """None when nothing is cut (no mesh, one rank, or no axis that
-        divides): the single-card forms then run unchanged."""
+        divides): the single-card forms then run unchanged. ``rules``
+        whose "vocab" is None (the ring's) keep the vocabulary whole."""
         if mesh is None or mesh.size == 1:
             return None
         t = mesh.shape.get("tp", 1)
         layers = layer_split(config, mesh)
-        vocab = t if t > 1 and config.vocab_size % t == 0 else 1
+        vocab = (t if t > 1 and rules.get("vocab") is not None
+                 and config.vocab_size % t == 0 else 1)
         ne = mesh.span(DEFAULT_RULES["experts"])
         experts = (ne if config.is_moe and ne > 1
                    and config.num_experts % ne == 0 else 1)
@@ -208,7 +216,7 @@ def shard_params(params: Any, axes_tree: Any, mesh: Mesh,
     before quantizing). Fuse the result after slicing
     (models/llama.fuse_params), so each rank's ``wqkv`` is
     ``[q_r | k_r | v_r]``."""
-    split = Split.of(config, mesh)
+    split = Split.of(config, mesh, rules)
 
     def leaf(x: torch.Tensor, axes: tuple) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):
@@ -241,7 +249,8 @@ def shard_params(params: Any, axes_tree: Any, mesh: Mesh,
 
 
 def shard_model(params: dict, config: ModelConfig, mesh: Optional[Mesh],
-                device: Optional[str | torch.device] = None) -> dict:
+                device: Optional[str | torch.device] = None, *,
+                rules: LogicalRules = DEFAULT_RULES) -> dict:
     """This rank's FUSED tree of a model of ``config`` from the whole one
     (fused or not). Plain tensors: unfused into views, cut by
     :func:`shard_params`, fused again, the expert stacks left separate
@@ -249,11 +258,12 @@ def shard_model(params: dict, config: ModelConfig, mesh: Optional[Mesh],
     (int8 ``QTensor`` / int4 ``QTensor4`` leaves, quantized WHOLE, as the
     reference quantizes the sharded global arrays) is cut leaf by leaf in
     its fused layout by :func:`cut_leaf`. Where nothing is cut
-    (:meth:`Split.of` is None) the tree is only fused."""
+    (:meth:`Split.of` is None) the tree is only fused. ``rules``: the
+    ring's keep the embedding and lm_head whole (parallel/ring.py)."""
     from ..models import family_for
     from ..models.quant import quant_mode
     family = family_for(config)
-    split = Split.of(config, mesh)
+    split = Split.of(config, mesh, rules)
     if split is None:
         return _to(family.fuse_params(params), device)
     if quant_mode(params):
@@ -265,8 +275,43 @@ def shard_model(params: dict, config: ModelConfig, mesh: Optional[Mesh],
         return out
     tree = shard_params(family.unfuse_params(params, config),
                         family.param_axes(config), mesh, device,
-                        config=config)
+                        config=config, rules=rules)
     return family.fuse_params(tree, experts=False)
+
+
+def stage_layers(params: dict, config: ModelConfig, mesh: Mesh,
+                 device: Optional[str | torch.device] = None) -> dict:
+    """This rank's pipeline stage of a tree (the reference's
+    ``_stage_specs``), FUSED (the family's ``fuse_params``): every leaf
+    under ``layers`` — plain, ``QTensor`` or ``QTensor4``, whose ``q`` and
+    ``s`` both lead with the layer axis — keeps layers
+    ``[s L/pp, (s+1) L/pp)`` for the rank's index ``s`` along ``pp``, as
+    tensors of their own on ``device``; every other leaf is whole (the
+    embedding, final norm and lm_head: stage 0 embeds, the last stage
+    projects)."""
+    from ..models import family_for
+    from ..models.quant import QTensor, QTensor4
+    pp = mesh.shape["pp"]
+    L = config.num_layers
+    if L % pp:
+        raise ValueError(f"{L} layers not divisible by pp={pp}")
+    n = L // pp
+    lo = mesh.index("pp") * n
+
+    def own(x):
+        x = x.narrow(0, lo, n)
+        return torch.empty(x.shape, dtype=x.dtype,
+                           device=x.device if device is None
+                           else device).copy_(x)
+
+    def cut(w):
+        if isinstance(w, (QTensor, QTensor4)):
+            return type(w)(q=own(w.q), s=own(w.s))
+        return own(w)
+
+    out = _to({k: v for k, v in params.items() if k != "layers"}, device)
+    out["layers"] = {k: cut(v) for k, v in params["layers"].items()}
+    return family_for(config).fuse_params(out)
 
 
 # -- cutting fused leaves ------------------------------------------------------
@@ -390,4 +435,8 @@ def cut_leaf(name: str, w, split: Optional[Split],
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
-    return tree if device is None else tree.to(device)
+    if device is None:
+        return tree
+    if isinstance(tree, tuple):             # a QTensor / QTensor4
+        return type(tree)(*(t.to(device) for t in tree))
+    return tree.to(device)

@@ -440,8 +440,7 @@ class MultihostEngine:
                 except Exception as e:        # noqa: BLE001
                     log.exception("multihost embed round failed")
                     item.error = e
-                    item.event.set()
-                    self._end_plane(held)
+                    self._end_plane(held, [item])
                     return
                 item.event.set()
                 continue
@@ -472,8 +471,7 @@ class MultihostEngine:
                 log.exception("multihost round failed")
                 for p in batch:
                     p.error = e
-                    p.event.set()
-                self._end_plane(held)
+                self._end_plane(held, batch)
                 return
             # Per-row post-processing fails alone.
             for p, ids in zip(batch, results):
@@ -487,16 +485,21 @@ class MultihostEngine:
                 finally:
                     p.event.set()
 
-    def _end_plane(self, held: deque) -> None:
+    def _end_plane(self, held: deque, failed=()) -> None:
         """The leader's end of the plane after a failed round: the ranks
         may have stopped at different collectives of it, so none can
         realign. Every held and queued request fails, the engine turns
         not ready and refuses new work, and this rank leaves the world,
-        which ends the followers' waits with an error."""
+        which ends the followers' waits with an error. ``failed``: the
+        round's own requests (their error already set), woken only once
+        the engine reads not ready, so their callers never see it
+        ready."""
         log.error("a lockstep round failed; the plane stops and this rank "
                   "leaves the world")
         self._down = True
         self._stopped.set()
+        for p in failed:
+            p.event.set()
         err = RuntimeError("internal error: the multihost plane stopped")
         while True:
             try:
