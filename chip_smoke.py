@@ -237,6 +237,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -3478,48 +3479,12 @@ def phase_step_dense(model: str, quant: str) -> None:
 
 
 # -- optional phase: where one full-depth decode step spends its time ---------
+# The attribution (device events by kernel group, unions of their
+# intervals, the idle share) is p2p_llm_chat_tpu_torch/tools/trace_step.py.
 
-def _kernel_group(name: str) -> str:
-    if "qmm4_" in name:
-        return "kernel C (w4a16, dense and experts)"
-    if "qmm_kernel" in name or "qmm_reduce" in name:
-        return "kernel A (w8a16, dense and experts)"
-    if "paged_split_kernel" in name or "paged_combine_kernel" in name:
-        return "kernel B (paged attention, append or pool mode)"
-    return "other"
-
-
-def _union_ms(spans) -> float:
-    """Length in ms of the union of (start, end) intervals in us."""
-    total, reach = 0.0, -math.inf
-    for a, b in sorted(spans):
-        if b > reach:
-            total += b - max(a, reach)
-            reach = b
-    return total / 1e3
-
-
-def _profiled(fn, steps: int):
-    """(wall ms per call with CUDA events, no profiler; device events of
-    ``steps`` calls under torch.profiler, as (name, start us, end us))."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    wall = time_ms(fn, steps)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    # Device-side events only (kernels, copies, sets), each counted once;
-    # a CPU op's device time would count its kernels a second time.
-    return wall, [(e.name, e.time_range.start, e.time_range.end)
-                  for e in prof.events() if e.device_type == DeviceType.CUDA]
-
-
-def phase_profile(model: str, quant: str, B: int = 8, W: int = 1020,
-                  steps: int = 10, impl: str = "gather") -> None:
+def phase_profile(results: dict, model: str, quant: str, B: int = 8,
+                  W: int = 1020, steps: int = 10,
+                  impl: str = "gather") -> None:
     """Where one ``model`` decode step (32 layers, ``quant`` weights, an
     int8 pool; under a write-then-attend ``impl`` a bf16 pool) spends its
     time at ``B`` rows of ``W`` pool tokens, in the scheduler's state and
@@ -3529,13 +3494,20 @@ def phase_profile(model: str, quant: str, B: int = 8, W: int = 1020,
     without a graph); and the K = 1 and K = 4 programs replayed from their
     CUDA graphs. Each: wall time per step with CUDA events over ``steps``
     calls, then a torch.profiler pass summing device time by kernel and
-    the device's idle share of the wall time. Not part of the default
+    the device's idle share of the wall time (tools/trace_step.attribute).
+    On llama3.1-8b's gather branch (profile_llama), tools/profile_step's
+    ``full`` variant on the same weights and state is then attributed the
+    same way, and its device busy time kept beside the bare step's as
+    ``_profile_llama_step_ms`` for phase_profile_tools (device busy, not a
+    graph replay's time: replays of one captured step run at two levels
+    about 6% apart, by capture, tools/card.py). Not part of the default
     run."""
     import torch
     from p2p_llm_chat_tpu_torch.models import family_for
     from p2p_llm_chat_tpu_torch.models.configs import get_config
     from p2p_llm_chat_tpu_torch.serve.scheduler import BatchScheduler
     from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
+    from p2p_llm_chat_tpu_torch.tools import profile_step, trace_step
     cfg = get_config(model)
     fam = family_for(cfg)
     print(f"profile: building {model} ({quant}); "
@@ -3573,64 +3545,25 @@ def phase_profile(model: str, quant: str, B: int = 8, W: int = 1020,
           f"{'bf16 pool (write-then-attend)' if wta else 'int8 pool'}, "
           f"B={B} W={W}, window {window}: {len(sched._programs)} graphs "
           f"captured in {cap_s:.1f} s", flush=True)
+    tools_full = model == "llama3.1-8b" and not wta
+    if tools_full:
+        variants += (("tools/profile_step full variant (eager)",
+                      lambda: profile_step.step_variant(
+                          params, cfg, sched._next, cache, pages=pages,
+                          variant="full"), 1),)
+    busy = {}
     for label, fn, K in variants:
         def call(_i: int = 0, fn=fn) -> None:
             cache.lengths.fill_(W)
             fn()
-        wall, events = _profiled(call, steps)
-        wall /= K
-        spans: dict[str, list] = {}
-        other: dict[str, list] = {}
-        for name, a, b in events:
-            g = _kernel_group(name)
-            keys = [(spans, g)] + ([(other, name)] if g == "other" else [])
-            for d, key in keys:
-                d.setdefault(key, []).append((a, b))
-        n = steps * K
-
-        def summed(v) -> float:
-            return sum(b - a for a, b in v) / 1e3 / n
-        # Times are unions of kernel intervals: kernel B's combine, a
-        # programmatic dependent of its split kernel, starts while the
-        # split still runs. The sums of kernel times are printed beside
-        # them; the two agree wherever kernels do not overlap.
-        groups = {g: [_union_ms(v) / n, len(v), summed(v)]
-                  for g, v in spans.items()}
-        other_ms = {k: [_union_ms(v) / n, len(v)] for k, v in other.items()}
-        busy = _union_ms([x for v in spans.values() for x in v]) / n
-        busy_sum = sum(v[2] for v in groups.values())
+        out = trace_step.attribute(label, call, steps, K=K)
+        busy[label] = out["busy_ms"]
         if K == 1 and "graph" not in label:
-            check(busy > 0, "profile: the profiler saw no device time")
-        if busy == 0:
-            print(f"  {label}: {wall:.3f} ms per step (CUDA events); the "
-                  "profiler saw no kernel inside the replays", flush=True)
-            continue
-        # The profiler slows every launch on the host, so the idle share
-        # is taken against the unprofiled step time.
-        print(f"  {label}: {wall:.3f} ms per step (CUDA events, {steps} "
-              f"calls of {K} step{'s' * (K > 1)}, no profiler); device "
-              f"busy {busy:.3f} ms per step (sum of kernel times "
-              f"{busy_sum:.3f}) -> idle share {max(0.0, 1 - busy / wall):.1%}"
-              f"; {len(events) // n} device events per step", flush=True)
-        for g, (ms, cnt, ms_sum) in sorted(groups.items(),
-                                           key=lambda kv: -kv[1][0]):
-            print(f"    {g}: {ms:.3f} ms per step (sum {ms_sum:.3f}) over "
-                  f"{cnt // n} launches ({ms / busy:.1%} of device time)")
-        for key, (ms, cnt) in sorted(other_ms.items(),
-                                     key=lambda kv: -kv[1][0])[:6]:
-            print(f"      other: {ms:.3f} ms per step, {cnt // n} launches: "
-                  f"{key[:90]}")
-
-
-def _prefill_group(name: str) -> str:
-    if "prefill_attn_kernel" in name:
-        return "kernel D (prefill attention)"
-    if "qmm_kernel" in name or "qmm_reduce" in name:
-        return "kernel A (w8a16, <= 512 rows)"
-    low = name.lower()
-    if any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma")):
-        return "torch matmul on the dequantized weight (> 512 rows)"
-    return "other (dequantize, norms, rope, SwiGLU, copies)"
+            check(out["busy_ms"] > 0, "profile: the profiler saw no device "
+                  "time")
+    if tools_full:
+        results["_profile_llama_step_ms"] = {
+            "step": busy[variants[0][0]], "full": busy[variants[-1][0]]}
 
 
 def phase_profile_prefill(model: str, quant: str, S: int = 2048,
@@ -3646,6 +3579,7 @@ def phase_profile_prefill(model: str, quant: str, S: int = 2048,
     from p2p_llm_chat_tpu_torch.models import family_for
     from p2p_llm_chat_tpu_torch.models.configs import get_config
     from p2p_llm_chat_tpu_torch.models.quant import dequantize
+    from p2p_llm_chat_tpu_torch.tools import trace_step
     cfg = get_config(model)
     fam = family_for(cfg)
     dev = torch.device("cuda")
@@ -3678,7 +3612,8 @@ def phase_profile_prefill(model: str, quant: str, S: int = 2048,
         for e in prof.events():
             if e.device_type != DeviceType.CUDA:
                 continue
-            acc = groups.setdefault(_prefill_group(e.name), [0.0, 0])
+            acc = groups.setdefault(trace_step.prefill_group(e.name),
+                                    [0.0, 0])
             acc[0] += e.time_range.elapsed_us() / 1e3
             acc[1] += 1
             if "qmm_reduce" in e.name:
@@ -3696,6 +3631,54 @@ def phase_profile_prefill(model: str, quant: str, S: int = 2048,
     print(f"profile: dequantize of {len(names)} projections x "
           f"{cfg.num_layers} layers (what the whole-prompt path runs before "
           f"its matmuls): {deq * cfg.num_layers:.3f} ms")
+
+
+PROFILE_STEP_TOL = 0.05   # profile_step's full vs profile_llama's step
+
+
+def phase_profile_tools(results: dict) -> None:
+    """The tool twins (p2p_llm_chat_tpu_torch/tools/) on the card, after
+    profile_llama in the same run: profile_step's variants on llama3.1-8b
+    int8 weights over an int8 pool at B = 8, window 1024, 1020 tokens a
+    row (profile_llama's state), each timed from CUDA graphs at two
+    lengths, once its ``full`` variant is held within PROFILE_STEP_TOL of
+    profile_llama's step (the device busy time of each, attributed there
+    on the same weights and state); check_quant_kernel at llama3.1-8b's fused
+    gate|up (int8, kernel A); check_append_kernel at the reference's first
+    case; time_append_kernel once. Not part of the default run."""
+    import torch
+    from p2p_llm_chat_tpu_torch.tools import (check_append_kernel,
+                                              check_quant_kernel,
+                                              profile_step,
+                                              time_append_kernel)
+    dev = torch.device("cuda")
+    pair = results.get("_profile_llama_step_ms")
+    check(pair is not None, "profile_tools: run it after profile_llama "
+          "(--only build,profile)")
+    want = pair["step"]
+    off = abs(pair["full"] - want) / want
+    print(f"profile_tools: profile_step's full variant {pair['full']:.3f} ms "
+          f"against profile_llama's step {want:.3f} ms (device busy a step, "
+          f"torch.profiler, on its weights and state): {off:.1%} apart "
+          f"[card: {card_line()}]", flush=True)
+    check(off <= PROFILE_STEP_TOL, f"profile_tools: profile_step's full "
+          f"variant is {off:.1%} from profile_llama's step")
+    steps = profile_step.run(
+        profile_step.VARIANTS, config="llama3.1-8b", slots=8, window=1024,
+        length=1020, kv_quant=True, steps=16, dev=dev,
+        show=lambda t: print(f"  {t}", flush=True))
+    quant = check_quant_kernel.check("int8", 4096, 28672, False, dev,
+                                     show=lambda t: print(f"  {t}"))
+    append_err = check_append_kernel.run(*check_append_kernel.CASES[0],
+                                         config="bench-1b", B=32, dev=dev,
+                                         show=lambda t: print(f"  {t}"))
+    walk = time_append_kernel.main(["--device", "cuda"])
+    results["_profile_tools"] = {
+        "profile_step_ms": {k: v for k, v in steps.items() if v is not None},
+        "profile_llama_step_ms": pair, "full_vs_profile_llama": off,
+        "check_quant": {k: quant[k] for k in ("shape", "kernel_ms",
+                                              "library_ms", "bound_ms")},
+        "check_append_rel_err": append_err, "time_append": walk}
 
 
 # -- phase 4: the server ------------------------------------------------------
@@ -6795,6 +6778,10 @@ def _mh_rank_main() -> int:
 # 256), a short one and a seeded sampled one; the first three are greedy
 # and make the parity part's prompts.
 TP_LEG_S = 110.0
+# The normal-entry part's models on the same ranks (SERVE_MODELS), the
+# first the default, and the burst's requests the second tag also gets.
+TP_MODELS = {"llama": "llama3.1-8b", "small": "llama3.2-1b"}
+TP_SMALL_REQS = ("co-pilot", "short")
 TP_ENGINE = dict(num_slots=4, max_seq=2048, page_size=64, kv_mode="paged",
                  kv_quant=True, prefix_cache=True, prefill_chunk=256,
                  decode_fuse_max=4, attn_impl="gather", kv_host_gb=8.0,
@@ -6823,17 +6810,6 @@ def _tp_env(**kw) -> dict:
     env.update(PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
                SERVE_BACKEND="torch", SERVE_DEVICE="cuda", **kw)
     return env
-
-
-def _tp_summaries(path: str, label: str) -> list:
-    """The ranks' summary lines (serve/engine.TorchEngine.close) in one
-    log, by rank."""
-    text = open(path).read()
-    sums = [json.loads(part.splitlines()[0])
-            for part in text.split("summary: ")[1:]]
-    check(sorted(s["rank"] for s in sums) == [0, 1], f"{label}: summaries "
-          f"of ranks {[s['rank'] for s in sums]}; log tail:\n{text[-3000:]}")
-    return sorted(sums, key=lambda s: s["rank"])
 
 
 def _tp_contexts(eng) -> tuple[list, list]:
@@ -6953,22 +6929,52 @@ def _tp_rank_main() -> int:
     return 0
 
 
+def _tp_tag_summaries(path: str, label: str) -> tuple[dict, dict]:
+    """The ranks' lines of a multi-model plane in one log
+    (serve/multi.MultiBackend.close): ({(rank, tag): summary}, {rank:
+    launches})."""
+    text = open(path).read()
+    sums = {(int(r), tag): json.loads(body) for r, tag, body in re.findall(
+        r"tp rank (\d+) model (\S+) summary: (\{.*\})", text)}
+    launches = {int(r): json.loads(body) for r, body in re.findall(
+        r"tp rank (\d+) launches: (\{.*\})", text)}
+    want = {(r, t) for r in (0, 1) for t in TP_MODELS}
+    check(set(sums) == want and sorted(launches) == [0, 1], f"{label}: "
+          f"summaries of {sorted(sums)}, launches of ranks "
+          f"{sorted(launches)}; log tail:\n{text[-3000:]}")
+    return sums, launches
+
+
+def _tp_labelled(m: dict, name: str, tag: str) -> float:
+    return float(m[f'{name}{{model="{tag}"}}'])
+
+
 def _tp2_engine_leg(results: dict, logdir: str) -> dict:
     """SERVE_TP = 2 in the continuous-batching engine (serve/tp.py), two
     ranks on the one card over gloo, under TP_LEG_S:
 
-    - the normal entry, ``SERVE_TP=2 SERVE_KV=paged SERVE_QUANT=int8
-      SERVE_KV_QUANT=int8 MODEL_CONFIG=llama3.1-8b python -m
+    - the normal entry with two models on the same ranks,
+      ``SERVE_TP=2 SERVE_MODELS=llama=llama3.1-8b,small=llama3.2-1b
+      SERVE_KV=paged SERVE_QUANT=int8 SERVE_KV_QUANT=int8 python -m
       p2p_llm_chat_tpu_torch.serve`` (random weights, full width and
-      depth, prefix on, chunk 256, fuse 4, the byte tokenizer; the leader
-      starts its follower): the four requests of :func:`_tp_reqs` at once
-      (each 200 and non-empty), ``/metrics`` (a prefix admit, >= 5 prefill
-      chunks, fused ticks), one ``/api/embed``, SIGTERM -> rc 0 within
-      30 s; from each rank's summary line kernels A, B (append) and D
-      launched, the token digests equal on both ranks, the peak;
-    - the KV tier on (``SERVE_KV_HOST_GB``): a conversation parked
-      between its turns (by its ``/admin/session/export``) whose second
-      turn wakes (``kv_waked_total`` >= 1);
+      depth, prefix on, chunk 256, fuse 4, 4 slots, max_seq 2048, the byte
+      tokenizer; one op stream for both engines, each op naming its
+      engine; the leader starts its follower): ``/readyz`` 503 until both
+      engines have warmed (each one's warmup probe on ``/metrics`` once it
+      answers 200), ``/api/tags`` listing both; the four requests of
+      :func:`_tp_reqs` to ``llama`` and its co-pilot and short ones to
+      ``small`` at once (each 200 and non-empty); then each tag's greedy
+      requests again, that tag alone, each answer equal to the burst's;
+      ``/metrics`` (a prefix admit, >= 5 prefill chunks, fused ticks on
+      ``llama``), one ``/api/embed``, SIGTERM -> rc 0 within 30 s; from
+      each rank's lines, per tag the token digests equal on both ranks and
+      decode ticks run (``small``'s run kernel B at head dim 64,
+      ``llama``'s at 128), kernels A, B (append) and D launched, the peak;
+    - the KV tier on (``SERVE_KV_HOST_GB``): a multi-model front answers
+      the session routes 501, as the reference's, so the idle sweep parks
+      (``SERVE_KV_IDLE_S=1``): a ``llama`` conversation whose first turn
+      parks with every other ``llama`` session before its second turn,
+      which wakes (``kv_waked_total`` >= 1);
     - parity: the greedy prompts on int8 quote weights through two
       ``--tp-rank`` ranks, then (after they exit) a tp = 1 engine on the
       same weights: equal contexts, or parting on a near tie as
@@ -6990,32 +6996,47 @@ def _tp2_engine_leg(results: dict, logdir: str) -> dict:
     log = open(path, "w")
     procs = [(subprocess.Popen(
         [sys.executable, "-m", "p2p_llm_chat_tpu_torch.serve"],
-        env=_tp_env(SERVE_TP="2", SERVE_KV="paged", SERVE_QUANT="int8",
-                    SERVE_KV_QUANT="int8", MODEL_CONFIG="llama3.1-8b",
-                    SERVE_PREFIX="1", SERVE_PREFILL_CHUNK="256",
-                    SERVE_FUSE="4", SERVE_MAX_SEQ="2048", SERVE_SLOTS="4",
+        env=_tp_env(SERVE_TP="2", SERVE_MODELS=",".join(
+                        f"{t}={c}" for t, c in TP_MODELS.items()),
+                    SERVE_KV="paged", SERVE_QUANT="int8",
+                    SERVE_KV_QUANT="int8", SERVE_PREFIX="1",
+                    SERVE_PREFILL_CHUNK="256", SERVE_FUSE="4",
+                    SERVE_MAX_SEQ="2048", SERVE_SLOTS="4",
                     SERVE_WARMUP="256", SERVE_KV_HOST_GB="4",
-                    SERVE_ADDR=f"127.0.0.1:{sport}"),
+                    SERVE_KV_IDLE_S="1", SERVE_ADDR=f"127.0.0.1:{sport}"),
         stdout=log, stderr=subprocess.STDOUT), log)]
-    reqs = _tp_reqs()
+    tags = list(TP_MODELS)
+    reqs = [("llama", r) for r in _tp_reqs()] + [
+        ("small", r) for r in _tp_reqs() if r[0] in TP_SMALL_REQS]
     try:
         _mh_up(url, procs, deadline, leg)
+        statuses = []
         while True:
             try:
-                if _get(url + "/readyz", timeout=5)[0] == 200:
-                    break
+                statuses.append(_status("GET", url + "/readyz",
+                                        timeout=5)[0])
             except OSError:
                 pass
+            if statuses and statuses[-1] == 200:
+                break
             check(procs[0][0].poll() is None and time.monotonic() < deadline,
                   f"{leg}: never ready; log tail:\n{_mh_tail(procs, 0)}")
             time.sleep(0.5)
         t_ready = time.monotonic() - t_leg
-        answers, burst_s = _burst(url, [
-            ("/api/generate", {"model": "llama3.1-8b", "prompt": p,
-                               "stream": False, "options": o})
-            for _, p, o in reqs])
-        ttft = {}
-        for (label, _, _), ans in zip(reqs, answers):
+        m = _metrics(url)
+        warm = {t: _tp_labelled(m, "decode_device_ms", t) for t in tags}
+        check(503 in statuses and all(v > 0 for v in warm.values()),
+              f"{leg}: /readyz answered {statuses} before 200, the "
+              f"engines' warmup probes {warm}")
+        listed = [x["name"] for x in json.loads(
+            _get(url + "/api/tags")[1])["models"]]
+        check(listed == tags, f"{leg}: /api/tags lists {listed}")
+
+        def body_of(tag: str, p: str, o: dict) -> tuple:
+            return ("/api/generate", {"model": tag, "prompt": p,
+                                      "stream": False, "options": o})
+
+        def checked(label: str, ans) -> dict:
             check(not isinstance(ans, Exception) and ans[0] == 200,
                   f"{leg}: {label} answered {ans!r}")
             # Random weights over the byte tokenizer mostly sample ids
@@ -7025,76 +7046,110 @@ def _tp2_engine_leg(results: dict, logdir: str) -> dict:
             check(body["done"] and body["eval_count"] >= 1
                   and len(body["context"]) == body["prompt_eval_count"]
                   + body["eval_count"], f"{leg}: {label} empty: {body}")
-            ttft[label] = body["prompt_eval_duration"] / 1e6
+            return body
+        answers, burst_s = _burst(url, [body_of(t, p, o)
+                                        for t, (_, p, o) in reqs])
+        ttft, burst_ctx = {}, {}
+        for (tag, (label, _, o)), ans in zip(reqs, answers):
+            body = checked(f"{tag} {label}", ans)
+            ttft[f"{tag} {label}"] = body["prompt_eval_duration"] / 1e6
+            if "seed" not in o:
+                burst_ctx[(tag, label)] = body["context"]
+        # Each tag's greedy requests again, that tag alone.
+        for tag in tags:
+            greedy = [(t, r) for t, r in reqs
+                      if t == tag and "seed" not in r[2]]
+            again, _ = _burst(url, [body_of(t, p, o)
+                                    for t, (_, p, o) in greedy])
+            for (t, (label, _, _)), ans in zip(greedy, again):
+                ctx = checked(f"{t} {label} alone", ans)["context"]
+                check(ctx == burst_ctx[(t, label)], f"{leg}: {t} {label} "
+                      "alone parts from its answer in the two-tag burst "
+                      "at context position "
+                      f"{_first_diff(ctx, burst_ctx[(t, label)])}")
         m = _metrics(url)
-        admits = float(m["serve_prefix_admits_total"])
-        chunks = float(m["prefill_chunks_total"])
-        fused = float(m["decode_fused_ticks_total"])
+        admits = _tp_labelled(m, "serve_prefix_admits_total", "llama")
+        chunks = _tp_labelled(m, "prefill_chunks_total", "llama")
+        fused = _tp_labelled(m, "decode_fused_ticks_total", "llama")
         check(admits >= 1 and chunks >= 5 and fused > 0, f"{leg}: prefix "
               f"admits {admits}, prefill chunks {chunks}, fused ticks {fused}")
-        st, body = _post(url + "/api/embed", {"model": "llama3.1-8b",
+        st, body = _post(url + "/api/embed", {"model": "llama",
                                               "input": ["see you at noon"]})
         check(st == 200 and len(json.loads(body)["embeddings"][0])
-              == get_config("llama3.1-8b").hidden_size, f"{leg}: embed")
-        # The KV tier: a conversation parked between its turns (its
-        # export parks it: the park op over both ranks) whose second turn
-        # wakes.
+              == get_config(TP_MODELS["llama"]).hidden_size, f"{leg}: embed")
+        # The KV tier: a conversation (the default tag's) whose first turn
+        # the idle sweep parks before its second turn wakes it.
         rec = _tier_gen(leg, url, "remind me what we said about lunch",
                         "tp-conv", n=4)
-        # Retention runs on the loop once the stream has closed.
-        while "sid:tp-conv" not in json.loads(_get(
-                url + "/admin/session")[1])["sessions"]:
-            check(time.monotonic() < deadline, f"{leg}: the first turn's "
-                  "session was never retained")
-            time.sleep(0.05)
-        st, _ = _status("GET", url + "/admin/session/export?key=sid:tp-conv")
-        check(st == 200, f"{leg}: the session's export answered {st}")
+        while True:
+            m = _metrics(url)
+            if (_tp_labelled(m, "kv_resident_sessions", "llama") == 0
+                    and _tp_labelled(m, "kv_parked_sessions", "llama") >= 1):
+                break
+            check(time.monotonic() < deadline, f"{leg}: the idle sweep "
+                  "never parked the first turn's session")
+            time.sleep(0.2)
+        waked0 = _tp_labelled(m, "kv_waked_total", "llama")
         _tier_gen(leg, url, " and dinner?", "tp-conv", rec["context"], n=4)
         tier_m = _metrics(url)
-        waked = float(tier_m["kv_waked_total"])
-        check(waked >= 1 and float(tier_m["kv_parked_total"]) >= 1,
-              f"{leg}: the second turn did not wake a parked session "
-              f"(kv_waked_total {waked}, kv_parked_total "
-              f"{tier_m['kv_parked_total']})")
+        waked = _tp_labelled(tier_m, "kv_waked_total", "llama")
+        parked = _tp_labelled(tier_m, "kv_parked_total", "llama")
+        check(waked >= waked0 + 1 and parked >= 1, f"{leg}: the second turn "
+              f"did not wake a parked session (kv_waked_total {waked0} -> "
+              f"{waked}, kv_parked_total {parked})")
+        t_stop = time.monotonic()
         procs[0][0].send_signal(15)
         _mh_wait(procs, time.monotonic() + 30, f"{leg} after SIGTERM")
+        stop_s = time.monotonic() - t_stop
     finally:
         _mh_kill(procs)
-    sums = _tp_summaries(path, leg)
-    for s in sums:
+    sums, launches = _tp_tag_summaries(path, leg)
+    for rank, counts in launches.items():
         for k in ("quant_matmul", "paged_attention_append",
                   "prefill_attention"):
-            check(s["launches"][k] > 0, f"{leg}: rank {s['rank']} never "
-                  f"launched {k}")
-        check(s["digests_equal"] is True and s["backend"] == "gloo",
-              f"{leg}: rank {s['rank']}: digests equal "
-              f"{s['digests_equal']}, backend {s['backend']}")
-        _record_launches(results, f"server_multihost {leg} rank {s['rank']}",
-                         s["launches"])
-    check(sums[0]["digest"] == sums[1]["digest"], f"{leg}: digests "
-          f"{sums[0]['digest']} / {sums[1]['digest']}")
+            check(counts[k] > 0, f"{leg}: rank {rank} never launched {k}")
+        _record_launches(results, f"server_multihost {leg} rank {rank}",
+                         counts)
+    for (rank, tag), s in sums.items():
+        check(s["digests_equal"] is True and s["backend"] == "gloo"
+              and s["steps"] >= 1, f"{leg}: rank {rank} {tag}: digests "
+              f"equal {s['digests_equal']}, backend {s['backend']}, "
+              f"{s['steps']} ticks")
+    for tag in tags:
+        check(sums[(0, tag)]["digest"] == sums[(1, tag)]["digest"],
+              f"{leg}: {tag} digests {sums[(0, tag)]['digest']} / "
+              f"{sums[(1, tag)]['digest']}")
     t_env = time.monotonic() - t_leg
-    print(f"server_multihost {leg}: SERVE_TP=2 through the normal entry, "
-          f"ready in {t_ready:.1f} s, 4 requests in {burst_s:.2f} s (TTFT "
+    print(f"server_multihost {leg}: SERVE_TP=2 SERVE_MODELS="
+          + ",".join(f"{t}={c}" for t, c in TP_MODELS.items())
+          + f" through the normal entry, /readyz 503 until both warmed "
+          f"(ready in {t_ready:.1f} s), {len(reqs)} requests of both tags "
+          f"in {burst_s:.2f} s (TTFT "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in ttft.items())
-          + f"), prefix admits {admits:.0f}, prefill chunks {chunks:.0f}, "
-          f"fused ticks {fused:.0f}, embed answered, a parked conversation's "
-          f"second turn woken (kv_waked_total {waked:.0f}), SIGTERM -> rc 0; "
-          + "; ".join(f"rank {s['rank']}: decode step p50 "
-                      f"{s['step_ms_p50']:.2f} ms, of it in collectives "
+          + "), each tag's greedy answers equal alone, prefix admits "
+          f"{admits:.0f}, prefill chunks {chunks:.0f}, fused ticks "
+          f"{fused:.0f} on llama, embed answered, a parked conversation's "
+          f"second turn woken (kv_waked_total {waked:.0f}), SIGTERM -> rc 0 "
+          f"in {stop_s:.1f} s; "
+          + "; ".join(f"rank {r} {t} ({get_config(TP_MODELS[t]).head_dim}"
+                      f"-wide heads): decode step p50 {s['step_ms_p50']:.2f}"
+                      f" ms, of it in collectives "
                       f"{s['collective_ms_p50']:.2f} ms ({s['steps']} "
-                      f"ticks), backend {s['backend']}, peak "
-                      f"{s['peak_gb']:.1f} GB, digest {s['digest']}, "
-                      f"launches A {s['launches']['quant_matmul']} B "
-                      f"{s['launches']['paged_attention_append']} D "
-                      f"{s['launches']['prefill_attention']}" for s in sums)
+                      f"ticks), digest {s['digest']}"
+                      for (r, t), s in sorted(sums.items()))
+          + "; " + "; ".join(
+              f"rank {r}: peak {sums[(r, tags[0])]['peak_gb']:.1f} GB, "
+              f"launches A {c['quant_matmul']} B "
+              f"{c['paged_attention_append']} D {c['prefill_attention']}"
+              for r, c in sorted(launches.items()))
           + f"; {t_env:.0f} s [card: {card_line()}]", flush=True)
-    out = {f"rank{s['rank']}": {
+    out = {f"rank{r} {t}": {
         "step_ms_p50": round(s["step_ms_p50"], 3),
         "collective_ms_p50": round(s["collective_ms_p50"], 3),
-        "peak_gb": round(s["peak_gb"], 2), "backend": s["backend"]}
-        for s in sums}
+        "steps": s["steps"], "peak_gb": round(s["peak_gb"], 2),
+        "backend": s["backend"]} for (r, t), s in sorted(sums.items())}
     out["ttft_ms"] = {k: round(v, 1) for k, v in ttft.items()}
+    out["env_part_s"] = round(t_env, 1)
 
     # -- parity: tp = 2 against tp = 1 on int8 quote weights -------------
     port = _free_port()
@@ -7853,7 +7908,7 @@ PHASES = {
                "server_spec", "server_tier", "server_ckpt", "server_multi",
                "server_dense", "server_draft", "server_multihost"),
     "profile": ("profile_llama", "profile_llama_wta", "profile_mixtral",
-                "profile_prefill"),
+                "profile_prefill", "profile_tools"),
 }
 
 
@@ -7962,13 +8017,17 @@ def main() -> int:
         ("server_dense", lambda: phase_server_dense(results)),
         ("server_draft", lambda: phase_server_draft(results)),
         ("server_multihost", lambda: phase_server_multihost(results)),
-        ("profile_llama", lambda: phase_profile("llama3.1-8b", "int8")),
-        ("profile_llama_wta", lambda: phase_profile("llama3.1-8b", "int8",
-                                                    impl="kernel")),
-        ("profile_mixtral", lambda: phase_profile("mixtral-8x7b", "int8")),
-        ("profile_mixtral", lambda: phase_profile("mixtral-8x7b", "int4")),
+        ("profile_llama", lambda: phase_profile(results, "llama3.1-8b",
+                                                "int8")),
+        ("profile_llama_wta", lambda: phase_profile(
+            results, "llama3.1-8b", "int8", impl="kernel")),
+        ("profile_mixtral", lambda: phase_profile(results, "mixtral-8x7b",
+                                                  "int8")),
+        ("profile_mixtral", lambda: phase_profile(results, "mixtral-8x7b",
+                                                  "int4")),
         ("profile_prefill", lambda: phase_profile_prefill("llama3.1-8b",
                                                           "int8")),
+        ("profile_tools", lambda: phase_profile_tools(results)),
     ]
     try:
         for name, run in runs:

@@ -16,7 +16,7 @@ beside the Ollama front:
   from CUDA graphs included. The scheduler's work shows as its
   ``sched.<op>`` ranges (serve/scheduler.BatchScheduler._dev).
 - ``{"model": tag}`` names the engine under ``SERVE_MODELS`` (default:
-  the first).
+  the first), under ``SERVE_TP`` too: that engine's loop on the leader.
 - One capture at a time: another one meanwhile answers 409; a missing
   or out-of-range duration answers 400; an unknown model 404.
 

@@ -148,22 +148,45 @@ def die_with_parent(parent: int) -> None:
         os._exit(1)
 
 
-def start_local_world(tp: int, join_timeout_s: float = 300.0
-                      ) -> list[subprocess.Popen]:
+def cpu_threads(world: int) -> int:
+    """Intra-op threads for each of ``world`` ranks computing on one
+    host's CPU cores: ``OMP_NUM_THREADS`` when the environment sets it,
+    else this process's cores split evenly (at least one)."""
+    env = os.environ.get("OMP_NUM_THREADS", "")
+    if env.isdigit() and int(env) > 0:
+        return int(env)
+    return max(1, len(os.sched_getaffinity(0)) // max(1, world))
+
+
+def start_local_world(tp: int, join_timeout_s: float = 300.0,
+                      cpu: bool = False) -> list[subprocess.Popen]:
     """Start ranks 1 .. ``tp``-1 as follower processes (``python -m
     p2p_llm_chat_tpu_torch.serve.tp``, this process's env plus
     ``SERVE_TP_WORLD`` / ``SERVE_TP_RANK`` / ``SERVE_TP_PARENT`` /
     ``SERVE_TP_JOIN_S``) on 127.0.0.1 at a free port and join them as
     rank 0, every rank within ``join_timeout_s``. Returns the followers'
-    processes (killed here if the join fails)."""
+    processes (killed here if the join fails).
+
+    ``cpu``: the ranks compute on this host's CPU cores, so they share
+    them: each rank, this one included, runs :func:`cpu_threads` intra-op
+    threads (``OMP_NUM_THREADS`` in the followers' env) instead of
+    torch's default of one a core each, which oversubscribes the cores
+    ``tp`` times over. What the ranks compute does not change."""
     addr = f"127.0.0.1:{free_port()}"
+    extra = {}
+    if cpu:
+        threads = cpu_threads(tp)
+        extra["OMP_NUM_THREADS"] = str(threads)
+        torch.set_num_threads(threads)
+        log.info("local tensor-parallel world on the CPU: %d intra-op "
+                 "threads a rank", threads)
     procs = []
     try:
         for rank in range(1, tp):
             env = dict(os.environ, SERVE_TP=str(tp), SERVE_TP_WORLD=addr,
                        SERVE_TP_RANK=str(rank),
                        SERVE_TP_PARENT=str(os.getpid()),
-                       SERVE_TP_JOIN_S=str(join_timeout_s))
+                       SERVE_TP_JOIN_S=str(join_timeout_s), **extra)
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "p2p_llm_chat_tpu_torch.serve.tp"],
                 env=env))

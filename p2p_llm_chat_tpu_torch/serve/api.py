@@ -846,7 +846,8 @@ def main() -> None:
     the card unless ``SERVE_DEVICE=cpu``); ``fake`` serves FakeLLM.
 
     Under ``SERVE_COORDINATOR`` (serve/multihost.py), and on the ranks of
-    ``SERVE_TP`` (serve/tp.py), a follower runs no front: it mirrors the
+    ``SERVE_TP`` (serve/tp.py; one engine, or several under
+    ``SERVE_MODELS``, serve/multi.py), a follower runs no front: it mirrors the
     leader's rounds or ops until the leader broadcasts shutdown. The
     leader serves the front until SIGTERM, then stops the plane (the
     shutdown broadcast), and exits 0 once its followers have; every rank

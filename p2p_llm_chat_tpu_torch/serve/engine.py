@@ -31,9 +31,8 @@ weights, built through ``models.family_for(config)``. ``SERVE_DRAFT``
 target's vocabulary, a checkpoint directory loads through
 models/weights.py at ``SERVE_QUANT``; a draft that fails to load, or does
 not fit the target, leaves n-gram-only speculation, as in the reference.
-Features of the reference that later slices port fail loudly when asked
-for explicitly (a native Orbax ``CKPT_DIR``; ``SERVE_MODELS`` under
-``SERVE_TP``). ``SERVE_PROFILE_PORT=N`` starts the live profiler server
+A native Orbax ``CKPT_DIR`` fails loudly: it needs JAX to read.
+``SERVE_PROFILE_PORT=N`` starts the live profiler server
 on port N (obs/profile_server.py: ``POST /profile`` captures
 ``torch.profiler`` over the serving loop; the reference's speaks xprof's
 protocol instead), on the leader only under ``SERVE_TP``.
@@ -50,7 +49,14 @@ replicas of the batch over a host's other chips; they compute the same
 rows, so the port serves ``dp = 1`` and logs it. ``SERVE_DRAFT`` is
 ignored under tp with the reference's warning. The KV tier, the session
 and prefix wire and the prefill replica class run under tp over the kv
-heads' shards (serve/scheduler.py). ``SERVE_ADMIT_CHUNK`` caps the rows
+heads' shards (serve/scheduler.py). ``SERVE_MODELS`` under tp serves
+every tag on the same ranks, as the reference builds every tag's engine
+on its one mesh: the world is joined once, each tag takes its shard
+(a config random-inits at seed i, its position in the spec; a checkpoint
+streams through ``load_checkpoint_streaming``), and the engines share
+one op stream whose ops name their engine by that position (serve/tp.py);
+each follower builds the same list in the same order, with no loop
+thread. ``SERVE_ADMIT_CHUNK`` caps the rows
 of each admission prefill, and ``SERVE_WARMUP`` (default ``128,256``)
 names the warmup buckets, as in the reference. Prompt
 admission runs the reference's defaults: chunked prefill
@@ -166,7 +172,7 @@ class TorchEngine:
                  kv_mode: str = "dense", draft: Optional[tuple] = None,
                  name: Optional[str] = None,
                  device: Optional[torch.device | str] = None,
-                 mesh=None) -> None:
+                 mesh=None, tp_channel=None, tp_index: int = 0) -> None:
         """``kv_mode``: ``dense`` (the default, as the reference's) or
         ``paged`` (serve/scheduler.py).""
         ``draft``: ``(params, config)`` of a small draft model made
@@ -179,7 +185,10 @@ class TorchEngine:
         rank's shard; serve/tp.py; no ``draft`` with it, which the
         scheduler refuses). On rank 0 the engine serves; on the others it
         is a follower (:attr:`is_follower`) that runs
-        :meth:`follower_loop` and no front."""
+        :meth:`follower_loop` and no front. ``tp_channel`` /
+        ``tp_index``: the plane's shared op stream and this engine's
+        index on it when several engines serve on the same ranks
+        (serve/tp.py; serve/multi.py)."""
         self.name = name or config.name
         self.config = config
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
@@ -221,7 +230,8 @@ class TorchEngine:
             spec_tree_nodes=spec_tree_nodes, spec_tree_gap=spec_tree_gap,
             kv_host_gb=kv_host_gb, kv_idle_s=kv_idle_s, kv_mode=kv_mode,
             drafter=drafter, device=device, mesh=self.mesh,
-            follower=self.is_follower)
+            follower=self.is_follower, tp_channel=tp_channel,
+            tp_index=tp_index)
         self._embed_lock = threading.Lock()
         self._embed_stream = None
         # The checkpoint load's walls (models/weights.py stats) when the
@@ -249,36 +259,36 @@ class TorchEngine:
         if not self.is_follower:
             raise RuntimeError("the leader does not follow")
         from .tp import tp_follower_loop
-        tp_follower_loop(self.scheduler)
+        tp_follower_loop({0: self.scheduler})
 
-    def close(self) -> None:
-        """Log this rank's summary line (backend, peak device GB, decode
-        step p50 and its time in collectives, the token digest and
-        whether every rank's equals it, the kernels' launches), leave the
-        world and reap the followers this rank started: after
-        :meth:`stop` on the leader, after :meth:`follower_loop` returns on
-        a follower."""
-        from ..ops import wrappers
-        from ..parallel.distributed import leave_world, stop_processes
-        if self.mesh is None:
-            return
+    def tp_summary(self) -> dict:
+        """This rank's readings of this engine under tensor parallelism:
+        decode step p50 and its time in collectives, backend, peak device
+        GB (the process's), the token digest and whether every rank's
+        equals it."""
         sched = self.scheduler
         dev = sched.device
-        peak = (torch.cuda.max_memory_allocated(dev) / 2**30
-                if dev.type == "cuda" else None)
         digests = sched.digests
-        summary = dict(
+        return dict(
             sched.tp_timings(), rank=self.mesh.rank, backend=self.mesh.backend,
-            peak_gb=peak, digest=sched.token_digest(),
-            digests_equal=None if digests is None else len(set(digests)) == 1,
-            launches={k: w.launches for k, w in wrappers().items()})
+            peak_gb=(torch.cuda.max_memory_allocated(dev) / 2**30
+                     if dev.type == "cuda" else None),
+            digest=sched.token_digest(),
+            digests_equal=None if digests is None else len(set(digests)) == 1)
+
+    def close(self) -> None:
+        """Log this rank's summary line (:meth:`tp_summary` and the
+        kernels' launches), leave the world and reap the followers this
+        rank started: after :meth:`stop` on the leader, after
+        :meth:`follower_loop` returns on a follower."""
+        from ..ops import wrappers
+        if self.mesh is None:
+            return
+        summary = dict(self.tp_summary(), launches={
+            k: w.launches for k, w in wrappers().items()})
         log.info("tp rank %d summary: %s", self.mesh.rank,
                  json.dumps(summary))
-        leave_world()
-        if self.followers:
-            rcs = stop_processes(self.followers, 30.0)
-            log.info("tp followers exited: rc %s", rcs)
-            self.followers = []
+        self.followers = leave_plane(self.followers)
 
     def generate_stream(self, req: GenerateRequest,
                         stats: Optional[RequestStats] = None) -> Iterator[str]:
@@ -476,12 +486,15 @@ class TorchEngine:
         self.scheduler.stop()
 
 
-def _not_in_slice(what: str) -> SystemExit:
-    return SystemExit(
-        f"{what} is not ported to the PyTorch engine yet "
-        "(p2p_llm_chat_tpu_torch serves llama and mixtral models from a "
-        "dense KV cache or a paged KV pool, on one card or over SERVE_TP "
-        "ranks, in this version)")
+def leave_plane(followers: list) -> list:
+    """Leave the world and reap the follower processes this rank started
+    (a local tp world); returns the empty list that replaces them."""
+    from ..parallel.distributed import leave_world, stop_processes
+    leave_world()
+    if followers:
+        rcs = stop_processes(followers, 30.0)
+        log.info("tp followers exited: rc %s", rcs)
+    return []
 
 
 def is_ckpt_ref(ref: str) -> bool:
@@ -550,7 +563,8 @@ def _tp_world(tp: int, device) -> tuple:
     followers: list = []
     d = torch.distributed
     if not (d.is_available() and d.is_initialized()):
-        followers = start_local_world(tp)
+        followers = start_local_world(
+            tp, cpu=resolve_device(device).type == "cpu")
     if d.get_world_size() != tp:
         raise SystemExit(f"SERVE_TP={tp} needs a world of {tp} ranks, this "
                          f"one has {d.get_world_size()}")
@@ -602,11 +616,6 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
     spec_tree_gap = env_float("SERVE_SPEC_TREE_GAP", 4.0)
     tp = env_int("SERVE_TP", 1)
     if tp > 1:
-        # One op stream per model on the same ranks is queued work:
-        # refused before any follower starts.
-        if env_or("SERVE_MODELS", ""):
-            raise _not_in_slice("multi-model serving (SERVE_MODELS) under "
-                                "SERVE_TP")
         if draft_ref:
             log.warning("SERVE_DRAFT is single-card only (the drafter does "
                         "not shard); ignoring it under SERVE_TP>1 — n-gram-"
@@ -646,9 +655,13 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
     prefix_cache = env_bool("SERVE_PREFIX", True)
     prefix_texts = (SUGGEST_PREFIX,) + tuple(
         t for t in env_or("SERVE_PREFIX_TEXTS", "").split("||") if t)
-    mesh, followers = None, []
+    mesh, followers, channel = None, [], None
     if tp > 1:
         mesh, followers = _tp_world(tp, device)
+        if mesh.rank == 0:
+            # The plane's one op stream, shared by every tag's engine.
+            from .tp import TPChannel
+            channel = TPChannel(mesh)
     dev = (resolve_device(device) if mesh is None
            else _rank_device(device))
     qt = env_float("SERVE_QUEUE_TIMEOUT", 60.0)
@@ -698,7 +711,10 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
         return (family_for(dconfig).init_params_quantized(
             dconfig, seed=101, quant=quant, device=dev), dconfig)
 
-    def make_engine(params, config, tokenizer, name: str) -> TorchEngine:
+    def make_engine(params, config, tokenizer, name: str,
+                    index: int = 0) -> TorchEngine:
+        """``index``: the engine's position in the spec, which names it on
+        the plane's op stream under tp."""
         return TorchEngine(
             params, config, tokenizer,
             num_slots=env_int("SERVE_SLOTS", 8),
@@ -716,17 +732,22 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
             spec_k=spec_k, spec_tree_nodes=spec_tree_nodes,
             spec_tree_gap=spec_tree_gap, kv_host_gb=kv_host_gb,
             kv_idle_s=kv_idle_s, kv_mode=kv_mode,
-            draft=load_draft_for(config), name=name, device=dev, mesh=mesh)
+            draft=load_draft_for(config), name=name, device=dev, mesh=mesh,
+            tp_channel=channel, tp_index=index)
 
     def random_engine(config, seed: int, name: str) -> TorchEngine:
+        """Random-init weights at ``seed`` (a tag's position in the spec,
+        as the reference's ``random_init_params(config, i)``), which is
+        also the engine's index."""
         log.info("%s: random-init %s (seed %d) with the byte tokenizer",
                  name, config.name, seed)
         return make_engine(
             family_for(config).init_params_quantized(
                 config, seed=seed, quant=quant, device=dev, mesh=mesh),
-            config, ByteTokenizer(vocab_size=config.vocab_size), name)
+            config, ByteTokenizer(vocab_size=config.vocab_size), name, seed)
 
-    def load_ckpt_engine(tag: Optional[str], path: str) -> TorchEngine:
+    def load_ckpt_engine(tag: Optional[str], path: str,
+                         index: int = 0) -> TorchEngine:
         """One fully independent engine from a checkpoint directory: its
         own params, tokenizer, scheduler and KV pool. The single-model
         CKPT_DIR path uses it too (``tag`` None names the engine
@@ -761,7 +782,8 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
                 log.info("weights quantized to %s after a bf16 load", quant)
         tokenizer = load_tokenizer(path, vocab_size=config.vocab_size)
         engine = make_engine(params, config, tokenizer,
-                             name=tag or env_or("LLM_MODEL", config.name))
+                             name=tag or env_or("LLM_MODEL", config.name),
+                             index=index)
         engine.load_stats = stats or None
         return engine
 
@@ -770,12 +792,17 @@ def build_engine_from_env(device: Optional[str | torch.device] = None,
         backends: dict = {}
         try:
             for i, (tag, ref) in enumerate(specs):
-                backends[tag] = (load_ckpt_engine(tag, ref)
+                backends[tag] = (load_ckpt_engine(tag, ref, i)
                                  if is_ckpt_ref(ref) else
                                  random_engine(get_config(ref), i, tag))
         except BaseException:
+            if channel is not None:
+                # The followers may still be building: no shutdown op.
+                channel.down = True
             for b in backends.values():
                 b.stop()
+            if mesh is not None:
+                leave_plane(followers)
             raise
         engine: Backend = MultiBackend(backends, default=specs[0][0])
         log.info("multi-model serving: %s", ", ".join(engine.models()))

@@ -16,10 +16,19 @@ The port warms the engines one after another on one background thread
 on one card a CUDA-graph capture of one engine must not overlap another
 engine's launches, which the per-device capture lock
 (serve/scheduler.capture_lock_for) guards as well.
+
+Under ``SERVE_TP`` every tag's engine serves on the same ranks, one op
+stream for the plane (serve/tp.py), and the multi-model front is
+lockstep as one engine is (serve/api.main): rank 0 serves the front, and
+on every other rank :meth:`MultiBackend.follower_loop` runs each op on
+the engine it names, which also mirrors the leader's warmups.
+:meth:`MultiBackend.close` logs one summary line per tag and one line of
+launches, leaves the world once and reaps the followers once.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 from typing import Iterator, Optional
 
@@ -48,6 +57,51 @@ class MultiBackend:
         # The SERVE_PROFILE_PORT listener over every engine's loop
         # (obs/profile_server.py), closed by stop().
         self.profile_server = None
+        # Under tp: the follower processes this rank started (a local tp
+        # world), reaped by close().
+        self.followers: list = []
+
+    # -- tensor parallelism: one plane for every tag (serve/tp.py) --------
+
+    @property
+    def lockstep(self) -> bool:
+        """Ranks in step: the engines serve over a tp plane."""
+        return any(getattr(b, "lockstep", False)
+                   for b in self.backends.values())
+
+    @property
+    def is_follower(self) -> bool:
+        return any(getattr(b, "is_follower", False)
+                   for b in self.backends.values())
+
+    def follower_loop(self) -> None:
+        """Mirror the leader's ops, each on the engine its header names
+        (the tag's position in the spec)."""
+        if not self.is_follower:
+            raise RuntimeError("the leader does not follow")
+        from .tp import tp_follower_loop
+        tp_follower_loop({i: b.scheduler
+                          for i, b in enumerate(self.backends.values())})
+
+    def close(self) -> None:
+        """Log this rank's summary line per tag (digest, digests equal,
+        decode step and collective p50, peak GB) and one line of the
+        kernels' launches, then leave the world and reap the followers,
+        once: after :meth:`stop` on the leader, after
+        :meth:`follower_loop` returns on a follower."""
+        from ..ops import wrappers
+        from .engine import leave_plane
+        if not self.lockstep:
+            return
+        rank = 0
+        for tag, b in self.backends.items():
+            summary = dict(b.tp_summary(), model=tag)
+            rank = summary["rank"]
+            log.info("tp rank %d model %s summary: %s", rank, tag,
+                     json.dumps(summary))
+        log.info("tp rank %d launches: %s", rank, json.dumps(
+            {k: w.launches for k, w in wrappers().items()}))
+        self.followers = leave_plane(self.followers)
 
     def for_model(self, model: str) -> Backend:
         """Exact tag match, else the default (drop-in fallback)."""
@@ -107,7 +161,10 @@ class MultiBackend:
         """Warm every engine, one after another, on one background thread.
         Every engine reports not-ready from here until its own warmup is
         done; a failed warmup stops the walk (the rest stay unready and
-        :attr:`warmup_error` says why)."""
+        :attr:`warmup_error` says why). A follower rank warms through the
+        leader's ops."""
+        if self.is_follower:
+            return
         engines = [b for b in self.backends.values()
                    if getattr(b, "warmup", None) is not None]
         for b in engines:

@@ -440,7 +440,8 @@ class BatchScheduler:
                  kv_host_gb: float = 0.0, kv_idle_s: float = 30.0,
                  kv_mode: str = "dense", drafter=None,
                  device: Optional[torch.device | str] = None,
-                 mesh=None, follower: bool = False) -> None:
+                 mesh=None, follower: bool = False, tp_channel=None,
+                 tp_index: int = 0) -> None:
         """``kv_mode``: ``dense`` (one ``[L, B, max_seq, Hkv, D]`` cache,
         the reference's default layout; bf16 only) or ``paged`` (the page
         pool, bf16 or int8).
@@ -508,7 +509,10 @@ class BatchScheduler:
         this rank's shard, parallel/sharding.py; see the module's
         docstring). Rank 0 runs the loop and sends its device ops to the
         others; ``follower``: this rank mirrors them instead
-        (:meth:`run_op`, serve/tp.tp_follower_loop) and runs no loop."""
+        (:meth:`run_op`, serve/tp.tp_follower_loop) and runs no loop.
+        ``tp_channel``: the leader's op stream (serve/tp.TPChannel) when
+        several engines share the plane, each under its own ``tp_index``
+        (the op header names it); None makes one for this engine alone."""
         if queue_max is not None and queue_max < 0:
             raise ValueError(f"queue_max must be >= 0, got {queue_max}")
         if prefill_chunk < 0:
@@ -723,9 +727,13 @@ class BatchScheduler:
         # the running digest of sampled tokens, and per decode tick the
         # step's wall and its time in collectives.
         self._channel = None
+        self._tp_index = tp_index
         if self._tp and not self._follower:
-            from .tp import TPChannel
-            self._channel = TPChannel(self.mesh)
+            if tp_channel is None:
+                from .tp import TPChannel
+                tp_channel = TPChannel(self.mesh)
+            tp_channel.attach(tp_index, self)
+            self._channel = tp_channel
         self._prefix_dev: dict[tuple, tuple] = {}
         self._pc_dev: Optional[list] = None
         self._digest = (torch.zeros((), dtype=torch.long, device=self.device)
@@ -841,20 +849,25 @@ class BatchScheduler:
         another op: the followers run each one whole. Under tensor
         parallelism an op that raises marks the channel down: the ranks
         may have stopped at different collectives of it, so no later op
-        may run (the loop ends the plane, :meth:`_end_plane`)."""
+        may run (the loop ends the plane, :meth:`_end_plane`). The
+        plane's op lock is held from the send to the end of the run, so
+        the ops of engines sharing the plane never interleave
+        (serve/tp.py)."""
         ch = self._channel
         with torch.profiler.record_function(f"sched.{op}"):
             if ch is None:
                 return getattr(self, _OPS[op])(*args)
-            if ch.down:
-                raise RuntimeError("the tensor-parallel plane is down")
-            try:
-                ch.send(op, tuple(
-                    a.ids if isinstance(a, PrefixEntry) else a for a in args))
-                return getattr(self, _OPS[op])(*args)
-            except BaseException:
-                ch.down = True
-                raise
+            with ch.lock:
+                if ch.down:
+                    raise RuntimeError("the tensor-parallel plane is down")
+                try:
+                    ch.send(op, tuple(
+                        a.ids if isinstance(a, PrefixEntry) else a
+                        for a in args), self._tp_index)
+                    return getattr(self, _OPS[op])(*args)
+                except BaseException:
+                    ch.down = True
+                    raise
 
     def run_op(self, op: str, args: tuple) -> None:
         """A follower's mirror of one leader op (serve/tp.py)."""
@@ -917,7 +930,9 @@ class BatchScheduler:
 
     def run_on_loop(self, fn):
         """:meth:`post_on_loop` and wait: returns what ``fn`` returned,
-        raises what it raised."""
+        raises what it raised. Never from inside a tensor-parallel op."""
+        if self._channel is not None:
+            self._channel.check_not_holding("run_on_loop")
         job = self.post_on_loop(fn)
         job.done.wait()
         if job.err is not None:
@@ -1038,7 +1053,8 @@ class BatchScheduler:
     @property
     def ready(self) -> bool:
         if (self._closed.is_set() or self._thread is None
-                or not self._thread.is_alive()):
+                or not self._thread.is_alive()
+                or (self._channel is not None and self._channel.down)):
             return False
         if self._draining.is_set() or self.warmup_error is not None:
             return False
@@ -1561,7 +1577,12 @@ class BatchScheduler:
         made three times and the median published as ``decode_device_ms``
         (the reference solves once): a host stall inside one of the short
         runs moves that solve by half the stall or more, and one solve
-        alone has missed the device step by 20%. Parked rows keep their
+        alone has missed the device step by 20%. Under tensor parallelism
+        it solves once, as the reference does: a step there is an eager
+        tick through the ranks' collectives, many times a graph replay's
+        time, so its runs are long and a stall moves a solve little, while
+        two more solves would add 32 such steps to every engine's warmup.
+        Parked rows keep their
         lengths, feed and rings, and write only past their trusted length
         or into the garbage page; their keys advance, so the keys and the
         live-row mask are restored in place afterwards — the graphs stay
@@ -1586,11 +1607,11 @@ class BatchScheduler:
 
         try:
             loop(1)
-            solves = sorted(solve() for _ in range(3))
+            solves = sorted(solve() for _ in range(1 if self._tp else 3))
         finally:
             self._keys_dev.copy_(keys)
             self._active_dev.copy_(active)
-        self._decode_device_ms = round(solves[1] * 1e3, 4)
+        self._decode_device_ms = round(solves[len(solves) // 2] * 1e3, 4)
 
     # -- shared-prefix KV cache (scheduler thread) --------------------------
 
@@ -1697,6 +1718,8 @@ class BatchScheduler:
             return
         if self._closed.is_set():
             raise RuntimeError("scheduler is stopped")
+        if self._channel is not None:
+            self._channel.check_not_holding("park_all")
         self._park_all_key = key
         self._park_all_ack.clear()
         self._park_all_req.set()
@@ -1914,13 +1937,10 @@ class BatchScheduler:
             job.err = RuntimeError("scheduler stopped")
             job.done.set()
         if self._channel is not None:
-            if self._thread.is_alive():
-                # A loop stuck in an op cannot be joined; a second sender
-                # would mix ops on the control group.
-                log.error("scheduler loop did not stop; the follower "
-                          "ranks are not told to shut down")
-            else:
-                self._channel.shutdown(self)
+            # Once every engine of the plane has stopped, the shutdown op
+            # (not while a loop is stuck in an op: it cannot be joined,
+            # and a second sender would mix ops on the control group).
+            self._channel.shutdown(self, clean=not self._thread.is_alive())
         while True:
             try:
                 s = self._admit_q.get_nowait()
@@ -2143,9 +2163,10 @@ class BatchScheduler:
         ones with its leftovers), so every request fails, the scheduler
         takes no more (``ready`` turns false, ``submit`` raises), and
         this rank leaves the world, which ends the followers' waits with
-        an error: they exit non-zero."""
+        an error: they exit non-zero. Every other engine on the plane ends
+        its part the same way, woken here (serve/tp.TPChannel.end_plane)."""
         log.error("an op failed under tensor parallelism; the plane stops "
-                  "and this rank leaves the world")
+                  "and this rank leaves the world (%s)", self.config.name)
         self._closed.set()
         msg = "internal error: the tensor-parallel plane stopped"
         self._fail_rows(msg)
@@ -2163,8 +2184,9 @@ class BatchScheduler:
                 break
             job.err = RuntimeError(msg)
             job.done.set()
-        from ..parallel.distributed import leave_world
-        leave_world()
+        if self._channel.end_plane():
+            from ..parallel.distributed import leave_world
+            leave_world()
 
     def _watchdog(self, it_start: float) -> None:
         """Loop-iteration watchdog (the reference's): an iteration past

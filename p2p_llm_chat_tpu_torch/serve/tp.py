@@ -13,30 +13,52 @@ op on the follower's own scheduler — built the same way, with no loop
 thread, no front and no tokenizer output — so every rank issues the same
 kernels and collectives in the same order on its shard.
 
-- An op is its id as an int64 and its arguments as one pickled blob of
-  host values (row indices, token ids, page tables, lengths, window, K,
-  the live mask, sampling options and seeds, prefix ids), both broadcast
-  on the gloo control group (parallel/mesh.Mesh.control). It never
-  carries a device tensor: the arrays of a KV tier op (a session or a
-  prefix entry to place, serve/scheduler._Payload) ride as their shapes,
-  and the op itself broadcasts them over ``tp``. Sampling runs on every
-  rank from the gathered logits, the same bytes everywhere, so no
-  follower reads a token back.
-- Every rank folds the tokens it sampled into a running digest
-  (``BatchScheduler._fold``); at shutdown the ranks all-gather their
-  digests over the control group, and a mismatch is logged as an error
-  (``BatchScheduler.digests``).
-- Shutdown works as in serve/multihost.py: the leader's stop sends the
-  shutdown op, the followers compare digests and return, and every rank
-  leaves the world. A failure outside an op fails the leader's requests
-  through the loop's recovery, whose reset is itself an op, so the
-  followers reset too. An op that fails ends the plane: a rank that
-  stopped partway through an op's collectives cannot rejoin the stream
-  (its peers wait in those collectives, or would pair their next ones
-  with its leftovers). A follower logs the failure, leaves the world and
-  exits non-zero; the leader's collectives then fail, and the leader
-  fails every request, takes no more and leaves the world
-  (``BatchScheduler._end_plane``), which ends the other followers' waits.
+- An op is a header of three int64 (its id, the index of the engine it
+  is for, the length of its blob) and its arguments as one pickled blob
+  of host values (row indices, token ids, page tables, lengths, window,
+  K, the live mask, sampling options and seeds, prefix ids), both
+  broadcast on the gloo control group (parallel/mesh.Mesh.control). It
+  never carries a device tensor: the arrays of a KV tier op (a session
+  or a prefix entry to place, serve/scheduler._Payload) ride as their
+  shapes, and the op itself broadcasts them over ``tp``. Sampling runs
+  on every rank from the gathered logits, the same bytes everywhere, so
+  no follower reads a token back.
+- Several models on the same ranks (``SERVE_MODELS`` under ``SERVE_TP``)
+  share one plane: one :class:`TPChannel`, one stream. Each engine's
+  index is its tag's position in the spec, which every rank parses the
+  same from the same env; :func:`tp_follower_loop` runs each op on the
+  engine it names, in arrival order. The leader's engines each run their
+  own loop thread, so an op holds the channel's :attr:`TPChannel.lock`
+  (first come, first served) from its send to the end of its run on the
+  leader: two ops that interleaved would split a header from its blob,
+  and would issue their compute collectives in different orders on
+  different ranks (gloo then corrupts or deadlocks; NCCL hangs). The
+  followers run one op at a time anyway. Lock order: the op lock is
+  innermost. It is taken only on an engine's loop thread, by
+  ``BatchScheduler._dev``, and nothing run under it waits on another
+  thread: no ``run_on_loop`` / ``post_on_loop`` job, no ``park_all``
+  handshake (both refuse to wait while their thread holds it:
+  :meth:`TPChannel.check_not_holding`) and no capture lock (under tp no
+  graph is captured and no device work runs off the loop). So no thread
+  holds it while waiting on a lock or a loop that waits for it.
+- Every rank folds the tokens each engine sampled into that engine's
+  running digest (``BatchScheduler._fold``); at shutdown the ranks
+  all-gather every engine's digest over the control group, in engine
+  order, and a mismatch is logged as an error (``BatchScheduler.
+  digests``).
+- Shutdown works as in serve/multihost.py: once every engine of the
+  plane has stopped, the leader sends the shutdown op (once), the
+  followers compare digests and return, and every rank leaves the world.
+  A failure outside an op fails that engine's requests through its
+  loop's recovery, whose reset is itself an op, so the followers reset
+  it too. An op that fails ends the plane, for every engine on it: a
+  rank that stopped partway through an op's collectives cannot rejoin
+  the stream (its peers wait in those collectives, or would pair their
+  next ones with its leftovers). A follower logs the failure, leaves the
+  world and exits non-zero; the leader's collectives then fail, and every
+  engine of the leader fails its requests, takes no more and turns not
+  ready, and the leader leaves the world (``BatchScheduler._end_plane``,
+  :meth:`TPChannel.end_plane`), which ends the other followers' waits.
 
 ``python -m p2p_llm_chat_tpu_torch.serve.tp`` is a follower process:
 :func:`p2p_llm_chat_tpu_torch.parallel.distributed.start_local_world`
@@ -51,6 +73,8 @@ from __future__ import annotations
 import os
 import pickle
 import sys
+import threading
+from typing import Optional
 
 import torch
 
@@ -64,86 +88,166 @@ log = get_logger("serve.tp")
 OPS = ("shutdown", *_OPS)
 
 
+class _FairLock:
+    """A lock granted in the order it was asked for (a ticket lock): a
+    busy engine's loop, which asks again right after each op, cannot
+    starve another engine's. :attr:`owner` is the holding thread's id."""
+
+    def __init__(self) -> None:
+        self._cv = threading.Condition()
+        self._next = 0
+        self._serving = 0
+        self.owner: Optional[int] = None
+
+    def __enter__(self) -> "_FairLock":
+        with self._cv:
+            ticket = self._next
+            self._next += 1
+            while ticket != self._serving:
+                self._cv.wait()
+            self.owner = threading.get_ident()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        with self._cv:
+            self.owner = None
+            self._serving += 1
+            self._cv.notify_all()
+
+
 class TPChannel:
-    """The leader's end of the op stream over ``mesh``'s control group."""
+    """The leader's end of a plane's op stream over ``mesh``'s control
+    group, shared by every engine on the plane (:meth:`attach`)."""
 
     def __init__(self, mesh) -> None:
         self.mesh = mesh
+        # Held from an op's send to the end of its run on the leader.
+        self.lock = _FairLock()
         # An op failed (BatchScheduler._dev): the stream cannot go on.
         self.down = False
+        self._ended = False
         self._closed = False
+        # index -> the leader's scheduler of that engine, and the indices
+        # whose loops have stopped (cleanly: True).
+        self.scheds: dict[int, object] = {}
+        self._stopped: dict[int, bool] = {}
 
-    def send(self, op: str, args: tuple) -> None:
-        """Broadcast ``op`` and its host arguments to every rank (a sync
-        point: it returns once each follower has received it)."""
+    def attach(self, index: int, sched) -> None:
+        if index in self.scheds:
+            raise ValueError(f"engine index {index} is already on this "
+                             "plane")
+        self.scheds[index] = sched
+
+    def check_not_holding(self, what: str) -> None:
+        """Refuse to wait on a loop while this thread holds the op lock
+        (the wait could need the lock: a deadlock)."""
+        if self.lock.owner == threading.get_ident():
+            raise RuntimeError(f"{what} inside a tensor-parallel op")
+
+    def send(self, op: str, args: tuple, index: int = 0) -> None:
+        """Broadcast ``op`` for engine ``index`` and its host arguments to
+        every rank (a sync point: it returns once each follower has
+        received it). The caller holds :attr:`lock`."""
         blob = pickle.dumps(args, protocol=pickle.HIGHEST_PROTOCOL) \
             if args else b""
-        hdr = torch.tensor([OPS.index(op), len(blob)], dtype=torch.int64)
+        hdr = torch.tensor([OPS.index(op), index, len(blob)],
+                           dtype=torch.int64)
         torch.distributed.broadcast(hdr, 0, group=self.mesh.control)
         if blob:
             buf = torch.frombuffer(bytearray(blob), dtype=torch.uint8)
             torch.distributed.broadcast(buf, 0, group=self.mesh.control)
 
-    def shutdown(self, sched) -> None:
-        """Send the shutdown op once and compare the ranks' digests (not
-        after the stream went down)."""
-        if self._closed or self.down:
+    def shutdown(self, sched, clean: bool = True) -> None:
+        """Engine ``sched`` has stopped (``clean``: its loop thread ended).
+        Once every engine of the plane has, send the shutdown op once and
+        compare each engine's digests on every rank; nothing is sent after
+        the stream went down, or while a loop is stuck in an op (a second
+        sender would mix ops on the control group)."""
+        index = next(i for i, s in self.scheds.items() if s is sched)
+        self._stopped[index] = clean
+        if (self._closed or self.down
+                or len(self._stopped) < len(self.scheds)):
             return
         self._closed = True
-        self.send("shutdown", ())
-        compare_digests(sched)
+        if not all(self._stopped.values()):
+            log.error("a scheduler loop did not stop; the follower ranks "
+                      "are not told to shut down")
+            return
+        with self.lock:
+            self.send("shutdown", ())
+        for i in sorted(self.scheds):
+            compare_digests(self.scheds[i])
+
+    def end_plane(self) -> bool:
+        """The plane went down: wake every engine's loop so that each one
+        ends its own part (fails its requests, turns not ready). True the
+        first time only."""
+        self.down = True
+        if self._ended:
+            return False
+        self._ended = True
+        for sched in self.scheds.values():
+            try:
+                sched.post_on_loop(lambda: None)
+            except RuntimeError:
+                pass                  # already stopped
+        return True
 
 
-def receive(mesh) -> tuple[str, tuple]:
-    """A follower's next op from the leader: (name, arguments)."""
-    hdr = torch.zeros((2,), dtype=torch.int64)
+def receive(mesh) -> tuple[str, int, tuple]:
+    """A follower's next op from the leader: (name, engine index,
+    arguments)."""
+    hdr = torch.zeros((3,), dtype=torch.int64)
     torch.distributed.broadcast(hdr, 0, group=mesh.control)
-    op, n = int(hdr[0]), int(hdr[1])
+    op, index, n = (int(x) for x in hdr)
     args: tuple = ()
     if n:
         buf = torch.empty((n,), dtype=torch.uint8)
         torch.distributed.broadcast(buf, 0, group=mesh.control)
         args = pickle.loads(buf.numpy().tobytes())
-    return OPS[op], args
+    return OPS[op], index, args
 
 
 def compare_digests(sched) -> bool:
-    """All-gather every rank's token digest over the control group
-    (collective); kept on ``sched.digests``. False, logged as an error,
-    when they differ."""
+    """All-gather every rank's token digest of ``sched``'s engine over the
+    control group (collective); kept on ``sched.digests``. False, logged
+    as an error, when they differ."""
     mine = sched.token_digest()
     got: list = [None] * torch.distributed.get_world_size()
     torch.distributed.all_gather_object(got, mine,
                                         group=sched.mesh.control)
     sched.digests = got
     if len(set(got)) != 1:
-        log.error("tp ranks sampled different tokens: token digests %s",
-                  got)
+        log.error("tp ranks sampled different tokens on %s: token digests "
+                  "%s", sched.config.name, got)
         return False
     log.info("tp rank %d: token digest %s, equal on all %d ranks",
              sched.mesh.rank, mine, len(got))
     return True
 
 
-def tp_follower_loop(sched) -> None:
-    """Run on every rank but the leader: receive each op and run it on
-    this rank's scheduler until the shutdown op. An op that fails is
-    logged and raised: the caller leaves the world
-    (``TorchEngine.close``) and the process exits non-zero."""
-    mesh = sched.mesh
-    log.info("tp follower %d/%d ready", mesh.rank, mesh.size)
+def tp_follower_loop(scheds: dict) -> None:
+    """Run on every rank but the leader: receive each op and run it on the
+    scheduler of the engine it names (``scheds``: {index: scheduler})
+    until the shutdown op, then compare every engine's digests in index
+    order. An op that fails is logged and raised: the caller leaves the
+    world (``TorchEngine.close``) and the process exits non-zero."""
+    mesh = next(iter(scheds.values())).mesh
+    log.info("tp follower %d/%d ready (%d engine%s)", mesh.rank, mesh.size,
+             len(scheds), "s" * (len(scheds) > 1))
     while True:
-        op, args = receive(mesh)
+        op, index, args = receive(mesh)
         if op == "shutdown":
-            compare_digests(sched)
+            for i in sorted(scheds):
+                compare_digests(scheds[i])
             log.info("tp follower %d shutting down", mesh.rank)
             return
         try:
-            sched.run_op(op, args)
+            scheds[index].run_op(op, args)
         except Exception:
-            log.exception("tp follower %d: op %s failed; leaving the world "
-                          "(a rank cannot rejoin the op stream partway)",
-                          mesh.rank, op)
+            log.exception("tp follower %d, engine %d: op %s failed; "
+                          "leaving the world (a rank cannot rejoin the op "
+                          "stream partway)", mesh.rank, index, op)
             raise
 
 

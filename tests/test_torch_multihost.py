@@ -207,7 +207,7 @@ def _spawn(n: int, env_extra: dict, code=None, stdin=None):
                    SERVE_COORDINATOR=f"127.0.0.1:{port}",
                    JAX_NUM_PROCESSES=str(n), JAX_PROCESS_ID=str(pid),
                    MODEL_CONFIG="tiny", SERVE_MAX_SEQ=str(MAX_SEQ),
-                   **env_extra)
+                   OMP_NUM_THREADS="1", **env_extra)
         cmd = ([sys.executable, "-c", code] if code else
                [sys.executable, "-m", "p2p_llm_chat_tpu_torch.serve"])
         procs.append(subprocess.Popen(

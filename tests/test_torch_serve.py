@@ -206,19 +206,21 @@ def test_gpu_default_entry_point_raises_without_a_card(monkeypatch):
 
 
 # Features of the reference that the port now serves; a missing
-# checkpoint directory raises the reference's FileNotFoundError; the
-# others still exit with "not ported" (SERVE_TP alone serves over its
-# own ranks, tests/test_torch_tp_engine.py, with the KV tier too,
-# tests/test_torch_tp_tier.py; with SERVE_MODELS it is still refused,
-# before any follower starts). SERVE_PROFILE_PORT starts its listener on
-# a free port in place of the case's, and stop() closes it. The KV
-# layout is pinned to SERVE_KV=paged (the KV tier needs it) unless the
-# case names it.
+# checkpoint directory raises the reference's FileNotFoundError; any
+# other would exit with "not ported" (SERVE_TP serves over its own ranks,
+# tests/test_torch_tp_engine.py, with the KV tier too,
+# tests/test_torch_tp_tier.py, and with SERVE_MODELS every tag on them,
+# tests/test_torch_tp_multi.py: its world is left and its follower
+# reaped by close(), its rank capped at one thread). SERVE_PROFILE_PORT
+# starts its listener on a free port in place of the case's, and stop()
+# closes it. The KV layout is pinned to SERVE_KV=paged (the KV tier needs
+# it) unless the case names it.
 _PORTED = ({"SERVE_SPEC": "2"}, {"SERVE_QUANT": "int4"},
            {"MODEL_CONFIG": "tiny-moe"}, {"SERVE_KV_HOST_GB": "1"},
            {"SERVE_MODELS": "a=tiny"}, {"SERVE_KV": "dense"},
            {"SERVE_SPEC": "2", "SERVE_DRAFT": "tiny"},
-           {"SERVE_PROFILE_PORT": "9999"})
+           {"SERVE_PROFILE_PORT": "9999"},
+           {"SERVE_TP": "2", "SERVE_MODELS": "a=tiny"})
 
 
 @pytest.mark.parametrize("env", [{"SERVE_SPEC": "2"},
@@ -246,11 +248,16 @@ def test_features_of_later_slices_fail_loudly(env, monkeypatch):
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
         monkeypatch.setenv("SERVE_PROFILE_PORT", str(port))
+    threads = torch.get_num_threads()
+    if "SERVE_TP" in env:
+        monkeypatch.setenv("OMP_NUM_THREADS", "1")
     if env in _PORTED:
         engine = build_engine_from_env()
         if "SERVE_PROFILE_PORT" in env:
             assert engine.profile_server is not None
         engine.stop()
+        engine.close()
+        torch.set_num_threads(threads)
         if "SERVE_PROFILE_PORT" in env:
             with pytest.raises(ConnectionRefusedError):
                 socket.create_connection(("127.0.0.1", port),
