@@ -64,7 +64,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    timed both ways), timed per llama3.1-8b step
    at W = 1024 and 4096 (and verify at S = 5, the wake at R = 1, S = 256,
    W = 2048) beside the bound and SDPA;
-3. step   — one full-width decode step (depth cut to 2 layers) through the
+3. step   — one full-width decode step (depth cut to 2 layers, mixtral-8x7b's
+   to 1) through the
    kernels on the card, against the same step through the plain path on
    the CPU (same weights, same pool): llama3.1-8b int8 over an int8 pool
    and over a bf16 pool through the write-then-attend branch
@@ -157,8 +158,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    streams through kernel B's verify mode and kernel A (counters zeroed
    before), the same turn admitted cold, the park copy's and the wake
    forward's times, prefix export/import, migration (park_all, export,
-   pull-import, forget), a disaggregated handoff by its three HTTP calls,
-   the ``serve.kv_tier.*`` failpoints and pool pressure; then the same
+   pull-import, forget), the ``serve.kv_tier.*`` failpoints and pool
+   pressure; then the port's replica router (serve/router.py) over the
+   two fronts: a new 1500-token conversation through its disaggregated
+   handoff (kernel D on A, kernel B's verify mode on B, the stream equal
+   to A's wake of the same prefill), the follow-up turn woken on B by
+   affinity, a drain of B through the router migrating B's sessions to
+   A (the next turn equal to an unmoved twin's), the fleet's ``/metrics``
+   under ``replica="0|1"``, and the entry in router mode
+   (``SERVE_ROUTER_UPSTREAMS``) in a process that sees no card, answering
+   alike and exiting 0 on SIGTERM; then the same
    over the dense cache (``SERVE_KV=dense``, one set of weights for all
    four engines): sessions parked at finish, two woken turns equal to
    each other and to the same turn admitted cold, through kernel B's
@@ -238,6 +247,8 @@ import json
 import math
 import os
 import re
+import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -2890,7 +2901,8 @@ def _spec_host(sched, rows) -> None:
 
 def _spec_sched_checks(label: str, model: str, quant: str,
                        impl: str) -> None:
-    """Spec ticks in the scheduler's state at full width, 2 layers, on
+    """Spec ticks in the scheduler's state at full width, 2 layers (1 on
+    mixtral-8x7b, :func:`_step_depth`), on
     quote weights (models/synth.quote_params: greedy output follows a
     fixed successor map by a wide margin, so drafts land): B = 8 rows
     63-480 tokens long over a random pool, the window's programs captured
@@ -2914,7 +2926,7 @@ def _spec_sched_checks(label: str, model: str, quant: str,
     from p2p_llm_chat_tpu_torch.models.synth import quote_params
     from p2p_llm_chat_tpu_torch.serve.scheduler import BatchScheduler
     from p2p_llm_chat_tpu_torch.tokenizer import ByteTokenizer
-    cfg = get_config(model).with_(num_layers=2)
+    cfg = get_config(model).with_(num_layers=_step_depth(model))
     params = quote_params(cfg, seed=7, quant=quant, device="cuda")
     wta = impl != "gather"
     B, w, K = 8, 512, 4
@@ -3020,7 +3032,8 @@ def _spec_sched_checks(label: str, model: str, quant: str,
     check(replay_n == eager_n, f"step {label}: a spec replay counts "
           f"{replay_n}, the eager tick launched {eager_n}")
     torch.cuda.synchronize()
-    print(f"step: {label} spec (2 layers, quote weights, B={B}, W={w}, "
+    print(f"step: {label} spec ({cfg.num_layers} layers, quote weights, "
+          f"B={B}, W={w}, "
           f"K={K}, {'tree N=8' if tree else 'linear'}): {msg}; the spec "
           f"graph's replay bitwise equal to the eager tick (accepted "
           f"{eager['spec_out'][0].tolist()}), launches per replay "
@@ -3096,9 +3109,18 @@ def _cosines(a, b):
                               * torch.linalg.vector_norm(b, dim=-1))
 
 
+def _step_depth(model: str) -> int:
+    """The step phases' depth cut: 2 layers; mixtral-8x7b 1, its CPU
+    plain forwards at full width (17 s a decode step, more for the wake's
+    S = 256) being most of the default run's step time."""
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    return 1 if get_config(model).is_moe else 2
+
+
 def phase_step(model: str, quant: str, prefill_check: bool,
                impl: str = "gather") -> None:
-    """One decode step of ``model`` at full width, depth cut to 2 layers,
+    """One decode step of ``model`` at full width, depth cut to 2 layers
+    (1 on mixtral-8x7b, :func:`_step_depth`),
     ``quant`` weights + an int8 pool (a bf16 pool under a write-then-attend
     ``impl``, kernel B's pool mode): the prompt is prefilled on the card,
     then the same step runs through the kernels on the card and through
@@ -3115,7 +3137,7 @@ def phase_step(model: str, quant: str, prefill_check: bool,
     from p2p_llm_chat_tpu_torch.models.quant import QTensor, QTensor4
     from p2p_llm_chat_tpu_torch.ops.paged_kv import (PagedKVCache,
                                                      write_prefill_batch)
-    cfg = get_config(model).with_(num_layers=2)
+    cfg = get_config(model).with_(num_layers=_step_depth(model))
     fam = family_for(cfg)
     dev = torch.device("cuda")
     params = fam.init_params_quantized(cfg, seed=7, quant=quant, device=dev)
@@ -3186,7 +3208,8 @@ def phase_step(model: str, quant: str, prefill_check: bool,
               "non-finite chunked-prefill logits")
         err = (chunked - whole).abs().max().item()
         scale = whole.abs().max().item()
-        print(f"step: {model} dims, 2 layers, {quant} weights: prompt {cn} "
+        print(f"step: {model} dims, {cfg.num_layers} layers, {quant} weights: "
+              f"prompt {cn} "
               f"in {cS // C} chunks of {C} vs whole-prompt prefill on the "
               f"card: logits max_abs_err {err:.4f}, max|logits| {scale:.3f} "
               f"(tol {STEP_TOL:.0e} of max), argmax "
@@ -3221,7 +3244,7 @@ def phase_step(model: str, quant: str, prefill_check: bool,
     err = (g - c).abs().max().item()
     scale = c.abs().max().item()
     same = int(g.argmax()) == int(c.argmax())
-    print(f"step: {model} dims, 2 layers, {quant} weights + "
+    print(f"step: {model} dims, {cfg.num_layers} layers, {quant} weights + "
           f"{'bf16 pool, write-then-attend' if wta else 'int8 pool'} "
           f"(impl={impl}), prompt {n}: card vs CPU plain logits max_abs_err "
           f"{err:.4f}, "
@@ -3252,7 +3275,8 @@ def phase_step(model: str, quant: str, prefill_check: bool,
         err = (pre_gpu - pre_cpu).abs().max().item()
         scale = pre_cpu.abs().max().item()
         same = int(pre_gpu.argmax()) == int(pre_cpu.argmax())
-        print(f"step: {model} dims, 2 layers, {quant} weights: prefill of "
+        print(f"step: {model} dims, {cfg.num_layers} layers, {quant} weights: "
+              f"prefill of "
               f"{pn} tokens (bucket {pS}, kernel D) card vs CPU plain "
               f"logits max_abs_err {err:.4f}, max|logits| {scale:.3f} (tol "
               f"{STEP_TOL:.0e} of max), argmax "
@@ -3267,7 +3291,8 @@ def phase_step(model: str, quant: str, prefill_check: bool,
         check(bool(torch.isfinite(emb_gpu).all()), f"step {model}: "
               "non-finite card embeddings")
         cos = _cosines(emb_gpu, emb_cpu)
-        print(f"embed: {model} dims, 2 layers, {quant} weights: "
+        print(f"embed: {model} dims, {cfg.num_layers} layers, {quant} "
+              "weights: "
               f"{len(cos)} texts (R=2 at S=256, R=4 at S=128; launches "
               f"{moved}) card vs CPU plain: cosine min "
               f"{cos.min().item():.6f} (tol {1 - EMBED_TOL}), max_abs_err "
@@ -3334,7 +3359,8 @@ def _dense_clone(cache, device=None):
 
 def phase_step_dense(model: str, quant: str) -> None:
     """The dense KV path's forwards of ``model`` at full width, depth cut
-    to 2 layers, ``quant`` weights, bf16 dense cache (B = 2, max_seq
+    to 2 layers (1 on mixtral-8x7b), ``quant`` weights, bf16 dense cache
+    (B = 2, max_seq
     1024): two prompts prefilled into the cache (kernel D), then on the
     card and from the same cache on the CPU's plain path: ``decode_step``
     (row 1 parked), ``verify_step`` at S = 5 (llama; mixtral's CPU expert
@@ -3356,7 +3382,7 @@ def phase_step_dense(model: str, quant: str) -> None:
     from p2p_llm_chat_tpu_torch.models.quant import QTensor, QTensor4
     if not get_config(model).is_moe:
         _int8_kv_writes()
-    cfg = get_config(model).with_(num_layers=2)
+    cfg = get_config(model).with_(num_layers=_step_depth(model))
     fam = family_for(cfg)
     dev = torch.device("cuda")
     params = fam.init_params_quantized(cfg, seed=7, quant=quant, device=dev)
@@ -3441,7 +3467,8 @@ def phase_step_dense(model: str, quant: str) -> None:
           and torch.equal(fused_cache.k, seq_cache.k)
           and torch.equal(fused_cache.lengths, seq_cache.lengths),
           f"step dense {model}: decode_fused K=4 differs from 4 steps")
-    print(f"step dense: {model} dims, 2 layers, {quant} weights: "
+    print(f"step dense: {model} dims, {cfg.num_layers} layers, {quant} "
+          f"weights: "
           f"decode_fused K=4 bitwise equal to 4 decode_step calls; tokens "
           f"{torch.stack(seq).tolist()}", flush=True)
     _graph_checks(f"{model} {quant} dense", cfg, params, "gather",
@@ -3462,7 +3489,8 @@ def phase_step_dense(model: str, quant: str) -> None:
         same = bool((got.argmax(-1) == want.argmax(-1)).float().mean() >= 0.5)
         changed = (c.k != before.k).any(dim=(0, 3, 4))
         k_err = (after.k.float() - c.k.float())[:, changed].abs().max().item()
-        print(f"step dense: {model} dims, 2 layers, {quant} weights, "
+        print(f"step dense: {model} dims, {cfg.num_layers} layers, "
+              f"{quant} weights, "
               f"{name}: card vs CPU plain logits max_abs_err {err:.4f}, "
               f"max|logits| {scale:.3f} (tol {STEP_TOL:.0e} of max), argmax "
               f"{'mostly equal' if same else 'differs'}; written slots "
@@ -5071,6 +5099,280 @@ def _tier_wake_ms(sched, key: str, S: int, reps: int = 5) -> float:
     return _on_loop(sched, run)
 
 
+# The router leg's conversations: a new 1500-token one (kernel D on the
+# prefill replica, no cached prefix of it there) and a short one under
+# the prefix ladder's first grain (the router subprocess's).
+ROUTER_PROMPT = ("A new conversation opens with a long question about the "
+                 "weekend plans and who brings what. " * 30)[:1500]
+ROUTER_SHORT = "One more new conversation, short enough to skip the prefix."
+
+
+def _stream_turn(label: str, url: str, prompt: str, session: str, ctx=(),
+                 trace: str = "", n: int = 24) -> tuple:
+    """One greedy streamed /api/generate turn: (client ms to the first
+    NDJSON line, client ms to the last, the final record)."""
+    body = {"prompt": prompt, "stream": True, "session": session,
+            "options": {"num_predict": n}}
+    if ctx:
+        body["context"] = list(ctx)
+    headers = {"Content-Type": "application/json"}
+    if trace:
+        headers["X-Graft-Trace"] = trace
+    req = urllib.request.Request(url + "/api/generate",
+                                 data=json.dumps(body).encode(),
+                                 headers=headers)
+    t0 = time.monotonic()
+    first_ms, last = None, None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        check(r.status == 200, f"{label}: stream {r.status}")
+        for line in r:
+            if first_ms is None:
+                first_ms = (time.monotonic() - t0) * 1e3
+            if line.strip():
+                last = json.loads(line)
+    total_ms = (time.monotonic() - t0) * 1e3
+    check(last is not None and last.get("done") is True
+          and "error" not in last, f"{label}: bad final record {last}")
+    return first_ms, total_ms, last
+
+
+def _tier_router_leg(results: dict, label: str, ua: str, ub: str) -> None:
+    """The port's replica router (serve/router.py) in this process over
+    the tier phase's two fronts, A prefill-class and B decode-class
+    (scrape 200 ms). A new 1500-token conversation rides the router's
+    disaggregated handoff (``disagg_handoffs_total`` 1; kernel D launched
+    on A, which woke nothing, and kernel B's verify mode on B, which ran
+    no prefill chunk; launch counters zeroed just before), its stream
+    equal to A's wake of its own prefill of the same request; the
+    follow-up turn goes to B by affinity and wakes there; ``POST
+    /admin/drain`` of B through the router migrates B's sessions to A,
+    and the next turn equals the unmoved twin's on A; the router's
+    ``/metrics`` carries both replicas' series under ``replica="0|1"``,
+    each one's ``serve_replica_class`` and the summed fleet totals; a
+    router subprocess (``SERVE_ROUTER_UPSTREAMS=<A>,<B> python -m
+    p2p_llm_chat_tpu_torch.serve``, no card visible) hands a short new
+    conversation off to the same answer as this process's router and
+    exits 0 on SIGTERM. Prints the router's added client TTFT on a woken
+    turn against the same turn sent straight to a front, the handoff's
+    wall split by its spans (A's prefill, B's import, the rest: the
+    forget and the router's hops), each migrated session's wall and
+    bytes, and the leg's seconds."""
+    import uuid
+    from p2p_llm_chat_tpu_torch.serve.router import ReplicaRouter
+    from p2p_llm_chat_tpu_torch.serve.router import parse_metrics_text
+
+    t_leg = time.monotonic()
+    rlabel = label + " router"
+    rt = ReplicaRouter([ua, ub], addr="127.0.0.1:0", scrape_ms=200).start()
+    proc = None
+    try:
+        reps = json.loads(_get(rt.url + "/admin/replicas")[1])["replicas"]
+        check([(r["class"], r["ready"]) for r in reps]
+              == [("prefill", True), ("decode", True)],
+              f"{rlabel}: the router's view {reps}")
+
+        # 1. A new conversation through the router: the handoff.
+        wrappers = _wrappers()
+        ma0, mb0 = _metrics(ua), _metrics(ub)
+        for fn in wrappers.values():
+            fn.launches = 0
+        tid = uuid.uuid4().hex
+        ttft1, _, r1 = _stream_turn(rlabel, rt.url, ROUTER_PROMPT, "rt1",
+                                    trace=f"{tid};s=1")
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        ma1, mb1 = _metrics(ua), _metrics(ub)
+        snap = parse_metrics_text(_get(rt.url + "/metrics")[1])
+        check(snap.get("disagg_handoffs_total") == 1.0
+              and snap.get("disagg_handoff_failures_total") == 0.0,
+              f"{rlabel}: handoffs {snap.get('disagg_handoffs_total')}, "
+              f"failures {snap.get('disagg_handoff_failures_total')}")
+        check(launches["prefill_attention"] > 0
+              and launches["paged_attention_verify_append"] > 0,
+              f"{rlabel}: the handoff's kernels {launches}")
+        check(float(ma1["serve_admitted_total"])
+              == float(ma0["serve_admitted_total"]) + 1
+              and float(ma1["kv_waked_total"]) == float(ma0["kv_waked_total"]),
+              f"{rlabel}: A did not admit the handoff's prefill, or woke a "
+              "session")
+        check(float(mb1["prefill_chunks_total"])
+              == float(mb0["prefill_chunks_total"])
+              and float(mb1["kv_waked_total"])
+              == float(mb0["kv_waked_total"]) + 1,
+              f"{rlabel}: B prefilled, or did not wake the handoff")
+        for name, n in launches.items():
+            rec = results.get(name)
+            if n and rec is not None:
+                rec.setdefault("launches_by_path", {})[rlabel] = n
+                rec["launches"] = rec.get("launches", 0) + n
+        spans = json.loads(_get(f"{rt.url}/admin/trace?id={tid}")[1])[
+            "spans"]
+        dur = {s["name"]: s["dur_ms"] for s in spans
+               if s["name"] in ("disagg.handoff", "disagg.prefill_park",
+                                "disagg.import")}
+        check(len(dur) == 3, f"{rlabel}: handoff spans {dur}")
+        # The twin: A's own prefill of the same request, woken on A.
+        status, body = _status("POST", ua + "/admin/disagg/prefill", {
+            "path": "/api/generate", "body": {
+                "prompt": ROUTER_PROMPT, "session": "rt1-twin",
+                "options": {"num_predict": 24}}})
+        check(status == 200, f"{rlabel}: twin prefill {status} {body[:200]}")
+        wa = float(_metrics(ua)["kv_waked_total"])
+        _, _, w1 = _stream_turn(rlabel, ua, ROUTER_PROMPT, "rt1-twin")
+        check(float(_metrics(ua)["kv_waked_total"]) == wa + 1,
+              f"{rlabel}: A did not wake its twin")
+        check(r1["context"] == w1["context"], f"{rlabel}: the routed "
+              "handoff's stream differs from A's wake of the same prefill")
+
+        # 2. The follow-up turn: affinity to B, woken there; the twin's
+        # turn 2 sent straight to A.
+        wb = float(_metrics(ub)["kv_waked_total"])
+        ttft2, wall2, r2 = _stream_turn(rlabel, rt.url, TIER_TURN2, "rt1",
+                                        r1["context"])
+        check(float(_metrics(ub)["kv_waked_total"]) == wb + 1,
+              f"{rlabel}: the follow-up did not wake on B")
+        ttft2d, wall2d, w2 = _stream_turn(rlabel, ua, TIER_TURN2,
+                                          "rt1-twin", w1["context"])
+        check(r2["context"] == w2["context"], f"{rlabel}: turn 2 on B "
+              "differs from the twin's on A")
+
+        # 3. Drain B through the router: its sessions move to A.
+        moving = json.loads(_get(ub + "/admin/session")[1])["sessions"]
+        n_samples = len(rt._m_migration_ms._samples)
+        t0 = time.monotonic()
+        status, body = _status("POST", rt.url + "/admin/drain",
+                               {"replica": 1})
+        drain_s = time.monotonic() - t0
+        mig = json.loads(body).get("migration") or {}
+        check(status == 200 and mig.get("migrated") == len(moving)
+              and mig.get("failed") == 0 and mig.get("dest") == 0,
+              f"{rlabel}: drain {status} {mig} over {len(moving)} sessions")
+        on_a = json.loads(_get(ua + "/admin/session")[1])["sessions"]
+        check(set(moving) <= set(on_a)
+              and not json.loads(_get(ub + "/admin/session")[1])["sessions"],
+              f"{rlabel}: the drain left sessions on B")
+        walls = rt._m_migration_ms._samples[n_samples:]
+        mb = {k: on_a[k]["nbytes"] / 1e6 for k in moving}
+        wa = float(_metrics(ua)["kv_waked_total"])
+        _, _, r3 = _stream_turn(rlabel, rt.url, TIER_TURN3, "rt1",
+                                r2["context"])
+        check(float(_metrics(ua)["kv_waked_total"]) == wa + 1,
+              f"{rlabel}: the migrated session did not wake on A")
+        _, _, w3 = _stream_turn(rlabel, ua, TIER_TURN3, "rt1-twin",
+                                w2["context"])
+        check(r3["context"] == w3["context"], f"{rlabel}: turn 3 after the "
+              "migration differs from the unmoved twin's")
+        status, _ = _status("POST", rt.url + "/admin/undrain",
+                            {"replica": 1})
+        check(status == 200, f"{rlabel}: undrain {status}")
+
+        # 4. The aggregated /metrics.
+        snap = parse_metrics_text(_get(rt.url + "/metrics")[1])
+        for series in ("serve_requests_total", "kv_waked_total",
+                       "kv_parked_total"):
+            per = [snap.get(f'{series}{{replica="{i}"}}') for i in (0, 1)]
+            check(None not in per and snap.get(series) == sum(per),
+                  f"{rlabel}: {series} {per} fleet {snap.get(series)}")
+        check(snap.get('serve_replica_class{class="prefill",replica="0"}')
+              == 1.0 and snap.get(
+                  'serve_replica_class{class="decode",replica="1"}') == 1.0
+              and snap.get("kv_sessions_migrated_total") == len(moving),
+              f"{rlabel}: the router's /metrics {snap}")
+
+        # 5. The entry in router mode, in a process that sees no card.
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        sub_url = f"http://127.0.0.1:{port}"
+        env = dict(os.environ, SERVE_ROUTER_UPSTREAMS=f"{ua},{ub}",
+                   SERVE_ADDR=f"127.0.0.1:{port}", CUDA_VISIBLE_DEVICES="",
+                   SERVE_ROUTER_SCRAPE_MS="200", OMP_NUM_THREADS="1")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "p2p_llm_chat_tpu_torch.serve"], env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+        deadline = time.monotonic() + 120
+        while True:
+            check(proc.poll() is None, f"{rlabel}: the router process "
+                  f"exited {proc.returncode}")
+            check(time.monotonic() < deadline, f"{rlabel}: the router "
+                  "process never answered /readyz")
+            try:
+                if _get(sub_url + "/readyz", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.2)
+        sub = _tier_gen(rlabel, sub_url, ROUTER_SHORT, "rt-sub")
+        here = _tier_gen(rlabel, rt.url, ROUTER_SHORT, "rt-here")
+        check(sub["context"] == here["context"], f"{rlabel}: the router "
+              "process's answer differs from this process's router's")
+        sub_snap = parse_metrics_text(_get(sub_url + "/metrics")[1])
+        check(sub_snap.get("disagg_handoffs_total") == 1.0,
+              f"{rlabel}: the router process handed nothing off")
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+            rc = None
+        err = proc.stderr.read().decode(errors="replace")
+        proc = None
+        check(rc == 0, f"{rlabel}: the router process exited {rc} on "
+              f"SIGTERM: {err[-2000:]}")
+        leg_s = time.monotonic() - t_leg
+        # The router's cost on a woken turn: what the client waits past
+        # the replica's own clock, routed less straight to a front (the
+        # replicas' decode walls drop out).
+        over = (ttft2 - r2["prompt_eval_duration"] / 1e6) - (
+            ttft2d - w2["prompt_eval_duration"] / 1e6)
+        over_wall = (wall2 - r2["total_duration"] / 1e6) - (
+            wall2d - w2["total_duration"] / 1e6)
+        rest = dur["disagg.handoff"] - dur["disagg.prefill_park"] - dur[
+            "disagg.import"]
+        print(f"server {rlabel}: handoff of {r1['prompt_eval_count']} "
+              f"prompt tokens: client TTFT {ttft1:.1f} ms (B's "
+              f"prompt_eval {r1['prompt_eval_duration'] / 1e6:.1f} ms); "
+              f"handoff {dur['disagg.handoff']:.1f} ms = A's prefill "
+              f"{dur['disagg.prefill_park']:.1f} + B's import "
+              f"{dur['disagg.import']:.1f} + forget and hops {rest:.1f}; "
+              f"kernel launches {launches}", flush=True)
+        print(f"server {rlabel}: woken turn 2 client TTFT routed (B) "
+              f"{ttft2:.1f} ms, straight to A {ttft2d:.1f} ms; replica "
+              f"prompt_eval {r2['prompt_eval_duration'] / 1e6:.1f} / "
+              f"{w2['prompt_eval_duration'] / 1e6:.1f} ms; the router's "
+              f"added client TTFT {over:.2f} ms; client wall past the "
+              f"replica's total_duration routed "
+              f"{wall2 - r2['total_duration'] / 1e6:.2f} ms, straight "
+              f"{wall2d - w2['total_duration'] / 1e6:.2f} ms (the router "
+              f"adds {over_wall:.2f} ms)", flush=True)
+        print(f"server {rlabel}: drain of B migrated {len(moving)} sessions "
+              f"to A in {drain_s:.2f} s: walls ms "
+              f"{[round(w, 1) for w in walls]}, MB by key "
+              f"{ {k: round(v, 1) for k, v in mb.items()} }; turn 3 woken "
+              f"on A = the unmoved twin's; router subprocess answer equal, "
+              f"exit 0 on SIGTERM; leg {leg_s:.1f} s", flush=True)
+        results["_router"] = dict(
+            handoff_ms=round(dur["disagg.handoff"], 3),
+            prefill_ms=round(dur["disagg.prefill_park"], 3),
+            import_ms=round(dur["disagg.import"], 3),
+            forget_and_hops_ms=round(rest, 3),
+            ttft_handoff_ms=round(ttft1, 3),
+            ttft_woken_routed_ms=round(ttft2, 3),
+            ttft_woken_direct_ms=round(ttft2d, 3),
+            router_added_ttft_ms=round(over, 3),
+            router_added_wall_ms=round(over_wall, 3),
+            drain_s=round(drain_s, 3),
+            migration_ms=[round(w, 3) for w in walls],
+            migration_mb={k: round(v, 3) for k, v in mb.items()},
+            leg_s=round(leg_s, 1))
+    finally:
+        if proc is not None:
+            proc.kill()
+            proc.wait(timeout=10)
+        rt.stop()
+
+
 def phase_server_tier(results: dict) -> None:
     """The KV tier on the card: two engines in one process, A of class
     prefill and B of class decode, each llama3.1-8b int8 (32 layers, int8
@@ -5085,11 +5387,11 @@ def phase_server_tier(results: dict) -> None:
     exported from A and imported on B serves B's next admission;
     ``/admin/session/park_all`` on A, export -> pull-import on B -> forget
     on A, and turn 3 on B equals turn 3 of the other session on A; the
-    three HTTP calls of a disaggregated handoff (prefill on A, pull-import
-    on B, forget on A), the request woken on B equal to A's wake of the
-    same payload, and compared with a cold run; the export and import
-    failpoints fail their routes and lose no session; pool pressure on B
-    parks resident sessions for new admissions. Prints the wake TTFT
+    export and import failpoints fail their routes and lose no session;
+    pool pressure on B parks resident sessions for new admissions; then
+    the replica router over both fronts (:func:`_tier_router_leg`: the
+    handoff, affinity, drain-as-migration, the fleet's ``/metrics`` and
+    the entry in router mode). Prints the wake TTFT
     beside the cold admission's, the park copy's gather + readback and
     the wake's upload + scatter (ms, MB), the wake forward at S = 64 and
     256, and the export's host ms. The weights are built once, for both
@@ -5283,48 +5585,6 @@ def phase_server_tier(results: dict) -> None:
               f"{t3b['prompt_eval_duration'] / 1e6:.1f} / "
               f"{t3a['prompt_eval_duration'] / 1e6:.1f} ms)", flush=True)
 
-        # 5. Disaggregated prefill by hand: the reference's drive_handoff
-        # calls (prefill on A, pull-import on B, forget on A).
-        d_prompt = ("A new conversation opens with a long question about "
-                    "the weekend plans. " * 8)
-        body_d = {"prompt": d_prompt, "stream": False, "session": "d1",
-                  "options": {"num_predict": 24}}
-        status, body = _status("POST", ua + "/admin/disagg/prefill",
-                               {"path": "/api/generate", "body": body_d})
-        meta = json.loads(body)
-        check(status == 200 and meta.get("key") == "sid:d1",
-              f"{label}: disagg prefill {status} {meta}")
-        status, snap = _status("GET", ua + "/admin/session/export?key=sid:d1")
-        check(status == 200, f"{label}: export of sid:d1 {status}")
-        status, body = _status("POST", ub + "/admin/session/import",
-                               {"from": ua, "key": "sid:d1"})
-        check(status == 200, f"{label}: handoff import {status}")
-        status, _ = _status("POST", ua + "/admin/session/forget",
-                            {"key": "sid:d1"})
-        check(status == 200, f"{label}: handoff forget {status}")
-        wb = float(_metrics(ub)["kv_waked_total"])
-        on_b = _tier_gen(label, ub, d_prompt, "d1")
-        check(float(_metrics(ub)["kv_waked_total"]) == wb + 1,
-              f"{label}: the handed-off request did not wake on B")
-        status, _ = _status("POST", ua + "/admin/session/import", raw=snap)
-        check(status == 200, f"{label}: re-import on A {status}")
-        wa = float(_metrics(ua)["kv_waked_total"])
-        on_a = _tier_gen(label, ua, d_prompt, "d1")
-        check(float(_metrics(ua)["kv_waked_total"]) == wa + 1,
-              f"{label}: A did not wake the payload")
-        check(on_b["context"] == on_a["context"], f"{label}: the handoff "
-              "woken on B differs from A's wake of the same payload")
-        cold_d = _tier_gen(label, ub, d_prompt, "d-cold")
-        diff = _first_diff(cold_d["context"], on_b["context"])
-        print(f"server {label}: disaggregated handoff of {meta['len']} "
-              f"tokens: woken on B = A's wake of the same payload; vs a cold "
-              "run " + ("equal" if diff < 0 else f"differs from context "
-                        f"position {diff} (generated token "
-                        f"{diff - on_b['prompt_eval_count']})")
-              + f"; TTFT on B {on_b['prompt_eval_duration'] / 1e6:.1f} ms, "
-              f"cold {cold_d['prompt_eval_duration'] / 1e6:.1f} ms",
-              flush=True)
-
         # 7. The export and import failpoints: routes fail, nothing lost.
         try:
             failpoints.arm("serve.kv_tier.export", "raise")
@@ -5368,6 +5628,7 @@ def phase_server_tier(results: dict) -> None:
               f"{m1['kv_host_bytes']}; A: kv_waked_total "
               f"{_metrics(ua)['kv_waked_total']}, B: "
               f"{m1['kv_waked_total']}", flush=True)
+        _tier_router_leg(results, label, ua, ub)
         for name, rec in results.items():
             if name == "paged_attention_verify_append":
                 rec["tier"] = dict(

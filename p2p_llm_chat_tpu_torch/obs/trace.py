@@ -66,6 +66,10 @@ class TraceContext:
     trace_id: str
     sampled: bool = True
 
+    def header_value(self) -> str:
+        """The wire form, sample verdict pinned (what a router forwards)."""
+        return f"{self.trace_id};s={1 if self.sampled else 0}"
+
 
 def mint(rate: Optional[float] = None) -> TraceContext:
     """New context at this process's sample rate (origin decides)."""

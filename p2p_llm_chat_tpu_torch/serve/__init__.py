@@ -1,2 +1,8 @@
 """Serving stack of the port: backend protocol, continuous-batching
-scheduler, engine, and the Ollama-compatible HTTP front."""
+scheduler, engine, the Ollama-compatible HTTP front, and the replica
+router (:mod:`.router`: N independent full-stack replicas behind one
+backpressure-aware front)."""
+
+from .router import ReplicaRouter
+
+__all__ = ["ReplicaRouter"]

@@ -41,7 +41,8 @@ chunks and a final ``done: true`` record.
 
 ``SERVE_BACKEND=torch`` selects the port's engine
 (serve/engine.build_engine_from_env); ``fake`` (the default) selects
-FakeLLM.
+FakeLLM. ``SERVE_ROUTER_UPSTREAMS`` makes ``main`` start the replica
+router (serve/router.py) instead of a front.
 """
 
 from __future__ import annotations
@@ -845,6 +846,14 @@ def main() -> None:
     """Entry point: ``SERVE_BACKEND=torch`` serves the port's engine (on
     the card unless ``SERVE_DEVICE=cpu``); ``fake`` serves FakeLLM.
 
+    ``SERVE_ROUTER_UPSTREAMS`` (checked before any backend is built)
+    starts the replica router instead (serve/router.py: this process
+    only routes, builds no engine and never touches the card; replicas
+    it spawns are the port's entry). It and ``SERVE_COORDINATOR`` are
+    alternatives: configuring both is a boot error rather than a silent
+    pick. SIGTERM stops the router, and any replica its autoscaler
+    spawned, with exit 0.
+
     Under ``SERVE_COORDINATOR`` (serve/multihost.py), and on the ranks of
     ``SERVE_TP`` (serve/tp.py; one engine, or several under
     ``SERVE_MODELS``, serve/multi.py), a follower runs no front: it mirrors the
@@ -852,6 +861,20 @@ def main() -> None:
     leader serves the front until SIGTERM, then stops the plane (the
     shutdown broadcast), and exits 0 once its followers have; every rank
     logs its summary line and leaves the world on the way out."""
+    if env_or("SERVE_ROUTER_UPSTREAMS", ""):
+        if env_or("SERVE_COORDINATOR", ""):
+            raise SystemExit(
+                "SERVE_ROUTER_UPSTREAMS and SERVE_COORDINATOR are "
+                "mutually exclusive modes (replica-router vs lockstep "
+                "SPMD); set exactly one")
+        from .router import build_router_from_env
+        signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
+        router = build_router_from_env()
+        try:
+            router.serve_forever()
+        finally:
+            router.stop()
+        return
     from .backend import FakeLLM
     kind = env_or("SERVE_BACKEND", "fake")
     if kind == "fake":
