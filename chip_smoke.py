@@ -140,6 +140,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    readings a third greedy rerun and a chunked prompt run under a 2 s
    capture of the loop, whose trace must name kernels A, B and D by their
    ``__global__`` names and the ``sched.tick`` and ``sched.chunk`` ranges;
+   then the chat plane's co-pilot leg: that server's tensors take
+   full-width quote weights in place (models/synth.quote_params, whose
+   greedy output is printable text) and its co-pilot prefix is built
+   anew; the port's directory, relay, two nodes (B reachable only
+   through the relay's circuit) and two UIs in front of that server,
+   counters zeroed: a message A -> B, B's
+   ``/api/suggest`` equal to the server's greedy ``/api/generate`` of the
+   same payload and ``/api/suggest/stream`` concatenating to it, the
+   suggestion accepted back to A's inbox, kernels A, B (append) and D
+   launched, the prefix path taken, all within 20 s; its readings (the
+   UI's added ms, first streamed delta, send -> inbox each way, the
+   relay's pump, the crypto in use) beside the card line;
 5. server_spec — four SERVE_SPEC=4 servers on full-width quote weights
    (models/synth.quote_params): llama3.1-8b int8 with the tree default
    (8 nodes) and linear over an int8 pool, linear over a bf16 pool with
@@ -4211,7 +4223,7 @@ def _check_burst(label: str, reqs, answers) -> list:
 def phase_server(results: dict, model: str, quant: str,
                  expect: tuple[str, ...], prefill_chunk: int = 256,
                  impl: str = "gather", kv: str = "paged",
-                 capture: bool = False) -> None:
+                 capture: bool = False, copilot: bool = False) -> None:
     """The engine for ``model`` at ``quant`` weights (32 layers, paged KV
     — int8 under the default attend-then-write ``impl``, bf16 under a
     write-then-attend one — or, with ``kv="dense"``, the bf16 dense cache
@@ -4227,7 +4239,9 @@ def phase_server(results: dict, model: str, quant: str,
     must take the prefix path, and with chunking on the long prompt must
     admit in chunks. With ``capture``, the engine serves
     ``SERVE_PROFILE_PORT`` and, after the readings, a third greedy rerun
-    runs under a 2 s capture of the loop (:func:`_server_capture`)."""
+    runs under a 2 s capture of the loop (:func:`_server_capture`). With
+    ``copilot``, the chat plane's co-pilot leg runs last, after every
+    check above has run on the random weights (:func:`_copilot_leg`)."""
     import torch
     from p2p_llm_chat_tpu_torch.serve.api import OllamaServer
     from p2p_llm_chat_tpu_torch.serve.engine import build_engine_from_env
@@ -4375,10 +4389,334 @@ def phase_server(results: dict, model: str, quant: str,
                   for prio, p50 in conc.items()), flush=True)
         _server_recovery(label, url, sched, reqs[0])
         _server_trace(label, url)
+        if copilot:
+            _copilot_leg(results, label, url, engine, model, quant)
     finally:
         server.stop()
         engine.stop()
         os.environ.pop("SERVE_PROFILE_PORT", None)
+
+
+COPILOT_MESSAGE = "are we still on for lunch tomorrow? I can book the usual."
+COPILOT_LEG_S = 20.0     # the leg's wall-time limit
+# The leg's environment: no gateway probes; circuits spliced by the relay
+# (a punch would bypass it); no re-register that would put B's direct
+# address back into the directory; 32-token suggestions.
+COPILOT_ENV = {"NATPMP": "0", "P2P_HOLEPUNCH": "0", "NODE_REREGISTER_S": "0",
+               "UI_SUGGEST_PREDICT": "32"}
+
+
+def _timed_post(url: str, body: dict, tid: str) -> tuple[float, dict]:
+    """POST ``body`` pinned to trace ``tid``: the wall ms and the reply."""
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json",
+                                          "X-Graft-Trace": f"{tid};s=1"})
+    t0 = time.monotonic()
+    with urllib.request.urlopen(req, timeout=120) as r:
+        status, text = r.status, r.read()
+    ms = (time.monotonic() - t0) * 1e3
+    check(status == 200, f"co-pilot: {url} answered {status}")
+    return ms, json.loads(text)
+
+
+def _span_ms(url: str, tid: str, name: str) -> float:
+    """The duration of span ``name`` of trace ``tid`` on ``url``'s store."""
+    spans = json.loads(_get(f"{url}/admin/trace?id={tid}")[1])["spans"]
+    got = [sp["dur_ms"] for sp in spans if sp["name"] == name]
+    check(len(got) == 1, f"co-pilot: trace {tid} on {url} holds {spans}")
+    return got[0]
+
+
+def _timed_stream(url: str, body: dict) -> tuple[float, list]:
+    """POST ``body`` and read the NDJSON reply line by line: the ms to its
+    first line and the parsed lines."""
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    first, lines = None, []
+    with urllib.request.urlopen(req, timeout=120) as r:
+        check(r.status == 200, f"co-pilot: {url} answered {r.status}")
+        for raw in r:
+            if first is None:
+                first = (time.monotonic() - t0) * 1e3
+            if raw.strip():
+                lines.append(json.loads(raw))
+    check(first is not None and lines, f"co-pilot: {url} streamed nothing")
+    return first, lines
+
+
+def _send_to_inbox(label: str, ui_from: str, node_from: str, ui_to: str,
+                   to_user: str, content: str) -> tuple[float, float, str]:
+    """POST ``content`` to ``to_user`` through ``ui_from``'s node proxy and
+    poll ``ui_to``'s inbox (every 2 ms) until it holds it: the ms from the
+    send to the poll that saw it, the sending node's ``node.send`` span
+    (lookup and delivery, the receiver's ack included) and its leg."""
+    t0 = time.monotonic()
+    status, sent = _post(f"{ui_from}/node/send",
+                         {"to_username": to_user, "content": content},
+                         timeout=30)
+    sent = json.loads(sent)
+    check(status == 200 and sent["status"] == "sent",
+          f"co-pilot {label}: /node/send answered {status} {sent}")
+    deadline = t0 + 10
+    while True:
+        inbox = json.loads(_get(f"{ui_to}/node/inbox?after=", timeout=10)[1])
+        got = [m["content"] for m in inbox]
+        if content in got:
+            check(got.count(content) == 1, f"co-pilot {label}: the inbox "
+                  f"holds the message {got.count(content)} times")
+            ms = (time.monotonic() - t0) * 1e3
+            break
+        check(time.monotonic() < deadline, f"co-pilot {label}: the message "
+              f"never reached the inbox (holds {got})")
+        time.sleep(0.002)
+    spans = json.loads(_get(f"{node_from}/admin/trace?id="
+                            f"{sent['trace']}")[1])["spans"]
+    check(len(spans) == 1, f"co-pilot {label}: node.send spans {spans}")
+    return ms, spans[0]["dur_ms"], spans[0]["meta"]["via"]
+
+
+def _copilot_weights(label: str, engine, model: str, quant: str) -> float:
+    """Copy full-width quote weights (models/synth.quote_params, the same
+    tree shapes) into the running engine's tensors on its loop, then drop
+    every cached prefix (its KV came from the random weights) and build
+    the co-pilot prefix anew. Random weights' greedy ids mostly decode to
+    nothing, so the suggestion would be empty; the phase's own checks ran
+    on the random weights before this. Returns the seconds it took."""
+    import torch
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    from p2p_llm_chat_tpu_torch.models.synth import quote_params
+    from p2p_llm_chat_tpu_torch.serve.engine import SUGGEST_PREFIX
+    t0 = time.monotonic()
+    sched = engine.scheduler
+    new = sched._family.fuse_params(quote_params(
+        get_config(model), seed=0, quant=quant, device="cuda"))
+    n = [0]
+
+    def copy(dst, src, path: str) -> None:
+        if isinstance(dst, dict):
+            check(isinstance(src, dict) and set(dst) == set(src),
+                  f"co-pilot {label}: quote tree keys at {path or '/'}")
+            for k in dst:
+                copy(dst[k], src[k], f"{path}/{k}")
+        elif isinstance(dst, tuple):
+            check(type(src) is type(dst) and len(src) == len(dst),
+                  f"co-pilot {label}: quote leaf {path}")
+            for i, (d, x) in enumerate(zip(dst, src)):
+                copy(d, x, f"{path}.{i}")
+        else:
+            check(torch.is_tensor(dst) and torch.is_tensor(src)
+                  and dst.shape == src.shape and dst.dtype == src.dtype,
+                  f"co-pilot {label}: quote leaf {path}")
+            dst.copy_(src)
+            n[0] += 1
+
+    def swap() -> int:
+        copy(sched._params, new, "")
+        torch.cuda.synchronize()
+        store = sched._prefix
+        with store._lock:
+            store._entries.clear()
+            store._seen.clear()
+        sched._promote_q.clear()
+        return sched.register_prefix(SUGGEST_PREFIX)
+
+    P = sched.run_on_loop(swap)
+    del new
+    torch.cuda.empty_cache()
+    check(P > 0 and sched._prefix.lengths() == [P], f"co-pilot {label}: "
+          f"the prefix store holds {sched._prefix.lengths()} after the "
+          f"swap (the co-pilot prefix is {P} tokens)")
+    secs = time.monotonic() - t0
+    print(f"server {label} co-pilot: {n[0]} tensors now hold quote weights, "
+          f"the co-pilot prefix ({P} tokens) rebuilt, in {secs:.2f} s",
+          flush=True)
+    return secs
+
+
+def _copilot_leg(results: dict, label: str, url: str, engine, model: str,
+                 quant: str) -> None:
+    """The chat plane in front of the running server, in this process,
+    once the server holds quote weights (:func:`_copilot_weights`):
+    the port's directory, relay and two nodes (NATPMP=0; A reachable
+    directly, B advertising only its /p2p-circuit/ address through the
+    relay, P2P_HOLEPUNCH=0 so the circuit is spliced by the relay) and a
+    UI for each (UI_SUGGEST_PREDICT=32, ``ollama_url`` the server). With
+    the launch counters zeroed: a message A -> B through the circuit; B's
+    ``/api/suggest`` equal to ``response.strip()`` of a direct greedy
+    ``/api/generate`` of the same payload, and ``/api/suggest/stream``'s
+    deltas concatenating to that response; B accepts (``/node/send`` to
+    A) and A's inbox holds exactly the suggestion. Kernels A, B (append
+    mode) and D must have launched and ``serve_prefix_admits_total`` risen
+    by at least 2; the leg must take COPILOT_LEG_S or less."""
+    import importlib.util
+    t_leg = time.monotonic()
+    crypto = "cryptography"
+    if importlib.util.find_spec("cryptography") is None:
+        os.environ["P2P_DEV_CRYPTO"] = "1"
+        crypto = "dev stand-ins (P2P_DEV_CRYPTO=1)"
+    saved = {k: os.environ.get(k) for k in COPILOT_ENV}
+    os.environ.update(COPILOT_ENV)
+    from p2p_llm_chat_tpu_torch.directory import DirectoryService
+    from p2p_llm_chat_tpu_torch.node import ChatNode
+    from p2p_llm_chat_tpu_torch.relay import RelayService
+    from p2p_llm_chat_tpu_torch.ui import SUGGEST_TEMPLATE, ChatUI
+    from p2p_llm_chat_tpu_torch.serve.engine import SUGGEST_PREFIX
+    check(SUGGEST_TEMPLATE.startswith(SUGGEST_PREFIX), "co-pilot: the UI's "
+          "template does not start with the prefix the engine registers")
+    from p2p_llm_chat_tpu_torch.utils import native
+    started = []
+    try:
+        swap_s = _copilot_weights(label, engine, model, quant)
+        native.load("net_splice")    # the relay's pump, built in set-up
+        relay = RelayService(addr="127.0.0.1:0").start()
+        started.append(relay)
+        directory = DirectoryService(addr="127.0.0.1:0").start()
+        started.append(directory)
+        a = ChatNode(username="najy", http_addr="127.0.0.1:0",
+                     directory_url=directory.url, bootstrap_addrs="",
+                     relay_addrs="", identity_file="", dht_addr="off").start()
+        started.append(a)
+        b = ChatNode(username="cannan", http_addr="127.0.0.1:0",
+                     directory_url=directory.url, bootstrap_addrs="",
+                     relay_addrs=str(relay.addr()), identity_file="",
+                     dht_addr="off").start()
+        started.append(b)
+        rec = a.dir.lookup("cannan")
+        circuit = [x for x in rec.addrs if "/p2p-circuit/" in x]
+        check(len(circuit) == 1, f"co-pilot: B registered {rec.addrs}")
+        a.dir.register("cannan", rec.peer_id, circuit)
+        ui_a = ChatUI(node_http=a.http_url, ollama_url=url,
+                      addr="127.0.0.1:0").start()
+        started.append(ui_a)
+        ui_b = ChatUI(node_http=b.http_url, ollama_url=url,
+                      addr="127.0.0.1:0").start()
+        started.append(ui_b)
+        check(ui_b.suggest_predict == 32, "co-pilot: UI_SUGGEST_PREDICT")
+        deadline = time.monotonic() + 5
+        while b.host.peer_id not in relay._reservations:
+            check(time.monotonic() < deadline, "co-pilot: B holds no "
+                  "reservation on the relay")
+            time.sleep(0.01)
+        set_up_s = time.monotonic() - t_leg
+
+        wrappers = _wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        admits0 = engine.metrics_snapshot()["serve_prefix_admits_total"]
+        spliced0 = relay._n_spliced
+        # 1. A -> B over the relay circuit.
+        a_to_b, a_span, a_via = _send_to_inbox(
+            "A -> B", ui_a.url, a.http_url, ui_b.url, "cannan",
+            COPILOT_MESSAGE)
+        check(relay._n_spliced > spliced0 and a_via == "relay", "co-pilot: "
+              f"A -> B did not go through the relay's circuit ({a_via})")
+        # 2. B's suggestion against the direct call with the same payload
+        # (greedy by the server's default), three of each, alternating;
+        # each pinned to a trace, so the server's api.request span splits
+        # its wall into the server's time and the hops'.
+        payload = {"model": ui_b.llm_model,
+                   "prompt": SUGGEST_TEMPLATE.format(msg=COPILOT_MESSAGE),
+                   "stream": False, "options": {"num_predict": 32}}
+        direct_ms, ui_ms, direct_srv, ui_srv = [], [], [], []
+        for _ in range(3):
+            tid = os.urandom(16).hex()
+            ms, direct = _timed_post(url + "/api/generate", payload, tid)
+            direct_ms.append(ms)
+            direct_srv.append(_span_ms(url, tid, "api.request"))
+            tid = os.urandom(16).hex()
+            ms, sug = _timed_post(ui_b.url + "/api/suggest",
+                                  {"content": COPILOT_MESSAGE}, tid)
+            ui_ms.append(ms)
+            ui_srv.append(_span_ms(url, tid, "api.request"))
+            suggestion = sug["suggestion"]
+            check(suggestion != "(LLM error)"
+                  and not suggestion.startswith("(LLM unavailable"),
+                  f"co-pilot: degraded suggestion {suggestion!r}")
+            check(suggestion == direct["response"].strip(), "co-pilot: "
+                  f"/api/suggest {suggestion!r} is not the direct "
+                  f"response {direct['response']!r}")
+        check(suggestion, "co-pilot: the suggestion is empty")
+        # 3. The stream through the UI against the server's own.
+        first_direct, lines = _timed_stream(
+            url + "/api/generate", dict(payload, stream=True))
+        check("".join(x.get("response", "") for x in lines)
+              == direct["response"], "co-pilot: the direct stream differs")
+        first_ui, deltas = _timed_stream(ui_b.url + "/api/suggest/stream",
+                                         {"content": COPILOT_MESSAGE})
+        check(deltas[-1].get("done") is True
+              and not any(x.get("error") for x in deltas),
+              f"co-pilot: the UI stream ended with {deltas[-1]}")
+        check("".join(x["delta"] for x in deltas) == direct["response"],
+              "co-pilot: /api/suggest/stream's deltas do not concatenate "
+              "to the direct response")
+        # 4. B accepts: the suggestion goes back to A.
+        b_to_a, b_span, b_via = _send_to_inbox(
+            "B -> A", ui_b.url, b.http_url, ui_a.url, "najy", suggestion)
+        inbox_a = json.loads(_get(f"{ui_a.url}/node/inbox?after=")[1])
+        check([m["content"] for m in inbox_a] == [suggestion],
+              f"co-pilot: A's inbox holds {inbox_a}")
+        # 5. The kernels and the prefix path.
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        for name in ("quant_matmul", "paged_attention_append",
+                     "prefill_attention"):
+            check(launches[name] > 0, f"co-pilot: kernel {name} was never "
+                  "launched")
+        admits = (engine.metrics_snapshot()["serve_prefix_admits_total"]
+                  - admits0)
+        check(admits >= 2, f"co-pilot: serve_prefix_admits_total rose by "
+              f"{admits}")
+        leg_s = time.monotonic() - t_leg
+        check(leg_s <= COPILOT_LEG_S, f"co-pilot: the leg took {leg_s:.1f} "
+              f"s (limit {COPILOT_LEG_S:.0f})")
+        _record_launches(results, f"{label} co-pilot", launches)
+        # The UI's hop: each call's wall less the server's api.request
+        # span, the median of the UI's calls less the direct calls'.
+        hop_ui = sorted(w - sp for w, sp in zip(ui_ms, ui_srv))
+        hop_direct = sorted(w - sp for w, sp in zip(direct_ms, direct_srv))
+        med = hop_ui[1] - hop_direct[1]
+        readings = dict(
+            crypto=crypto, relay_pump=relay.pump,
+            suggest_ms=[round(x, 3) for x in ui_ms],
+            direct_ms=[round(x, 3) for x in direct_ms],
+            suggest_server_ms=ui_srv, direct_server_ms=direct_srv,
+            ui_added_ms_p50=round(med, 3),
+            hop_ui_ms=[round(x, 3) for x in hop_ui],
+            hop_direct_ms=[round(x, 3) for x in hop_direct],
+            first_delta_ui_ms=round(first_ui, 3),
+            first_line_direct_ms=round(first_direct, 3),
+            a_to_b_ms=round(a_to_b, 3), a_to_b_node_send_ms=a_span,
+            a_to_b_via=a_via, b_to_a_ms=round(b_to_a, 3),
+            b_to_a_node_send_ms=b_span, b_to_a_via=b_via,
+            launches={k: v for k, v in launches.items() if v},
+            prefix_admits=admits, swap_s=round(swap_s, 3),
+            set_up_s=round(set_up_s, 3),
+            leg_s=round(leg_s, 3), card=card_line())
+        results["_copilot"] = readings
+        print(f"server {label} co-pilot: crypto {crypto}; relay pump "
+              f"{relay.pump}; /api/suggest {med:+.3f} ms over the direct "
+              f"call (p50 of 3 of wall less the server's api.request span: "
+              f"{hop_ui[1]:.3f} vs {hop_direct[1]:.3f}; walls p50 "
+              f"{sorted(ui_ms)[1]:.3f} vs {sorted(direct_ms)[1]:.3f}); "
+              f"first streamed delta through "
+              f"the UI {first_ui:.3f} ms vs the server's first NDJSON line "
+              f"{first_direct:.3f} ms; send -> inbox A -> B ({a_via}) "
+              f"{a_to_b:.3f} ms (node.send {a_span:.3f}), B -> A ({b_via}) "
+              f"{b_to_a:.3f} ms (node.send {b_span:.3f}); "
+              f"serve_prefix_admits_total +{admits}; launches "
+              f"{readings['launches']}; leg {leg_s:.2f} s (set-up "
+              f"{set_up_s:.2f} s, the weight swap {swap_s:.2f} s of it) "
+              f"[card: {readings['card']}]", flush=True)
+        print(f"server {label} co-pilot: the suggestion {suggestion!r}",
+              flush=True)
+    finally:
+        for svc in reversed(started):
+            svc.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 # The __global__ names of kernels A, B (its append mode's split launch)
@@ -8247,7 +8585,7 @@ def main() -> int:
         ("server_llama", lambda: phase_server(
             results, "llama3.1-8b", "int8",
             ("quant_matmul", "paged_attention_append", "prefill_attention"),
-            capture=True)),
+            capture=True, copilot=True)),
         ("server_llama", lambda: phase_server(
             results, "llama3.1-8b", "int8",
             ("quant_matmul", "paged_attention_append", "prefill_attention"),

@@ -10,7 +10,10 @@ find: ``models/`` (configs, layers, quant, llama, sampling, convert),
 ``ops/`` (paged KV pool, paged attention, w8a16 matmul, and the CUDA build),
 ``csrc/`` (hand-written Hopper kernels), ``serve/`` (backend protocol,
 scheduler, engine, Ollama-compatible HTTP front), ``tools/`` (twins of
-the reference's kernel-reaching tools: the w8a8 matmul microbenchmark).
+the reference's kernel-reaching tools: the w8a8 matmul microbenchmark),
+and the chat plane (``proto``, ``inbox``, ``p2p/``, ``directory``,
+``relay``, ``node``, ``ui``: host code on the reference's wire, which
+never imports ``torch``).
 
 Device rule: entry points run on ``cuda`` unless the caller asks for the
 CPU (``device="cpu"`` or ``SERVE_DEVICE=cpu``); with no GPU and no explicit

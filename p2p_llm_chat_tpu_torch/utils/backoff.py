@@ -46,7 +46,8 @@ class Backoff:
     ``next()`` returns the next delay: uniformly sampled from
     [base * (1 - jitter), base] where base doubles (``factor``) per call
     up to ``max_s`` — the "full jitter" end of the AWS-architecture
-    spectrum, which decorrelates a fleet retrying in lockstep."""
+    spectrum, which decorrelates a fleet retrying in lockstep.
+    ``reset()`` returns to the initial delay after a success."""
 
     def __init__(self, base_s: float, max_s: float,
                  factor: float = 2.0, jitter: float = 0.5) -> None:
@@ -66,6 +67,13 @@ class Backoff:
         self._cur = min(self._cur * self.factor, self.max_s)
         lo = cur * (1.0 - self.jitter)
         return random.uniform(lo, cur) if self.jitter else cur
+
+    def peek(self) -> float:
+        """The undithered current delay (what next() grows from)."""
+        return self._cur
+
+    def reset(self) -> None:
+        self._cur = self.base_s
 
 
 def with_retries(fn: Callable[[], T], *, attempts: int = 3,

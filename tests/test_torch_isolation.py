@@ -102,8 +102,51 @@ def test_every_module_imports_without_jax_or_nvcc():
                 "p2p_llm_chat_tpu_torch.obs.trace",
                 "p2p_llm_chat_tpu_torch.obs.flight",
                 "p2p_llm_chat_tpu_torch.utils.failpoints",
-                "p2p_llm_chat_tpu_torch.utils.backoff"}
+                "p2p_llm_chat_tpu_torch.utils.backoff",
+                # The chat plane: host code, the reference's wire.
+                "p2p_llm_chat_tpu_torch.proto",
+                "p2p_llm_chat_tpu_torch.inbox",
+                "p2p_llm_chat_tpu_torch.utils.base58",
+                "p2p_llm_chat_tpu_torch.p2p",
+                "p2p_llm_chat_tpu_torch.p2p.addr",
+                "p2p_llm_chat_tpu_torch.p2p.identity",
+                "p2p_llm_chat_tpu_torch.p2p.devcrypto",
+                "p2p_llm_chat_tpu_torch.p2p.udp",
+                "p2p_llm_chat_tpu_torch.p2p.transport",
+                "p2p_llm_chat_tpu_torch.p2p.natpmp",
+                "p2p_llm_chat_tpu_torch.p2p.dht",
+                "p2p_llm_chat_tpu_torch.directory",
+                "p2p_llm_chat_tpu_torch.relay",
+                "p2p_llm_chat_tpu_torch.node",
+                "p2p_llm_chat_tpu_torch.ui"}
     assert expected <= set(got["modules"])
+
+
+_IMPORT_CHAT_PLANE = """
+import json, sys
+import p2p_llm_chat_tpu_torch.node, p2p_llm_chat_tpu_torch.ui
+import p2p_llm_chat_tpu_torch.relay, p2p_llm_chat_tpu_torch.directory
+from p2p_llm_chat_tpu_torch.utils import native
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "torch", "jax", "jaxlib", "ml_dtypes", "p2p_llm_chat_tpu"))
+import torch
+print(json.dumps({"loaded": loaded, "cuda": torch.cuda.is_initialized(),
+                  "built": sorted(native._cache)}))
+"""
+
+
+def test_importing_the_chat_plane_loads_no_torch_no_jax_no_cuda():
+    """The chat plane is host code: a node, relay, directory or UI starts
+    in a process that sees no card and never loads torch (nor JAX, nor
+    the reference), and importing it builds no native library."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", _IMPORT_CHAT_PLANE], env=env,
+                         cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"loaded": [], "cuda": False, "built": []}
 
 
 def _imports(path: pathlib.Path) -> set[str]:

@@ -730,6 +730,10 @@ def _sequence(router_cls, server_cls, fake_cls):
         http_json("POST", f"{rt.url}/admin/drain", {"replica": 1})
         _gen(rt.url, "after drain\n\nReply:")
         http_json("POST", f"{rt.url}/admin/undrain", {"replica": 1})
+        # The ready gauges follow the scrape loop: read them once it has
+        # seen the undrained replica ready again on this router too.
+        assert _wait(lambda: all(r["ready"] for r in http_json(
+            "GET", f"{rt.url}/admin/replicas")[1]["replicas"]))
         return _router_metrics(rt)
     finally:
         _stop(rt, reps)
