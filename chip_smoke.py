@@ -108,8 +108,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    reference's admission defaults (chunked prefill at 256, the prefix
    cache) and with SERVE_PREFILL_CHUNK=0, llama3.1-8b int8 over a bf16
    pool with PAGED_ATTN_IMPL=kernel (kernel B's pool mode only), then
-   mixtral-8x7b int8 (32 layers, int8 paged KV) and int4 (32 layers, the
-   bf16 dense cache: A8's decode mode, kernel B's paged modes never).
+   mixtral-8x7b int8 (cut to 16 layers at full width, int8 paged KV) and
+   int4 (16 layers, the bf16 dense cache: A8's decode mode, kernel B's
+   paged modes never).
    Before each
    burst every kernel's launch counter is zeroed; after it, the kernels of
    that path must have grown, the other decode branch's attention kernel
@@ -156,7 +157,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    (models/synth.quote_params): llama3.1-8b int8 with the tree default
    (8 nodes) and linear over an int8 pool, linear over a bf16 pool with
    PAGED_ATTN_IMPL=kernel (the write-then-attend verify through kernel
-   B's pool mode), and mixtral-8x7b int4 with the tree default: each
+   B's pool mode), and mixtral-8x7b int4 (16 layers) with the tree
+   default: each
    answers a 7-request burst with acceptance (``serve_spec_accepted_total``
    > 0, ``serve_spec_accepted_per_dispatch`` > 1) and the verify mode's
    launches counted (the pool mode's on write-then-attend), its greedy
@@ -189,14 +191,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    and the wake's upload + install, and the wake forward at S = 64 and
    256;
 7. server_ckpt — a checkpoint directory written here into a temporary
-   directory (removed at exit): llama3.1-8b at full width and depth,
+   directory (removed at exit): llama3.1-8b at full width, cut to
+   CKPT_LAYERS layers (server_e2e writes and serves the full 32-layer
+   8B through the port's own writer),
    bf16 shards of at most 5 GB and their index, each tensor drawn on the
    card from its own seeded generator, and a llama3-shaped BPE tokenizer
    (1024 merges trained in pure Python on this docstring and the burst's
    texts, llama3's specials at 128000-128255). ``CKPT_DIR`` at
    ``SERVE_QUANT=int8``: the served tree bitwise equal to the port's
    quantize + fuse of the same weights drawn again on the card and to
-   the reference's numpy arithmetic (layers 0 and 31, the head); the
+   the reference's numpy arithmetic (the first and last layers, the
+   head); the
    burst (its chat request a co-pilot message in the llama3 template,
    whose header and eot ids must reach the context) and greedy reruns
    through kernels A, B and D; the prefix path taken exactly when the
@@ -223,7 +228,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    weights (model-source acceptance, A8's verify mode, greedy answers
    equal with speculation off), then ``SERVE_DRAFT=draft-400m``; each
    prints the drafter's KV GB, its ms per draft dispatch and its
-   acceptance.
+   acceptance;
+11. server_e2e — the end-to-end bench of the port on the card, once the
+   in-process servers have freed it: ``python -m
+   p2p_llm_chat_tpu_torch.tools.e2e_bench --peers 32 --backend torch
+   --config llama3.1-8b --workload quote --rate 8 --duration 20 --seed 0
+   --boot-wave 8 --relay`` (the launcher's directory, relay, serve child,
+   32 nodes and 32 UIs as processes; the serve child's 32-layer int8
+   engine over a paged int8 pool, 32 slots, max_seq 4096, from a 16.06 GB
+   bf16 quote checkpoint the bench writes first), the default scenario
+   mix driven open-loop through the UIs, the nodes and the serve front.
+   The row must be a row (not an error row) with over 100 arrivals, every
+   scenario of the registry, short_chat's TTFT p50 and p95 and the
+   post-run probe; kernels A, B (append mode) and D must have launched in
+   the serve child during the run; no process of the bench may outlive
+   it. Prints short_chat's TTFT p50 / p95 (the 32-peer reading), each
+   scenario's n, ok and TTFT p50, the checkpoint's and the boot's walls,
+   and the verdict against the SLOs (not required).
 
 Optional (``--only build,profile``): ``profile`` — one 32-layer decode
 step at B=8, W=1020 of llama3.1-8b int8 (int8 pool, and bf16 pool through
@@ -255,6 +276,7 @@ Exits non-zero, printing no result, where no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -3129,6 +3151,42 @@ def _step_depth(model: str) -> int:
     return 1 if get_config(model).is_moe else 2
 
 
+# The mixtral servers' depth (server_mixtral, server_spec's mixtral int4):
+# cut from 32 so the default run, server_e2e included, keeps inside its
+# limit (PERF.md §4 lists the cut and its walls).
+SERVER_MOE_LAYERS = 16
+
+
+def _server_name(model: str) -> str:
+    """``model`` as a server phase's readings name it: with the depth of
+    :func:`_server_model`'s cut, where it cuts."""
+    from p2p_llm_chat_tpu_torch.models.configs import get_config
+    return (f"{model} ({SERVER_MOE_LAYERS} layers)"
+            if get_config(model).is_moe else model)
+
+
+@contextlib.contextmanager
+def _server_model(model: str):
+    """Points ``MODEL_CONFIG`` at the config a server phase builds its
+    engine from, and yields that config: ``model`` itself, or a MoE model
+    cut to SERVER_MOE_LAYERS layers at full width, registered under
+    ``<model>@<layers>`` only while the engine builds (``MODEL_CONFIG``
+    names ``model`` again after)."""
+    from p2p_llm_chat_tpu_torch.models import configs
+    cfg, key = configs.get_config(model), model
+    if cfg.is_moe:
+        cfg = cfg.with_(num_layers=SERVER_MOE_LAYERS)
+        key = f"{model}@{SERVER_MOE_LAYERS}"
+        configs.CONFIGS[key] = cfg
+    os.environ["MODEL_CONFIG"] = key
+    try:
+        yield cfg
+    finally:
+        if key != model:
+            configs.CONFIGS.pop(key, None)
+        os.environ["MODEL_CONFIG"] = model
+
+
 def phase_step(model: str, quant: str, prefill_check: bool,
                impl: str = "gather") -> None:
     """One decode step of ``model`` at full width, depth cut to 2 layers
@@ -4224,7 +4282,8 @@ def phase_server(results: dict, model: str, quant: str,
                  expect: tuple[str, ...], prefill_chunk: int = 256,
                  impl: str = "gather", kv: str = "paged",
                  capture: bool = False, copilot: bool = False) -> None:
-    """The engine for ``model`` at ``quant`` weights (32 layers, paged KV
+    """The engine for ``model`` at ``quant`` weights (32 layers; a MoE
+    model SERVER_MOE_LAYERS, :func:`_server_model`; paged KV
     — int8 under the default attend-then-write ``impl``, bf16 under a
     write-then-attend one — or, with ``kv="dense"``, the bf16 dense cache
     (A8's decode mode, no page tables), 8 slots, max_seq 4096, the prefix
@@ -4249,11 +4308,11 @@ def phase_server(results: dict, model: str, quant: str,
     wta = impl != "gather"
     dense = kv == "dense"
     kv_dtype = "bf16" if wta or dense else "int8"
-    label = (f"{model} {quant}" + ("" if prefill_chunk else " chunk=0")
+    label = (f"{_server_name(model)} {quant}"
+             + ("" if prefill_chunk else " chunk=0")
              + (f" {kv_dtype} KV impl={impl}" if wta else "")
              + (" dense KV" if dense else ""))
-    os.environ.update(SERVE_BACKEND="torch", MODEL_CONFIG=model,
-                      SERVE_KV=kv, SERVE_QUANT=quant,
+    os.environ.update(SERVE_BACKEND="torch", SERVE_KV=kv, SERVE_QUANT=quant,
                       SERVE_KV_QUANT="" if wta or dense else "int8",
                       SERVE_SLOTS="8",
                       SERVE_MAX_SEQ="4096", SERVE_DEVICE="cuda",
@@ -4264,7 +4323,8 @@ def phase_server(results: dict, model: str, quant: str,
     print(f"server {label}: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
           "allocated before the build", flush=True)
     t0 = time.monotonic()
-    engine = build_engine_from_env()
+    with _server_model(model):
+        engine = build_engine_from_env()
     server = OllamaServer(engine, addr="127.0.0.1:0").start()
     try:
         deadline = time.monotonic() + 600
@@ -4867,7 +4927,8 @@ def _greedy_contexts(url: str, reqs) -> list:
 
 def phase_server_spec(results: dict, model: str, quant: str,
                       impl: str = "gather", nodes: int = 8) -> None:
-    """The engine (32 layers, 8 slots, max_seq 4096, chunked admission
+    """The engine (32 layers, a MoE model SERVER_MOE_LAYERS; 8 slots,
+    max_seq 4096, chunked admission
     and the prefix cache on) on full-width quote weights
     (models/synth.quote_params) with ``SERVE_SPEC=4`` and
     ``SERVE_SPEC_TREE_NODES=nodes`` (8 is the reference's default; 0
@@ -4885,26 +4946,26 @@ def phase_server_spec(results: dict, model: str, quant: str,
     is unchanged. Prints served tok/s, per-request rate and inter-token
     p50, and accepted tokens per verify dispatch, spec on and off."""
     import torch
-    from p2p_llm_chat_tpu_torch.models.configs import get_config
     from p2p_llm_chat_tpu_torch.models.synth import quote_params
     from p2p_llm_chat_tpu_torch.serve.api import OllamaServer
     from p2p_llm_chat_tpu_torch.serve.engine import build_engine_from_env
     from p2p_llm_chat_tpu_torch.utils import failpoints as fp
 
     wta = impl != "gather"
-    label = (f"{model} {quant} spec K=4 "
+    label = (f"{_server_name(model)} {quant} spec K=4 "
              + (f"tree N={nodes}" if nodes else "linear")
              + (" bf16 KV impl=kernel" if wta else ""))
-    os.environ.update(SERVE_BACKEND="torch", MODEL_CONFIG=model,
-                      SERVE_KV="paged", SERVE_QUANT=quant,
+    os.environ.update(SERVE_BACKEND="torch", SERVE_KV="paged",
+                      SERVE_QUANT=quant,
                       SERVE_KV_QUANT="" if wta else "int8", SERVE_SLOTS="8",
                       SERVE_MAX_SEQ="4096", SERVE_DEVICE="cuda",
                       SERVE_PREFILL_CHUNK="256", SERVE_PREFIX="1",
                       PAGED_ATTN_IMPL=impl, SERVE_SPEC="4",
                       SERVE_SPEC_TREE_NODES=str(nodes))
     t0 = time.monotonic()
-    engine = build_engine_from_env(params=quote_params(
-        get_config(model), seed=0, quant=quant, device="cuda"))
+    with _server_model(model) as cfg:
+        engine = build_engine_from_env(params=quote_params(
+            cfg, seed=0, quant=quant, device="cuda"))
     server = OllamaServer(engine, addr="127.0.0.1:0").start()
     try:
         deadline = time.monotonic() + 600
@@ -6423,36 +6484,6 @@ def _write_tokenizer(path: str) -> int:
     return len(merges)
 
 
-def _hf_config(cfg) -> dict:
-    """The HF config.json of a port config (llama or Mixtral)."""
-    out = {"architectures": ["MixtralForCausalLM" if cfg.is_moe
-                             else "LlamaForCausalLM"],
-           "_name_or_path": cfg.name, "vocab_size": cfg.vocab_size,
-           "hidden_size": cfg.hidden_size,
-           "intermediate_size": cfg.intermediate_size,
-           "num_hidden_layers": cfg.num_layers,
-           "num_attention_heads": cfg.num_heads,
-           "num_key_value_heads": cfg.num_kv_heads,
-           "head_dim": cfg.head_dim,
-           "max_position_embeddings": cfg.max_seq_len,
-           "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
-           "tie_word_embeddings": cfg.tie_embeddings,
-           "bos_token_id": cfg.bos_token_id,
-           "eos_token_id": list(cfg.eos_token_ids),
-           "torch_dtype": "bfloat16"}
-    rs = cfg.rope_scaling
-    if rs is not None:
-        out["rope_scaling"] = {
-            "rope_type": "llama3", "factor": rs.factor,
-            "low_freq_factor": rs.low_freq_factor,
-            "high_freq_factor": rs.high_freq_factor,
-            "original_max_position_embeddings": rs.original_max_position}
-    if cfg.is_moe:
-        out.update(num_local_experts=cfg.num_experts,
-                   num_experts_per_tok=cfg.num_experts_per_tok)
-    return out
-
-
 def _hf_specs(cfg) -> list:
     """(HF name, shape, std) of every tensor of ``cfg`` in the order they
     are written; std 0 marks a norm (ones), as the reference's init."""
@@ -6511,9 +6542,10 @@ class _Ckpt:
         order) and their index, and the tokenizer; returns the walls."""
         import struct
         import torch
+        from p2p_llm_chat_tpu_torch.models.weights import hf_config
         os.makedirs(self.dir, exist_ok=True)
         with open(os.path.join(self.dir, "config.json"), "w") as f:
-            json.dump(_hf_config(self.cfg), f)
+            json.dump(hf_config(self.cfg), f)
         shards, cur, size = [], [], 0
         for name, shape, _ in self.specs:
             n = 2 * math.prod(shape)
@@ -6576,15 +6608,22 @@ def _ckpt_root() -> str:
 
 def _drop_ckpts() -> None:
     import shutil
+    _CKPT_ROOT.pop("llama", None)
     d = _CKPT_ROOT.pop("dir", None)
     if d is not None:
         shutil.rmtree(d, ignore_errors=True)
 
 
+# server_ckpt's llama3.1-8b directory depth: cut from 32 to keep the
+# default run inside its limit; server_e2e writes and serves the full
+# 16.06 GB one (PERF.md §4).
+CKPT_LAYERS = 8
+
+
 def _llama_ckpt() -> _Ckpt:
-    """The llama3.1-8b directory at full width and depth (the depth is cut
-    only when the temporary directory cannot hold it), written once for
-    server_ckpt and server_multi."""
+    """The llama3.1-8b directory at full width, CKPT_LAYERS deep (cut
+    further only when the temporary directory cannot hold it), written
+    once for server_ckpt and server_multi."""
     import shutil
     from p2p_llm_chat_tpu_torch.models.configs import get_config
     if "llama" in _CKPT_ROOT:
@@ -6592,7 +6631,7 @@ def _llama_ckpt() -> _Ckpt:
     root = _ckpt_root()
     cfg = get_config("llama3.1-8b")
     cfg = cfg.with_(name="llama3.1-8b-seeded",
-                    eos_token_ids=(128001, 128009))
+                    eos_token_ids=(128001, 128009), num_layers=CKPT_LAYERS)
     free = shutil.disk_usage(root).free
     need = 2 * sum(math.prod(s) for _, s, _ in _hf_specs(cfg))
     print(f"checkpoint: {free / 1e9:.1f} GB free in {root}; llama3.1-8b "
@@ -8496,6 +8535,162 @@ def phase_step_parallel(results: dict) -> None:
 
 
 # Phase names for --only; a family name runs all of its members.
+# -- phase 4k: the end-to-end bench on the card ------------------------------
+
+E2E_ARGS = ["--peers", "32", "--backend", "torch", "--config", "llama3.1-8b",
+            "--workload", "quote", "--rate", "8", "--duration", "20",
+            "--seed", "0", "--boot-wave", "8", "--relay"]
+E2E_LIMIT_S = 600.0      # the bench's wall-time limit, boot included
+E2E_KERNELS = ("quant_matmul", "paged_attention_append", "prefill_attention")
+# Environment the earlier phases or the caller may have set that would
+# otherwise reach the bench's children (which then serve the bench's own
+# profile, e2e_bench.SERVE_PROFILE).
+E2E_SCRUB = ("SERVE_", "CKPT_DIR", "MODEL_CONFIG", "LLM_MODEL", "PAGED_",
+             "FAIL_POINTS", "UI_", "LOADGEN_", "E2E_", "NODE_", "P2P_",
+             "DIR_TTL_S", "NATPMP", "RELAY_", "OLLAMA_URL", "DHT_")
+
+
+def _session_procs(sid: int) -> list:
+    """(pid, command line) of every live process (zombies aside) in
+    session ``sid``: the bench's own, which it starts, and which every
+    child it spawns stays in (nothing of the port starts a session or a
+    process group)."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            if os.getsid(int(pid)) != sid:
+                continue
+            with open(f"/proc/{pid}/stat", "rb") as f:
+                if f.read().rsplit(b")", 1)[1].split()[0] == b"Z":
+                    continue
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().replace(b"\0", b" ").strip()
+        except OSError:
+            continue
+        out.append((int(pid), argv.decode("utf-8", "replace")[:200]))
+    return out
+
+
+def phase_server_e2e(results: dict) -> None:
+    """The end-to-end bench of the port (module docstring, item 11), in a
+    session of its own: the row's checks, the kernels the serve child
+    launched during the run, and no process left behind."""
+    import glob
+    import shutil
+    import tempfile
+    import torch
+    from p2p_llm_chat_tpu_torch.loadgen import REGISTRY
+    t0 = time.monotonic()
+    _drop_ckpts()       # the earlier phases' directories: room on the disk
+    root = _ckpt_root()
+    out_dir = tempfile.mkdtemp(prefix="e2e_", dir=root)
+    free_gb = shutil.disk_usage(root).free / 1e9
+    card_free = torch.cuda.mem_get_info()[0] / 2**30
+    print(f"server_e2e: {free_gb:.1f} GB free for the checkpoint, "
+          f"{card_free:.1f} GiB free on the card", flush=True)
+    check(free_gb > 20, f"server_e2e: {free_gb:.1f} GB free on the disk, "
+          "the 8B quote checkpoint needs 16.06")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(E2E_SCRUB)}
+    env["E2E_CKPT_DIR"] = os.path.join(root, "e2e_quote")
+    log_path = os.path.join(out_dir, "bench.log")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(log_path, "wb") as logf:
+        p = subprocess.Popen(
+            [sys.executable, "-m", "p2p_llm_chat_tpu_torch.tools.e2e_bench",
+             *E2E_ARGS, "--out-dir", out_dir], cwd=repo, env=env,
+            stdout=logf, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = p.wait(timeout=E2E_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+    deadline = time.monotonic() + 20
+    left = _session_procs(p.pid)
+    while left and time.monotonic() < deadline:
+        time.sleep(0.5)
+        left = _session_procs(p.pid)
+    if rc is None or left:
+        for pid, _ in left:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        p.wait(timeout=30)
+    with open(log_path, "rb") as f:
+        tail = f.read()[-4000:].decode("utf-8", "replace")
+    wall = time.monotonic() - t0
+    rows = sorted(glob.glob(os.path.join(out_dir, "E2E_r*.json")))
+    check(rc is not None, f"server_e2e: the bench ran past {E2E_LIMIT_S:.0f}"
+          f" s; its log ends:\n{tail}")
+    check(len(rows) == 1, f"server_e2e: {len(rows)} rows written (rc {rc}); "
+          f"the log ends:\n{tail}")
+    with open(rows[0]) as f:
+        row = json.load(f)
+    check(row.get("verdict") in ("pass", "fail"), "server_e2e: an error row "
+          f"({row.get('error')}); launcher tail:\n"
+          f"{row.get('launcher_tail', '')}\nbench log:\n{tail}")
+    check(not left, f"server_e2e: processes outlived the bench: {left}")
+    per = row["scenarios"]
+    short = per["short_chat"]
+    boot = row["boot"]
+    ck = boot["quote_ckpt"]
+    card = card_line()
+    print(f"server_e2e: short_chat TTFT p50 {short['ttft_p50_ms']} ms, p95 "
+          f"{short['ttft_p95_ms']} ms ({short['ok']} of {short['n']} ok) at "
+          f"{row['peers']} peers, {row['rate_rps']} rps for "
+          f"{row['duration_s']} s ({row['config']}) [card: {card}]",
+          flush=True)
+    print(f"server_e2e: the serve profile {row['serve_env']}", flush=True)
+    for name, sc in per.items():
+        print(f"server_e2e:   {name}: n {sc['n']}, ok {sc['ok']}, shed "
+              f"{sc['shed']}, error {sc['error']}, truncated "
+              f"{sc['truncated']}, empty {sc['empty']}; TTFT p50 "
+              f"{sc['ttft_p50_ms']} ms, p95 {sc['ttft_p95_ms']} ms, itl p95 "
+              f"{sc['itl_p95_ms']} ms", flush=True)
+    print(f"server_e2e: quote checkpoint {ck.get('bytes', 0) / 1e9:.2f} GB in "
+          f"{ck.get('shards')} shards on {ck.get('device')}: draw "
+          f"{ck.get('draw_s', 0):.3f} s, to the host {ck.get('host_s', 0):.3f}"
+          f" s, write + fsync {ck.get('write_s', 0):.3f} s (the subprocess "
+          f"{ck.get('wall_s', 0):.3f} s, torch import "
+          f"{ck.get('import_s', 0):.3f} s); serve launch to /readyz "
+          f"{boot['serve_ready_s']} s; {row['peers']} nodes and UIs "
+          f"{boot['peers_ready_s']} s; warm-up {boot['warm_s']} s; the bench {row.get('wall_s')} s "
+          f"of load; the phase {wall:.1f} s", flush=True)
+    print(f"server_e2e: verdict {row['verdict']} against the SLOs "
+          f"(LOADGEN_SLO_SCALE {row['slo_scale']}): arrivals "
+          f"{row['arrivals']}, ok {row['ok']}, shed {row['shed']}, bad "
+          f"{row['bad']}, empty {row['empty']}, goodput {row['goodput_rps']} "
+          f"rps; failures {row['failures']}", flush=True)
+    launches = row.get("kernel_launches") or {}
+    print(f"server_e2e: the serve child's launches during the run "
+          f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+    check(row["arrivals"] > 100, f"server_e2e: {row['arrivals']} arrivals")
+    check(set(per) == set(REGISTRY), f"server_e2e: scenarios {sorted(per)}")
+    check(short["ttft_p50_ms"] is not None
+          and short["ttft_p95_ms"] is not None,
+          f"server_e2e: short_chat has no TTFT: {short}")
+    check(row.get("post_run_probe_ok") is True,
+          f"server_e2e: the post-run probe failed: {row.get('failures')}")
+    check(not ck.get("cached") and ck.get("device", "").startswith("cuda"),
+          f"server_e2e: the quote checkpoint was not drawn on the card: {ck}")
+    for name in E2E_KERNELS:
+        check(launches.get(name, 0) > 0, f"server_e2e: {name} never "
+              f"launched in the serve child during the run: {launches}")
+    _record_launches(results, "server_e2e (32 peers)", launches)
+    results["_server_e2e"] = {
+        "card": card, "verdict": row["verdict"],
+        "arrivals": row["arrivals"], "failures": row["failures"],
+        "short_chat_ttft_p50_ms": short["ttft_p50_ms"],
+        "short_chat_ttft_p95_ms": short["ttft_p95_ms"],
+        "scenarios": {k: {f: v[f] for f in ("n", "ok", "ttft_p50_ms",
+                                             "ttft_p95_ms", "itl_p95_ms")}
+                      for k, v in per.items()},
+        "boot": boot, "load_s": row.get("wall_s"),
+        "launches": launches, "phase_s": round(wall, 1)}
+
+
 PHASES = {
     "build": ("build",),
     "kernel": ("kernel_a", "kernel_b", "kernel_b_pool", "kernel_b_verify",
@@ -8505,7 +8700,8 @@ PHASES = {
              "step_parallel"),
     "server": ("server_llama", "server_llama_wta", "server_mixtral",
                "server_spec", "server_tier", "server_ckpt", "server_multi",
-               "server_dense", "server_draft", "server_multihost"),
+               "server_dense", "server_draft", "server_multihost",
+               "server_e2e"),
     "profile": ("profile_llama", "profile_llama_wta", "profile_mixtral",
                 "profile_prefill", "profile_tools"),
 }
@@ -8616,6 +8812,7 @@ def main() -> int:
         ("server_dense", lambda: phase_server_dense(results)),
         ("server_draft", lambda: phase_server_draft(results)),
         ("server_multihost", lambda: phase_server_multihost(results)),
+        ("server_e2e", lambda: phase_server_e2e(results)),
         ("profile_llama", lambda: phase_profile(results, "llama3.1-8b",
                                                 "int8")),
         ("profile_llama_wta", lambda: phase_profile(

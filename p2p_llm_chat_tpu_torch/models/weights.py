@@ -32,13 +32,16 @@ over all its rows, as the reference's quantization of the sharded global
 array does) and cut to the rank's part (parallel/sharding.cut_leaf);
 :func:`load_checkpoint_streaming` is the reference's mesh entry over
 them. Native Orbax directories (reference ``models/checkpoint.py``) need
-JAX and Orbax: the port refuses them by name.
+JAX and Orbax: the port refuses them by name. :func:`save_checkpoint`
+writes a plain tree as an HF directory these loaders read (the port's
+counterpart of the reference's native writer).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import struct
 import time
 from typing import Any, Iterator, Optional
 
@@ -49,7 +52,7 @@ from ..utils.log import get_logger
 from .configs import ModelConfig, RopeScaling
 from .quant import (QTensor, QTensor4, _quantize_leaf, quant_mode,
                     stream_bufs)
-from .safetensors_io import SafetensorsFile
+from .safetensors_io import DTYPES, SafetensorsFile
 
 log = get_logger("weights")
 
@@ -196,6 +199,141 @@ def _reverse_name_map(config: ModelConfig) -> dict[str, tuple]:
                 name, tr = spec
                 out[name] = (("layers", key), i, None, tr)
     return out
+
+
+def hf_config(config: ModelConfig) -> dict:
+    """The HF ``config.json`` of ``config`` (llama or Mixtral): the
+    inverse of :func:`config_from_hf_json`, which reads it back to
+    ``config`` on every field but ``name`` (``_name_or_path`` holds it)."""
+    out: dict[str, Any] = {
+        "architectures": ["MixtralForCausalLM" if config.is_moe
+                          else "LlamaForCausalLM"],
+        "_name_or_path": config.name, "vocab_size": config.vocab_size,
+        "hidden_size": config.hidden_size,
+        "intermediate_size": config.intermediate_size,
+        "num_hidden_layers": config.num_layers,
+        "num_attention_heads": config.num_heads,
+        "num_key_value_heads": config.num_kv_heads,
+        "head_dim": config.head_dim,
+        "max_position_embeddings": config.max_seq_len,
+        "rope_theta": config.rope_theta, "rms_norm_eps": config.rms_norm_eps,
+        "tie_word_embeddings": config.tie_embeddings,
+        "bos_token_id": config.bos_token_id,
+        "eos_token_id": list(config.eos_token_ids),
+        "torch_dtype": "bfloat16"}
+    rs = config.rope_scaling
+    if rs is not None:
+        out["rope_scaling"] = {
+            "rope_type": "llama3", "factor": rs.factor,
+            "low_freq_factor": rs.low_freq_factor,
+            "high_freq_factor": rs.high_freq_factor,
+            "original_max_position_embeddings": rs.original_max_position}
+    if config.is_moe:
+        out.update(num_local_experts=config.num_experts,
+                   num_experts_per_tok=config.num_experts_per_tok)
+    return out
+
+
+def _hf_tensors(params: dict, config: ModelConfig
+                ) -> list[tuple[str, torch.Tensor, bool]]:
+    """(HF name, the tree's slice, transpose?) of every tensor of a plain
+    (unquantized) tree, fused or not, in the order they are written: the
+    embedding, each layer in the forward map's order, the final norm and
+    the lm_head. The inverse of the loaders' walk: ``wqkv`` / ``wgu`` /
+    ``wgu_e`` are unfused into their columns (llama.unfuse_params, views),
+    per-layer and per-expert slices are views of the stacked leaves."""
+    from .llama import unfuse_params
+    layers = unfuse_params(params, config)["layers"]
+    for leaf in layers.values():
+        if not isinstance(leaf, torch.Tensor):
+            raise TypeError("save_checkpoint writes a plain tree: save the "
+                            "bf16 tree and quantize it at load "
+                            "(load_checkpoint_quantized)")
+    out = [("model.embed_tokens.weight", params["embed"], False)]
+    for i in range(config.num_layers):
+        for key, spec in _layer_map(config, i).items():
+            if isinstance(spec, list):
+                out += [(name, layers[key][i, e], tr)
+                        for e, (name, tr) in enumerate(spec)]
+            else:
+                name, tr = spec
+                out.append((name, layers[key][i], tr))
+    out.append(("model.norm.weight", params["final_norm"], False))
+    if not config.tie_embeddings:
+        out.append(("lm_head.weight", params["lm_head"], True))
+    return out
+
+
+_ST_NAMES = {t: n for n, t in DTYPES.items()}
+
+
+def save_checkpoint(ckpt_dir: str, params: dict, config: ModelConfig,
+                    shard_bytes: int = 5_000_000_000) -> dict:
+    """Write a plain tree (on any device, fused or not, at its own dtype)
+    as an HF safetensors directory the loaders read: ``config.json``
+    (:func:`hf_config`), shards of at most ``shard_bytes`` named
+    ``model-0000k-of-0000n.safetensors`` and
+    ``model.safetensors.index.json`` — the port's counterpart of the
+    reference's native ``save_checkpoint``
+    (p2p_llm_chat_tpu/models/checkpoint.py), whose Orbax format needs
+    JAX. Each tensor goes to the host alone (transposed to HF's ``[out,
+    in]`` on its device first), so the host holds one tensor at a time.
+    ``load_checkpoint`` of the directory gives back the unfused tree
+    bitwise. Returns ``{"bytes", "shards", "host_s", "write_s"}``: the
+    seconds spent bringing tensors to the host and writing them (each
+    shard flushed to the disk)."""
+    tensors = _hf_tensors(params, config)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
+        json.dump(hf_config(config), f)
+    shards: list[list] = [[]]
+    size = 0
+    for entry in tensors:
+        t = entry[1]
+        n = t.numel() * t.element_size()
+        if shards[-1] and size + n > shard_bytes:
+            shards.append([])
+            size = 0
+        shards[-1].append(entry)
+        size += n
+    weight_map: dict[str, str] = {}
+    total, host_s, write_s = 0, 0.0, 0.0
+    for k, names in enumerate(shards):
+        fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        header, off = {}, 0
+        for name, t, tr in names:
+            nb = t.numel() * t.element_size()
+            shape = list(t.shape[::-1] if tr else t.shape)
+            header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": shape,
+                            "data_offsets": [off, off + nb]}
+            off += nb
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(os.path.join(ckpt_dir, fname), "wb") as f:
+            f.write(struct.pack("<Q", len(raw)))
+            f.write(raw)
+            for name, t, tr in names:
+                t0 = time.perf_counter()
+                host = (t.T if tr else t).contiguous().cpu()
+                t1 = time.perf_counter()
+                f.write(host.reshape(-1).view(torch.uint8).numpy())
+                host_s += t1 - t0
+                write_s += time.perf_counter() - t1
+                weight_map[name] = fname
+            t0 = time.perf_counter()
+            f.flush()
+            os.fsync(f.fileno())
+            write_s += time.perf_counter() - t0
+        total += off
+    with open(os.path.join(ckpt_dir, "model.safetensors.index.json"),
+              "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    log.info("wrote %s to %s: %d shards, %.2f GB (host %.1f s, write "
+             "%.1f s)", config.name, ckpt_dir, len(shards), total / 1e9,
+             host_s, write_s)
+    return {"bytes": total, "shards": len(shards), "host_s": host_s,
+            "write_s": write_s}
 
 
 # -- the shards ---------------------------------------------------------------

@@ -235,6 +235,13 @@ class OllamaServer:
                     lines.append(f"# TYPE {base} {kind}\n")
                 lines.append(f"{name} {v}\n")
             text += "".join(lines)
+            # The process's kernel launches by wrapper (ops.wrappers), so
+            # a client reads which kernels its traffic ran: 0 on the
+            # CPU, whose tensors take the plain versions.
+            from ..ops import wrappers
+            text += "# TYPE kernel_launches_total counter\n" + "".join(
+                f'kernel_launches_total{{kernel="{k}"}} {w.launches}\n'
+                for k, w in sorted(wrappers().items()))
         # Robustness plane (process-wide): per-site failpoint hits (no
         # series at all while nothing fired) and the shared retry
         # counter; then the replica class as a constant 1-gauge.

@@ -247,7 +247,10 @@ class KVTier:
         self.n_wake_cold_total = 0    # guarded-by: _mu — follow-ups that found no session
         self.n_wake_tokens_total = 0  # guarded-by: _mu — prompt tokens a wake did not prefill
         self.n_evicted_total = 0      # guarded-by: _mu
-        self.n_pages_freed_total = 0  # guarded-by: _mu — pages released by parking
+        self.n_pages_freed_total = 0  # guarded-by: _mu — pages released by parking or a diverged drop
+        # Resident pages of sessions :meth:`lookup` dropped as diverged,
+        # waiting for the scheduler thread (:meth:`released_pages`).
+        self._released: list[int] = []              # guarded-by: _mu
         # Tier-event observer (the scheduler's flight recorder), always
         # called outside ``_mu``.
         self.observer = None
@@ -309,7 +312,15 @@ class KVTier:
         if not (0 < s.length < len(prompt_ids)
                 and tuple(prompt_ids[: s.length]) == s.tokens):
             if key and s.key == key:
-                self.drop(s)        # diverged history: stale forever
+                # Diverged history: stale forever. The reference drops the
+                # session here and loses its resident pages with it (its
+                # serve/kv_tier.py:321): they never return to the pool.
+                # The port keeps them for the scheduler thread, which owns
+                # the allocator and frees them (:meth:`released_pages`).
+                pages = self.drop(s)
+                if pages:
+                    with self._mu:
+                        self._released.extend(pages)
             if count_miss and indexable:
                 with self._mu:
                     self.n_wake_cold_total += 1
@@ -359,6 +370,16 @@ class KVTier:
             self.n_evicted_total += 1
         self._notify("evict", key=sess.key)
         return s.pages
+
+    def released_pages(self) -> list[int]:
+        """Take the resident pages of the sessions :meth:`lookup` (or
+        :meth:`claim`) dropped as diverged, counted in
+        ``kv_pages_freed_total``: the caller, the scheduler thread, frees
+        them."""
+        with self._mu:
+            out, self._released = self._released, []
+            self.n_pages_freed_total += len(out)
+        return out
 
     # -- cross-replica migration ---------------------------------------------
 

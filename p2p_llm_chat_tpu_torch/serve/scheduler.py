@@ -3367,6 +3367,15 @@ class BatchScheduler:
                 return
             self._park_session(sess)
 
+    def _free_released(self) -> None:
+        """Free the resident pages of sessions the tier dropped as
+        diverged inside a lookup or a claim (kv_tier.KVTier.
+        released_pages), here on the scheduler thread like every other
+        free of the pool. The reference loses them (the port's repair)."""
+        pages = self._tier.released_pages()
+        if pages:
+            self._alloc.free(pages)
+
     def _tier_enforce(self) -> None:
         """The tier's policies after an insert: the host byte budget over
         parked sessions (cost eviction), then the session cap (LRU;
@@ -3423,6 +3432,7 @@ class BatchScheduler:
         S) no wake has run yet admits cold, as in the reference."""
         sess = self._tier.lookup(self._session_key(slot) or "",
                                  slot.prompt_ids)
+        self._free_released()
         if sess is None:
             return None
         S = self._serving_bucket(len(slot.prompt_ids) - sess.length)
@@ -3627,6 +3637,7 @@ class BatchScheduler:
                 unused.append(row)
                 continue
             claimed.append((slot, row, sess))
+        self._free_released()
         if not claimed:
             return demoted, unused
         w = self._wake_window(S, max(s.length for _, _, s in claimed))

@@ -118,7 +118,17 @@ def test_every_module_imports_without_jax_or_nvcc():
                 "p2p_llm_chat_tpu_torch.directory",
                 "p2p_llm_chat_tpu_torch.relay",
                 "p2p_llm_chat_tpu_torch.node",
-                "p2p_llm_chat_tpu_torch.ui"}
+                "p2p_llm_chat_tpu_torch.ui",
+                # Loadgen, the launcher and the end-to-end bench: host
+                # code, no torch either.
+                "p2p_llm_chat_tpu_torch.loadgen",
+                "p2p_llm_chat_tpu_torch.loadgen.scenarios",
+                "p2p_llm_chat_tpu_torch.loadgen.driver",
+                "p2p_llm_chat_tpu_torch.loadgen.chaos",
+                "p2p_llm_chat_tpu_torch.loadgen.report",
+                "p2p_llm_chat_tpu_torch.loadgen.stub",
+                "p2p_llm_chat_tpu_torch.start_all",
+                "p2p_llm_chat_tpu_torch.tools.e2e_bench"}
     assert expected <= set(got["modules"])
 
 
@@ -147,6 +157,28 @@ def test_importing_the_chat_plane_loads_no_torch_no_jax_no_cuda():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"loaded": [], "cuda": False, "built": []}
+
+
+_IMPORT_LOAD_PLANE = """
+import json, sys
+import p2p_llm_chat_tpu_torch.loadgen, p2p_llm_chat_tpu_torch.start_all
+import p2p_llm_chat_tpu_torch.tools.e2e_bench
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "torch", "jax", "jaxlib", "ml_dtypes", "p2p_llm_chat_tpu"))
+print(json.dumps({"loaded": loaded}))
+"""
+
+
+def test_loadgen_launcher_and_bench_load_no_torch():
+    """The load generator, the launcher and the end-to-end bench are host
+    code: importing them loads neither torch nor JAX nor the reference
+    (the bench draws its quote checkpoint in a subprocess)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", _IMPORT_LOAD_PLANE], env=env,
+                         cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {"loaded": []}
 
 
 def _imports(path: pathlib.Path) -> set[str]:
